@@ -1,0 +1,86 @@
+// The xy DFT stage of the plan: port of the Pallas kernel
+// spfft_tpu/ops/dft_kernel.py:_run2 in mode "cc" (the pdft2 entry),
+//
+//     (P, A, B) --DFT over B (mats1, B x B')--> swap --DFT over A
+//     (mats2, A x A')--> (P, B', A'),   planar complex f32.
+//
+// The TPU kernel keeps a whole plane in VMEM and swaps the two minor axes
+// there. A 256 x 256 complex plane is 512 KB, more than a block's 227 KB
+// of shared memory, so here the stage is one kernel launched twice: the
+// first launch stores its result transposed within each plane, (P, B', A),
+// and the second launch contracts the new minor axis and stores straight.
+// The intermediate makes one extra round trip through device memory
+// (2 x 134 MB at 256^3), the known gap for a later change (a cluster of
+// blocks sharing one plane through distributed shared memory).
+//
+// Bound on the H100: operations. A 256^3 call is 2 x 65,536 rows x 256 x
+// 256 complex multiply-adds, 6.9e10 FLOP in this 4-product form, against
+// 268 MB of operand traffic; at 67 TFLOP/s FP32 and 3.35 TB/s the FLOPs
+// take about 13x longer than the bytes. The design keeps every operand
+// element in shared memory while it is reused (X for all N outputs of its
+// rows, each matrix tile for the block's 16 rows) and gives each thread a
+// 4 x 4 complex register tile, so the FMA pipe and not memory sets the pace.
+
+#include "cdft_tile.cuh"
+
+using namespace spfft;
+
+// plane_rows == 0: Y[m][n] stored at y[m * N + n].
+// plane_rows == A > 0: row m = p * A + a, Y[m][n] stored at
+//                      y[(p * N + n) * A + a] (transposed within a plane).
+__global__ void __launch_bounds__(THREADS)
+    dft_stage_kernel(const float* __restrict__ xr,
+                     const float* __restrict__ xi,
+                     const float* __restrict__ cr,
+                     const float* __restrict__ ci, float* __restrict__ yr,
+                     float* __restrict__ yi, long long M, int K, int N,
+                     int plane_rows) {
+  extern __shared__ float4 smem[];
+  const Tile t = carve_tile(reinterpret_cast<float*>(smem), K, N);
+  const long long m0 = (long long)blockIdx.x * BM;
+  stage_rows(t, K, [&](int r, int k) {
+    const long long m = m0 + r;
+    if (m >= M) return make_float2(0.f, 0.f);
+    const long long g = m * K + k;
+    return make_float2(xr[g], xi[g]);
+  });
+  tile_product(t, K, N, cr, ci);
+  if (plane_rows == 0) {
+    for (int idx = threadIdx.x; idx < BM * N; idx += THREADS) {
+      const int r = idx / N;
+      const int n = idx - r * N;
+      const long long m = m0 + r;
+      if (m < M) {
+        yr[m * N + n] = t.yr[r * t.ldy + n];
+        yi[m * N + n] = t.yi[r * t.ldy + n];
+      }
+    }
+  } else {
+    // r fastest: neighbouring threads write neighbouring a of one plane
+    for (int idx = threadIdx.x; idx < BM * N; idx += THREADS) {
+      const int n = idx / BM;
+      const int r = idx - n * BM;
+      const long long m = m0 + r;
+      if (m < M) {
+        const long long p = m / plane_rows;
+        const long long a = m - p * plane_rows;
+        const long long g = (p * N + n) * plane_rows + a;
+        yr[g] = t.yr[r * t.ldy + n];
+        yi[g] = t.yi[r * t.ldy + n];
+      }
+    }
+  }
+}
+
+extern "C" int spfft_dft_stage(const float* xr, const float* xi,
+                               const float* cr, const float* ci, float* yr,
+                               float* yi, long long M, int K, int N,
+                               int plane_rows, void* stream) {
+  const size_t smem = tile_smem_bytes(K, N);
+  cudaError_t err = allow_smem(dft_stage_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
+  dft_stage_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      xr, xi, cr, ci, yr, yi, M, K, N, plane_rows);
+  return (int)cudaGetLastError();
+}

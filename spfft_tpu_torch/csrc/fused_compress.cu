@@ -1,0 +1,147 @@
+// Sparse compression fused with the z-stick DFT: ports of the Pallas
+// kernels spfft_tpu/ops/fused_kernel.py:run_decompress_zdft (backward) and
+// run_zdft_compress (forward).
+//
+// decompress_zdft: each block owns BM = 16 consecutive z-sticks. It gathers
+// their 16 x dim_z slots from the sparse values through the plan-time
+// inverse map slot_src (sentinel num_values = an empty slot, read as zero)
+// straight into shared memory, transforms them there against the backward
+// z matrix, and writes every slot of its output sticks, zeros included, so
+// no stale data survives between two transforms. The raw sticks never
+// reach device memory.
+//
+// zdft_compress: each block owns 16 raw sticks (the output of the xy stage
+// and the plane -> stick gather), transforms them in shared memory against
+// the forward z matrix (any FULL scale already folded into it), and writes
+// each sparse value of its sticks exactly once through a plan-time CSR by
+// stick (stick_ptr, val_id, val_z): no atomics, and duplicate triplets
+// each get their value. The transformed sticks never reach device memory.
+//
+// Values are read and written in the plan's public layout: interleaved
+// (N, 2), or the planar pair (2, N) of large plans.
+//
+// What does not carry over from the TPU kernels: the 1024-slot tiles and
+// selector words, the K-row DMA windows and super-tiles, the recompute
+// model and the dim_z % 128 gate. These kernels take any dim_z up to
+// MATMUL_DFT_MAX, so the plan never has to decline them.
+//
+// Bound on the H100: operations. At 256^3 (51,431 sticks, 8,782,782
+// values) each kernel does 51,431 x 256 x 256 complex multiply-adds, 2.7e10
+// FLOP in this 4-product form, against about 230 MB of traffic; at 67
+// TFLOP/s FP32 and 3.35 TB/s the FLOPs take about 6x longer than the bytes.
+// Fusing the gather takes the raw stick array's round trip (105 MB each
+// way) off the memory side; the shared tile product keeps the FMA pipe fed.
+
+#include "cdft_tile.cuh"
+
+using namespace spfft;
+
+// One value in the public layout: pair (2, N) or interleaved (N, 2).
+__device__ inline float2 read_value(const float* values, int pair,
+                                    long long num_values, long long v) {
+  if (pair) return make_float2(values[v], values[num_values + v]);
+  return reinterpret_cast<const float2*>(values)[v];
+}
+
+__device__ inline void write_value(float* values, int pair,
+                                   long long num_values, long long v,
+                                   float re, float im) {
+  if (pair) {
+    values[v] = re;
+    values[num_values + v] = im;
+  } else {
+    reinterpret_cast<float2*>(values)[v] = make_float2(re, im);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    decompress_zdft_kernel(const float* __restrict__ values,
+                           const int* __restrict__ slot_src,
+                           const float* __restrict__ cr,
+                           const float* __restrict__ ci,
+                           float* __restrict__ sr, float* __restrict__ si,
+                           long long num_sticks, int dim_z,
+                           long long num_values, int pair) {
+  extern __shared__ float4 smem[];
+  const Tile t = carve_tile(reinterpret_cast<float*>(smem), dim_z, dim_z);
+  const long long s0 = (long long)blockIdx.x * BM;
+  stage_rows(t, dim_z, [&](int r, int z) {
+    const long long s = s0 + r;
+    if (s >= num_sticks) return make_float2(0.f, 0.f);
+    const long long src = slot_src[s * dim_z + z];
+    if (src >= num_values) return make_float2(0.f, 0.f);
+    return read_value(values, pair, num_values, src);
+  });
+  tile_product(t, dim_z, dim_z, cr, ci);
+  for (int idx = threadIdx.x; idx < BM * dim_z; idx += THREADS) {
+    const int r = idx / dim_z;
+    const int z = idx - r * dim_z;
+    const long long s = s0 + r;
+    if (s < num_sticks) {
+      sr[s * dim_z + z] = t.yr[r * t.ldy + z];
+      si[s * dim_z + z] = t.yi[r * t.ldy + z];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    zdft_compress_kernel(const float* __restrict__ sr,
+                         const float* __restrict__ si,
+                         const float* __restrict__ cr,
+                         const float* __restrict__ ci,
+                         const int* __restrict__ stick_ptr,
+                         const int* __restrict__ val_id,
+                         const int* __restrict__ val_z,
+                         float* __restrict__ values, long long num_sticks,
+                         int dim_z, long long num_values, int pair) {
+  extern __shared__ float4 smem[];
+  const Tile t = carve_tile(reinterpret_cast<float*>(smem), dim_z, dim_z);
+  const long long s0 = (long long)blockIdx.x * BM;
+  stage_rows(t, dim_z, [&](int r, int z) {
+    const long long s = s0 + r;
+    if (s >= num_sticks) return make_float2(0.f, 0.f);
+    return make_float2(sr[s * dim_z + z], si[s * dim_z + z]);
+  });
+  tile_product(t, dim_z, dim_z, cr, ci);
+  for (int r = 0; r < BM && s0 + r < num_sticks; ++r) {
+    const int lo = stick_ptr[s0 + r];
+    const int hi = stick_ptr[s0 + r + 1];
+    for (int e = lo + threadIdx.x; e < hi; e += THREADS) {
+      const int z = val_z[e];
+      write_value(values, pair, num_values, val_id[e], t.yr[r * t.ldy + z],
+                  t.yi[r * t.ldy + z]);
+    }
+  }
+}
+
+extern "C" int spfft_decompress_zdft(const float* values, const int* slot_src,
+                                     const float* cr, const float* ci,
+                                     float* sr, float* si,
+                                     long long num_sticks, int dim_z,
+                                     long long num_values, int pair,
+                                     void* stream) {
+  const size_t smem = tile_smem_bytes(dim_z, dim_z);
+  cudaError_t err = allow_smem(decompress_zdft_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((num_sticks + BM - 1) / BM);
+  decompress_zdft_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      values, slot_src, cr, ci, sr, si, num_sticks, dim_z, num_values, pair);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spfft_zdft_compress(const float* sr, const float* si,
+                                   const float* cr, const float* ci,
+                                   const int* stick_ptr, const int* val_id,
+                                   const int* val_z, float* values,
+                                   long long num_sticks, int dim_z,
+                                   long long num_values, int pair,
+                                   void* stream) {
+  const size_t smem = tile_smem_bytes(dim_z, dim_z);
+  cudaError_t err = allow_smem(zdft_compress_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((num_sticks + BM - 1) / BM);
+  zdft_compress_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      sr, si, cr, ci, stick_ptr, val_id, val_z, values, num_sticks, dim_z,
+      num_values, pair);
+  return (int)cudaGetLastError();
+}

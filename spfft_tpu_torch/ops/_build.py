@@ -1,0 +1,148 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, which is loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go
+to ``build/torch_kernels/`` beside the package, named by a digest of
+the sources and flags, so an edited source never loads a stale library.
+A build happens at the first use of a kernel in a process, or all at
+once through :func:`build`.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises :class:`~spfft_tpu_torch.errors.DeviceError` when
+it is not 0 (a refused launch never runs, and a later synchronize would not
+report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from ..errors import DeviceError, InvalidParameterError
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("dft2.cu", "fused_compress.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_TIMEOUT_S = 600
+
+_lock = threading.Lock()
+_libs = {}  #: guarded by _lock; source name -> ctypes.CDLL
+#: source name -> nvcc's output of the build made in this process
+#: (ptxas register and shared-memory report); guarded by _lock
+build_log = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise DeviceError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels of spfft_tpu_torch build from source at first use")
+    return path
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for dep in sorted(CSRC.glob("*.cuh")) + [CSRC / name]:
+        h.update(dep.name.encode())
+        h.update(dep.read_bytes())
+    return BUILD_DIR / f"{Path(name).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile the named sources that have no up-to-date library yet,
+    all ``nvcc`` processes at once, and load every named library.
+    Returns ``{name: seconds}`` for the sources compiled by this call."""
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        out = {n: _library_path(n) for n in todo}
+        procs = {}
+        try:
+            for n in todo:
+                if out[n].exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / n)]
+                procs[n] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, time.perf_counter())
+            seconds = {}
+            for n, (proc, tmp, t0) in procs.items():
+                log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+                seconds[n] = time.perf_counter() - t0
+                build_log[n] = log
+                if proc.returncode != 0:
+                    raise DeviceError(
+                        f"nvcc failed on csrc/{n} (exit {proc.returncode}):"
+                        f"\n{log[-4000:]}")
+                os.replace(tmp, out[n])
+        finally:
+            for proc, _, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for n in todo:
+            _libs[n] = ctypes.CDLL(str(out[n]))
+        return seconds
+
+
+def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of ``source``'s library (built on first
+    use), typed with ``argtypes`` and returning the CUDA error code."""
+    build((source,))
+    fn = getattr(_libs[source], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the raw handle of
+    PyTorch's current stream on ``device``, with ``device`` made the
+    current device (the entry launches on the current device); raise
+    when it reports a CUDA error."""
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        raise DeviceError(f"{what}: CUDA error {code} at launch")
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None,
+            device=None) -> None:
+    """The wrappers' operand rules: a contiguous tensor of ``dtype``
+    (and ``shape``, and on ``device``, where given); raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise InvalidParameterError(
+            f"{name}: expected a {dtype} tensor, got "
+            f"{getattr(t, 'dtype', type(t).__name__)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise InvalidParameterError(
+            f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise InvalidParameterError(
+            f"{name}: expected a tensor on {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise InvalidParameterError(f"{name}: expected a contiguous tensor")
+
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise DeviceError(f"{what}: no kernel for device {t.device}")

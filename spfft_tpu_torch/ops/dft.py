@@ -1,0 +1,147 @@
+"""Matmul-DFT: FFT stages as products against plan-time matrices
+(counterpart of ``spfft_tpu.ops.dft``).
+
+Every DFT stage of the plan contracts the minor axis of a planar
+(separate real and imaginary f32 tensors) operand against a plan-time
+matrix pair, with any scale folded into the matrix values. The matrix
+builders here give the JAX package's matrices bit for bit, so the two
+packages contract against the same constants.
+
+This module holds the plain PyTorch forms: :func:`pdft_last` (one stage)
+and :func:`pdft2_minor` (two stages around a swap of the two minor
+axes). They are the plain versions the CUDA kernels of
+``ops.dft_kernel`` and ``ops.fused_kernel`` are held to, and what those
+wrappers run on a CPU tensor.
+
+Axes above :data:`MATMUL_DFT_MAX` (the two-stage Cooley-Tukey form and
+the direct prime fallback of the JAX package) are not in this slice of
+the port: :func:`c2c_mats` raises for them.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..errors import InvalidParameterError
+
+#: Longest axis of the direct matmul-DFT form.
+MATMUL_DFT_MAX = 512
+
+#: Longest unfactorable axis the JAX package runs in the direct form;
+#: kept for :func:`mdft_coverable`, which the precision model reads.
+MATMUL_DFT_DIRECT_FALLBACK_MAX = 1024
+
+BACKWARD = +1   # unnormalised inverse DFT (e^{+2 pi i k n / N})
+FORWARD = -1    # plain DFT
+
+
+@functools.lru_cache(maxsize=32)
+def _build_dft_mats(n: int, sign: int, scale: float):
+    """(Cr, Ci) f32 numpy constants for the length-``n`` DFT with
+    ``scale`` folded in — the first two of the JAX package's Karatsuba
+    triple, bit for bit (this package uses the 4-product form, which
+    needs no Cr + Ci sum)."""
+    k = np.arange(n)
+    m = np.exp(sign * 2j * np.pi * np.outer(k, k) / n) * scale
+    return (np.ascontiguousarray(m.real.astype(np.float32)),
+            np.ascontiguousarray(m.imag.astype(np.float32)))
+
+
+def c2c_mats(n: int, sign: int, scale: float = 1.0):
+    """Matrices ``(cr, ci)``, each ``(n, n)``, for a complex
+    length-``n`` DFT with ``scale`` folded in. ``sign=BACKWARD`` with
+    ``scale=1`` is the library's unnormalised inverse (ifft * n)."""
+    if n > MATMUL_DFT_MAX:
+        raise InvalidParameterError(
+            f"axis length {n} exceeds MATMUL_DFT_MAX={MATMUL_DFT_MAX}: the "
+            f"two-stage and prime-fallback DFT forms for longer axes are "
+            f"not in this slice of the port (a later slice adds them)")
+    s = +1 if sign == BACKWARD else -1
+    return _build_dft_mats(int(n), s, float(scale))
+
+
+@functools.lru_cache(maxsize=32)
+def sub_rows_mats(n: int, sign: int, rows: tuple, scale: float = 1.0):
+    """Row-selected complex DFT matrices ``(len(rows), n)``: the split-x
+    contraction from the occupied positions only (wrapped windows are
+    non-contiguous row selections)."""
+    idx = np.asarray(rows)
+    return tuple(np.ascontiguousarray(m[idx])
+                 for m in c2c_mats(n, sign, scale))
+
+
+@functools.lru_cache(maxsize=32)
+def sub_cols_mats(n: int, sign: int, cols: tuple, scale: float = 1.0):
+    """Column-selected complex DFT matrices ``(n, len(cols))``: produce
+    only the occupied output positions."""
+    idx = np.asarray(cols)
+    return tuple(np.ascontiguousarray(m[:, idx])
+                 for m in c2c_mats(n, sign, scale))
+
+
+def device_mats(mats, device) -> tuple:
+    """A numpy matrix pair as contiguous f32 tensors on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(m, np.float32), device=device)
+                 for m in mats)
+
+
+@functools.lru_cache(maxsize=1024)
+def two_stage_factor(n: int):
+    """The balanced factorization ``(n1, n2)`` of ``n`` with both
+    factors <= ``MATMUL_DFT_MAX``, or None (the JAX package's two-stage
+    routing rule, kept for :func:`mdft_coverable`)."""
+    if n <= MATMUL_DFT_MAX:
+        return None
+    for n1 in range(math.isqrt(n), 1, -1):
+        if n % n1 == 0:
+            n2 = n // n1
+            if n1 <= MATMUL_DFT_MAX and n2 <= MATMUL_DFT_MAX:
+                return n1, n2
+            return None
+    return None
+
+
+def _mdft_covered_len(n: int) -> bool:
+    return (n <= MATMUL_DFT_DIRECT_FALLBACK_MAX
+            or two_stage_factor(n) is not None)
+
+
+def mdft_coverable(dims, hermitian: bool = False) -> bool:
+    """Could these axes run the matmul-DFT forms of the JAX package at
+    all (direct or two-stage; a hermitian x-axis direct only)? The
+    precision model's calibration domain, independent of this slice."""
+    ok = all(_mdft_covered_len(d) for d in dims)
+    return ok and (not hermitian
+                   or dims[0] <= MATMUL_DFT_DIRECT_FALLBACK_MAX)
+
+
+def mdft_axes(*dims) -> bool:
+    """The routing predicate of this slice: every axis runs the direct
+    matmul form."""
+    return all(1 <= int(d) <= MATMUL_DFT_MAX for d in dims)
+
+
+# -- plain planar complex DFT ------------------------------------------------
+
+def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
+    """Complex DFT along the minor axis on planar operands:
+    ``(..., K) -> (..., N)`` against ``(K, N)`` matrices.
+
+    The plain 4-product form: Yr = Xr Cr - Xi Ci, Yi = Xr Ci + Xi Cr. It
+    loses less in f32 than the JAX package's Karatsuba form, whose
+    imaginary part is a difference of three sums, and so leaves more
+    room under the accuracy contract."""
+    cr, ci = mats
+    return (torch.matmul(xr, cr) - torch.matmul(xi, ci),
+            torch.matmul(xr, ci) + torch.matmul(xi, cr))
+
+
+def pdft2_minor(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
+    """[minor DFT (mats1), swap of the two minor axes, minor DFT
+    (mats2)] on planar ``(P, A, B)`` operands -> ``(P, B', A')``."""
+    gr, gi = pdft_last(xr, xi, mats1)
+    return pdft_last(gr.transpose(-1, -2), gi.transpose(-1, -2), mats2)

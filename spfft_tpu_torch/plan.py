@@ -1,0 +1,340 @@
+"""Local (single-device) sparse 3D FFT plans: the port of
+``spfft_tpu/plan.py``'s single-precision C2C path.
+
+Pipeline (reference: src/execution/execution_host.cpp:249-352; the JAX
+package's matmul-DFT "T layout" path):
+
+  backward:  decompress + z-DFT (one kernel) -> sticks_to_grid into the
+             transposed plane grid (z, x, y) -> y-DFT, swap, x-DFT (the
+             xy kernel) -> (z, y, x)
+  forward:   x-DFT, swap, y-DFT (the xy kernel) -> grid_to_sticks ->
+             z-DFT + compress (one kernel), FULL scaling folded into the
+             z matrix
+
+A plan holds its tables on one device: CUDA unless the caller passes
+``device="cpu"``, where every kernel wrapper runs its plain PyTorch
+version. With no ``device`` and no CUDA device the plan refuses to build
+(:class:`~spfft_tpu_torch.errors.DeviceError`); it never carries on
+quietly on the CPU.
+
+Not in this slice of the port, each raising a typed error that names
+it: R2C transforms, ``precision="double"``, axes above
+``ops.dft.MATMUL_DFT_MAX``, batched execution, ``apply_pointwise`` and
+the plan-artifact restore.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .errors import DeviceError, InvalidParameterError
+from .indexing import (IndexPlan, build_index_plan, inverse_col_map,
+                       occupied_x_window)
+from .ops import dft, dft_kernel, fused_kernel, stages
+from .types import Scaling, TransformType
+from .utils.dtypes import as_interleaved, real_dtype
+
+#: Plans with at least this many values take and return value arrays in
+#: the planar PAIR layout (2, N) — row 0 real, row 1 imaginary — instead
+#: of interleaved rows (N, 2), as the JAX package does
+#: (``spfft_tpu.plan.PAIR_IO_THRESHOLD``), so public layouts compare like
+#: with like. 256^3 (8.8M values) stays interleaved; 320^3 and up switch.
+PAIR_IO_THRESHOLD = 16_000_000
+
+
+def predicted_rel_error(precision: str, max_dim: int,
+                        mdft_covered: Optional[bool] = None,
+                        device_double: bool = False) -> float:
+    """Conservative predicted relative l2 error of a backward transform vs
+    a dense f64 oracle, for values of bounded dynamic range — the JAX
+    package's accuracy contract (``spfft_tpu.plan.predicted_rel_error``,
+    docs/precision.md), which this package is held to: err ~ 2.8e-7 *
+    (n/64)^0.13 in single precision."""
+    if mdft_covered is None:
+        mdft_covered = dft.mdft_coverable((max_dim,))
+    shape = (max(max_dim, 1) / 64.0) ** 0.13
+    if precision == "single":
+        base = 2.8e-7 * shape
+        if not mdft_covered:
+            base *= 4.0  # outside the calibrated matmul-DFT domain
+        return base
+    if device_double:
+        return 2.0e-11 * shape
+    return 5.0e-15 * shape
+
+
+def resolve_device(device=None) -> torch.device:
+    """The plan's device: the current CUDA device when ``device`` is
+    None; raises :class:`~spfft_tpu_torch.errors.DeviceError` when CUDA
+    is asked for (or implied) and absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise DeviceError(
+                "no CUDA device: spfft_tpu_torch runs on the GPU; pass "
+                "device='cpu' to run the plain PyTorch versions on the host")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceError(f"device {device} requested but CUDA is not "
+                              f"available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise InvalidParameterError(
+            f"device must be 'cuda' or 'cpu', got {device}")
+    return device
+
+
+def _not_in_slice(what: str, later: str):
+    return InvalidParameterError(
+        f"{what} is not in this slice of spfft_tpu_torch (the local "
+        f"single-precision C2C plan); the {later} slice adds it")
+
+
+class TransformPlan:
+    """A sparse 3D FFT on a single device — a local reference
+    ``Transform`` (reference: include/spfft/transform.hpp:56-227), C2C
+    single precision in this slice."""
+
+    def __init__(self, index_plan: IndexPlan, precision: str = "single",
+                 device=None):
+        p = index_plan
+        if p.transform_type != TransformType.C2C:
+            raise _not_in_slice("an R2C transform", "R2C")
+        real_dtype(precision)
+        if precision != "single":
+            raise _not_in_slice(f"precision={precision!r}",
+                                "double-precision")
+        if not dft.mdft_axes(p.dim_x, p.dim_y, p.dim_z):
+            raise _not_in_slice(
+                f"an axis above MATMUL_DFT_MAX={dft.MATMUL_DFT_MAX} (dims "
+                f"{p.dim_x}, {p.dim_y}, {p.dim_z})", "long-axis")
+        self.index_plan = p
+        self.precision = precision
+        self.device = resolve_device(device)
+        self._pair_io = p.num_values >= PAIR_IO_THRESHOLD
+        dev = self.device
+
+        def idx32(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+        # backward gather map with one trailing stick of sentinels: the
+        # decompress kernel writes that stick as zeros, and it is the
+        # zero row the sentinel columns of sticks_to_grid_padded select
+        self._slot_src = idx32(np.concatenate(
+            [p.slot_src, np.full(p.dim_z, p.num_values, np.int32)]))
+        self._csr = tuple(idx32(a) for a in fused_kernel.compress_csr(
+            p.value_indices, p.num_sticks, p.dim_z))
+        self._init_split_x()
+
+        def mats(m):
+            return dft.device_mats(m, dev)
+
+        gs = 1.0 / float(self.global_size)
+        self._mats = {
+            "z_b": mats(dft.c2c_mats(p.dim_z, dft.BACKWARD)),
+            "z_f": mats(dft.c2c_mats(p.dim_z, dft.FORWARD)),
+            "z_fs": mats(dft.c2c_mats(p.dim_z, dft.FORWARD, scale=gs)),
+            "y_b": mats(dft.c2c_mats(p.dim_y, dft.BACKWARD)),
+            "y_f": mats(dft.c2c_mats(p.dim_y, dft.FORWARD)),
+        }
+        if self._split_x is None:
+            self._mats["x_b"] = mats(dft.c2c_mats(p.dim_x, dft.BACKWARD))
+            self._mats["x_f"] = mats(dft.c2c_mats(p.dim_x, dft.FORWARD))
+        else:
+            x0, w = self._split_x
+            rows = tuple(int(r) for r in (x0 + np.arange(w)) % p.dim_x)
+            self._mats["x_b"] = mats(
+                dft.sub_rows_mats(p.dim_x, dft.BACKWARD, rows))
+            self._mats["x_f"] = mats(
+                dft.sub_cols_mats(p.dim_x, dft.FORWARD, rows))
+
+    def _init_split_x(self) -> None:
+        """Run the xy stage on the occupied x window only when it spans
+        at most 70% of the x extent (the reference's "y transform over
+        non-empty x-rows only", execution_host.cpp:139-145). The window
+        is cyclic: centered sets store negative x high, so their window
+        wraps. Sets the stick <-> transposed-plane column tables."""
+        p = self.index_plan
+        self._split_x = None
+        x_w, width = p.stick_x.astype(np.int64), p.dim_x
+        if p.num_sticks:
+            x0, w = occupied_x_window(p.stick_x, p.dim_x, allow_wrap=True)
+            if w <= 0.7 * p.dim_x:
+                self._split_x = (x0, w)
+                x_w, width = (x_w - x0) % p.dim_x, w
+        cols = x_w * p.dim_y + p.stick_y.astype(np.int64)
+        self._grid_w = width
+        self._scatter_cols = torch.as_tensor(cols, device=self.device)
+        self._col_inv = torch.as_tensor(
+            inverse_col_map(cols, width * p.dim_y, p.num_sticks)
+            .astype(np.int64), device=self.device)
+
+    # -- reference Transform getters (transform.hpp:91-151) -----------------
+    @property
+    def transform_type(self) -> TransformType:
+        return self.index_plan.transform_type
+
+    @property
+    def dim_x(self) -> int:
+        return self.index_plan.dim_x
+
+    @property
+    def dim_y(self) -> int:
+        return self.index_plan.dim_y
+
+    @property
+    def dim_z(self) -> int:
+        return self.index_plan.dim_z
+
+    @property
+    def local_z_length(self) -> int:
+        return self.index_plan.dim_z
+
+    @property
+    def local_z_offset(self) -> int:
+        return 0
+
+    @property
+    def local_slice_size(self) -> int:
+        return self.dim_x * self.dim_y * self.local_z_length
+
+    @property
+    def num_local_elements(self) -> int:
+        return self.index_plan.num_values
+
+    @property
+    def num_global_elements(self) -> int:
+        return self.index_plan.num_values
+
+    @property
+    def global_size(self) -> int:
+        return self.dim_x * self.dim_y * self.dim_z
+
+    @property
+    def pair_values_io(self) -> bool:
+        """True when value arrays use the planar pair layout
+        ``(2, num_values)`` (see :data:`PAIR_IO_THRESHOLD`): ``backward``
+        accepts both layouts, ``forward`` returns the pair."""
+        return self._pair_io
+
+    @property
+    def split_x(self):
+        """The occupied x window ``(x0, w)`` the xy stage runs on, or
+        None for the full x extent."""
+        return self._split_x
+
+    # -- execution (reference: transform.hpp:198-211) -------------------------
+    def backward(self, values) -> torch.Tensor:
+        """Frequency -> space. ``values`` is ``(num_values,)`` complex or
+        ``(num_values, 2)`` interleaved (or ``(2, num_values)`` for
+        pair-layout plans), a tensor or a numpy array. Returns the
+        ``(dim_z, dim_y, dim_x, 2)`` f32 slab on the plan's device:
+        the unnormalised inverse DFT (details.rst "Transform
+        Definition")."""
+        p = self.index_plan
+        v = self._coerce_values(values)
+        sr, si = fused_kernel.decompress_zdft(
+            v, self._slot_src, self._mats["z_b"], p.dim_z, self._pair_io)
+        gr = stages.sticks_to_grid_padded(sr, self._col_inv, self._grid_w,
+                                          p.dim_y)
+        gi = stages.sticks_to_grid_padded(si, self._col_inv, self._grid_w,
+                                          p.dim_y)
+        xr, xi = dft_kernel.pdft2(gr, gi, self._mats["y_b"],
+                                  self._mats["x_b"])
+        return torch.stack([xr, xi], dim=-1)
+
+    def forward(self, space, scaling: Scaling = Scaling.NONE) -> torch.Tensor:
+        """Space -> frequency. ``space`` is the ``(dim_z, dim_y, dim_x)``
+        complex or ``(..., 2)`` interleaved slab. Returns ``(num_values,
+        2)`` f32 values — ``(2, num_values)`` for pair-layout plans;
+        ``Scaling.FULL`` multiplies by 1/(Nx·Ny·Nz) (details.rst
+        "Normalization"), folded into the z matrix."""
+        scaling = Scaling(scaling)
+        sp = self._coerce_space(space)
+        gr, gi = dft_kernel.pdft2(sp[..., 0].contiguous(),
+                                  sp[..., 1].contiguous(),
+                                  self._mats["x_f"], self._mats["y_f"])
+        sr = stages.grid_to_sticks(gr, self._scatter_cols)
+        si = stages.grid_to_sticks(gi, self._scatter_cols)
+        z = self._mats["z_fs" if scaling is Scaling.FULL else "z_f"]
+        return fused_kernel.zdft_compress(sr, si, z, self._csr,
+                                          self._pair_io)
+
+    def backward_batched(self, values):
+        raise _not_in_slice("batched execution", "batched")
+
+    def forward_batched(self, space, scaling: Scaling = Scaling.NONE):
+        raise _not_in_slice("batched execution", "batched")
+
+    def apply_pointwise(self, values, fn, *args, **kwargs):
+        raise _not_in_slice("apply_pointwise", "batched")
+
+    # -- input coercion ------------------------------------------------------
+    def _coerce_values(self, values) -> torch.Tensor:
+        """Values -> contiguous f32 tensor on the plan's device in the
+        plan's layout: (N, 2), or (2, N) for pair-layout plans. A numpy
+        input is copied (it may be read-only, or the caller's)."""
+        n = self.index_plan.num_values
+        if isinstance(values, torch.Tensor):
+            t = values.to(self.device)
+            if t.is_complex():
+                t = torch.view_as_real(t)
+            t = t.to(torch.float32)
+            if self._pair_io and tuple(t.shape) == (2, n):
+                return t.contiguous()
+            if tuple(t.shape) == (n, 2):
+                return (t.t() if self._pair_io else t).contiguous()
+            raise InvalidParameterError(
+                f"expected {n} frequency values, got shape {tuple(t.shape)}")
+        arr = np.asarray(values)
+        if self._pair_io and arr.shape == (2, n) \
+                and not np.iscomplexobj(arr):
+            return torch.tensor(arr, dtype=torch.float32,
+                                device=self.device)
+        arr = as_interleaved(arr, self.precision)
+        if arr.shape != (n, 2):
+            raise InvalidParameterError(
+                f"expected {n} frequency values, got shape {arr.shape[:-1]}")
+        t = torch.tensor(arr, device=self.device)
+        return t.t().contiguous() if self._pair_io else t
+
+    def _coerce_space(self, space) -> torch.Tensor:
+        """Space slab -> contiguous (dim_z, dim_y, dim_x, 2) f32 tensor on
+        the plan's device."""
+        p = self.index_plan
+        shape3 = (self.local_z_length, p.dim_y, p.dim_x)
+        if isinstance(space, torch.Tensor):
+            t = space.to(self.device)
+            if t.is_complex():
+                t = torch.view_as_real(t)
+            t = t.to(torch.float32)
+        else:
+            t = torch.tensor(as_interleaved(space, self.precision),
+                                device=self.device)
+        if tuple(t.shape) != shape3 + (2,):
+            raise InvalidParameterError(
+                f"expected space-domain slab {shape3} complex, got "
+                f"{tuple(t.shape)}")
+        return t.contiguous()
+
+
+def restore_plan(index_plan: IndexPlan, tables, precision: str = "single",
+                 **plan_kwargs) -> TransformPlan:
+    """The plan-artifact restore of the JAX package; not in this slice."""
+    raise _not_in_slice("the plan-artifact restore", "serving")
+
+
+def make_local_plan(transform_type: TransformType, dim_x: int, dim_y: int,
+                    dim_z: int, triplets, precision: str = "single",
+                    device=None) -> TransformPlan:
+    """Build a local plan from raw index triplets (reference:
+    grid.hpp:138-141). The plan runs on ``device``: CUDA by default,
+    ``"cpu"`` for the plain PyTorch versions."""
+    plan = build_index_plan(TransformType(transform_type), dim_x, dim_y,
+                            dim_z, np.asarray(triplets))
+    return TransformPlan(plan, precision=precision, device=device)

@@ -1,0 +1,40 @@
+"""Canonical benchmark workload generators (counterpart of
+``spfft_tpu.utils.workloads``).
+
+The flagship workload is the full spherical cutoff of a plane-wave DFT
+code (reference: tests/programs/benchmark.cpp:176-205 builds a
+dense-within-cutoff stick set). Pure numpy, identical output to the JAX
+package's generators.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..indexing import to_storage_index
+
+
+def spherical_cutoff_triplets(n: int, radius: int | None = None) -> np.ndarray:
+    """All (x, y, z) with x^2+y^2+z^2 <= radius^2 in centered indexing
+    (default radius n//2) — the plane-wave sphere of a DFT code."""
+    c = np.arange(n)
+    c = np.where(c > n // 2, c - n, c).astype(np.int32)
+    r = n // 2 if radius is None else radius
+    X, Y, Z = np.meshgrid(c, c, c, indexing="ij")
+    mask = X * X + Y * Y + Z * Z <= r * r
+    return np.stack([X[mask], Y[mask], Z[mask]], axis=1)
+
+
+def sort_triplets_stick_major(triplets: np.ndarray, dims) -> np.ndarray:
+    """Sort sparse triplets stick-major (by storage (x, y)) and
+    z-ascending within each stick — the layout the reference recommends
+    for performance (docs/source/details.rst "Data Distribution").
+    Returns a new array; the caller's value arrays must be reordered the
+    same way."""
+    t = np.asarray(triplets).reshape(-1, 3)
+    storage = np.stack([to_storage_index(n, t[:, axis])
+                        for axis, n in enumerate(dims)], axis=1)
+    order = np.lexsort((storage[:, 2],
+                        storage[:, 0].astype(np.int64) * dims[1]
+                        + storage[:, 1]))
+    return t[order]
