@@ -1,9 +1,14 @@
 // Shared device code of the package's DFT kernels (dft2.cu,
 // fused_compress.cu): one thread block computes a BM-row slab of a
-// complex matrix product in planar f32,
+// matrix product in planar f32,
 //
-//     Y[BM, N] = X[BM, K] * C[K, N],   X, Y, C complex, stored as separate
+//     Y[BM, N] = X[BM, K] * C[K, N],   C = Ma + i Mb, stored as separate
 //                                       real and imaginary f32 arrays,
+//
+// in one of three modes (TileMode): complex X and Y (the complex DFT
+// stages), real X (the real forward DFT: Yr = X Ma, Yi = X Mb), or real Y
+// (the real inverse DFT: Y = Xr Ma + Xi Mb, hermitian weights folded into
+// Ma and Mb at plan time),
 //
 // where the rows of X are z-sticks or plane lines already staged in shared
 // memory by the calling kernel, C is a plan-time DFT matrix (any scale
@@ -38,42 +43,59 @@ __host__ __device__ inline int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
 
+enum TileMode {
+  CC = 0,  // complex X, complex Y: Y = X (Ma + i Mb), 4 FMAs per element
+  RC = 1,  // real X: Yr = X Ma, Yi = X Mb, 2 FMAs; no xi buffer
+  CR = 2,  // complex X, real Y = Xr Ma + Xi Mb, 2 FMAs; no yi buffer
+};
+
 // Dynamic shared memory of one block for a (K, N) matrix: the staged rows
 // X (transposed, k-major), one BK x BN matrix tile, and the result Y.
-__host__ __device__ inline size_t tile_smem_bytes(int K, int N) {
+__host__ __device__ inline size_t tile_smem_bytes(int K, int N,
+                                                  int mode = CC) {
   const size_t kp = (size_t)round_up(K, BK);
-  return sizeof(float) * (2 * kp * BM + 2 * (size_t)BK * BN +
-                          2 * (size_t)BM * (N + 1));
+  const size_t x_planes = mode == RC ? 1 : 2;
+  const size_t y_planes = mode == CR ? 1 : 2;
+  return sizeof(float) * (x_planes * kp * BM + 2 * (size_t)BK * BN +
+                          y_planes * (size_t)BM * (N + 1));
 }
 
 struct Tile {
   float* xr;  // [kp][BM]: X[r][k] at xr[k * BM + r]; zero for k >= K
-  float* xi;
+  float* xi;  // null in mode RC
   float* cr;  // [BK][BN] current matrix tile
   float* ci;
   float* yr;  // [BM][ldy]: Y[r][n] at yr[r * ldy + n]
-  float* yi;
+  float* yi;  // null in mode CR
   int kp;
   int ldy;    // N + 1: odd for even N, so a column read is conflict-free
 };
 
+template <int MODE>
 __device__ inline Tile carve_tile(float* base, int K, int N) {
   Tile t;
   t.kp = round_up(K, BK);
   t.ldy = N + 1;
-  t.xr = base;
-  t.xi = t.xr + (size_t)t.kp * BM;
-  t.cr = t.xi + (size_t)t.kp * BM;
+  float* p = base;
+  t.xr = p;
+  p += (size_t)t.kp * BM;
+  t.xi = nullptr;
+  if (MODE != RC) {
+    t.xi = p;
+    p += (size_t)t.kp * BM;
+  }
+  t.cr = p;
   t.ci = t.cr + BK * BN;
   t.yr = t.ci + BK * BN;
-  t.yi = t.yr + (size_t)BM * t.ldy;
+  t.yi = MODE == CR ? nullptr : t.yr + (size_t)BM * t.ldy;
   return t;
 }
 
 // Stage the block's rows: load(r, k) returns X[r][k] as (re, im) for
-// r < BM, k < K (zero for rows past the end of the operand). Reads walk
-// k fastest, so a dense row source is read coalesced.
-template <class Load>
+// r < BM, k < K (zero for rows past the end of the operand; im is not
+// read in mode RC). Reads walk k fastest, so a dense row source is read
+// coalesced.
+template <int MODE, class Load>
 __device__ inline void stage_rows(const Tile& t, int K, Load load) {
   for (int idx = threadIdx.x; idx < BM * t.kp; idx += THREADS) {
     const int r = idx / t.kp;
@@ -81,13 +103,16 @@ __device__ inline void stage_rows(const Tile& t, int K, Load load) {
     float2 v = make_float2(0.f, 0.f);
     if (k < K) v = load(r, k);
     t.xr[k * BM + r] = v.x;
-    t.xi[k * BM + r] = v.y;
+    if (MODE != RC) t.xi[k * BM + r] = v.y;
   }
   __syncthreads();
 }
 
-// Y = X * C for the staged rows; C is (K, N) row-major, real and imaginary
-// parts separate. Ends with Y complete in shared memory (after a barrier).
+// Y = X * C for the staged rows in mode MODE; C is (K, N) row-major, real
+// and imaginary parts (Ma, Mb) separate. Ends with Y complete in shared
+// memory (after a barrier). In mode CR the two accumulators hold Xr Ma
+// and Xi Mb, summed in the epilogue, as the plain form sums two products.
+template <int MODE>
 __device__ inline void tile_product(const Tile& t, int K, int N,
                                     const float* __restrict__ cr,
                                     const float* __restrict__ ci) {
@@ -122,8 +147,10 @@ __device__ inline void tile_product(const Tile& t, int K, int N,
       for (int kk = 0; kk < BK; ++kk) {
         const float4 xr4 =
             *reinterpret_cast<const float4*>(t.xr + (k0 + kk) * BM + ty * TM);
-        const float4 xi4 =
-            *reinterpret_cast<const float4*>(t.xi + (k0 + kk) * BM + ty * TM);
+        float4 xi4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (MODE != RC)
+          xi4 = *reinterpret_cast<const float4*>(t.xi + (k0 + kk) * BM +
+                                                 ty * TM);
         const float4 cr4 =
             *reinterpret_cast<const float4*>(t.cr + kk * BN + tx * TN);
         const float4 ci4 =
@@ -136,10 +163,18 @@ __device__ inline void tile_product(const Tile& t, int K, int N,
         for (int i = 0; i < TM; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
-            pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
-            pr[i][j] = fmaf(-ai[i], bi[j], pr[i][j]);
-            pi[i][j] = fmaf(ar[i], bi[j], pi[i][j]);
-            pi[i][j] = fmaf(ai[i], br[j], pi[i][j]);
+            if (MODE == CC) {
+              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
+              pr[i][j] = fmaf(-ai[i], bi[j], pr[i][j]);
+              pi[i][j] = fmaf(ar[i], bi[j], pi[i][j]);
+              pi[i][j] = fmaf(ai[i], br[j], pi[i][j]);
+            } else if (MODE == RC) {
+              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
+              pi[i][j] = fmaf(ar[i], bi[j], pi[i][j]);
+            } else {
+              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
+              pi[i][j] = fmaf(ai[i], bi[j], pi[i][j]);
+            }
           }
       }
 #pragma unroll
@@ -157,8 +192,12 @@ __device__ inline void tile_product(const Tile& t, int K, int N,
       for (int j = 0; j < TN; ++j) {
         const int n = n0 + tx * TN + j;
         if (n < N) {
-          t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j];
-          t.yi[(ty * TM + i) * t.ldy + n] = acci[i][j];
+          if (MODE == CR) {
+            t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j] + acci[i][j];
+          } else {
+            t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j];
+            t.yi[(ty * TM + i) * t.ldy + n] = acci[i][j];
+          }
         }
       }
   }

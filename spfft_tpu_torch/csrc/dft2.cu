@@ -1,25 +1,40 @@
 // The xy DFT stage of the plan: port of the Pallas kernel
-// spfft_tpu/ops/dft_kernel.py:_run2 in mode "cc" (the pdft2 entry),
+// spfft_tpu/ops/dft_kernel.py:_run2 in its three modes,
 //
-//     (P, A, B) --DFT over B (mats1, B x B')--> swap --DFT over A
-//     (mats2, A x A')--> (P, B', A'),   planar complex f32.
+//   "cc" (pdft2):    (P, A, B) --complex DFT over B (mats1, B x B')--> swap
+//                    --complex DFT over A (mats2, A x A')--> (P, B', A'),
+//   "rc" (prdft2):   real (P, A, B) --real DFT to the half spectrum over B
+//                    (r2c matrices)--> swap --complex DFT over A-->
+//                    planar (P, B', A'),   the R2C forward head,
+//   "cr" (pdft2_cr): planar (P, A, B) --complex DFT over B--> swap --real
+//                    inverse DFT over A (c2r matrices, out = Gr Ma + Gi Mb)
+//                    --> real (P, B', A'),   the R2C backward tail,
 //
-// The TPU kernel keeps a whole plane in VMEM and swaps the two minor axes
-// there. A 256 x 256 complex plane is 512 KB, more than a block's 227 KB
-// of shared memory, so here the stage is one kernel launched twice: the
-// first launch stores its result transposed within each plane, (P, B', A),
-// and the second launch contracts the new minor axis and stores straight.
-// The intermediate makes one extra round trip through device memory
-// (2 x 134 MB at 256^3), the known gap for a later change (a cluster of
-// blocks sharing one plane through distributed shared memory).
+// all f32. The TPU kernel keeps a whole plane in VMEM and swaps the two
+// minor axes there. A 256 x 256 complex plane is 512 KB, more than a
+// block's 227 KB of shared memory, so here each call is one stage kernel
+// launched twice: the first launch stores its result transposed within
+// each plane, (P, B', A), and the second launch contracts the new minor
+// axis and stores straight. The mode picks the tile product: "rc" runs a
+// real-input first stage (RC: no imaginary operand, 2 FMAs per element)
+// and a complex second stage; "cr" a complex first stage and a real-output
+// second stage (CR: 2 FMAs, one output array). The intermediate makes one
+// extra round trip through device memory (2 x 134 MB at 256^3 for "cc",
+// 2 x 68 MB for the half-spectrum grids of "rc" and "cr"), the known gap
+// for a later change (a cluster of blocks sharing one plane through
+// distributed shared memory).
 //
-// Bound on the H100: operations. A 256^3 call is 2 x 65,536 rows x 256 x
-// 256 complex multiply-adds, 6.9e10 FLOP in this 4-product form, against
-// 268 MB of operand traffic; at 67 TFLOP/s FP32 and 3.35 TB/s the FLOPs
-// take about 13x longer than the bytes. The design keeps every operand
-// element in shared memory while it is reused (X for all N outputs of its
-// rows, each matrix tile for the block's 16 rows) and gives each thread a
-// 4 x 4 complex register tile, so the FMA pipe and not memory sets the pace.
+// Bound on the H100: operations, for the matrix form. A 256^3 "cc" call
+// is 2 x 65,536 rows x 256 x 256 complex multiply-adds, 6.9e10 FLOP in
+// this 4-product form, against 268 MB of operand traffic; at 67 TFLOP/s
+// FP32 and 3.35 TB/s the FLOPs take about 13x longer than the bytes. An
+// "rc" or "cr" call at 256^3 (half spectrum 129 wide) is 2.6e10 FLOP (one
+// 2-FMA real stage, one 4-FMA complex stage) against 135 MB: about 7x. The
+// design keeps every operand element in shared memory while it is reused
+// (X for all N outputs of its rows, each matrix tile for the block's 16
+// rows) and gives each thread a 4 x 4 register tile, so the FMA pipe and
+// not memory sets the pace. The ragged half-spectrum width (129) is
+// covered by the zero-padded k tail and the n < N masks of the tile.
 
 #include "cdft_tile.cuh"
 
@@ -28,6 +43,8 @@ using namespace spfft;
 // plane_rows == 0: Y[m][n] stored at y[m * N + n].
 // plane_rows == A > 0: row m = p * A + a, Y[m][n] stored at
 //                      y[(p * N + n) * A + a] (transposed within a plane).
+// xi is not read in mode RC; yi is not written in mode CR.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
     dft_stage_kernel(const float* __restrict__ xr,
                      const float* __restrict__ xi,
@@ -36,15 +53,15 @@ __global__ void __launch_bounds__(THREADS)
                      float* __restrict__ yi, long long M, int K, int N,
                      int plane_rows) {
   extern __shared__ float4 smem[];
-  const Tile t = carve_tile(reinterpret_cast<float*>(smem), K, N);
+  const Tile t = carve_tile<MODE>(reinterpret_cast<float*>(smem), K, N);
   const long long m0 = (long long)blockIdx.x * BM;
-  stage_rows(t, K, [&](int r, int k) {
+  stage_rows<MODE>(t, K, [&](int r, int k) {
     const long long m = m0 + r;
     if (m >= M) return make_float2(0.f, 0.f);
     const long long g = m * K + k;
-    return make_float2(xr[g], xi[g]);
+    return make_float2(xr[g], MODE == RC ? 0.f : xi[g]);
   });
-  tile_product(t, K, N, cr, ci);
+  tile_product<MODE>(t, K, N, cr, ci);
   if (plane_rows == 0) {
     for (int idx = threadIdx.x; idx < BM * N; idx += THREADS) {
       const int r = idx / N;
@@ -52,7 +69,7 @@ __global__ void __launch_bounds__(THREADS)
       const long long m = m0 + r;
       if (m < M) {
         yr[m * N + n] = t.yr[r * t.ldy + n];
-        yi[m * N + n] = t.yi[r * t.ldy + n];
+        if (MODE != CR) yi[m * N + n] = t.yi[r * t.ldy + n];
       }
     }
   } else {
@@ -66,21 +83,42 @@ __global__ void __launch_bounds__(THREADS)
         const long long a = m - p * plane_rows;
         const long long g = (p * N + n) * plane_rows + a;
         yr[g] = t.yr[r * t.ldy + n];
-        yi[g] = t.yi[r * t.ldy + n];
+        if (MODE != CR) yi[g] = t.yi[r * t.ldy + n];
       }
     }
   }
 }
 
-extern "C" int spfft_dft_stage(const float* xr, const float* xi,
+template <int MODE>
+static int launch_stage(const float* xr, const float* xi, const float* cr,
+                        const float* ci, float* yr, float* yi, long long M,
+                        int K, int N, int plane_rows, void* stream) {
+  const size_t smem = tile_smem_bytes(K, N, MODE);
+  cudaError_t err = allow_smem(dft_stage_kernel<MODE>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
+  dft_stage_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      xr, xi, cr, ci, yr, yi, M, K, N, plane_rows);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the stage kernel in `mode` (CC, RC or CR of cdft_tile.cuh):
+// rows (M, K) of (xr, xi) against the pair (cr, ci) (K, N) into (yr, yi).
+// xi is null in mode RC (real rows), yi in mode CR (real output).
+extern "C" int spfft_dft_stage(int mode, const float* xr, const float* xi,
                                const float* cr, const float* ci, float* yr,
                                float* yi, long long M, int K, int N,
                                int plane_rows, void* stream) {
-  const size_t smem = tile_smem_bytes(K, N);
-  cudaError_t err = allow_smem(dft_stage_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  dft_stage_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, cr, ci, yr, yi, M, K, N, plane_rows);
-  return (int)cudaGetLastError();
+  switch (mode) {
+    case CC:
+      return launch_stage<CC>(xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
+                              stream);
+    case RC:
+      return launch_stage<RC>(xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
+                              stream);
+    case CR:
+      return launch_stage<CR>(xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
+                              stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

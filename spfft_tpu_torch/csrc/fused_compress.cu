@@ -8,7 +8,12 @@
 // straight into shared memory, transforms them there against the backward
 // z matrix, and writes every slot of its output sticks, zeros included, so
 // no stale data survives between two transforms. The raw sticks never
-// reach device memory.
+// reach device memory. For an R2C plan that owns the (x=0, y=0) stick
+// (zero_stick >= 0) the gather also completes that stick before the
+// z-DFT, as the TPU kernel's _complete_zero_stick does: a slot whose value
+// is exactly 0 (or empty) takes the conjugate of its mirror slot
+// (dim_z - z) % dim_z, read from the sparse values through slot_src, so
+// the fill only ever sees values from before completion.
 //
 // zdft_compress: each block owns 16 raw sticks (the output of the xy stage
 // and the plane -> stick gather), transforms them in shared memory against
@@ -31,6 +36,9 @@
 // TFLOP/s FP32 and 3.35 TB/s the FLOPs take about 6x longer than the bytes.
 // Fusing the gather takes the raw stick array's round trip (105 MB each
 // way) off the memory side; the shared tile product keeps the FMA pipe fed.
+// The 256^3 R2C half sphere (25,717 sticks, 4,391,393 values) is half of
+// that work; its (0,0)-stick completion re-reads at most one mirror value
+// for each of the 256 slots of one stick, nothing beside the rest.
 
 #include "cdft_tile.cuh"
 
@@ -54,6 +62,16 @@ __device__ inline void write_value(float* values, int pair,
   }
 }
 
+// The value feeding slot z of stick s, zero for an empty slot.
+__device__ inline float2 slot_value(const float* values,
+                                    const int* __restrict__ slot_src,
+                                    long long s, int z, int dim_z,
+                                    long long num_values, int pair) {
+  const long long src = slot_src[s * dim_z + z];
+  if (src >= num_values) return make_float2(0.f, 0.f);
+  return read_value(values, pair, num_values, src);
+}
+
 __global__ void __launch_bounds__(THREADS)
     decompress_zdft_kernel(const float* __restrict__ values,
                            const int* __restrict__ slot_src,
@@ -61,18 +79,23 @@ __global__ void __launch_bounds__(THREADS)
                            const float* __restrict__ ci,
                            float* __restrict__ sr, float* __restrict__ si,
                            long long num_sticks, int dim_z,
-                           long long num_values, int pair) {
+                           long long num_values, int pair,
+                           long long zero_stick) {
   extern __shared__ float4 smem[];
-  const Tile t = carve_tile(reinterpret_cast<float*>(smem), dim_z, dim_z);
+  const Tile t =
+      carve_tile<CC>(reinterpret_cast<float*>(smem), dim_z, dim_z);
   const long long s0 = (long long)blockIdx.x * BM;
-  stage_rows(t, dim_z, [&](int r, int z) {
+  stage_rows<CC>(t, dim_z, [&](int r, int z) {
     const long long s = s0 + r;
     if (s >= num_sticks) return make_float2(0.f, 0.f);
-    const long long src = slot_src[s * dim_z + z];
-    if (src >= num_values) return make_float2(0.f, 0.f);
-    return read_value(values, pair, num_values, src);
+    const float2 v = slot_value(values, slot_src, s, z, dim_z, num_values,
+                                pair);
+    if (s != zero_stick || v.x != 0.f || v.y != 0.f) return v;
+    const float2 m = slot_value(values, slot_src, s, z == 0 ? 0 : dim_z - z,
+                                dim_z, num_values, pair);
+    return make_float2(m.x, -m.y);
   });
-  tile_product(t, dim_z, dim_z, cr, ci);
+  tile_product<CC>(t, dim_z, dim_z, cr, ci);
   for (int idx = threadIdx.x; idx < BM * dim_z; idx += THREADS) {
     const int r = idx / dim_z;
     const int z = idx - r * dim_z;
@@ -95,14 +118,15 @@ __global__ void __launch_bounds__(THREADS)
                          float* __restrict__ values, long long num_sticks,
                          int dim_z, long long num_values, int pair) {
   extern __shared__ float4 smem[];
-  const Tile t = carve_tile(reinterpret_cast<float*>(smem), dim_z, dim_z);
+  const Tile t =
+      carve_tile<CC>(reinterpret_cast<float*>(smem), dim_z, dim_z);
   const long long s0 = (long long)blockIdx.x * BM;
-  stage_rows(t, dim_z, [&](int r, int z) {
+  stage_rows<CC>(t, dim_z, [&](int r, int z) {
     const long long s = s0 + r;
     if (s >= num_sticks) return make_float2(0.f, 0.f);
     return make_float2(sr[s * dim_z + z], si[s * dim_z + z]);
   });
-  tile_product(t, dim_z, dim_z, cr, ci);
+  tile_product<CC>(t, dim_z, dim_z, cr, ci);
   for (int r = 0; r < BM && s0 + r < num_sticks; ++r) {
     const int lo = stick_ptr[s0 + r];
     const int hi = stick_ptr[s0 + r + 1];
@@ -119,13 +143,14 @@ extern "C" int spfft_decompress_zdft(const float* values, const int* slot_src,
                                      float* sr, float* si,
                                      long long num_sticks, int dim_z,
                                      long long num_values, int pair,
-                                     void* stream) {
+                                     long long zero_stick, void* stream) {
   const size_t smem = tile_smem_bytes(dim_z, dim_z);
   cudaError_t err = allow_smem(decompress_zdft_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((num_sticks + BM - 1) / BM);
   decompress_zdft_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      values, slot_src, cr, ci, sr, si, num_sticks, dim_z, num_values, pair);
+      values, slot_src, cr, ci, sr, si, num_sticks, dim_z, num_values, pair,
+      zero_stick);
   return (int)cudaGetLastError();
 }
 

@@ -200,6 +200,15 @@ class IndexPlan:
                                 self.num_sticks * self.dim_z,
                                 self.num_values)
 
+    @property
+    def zero_stick_id(self) -> Optional[int]:
+        """Position of the (x=0, y=0) stick, or None if absent — the stick
+        that receives hermitian completion for R2C (reference:
+        parameters.cpp:133-139)."""
+        hits = np.nonzero(self.stick_keys == 0)[0]
+        return int(hits[0]) if hits.size else None
+
+
 def inverse_slot_map(value_indices: np.ndarray, num_slots: int,
                      num_values: int) -> np.ndarray:
     """Invert the value->slot map: ``src[slot] = value index feeding that

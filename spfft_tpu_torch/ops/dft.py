@@ -9,13 +9,16 @@ packages contract against the same constants.
 
 This module holds the plain PyTorch forms: :func:`pdft_last` (one stage)
 and :func:`pdft2_minor` (two stages around a swap of the two minor
-axes). They are the plain versions the CUDA kernels of
-``ops.dft_kernel`` and ``ops.fused_kernel`` are held to, and what those
-wrappers run on a CPU tensor.
+axes), and their real-transform twins :func:`prdft_last`,
+:func:`pirdft_last`, :func:`prdft2_minor` (R2C forward head) and
+:func:`pdft2_minor_cr` (C2R backward tail). They are the plain versions
+the CUDA kernels of ``ops.dft_kernel`` and ``ops.fused_kernel`` are held
+to, and what those wrappers run on a CPU tensor.
 
 Axes above :data:`MATMUL_DFT_MAX` (the two-stage Cooley-Tukey form and
-the direct prime fallback of the JAX package) are not in this slice of
-the port: :func:`c2c_mats` raises for them.
+the direct prime fallback of the JAX package, which also runs an R2C x
+axis direct up to 1024) are not in this slice of the port: every matrix
+builder raises for them.
 """
 
 from __future__ import annotations
@@ -51,17 +54,68 @@ def _build_dft_mats(n: int, sign: int, scale: float):
             np.ascontiguousarray(m.imag.astype(np.float32)))
 
 
-def c2c_mats(n: int, sign: int, scale: float = 1.0):
-    """Matrices ``(cr, ci)``, each ``(n, n)``, for a complex
-    length-``n`` DFT with ``scale`` folded in. ``sign=BACKWARD`` with
-    ``scale=1`` is the library's unnormalised inverse (ifft * n)."""
+def _check_direct(n: int) -> None:
     if n > MATMUL_DFT_MAX:
         raise InvalidParameterError(
             f"axis length {n} exceeds MATMUL_DFT_MAX={MATMUL_DFT_MAX}: the "
             f"two-stage and prime-fallback DFT forms for longer axes are "
             f"not in this slice of the port (a later slice adds them)")
+
+
+def c2c_mats(n: int, sign: int, scale: float = 1.0):
+    """Matrices ``(cr, ci)``, each ``(n, n)``, for a complex
+    length-``n`` DFT with ``scale`` folded in. ``sign=BACKWARD`` with
+    ``scale=1`` is the library's unnormalised inverse (ifft * n)."""
+    _check_direct(n)
     s = +1 if sign == BACKWARD else -1
     return _build_dft_mats(int(n), s, float(scale))
+
+
+@functools.lru_cache(maxsize=32)
+def _rdft_mats(n: int, scale: float):
+    """Forward real-to-halfspectrum matrices ``(n, n//2+1)``: Yr = X @ A,
+    Yi = X @ B (the JAX package's ``_rdft_mats``, bit for bit)."""
+    xf = n // 2 + 1
+    k = np.arange(xf)
+    m = np.exp(-2j * np.pi * np.outer(np.arange(n), k) / n) * scale
+    return (np.ascontiguousarray(m.real.astype(np.float32)),
+            np.ascontiguousarray(m.imag.astype(np.float32)))
+
+
+@functools.lru_cache(maxsize=32)
+def _irdft_mats(n: int, scale: float):
+    """Halfspectrum-to-real matrices ``(n//2+1, n)``: x = Yr @ A + Yi @ B
+    (the JAX package's ``_irdft_mats``, bit for bit). From hermitian
+    symmetry, x[m] = sum_k w[k] (Yr[k] cos(2 pi k m / n) - Yi[k] sin(2 pi
+    k m / n)) with w = 1 for the self-conjugate bins (k = 0 and, for even
+    n, k = n/2) and 2 otherwise: the doubling stands in for the missing
+    negative-frequency half."""
+    xf = n // 2 + 1
+    k = np.arange(xf)
+    w = np.full(xf, 2.0)
+    w[0] = 1.0
+    if n % 2 == 0:
+        w[-1] = 1.0
+    ang = 2 * np.pi * np.outer(k, np.arange(n)) / n
+    a = (w[:, None] * np.cos(ang)) * scale
+    b = (w[:, None] * -np.sin(ang)) * scale
+    return (np.ascontiguousarray(a.astype(np.float32)),
+            np.ascontiguousarray(b.astype(np.float32)))
+
+
+def r2c_mats(n: int, scale: float = 1.0):
+    """Matrices ``(a, b)``, each ``(n, n//2+1)``, of the forward real
+    DFT to the half spectrum (reference rfft layout, dim_x_freq =
+    n//2+1 — src/parameters/parameters.cpp:49)."""
+    _check_direct(n)
+    return _rdft_mats(int(n), float(scale))
+
+
+def c2r_mats(n: int, scale: float = 1.0):
+    """Matrices ``(a, b)``, each ``(n//2+1, n)``, of the unnormalised
+    inverse real DFT from the half spectrum (irfft * n)."""
+    _check_direct(n)
+    return _irdft_mats(int(n), float(scale))
 
 
 @functools.lru_cache(maxsize=32)
@@ -81,6 +135,23 @@ def sub_cols_mats(n: int, sign: int, cols: tuple, scale: float = 1.0):
     idx = np.asarray(cols)
     return tuple(np.ascontiguousarray(m[:, idx])
                  for m in c2c_mats(n, sign, scale))
+
+
+@functools.lru_cache(maxsize=32)
+def sub_rows_c2r_mats(n: int, rows: tuple, scale: float = 1.0):
+    """Row-selected inverse-real matrices ``(len(rows), n)``: half-spectrum
+    window -> dense real axis (the hermitian weights ride along with
+    their rows)."""
+    idx = np.asarray(rows)
+    return tuple(np.ascontiguousarray(m[idx]) for m in c2r_mats(n, scale))
+
+
+@functools.lru_cache(maxsize=32)
+def sub_cols_r2c_mats(n: int, cols: tuple, scale: float = 1.0):
+    """Column-selected forward-real matrices ``(n, len(cols))``: real
+    axis -> half-spectrum window."""
+    idx = np.asarray(cols)
+    return tuple(np.ascontiguousarray(m[:, idx]) for m in r2c_mats(n, scale))
 
 
 def device_mats(mats, device) -> tuple:
@@ -145,3 +216,35 @@ def pdft2_minor(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     (mats2)] on planar ``(P, A, B)`` operands -> ``(P, B', A')``."""
     gr, gi = pdft_last(xr, xi, mats1)
     return pdft_last(gr.transpose(-1, -2), gi.transpose(-1, -2), mats2)
+
+
+# -- plain real transforms ----------------------------------------------------
+
+def prdft_last(x: torch.Tensor, mats):
+    """Real forward DFT along the minor axis -> planar half spectrum:
+    ``(..., n) -> (..., N)`` against :func:`r2c_mats` ``(n, N)``."""
+    a, b = mats
+    return torch.matmul(x, a), torch.matmul(x, b)
+
+
+def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
+    """Planar half spectrum -> real inverse along the minor axis:
+    ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``."""
+    a, b = mats
+    return torch.matmul(yr, a) + torch.matmul(yi, b)
+
+
+def prdft2_minor(x: torch.Tensor, mats1, mats2):
+    """R2C head twin of :func:`pdft2_minor`: real ``(P, A, B)``, a real
+    DFT over B (``mats1`` from :func:`r2c_mats`), swap, a complex DFT
+    over A -> planar ``(P, B', A')``."""
+    gr, gi = prdft_last(x, mats1)
+    return pdft_last(gr.transpose(-1, -2), gi.transpose(-1, -2), mats2)
+
+
+def pdft2_minor_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
+    """C2R tail twin of :func:`pdft2_minor`: planar ``(P, A, B)``, a
+    complex DFT over B, swap, a real inverse DFT over A (``mats2`` from
+    :func:`c2r_mats`) -> real ``(P, B', A')``."""
+    gr, gi = pdft_last(xr, xi, mats1)
+    return pirdft_last(gr.transpose(-1, -2), gi.transpose(-1, -2), mats2)

@@ -1,19 +1,26 @@
-"""The xy DFT stage kernel: port of ``spfft_tpu/ops/dft_kernel.py``
-``pdft2`` (the Pallas kernel ``_kernel2`` in mode ``cc``, launched at
-``dft_kernel.py:277``).
+"""The xy DFT stage kernels: ports of ``spfft_tpu/ops/dft_kernel.py``
+``pdft2``, ``prdft2`` and ``pdft2_cr`` (the Pallas kernel ``_kernel2`` in
+modes ``cc``, ``rc`` and ``cr``, launched at ``dft_kernel.py:277``).
 
-:func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a DFT
-over the minor axis B against ``mats1`` ``(B, B')``, a swap of the two
-minor axes, a DFT over A against ``mats2`` ``(A, A')``. Both matrix
-pairs may be rectangular (the split-x window's row- and column-selected
-matrices).
+* :func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a
+  DFT over the minor axis B against ``mats1`` ``(B, B')``, a swap of the
+  two minor axes, a DFT over A against ``mats2`` ``(A, A')``.
+* :func:`prdft2` (R2C forward head) takes a real ``(P, A, B)``; its first
+  stage is the real DFT to the half spectrum (``mats1`` from
+  ``dft.r2c_mats``).
+* :func:`pdft2_cr` (R2C backward tail) returns a real ``(P, B', A')``;
+  its second stage is the real inverse DFT (``mats2`` from
+  ``dft.c2r_mats``).
 
-On a CUDA tensor it launches ``csrc/dft2.cu``'s stage kernel twice: the
-first launch stores its result transposed within each plane, the second
-stores straight (see that file for why the TPU's in-VMEM swap has no
-direct counterpart, and what bounds the kernel: FP32 operations). On a
-CPU tensor it runs the plain version, :func:`spfft_tpu_torch.ops.dft.
-pdft2_minor`.
+All matrix pairs may be rectangular (the split-x window's row- and
+column-selected matrices).
+
+On a CUDA tensor each wrapper launches ``csrc/dft2.cu``'s stage kernel
+twice: the first launch stores its result transposed within each plane,
+the second stores straight (see that file for why the TPU's in-VMEM swap
+has no direct counterpart, and what bounds the kernel: FP32 operations).
+Each wrapper counts its own launches, two per call, in ``.launches``. On
+a CPU tensor it runs the plain version from :mod:`spfft_tpu_torch.ops.dft`.
 """
 
 from __future__ import annotations
@@ -25,24 +32,76 @@ import torch
 from ..errors import InvalidParameterError
 from . import _build, dft
 
-_STAGE_ARGS = ([ctypes.c_void_p] * 6
-               + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_void_p])
+_P = ctypes.c_void_p
+#: ``mode`` argument of csrc/dft2.cu's ``spfft_dft_stage`` (``TileMode`` of
+#: csrc/cdft_tile.cuh)
+_MODES = {"cc": 0, "rc": 1, "cr": 2}
+#: its argument types: the mode, the input planes, the matrix pair, the
+#: output planes, then M, K, N, plane_rows and the stream
+_ARGS = [ctypes.c_int] + [_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, _P]
 
 
-def _stage(xr, xi, mats, out_shape, plane_rows: int):
-    """One launch of the stage kernel: rows of ``xr``/``xi`` (minor
-    axis K) against ``mats`` (K, N)."""
+def _stage(mode: str, ins, mats, outs, plane_rows: int) -> None:
+    """One launch of the stage kernel in ``mode``: rows of ``ins`` (minor
+    axis K; one real plane in mode rc) against ``mats`` (K, N) into
+    ``outs`` (one real plane in mode cr)."""
     k, n = mats[0].shape
-    yr = torch.empty(out_shape, dtype=torch.float32, device=xr.device)
-    yi = torch.empty_like(yr)
-    m = xr.numel() // k
-    fn = _build.function("dft2.cu", "spfft_dft_stage", _STAGE_ARGS)
-    _build.launch(fn, "pdft2 stage kernel", xr.device, xr.data_ptr(),
-                  xi.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
-                  yr.data_ptr(), yi.data_ptr(), m, k, n, plane_rows)
-    pdft2.launches += 1
-    return yr, yi
+    m = ins[0].numel() // k
+    xr, xi = (*ins, None)[:2]
+    yr, yi = (*outs, None)[:2]
+    fn = _build.function("dft2.cu", "spfft_dft_stage", _ARGS)
+    _build.launch(fn, f"dft2 stage {mode}", xr.device, _MODES[mode],
+                  *(None if t is None else t.data_ptr()
+                    for t in (xr, xi, *mats, yr, yi)),
+                  m, k, n, plane_rows)
+
+
+def _check(name: str, ins, mats1, mats2):
+    """The operand rules of the three wrappers; returns ``(p, a, b,
+    b_out, a_out)``."""
+    x = ins[0]
+    if x.dim() != 3:
+        raise InvalidParameterError(
+            f"{name}: expected (P, A, B) operands, got {tuple(x.shape)}")
+    p, a, b = x.shape
+    b_out = mats1[0].shape[1]
+    a_out = mats2[0].shape[1]
+    dev = x.device
+    _build.require(x, f"{name} input", torch.float32)
+    for t in ins[1:]:
+        _build.require(t, f"{name} input", torch.float32, x.shape, dev)
+    for m, shape in ((mats1, (b, b_out)), (mats2, (a, a_out))):
+        for c in m:
+            _build.require(c, f"{name} matrix", torch.float32, shape, dev)
+    return p, a, b, b_out, a_out
+
+
+def _run2(wrapper, modes, ins, mats1, mats2, plain):
+    """The body of the three wrappers: the stage kernel in ``modes[0]``
+    stored transposed within each plane, then in ``modes[1]`` stored
+    straight, each launch counted in ``wrapper.launches``; ``plain`` on a
+    CPU tensor. Mode cr as the second stage gives one real output."""
+    name = wrapper.__name__
+    p, a, b, b_out, a_out = _check(name, ins, mats1, mats2)
+    x = ins[0]
+    if not _build.on_cuda(x, name):
+        return plain(*ins, mats1, mats2)
+    real_out = modes[1] == "cr"
+    out = tuple(torch.empty((p, b_out, a_out), dtype=torch.float32,
+                            device=x.device)
+                for _ in range(1 if real_out else 2))
+    if x.numel() == 0:
+        for t in out:
+            t.zero_()
+    else:
+        mid = tuple(torch.empty((p, b_out, a), dtype=torch.float32,
+                                device=x.device) for _ in range(2))
+        _stage(modes[0], ins, mats1, mid, plane_rows=a)
+        wrapper.launches += 1
+        _stage(modes[1], mid, mats2, out, plane_rows=0)
+        wrapper.launches += 1
+    return out[0] if real_out else out
 
 
 def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
@@ -50,25 +109,29 @@ def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     axes; ``mats1``/``mats2`` are ``(cr, ci)`` pairs of shapes
     ``(B, B')`` and ``(A, A')``. Each kernel launch adds one to
     ``pdft2.launches`` (two per call)."""
-    if xr.dim() != 3:
-        raise InvalidParameterError(
-            f"pdft2: expected (P, A, B) operands, got {tuple(xr.shape)}")
-    p, a, b = xr.shape
-    b_out = mats1[0].shape[1]
-    a_out = mats2[0].shape[1]
-    dev = xr.device
-    _build.require(xr, "pdft2 xr", torch.float32)
-    _build.require(xi, "pdft2 xi", torch.float32, xr.shape, dev)
-    for m, shape in ((mats1, (b, b_out)), (mats2, (a, a_out))):
-        for c in m:
-            _build.require(c, "pdft2 matrix", torch.float32, shape, dev)
-    if not _build.on_cuda(xr, "pdft2"):
-        return dft.pdft2_minor(xr, xi, mats1, mats2)
-    if xr.numel() == 0:
-        z = torch.zeros((p, b_out, a_out), dtype=torch.float32, device=dev)
-        return z, z.clone()
-    gr, gi = _stage(xr, xi, mats1, (p, b_out, a), plane_rows=a)
-    return _stage(gr, gi, mats2, (p, b_out, a_out), plane_rows=0)
+    return _run2(pdft2, ("cc", "cc"), (xr, xi), mats1, mats2,
+                 dft.pdft2_minor)
+
+
+def prdft2(x: torch.Tensor, mats1, mats2):
+    """Real ``(P, A, B) -> (P, B', A')`` planar: the real DFT over B to
+    the half spectrum (``mats1`` ``(B, B')`` from ``dft.r2c_mats`` or its
+    column window), swap, a complex DFT over A (``mats2`` ``(A, A')``).
+    Each kernel launch adds one to ``prdft2.launches`` (two per call)."""
+    return _run2(prdft2, ("rc", "cc"), (x,), mats1, mats2,
+                 dft.prdft2_minor)
+
+
+def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
+    """Planar ``(P, A, B) -> `` real ``(P, B', A')``: a complex DFT over
+    B (``mats1`` ``(B, B')``), swap, the real inverse DFT over A
+    (``mats2`` ``(A, A')`` from ``dft.c2r_mats`` or its row window).
+    Each kernel launch adds one to ``pdft2_cr.launches`` (two per
+    call)."""
+    return _run2(pdft2_cr, ("cc", "cr"), (xr, xi), mats1, mats2,
+                 dft.pdft2_minor_cr)
 
 
 pdft2.launches = 0
+prdft2.launches = 0
+pdft2_cr.launches = 0

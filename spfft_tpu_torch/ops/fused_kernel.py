@@ -4,7 +4,9 @@
 
 * :func:`decompress_zdft` (backward): sparse values -> z-transformed
   planar sticks, gathering through the plan-time inverse map
-  ``slot_src`` (sentinel ``num_values`` = empty slot).
+  ``slot_src`` (sentinel ``num_values`` = empty slot). For an R2C plan
+  it completes the (x=0, y=0) stick before the z-DFT (the TPU kernel's
+  ``_complete_zero_stick``, ``fused_kernel.py:350``).
 * :func:`zdft_compress` (forward): raw planar sticks -> z-DFT (any FULL
   scale folded into the matrices) -> the sparse values, written through
   a plan-time CSR by stick (:func:`compress_csr`).
@@ -29,7 +31,7 @@ from . import _build, dft, stages
 _SRC = "fused_compress.cu"
 _P = ctypes.c_void_p
 _DEC_ARGS = [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, _P]
+                        ctypes.c_int, ctypes.c_longlong, _P]
 _CMP_ARGS = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_int, _P]
 
@@ -56,26 +58,33 @@ def _values_shape(num_values: int, pair: bool):
 
 # -- backward: gather-decompress -> z-DFT ------------------------------------
 
-def decompress_zdft_plain(values, slot_src, mats, dim_z: int, pair: bool):
+def decompress_zdft_plain(values, slot_src, mats, dim_z: int, pair: bool,
+                          zero_stick: int = -1):
     """Plain version of :func:`decompress_zdft`: sentinel row gather,
-    then :func:`~spfft_tpu_torch.ops.dft.pdft_last`."""
+    :func:`~spfft_tpu_torch.ops.stages.complete_stick_hermitian` on the
+    zero stick, then :func:`~spfft_tpu_torch.ops.dft.pdft_last`."""
     rows = values.t() if pair else values
     flat = stages.gather_rows_with_sentinel(rows, slot_src.long())
     num_sticks = slot_src.numel() // dim_z
-    return dft.pdft_last(flat[:, 0].reshape(num_sticks, dim_z),
-                         flat[:, 1].reshape(num_sticks, dim_z), mats)
+    sr = flat[:, 0].reshape(num_sticks, dim_z)
+    si = flat[:, 1].reshape(num_sticks, dim_z)
+    if zero_stick >= 0:  # in place: flat is this function's own copy
+        sr[zero_stick], si[zero_stick] = stages.complete_stick_hermitian(
+            sr[zero_stick], si[zero_stick])
+    return dft.pdft_last(sr, si, mats)
 
 
 def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
-                    dim_z: int, pair: bool = False):
+                    dim_z: int, pair: bool = False, zero_stick: int = -1):
     """Sparse values -> z-transformed planar sticks ``(sr, si)``, each
     ``(slot_src.numel() // dim_z, dim_z)`` f32.
 
     ``values`` is ``(N, 2)`` (``(2, N)`` with ``pair``) f32;
     ``slot_src`` is the int32 inverse slot map, sentinel N = zero;
-    ``mats`` the backward z pair ``(dim_z, dim_z)``. Every output slot
-    is written. Each kernel launch adds one to
-    ``decompress_zdft.launches``."""
+    ``mats`` the backward z pair ``(dim_z, dim_z)``; ``zero_stick`` the
+    stick to complete hermitian before the z-DFT (an R2C plan's (0,0)
+    stick; -1 = none). Every output slot is written. Each kernel launch
+    adds one to ``decompress_zdft.launches``."""
     n = values.shape[1] if pair else values.shape[0]
     dev = values.device
     _build.require(values, "decompress_zdft values", torch.float32,
@@ -89,9 +98,14 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     for c in mats:
         _build.require(c, "decompress_zdft matrix", torch.float32,
                        (dim_z, dim_z), dev)
-    if not _build.on_cuda(values, "decompress_zdft"):
-        return decompress_zdft_plain(values, slot_src, mats, dim_z, pair)
     num_sticks = slot_src.numel() // dim_z
+    if not -1 <= zero_stick < num_sticks:
+        raise InvalidParameterError(
+            f"decompress_zdft: zero_stick {zero_stick} is not a stick of "
+            f"{num_sticks} (or -1)")
+    if not _build.on_cuda(values, "decompress_zdft"):
+        return decompress_zdft_plain(values, slot_src, mats, dim_z, pair,
+                                     zero_stick)
     sr = torch.empty((num_sticks, dim_z), dtype=torch.float32, device=dev)
     si = torch.empty_like(sr)
     if num_sticks == 0:
@@ -100,7 +114,7 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     _build.launch(fn, "decompress_zdft kernel", dev, values.data_ptr(),
                   slot_src.data_ptr(), mats[0].data_ptr(),
                   mats[1].data_ptr(), sr.data_ptr(), si.data_ptr(),
-                  num_sticks, dim_z, n, int(pair))
+                  num_sticks, dim_z, n, int(pair), int(zero_stick))
     decompress_zdft.launches += 1
     return sr, si
 

@@ -1,10 +1,11 @@
-"""Placement stages of the sparse 3D FFT pipeline (counterpart of
-``spfft_tpu.ops.stages``, the parts the local C2C plan runs).
+"""Placement and symmetry stages of the sparse 3D FFT pipeline
+(counterpart of ``spfft_tpu.ops.stages``, the parts the local plan runs).
 
 The local stick <-> plane transpose (reference:
 src/transpose/transpose_host.hpp:94-154), written as row gathers through
-plan-time inverse maps. In the JAX package these are XLA gathers, not
-Pallas kernels; plain tensor indexing is their counterpart here.
+plan-time inverse maps, and the R2C hermitian completion on planar
+operands. In the JAX package these are XLA ops, not Pallas kernels;
+plain tensor ops are their counterpart here.
 """
 
 from __future__ import annotations
@@ -49,3 +50,30 @@ def grid_to_sticks(grid: torch.Tensor, scatter_cols: torch.Tensor):
     num_planes = grid.shape[0]
     flat = grid.reshape(num_planes, -1)
     return flat[:, scatter_cols].t().contiguous()
+
+
+# -- hermitian completion (R2C backward only; reference applies stick
+# symmetry before the z-FFT and plane symmetry after it —
+# execution_host.cpp:306-308, 340-342) --------------------------------------
+
+def complete_stick_hermitian(re: torch.Tensor, im: torch.Tensor):
+    """Complete planar sticks along the minor axis: an entry whose real
+    and imaginary parts are both exactly 0 counts as missing and becomes
+    the conjugate of its mirror ``v[(n - i) % n]``, read from the values
+    before completion; given entries win. Slot 0 (and, for even n, slot
+    n/2) mirrors itself. Returns new tensors (reference
+    symmetry_host.hpp:69-91; ``spfft_tpu.ops.stages.
+    complete_stick_hermitian`` on a planar pair)."""
+    mr = torch.roll(re.flip(-1), 1, dims=-1)
+    mi = torch.roll(im.flip(-1), 1, dims=-1)
+    given = (re != 0) | (im != 0)
+    return torch.where(given, re, mr), torch.where(given, im, -mi)
+
+
+def complete_plane_hermitian_t(gr: torch.Tensor, gi: torch.Tensor) -> None:
+    """Complete the x = 0 row of the transposed plane grid ``(planes,
+    w, dim_y)`` along y, in place (:func:`complete_stick_hermitian` on
+    ``[:, 0, :]``; ``spfft_tpu.ops.stages.complete_plane_hermitian_t``
+    on a planar pair)."""
+    gr[:, 0, :], gi[:, 0, :] = complete_stick_hermitian(gr[:, 0, :],
+                                                        gi[:, 0, :])
