@@ -29,7 +29,27 @@ Phases, each of which exits non-zero when it fails:
    kernels ``prdft2`` and ``pdft2_cr`` and the (0,0)-stick completion of
    ``decompress_zdft``, at the path's shapes and at odd R2C shapes; the
    counted pair, which must not launch ``pdft2``;
-7. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
+7. for each path, the two-kernel route (``fused=False``): the gather
+   kernel in both directions (exact against its plain version) and
+   ``pdft_last`` at the route's 256^3 shapes, then the counted pair
+   (gather 2, ``pdft_last`` 2, no fused z kernel) with the same oracle,
+   round-trip and repeat checks, timed beside the fused pair, and its
+   results against the fused route's;
+8. for each path, batched execution at B = 4: the batched grids of both
+   fused z kernels against their plain versions and, bit for bit,
+   against four single launches; then the counted batched pair (one
+   launch of each z kernel, the xy launches of one single pair), each
+   band equal to the single pair's result; ``apply_pointwise`` with a
+   potential and ``iterate_pointwise(steps=3)`` against the same pairs
+   run one call at a time;
+9. the new kernels at odd shapes (B = 3, both value layouts, odd dim_z,
+   an empty stick, duplicates, the R2C zero stick) against their plain
+   versions;
+10. the batched-versus-looped sweep (``{"batched_sweep": [...]}``): per
+   band ms of a batched pair against B single pairs at n/2 and n, B in
+   {2, 4, 8}, both paths (what ``spfft_tpu_torch.multi``'s gate rests
+   on);
+11. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
    ``{"kernels": [...]}`` (every kernel record of both paths, each with
    its ``path``) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
@@ -375,10 +395,29 @@ def odd_shapes_phase(device):
 #: launches of one backward + forward(FULL) pair per path: (least, most)
 C2C_LAUNCHES = {"decompress_zdft": (1, None), "pdft2": (1, None),
                 "zdft_compress": (1, None), "prdft2": (0, 0),
-                "pdft2_cr": (0, 0)}
+                "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0)}
 R2C_LAUNCHES = {"decompress_zdft": (1, None), "prdft2": (2, None),
                 "pdft2_cr": (2, None), "zdft_compress": (1, None),
-                "pdft2": (0, 0)}
+                "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0)}
+#: the two-kernel route's pair, exactly
+C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
+                   "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                   "pdft2": (4, 4), "prdft2": (0, 0), "pdft2_cr": (0, 0)}
+R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
+                   "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                   "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0)}
+#: a batched pair launches what ONE single pair does, whatever B is
+C2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
+                        "pdft2": (4, 4), "prdft2": (0, 0),
+                        "pdft2_cr": (0, 0), "gather": (0, 0),
+                        "pdft_last": (0, 0)}
+R2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
+                        "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0),
+                        "gather": (0, 0), "pdft_last": (0, 0)}
+#: record name -> the launch counter it reads
+COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
+              "decompress_zdft_batched": "decompress_zdft",
+              "zdft_compress_batched": "zdft_compress"}
 
 
 def read_launches(path, counters, want):
@@ -411,7 +450,7 @@ def pair_phase(sp, path, plan, values, oracle_rel, device, counters,
     launches = read_launches(path, counters, want)
 
     shape = (plan.dim_z, plan.dim_y, plan.dim_x)
-    if path == "c2c":
+    if plan.transform_type is sp.TransformType.C2C:
         shape += (2,)
     if tuple(space.shape) != shape or space.dtype != torch.float32 \
             or not torch.isfinite(space).all():
@@ -641,37 +680,484 @@ def r2c_odd_shapes_phase(device):
           f"{KERNEL_TOL}", flush=True)
 
 
+# -- the two-kernel route, batched execution, the round trip -----------------
+
+#: batch of the batched kernel and pair phases
+BATCH = 4
+SWEEP_BATCHES = (2, 4, 8)
+GATHER_SRC = "spfft_tpu_torch/csrc/gather.cu"
+#: run_gather, which reaches the Pallas gathers at :751/:778 and
+#: :824/:848 (narrow) and :1119/:1145 (wide), rows 8 and 9 of PERF.md
+GATHER_REPLACES = "spfft_tpu/ops/gather_kernel.py:1177"
+
+
+def compare_exact(name, got, want):
+    """The gather moves values and computes nothing: it must equal its
+    plain version bit for bit. Returns the error triple of
+    :func:`compare` (all 0)."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            diff = float((g.double() - w.double()).abs().max()) \
+                if g.shape == w.shape else float("nan")
+            fail(f"{name}: kernel differs from its plain version "
+                 f"(shapes {tuple(g.shape)} {tuple(w.shape)}, max_abs "
+                 f"{diff:.3e}); the gather must be exact")
+    return 0.0, 0.0, 0.0
+
+
+def band_values(plan, values, batch):
+    """``batch`` value sets in the plan's coerced layout, ``(B, N, 2)`` or
+    ``(B, 2, N)``: band b is ``values`` rolled by 7 b along the value
+    axis, so the bands differ."""
+    v = plan._coerce_values(values)
+    axis = v.dim() - 1 if plan.pair_values_io else 0
+    return torch.stack([v.roll(7 * b, dims=axis) for b in range(batch)])
+
+
+def two_kernel_kernel_phase(path, plan, values, device):
+    """The two-kernel route's kernels at its shapes: the gather both ways
+    (exact), ``pdft_last`` backward (with the R2C (0,0)-stick completion
+    between the two, as the route runs it) and forward (FULL scale)."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, gather_kernel, stages
+    p = plan.index_plan
+    dz, nv, s = p.dim_z, p.num_values, p.num_sticks
+    pair = plan.pair_values_io
+    v = plan._coerce_values(values)
+    if plan._conj is not None:
+        v = v * plan._conj
+    ss = plan._slot_src
+    rows = ss.numel() // dz
+    recs = []
+
+    sr, si = gather_kernel.decompress(v, ss, dz, pair)
+    err = compare_exact(f"{path} gather decompress", (sr, si),
+                        gather_kernel.decompress_plain(v, ss, dz, pair))
+    vpad = torch.cat([torch.view_as_complex(
+        (v.t() if pair else v).contiguous()),
+        torch.zeros(1, dtype=torch.complex64, device=device)])
+    slot64 = ss.long()
+    recs.append(kernel_record(
+        path, "gather_dec", GATHER_SRC, GATHER_REPLACES, err,
+        timed_ms(lambda: gather_kernel.decompress(v, ss, dz, pair), device),
+        timed_ms(lambda: gather_kernel.decompress_plain(v, ss, dz, pair),
+                 device),
+        timed_ms(lambda: torch.index_select(vpad, 0, slot64), device),
+        nv * 8 + rows * dz * 4 + rows * dz * 8, 0.0, 0.0))
+
+    zid = plan._zero_stick
+    if zid >= 0:
+        sr[zid], si[zid] = stages.complete_stick_hermitian(sr[zid], si[zid])
+    zb, zf = plan._mats["z_b"], plan._mats["z_fs"]
+    yr, yi = dft_kernel.pdft_last(sr, si, zb)
+    err_b = compare(f"{path} pdft_last backward", (yr, yi),
+                    dft.pdft_last(sr, si, zb))
+    fr, fi = yr[:s].contiguous(), yi[:s].contiguous()
+    fy = dft_kernel.pdft_last(fr, fi, zf)
+    err_f = compare(f"{path} pdft_last forward", fy, dft.pdft_last(fr, fi, zf))
+    sc = torch.complex(sr, si)
+    recs.append(kernel_record(
+        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
+        "spfft_tpu/ops/dft_kernel.py:165", max(err_b, err_f),
+        timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
+        timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
+        timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
+        4 * rows * dz * 4 + 2 * dz * dz * 4,
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz))
+
+    vi = plan._value_indices
+    got = gather_kernel.compress(*fy, vi, pair)
+    err = compare_exact(f"{path} gather compress", (got,),
+                        (gather_kernel.compress_plain(*fy, vi, pair),))
+    fc = torch.complex(*fy)
+    vi64 = vi.long()
+    recs.append(kernel_record(
+        path, "gather_cmp", GATHER_SRC, GATHER_REPLACES, err,
+        timed_ms(lambda: gather_kernel.compress(*fy, vi, pair), device),
+        timed_ms(lambda: gather_kernel.compress_plain(*fy, vi, pair), device),
+        timed_ms(lambda: fc.view(-1)[vi64], device),
+        nv * 4 + 2 * nv * 8, 0.0, 0.0))
+    print_records(recs)
+    return recs
+
+
+def route_phase(sp, path, fused, split, values):
+    """The two-kernel route (``split``) against the fused route on the
+    same values, backward and forward(FULL), within ``KERNEL_TOL``; says
+    whether they are bit-identical."""
+    full = sp.Scaling.FULL
+    a, b = fused.backward(values), split.backward(values)
+    err_b = compare(f"{path} two-kernel vs fused backward", (b,), (a,))
+    fa, fb = fused.forward(a, full), split.forward(a, full)
+    err_f = compare(f"{path} two-kernel vs fused forward", (fb,), (fa,))
+    print(f"{path} two-kernel vs fused route: backward max_abs_err="
+          f"{err_b[0]:.3e} (bit-identical: {torch.equal(a, b)}), forward "
+          f"max_abs_err={err_f[0]:.3e} (bit-identical: "
+          f"{torch.equal(fa, fb)})", flush=True)
+
+
+def batched_kernel_phase(path, plan, values, device, batch=BATCH):
+    """The batched grids of both fused z kernels at the path's shapes
+    with ``batch`` bands: against their plain versions, and each band
+    bit for bit against a single launch on that band."""
+    from spfft_tpu_torch.ops import fused_kernel
+    p = plan.index_plan
+    dz, nv, s = p.dim_z, p.num_values, p.num_sticks
+    pair = plan.pair_values_io
+    vb = band_values(plan, values, batch)
+    if plan._conj is not None:
+        vb = vb * plan._conj
+    ss, mz, zs = plan._slot_src, plan._mats["z_b"], plan._zero_stick
+    rows = ss.numel() // dz
+    recs = []
+
+    got = fused_kernel.decompress_zdft(vb, ss, mz, dz, pair, zs)
+    err = compare(f"{path} decompress_zdft B={batch}", got,
+                  fused_kernel.decompress_zdft_plain(vb, ss, mz, dz, pair,
+                                                     zs))
+    for b in range(batch):
+        one = fused_kernel.decompress_zdft(vb[b], ss, mz, dz, pair, zs)
+        if not (torch.equal(one[0], got[0][b])
+                and torch.equal(one[1], got[1][b])):
+            fail(f"{path} decompress_zdft: band {b} of the batched launch "
+                 f"differs from its single launch")
+    vrows = (vb.transpose(1, 2) if pair else vb).contiguous()
+    vpad = torch.cat([torch.view_as_complex(vrows), torch.zeros(
+        (batch, 1), dtype=torch.complex64, device=device)], dim=1)
+    slot64 = ss.long()
+    recs.append(kernel_record(
+        path, "decompress_zdft_batched",
+        "spfft_tpu_torch/csrc/fused_compress.cu",
+        "spfft_tpu/ops/fused_kernel.py:587", err,
+        timed_ms(lambda: fused_kernel.decompress_zdft(vb, ss, mz, dz, pair,
+                                                      zs), device),
+        timed_ms(lambda: fused_kernel.decompress_zdft_plain(
+            vb, ss, mz, dz, pair, zs), device),
+        timed_ms(lambda: torch.fft.ifft(vpad[:, slot64].view(
+            batch, rows, dz), norm="forward"), device),
+        batch * (nv * 8 + 2 * rows * dz * 4) + rows * dz * 4
+        + 2 * dz * dz * 4,
+        batch * fft_flops(rows, dz), batch * FLOP_PER_CMAC * rows * dz * dz))
+
+    fr, fi = got[0][:, :s].contiguous(), got[1][:, :s].contiguous()
+    mf, csr = plan._mats["z_fs"], plan._csr
+    out = fused_kernel.zdft_compress(fr, fi, mf, csr, pair)
+    err = compare(f"{path} zdft_compress B={batch}", (out,),
+                  (fused_kernel.zdft_compress_plain(fr, fi, mf, csr, pair),))
+    for b in range(batch):
+        one = fused_kernel.zdft_compress(fr[b], fi[b], mf, csr, pair)
+        if not torch.equal(one, out[b]):
+            fail(f"{path} zdft_compress: band {b} of the batched launch "
+                 f"differs from its single launch")
+    fc = torch.complex(fr, fi)
+    vi64 = torch.as_tensor(p.value_indices.astype(np.int64), device=device)
+    gs = 1.0 / plan.global_size
+    recs.append(kernel_record(
+        path, "zdft_compress_batched",
+        "spfft_tpu_torch/csrc/fused_compress.cu",
+        "spfft_tpu/ops/fused_kernel.py:783", err,
+        timed_ms(lambda: fused_kernel.zdft_compress(fr, fi, mf, csr, pair),
+                 device),
+        timed_ms(lambda: fused_kernel.zdft_compress_plain(fr, fi, mf, csr,
+                                                          pair), device),
+        timed_ms(lambda: torch.fft.fft(fc).view(batch, -1)[:, vi64] * gs,
+                 device),
+        batch * (2 * s * dz * 4 + nv * 8) + (s + 1 + 2 * nv) * 4
+        + 2 * dz * dz * 4,
+        batch * fft_flops(s, dz), batch * FLOP_PER_CMAC * s * dz * dz))
+    print_records(recs)
+    for r in recs:
+        print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
+              f"per band (B={batch}, one launch)", flush=True)
+    return recs
+
+
+def batched_pair_phase(sp, path, plan, values, device, counters, want,
+                       batch=BATCH):
+    """``backward_batched`` + ``forward_batched(FULL)`` on ``batch`` bands,
+    counted (``want``: one launch of each z kernel and the xy launches of
+    one single pair), every band equal to the single pair on its band,
+    timed against one single pair."""
+    vb = band_values(plan, values, batch)
+    for c in counters.values():
+        c.launches = 0
+    space_b = plan.backward_batched(vb)
+    out_b = plan.forward_batched(space_b, sp.Scaling.FULL)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches(f"{path} batched B={batch}", counters, want)
+    for b in range(batch):
+        one = plan.backward(vb[b])
+        if not torch.equal(space_b[b], one):
+            fail(f"{path} batched backward: band {b} differs from the "
+                 f"single backward")
+        if not torch.equal(out_b[b], plan.forward(one, sp.Scaling.FULL)):
+            fail(f"{path} batched forward: band {b} differs from the "
+                 f"single forward")
+    del space_b, out_b
+    ms_b = timed_ms(lambda: plan.forward_batched(plan.backward_batched(vb),
+                                                 sp.Scaling.FULL), device)
+    ms_1 = timed_ms(lambda: plan.forward(plan.backward(vb[0]),
+                                         sp.Scaling.FULL), device)
+    print(f"{path} batched pair B={batch}: {ms_b:.4f} ms, {ms_b / batch:.4f} "
+          f"ms per band; single pair {ms_1:.4f} ms (same run); every band "
+          f"equal to its single pair", flush=True)
+    return launches
+
+
+def pointwise_phase(sp, path, plan, values, device):
+    """``apply_pointwise`` with a potential (``fn_args``) and
+    ``iterate_pointwise(steps=3)`` against the same round trips run one
+    public call at a time; the identity ``apply_pointwise`` against one
+    pair."""
+    p = plan.index_plan
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    pot = torch.rand((p.dim_z, p.dim_y, p.dim_x), generator=gen,
+                     device=device)
+    c2c = plan.transform_type is sp.TransformType.C2C
+
+    def fn(space, w):
+        return space * (w[..., None] if c2c else w)
+
+    full = sp.Scaling.FULL
+    want = plan.forward(fn(plan.backward(values), pot), full)
+    err1 = compare(f"{path} apply_pointwise(potential)",
+                   (plan.apply_pointwise(values, fn, pot, scaling=full),),
+                   (want,))
+    want = values
+    for _ in range(3):
+        want = plan.forward(fn(plan.backward(want), pot), full)
+    err3 = compare(f"{path} iterate_pointwise(steps=3)",
+                   (plan.iterate_pointwise(values, fn, pot, steps=3),),
+                   (want,))
+    err0 = compare(f"{path} apply_pointwise(identity)",
+                   (plan.apply_pointwise(values, scaling=full),),
+                   (plan.forward(plan.backward(values), full),))
+    ms = timed_ms(lambda: plan.apply_pointwise(values, fn, pot,
+                                               scaling=full), device)
+    print(f"{path} pointwise: apply_pointwise(potential) max_abs_err="
+          f"{err1[0]:.3e}, iterate_pointwise(steps=3) max_abs_err="
+          f"{err3[0]:.3e}, identity max_abs_err={err0[0]:.3e} against "
+          f"the same calls one at a time; apply_pointwise(potential) "
+          f"{ms:.4f} ms", flush=True)
+
+
+def sweep_phase(sp, path, plan, values, device, out):
+    """Per-band ms of a batched pair against B single pairs, B in
+    ``SWEEP_BATCHES``, each timed twice in turns (looped, batched,
+    batched, looped); appends one row per B to ``out``."""
+    full = sp.Scaling.FULL
+    for batch in SWEEP_BATCHES:
+        vb = band_values(plan, values, batch)
+
+        def looped():
+            for b in range(batch):
+                plan.forward(plan.backward(vb[b]), full)
+
+        def batched():
+            plan.forward_batched(plan.backward_batched(vb), full)
+
+        t = [timed_ms(f, device) for f in (looped, batched, batched, looped)]
+        row = {"path": path, "n": plan.dim_x, "B": batch,
+               "batch_grid": batch * plan.global_size,
+               "looped_ms_per_band": (t[0] + t[3]) / 2 / batch,
+               "batched_ms_per_band": (t[1] + t[2]) / 2 / batch}
+        out.append(row)
+        print(f"sweep {path} n={plan.dim_x} B={batch}: looped "
+              f"{row['looped_ms_per_band']:.4f} ms per band, batched "
+              f"{row['batched_ms_per_band']:.4f} ms per band", flush=True)
+        del vb
+
+
+def new_odd_shapes_phase(device):
+    """The gather, ``pdft_last`` and the batched z kernels at shapes the
+    paths do not reach: B = 3, both value layouts, odd dim_z, an empty
+    stick, duplicate values, the sentinel, invalid and out-of-range
+    indices, rectangular matrices, the R2C zero stick."""
+    from spfft_tpu_torch.indexing import inverse_slot_map
+    from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel, \
+        gather_kernel
+    rng = np.random.default_rng(SEED + 4)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=device)
+
+    def mats(m):
+        return dft.device_mats(m, device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    cases = 0
+    for s, dz in ((37, 12), (21, 13), (9, 384)):
+        occ = rng.random((s, dz)) < 0.5
+        occ[s // 2] = False  # an empty stick
+        slots = np.flatnonzero(occ)
+        slots = np.concatenate([slots, slots[:5]])  # duplicate triplets
+        rng.shuffle(slots)
+        nv = len(slots)
+        ss = i32(np.concatenate([inverse_slot_map(slots, s * dz, nv),
+                                 np.full(dz, nv, np.int32)]))
+        vi = i32(slots)
+        for pair in (False, True):
+            for lead in ((), (3,)):
+                vals = rand(*lead, 2, nv) if pair else rand(*lead, nv, 2)
+                compare_exact(f"gather decompress s={s} dz={dz} B={lead} "
+                              f"pair={pair}",
+                              gather_kernel.decompress(vals, ss, dz, pair),
+                              gather_kernel.decompress_plain(vals, ss, dz,
+                                                             pair))
+                sr, si = rand(*lead, s, dz), rand(*lead, s, dz)
+                compare_exact(f"gather compress s={s} dz={dz} B={lead} "
+                              f"pair={pair}",
+                              (gather_kernel.compress(sr, si, vi, pair),),
+                              (gather_kernel.compress_plain(sr, si, vi,
+                                                            pair),))
+                cases += 2
+    # the general form: a valid mask and indices outside the source
+    src = (rand(3, 1000), rand(3, 1000))
+    idx = i32(rng.integers(-5, 1010, 4000))
+    valid = torch.as_tensor(rng.random(4000) < 0.7, device=device)
+    got = tuple(torch.empty((3, 4000), device=device) for _ in range(2))
+    want = tuple(torch.empty((3, 4000), device=device) for _ in range(2))
+    gather_kernel.gather(src, idx, got, valid)
+    gather_kernel.gather_plain(src, idx, want, valid)
+    compare_exact("gather with a valid mask and out-of-range indices", got,
+                  want)
+    cases += 1
+
+    for lead, k, n_out, m in (
+            ((37,), 12, 12, dft.c2c_mats(12, dft.BACKWARD)),
+            ((21,), 13, 13, dft.c2c_mats(13, dft.FORWARD, 0.25)),
+            ((9,), 384, 384, dft.c2c_mats(384, dft.BACKWARD)),
+            ((5,), 300, 7, dft.sub_cols_mats(300, dft.FORWARD,
+                                              tuple(range(7)))),
+            ((3,), 7, 300, dft.sub_rows_mats(300, dft.BACKWARD,
+                                              tuple(range(7)))),
+            ((3, 5), 16, 16, dft.c2c_mats(16, dft.FORWARD)),
+            ((2,), 512, 512, dft.c2c_mats(512, dft.BACKWARD))):
+        xr, xi = rand(*lead, k), rand(*lead, k)
+        mm = mats(m)
+        compare(f"pdft_last {lead + (k,)} -> {n_out}",
+                dft_kernel.pdft_last(xr, xi, mm), dft.pdft_last(xr, xi, mm))
+        cases += 1
+
+    for s, dz in ((37, 12), (21, 13), (9, 384)):
+        zb = mats(dft.c2c_mats(dz, dft.BACKWARD))
+        zf = mats(dft.c2c_mats(dz, dft.FORWARD, 0.5))
+        for kind, zid in (("half", 0), ("empty", s // 2), ("absent", -1)):
+            occ = rng.random((s, dz)) < 0.5
+            if zid >= 0:
+                occ[zid] = np.zeros(dz, bool) if kind == "empty" \
+                    else np.arange(dz) <= dz // 2
+            slots = np.flatnonzero(occ)
+            slots = np.concatenate([slots, slots[:3]])
+            rng.shuffle(slots)
+            nv = len(slots)
+            ss = i32(np.concatenate([inverse_slot_map(slots, s * dz, nv),
+                                     np.full(dz, nv, np.int32)]))
+            csr = tuple(i32(t) for t in fused_kernel.compress_csr(slots, s,
+                                                                  dz))
+            for pair in (False, True):
+                vals = rand(3, 2, nv) if pair else rand(3, nv, 2)
+                got = fused_kernel.decompress_zdft(vals, ss, zb, dz, pair,
+                                                   zid)
+                compare(f"decompress_zdft B=3 s={s} dz={dz} zero stick "
+                        f"{kind} pair={pair}", got,
+                        fused_kernel.decompress_zdft_plain(vals, ss, zb, dz,
+                                                           pair, zid))
+                sr, si = rand(3, s, dz), rand(3, s, dz)
+                out = fused_kernel.zdft_compress(sr, si, zf, csr, pair)
+                compare(f"zdft_compress B=3 s={s} dz={dz} pair={pair}",
+                        (out,), (fused_kernel.zdft_compress_plain(
+                            sr, si, zf, csr, pair),))
+                for b in range(3):
+                    one = fused_kernel.decompress_zdft(vals[b], ss, zb, dz,
+                                                       pair, zid)
+                    if not (torch.equal(one[0], got[0][b])
+                            and torch.equal(one[1], got[1][b])
+                            and torch.equal(fused_kernel.zdft_compress(
+                                sr[b], si[b], zf, csr, pair), out[b])):
+                        fail(f"batched z kernels s={s} dz={dz} {kind} "
+                             f"pair={pair}: band {b} differs from its "
+                             f"single launch")
+                cases += 2
+    print(f"odd shapes of the new kernels: {cases} kernel-vs-plain cases "
+          f"(the gather exact, the rest within {KERNEL_TOL}; batched bands "
+          f"equal to single launches)", flush=True)
+
+
+def set_launches(recs, launches):
+    for r in recs:
+        r["launches"] = launches[COUNTER_OF.get(r["name"], r["name"])]
+
+
 def run(device, n=N):
     """Every phase after the build on ``device`` at size ``n``, both
-    paths; returns the kernel records."""
+    paths; returns the kernel records and the batched sweep's rows."""
     import spfft_tpu_torch as sp
-    from spfft_tpu_torch.ops import dft_kernel, fused_kernel
+    from spfft_tpu_torch.ops import dft_kernel, fused_kernel, gather_kernel
     counters = {"decompress_zdft": fused_kernel.decompress_zdft,
                 "pdft2": dft_kernel.pdft2,
                 "prdft2": dft_kernel.prdft2,
                 "pdft2_cr": dft_kernel.pdft2_cr,
-                "zdft_compress": fused_kernel.zdft_compress}
+                "zdft_compress": fused_kernel.zdft_compress,
+                "gather": gather_kernel.gather,
+                "pdft_last": dft_kernel.pdft_last}
+    sweep = []
     plan, trip, values = main_path_plan(sp, n, device)
     c2c = kernel_phase(plan, values, device)
     odd_shapes_phase(device)
-    launches = pair_phase(sp, "c2c", plan, values,
-                          c2c_oracle_rel(plan, trip, values, device),
-                          device, counters, C2C_LAUNCHES)
-    for r in c2c:
-        r["launches"] = launches[r["name"]]
-    del plan, trip, values
+    oracle = c2c_oracle_rel(plan, trip, values, device)
+    set_launches(c2c, pair_phase(sp, "c2c", plan, values, oracle, device,
+                                 counters, C2C_LAUNCHES))
+    plan2 = sp.TransformPlan(plan.index_plan, device=device, fused=False)
+    recs = two_kernel_kernel_phase("c2c", plan2, values, device)
+    set_launches(recs, pair_phase(sp, "c2c two-kernel", plan2, values,
+                                  oracle, device, counters, C2C_2K_LAUNCHES))
+    route_phase(sp, "c2c", plan, plan2, values)
+    c2c += recs
+    del plan2
+    recs = batched_kernel_phase("c2c", plan, values, device)
+    set_launches(recs, batched_pair_phase(sp, "c2c", plan, values, device,
+                                          counters, C2C_BATCHED_LAUNCHES))
+    c2c += recs
+    pointwise_phase(sp, "c2c", plan, values, device)
+    sweep_phase(sp, "c2c", plan, values, device, sweep)
+    del plan, trip, values, oracle
 
     plan, values, oracle = r2c_plan(sp, n, device)
     r2c = r2c_kernel_phase(plan, values, device)
     r2c_odd_shapes_phase(device)
-    launches = pair_phase(
-        sp, "r2c", plan, values,
-        lambda space: float(torch.linalg.norm(space.double() - oracle)
-                            / torch.linalg.norm(oracle)),
-        device, counters, R2C_LAUNCHES)
-    for r in r2c:
-        r["launches"] = launches[r["name"]]
-    return c2c + r2c
+
+    def oracle_rel(space):
+        return float(torch.linalg.norm(space.double() - oracle)
+                     / torch.linalg.norm(oracle))
+
+    set_launches(r2c, pair_phase(sp, "r2c", plan, values, oracle_rel,
+                                 device, counters, R2C_LAUNCHES))
+    plan2 = sp.TransformPlan(plan.index_plan, device=device, fused=False)
+    recs = two_kernel_kernel_phase("r2c", plan2, values, device)
+    set_launches(recs, pair_phase(sp, "r2c two-kernel", plan2, values,
+                                  oracle_rel, device, counters,
+                                  R2C_2K_LAUNCHES))
+    route_phase(sp, "r2c", plan, plan2, values)
+    r2c += recs
+    del plan2
+    recs = batched_kernel_phase("r2c", plan, values, device)
+    set_launches(recs, batched_pair_phase(sp, "r2c", plan, values, device,
+                                          counters, R2C_BATCHED_LAUNCHES))
+    r2c += recs
+    pointwise_phase(sp, "r2c", plan, values, device)
+    sweep_phase(sp, "r2c", plan, values, device, sweep)
+    del plan, values, oracle
+
+    new_odd_shapes_phase(device)
+    plan, _, values = main_path_plan(sp, n // 2, device)
+    sweep_phase(sp, "c2c", plan, values, device, sweep)
+    plan, values, _ = r2c_plan(sp, n // 2, device)
+    sweep_phase(sp, "r2c", plan, values, device, sweep)
+    return c2c + r2c, sweep
 
 
 def main() -> int:
@@ -709,7 +1195,8 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     device = torch.device("cuda", torch.cuda.current_device())
-    recs = run(device)
+    recs, sweep = run(device)
+    print(json.dumps({"batched_sweep": sweep}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

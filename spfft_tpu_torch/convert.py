@@ -59,9 +59,11 @@ def index_plan_from_arrays(fields) -> IndexPlan:
                      stick_keys=keys, value_conj=conj)
 
 
-def plan_from_arrays(fields, device=None, **plan_kwargs) -> TransformPlan:
+def plan_from_arrays(fields, device=None, fused: bool = True,
+                     **plan_kwargs) -> TransformPlan:
     """A :class:`~spfft_tpu_torch.plan.TransformPlan` on ``device`` from
-    an index plan's fields (see :func:`index_plan_from_arrays`);
+    an index plan's fields (see :func:`index_plan_from_arrays`), on the
+    fused route or, with ``fused=False``, the two-kernel one;
     ``plan_kwargs`` as in ``TransformPlan``."""
     return TransformPlan(index_plan_from_arrays(fields), device=device,
-                         **plan_kwargs)
+                         fused=fused, **plan_kwargs)

@@ -25,6 +25,17 @@
 // Values are read and written in the plan's public layout: interleaved
 // (N, 2), or the planar pair (2, N) of large plans.
 //
+// Batched grids (the TPU kernels' _kernel_dec_zdft_batched and
+// _kernel_zdft_cmp_batched): both kernels take a leading batch of B
+// independent transforms over one plan and run them in ONE launch, with
+// blockIdx.y the batch element. The tables (slot_src, the CSR, the z
+// matrices) are shared; per batch element the values advance by 2 N floats
+// (both layouts) and the sticks by num_sticks x dim_z (for decompress that
+// count includes the trailing sentinel stick), and the R2C (0,0)-stick
+// completion reads the mirror values of its own batch element. Each row's
+// arithmetic is that of the unbatched launch, so every band of a batched
+// result equals the single launch bit for bit.
+//
 // What does not carry over from the TPU kernels: the 1024-slot tiles and
 // selector words, the K-row DMA windows and super-tiles, the recompute
 // model and the dim_z % 128 gate. These kernels take any dim_z up to
@@ -85,6 +96,9 @@ __global__ void __launch_bounds__(THREADS)
   const Tile t =
       carve_tile<CC>(reinterpret_cast<float*>(smem), dim_z, dim_z);
   const long long s0 = (long long)blockIdx.x * BM;
+  values += (long long)blockIdx.y * 2 * num_values;
+  sr += (long long)blockIdx.y * num_sticks * dim_z;
+  si += (long long)blockIdx.y * num_sticks * dim_z;
   stage_rows<CC>(t, dim_z, [&](int r, int z) {
     const long long s = s0 + r;
     if (s >= num_sticks) return make_float2(0.f, 0.f);
@@ -121,6 +135,9 @@ __global__ void __launch_bounds__(THREADS)
   const Tile t =
       carve_tile<CC>(reinterpret_cast<float*>(smem), dim_z, dim_z);
   const long long s0 = (long long)blockIdx.x * BM;
+  sr += (long long)blockIdx.y * num_sticks * dim_z;
+  si += (long long)blockIdx.y * num_sticks * dim_z;
+  values += (long long)blockIdx.y * 2 * num_values;
   stage_rows<CC>(t, dim_z, [&](int r, int z) {
     const long long s = s0 + r;
     if (s >= num_sticks) return make_float2(0.f, 0.f);
@@ -138,33 +155,38 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// One launch for `batch` transforms: values (batch, N, 2) or (batch, 2, N),
+// sticks (batch, num_sticks, dim_z).
 extern "C" int spfft_decompress_zdft(const float* values, const int* slot_src,
                                      const float* cr, const float* ci,
                                      float* sr, float* si,
                                      long long num_sticks, int dim_z,
                                      long long num_values, int pair,
-                                     long long zero_stick, void* stream) {
+                                     long long zero_stick, int batch,
+                                     void* stream) {
   const size_t smem = tile_smem_bytes(dim_z, dim_z);
   cudaError_t err = allow_smem(decompress_zdft_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((num_sticks + BM - 1) / BM);
+  const dim3 blocks((unsigned)((num_sticks + BM - 1) / BM), (unsigned)batch);
   decompress_zdft_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       values, slot_src, cr, ci, sr, si, num_sticks, dim_z, num_values, pair,
       zero_stick);
   return (int)cudaGetLastError();
 }
 
+// One launch for `batch` transforms: sticks (batch, num_sticks, dim_z),
+// values (batch, N, 2) or (batch, 2, N).
 extern "C" int spfft_zdft_compress(const float* sr, const float* si,
                                    const float* cr, const float* ci,
                                    const int* stick_ptr, const int* val_id,
                                    const int* val_z, float* values,
                                    long long num_sticks, int dim_z,
                                    long long num_values, int pair,
-                                   void* stream) {
+                                   int batch, void* stream) {
   const size_t smem = tile_smem_bytes(dim_z, dim_z);
   cudaError_t err = allow_smem(zdft_compress_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((num_sticks + BM - 1) / BM);
+  const dim3 blocks((unsigned)((num_sticks + BM - 1) / BM), (unsigned)batch);
   zdft_compress_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       sr, si, cr, ci, stick_ptr, val_id, val_z, values, num_sticks, dim_z,
       num_values, pair);

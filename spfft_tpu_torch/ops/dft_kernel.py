@@ -1,6 +1,14 @@
-"""The xy DFT stage kernels: ports of ``spfft_tpu/ops/dft_kernel.py``
+"""The DFT stage kernels: ports of ``spfft_tpu/ops/dft_kernel.py``
 ``pdft2``, ``prdft2`` and ``pdft2_cr`` (the Pallas kernel ``_kernel2`` in
-modes ``cc``, ``rc`` and ``cr``, launched at ``dft_kernel.py:277``).
+modes ``cc``, ``rc`` and ``cr``, launched at ``dft_kernel.py:277``), and
+of ``pdft_last`` (the single-stage ``_stage_kernel``, launched at
+``dft_kernel.py:165``).
+
+* :func:`pdft_last` is one planar complex DFT along the minor axis,
+  ``(..., K) -> (..., N)`` against ``mats`` ``(K, N)``: the z stage of
+  the two-kernel route (rows are sticks). One launch of the stage
+  kernel in mode CC, stored straight; the JAX kernel's Karatsuba triple
+  becomes the tile's 4-product form.
 
 * :func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a
   DFT over the minor axis B against ``mats1`` ``(B, B')``, a swap of the
@@ -19,8 +27,9 @@ On a CUDA tensor each wrapper launches ``csrc/dft2.cu``'s stage kernel
 twice: the first launch stores its result transposed within each plane,
 the second stores straight (see that file for why the TPU's in-VMEM swap
 has no direct counterpart, and what bounds the kernel: FP32 operations).
-Each wrapper counts its own launches, two per call, in ``.launches``. On
-a CPU tensor it runs the plain version from :mod:`spfft_tpu_torch.ops.dft`.
+Each wrapper counts its own launches, two per call, in ``.launches``
+(:func:`pdft_last`: one per call). On a CPU tensor it runs the plain
+version from :mod:`spfft_tpu_torch.ops.dft`.
 """
 
 from __future__ import annotations
@@ -104,6 +113,34 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain):
     return out[0] if real_out else out
 
 
+def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
+    """Planar complex DFT along the minor axis, ``(..., K) -> (..., N)``
+    against the ``(cr, ci)`` pair ``(K, N)``; any leading axes are rows.
+    Each kernel launch (one per call) adds one to
+    ``pdft_last.launches``."""
+    if xr.dim() < 1:
+        raise InvalidParameterError(
+            f"pdft_last: expected (..., K) operands, got {tuple(xr.shape)}")
+    k = xr.shape[-1]
+    dev = xr.device
+    _build.require(xr, "pdft_last input", torch.float32)
+    _build.require(xi, "pdft_last input", torch.float32, xr.shape, dev)
+    n = mats[0].shape[1] if mats[0].dim() == 2 else -1
+    for c in mats:
+        _build.require(c, "pdft_last matrix", torch.float32, (k, n), dev)
+    if not _build.on_cuda(xr, "pdft_last"):
+        return dft.pdft_last(xr, xi, mats)
+    out = tuple(torch.empty(xr.shape[:-1] + (n,), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    if xr.numel() == 0 or n == 0:
+        for t in out:
+            t.zero_()
+        return out
+    _stage("cc", (xr, xi), mats, out, plane_rows=0)
+    pdft_last.launches += 1
+    return out
+
+
 def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     """``(P, A, B) -> (P, B', A')`` planar complex DFT over both minor
     axes; ``mats1``/``mats2`` are ``(cr, ci)`` pairs of shapes
@@ -132,6 +169,7 @@ def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
                  dft.pdft2_minor_cr)
 
 
+pdft_last.launches = 0
 pdft2.launches = 0
 prdft2.launches = 0
 pdft2_cr.launches = 0

@@ -16,6 +16,12 @@ On a CUDA tensor each wrapper launches its kernel in
 it: FP32 operations). On a CPU tensor it runs the plain version beside
 it. Values are in the plan's public layout: interleaved ``(N, 2)``, or
 the planar pair ``(2, N)`` when ``pair`` is set.
+
+Both wrappers also take a leading batch ``B`` (values ``(B, N, 2)`` or
+``(B, 2, N)``, sticks ``(B, S, dim_z)``): B transforms over one plan's
+tables in ONE launch, the batched grids of the TPU kernels
+(``_kernel_dec_zdft_batched``, ``_kernel_zdft_cmp_batched``). A launch
+counts once whatever B is.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ from . import _build, dft, stages
 _SRC = "fused_compress.cu"
 _P = ctypes.c_void_p
 _DEC_ARGS = [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_longlong, _P]
+                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
 _CMP_ARGS = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, _P]
+                        ctypes.c_int, ctypes.c_int, _P]
+#: largest batch of one launch (the grid's y extent)
+MAX_BATCH = 65535
 
 
 def compress_csr(value_indices: np.ndarray, num_sticks: int, dim_z: int):
@@ -56,6 +64,15 @@ def _values_shape(num_values: int, pair: bool):
     return (2, num_values) if pair else (num_values, 2)
 
 
+def _batch(lead: tuple, what: str) -> int:
+    """The batch of a launch: 1 unbatched, else B (at most MAX_BATCH)."""
+    b = lead[0] if lead else 1
+    if b > MAX_BATCH:
+        raise InvalidParameterError(
+            f"{what}: batch {b} above {MAX_BATCH} per launch")
+    return b
+
+
 # -- backward: gather-decompress -> z-DFT ------------------------------------
 
 def decompress_zdft_plain(values, slot_src, mats, dim_z: int, pair: bool,
@@ -63,32 +80,39 @@ def decompress_zdft_plain(values, slot_src, mats, dim_z: int, pair: bool,
     """Plain version of :func:`decompress_zdft`: sentinel row gather,
     :func:`~spfft_tpu_torch.ops.stages.complete_stick_hermitian` on the
     zero stick, then :func:`~spfft_tpu_torch.ops.dft.pdft_last`."""
-    rows = values.t() if pair else values
+    rows = values.transpose(-1, -2) if pair else values
     flat = stages.gather_rows_with_sentinel(rows, slot_src.long())
-    num_sticks = slot_src.numel() // dim_z
-    sr = flat[:, 0].reshape(num_sticks, dim_z)
-    si = flat[:, 1].reshape(num_sticks, dim_z)
+    shape = values.shape[:-2] + (slot_src.numel() // dim_z, dim_z)
+    sr = flat[..., 0].reshape(shape)
+    si = flat[..., 1].reshape(shape)
     if zero_stick >= 0:  # in place: flat is this function's own copy
-        sr[zero_stick], si[zero_stick] = stages.complete_stick_hermitian(
-            sr[zero_stick], si[zero_stick])
+        sr[..., zero_stick, :], si[..., zero_stick, :] = \
+            stages.complete_stick_hermitian(sr[..., zero_stick, :],
+                                            si[..., zero_stick, :])
     return dft.pdft_last(sr, si, mats)
 
 
 def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
                     dim_z: int, pair: bool = False, zero_stick: int = -1):
     """Sparse values -> z-transformed planar sticks ``(sr, si)``, each
-    ``(slot_src.numel() // dim_z, dim_z)`` f32.
+    ``(B?, slot_src.numel() // dim_z, dim_z)`` f32.
 
-    ``values`` is ``(N, 2)`` (``(2, N)`` with ``pair``) f32;
+    ``values`` is ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) f32;
     ``slot_src`` is the int32 inverse slot map, sentinel N = zero;
     ``mats`` the backward z pair ``(dim_z, dim_z)``; ``zero_stick`` the
     stick to complete hermitian before the z-DFT (an R2C plan's (0,0)
-    stick; -1 = none). Every output slot is written. Each kernel launch
-    adds one to ``decompress_zdft.launches``."""
-    n = values.shape[1] if pair else values.shape[0]
+    stick; -1 = none), in every batch element. Every output slot is
+    written. Each kernel launch (one per call, whatever B is) adds one to
+    ``decompress_zdft.launches``."""
+    if values.dim() not in (2, 3):
+        raise InvalidParameterError(
+            f"decompress_zdft: expected (B?, N, 2) or (B?, 2, N) values, got "
+            f"{tuple(values.shape)}")
+    lead = tuple(values.shape[:-2])
+    n = values.shape[-1] if pair else values.shape[-2]
     dev = values.device
     _build.require(values, "decompress_zdft values", torch.float32,
-                   _values_shape(n, pair))
+                   lead + _values_shape(n, pair))
     _build.require(slot_src, "decompress_zdft slot_src", torch.int32,
                    device=dev)
     if slot_src.dim() != 1 or slot_src.numel() % dim_z:
@@ -103,18 +127,20 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
         raise InvalidParameterError(
             f"decompress_zdft: zero_stick {zero_stick} is not a stick of "
             f"{num_sticks} (or -1)")
+    batch = _batch(lead, "decompress_zdft")
     if not _build.on_cuda(values, "decompress_zdft"):
         return decompress_zdft_plain(values, slot_src, mats, dim_z, pair,
                                      zero_stick)
-    sr = torch.empty((num_sticks, dim_z), dtype=torch.float32, device=dev)
+    sr = torch.empty(lead + (num_sticks, dim_z), dtype=torch.float32,
+                     device=dev)
     si = torch.empty_like(sr)
-    if num_sticks == 0:
+    if num_sticks == 0 or batch == 0:
         return sr, si
     fn = _build.function(_SRC, "spfft_decompress_zdft", _DEC_ARGS)
     _build.launch(fn, "decompress_zdft kernel", dev, values.data_ptr(),
                   slot_src.data_ptr(), mats[0].data_ptr(),
                   mats[1].data_ptr(), sr.data_ptr(), si.data_ptr(),
-                  num_sticks, dim_z, n, int(pair), int(zero_stick))
+                  num_sticks, dim_z, n, int(pair), int(zero_stick), batch)
     decompress_zdft.launches += 1
     return sr, si
 
@@ -130,34 +156,37 @@ def zdft_compress_plain(sr, si, mats, csr, pair: bool):
     the CSR's slots."""
     stick_ptr, val_id, val_z = csr
     yr, yi = dft.pdft_last(sr, si, mats)
-    num_sticks, dim_z = sr.shape
+    lead = tuple(sr.shape[:-2])
+    num_sticks, dim_z = sr.shape[-2:]
     counts = (stick_ptr[1:] - stick_ptr[:-1]).long()
     stick = torch.repeat_interleave(
         torch.arange(num_sticks, device=sr.device), counts)
     slot = stick * dim_z + val_z.long()
     vid = val_id.long()
-    out = torch.empty(_values_shape(val_id.numel(), pair),
+    out = torch.empty(lead + _values_shape(val_id.numel(), pair),
                       dtype=torch.float32, device=sr.device)
-    re, im = (out[0], out[1]) if pair else (out[:, 0], out[:, 1])
-    re[vid] = yr.reshape(-1)[slot]
-    im[vid] = yi.reshape(-1)[slot]
+    re, im = (out[..., 0, :], out[..., 1, :]) if pair \
+        else (out[..., 0], out[..., 1])
+    re[..., vid] = yr.flatten(-2)[..., slot]
+    im[..., vid] = yi.flatten(-2)[..., slot]
     return out
 
 
 def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
                   pair: bool = False):
-    """Raw planar sticks ``(num_sticks, dim_z)`` -> z-DFT -> the sparse
-    values, ``(N, 2)`` (``(2, N)`` with ``pair``) f32.
+    """Raw planar sticks ``(B?, num_sticks, dim_z)`` -> z-DFT -> the
+    sparse values, ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) f32.
 
     ``mats`` is the forward z pair (FULL scale folded in); ``csr`` is
     :func:`compress_csr`'s ``(stick_ptr, val_id, val_z)`` as int32
-    tensors. Each value is written exactly once. Each kernel launch adds
-    one to ``zdft_compress.launches``."""
-    if sr.dim() != 2:
+    tensors. Each value is written exactly once. Each kernel launch (one
+    per call, whatever B is) adds one to ``zdft_compress.launches``."""
+    if sr.dim() not in (2, 3):
         raise InvalidParameterError(
-            f"zdft_compress: expected (num_sticks, dim_z) sticks, got "
+            f"zdft_compress: expected (B?, num_sticks, dim_z) sticks, got "
             f"{tuple(sr.shape)}")
-    num_sticks, dim_z = sr.shape
+    lead = tuple(sr.shape[:-2])
+    num_sticks, dim_z = sr.shape[-2:]
     dev = sr.device
     stick_ptr, val_id, val_z = csr
     n = val_id.numel()
@@ -170,17 +199,18 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
                    (num_sticks + 1,), dev)
     _build.require(val_id, "zdft_compress val_id", torch.int32, (n,), dev)
     _build.require(val_z, "zdft_compress val_z", torch.int32, (n,), dev)
+    batch = _batch(lead, "zdft_compress")
     if not _build.on_cuda(sr, "zdft_compress"):
         return zdft_compress_plain(sr, si, mats, csr, pair)
-    out = torch.empty(_values_shape(n, pair), dtype=torch.float32,
+    out = torch.empty(lead + _values_shape(n, pair), dtype=torch.float32,
                       device=dev)
-    if num_sticks == 0:
+    if num_sticks == 0 or batch == 0:
         return out
     fn = _build.function(_SRC, "spfft_zdft_compress", _CMP_ARGS)
     _build.launch(fn, "zdft_compress kernel", dev, sr.data_ptr(),
                   si.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
                   stick_ptr.data_ptr(), val_id.data_ptr(), val_z.data_ptr(),
-                  out.data_ptr(), num_sticks, dim_z, n, int(pair))
+                  out.data_ptr(), num_sticks, dim_z, n, int(pair), batch)
     zdft_compress.launches += 1
     return out
 

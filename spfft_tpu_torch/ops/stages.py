@@ -14,10 +14,11 @@ import torch
 
 
 def gather_rows_with_sentinel(rows: torch.Tensor, idx: torch.Tensor):
-    """Gather ``rows[idx]`` where index ``rows.shape[0]`` (the sentinel of
-    the plan-time inverse maps) selects a zero row."""
-    zero = rows.new_zeros((1,) + tuple(rows.shape[1:]))
-    return torch.cat([rows, zero], dim=0)[idx]
+    """Gather the rows ``rows[..., idx, :]`` of ``(..., n, c)`` where
+    index ``n`` (the sentinel of the plan-time inverse maps) selects a
+    zero row; leading axes are a batch."""
+    zero = rows.new_zeros(tuple(rows.shape[:-2]) + (1, rows.shape[-1]))
+    return torch.cat([rows, zero], dim=-2)[..., idx, :]
 
 
 def sticks_to_grid(sticks: torch.Tensor, col_inv: torch.Tensor,
@@ -37,19 +38,20 @@ def sticks_to_grid_padded(sticks: torch.Tensor, col_inv: torch.Tensor,
     """:func:`sticks_to_grid` for stick arrays that already carry a
     trailing ZERO row at index ``num_sticks``: the sentinel selects it
     directly and the zero-row concatenation (a copy of the whole stick
-    array) disappears."""
-    num_planes = sticks.shape[1]
-    return sticks[col_inv].t().contiguous().reshape(
-        num_planes, dim_y, dim_x_freq)
+    array) disappears. Sticks ``(B, num_sticks + 1, num_planes)`` give
+    the batch of grids ``(B, num_planes, dim_y, dim_x_freq)``."""
+    num_planes = sticks.shape[-1]
+    return sticks[..., col_inv, :].transpose(-1, -2).contiguous().reshape(
+        tuple(sticks.shape[:-2]) + (num_planes, dim_y, dim_x_freq))
 
 
 def grid_to_sticks(grid: torch.Tensor, scatter_cols: torch.Tensor):
-    """Gather sticks out of the plane grid ``(num_planes, ...)``
+    """Gather sticks out of the plane grid ``(num_planes, a, b)``
     (reference forward pack, transpose_host.hpp:94-116). Returns
-    ``(num_sticks, num_planes)``, contiguous."""
-    num_planes = grid.shape[0]
-    flat = grid.reshape(num_planes, -1)
-    return flat[:, scatter_cols].t().contiguous()
+    ``(num_sticks, num_planes)``, contiguous; a batch of grids ``(B,
+    num_planes, a, b)`` gives ``(B, num_sticks, num_planes)``."""
+    flat = grid.flatten(-2)
+    return flat[..., scatter_cols].transpose(-1, -2).contiguous()
 
 
 # -- hermitian completion (R2C backward only; reference applies stick
@@ -71,9 +73,9 @@ def complete_stick_hermitian(re: torch.Tensor, im: torch.Tensor):
 
 
 def complete_plane_hermitian_t(gr: torch.Tensor, gi: torch.Tensor) -> None:
-    """Complete the x = 0 row of the transposed plane grid ``(planes,
+    """Complete the x = 0 row of the transposed plane grid ``(..., planes,
     w, dim_y)`` along y, in place (:func:`complete_stick_hermitian` on
-    ``[:, 0, :]``; ``spfft_tpu.ops.stages.complete_plane_hermitian_t``
+    ``[..., 0, :]``; ``spfft_tpu.ops.stages.complete_plane_hermitian_t``
     on a planar pair)."""
-    gr[:, 0, :], gi[:, 0, :] = complete_stick_hermitian(gr[:, 0, :],
-                                                        gi[:, 0, :])
+    gr[..., 0, :], gi[..., 0, :] = complete_stick_hermitian(gr[..., 0, :],
+                                                            gi[..., 0, :])

@@ -11,6 +11,20 @@ package's matmul-DFT "T layout" path):
              z-DFT + compress (one kernel), FULL scaling folded into the
              z matrix
 
+``fused=False`` asks for the two-kernel route instead (the JAX package's
+``_decompress_planar`` -> ``_backward_rest_tp`` and ``_forward_head_tp``
+-> ``_compress_planar``, what it runs where its fused kernels decline or
+``SPFFT_TPU_FUSED_COMPRESS=0``): the z stage splits into a gather kernel
+(``ops.gather_kernel``) and a DFT kernel (``dft_kernel.pdft_last``), with
+the R2C (0,0)-stick completion as tensor ops between them. Both routes
+run every shape; the default stays fused.
+
+Batched execution (``backward_batched`` / ``forward_batched``) runs B
+transforms over one plan with one launch of each kernel per direction:
+the z kernels' batched grids, and one xy call over ``B * dim_z`` planes.
+``apply_pointwise`` / ``iterate_pointwise`` run the backward -> ``fn``
+-> forward round trip on the planar space domain.
+
 R2C (real space, the half spectrum x in [0, dim_x//2] in frequency):
 values folded from x < 0 are conjugated at the boundary (``value_conj``);
 the decompress kernel completes the (x=0, y=0) stick before its z-DFT;
@@ -26,8 +40,8 @@ quietly on the CPU.
 
 Not in this slice of the port, each raising a typed error that names
 it: ``precision="double"``, axes above ``ops.dft.MATMUL_DFT_MAX`` (the
-JAX package also runs an R2C x axis up to 1024 direct), batched
-execution, ``apply_pointwise`` and the plan-artifact restore.
+JAX package also runs an R2C x axis up to 1024 direct),
+``donate_inputs=True`` and the plan-artifact restore.
 """
 
 from __future__ import annotations
@@ -40,7 +54,8 @@ import torch
 from .errors import DeviceError, InvalidParameterError
 from .indexing import (IndexPlan, build_index_plan, inverse_col_map,
                        occupied_x_window)
-from .ops import dft, dft_kernel, fused_kernel, stages
+from .ops import dft, dft_kernel, fused_kernel, gather_kernel, stages
+from .timing import timed_transform
 from .types import Scaling, TransformType
 from .utils.dtypes import as_interleaved, real_dtype
 
@@ -102,18 +117,28 @@ def _not_in_slice(what: str, later: str):
         f"single-precision C2C and R2C plans); the {later} slice adds it")
 
 
+def _on_device(t: torch.Tensor) -> bool:
+    """True for a tensor on an accelerator (not host memory)."""
+    return isinstance(t, torch.Tensor) and t.device.type != "cpu"
+
+
 class TransformPlan:
     """A sparse 3D FFT on a single device — a local reference
     ``Transform`` (reference: include/spfft/transform.hpp:56-227), C2C or
-    R2C, single precision in this slice."""
+    R2C, single precision in this slice. ``fused=False`` takes the
+    two-kernel route (the module docstring); ``donate_inputs=True``
+    raises, as it is not in this slice."""
 
     def __init__(self, index_plan: IndexPlan, precision: str = "single",
-                 device=None):
+                 device=None, fused: bool = True,
+                 donate_inputs: bool = False):
         p = index_plan
         real_dtype(precision)
         if precision != "single":
             raise _not_in_slice(f"precision={precision!r}",
                                 "double-precision")
+        if donate_inputs:
+            raise _not_in_slice("donate_inputs=True", "serving")
         if not dft.mdft_axes(p.dim_x, p.dim_y, p.dim_z):
             raise _not_in_slice(
                 f"an axis above MATMUL_DFT_MAX={dft.MATMUL_DFT_MAX} (dims "
@@ -123,6 +148,7 @@ class TransformPlan:
         self.device = resolve_device(device)
         self._pair_io = p.num_values >= PAIR_IO_THRESHOLD
         self._r2c = p.hermitian
+        self._fused = bool(fused)
         dev = self.device
 
         def idx32(a):
@@ -133,8 +159,11 @@ class TransformPlan:
         # zero row the sentinel columns of sticks_to_grid_padded select
         self._slot_src = idx32(np.concatenate(
             [p.slot_src, np.full(p.dim_z, p.num_values, np.int32)]))
-        self._csr = tuple(idx32(a) for a in fused_kernel.compress_csr(
-            p.value_indices, p.num_sticks, p.dim_z))
+        if self._fused:
+            self._csr = tuple(idx32(a) for a in fused_kernel.compress_csr(
+                p.value_indices, p.num_sticks, p.dim_z))
+        else:  # the compress gather reads each value's slot directly
+            self._value_indices = idx32(p.value_indices)
         zid = p.zero_stick_id if self._r2c else None
         self._zero_stick = -1 if zid is None else zid
         self._conj = None
@@ -252,6 +281,109 @@ class TransformPlan:
         None for the full x extent."""
         return self._split_x
 
+    @property
+    def fused_active(self) -> bool:
+        """True when both directions run the fused compression + z-DFT
+        kernels (``ops.fused_kernel``); False on the two-kernel route
+        (``fused=False``)."""
+        return self._fused
+
+    @property
+    def fused_fallback_reasons(self) -> dict:
+        """Per-direction reasons a fused kernel declined, as in the JAX
+        package: always ``{}`` here, since the CUDA kernels take every
+        shape the plan takes and the two-kernel route is only ever the
+        caller's choice."""
+        return {}
+
+    # -- the pipeline, on planar operands with an optional leading batch ----
+    def _bwd_space(self, v: torch.Tensor):
+        """Values in the plan's layout, ``(B?, N, 2)`` or ``(B?, 2, N)``,
+        -> planar space: ``(xr, xi)`` each ``(B?, dim_z, dim_y, dim_x)``
+        for C2C, the real slab for R2C (the JAX package's
+        ``_bwd_space_tp``)."""
+        p = self.index_plan
+        if self._conj is not None:
+            v = v * self._conj
+        if self._fused:
+            sr, si = fused_kernel.decompress_zdft(
+                v, self._slot_src, self._mats["z_b"], p.dim_z,
+                self._pair_io, self._zero_stick)
+        else:
+            sr, si = gather_kernel.decompress(v, self._slot_src, p.dim_z,
+                                              self._pair_io)
+            zid = self._zero_stick
+            if zid >= 0:  # in place: the sticks are this call's own
+                sr[..., zid, :], si[..., zid, :] = \
+                    stages.complete_stick_hermitian(sr[..., zid, :],
+                                                    si[..., zid, :])
+            sr, si = dft_kernel.pdft_last(sr, si, self._mats["z_b"])
+        return self._backward_after_z(sr, si)
+
+    def _backward_after_z(self, sr, si):
+        """z-transformed sticks ``(B?, S + 1, dim_z)`` (the last one the
+        zero sentinel stick) -> planar space: placement into the
+        transposed plane grid, then one xy call over every plane of the
+        batch."""
+        p = self.index_plan
+        lead = tuple(sr.shape[:-2])
+        gr = stages.sticks_to_grid_padded(sr, self._col_inv, self._grid_w,
+                                          p.dim_y)
+        gi = stages.sticks_to_grid_padded(si, self._col_inv, self._grid_w,
+                                          p.dim_y)
+        planes = (-1, self._grid_w, p.dim_y)
+        gr, gi = gr.view(planes), gi.view(planes)
+        if self._r2c:
+            if self._complete_x0:
+                stages.complete_plane_hermitian_t(gr, gi)
+            out = dft_kernel.pdft2_cr(gr, gi, self._mats["y_b"],
+                                      self._mats["x_b"])
+            return out.reshape(lead + (p.dim_z, p.dim_y, p.dim_x))
+        xr, xi = dft_kernel.pdft2(gr, gi, self._mats["y_b"],
+                                  self._mats["x_b"])
+        shape = lead + (p.dim_z, p.dim_y, p.dim_x)
+        return xr.reshape(shape), xi.reshape(shape)
+
+    def _fwd_values(self, space, scaled: bool) -> torch.Tensor:
+        """Planar space (as :meth:`_bwd_space` returns it; contiguous)
+        -> values in the plan's layout (the JAX package's
+        ``_fwd_values_tp``), FULL scaling folded into the z matrix."""
+        p = self.index_plan
+        planes = (-1, p.dim_y, p.dim_x)
+        if self._r2c:
+            lead = tuple(space.shape[:-3])
+            gr, gi = dft_kernel.prdft2(space.reshape(planes),
+                                       self._mats["x_f"], self._mats["y_f"])
+        else:
+            lead = tuple(space[0].shape[:-3])
+            gr, gi = dft_kernel.pdft2(space[0].reshape(planes),
+                                      space[1].reshape(planes),
+                                      self._mats["x_f"], self._mats["y_f"])
+        grid = lead + (p.dim_z, self._grid_w, p.dim_y)
+        sr = stages.grid_to_sticks(gr.reshape(grid), self._scatter_cols)
+        si = stages.grid_to_sticks(gi.reshape(grid), self._scatter_cols)
+        z = self._mats["z_fs" if scaled else "z_f"]
+        if self._fused:
+            out = fused_kernel.zdft_compress(sr, si, z, self._csr,
+                                             self._pair_io)
+        else:
+            yr, yi = dft_kernel.pdft_last(sr, si, z)
+            out = gather_kernel.compress(yr, yi, self._value_indices,
+                                         self._pair_io)
+        return out if self._conj is None else out.mul_(self._conj)
+
+    def _public_space(self, space) -> torch.Tensor:
+        """Planar space -> the public layout: interleaved ``(..., 2)``
+        for C2C, the real slab as it is for R2C."""
+        return space if self._r2c else torch.stack(space, dim=-1)
+
+    def _planar_space(self, space: torch.Tensor):
+        """A coerced public space slab (or batch of slabs) -> the planar
+        operands of :meth:`_fwd_values`."""
+        if self._r2c:
+            return space
+        return space[..., 0].contiguous(), space[..., 1].contiguous()
+
     # -- execution (reference: transform.hpp:198-211) -------------------------
     def backward(self, values) -> torch.Tensor:
         """Frequency -> space. ``values`` is ``(num_values,)`` complex or
@@ -260,25 +392,10 @@ class TransformPlan:
         unnormalised inverse DFT (details.rst "Transform Definition") on
         the plan's device: the ``(dim_z, dim_y, dim_x, 2)`` f32 slab for
         C2C, the real ``(dim_z, dim_y, dim_x)`` f32 slab for R2C."""
-        p = self.index_plan
         v = self._coerce_values(values)
-        if self._conj is not None:
-            v = v * self._conj
-        sr, si = fused_kernel.decompress_zdft(
-            v, self._slot_src, self._mats["z_b"], p.dim_z, self._pair_io,
-            self._zero_stick)
-        gr = stages.sticks_to_grid_padded(sr, self._col_inv, self._grid_w,
-                                          p.dim_y)
-        gi = stages.sticks_to_grid_padded(si, self._col_inv, self._grid_w,
-                                          p.dim_y)
-        if self._r2c:
-            if self._complete_x0:
-                stages.complete_plane_hermitian_t(gr, gi)
-            return dft_kernel.pdft2_cr(gr, gi, self._mats["y_b"],
-                                       self._mats["x_b"])
-        xr, xi = dft_kernel.pdft2(gr, gi, self._mats["y_b"],
-                                  self._mats["x_b"])
-        return torch.stack([xr, xi], dim=-1)
+        with timed_transform("backward") as box:
+            box.value = self._public_space(self._bwd_space(v))
+        return box.value
 
     def forward(self, space, scaling: Scaling = Scaling.NONE) -> torch.Tensor:
         """Space -> frequency. ``space`` is the ``(dim_z, dim_y, dim_x)``
@@ -288,38 +405,144 @@ class TransformPlan:
         ``Scaling.FULL`` multiplies by 1/(Nx·Ny·Nz) (details.rst
         "Normalization"), folded into the z matrix."""
         scaling = Scaling(scaling)
-        sp = self._coerce_space(space)
-        if self._r2c:
-            gr, gi = dft_kernel.prdft2(sp, self._mats["x_f"],
-                                       self._mats["y_f"])
-        else:
-            gr, gi = dft_kernel.pdft2(sp[..., 0].contiguous(),
-                                      sp[..., 1].contiguous(),
-                                      self._mats["x_f"], self._mats["y_f"])
-        sr = stages.grid_to_sticks(gr, self._scatter_cols)
-        si = stages.grid_to_sticks(gi, self._scatter_cols)
-        z = self._mats["z_fs" if scaling is Scaling.FULL else "z_f"]
-        out = fused_kernel.zdft_compress(sr, si, z, self._csr,
-                                         self._pair_io)
-        return out if self._conj is None else out.mul_(self._conj)
+        sp = self._planar_space(self._coerce_space(space))
+        with timed_transform("forward") as box:
+            box.value = self._fwd_values(sp, scaling is Scaling.FULL)
+        return box.value
 
-    def backward_batched(self, values):
-        raise _not_in_slice("batched execution", "batched")
+    # -- batched execution -----------------------------------------------------
+    def batch_row_template(self, kind: str):
+        """``(shape, dtype)`` of one coerced host row of a batched
+        execution: ``kind`` ``"values"`` (backward input) or ``"space"``
+        (forward input). A host buffer ``(B,) + shape`` of this numpy
+        dtype, filled row by row, is taken by :meth:`backward_batched` /
+        :meth:`forward_batched` as it is, in one transfer."""
+        p = self.index_plan
+        rdt = real_dtype(self.precision)
+        if kind == "values":
+            return gather_kernel.values_shape(None, p.num_values,
+                                              self._pair_io), rdt
+        if kind != "space":
+            raise InvalidParameterError(
+                f"kind must be 'values' or 'space', got {kind!r}")
+        shape3 = (self.local_z_length, p.dim_y, p.dim_x)
+        return (shape3 if self._r2c else shape3 + (2,)), rdt
 
-    def forward_batched(self, space, scaling: Scaling = Scaling.NONE):
-        raise _not_in_slice("batched execution", "batched")
+    def _prestaged(self, batch, per) -> bool:
+        """True for a host array already in the coerced batched layout
+        ``(B,) + per`` at the plan's exact real dtype."""
+        return (isinstance(batch, np.ndarray) and batch.ndim == len(per) + 1
+                and batch.shape[1:] == per
+                and batch.dtype == real_dtype(self.precision))
 
-    def apply_pointwise(self, values, fn, *args, **kwargs):
-        raise _not_in_slice("apply_pointwise", "batched")
+    def _stack_coerced(self, items, coerce) -> torch.Tensor:
+        """Stack per-transform inputs into one batch on the plan's
+        device. Rows that are not on a device yet are coerced and
+        stacked on the host and moved in ONE transfer (B separate copies
+        to the card, then a device concatenation, would cost more)."""
+        items = list(items)
+        if not items:
+            raise InvalidParameterError("a batch needs at least one row")
+        if any(_on_device(v) for v in items):
+            return torch.stack([coerce(v) for v in items])
+        host = torch.device("cpu")
+        return torch.stack([coerce(v, host) for v in items]).to(self.device)
+
+    def _batch_tensor(self, batch, per) -> Optional[torch.Tensor]:
+        """A tensor or prestaged array already shaped ``(B,) + per`` ->
+        a contiguous f32 tensor on the plan's device; None otherwise."""
+        if isinstance(batch, torch.Tensor) and batch.dim() == len(per) + 1 \
+                and tuple(batch.shape[1:]) == per and not batch.is_complex():
+            return batch.to(self.device, torch.float32).contiguous()
+        if self._prestaged(batch, per):  # copied, as _coerce_values does
+            return torch.tensor(batch, device=self.device)
+        return None
+
+    def backward_batched(self, values_batch) -> torch.Tensor:
+        """Backward-execute a batch over this plan: ``values_batch`` is a
+        ``(B,) + row`` tensor or array in the plan's value layout
+        (:meth:`batch_row_template`), or a sequence of per-transform
+        values in any form :meth:`backward` takes. Returns the ``(B,
+        ...)`` space slabs, each band equal to :meth:`backward` of its
+        row, with one launch of each kernel whatever B is."""
+        per = self.batch_row_template("values")[0]
+        v = self._batch_tensor(values_batch, per)
+        if v is None:
+            v = self._stack_coerced(values_batch, self._coerce_values)
+        with timed_transform("backward_batched") as box:
+            box.value = self._public_space(self._bwd_space(v))
+        return box.value
+
+    def forward_batched(self, space_batch,
+                        scaling: Scaling = Scaling.NONE) -> torch.Tensor:
+        """Forward-execute a batch of space slabs (a ``(B,) + slab``
+        tensor or array, or a sequence of slabs in any form
+        :meth:`forward` takes). Returns ``(B, num_values, 2)`` values —
+        ``(B, 2, num_values)`` for pair-layout plans."""
+        scaling = Scaling(scaling)
+        per = self.batch_row_template("space")[0]
+        sp = self._batch_tensor(space_batch, per)
+        if sp is None:
+            sp = self._stack_coerced(space_batch, self._coerce_space)
+        sp = self._planar_space(sp)
+        with timed_transform("forward_batched") as box:
+            box.value = self._fwd_values(sp, scaling is Scaling.FULL)
+        return box.value
+
+    # -- the round trip --------------------------------------------------------
+    def _pair(self, v: torch.Tensor, fn, fn_args, scaled: bool):
+        """backward -> ``fn(space, *fn_args)`` -> forward on coerced
+        values. Without ``fn`` the planar space goes straight on; with
+        it, ``fn`` sees the public layout and its result is checked as
+        :meth:`forward` checks a slab."""
+        space = self._bwd_space(v)
+        if fn is not None:
+            out = fn(self._public_space(space), *fn_args)
+            space = self._planar_space(self._coerce_space(out))
+        return self._fwd_values(space, scaled)
+
+    def apply_pointwise(self, values, fn=None, *fn_args,
+                        scaling: Scaling = Scaling.NONE) -> torch.Tensor:
+        """backward -> ``fn(space, *fn_args)`` -> forward: the plane-wave
+        inner loop of applying a local operator in the space domain.
+        ``fn`` receives the space slab in its public layout, ``(dim_z,
+        dim_y, dim_x, 2)`` f32 for C2C, real ``(dim_z, dim_y, dim_x)``
+        for R2C, on the plan's device, and returns the same shape; data
+        that changes between calls (a potential) goes through
+        ``fn_args``. ``fn=None`` is the identity round trip, kept planar
+        throughout. Returns the values in the plan's layout."""
+        scaling = Scaling(scaling)
+        v = self._coerce_values(values)
+        with timed_transform("apply_pointwise") as box:
+            box.value = self._pair(v, fn, fn_args, scaling is Scaling.FULL)
+        return box.value
+
+    def iterate_pointwise(self, values, fn, *fn_args, steps: int,
+                          scaling: Scaling = Scaling.FULL) -> torch.Tensor:
+        """``steps`` round trips values -> backward -> ``fn`` -> forward
+        -> values, as :meth:`apply_pointwise` runs one. ``scaling``
+        defaults to FULL so that the iteration is a fixed-point map.
+        Returns the final values."""
+        scaling = Scaling(scaling)
+        if int(steps) < 0:
+            raise InvalidParameterError(f"steps must be >= 0, got {steps}")
+        v = self._coerce_values(values)
+        with timed_transform("iterate_pointwise") as box:
+            for _ in range(int(steps)):
+                v = self._pair(v, fn, fn_args, scaling is Scaling.FULL)
+            box.value = v
+        return box.value
 
     # -- input coercion ------------------------------------------------------
-    def _coerce_values(self, values) -> torch.Tensor:
-        """Values -> contiguous f32 tensor on the plan's device in the
-        plan's layout: (N, 2), or (2, N) for pair-layout plans. A numpy
-        input is copied (it may be read-only, or the caller's)."""
+    def _coerce_values(self, values, device=None) -> torch.Tensor:
+        """Values -> contiguous f32 tensor on the plan's device (or on
+        ``device``) in the plan's layout: (N, 2), or (2, N) for
+        pair-layout plans. A numpy input is copied (it may be read-only,
+        or the caller's)."""
         n = self.index_plan.num_values
+        device = self.device if device is None else device
         if isinstance(values, torch.Tensor):
-            t = values.to(self.device)
+            t = values.to(device)
             if t.is_complex():
                 t = torch.view_as_real(t)
             t = t.to(torch.float32)
@@ -332,20 +555,20 @@ class TransformPlan:
         arr = np.asarray(values)
         if self._pair_io and arr.shape == (2, n) \
                 and not np.iscomplexobj(arr):
-            return torch.tensor(arr, dtype=torch.float32,
-                                device=self.device)
+            return torch.tensor(arr, dtype=torch.float32, device=device)
         arr = as_interleaved(arr, self.precision)
         if arr.shape != (n, 2):
             raise InvalidParameterError(
                 f"expected {n} frequency values, got shape {arr.shape[:-1]}")
-        t = torch.tensor(arr, device=self.device)
+        t = torch.tensor(arr, device=device)
         return t.t().contiguous() if self._pair_io else t
 
-    def _coerce_space(self, space) -> torch.Tensor:
-        """Space slab -> contiguous f32 tensor on the plan's device:
-        (dim_z, dim_y, dim_x, 2) for C2C, real (dim_z, dim_y, dim_x) for
-        R2C. A numpy input is copied."""
+    def _coerce_space(self, space, device=None) -> torch.Tensor:
+        """Space slab -> contiguous f32 tensor on the plan's device (or
+        on ``device``): (dim_z, dim_y, dim_x, 2) for C2C, real (dim_z,
+        dim_y, dim_x) for R2C. A numpy input is copied."""
         p = self.index_plan
+        device = self.device if device is None else device
         shape3 = (self.local_z_length, p.dim_y, p.dim_x)
         if self._r2c:
             if isinstance(space, torch.Tensor):
@@ -359,17 +582,16 @@ class TransformPlan:
                     f"{'complex ' if complex_in else ''}"
                     f"{tuple(space.shape)}")
             if isinstance(space, torch.Tensor):
-                return space.to(self.device, torch.float32).contiguous()
-            return torch.tensor(space, dtype=torch.float32,
-                                device=self.device)
+                return space.to(device, torch.float32).contiguous()
+            return torch.tensor(space, dtype=torch.float32, device=device)
         if isinstance(space, torch.Tensor):
-            t = space.to(self.device)
+            t = space.to(device)
             if t.is_complex():
                 t = torch.view_as_real(t)
             t = t.to(torch.float32)
         else:
             t = torch.tensor(as_interleaved(space, self.precision),
-                                device=self.device)
+                             device=device)
         if tuple(t.shape) != shape3 + (2,):
             raise InvalidParameterError(
                 f"expected space-domain slab {shape3} complex, got "
@@ -385,10 +607,13 @@ def restore_plan(index_plan: IndexPlan, tables, precision: str = "single",
 
 def make_local_plan(transform_type: TransformType, dim_x: int, dim_y: int,
                     dim_z: int, triplets, precision: str = "single",
-                    device=None) -> TransformPlan:
+                    device=None, fused: bool = True,
+                    donate_inputs: bool = False) -> TransformPlan:
     """Build a local plan from raw index triplets (reference:
     grid.hpp:138-141). The plan runs on ``device``: CUDA by default,
-    ``"cpu"`` for the plain PyTorch versions."""
+    ``"cpu"`` for the plain PyTorch versions. ``fused=False`` takes the
+    two-kernel route (see the module docstring)."""
     plan = build_index_plan(TransformType(transform_type), dim_x, dim_y,
                             dim_z, np.asarray(triplets))
-    return TransformPlan(plan, precision=precision, device=device)
+    return TransformPlan(plan, precision=precision, device=device,
+                         fused=fused, donate_inputs=donate_inputs)

@@ -214,9 +214,11 @@ def test_unsupported_modes_raise_typed_errors():
         sp.make_local_plan(sp.TransformType.C2C, 600, 2, 2, trip,
                            device="cpu")
     plan = _case("dense2")["tp"]
-    for call in (lambda: plan.backward_batched(None),
-                 lambda: plan.forward_batched(None),
-                 lambda: plan.apply_pointwise(None, None),
+    for call in (lambda: sp.make_local_plan(sp.TransformType.C2C, 4, 4, 4,
+                                            trip, device="cpu",
+                                            donate_inputs=True),
+                 lambda: sp.TransformPlan(plan.index_plan, device="cpu",
+                                          donate_inputs=True),
                  lambda: tplan_mod.restore_plan(plan.index_plan, None)):
         with pytest.raises(sp.InvalidParameterError, match="slice"):
             call()
@@ -263,7 +265,11 @@ def test_port_never_imports_jax():
     """Importing every module of the port (and chip_smoke.py) leaves JAX
     and the JAX package out of sys.modules."""
     mods = ["spfft_tpu_torch", "spfft_tpu_torch.convert",
-            "spfft_tpu_torch.plan", "spfft_tpu_torch.ops.dft_kernel",
+            "spfft_tpu_torch.plan", "spfft_tpu_torch.grid",
+            "spfft_tpu_torch.multi", "spfft_tpu_torch.timing",
+            "spfft_tpu_torch.ops.dft", "spfft_tpu_torch.ops.stages",
+            "spfft_tpu_torch.ops.gather_kernel",
+            "spfft_tpu_torch.ops.dft_kernel",
             "spfft_tpu_torch.ops.fused_kernel", "spfft_tpu_torch.ops._build",
             "spfft_tpu_torch.utils.dtypes",
             "spfft_tpu_torch.utils.workloads", "chip_smoke"]
