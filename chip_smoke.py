@@ -49,8 +49,30 @@ Phases, each of which exits non-zero when it fails:
    band ms of a batched pair against B single pairs at n/2 and n, B in
    {2, 4, 8}, both paths (what ``spfft_tpu_torch.multi``'s gate rests
    on);
-11. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
-   ``{"kernels": [...]}`` (every kernel record of both paths, each with
+11. the distributed plan over 4 shards held on the card (sticks
+   round-robin, 64-plane slabs at 256^3), through the public
+   ``make_distributed_plan``: ``pdft2_swapped`` (its xy stage) at the
+   C2C path's shapes, both directions, and at odd shapes, against its
+   plain version; each shard's ``decompress_zdft`` (its own slot row,
+   padding sticks and zero stick) and ``zdft_compress`` (its own CSR)
+   against their plain versions; plans with uneven and empty shards on
+   the card against the same plans on the CPU; the counted C2C pair
+   (``pdft2_swapped`` 4, each z kernel 4 — once per shard — and
+   ``pdft2`` never), its backward against the complex128 oracle and
+   against the local plan's backward of the same values, the round
+   trip, the repeat, its time beside the local pair's and its exchange
+   bytes; the pair run through the plan's own stage methods with a CUDA
+   event after each (z, the exchange's pack, transpose and unpack, xy),
+   equal to the public pair bit for bit; a batched B = 4 pair and the
+   pointwise calls, bit for bit against single calls; the two-kernel
+   route (each shard's gather, exact, and ``pdft_last`` over all shards'
+   sticks, then its pair: gather 8, ``pdft_last`` 2) against the fused
+   one; and the R2C path (each shard's z kernels, the owner of the
+   (0,0) stick and the others; ``pdft_last`` at its y stage; its pair
+   with no ``pdft2_swapped`` and ``pdft_last`` 2) with its stage split
+   and structure checks;
+12. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
+   ``{"kernels": [...]}`` (every kernel record of every path, each with
    its ``path``) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -395,25 +417,30 @@ def odd_shapes_phase(device):
 #: launches of one backward + forward(FULL) pair per path: (least, most)
 C2C_LAUNCHES = {"decompress_zdft": (1, None), "pdft2": (1, None),
                 "zdft_compress": (1, None), "prdft2": (0, 0),
-                "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0)}
+                "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
+                "pdft2_swapped": (0, 0)}
 R2C_LAUNCHES = {"decompress_zdft": (1, None), "prdft2": (2, None),
                 "pdft2_cr": (2, None), "zdft_compress": (1, None),
-                "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0)}
+                "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
+                "pdft2_swapped": (0, 0)}
 #: the two-kernel route's pair, exactly
 C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
-                   "pdft2": (4, 4), "prdft2": (0, 0), "pdft2_cr": (0, 0)}
+                   "pdft2": (4, 4), "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                   "pdft2_swapped": (0, 0)}
 R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
-                   "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0)}
+                   "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0),
+                   "pdft2_swapped": (0, 0)}
 #: a batched pair launches what ONE single pair does, whatever B is
 C2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
                         "pdft2": (4, 4), "prdft2": (0, 0),
                         "pdft2_cr": (0, 0), "gather": (0, 0),
-                        "pdft_last": (0, 0)}
+                        "pdft_last": (0, 0), "pdft2_swapped": (0, 0)}
 R2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
                         "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0),
-                        "gather": (0, 0), "pdft_last": (0, 0)}
+                        "gather": (0, 0), "pdft_last": (0, 0),
+                        "pdft2_swapped": (0, 0)}
 #: record name -> the launch counter it reads
 COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
               "decompress_zdft_batched": "decompress_zdft",
@@ -505,7 +532,8 @@ def r2c_plan(sp, n, device):
     closure. Returns the plan, the values (N, 2) f32 and the oracle of
     backward: that field times n^3, real f64, from complex128 on
     ``device``. The spectrum is rounded to complex64 before both are
-    taken, so the oracle is exact for the values the plan is given."""
+    taken, so the oracle is exact for the values the plan is given.
+    Returns the plan, its triplets, the values and the oracle."""
     from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
                                                  sort_triplets_stick_major)
     t0 = time.perf_counter()
@@ -540,7 +568,7 @@ def r2c_plan(sp, n, device):
           f"zero_stick={p.zero_stick_id}, split_x={plan.split_x}, "
           f"pair_io={plan.pair_values_io}, built with its values in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return plan, values, oracle
+    return plan, trip, values, oracle
 
 
 def r2c_kernel_phase(plan, values, device):
@@ -1092,6 +1120,583 @@ def set_launches(recs, launches):
         r["launches"] = launches[COUNTER_OF.get(r["name"], r["name"])]
 
 
+# -- the distributed plan: S shards held on the card -------------------------
+
+#: shards of the distributed phases (the layout of a 4-GPU run, held on one
+#: card; round-robin sticks, even slabs of n / 4 planes)
+DIST_SHARDS = 4
+_S = DIST_SHARDS
+#: launches of one distributed backward + forward(FULL) pair: the z
+#: kernels once per shard, the xy stage once over all shards' planes
+DIST_C2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
+                     "pdft2_swapped": (4, 4), "pdft2": (0, 0),
+                     "prdft2": (0, 0), "pdft2_cr": (0, 0), "gather": (0, 0),
+                     "pdft_last": (0, 0)}
+DIST_R2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
+                     "pdft_last": (2, 2), "pdft2_swapped": (0, 0),
+                     "pdft2": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                     "gather": (0, 0)}
+DIST_C2C_2K_LAUNCHES = {"gather": (2 * _S, 2 * _S), "pdft_last": (2, 2),
+                        "pdft2_swapped": (4, 4), "decompress_zdft": (0, 0),
+                        "zdft_compress": (0, 0), "pdft2": (0, 0),
+                        "prdft2": (0, 0), "pdft2_cr": (0, 0)}
+
+
+def dist_plan(sp, n, trip, values, device, r2c=False):
+    """The distributed plan of the path's set ``trip`` over DIST_SHARDS
+    shards and the path's ``values`` (N, 2) stacked as (S, max_values,
+    2): each shard's values read off a dense cube of the values, so that
+    they are the values the local plan is given."""
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    t0 = time.perf_counter()
+    parts = round_robin_stick_partition(trip, (n, n, n), _S)
+    kind = sp.TransformType.R2C if r2c else sp.TransformType.C2C
+    plan = sp.make_distributed_plan(kind, n, n, n, parts,
+                                    even_plane_split(n, _S),
+                                    mesh=sp.make_mesh(_S, device))
+
+    def storage(t):
+        return torch.as_tensor(np.where(t < 0, t + n, t).astype(np.int64),
+                               device=device)
+
+    cube = torch.zeros((n, n, n), dtype=torch.complex64, device=device)
+    st = storage(trip)
+    cube[st[:, 2], st[:, 1], st[:, 0]] = torch.view_as_complex(
+        values.contiguous())
+    dp = plan.dist_plan
+    stacked = torch.zeros((_S, dp.max_values, 2), device=device)
+    for r, part in enumerate(parts):
+        sr = storage(part)
+        stacked[r, :len(part)] = torch.view_as_real(
+            cube[sr[:, 2], sr[:, 1], sr[:, 0]])
+    del cube
+    print(f"plan: distributed {'R2C' if r2c else 'C2C'} {n}^3, {_S} shards "
+          f"on one card: sticks per shard "
+          f"{[p.num_sticks for p in dp.shard_plans]}, planes "
+          f"{list(dp.num_planes)}, max_values {dp.max_values}, split_x="
+          f"{plan.split_x}, built with its values in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return plan, stacked
+
+
+def dist_kernel_phase(plan, stacked, device):
+    """``pdft2_swapped`` at the distributed C2C path's shapes, both
+    directions, against its plain version (``ops.dft.cdft2_xy``)."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    dp = plan.dist_plan
+    gr, gi = plan._exchange(plan._z_backward(stacked[:, None]))
+    planes = (-1, dp.dim_y, plan._xf_eff)
+    gr, gi = gr.view(planes), gi.view(planes)
+    m = plan._mats
+    xb, yb, xf, yf = m["x_b"], m["y_b"], m["x_f"], m["y_f"]
+    got = dft_kernel.pdft2_swapped(gr, gi, xb, yb)
+    err_b = compare("dist c2c pdft2_swapped backward", got,
+                    dft.cdft2_xy(gr, gi, xb, yb))
+    fgot = dft_kernel.pdft2_swapped(*got, xf, yf)
+    err_f = compare("dist c2c pdft2_swapped forward", fgot,
+                    dft.cdft2_xy(*got, xf, yf))
+    gc = torch.complex(gr, gi)
+    pp, a, b = gr.shape
+    b_out, a_out = xb[0].shape[1], yb[0].shape[1]
+    rec = kernel_record(
+        "dist_c2c", "pdft2_swapped", "spfft_tpu_torch/csrc/dft2.cu",
+        "spfft_tpu/ops/dft_kernel.py:277", max(err_b, err_f),
+        timed_ms(lambda: dft_kernel.pdft2_swapped(gr, gi, xb, yb), device),
+        timed_ms(lambda: dft.cdft2_xy(gr, gi, xb, yb), device),
+        timed_ms(lambda: torch.fft.ifft2(gc, norm="forward"), device)
+        if (b_out, a_out) == (b, a) else None,
+        2 * pp * a * b * 4 + 2 * pp * a_out * b_out * 4
+        + 2 * (b * b_out + a * a_out) * 4,
+        fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
+        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out))
+    print_records([rec])
+    return [rec]
+
+
+def dist_odd_shapes_phase(device):
+    """``pdft2_swapped`` at shapes the path does not reach (P in {1, 3},
+    A != B, rectangular and windowed matrices, a ragged 129-row K, axes
+    above 256) against its plain version."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    rng = np.random.default_rng(SEED + 5)
+    wrapped = tuple(range(26, 30)) + tuple(range(20))
+    cases = (((1, 20, 24), dft.sub_rows_mats(30, dft.BACKWARD, wrapped),
+              dft.c2c_mats(20, dft.BACKWARD)),
+             ((3, 12, 7), dft.sub_cols_mats(7, dft.FORWARD, (5, 6, 0)),
+              dft.c2c_mats(12, dft.FORWARD)),
+             ((3, 256, 129), dft.sub_rows_mats(256, dft.BACKWARD,
+                                               tuple(range(129))),
+              dft.c2c_mats(256, dft.BACKWARD)),
+             ((1, 300, 5), dft.c2c_mats(5, dft.FORWARD),
+              dft.c2c_mats(300, dft.FORWARD)),
+             ((3, 9, 512), dft.c2c_mats(512, dft.BACKWARD),
+              dft.sub_cols_mats(9, dft.FORWARD, (0, 1, 2, 3))))
+    for (pp, a, b), m1, m2 in cases:
+        xr, xi = (torch.as_tensor(rng.standard_normal((pp, a, b)),
+                                  dtype=torch.float32, device=device)
+                  for _ in range(2))
+        m1, m2 = dft.device_mats(m1, device), dft.device_mats(m2, device)
+        compare(f"pdft2_swapped {(pp, a, b)}",
+                dft_kernel.pdft2_swapped(xr, xi, m1, m2),
+                dft.cdft2_xy(xr, xi, m1, m2))
+    print(f"odd shapes of pdft2_swapped: {len(cases)} kernel-vs-plain cases "
+          f"within {KERNEL_TOL}", flush=True)
+
+
+def dist_z_kernel_phase(path, plan, stacked, device):
+    """The per-shard z kernels of a distributed path at the path's
+    shapes, each shard's launch against its plain version on the same
+    inputs. ``fused=True``: ``decompress_zdft`` on shard r's values with
+    its own ``slot_src`` row (sentinel ``max_values``, padding sticks up
+    to ``max_sticks``) and its (0,0) stick, or -1 on the shards that do
+    not own it; ``zdft_compress`` on the sticks the forward exchange
+    gives shard r, with its CSR over ``max_sticks``. ``fused=False``: the
+    gather both ways, exact, and ``pdft_last`` over every shard's sticks.
+    The inputs come from the plan's own stage methods; each record times
+    the launches of one direction (S per shard kernel)."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel as fk, \
+        gather_kernel as gk
+    dp = plan.dist_plan
+    S, ms, dz = dp.num_shards, dp.max_sticks, dp.dim_z
+    zb, zfs = plan._mats["z_b"], plan._mats["z_fs"]
+    v = stacked[:, None]
+    if plan._t_conj is not None:
+        v = v * plan._t_conj
+    fsr, fsi = plan._exchange(plan._xy_forward(plan._xy_backward(
+        plan._exchange(plan._z_backward(stacked[:, None])))), forward=True)
+    nvs = [p.num_values for p in dp.shard_plans]
+    zids = plan._zero_sticks
+    slot64 = [plan._t_slot_src[r].long() for r in range(S)]
+    vpad = [torch.cat([torch.view_as_complex(v[r, 0].contiguous()),
+                       torch.zeros(1, dtype=torch.complex64, device=device)])
+            for r in range(S)]
+    vi64 = [torch.as_tensor(p.value_indices.astype(np.int64), device=device)
+            for p in dp.shard_plans]
+    gs = 1.0 / plan.global_size
+    recs = []
+
+    def each(fn):
+        return lambda: [fn(r) for r in range(S)]
+
+    if plan.fused_dist_active:
+        def dec(r, f=fk.decompress_zdft):
+            return f(v[r], plan._t_slot_src[r], zb, dz, False, zids[r])
+
+        def cmp(r, f=fk.zdft_compress):
+            return f(fsr[:, r], fsi[:, r], zfs, plan._t_csr[r])
+
+        err = max(compare(f"{path} decompress_zdft shard {r} (zero stick "
+                          f"{zids[r]})", dec(r),
+                          dec(r, fk.decompress_zdft_plain))
+                  for r in range(S))
+        recs.append(kernel_record(
+            path, "decompress_zdft", "spfft_tpu_torch/csrc/fused_compress.cu",
+            "spfft_tpu/ops/fused_kernel.py:587", err, timed_ms(each(dec),
+                                                               device),
+            timed_ms(each(lambda r: dec(r, fk.decompress_zdft_plain)),
+                     device),
+            timed_ms(each(lambda r: torch.fft.ifft(
+                vpad[r][slot64[r]].view(ms, dz), norm="forward")), device),
+            sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + 2 * dz * dz * 4
+                                             + 2 * ms * dz * 4),
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz))
+        err = max(compare(f"{path} zdft_compress shard {r}", (cmp(r),),
+                          (cmp(r, lambda *a: fk.zdft_compress_plain(
+                              *a, False)),))
+                  for r in range(S))
+        fc = torch.complex(fsr[0], fsi[0])
+        recs.append(kernel_record(
+            path, "zdft_compress", "spfft_tpu_torch/csrc/fused_compress.cu",
+            "spfft_tpu/ops/fused_kernel.py:783", err, timed_ms(each(cmp),
+                                                               device),
+            timed_ms(each(lambda r: cmp(r, lambda *a: fk.zdft_compress_plain(
+                *a, False))), device),
+            timed_ms(each(lambda r: torch.fft.fft(fc[r]).view(-1)[vi64[r]]
+                          * gs), device),
+            sum(2 * ms * dz * 4 + (ms + 1 + 2 * nv) * 4 + 2 * dz * dz * 4
+                + nv * 8 for nv in nvs),
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz))
+        print(f"{path}: decompress_zdft zero sticks per shard {zids}, "
+              f"values per shard {nvs} (max_values {dp.max_values}), "
+              f"sticks per shard "
+              f"{[p.num_sticks for p in dp.shard_plans]} (max_sticks {ms})",
+              flush=True)
+        print_records(recs)
+        return recs
+
+    flat = (1, ms * dz)
+
+    def gdec(r, f=gk.gather):
+        out = (torch.empty(flat, device=device),
+               torch.empty(flat, device=device))
+        f(gk.value_planes(v[r], False), plan._t_slot_src[r], out)
+        return out
+
+    err = max(compare_exact(f"{path} gather decompress shard {r}", gdec(r),
+                            gdec(r, gk.gather_plain)) for r in range(S))
+    recs.append(kernel_record(
+        path, "gather_dec", GATHER_SRC, GATHER_REPLACES, err,
+        timed_ms(each(gdec), device),
+        timed_ms(each(lambda r: gdec(r, gk.gather_plain)), device),
+        timed_ms(each(lambda r: torch.index_select(vpad[r], 0, slot64[r])),
+                 device),
+        sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + ms * dz * 8),
+        0.0, 0.0))
+    sr = torch.stack([gdec(r)[0].view(ms, dz) for r in range(S)])[None]
+    si = torch.stack([gdec(r)[1].view(ms, dz) for r in range(S)])[None]
+    err_b = compare(f"{path} pdft_last backward", dft_kernel.pdft_last(
+        sr, si, zb), dft.pdft_last(sr, si, zb))
+    fy = dft_kernel.pdft_last(fsr, fsi, zfs)
+    err_f = compare(f"{path} pdft_last forward", fy,
+                    dft.pdft_last(fsr, fsi, zfs))
+    sc = torch.complex(sr, si)
+    rows = S * ms
+    recs.append(kernel_record(
+        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
+        "spfft_tpu/ops/dft_kernel.py:165", max(err_b, err_f),
+        timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
+        timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
+        timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
+        4 * rows * dz * 4 + 2 * dz * dz * 4,
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz))
+
+    def gcmp(r, f=gk.gather):
+        out = torch.empty((1, nvs[r], 2), device=device)
+        f((fy[0][:, r].reshape(flat), fy[1][:, r].reshape(flat)),
+          plan._t_vi[r], gk.value_planes(out, False))
+        return out
+
+    err = max(compare_exact(f"{path} gather compress shard {r}", (gcmp(r),),
+                            (gcmp(r, gk.gather_plain),)) for r in range(S))
+    fc = torch.complex(*fy)[0]
+    recs.append(kernel_record(
+        path, "gather_cmp", GATHER_SRC, GATHER_REPLACES, err,
+        timed_ms(each(gcmp), device),
+        timed_ms(each(lambda r: gcmp(r, gk.gather_plain)), device),
+        timed_ms(each(lambda r: fc[r].view(-1)[vi64[r]]), device),
+        sum(nv * 4 + 2 * nv * 8 for nv in nvs), 0.0, 0.0))
+    print_records(recs)
+    return recs
+
+
+def dist_odd_shards_phase(sp, device):
+    """Distributed plans the 256^3 paths do not reach, on the card against
+    the same plans on the CPU (where every wrapper runs its plain
+    version): 5 shards with uneven sticks and slabs, one shard with no
+    values, no sticks and no planes, another with sticks but no planes,
+    odd dim_z, the R2C (0,0) stick owned by the fourth shard; C2C and
+    R2C, fused and two-kernel; the backward and forward(FULL) within
+    ``KERNEL_TOL``, and a second backward identical to the first."""
+    rng = np.random.default_rng(SEED + 7)
+    cpu = torch.device("cpu")
+    nx, ny, nz = dims = (12, 10, 13)
+    weights = (3, 0, 1, 2, 1)  # stick share per shard
+    planes = [5, 0, 6, 0, 2]
+    cases = 0
+    for kind in (sp.TransformType.C2C, sp.TransformType.R2C):
+        r2c = kind is sp.TransformType.R2C
+        xs = nx // 2 + 1 if r2c else nx
+        sticks = [(x, y) for x in range(xs) for y in range(ny)
+                  if (x, y) == (0, 0) or rng.random() < 0.6]
+        owner = rng.choice(len(weights), len(sticks),
+                           p=np.array(weights) / sum(weights))
+        owner[sticks.index((0, 0))] = 3
+        parts = [np.array([(x, y, z) for (x, y), o in zip(sticks, owner)
+                           if o == r for z in range(nz)
+                           if rng.random() < 0.7], np.int64).reshape(-1, 3)
+                 for r in range(len(weights))]
+        vals = [(rng.standard_normal(len(t)) + 1j * rng.standard_normal(
+            len(t))).astype(np.complex64) for t in parts]
+        for fused in (True, False):
+            got, want = (sp.make_distributed_plan(
+                kind, *dims, parts, planes, device=d, fused=fused)
+                for d in (device, cpu))
+            name = f"dist odd shards {kind.name} fused={fused}"
+            b = got.backward(vals)
+            compare(f"{name} backward", (b.cpu(),), (want.backward(vals),))
+            compare(f"{name} forward(FULL)",
+                    (got.forward(b, sp.Scaling.FULL).cpu(),),
+                    (want.forward(b.cpu(), sp.Scaling.FULL),))
+            if not torch.equal(got.backward(vals), b):
+                fail(f"{name}: a second backward differs from the first")
+            cases += 1
+    print(f"dist odd shards: {cases} plans (values per shard "
+          f"{[len(t) for t in parts]}, planes {planes}) on the card within "
+          f"{KERNEL_TOL} of the CPU's plain versions", flush=True)
+
+
+def dist_y_kernel_record(path, plan, stacked, device):
+    """``pdft_last`` at the distributed R2C y stage's shape (every
+    shard's planes, x-major: ``S * max_planes * xf`` rows of ``dim_y``,
+    the layout ``stages._cdft_mid`` hands it), with the backward and the
+    forward y matrices, against its plain version."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    dp = plan.dist_plan
+    y = dp.dim_y
+    gr, gi = plan._exchange(plan._z_backward(stacked[:, None]))
+    xr, xi = (t.view(-1, y, plan._xf_eff).transpose(-1, -2).contiguous()
+              for t in (gr, gi))
+    yb, yf = plan._mats["y_b"], plan._mats["y_f"]
+    err = max(compare(f"{path} pdft_last y {tuple(xr.shape)} {d}",
+                      dft_kernel.pdft_last(xr, xi, m),
+                      dft.pdft_last(xr, xi, m))
+              for d, m in (("backward", yb), ("forward", yf)))
+    xc = torch.complex(xr, xi)
+    rows = xr.shape[0] * xr.shape[1]
+    rec = kernel_record(
+        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
+        "spfft_tpu/ops/dft_kernel.py:165", err,
+        timed_ms(lambda: dft_kernel.pdft_last(xr, xi, yb), device),
+        timed_ms(lambda: dft.pdft_last(xr, xi, yb), device),
+        timed_ms(lambda: torch.fft.ifft(xc, norm="forward"), device),
+        4 * rows * y * 4 + 2 * y * y * 4,
+        fft_flops(rows, y), FLOP_PER_CMAC * rows * y * y)
+    print_records([rec])
+    return [rec]
+
+
+#: the stages of the distributed pair, in the order they run
+DIST_STAGES = ("z backward",) + tuple(
+    f"exchange {s} backward" for s in ("pack", "transpose", "unpack")) + (
+    "xy backward", "xy forward") + tuple(
+    f"exchange {s} forward" for s in ("pack", "transpose", "unpack")) + (
+    "z forward",)
+
+
+def dist_breakdown_phase(sp, path, plan, stacked, device):
+    """Where the distributed pair's time goes: the pair run through the
+    plan's own stage methods one after another (``_z_backward``, the
+    exchange's steps ``_exchange_steps`` on the real then the imaginary
+    plane, ``_xy_backward``, ``_xy_forward``, the exchange back,
+    ``_z_forward``), a CUDA event after each, with no wait in between,
+    so that the stage times add up to the staged run. Its values must
+    equal the public pair's bit for bit. The public pair minus the staged
+    run is the public layout's copies (stacking, interleaving). Medians
+    of ``REPS`` runs after a warm-up; returns the medians by stage."""
+    full = sp.Scaling.FULL
+    v = stacked[:, None]
+
+    def exchange(planes, forward, mark):
+        d = "forward" if forward else "backward"
+        out = []
+        for t in planes:
+            for name, step in plan._exchange_steps(forward):
+                t = step(t)
+                mark(f"exchange {name} {d}")
+            out.append(t)
+        return tuple(out)
+
+    def staged(mark):
+        t = plan._z_backward(v)
+        mark("z backward")
+        t = plan._xy_backward(exchange(t, False, mark))
+        mark("xy backward")
+        t = plan._xy_forward(t)
+        mark("xy forward")
+        t = plan._z_forward(exchange(t, True, mark), True)
+        mark("z forward")
+        return t
+
+    def run():
+        marks = []
+        if device.type == "cuda":
+            def mark(name):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((name, e))
+        else:
+            def mark(name):
+                marks.append((name, time.perf_counter()))
+        mark(None)
+        out = staged(mark)
+        if device.type == "cuda":
+            marks[-1][1].synchronize()
+            ms = [b.elapsed_time(a) for (_, b), (_, a) in
+                  zip(marks, marks[1:])]
+        else:
+            ms = [(a - b) * 1e3 for (_, b), (_, a) in zip(marks, marks[1:])]
+        per = dict.fromkeys(DIST_STAGES, 0.0)
+        for (name, _), t in zip(marks[1:], ms):
+            per[name] += t
+        return out, per
+
+    want = plan.forward(plan.backward(stacked), full)
+    out, _ = run()
+    if not torch.equal(out[:, 0], want):
+        fail(f"{path}: the plan's stage methods run one after another "
+             f"differ from the public pair")
+    del out, want
+    run()
+    reps = [run()[1] for _ in range(REPS)]
+    med = {k: float(np.median([r[k] for r in reps])) for k in DIST_STAGES}
+    total = float(np.median([sum(r.values()) for r in reps]))
+    pair = timed_ms(lambda: plan.forward(plan.backward(stacked), full),
+                    device)
+    for k in DIST_STAGES:
+        print(f"{path} stage {k}: {med[k]:.4f} ms", flush=True)
+    print(f"{path} stages: staged run {total:.4f} ms (sum of the stage "
+          f"medians {sum(med.values()):.4f}); public pair {pair:.4f} ms, "
+          f"so the public layout's copies {pair - total:.4f} ms; the staged "
+          f"run equals the public pair bit for bit", flush=True)
+    return med
+
+
+def dist_pair_phase(sp, path, plan, stacked, local, local_values,
+                    oracle_rel, device, counters, want):
+    """The public distributed backward + forward(FULL) pair, counted
+    (``want``) and checked: the backward, its slabs stacked in z order,
+    within ``predicted_rel_error`` of the complex128 oracle on the card
+    and within ``KERNEL_TOL`` of the local plan's backward of the same
+    values; the round trip within 1e-6; a second backward identical to
+    the first; the median pair time beside the local pair's, timed in
+    turns (local, distributed, distributed, local)."""
+    dp = plan.dist_plan
+    if len(set(dp.num_planes)) != 1:
+        fail(f"{path}: uneven slabs {dp.num_planes}")
+    for c in counters.values():
+        c.launches = 0
+    space = plan.backward(stacked)
+    out = plan.forward(space, sp.Scaling.FULL)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches(path, counters, want)
+
+    shape = (_S, dp.max_planes, dp.dim_y, dp.dim_x)
+    if not dp.hermitian:
+        shape += (2,)
+    if tuple(space.shape) != shape or space.dtype != torch.float32 \
+            or not torch.isfinite(space).all():
+        fail(f"{path} backward output malformed: {tuple(space.shape)} "
+             f"{space.dtype}")
+    full = space.reshape((dp.dim_z,) + shape[2:])
+    rel = oracle_rel(full)
+    pred = sp.predicted_rel_error("single", dp.dim_z, True)
+    print(f"{path} backward vs complex128 oracle: rel_l2={rel:.3e} "
+          f"(predicted_rel_error={pred:.3e})", flush=True)
+    if not rel <= pred:
+        fail(f"{path} backward rel_l2 {rel:.3e} above {pred:.3e}")
+    err = compare(f"{path} backward vs the local plan's", (full,),
+                  (local.backward(local_values),))
+    print(f"{path} backward vs the local plan's on the same values: "
+          f"max_abs_err={err[0]:.3e} rel_l2={err[2]:.3e}", flush=True)
+    rt = float(torch.linalg.norm(out.double() - stacked.double())
+               / torch.linalg.norm(stacked.double()))
+    print(f"{path} forward(FULL) round trip: rel_l2={rt:.3e}", flush=True)
+    if not rt <= ROUNDTRIP_TOL:
+        fail(f"{path} round trip rel_l2 {rt:.3e} above {ROUNDTRIP_TOL}")
+    if not torch.equal(plan.backward(stacked), space):
+        fail(f"{path}: a second backward differs from the first")
+    del full, out
+
+    full_ = sp.Scaling.FULL
+    t = [timed_ms(f, device) for f in (
+        lambda: local.forward(local.backward(local_values), full_),
+        lambda: plan.forward(plan.backward(stacked), full_),
+        lambda: plan.forward(plan.backward(stacked), full_),
+        lambda: local.forward(local.backward(local_values), full_))]
+    print(f"{path} path pair (backward + forward FULL): "
+          f"{(t[1] + t[2]) / 2:.4f} ms against the local pair's "
+          f"{(t[0] + t[3]) / 2:.4f} ms (medians of {REPS}, in turns "
+          f"{[round(x, 4) for x in t]}); exchange_wire_bytes="
+          f"{plan.exchange_wire_bytes()} per direction", flush=True)
+    return launches
+
+
+def dist_structure_phase(sp, path, plan, stacked, device, counters, want,
+                         batch=BATCH):
+    """A batched pair of ``batch`` bands (band b the values times 1 +
+    b / 2), counted (``want``: the launches of one single pair), each
+    band equal bit for bit to the single calls on it; ``apply_pointwise``
+    with a potential and ``iterate_pointwise(steps=3)`` equal bit for bit
+    to the same calls made one at a time."""
+    full = sp.Scaling.FULL
+    bands = torch.stack([stacked * (1 + b / 2) for b in range(batch)], 1)
+    for c in counters.values():
+        c.launches = 0
+    space_b = plan.backward_batched(bands)
+    out_b = plan.forward_batched(space_b, full)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    read_launches(f"{path} batched B={batch}", counters, want)
+    for b in range(batch):
+        one = plan.backward(bands[:, b])
+        if not torch.equal(space_b[:, b], one):
+            fail(f"{path} batched backward: band {b} differs from the "
+                 f"single backward")
+        if not torch.equal(out_b[:, b], plan.forward(one, full)):
+            fail(f"{path} batched forward: band {b} differs from the "
+                 f"single forward")
+    del space_b, out_b
+    ms_b = timed_ms(lambda: plan.forward_batched(
+        plan.backward_batched(bands), full), device)
+    dp = plan.dist_plan
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    pot = torch.rand((_S, dp.max_planes, dp.dim_y, dp.dim_x), generator=gen,
+                     device=device)
+
+    def fn(space, w):
+        return space * (w if dp.hermitian else w[..., None])
+
+    if not torch.equal(plan.apply_pointwise(stacked, fn, pot, scaling=full),
+                       plan.forward(fn(plan.backward(stacked), pot), full)):
+        fail(f"{path} apply_pointwise(potential) differs from its calls "
+             f"made one at a time")
+    want_v = stacked
+    for _ in range(3):
+        want_v = plan.forward(fn(plan.backward(want_v), pot), full)
+    if not torch.equal(plan.iterate_pointwise(stacked, fn, pot, steps=3),
+                       want_v):
+        fail(f"{path} iterate_pointwise(steps=3) differs from its calls "
+             f"made one at a time")
+    print(f"{path} batched pair B={batch}: {ms_b:.4f} ms, "
+          f"{ms_b / batch:.4f} ms per band, every band equal to its single "
+          f"calls; apply_pointwise(potential) and iterate_pointwise(steps=3) "
+          f"equal to the calls made one at a time", flush=True)
+
+
+def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters):
+    """Every distributed C2C phase; returns its kernel records (the fused
+    route's ``pdft2_swapped`` and per-shard z kernels, the two-kernel
+    route's gather and ``pdft_last``)."""
+    plan, stacked = dist_plan(sp, n, trip, values, device)
+    recs = dist_kernel_phase(plan, stacked, device)
+    recs += dist_z_kernel_phase("dist_c2c", plan, stacked, device)
+    dist_odd_shapes_phase(device)
+    dist_odd_shards_phase(sp, device)
+    set_launches(recs, dist_pair_phase(
+        sp, "dist c2c", plan, stacked, local, values, oracle, device,
+        counters, DIST_C2C_LAUNCHES))
+    dist_breakdown_phase(sp, "dist c2c", plan, stacked, device)
+    dist_structure_phase(sp, "dist c2c", plan, stacked, device, counters,
+                         DIST_C2C_LAUNCHES)
+    plan2 = sp.DistributedTransformPlan(plan.dist_plan, mesh=plan.mesh,
+                                        fused=False)
+    recs2 = dist_z_kernel_phase("dist_c2c_2k", plan2, stacked, device)
+    set_launches(recs2, dist_pair_phase(
+        sp, "dist c2c two-kernel", plan2, stacked, local, values, oracle,
+        device, counters, DIST_C2C_2K_LAUNCHES))
+    route_phase(sp, "dist c2c", plan, plan2, stacked)
+    return recs + recs2
+
+
+def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
+                    counters):
+    """Every distributed R2C phase; returns its kernel records (the
+    per-shard z kernels, the owner's and the other shards' zero sticks
+    among them, and ``pdft_last`` at the y stage)."""
+    plan, stacked = dist_plan(sp, n, trip, values, device, r2c=True)
+    recs = dist_z_kernel_phase("dist_r2c", plan, stacked, device)
+    recs += dist_y_kernel_record("dist_r2c", plan, stacked, device)
+    set_launches(recs, dist_pair_phase(
+        sp, "dist r2c", plan, stacked, local, values, oracle_rel, device,
+        counters, DIST_R2C_LAUNCHES))
+    dist_breakdown_phase(sp, "dist r2c", plan, stacked, device)
+    dist_structure_phase(sp, "dist r2c", plan, stacked, device, counters,
+                         DIST_R2C_LAUNCHES)
+    return recs
+
+
 def run(device, n=N):
     """Every phase after the build on ``device`` at size ``n``, both
     paths; returns the kernel records and the batched sweep's rows."""
@@ -1099,6 +1704,7 @@ def run(device, n=N):
     from spfft_tpu_torch.ops import dft_kernel, fused_kernel, gather_kernel
     counters = {"decompress_zdft": fused_kernel.decompress_zdft,
                 "pdft2": dft_kernel.pdft2,
+                "pdft2_swapped": dft_kernel.pdft2_swapped,
                 "prdft2": dft_kernel.prdft2,
                 "pdft2_cr": dft_kernel.pdft2_cr,
                 "zdft_compress": fused_kernel.zdft_compress,
@@ -1124,9 +1730,11 @@ def run(device, n=N):
     c2c += recs
     pointwise_phase(sp, "c2c", plan, values, device)
     sweep_phase(sp, "c2c", plan, values, device, sweep)
+    dist = dist_c2c_phases(sp, n, plan, trip, values, oracle, device,
+                           counters)
     del plan, trip, values, oracle
 
-    plan, values, oracle = r2c_plan(sp, n, device)
+    plan, trip, values, oracle = r2c_plan(sp, n, device)
     r2c = r2c_kernel_phase(plan, values, device)
     r2c_odd_shapes_phase(device)
 
@@ -1150,14 +1758,16 @@ def run(device, n=N):
     r2c += recs
     pointwise_phase(sp, "r2c", plan, values, device)
     sweep_phase(sp, "r2c", plan, values, device, sweep)
-    del plan, values, oracle
+    dist += dist_r2c_phases(sp, n, plan, trip, values, oracle_rel, device,
+                            counters)
+    del plan, trip, values, oracle
 
     new_odd_shapes_phase(device)
     plan, _, values = main_path_plan(sp, n // 2, device)
     sweep_phase(sp, "c2c", plan, values, device, sweep)
-    plan, values, _ = r2c_plan(sp, n // 2, device)
+    plan, _, values, _ = r2c_plan(sp, n // 2, device)
     sweep_phase(sp, "r2c", plan, values, device, sweep)
-    return c2c + r2c, sweep
+    return c2c + r2c + dist, sweep
 
 
 def main() -> int:

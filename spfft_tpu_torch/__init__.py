@@ -7,8 +7,9 @@ transforms with PyTorch and hand-written CUDA kernels for the H100
 (``csrc/``, built with ``nvcc`` at first use). It never imports JAX.
 
 The port covers the local single-precision C2C and R2C plans, their
-batched and pointwise execution, the two-kernel route (``fused=False``)
-and the ``Grid`` / ``Transform`` / multi-transform API::
+batched and pointwise execution, the two-kernel route (``fused=False``),
+the ``Grid`` / ``Transform`` / multi-transform API, and the distributed
+plan over S shards held on one device with the block exchange::
 
     import spfft_tpu_torch as sp
     plan = sp.make_local_plan(sp.TransformType.C2C, 64, 64, 64, triplets)
@@ -16,6 +17,11 @@ and the ``Grid`` / ``Transform`` / multi-transform API::
     values2 = plan.forward(space, sp.Scaling.FULL)
     spaces = plan.backward_batched(values_batch)  # (B, 64, 64, 64, 2)
     values3 = plan.apply_pointwise(values, fn, potential)
+
+    dplan = sp.make_distributed_plan(sp.TransformType.C2C, 64, 64, 64,
+                                     triplets_per_shard, [16] * 4,
+                                     mesh=sp.make_mesh(4))
+    slabs = dplan.unshard_space(dplan.backward(values_per_shard))
 
 Pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
 on the host.
@@ -28,16 +34,19 @@ from .errors import (DeviceError, DuplicateIndicesError, ErrorCode,
 from .grid import Grid, Transform
 from .indexing import IndexPlan, build_index_plan
 from .multi import multi_transform_backward, multi_transform_forward
+from .parallel import (DistributedTransformPlan, make_distributed_plan,
+                       make_mesh)
 from .plan import TransformPlan, make_local_plan, predicted_rel_error
 from .types import (ExchangeType, IndexFormat, ProcessingUnit, Scaling,
                     TransformType)
 
 __all__ = [
-    "DeviceError", "DuplicateIndicesError", "ErrorCode", "ExchangeType",
-    "GenericError", "Grid", "IndexFormat", "IndexPlan",
-    "InvalidIndicesError", "InvalidParameterError", "OverflowError_",
-    "PrecisionContractError", "ProcessingUnit", "Scaling", "Transform",
-    "TransformPlan", "TransformType", "build_index_plan", "make_local_plan",
+    "DeviceError", "DistributedTransformPlan", "DuplicateIndicesError",
+    "ErrorCode", "ExchangeType", "GenericError", "Grid", "IndexFormat",
+    "IndexPlan", "InvalidIndicesError", "InvalidParameterError",
+    "OverflowError_", "PrecisionContractError", "ProcessingUnit", "Scaling",
+    "Transform", "TransformPlan", "TransformType", "build_index_plan",
+    "make_distributed_plan", "make_local_plan", "make_mesh",
     "multi_transform_backward", "multi_transform_forward",
     "predicted_rel_error",
 ]

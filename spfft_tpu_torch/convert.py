@@ -8,6 +8,9 @@ example ``dataclasses.asdict(jax_index_plan)``) and returns this
 package's :class:`~spfft_tpu_torch.indexing.IndexPlan`, so that both
 packages can be handed the same plan. Nothing of the JAX package is
 imported: an enum field is read through its ``value``.
+:func:`distributed_plan_from_arrays` does the same for a distributed
+plan: one such mapping per shard (the fields of each of a JAX
+``DistributedIndexPlan``'s ``shard_plans``) and the slab heights.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 
 from .errors import InvalidParameterError
 from .indexing import IndexPlan
+from .parallel.dist import DistributedTransformPlan, distributed_index_plan
 from .plan import TransformPlan
 from .types import TransformType
 
@@ -67,3 +71,17 @@ def plan_from_arrays(fields, device=None, fused: bool = True,
     ``plan_kwargs`` as in ``TransformPlan``."""
     return TransformPlan(index_plan_from_arrays(fields), device=device,
                          fused=fused, **plan_kwargs)
+
+
+def distributed_plan_from_arrays(shard_fields, planes, device=None,
+                                 fused: bool = True, **plan_kwargs
+                                 ) -> DistributedTransformPlan:
+    """A :class:`~spfft_tpu_torch.parallel.DistributedTransformPlan` from
+    one index plan's fields per shard (see :func:`index_plan_from_arrays`)
+    and the slab heights ``planes``, validated as
+    ``make_distributed_plan`` validates its own (plane sum, stick
+    duplicates, stick total); ``plan_kwargs`` as in the plan."""
+    dist = distributed_index_plan(
+        [index_plan_from_arrays(f) for f in shard_fields], planes)
+    return DistributedTransformPlan(dist, device=device, fused=fused,
+                                    **plan_kwargs)

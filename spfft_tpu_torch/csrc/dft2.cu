@@ -1,5 +1,5 @@
 // The xy DFT stage of the plan: port of the Pallas kernel
-// spfft_tpu/ops/dft_kernel.py:_run2 in its three modes,
+// spfft_tpu/ops/dft_kernel.py:_run2 in its three modes and swap_out,
 //
 //   "cc" (pdft2):    (P, A, B) --complex DFT over B (mats1, B x B')--> swap
 //                    --complex DFT over A (mats2, A x A')--> (P, B', A'),
@@ -9,16 +9,21 @@
 //   "cr" (pdft2_cr): planar (P, A, B) --complex DFT over B--> swap --real
 //                    inverse DFT over A (c2r matrices, out = Gr Ma + Gi Mb)
 //                    --> real (P, B', A'),   the R2C backward tail,
+//   "cc" + swap_out (pdft2_swapped): as "cc", stored back as (P, A', B'),
+//                    the C2C xy stage of the distributed plan,
 //
 // all f32. The TPU kernel keeps a whole plane in VMEM and swaps the two
 // minor axes there. A 256 x 256 complex plane is 512 KB, more than a
 // block's 227 KB of shared memory, so here each call is one stage kernel
 // launched twice: the first launch stores its result transposed within
 // each plane, (P, B', A), and the second launch contracts the new minor
-// axis and stores straight. The mode picks the tile product: "rc" runs a
-// real-input first stage (RC: no imaginary operand, 2 FMAs per element)
-// and a complex second stage; "cr" a complex first stage and a real-output
-// second stage (CR: 2 FMAs, one output array). The intermediate makes one
+// axis and stores straight (pdft2_swapped: transposed once more, with
+// plane_rows = B', which puts the TPU kernel's second in-VMEM swap into
+// the store and costs no pass of its own). The mode picks the tile
+// product: "rc" runs a real-input first stage (RC: no imaginary operand,
+// 2 FMAs per element) and a complex second stage; "cr" a complex first
+// stage and a real-output second stage (CR: 2 FMAs, one output array).
+// The intermediate makes one
 // extra round trip through device memory (2 x 134 MB at 256^3 for "cc",
 // 2 x 68 MB for the half-spectrum grids of "rc" and "cr"), the known gap
 // for a later change (a cluster of blocks sharing one plane through

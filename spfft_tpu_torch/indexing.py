@@ -177,6 +177,15 @@ class IndexPlan:
         return self.stick_keys % self.dim_y
 
     @property
+    def scatter_cols(self) -> np.ndarray:
+        """Column of each stick in the *x-innermost* frequency plane
+        ``(dim_y, dim_x_freq)`` flattened: ``y * dim_x_freq + x`` — the
+        distributed plan's plane layout, whose xy stage ends in the user
+        layout ``(z, y, x)`` with no transpose."""
+        return (self.stick_y * self.dim_x_freq
+                + self.stick_x).astype(np.int32)
+
+    @property
     def scatter_cols_t(self) -> np.ndarray:
         """Column of each stick in the *y-innermost* frequency plane
         ``(dim_x_freq, dim_y)`` flattened: ``x * dim_y + y`` — exactly
@@ -252,6 +261,17 @@ def occupied_x_window(xs: np.ndarray, dim_x_freq: int,
     x0 = int(u[(g + 1) % u.size])
     w = dim_x_freq - int(gaps[g]) + 1
     return x0, w
+
+
+def window_sub_cols(cols: np.ndarray, dim_x_freq: int, x0: int,
+                    w: int) -> np.ndarray:
+    """Map full-plane columns ``y * dim_x_freq + x`` to occupied-window
+    columns ``y * w + (x - x0) % dim_x_freq`` (see
+    :func:`occupied_x_window`): the one mapping the distributed plan's
+    grid layout and exchange tables share."""
+    cols = np.asarray(cols, np.int64)
+    return ((cols // dim_x_freq) * w
+            + (cols % dim_x_freq - x0) % dim_x_freq).astype(np.int32)
 
 
 #: Largest representable element count for any derived size product

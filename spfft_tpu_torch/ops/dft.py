@@ -9,8 +9,9 @@ packages contract against the same constants.
 
 This module holds the plain PyTorch forms: :func:`pdft_last` (one stage)
 and :func:`pdft2_minor` (two stages around a swap of the two minor
-axes), and their real-transform twins :func:`prdft_last`,
-:func:`pirdft_last`, :func:`prdft2_minor` (R2C forward head) and
+axes; :func:`cdft2_xy` swaps back, the distributed xy stage), and their
+real-transform twins :func:`prdft_last`, :func:`pirdft_last`,
+:func:`prdft2_minor` (R2C forward head) and
 :func:`pdft2_minor_cr` (C2R backward tail). They are the plain versions
 the CUDA kernels of ``ops.dft_kernel`` and ``ops.fused_kernel`` are held
 to, and what those wrappers run on a CPU tensor.
@@ -29,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from ..errors import InvalidParameterError
+from ..errors import DeviceError, InvalidParameterError
 
 #: Longest axis of the direct matmul-DFT form.
 MATMUL_DFT_MAX = 512
@@ -218,18 +219,68 @@ def pdft2_minor(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     return pdft_last(gr.transpose(-1, -2), gi.transpose(-1, -2), mats2)
 
 
+def cdft2_xy(xr: torch.Tensor, xi: torch.Tensor, mats_minor, mats_mid):
+    """[minor DFT (``mats_minor``), mid DFT (``mats_mid``)] on planar
+    ``(P, A, B)`` operands -> ``(P, A', B')``, contiguous: the
+    distributed xy stage (``spfft_tpu.ops.dft.cdft2_xy`` on a planar
+    pair), as :func:`pdft2_minor` followed by a swap of the two minor
+    axes."""
+    yr, yi = pdft2_minor(xr, xi, mats_minor, mats_mid)
+    return (yr.transpose(-1, -2).contiguous(),
+            yi.transpose(-1, -2).contiguous())
+
+
 # -- plain real transforms ----------------------------------------------------
+
+def reduced_fp32_matmul(device: torch.device):
+    """The reduced precision ``torch.matmul`` is set to use for float32
+    operands on ``device``'s backend (``"tf32"`` for cuBLAS; ``"tf32"``
+    or ``"bf16"`` for oneDNN on the CPU), or None when it computes in
+    full FP32. Reads the process-wide settings of either PyTorch API
+    (``fp32_precision`` or the older ``allow_tf32``)."""
+    backend = torch.backends.cuda if device.type == "cuda" \
+        else getattr(torch.backends, "mkldnn", None)
+    mode = getattr(getattr(backend, "matmul", None), "fp32_precision", None)
+    if mode is None:
+        if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            return "tf32"
+        return None
+    return None if mode in ("ieee", "none") else mode
+
+
+def _require_fp32_matmul(t: torch.Tensor, name: str) -> None:
+    mode = reduced_fp32_matmul(t.device)
+    if mode is not None:
+        raise DeviceError(
+            f"{name}: torch.matmul is set to compute float32 products in "
+            f"{mode} on {t.device.type} (a process-wide PyTorch setting), "
+            f"which breaks the single-precision accuracy contract; set "
+            f"torch.backends.{'cuda' if t.device.type == 'cuda' else 'mkldnn'}"
+            f".matmul.fp32_precision = 'ieee'")
+
 
 def prdft_last(x: torch.Tensor, mats):
     """Real forward DFT along the minor axis -> planar half spectrum:
-    ``(..., n) -> (..., N)`` against :func:`r2c_mats` ``(n, N)``."""
+    ``(..., n) -> (..., N)`` against :func:`r2c_mats` ``(n, N)``. Raises
+    :class:`~spfft_tpu_torch.errors.DeviceError` where ``torch.matmul``
+    is set to a reduced float32 precision (see :func:`pirdft_last`)."""
+    _require_fp32_matmul(x, "prdft_last")
     a, b = mats
     return torch.matmul(x, a), torch.matmul(x, b)
 
 
 def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
     """Planar half spectrum -> real inverse along the minor axis:
-    ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``."""
+    ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``.
+
+    This and :func:`prdft_last` are also the distributed R2C plan's x
+    stage on the card, where the JAX package too runs them outside any
+    kernel: ``torch.matmul``, which holds the precision contract only in
+    full FP32. Both read the process-wide matmul precision
+    (:func:`reduced_fp32_matmul`) and raise
+    :class:`~spfft_tpu_torch.errors.DeviceError` when TF32 (or bf16 on
+    the CPU) is on, rather than return errors near 1e-3."""
+    _require_fp32_matmul(yr, "pirdft_last")
     a, b = mats
     return torch.matmul(yr, a) + torch.matmul(yi, b)
 

@@ -1,8 +1,8 @@
 """The DFT stage kernels: ports of ``spfft_tpu/ops/dft_kernel.py``
-``pdft2``, ``prdft2`` and ``pdft2_cr`` (the Pallas kernel ``_kernel2`` in
-modes ``cc``, ``rc`` and ``cr``, launched at ``dft_kernel.py:277``), and
-of ``pdft_last`` (the single-stage ``_stage_kernel``, launched at
-``dft_kernel.py:165``).
+``pdft2``, ``pdft2_swapped``, ``prdft2`` and ``pdft2_cr`` (the Pallas
+kernel ``_kernel2`` in modes ``cc``, ``rc`` and ``cr``, launched at
+``dft_kernel.py:277``), and of ``pdft_last`` (the single-stage
+``_stage_kernel``, launched at ``dft_kernel.py:165``).
 
 * :func:`pdft_last` is one planar complex DFT along the minor axis,
   ``(..., K) -> (..., N)`` against ``mats`` ``(K, N)``: the z stage of
@@ -13,6 +13,9 @@ of ``pdft_last`` (the single-stage ``_stage_kernel``, launched at
 * :func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a
   DFT over the minor axis B against ``mats1`` ``(B, B')``, a swap of the
   two minor axes, a DFT over A against ``mats2`` ``(A, A')``.
+* :func:`pdft2_swapped` is :func:`pdft2` with the result stored back in
+  the input's axis order, ``(P, A', B')``: the C2C xy stage of the
+  distributed plan, whose plane grid is ``(planes, dim_y, x)``.
 * :func:`prdft2` (R2C forward head) takes a real ``(P, A, B)``; its first
   stage is the real DFT to the half spectrum (``mats1`` from
   ``dft.r2c_mats``).
@@ -25,8 +28,10 @@ column-selected matrices).
 
 On a CUDA tensor each wrapper launches ``csrc/dft2.cu``'s stage kernel
 twice: the first launch stores its result transposed within each plane,
-the second stores straight (see that file for why the TPU's in-VMEM swap
-has no direct counterpart, and what bounds the kernel: FP32 operations).
+the second stores straight (:func:`pdft2_swapped`: transposed again, so
+the TPU kernel's second in-VMEM swap costs no pass of its own; see that
+file for why the TPU's in-VMEM swap has no direct counterpart, and what
+bounds the kernel: FP32 operations).
 Each wrapper counts its own launches, two per call, in ``.launches``
 (:func:`pdft_last`: one per call). On a CPU tensor it runs the plain
 version from :mod:`spfft_tpu_torch.ops.dft`.
@@ -86,19 +91,21 @@ def _check(name: str, ins, mats1, mats2):
     return p, a, b, b_out, a_out
 
 
-def _run2(wrapper, modes, ins, mats1, mats2, plain):
-    """The body of the three wrappers: the stage kernel in ``modes[0]``
+def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
+    """The body of the four wrappers: the stage kernel in ``modes[0]``
     stored transposed within each plane, then in ``modes[1]`` stored
-    straight, each launch counted in ``wrapper.launches``; ``plain`` on a
-    CPU tensor. Mode cr as the second stage gives one real output."""
+    straight (``(P, B', A')``) or, with ``swap_out``, transposed again
+    (``(P, A', B')``), each launch counted in ``wrapper.launches``;
+    ``plain`` on a CPU tensor. Mode cr as the second stage gives one real
+    output."""
     name = wrapper.__name__
     p, a, b, b_out, a_out = _check(name, ins, mats1, mats2)
     x = ins[0]
     if not _build.on_cuda(x, name):
         return plain(*ins, mats1, mats2)
     real_out = modes[1] == "cr"
-    out = tuple(torch.empty((p, b_out, a_out), dtype=torch.float32,
-                            device=x.device)
+    oshape = (p, a_out, b_out) if swap_out else (p, b_out, a_out)
+    out = tuple(torch.empty(oshape, dtype=torch.float32, device=x.device)
                 for _ in range(1 if real_out else 2))
     if x.numel() == 0:
         for t in out:
@@ -108,7 +115,8 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain):
                                 device=x.device) for _ in range(2))
         _stage(modes[0], ins, mats1, mid, plane_rows=a)
         wrapper.launches += 1
-        _stage(modes[1], mid, mats2, out, plane_rows=0)
+        _stage(modes[1], mid, mats2, out,
+               plane_rows=b_out if swap_out else 0)
         wrapper.launches += 1
     return out[0] if real_out else out
 
@@ -150,6 +158,18 @@ def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
                  dft.pdft2_minor)
 
 
+def pdft2_swapped(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
+    """``(P, A, B) -> (P, A', B')`` planar complex DFT over both minor
+    axes, the result in the input's axis order: :func:`pdft2` with the
+    second launch storing transposed within each plane (``plane_rows =
+    B'``). Like ``pdft2`` it is bound by FP32 operations in its matrix
+    form (6.9e10 FLOP for 256 planes of 256 x 256 in the 4-product form,
+    13 x its 268 MB of operand traffic at the card's peaks). Each kernel
+    launch adds one to ``pdft2_swapped.launches`` (two per call)."""
+    return _run2(pdft2_swapped, ("cc", "cc"), (xr, xi), mats1, mats2,
+                 dft.cdft2_xy, swap_out=True)
+
+
 def prdft2(x: torch.Tensor, mats1, mats2):
     """Real ``(P, A, B) -> (P, B', A')`` planar: the real DFT over B to
     the half spectrum (``mats1`` ``(B, B')`` from ``dft.r2c_mats`` or its
@@ -171,5 +191,6 @@ def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
 
 pdft_last.launches = 0
 pdft2.launches = 0
+pdft2_swapped.launches = 0
 prdft2.launches = 0
 pdft2_cr.launches = 0

@@ -1,16 +1,27 @@
-"""Placement and symmetry stages of the sparse 3D FFT pipeline
-(counterpart of ``spfft_tpu.ops.stages``, the parts the local plan runs).
+"""Placement, symmetry and xy stages of the sparse 3D FFT pipeline
+(counterpart of ``spfft_tpu.ops.stages``, the parts the port's plans
+run).
 
 The local stick <-> plane transpose (reference:
 src/transpose/transpose_host.hpp:94-154), written as row gathers through
 plan-time inverse maps, and the R2C hermitian completion on planar
 operands. In the JAX package these are XLA ops, not Pallas kernels;
 plain tensor ops are their counterpart here.
+
+The xy stages at the end run in the distributed plan's plane layout
+``(planes, dim_y, x)`` (x the occupied window when split) on planar
+pairs, through the kernel wrappers of :mod:`.dft_kernel`: the C2C stage
+is one ``pdft2_swapped`` call; the split C2C stages and the R2C stages
+run ``pdft_last`` and, for the real x axis, the plain FP32 matrix
+products of :mod:`.dft`. They take the plan's device matrices instead of
+building them from the dimensions.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import dft, dft_kernel
 
 
 def gather_rows_with_sentinel(rows: torch.Tensor, idx: torch.Tensor):
@@ -79,3 +90,77 @@ def complete_plane_hermitian_t(gr: torch.Tensor, gi: torch.Tensor) -> None:
     on a planar pair)."""
     gr[..., 0, :], gi[..., 0, :] = complete_stick_hermitian(gr[..., 0, :],
                                                             gi[..., 0, :])
+
+
+def complete_plane_hermitian(gr: torch.Tensor, gi: torch.Tensor) -> None:
+    """Complete the x = 0 column of the plane grid ``(..., planes, dim_y,
+    x)`` along y, in place (:func:`complete_stick_hermitian` on ``[...,
+    :, 0]``; ``spfft_tpu.ops.stages.complete_plane_hermitian`` on a
+    planar pair)."""
+    gr[..., :, 0], gi[..., :, 0] = complete_stick_hermitian(gr[..., :, 0],
+                                                            gi[..., :, 0])
+
+
+# -- xy stages in the plane layout (planes, dim_y, x) -------------------------
+
+def _cdft_mid(xr: torch.Tensor, xi: torch.Tensor, mats):
+    """Complex DFT along axis -2, ``(..., M, L) -> (..., M', L)`` against
+    ``mats`` ``(M, M')``: swap to minor, one ``pdft_last``, swap back
+    (two transposing copies, as in the JAX package)."""
+    yr, yi = dft_kernel.pdft_last(xr.transpose(-1, -2).contiguous(),
+                                  xi.transpose(-1, -2).contiguous(), mats)
+    return (yr.transpose(-1, -2).contiguous(),
+            yi.transpose(-1, -2).contiguous())
+
+
+def xy_backward_c2c(gr: torch.Tensor, gi: torch.Tensor, mats_x, mats_y):
+    """Backward xy stage ``(P, dim_y, xf) -> (P, dim_y, dim_x)``: the
+    x-DFT (``mats_x`` ``(xf, dim_x)``) then the y-DFT, one
+    ``pdft2_swapped`` call over all planes."""
+    return dft_kernel.pdft2_swapped(gr, gi, mats_x, mats_y)
+
+
+def xy_forward_c2c(xr: torch.Tensor, xi: torch.Tensor, mats_x, mats_y):
+    """Forward xy stage ``(P, dim_y, dim_x) -> (P, dim_y, xf)``, one
+    ``pdft2_swapped`` call."""
+    return dft_kernel.pdft2_swapped(xr, xi, mats_x, mats_y)
+
+
+def xy_backward_c2c_split(gr: torch.Tensor, gi: torch.Tensor, mats_y,
+                          mats_x_rows):
+    """Backward xy stage on the occupied x window (the reference's y
+    transform over non-empty x rows only, execution_host.cpp:139-145):
+    ``(P, dim_y, w)``, the y-DFT on the w columns, then the x-DFT from
+    the window's rows of the DFT matrix (``mats_x_rows`` ``(w, dim_x)``,
+    a wrapped window being a row selection) -> ``(P, dim_y, dim_x)``."""
+    gr, gi = _cdft_mid(gr, gi, mats_y)
+    return dft_kernel.pdft_last(gr, gi, mats_x_rows)
+
+
+def xy_forward_c2c_split(xr: torch.Tensor, xi: torch.Tensor, mats_x_cols,
+                         mats_y):
+    """Forward mirror of :func:`xy_backward_c2c_split`: the x-DFT to the
+    window's columns (``mats_x_cols`` ``(dim_x, w)``), then the y-DFT on
+    them -> ``(P, dim_y, w)``."""
+    gr, gi = dft_kernel.pdft_last(xr, xi, mats_x_cols)
+    return _cdft_mid(gr, gi, mats_y)
+
+
+def xy_backward_r2c(gr: torch.Tensor, gi: torch.Tensor, mats_y, mats_c2r):
+    """R2C backward xy stage: the y-DFT, then the real inverse x-DFT
+    (``mats_c2r`` ``(xf, dim_x)`` from ``dft.c2r_mats``) -> real ``(P,
+    dim_y, dim_x)``. With the window's rows (``dft.sub_rows_c2r_mats``)
+    and a ``(P, dim_y, w)`` grid it is the split stage too (the JAX
+    package's ``xy_backward_r2c_split``): the matrices carry the
+    window."""
+    gr, gi = _cdft_mid(gr, gi, mats_y)
+    return dft.pirdft_last(gr, gi, mats_c2r)
+
+
+def xy_forward_r2c(x: torch.Tensor, mats_r2c, mats_y):
+    """R2C forward xy stage: the real x-DFT (``mats_r2c`` ``(dim_x,
+    xf)``, or the window's columns for the split stage, the JAX
+    package's ``xy_forward_r2c_split``), then the y-DFT -> planar ``(P,
+    dim_y, xf)``."""
+    gr, gi = dft.prdft_last(x, mats_r2c)
+    return _cdft_mid(gr, gi, mats_y)

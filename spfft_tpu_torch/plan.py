@@ -113,8 +113,8 @@ def resolve_device(device=None) -> torch.device:
 
 def _not_in_slice(what: str, later: str):
     return InvalidParameterError(
-        f"{what} is not in this slice of spfft_tpu_torch (the local "
-        f"single-precision C2C and R2C plans); the {later} slice adds it")
+        f"{what} is not in this slice of spfft_tpu_torch; the {later} "
+        f"slice adds it")
 
 
 def _on_device(t: torch.Tensor) -> bool:

@@ -14,6 +14,28 @@ import numpy as np
 from ..indexing import to_storage_index
 
 
+def round_robin_stick_partition(triplets: np.ndarray, dims,
+                                num_shards: int) -> list:
+    """Assign whole z-sticks round-robin to shards, in ascending stick
+    key order (a stick must live wholly on one shard — reference
+    README.md:8). Returns a list of per-shard triplet arrays."""
+    triplets = np.asarray(triplets)
+    _, ny, _ = dims
+    storage = np.where(triplets < 0,
+                       triplets + np.asarray(dims, triplets.dtype), triplets)
+    keys = storage[:, 0].astype(np.int64) * ny + storage[:, 1]
+    _, rank = np.unique(keys, return_inverse=True)
+    owners = rank.reshape(-1) % num_shards
+    return [triplets[owners == r] for r in range(num_shards)]
+
+
+def even_plane_split(dim_z: int, num_shards: int) -> list:
+    """Split z planes as evenly as possible (slab heights, sum ==
+    dim_z)."""
+    base, extra = divmod(dim_z, num_shards)
+    return [base + (1 if r < extra else 0) for r in range(num_shards)]
+
+
 def spherical_cutoff_triplets(n: int, radius: int | None = None) -> np.ndarray:
     """All (x, y, z) with x^2+y^2+z^2 <= radius^2 in centered indexing
     (default radius n//2) — the plane-wave sphere of a DFT code."""

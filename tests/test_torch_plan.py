@@ -271,6 +271,9 @@ def test_port_never_imports_jax():
             "spfft_tpu_torch.ops.gather_kernel",
             "spfft_tpu_torch.ops.dft_kernel",
             "spfft_tpu_torch.ops.fused_kernel", "spfft_tpu_torch.ops._build",
+            "spfft_tpu_torch.parallel", "spfft_tpu_torch.parallel.dist",
+            "spfft_tpu_torch.parallel.exchange",
+            "spfft_tpu_torch.parallel.mesh",
             "spfft_tpu_torch.utils.dtypes",
             "spfft_tpu_torch.utils.workloads", "chip_smoke"]
     code = ("import importlib, sys\n"
