@@ -15,11 +15,14 @@ Phases, each of which exits non-zero when it fails:
 4. each kernel of that path on the card at the shapes the path gives it,
    against its plain version on the same inputs (tolerance below), with
    its time, the plain version's time and a library yardstick's time
-   (cuFFT plus indexing, which the package never calls); then each
-   kernel at odd shapes and in both value layouts, against its plain
-   version;
+   (cuFFT plus indexing, which the package never calls) and, for the
+   redesigned complex stages, the matrix form's time on the same inputs
+   and the two-launch FFT form's; then each kernel at odd shapes and in
+   both value layouts, against its plain version, and every form of the
+   complex stage at odd shapes (fft, cluster, two-launch, matrix);
 5. the C2C path itself, backward + forward(FULL) through the public
-   plan, with every launch counter set to 0 before and read after; the
+   plan, with every launch counter (and every count by form) set to 0
+   before and read after; the
    backward against a dense complex128 ``torch.fft.ifftn`` oracle on the
    card, within ``predicted_rel_error``; the round trip within 1e-6; a
    second backward identical to the first; the pair's median time;
@@ -32,9 +35,9 @@ Phases, each of which exits non-zero when it fails:
 7. for each path, the two-kernel route (``fused=False``): the gather
    kernel in both directions (exact against its plain version) and
    ``pdft_last`` at the route's 256^3 shapes, then the counted pair
-   (gather 2, ``pdft_last`` 2, no fused z kernel) with the same oracle,
-   round-trip and repeat checks, timed beside the fused pair, and its
-   results against the fused route's;
+   (gather 2, ``pdft_last`` 2 in the FFT form, no fused z kernel) with the
+   same oracle, round-trip and repeat checks, timed beside the fused
+   pair, and its results against the fused route's;
 8. for each path, batched execution at B = 4: the batched grids of both
    fused z kernels against their plain versions and, bit for bit,
    against four single launches; then the counted batched pair (one
@@ -57,8 +60,9 @@ Phases, each of which exits non-zero when it fails:
    padding sticks and zero stick) and ``zdft_compress`` (its own CSR)
    against their plain versions; plans with uneven and empty shards on
    the card against the same plans on the CPU; the counted C2C pair
-   (``pdft2_swapped`` 4, each z kernel 4 — once per shard — and
-   ``pdft2`` never), its backward against the complex128 oracle and
+   (``pdft2_swapped`` 2 in the cluster form, each z kernel 4 — once per
+   shard — and ``pdft2`` never), its backward against the complex128
+   oracle and
    against the local plan's backward of the same values, the round
    trip, the repeat, its time beside the local pair's and its exchange
    bytes; the pair run through the plan's own stage methods with a CUDA
@@ -83,14 +87,28 @@ each output written once) over 3.35 TB/s and the FP32 operations the
 function needs over 67 TFLOP/s, the H100 SXM's published peaks. The
 operations are those of an FFT, 5 n log2 n per complex line of length
 n (half that for a real transform), so at these sizes the bytes bind.
-The kernels compute each DFT as a matrix product, which needs far more
-operations; that design's own bound (the cheapest matrix form: the
-Karatsuba triple at 6 FLOP per complex multiply-add, 4 FLOP per real by
-complex one) is printed on a line of its own, ``{"design_bound_ms":
-{path: {kernel: ms}}}``, before the kernels line, so that line holds
-only measured numbers and ``bound_ms``. The kernels use the plain
-4-product form (8 FLOP per complex multiply-add), so their complex
-stages can reach at most 3/4 of that design bound.
+
+Forms. The complex DFT stages are no longer matrix products:
+``pdft_last`` is an FFT in shared memory (form ``fft``), ``pdft2`` and
+``pdft2_swapped`` one launch of a cluster kernel per call (form
+``cluster``: both FFTs of a plane in one cluster of 8 blocks, the swap
+through distributed shared memory), and the complex halves of
+``prdft2`` and ``pdft2_cr`` the FFT stage (their real halves stay matrix
+products: form ``matrix+fft``). The fused z kernels
+(``decompress_zdft``, ``zdft_compress``) still compute their z-DFT as a
+matrix product (form ``matrix``), as does any stage whose length has a
+prime factor other than 2, 3 and 5. Each counted pair checks the
+launches of each wrapper by form (``form_launches``); no pair of the
+main paths takes the matrix form of a complex stage. Each record of a
+redesigned kernel carries ``form`` and ``matrix_ms``, the matrix form
+timed on the same inputs in the same run (the "before").
+``design_bound_ms`` is the bound of the record's own design: for the
+FFT and cluster forms ``bound_ms`` itself; for a matrix product the
+cheapest matrix form (the Karatsuba triple at 6 FLOP per complex
+multiply-add, 4 FLOP per real by complex one), of which the kernels'
+plain 4-product form reaches at most 3/4. It is printed on a line of its
+own, ``{"design_bound_ms": {path: {kernel: ms}}}``, before the kernels
+line, so that line holds only measured numbers and ``bound_ms``.
 
 The script runs on one card: where ``CUDA_VISIBLE_DEVICES`` is unset it
 shows the process card 0 only, and where it lists several cards, the
@@ -190,31 +208,77 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-#: path -> kernel name -> the matrix-form design bound in ms (see the
-#: docstring)
+#: path -> kernel name -> the design bound of the record's form in ms (see
+#: the docstring)
 DESIGN_BOUND_MS = {}
 
 
+#: the redesigned complex stages (pdft_last, pdft2, pdft2_swapped, the
+#: complex halves of prdft2 and pdft2_cr); the matrix form is dft2.cu
+FFT_SRC = "spfft_tpu_torch/csrc/fft.cu"
+DFT2_SRC = "spfft_tpu_torch/csrc/dft2.cu"
+
+
+def matrix_pair(mats):
+    """The same matrices without the function they carry: a wrapper runs
+    its matrix form on them (the "before" of the FFT forms)."""
+    return (mats[0], mats[1])
+
+
+def fft_two_launch(ins, mats1, mats2, swap_out=False):
+    """``pdft2`` (``pdft2_swapped`` with ``swap_out``) in the two-launch
+    FFT form: csrc/fft.cu's stage kernel over B stored transposed within
+    each plane, then over A, the form the wrappers take where a plane
+    does not fit one cluster; not counted."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    p, a, b = ins[0].shape
+    b_out, a_out = mats1[0].shape[1], mats2[0].shape[1]
+    dev = ins[0].device
+    mid = tuple(torch.empty((p, b_out, a), device=dev) for _ in range(2))
+    out = tuple(torch.empty((p, a_out, b_out) if swap_out
+                            else (p, b_out, a_out), device=dev)
+                for _ in range(2))
+    if dev.type != "cuda":  # the stage kernels run only on the card
+        return (dft.cdft2_xy if swap_out else dft.pdft2_minor)(
+            *ins, mats1, mats2)
+    dft_kernel._stage("cc", ins, mats1, mid, plane_rows=a)
+    dft_kernel._stage("cc", mid, mats2, out,
+                      plane_rows=b_out if swap_out else 0)
+    return out
+
+
 def kernel_record(path, name, source, replaces, err, ms, plain_ms,
-                  library_ms, nbytes, flops, design_flops):
+                  library_ms, nbytes, flops, design_flops, form=None,
+                  matrix_ms=None):
+    """One kernel's record. ``form``: ``fft``, ``cluster``, ``matrix``,
+    ``matrix+fft`` or None (no DFT); ``matrix_ms``: the matrix form on
+    the same inputs (a matrix-form kernel's own ``ms``). The design bound
+    of the FFT and cluster forms is ``bound_ms``."""
     b_ms, b_by = bound(nbytes, flops)
     DESIGN_BOUND_MS.setdefault(path, {})[name] = \
-        bound(nbytes, design_flops)[0]
+        b_ms if form in ("fft", "cluster") else bound(nbytes,
+                                                      design_flops)[0]
+    if form == "matrix" and matrix_ms is None:
+        matrix_ms = ms
     return {"path": path, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err[0],
             "rel_err": err[1], "rel_l2": err[2], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "form": form, "matrix_ms": matrix_ms}
+
+
+def _ms(x):
+    return "null" if x is None else f"{x:.4f}"
 
 
 def print_records(recs):
     for r in recs:
-        lib = r["library_ms"]
         print(f"kernel {r['path']} {r['name']}: "
               f"max_abs_err={r['max_abs_err']:.3e} "
               f"rel_err={r['rel_err']:.3e} rel_l2={r['rel_l2']:.3e} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
-              f"{'null' if lib is None else f'{lib:.4f}'} "
+              f"form={r['form']} ms={r['ms']:.4f} matrix_ms="
+              f"{_ms(r['matrix_ms'])} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={_ms(r['library_ms'])} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"design_bound_ms="
               f"{DESIGN_BOUND_MS[r['path']][r['name']]:.4f}", flush=True)
@@ -272,7 +336,7 @@ def decompress_record(path, plan, values, device):
         timed_ms(lambda: torch.fft.ifft(vpad[slot64].view(rows, dz),
                                         norm="forward"), device),
         nv * 8 + rows * dz * 4 + 2 * dz * dz * 4 + 2 * rows * dz * 4,
-        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz), got
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, "matrix"), got
 
 
 def kernel_phase(plan, values, device):
@@ -300,12 +364,14 @@ def kernel_phase(plan, values, device):
     fgot = dft_kernel.pdft2(xr, xi, f1, f2)
     err_f = compare("pdft2 forward", fgot, dft.pdft2_minor(xr, xi, f1, f2))
     err = max(err_b, err_f)
+    two = compare("pdft2 backward, two-launch FFT form",
+                  fft_two_launch((gr, gi), m1, m2), got)
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
+    form = "+".join(dft_kernel.plane_forms(m1, m2, a))
     recs.append(kernel_record(
-        "c2c", "pdft2", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:277", err,
+        "c2c", "pdft2", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
         timed_ms(lambda: dft_kernel.pdft2(gr, gi, m1, m2), device),
         timed_ms(lambda: dft.pdft2_minor(gr, gi, m1, m2), device),
         timed_ms(lambda: torch.fft.ifft2(gc, norm="forward")
@@ -314,7 +380,13 @@ def kernel_phase(plan, values, device):
         2 * pp * a * b * 4 + 2 * pp * b_out * a_out * 4
         + 2 * (b * b_out + a * a_out) * 4,
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
-        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out)))
+        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
+        timed_ms(lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1),
+                                          matrix_pair(m2)), device)))
+    ms2 = timed_ms(lambda: fft_two_launch((gr, gi), m1, m2), device)
+    print(f"pdft2 backward in the two-launch FFT form: {ms2:.4f} ms "
+          f"(reference; the path takes form {form}), max_abs_err against "
+          f"the {form} form {two[0]:.3e}", flush=True)
 
     recs.append(zdft_compress_record("c2c", plan, fgot, device))
     print_records(recs)
@@ -347,7 +419,7 @@ def zdft_compress_record(path, plan, grid, device):
             fr, fi, mf, plan._csr, pair), device),
         timed_ms(lambda: torch.fft.fft(fc).view(-1)[vi64] * gs, device),
         2 * s * dz * 4 + (s + 1 + 2 * nv) * 4 + 2 * dz * dz * 4 + nv * 8,
-        fft_flops(s, dz), FLOP_PER_CMAC * s * dz * dz)
+        fft_flops(s, dz), FLOP_PER_CMAC * s * dz * dz, "matrix")
 
 
 def odd_shapes_phase(device):
@@ -414,31 +486,145 @@ def odd_shapes_phase(device):
           flush=True)
 
 
-#: launches of one backward + forward(FULL) pair per path: (least, most)
-C2C_LAUNCHES = {"decompress_zdft": (1, None), "pdft2": (1, None),
+def fft_odd_shapes_phase(device):
+    """The redesigned complex stages at shapes the paths do not reach,
+    against their plain versions, each call's form checked by its launch
+    counts: ``pdft_last`` in the FFT form at every radix (n = 1, 2, 3, 5,
+    12, 45, 60, 100, 128, 384, 512), ragged row counts, input and output
+    windows (wrapped), both signs and a scale, and at prime lengths (11,
+    13) in the matrix form; ``pdft2`` and ``pdft2_swapped`` in the
+    cluster form (P = 1, A not a multiple of 8, rectangular, windowed,
+    3·5-smooth, a ragged 129-row K), the two-launch FFT form (512²
+    planes), a mixed FFT + matrix call and the matrix form; ``prdft2``
+    and ``pdft2_cr`` with their complex half in the FFT form."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    rng = np.random.default_rng(SEED + 8)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=device)
+
+    def c2c(n, sign, scale=1.0, **window):
+        return dft.device_c2c(n, sign, scale, device=device, **window)
+
+    def forms_of(wrapper, fn):
+        wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+        out = fn()
+        return out, {f: k for f, k in wrapper.form_launches.items() if k}
+
+    on_card = device.type == "cuda"
+    cases = 0
+    for lead, n, sign, scale, window in (
+            ((5,), 1, 1, 0.5, {}), ((7,), 2, -1, 1.0, {}),
+            ((33,), 3, 1, 1.0, {}), ((9,), 5, -1, 0.2, {}),
+            ((37,), 12, 1, 1.0, {"rows": (10, 5)}),
+            ((3, 7), 45, -1, 1 / 45, {"cols": (40, 20)}),
+            ((1001,), 60, 1, 1.0, {"rows": (59, 31), "cols": (50, 60)}),
+            ((11,), 100, -1, 1.0, {"rows": (90, 30)}),
+            ((1001,), 256, 1, 1.0, {}), ((65,), 128, -1, 0.25, {}),
+            ((9,), 384, 1, 1.0, {}), ((3,), 512, -1, 1 / 512,
+                                      {"cols": (500, 100)}),
+            ((21,), 13, 1, 1.0, {}), ((4,), 11, -1, 0.5, {"rows": (9, 4)})):
+        m = c2c(n, sign, scale, **window)
+        k = m[0].shape[0]
+        xr, xi = rand(*lead, k), rand(*lead, k)
+        got, forms = forms_of(dft_kernel.pdft_last,
+                              lambda: dft_kernel.pdft_last(xr, xi, m))
+        want_form = dft_kernel.stage_form(m)
+        if want_form != ("matrix" if n in (11, 13) else "fft") or (
+                on_card and forms != {want_form: 1}):
+            fail(f"pdft_last n={n}: form {forms}, expected {want_form}")
+        compare(f"pdft_last {lead + (k,)} n={n} {window} form {want_form}",
+                got, dft.pdft_last(xr, xi, m))
+        cases += 1
+    planes = (  # (P, A, B), mats1 over B, mats2 over A, forms
+        ((3, 20, 24), c2c(24, 1), c2c(20, -1), ("cluster",)),
+        ((5, 9, 16), c2c(16, -1), c2c(24, 1, rows=(20, 9)), ("cluster",)),
+        ((4, 24, 20), c2c(20, -1, cols=(17, 6)), c2c(24, -1), ("cluster",)),
+        ((2, 45, 60), c2c(60, 1, 1 / 60), c2c(45, 1, 2.0), ("cluster",)),
+        ((1, 3, 5), c2c(5, 1), c2c(3, 1), ("cluster",)),
+        ((3, 256, 129), c2c(256, 1, rows=(0, 129)), c2c(256, 1),
+         ("cluster",)),
+        ((2, 512, 9), c2c(9, 1), c2c(512, 1), ("cluster",)),
+        ((2, 512, 512), c2c(512, 1), c2c(512, -1, 0.5), ("fft", "fft")),
+        ((2, 7, 300), c2c(300, -1), c2c(7, -1), ("fft", "matrix")),
+        ((2, 11, 13), c2c(13, 1), c2c(11, 1), ("matrix", "matrix")))
+    for (pp, a, b), m1, m2, want in planes:
+        if dft_kernel.plane_forms(m1, m2, a) != want:
+            fail(f"plane {(pp, a, b)}: forms "
+                 f"{dft_kernel.plane_forms(m1, m2, a)}, expected {want}")
+        xr, xi = rand(pp, a, b), rand(pp, a, b)
+        for wrapper, plain in ((dft_kernel.pdft2, dft.pdft2_minor),
+                               (dft_kernel.pdft2_swapped, dft.cdft2_xy)):
+            got, forms = forms_of(wrapper, lambda: wrapper(xr, xi, m1, m2))
+            counted = {}
+            for f in want:
+                counted[f] = counted.get(f, 0) + 1
+            if on_card and forms != counted:
+                fail(f"{wrapper.__name__} {(pp, a, b)}: launches by form "
+                     f"{forms}, expected {counted}")
+            compare(f"{wrapper.__name__} {(pp, a, b)} form "
+                    f"{'+'.join(want)}", got, plain(xr, xi, m1, m2))
+            cases += 1
+    for nx, ny, pp, cols in ((24, 20, 3, None), (15, 45, 2, (2, 4)),
+                             (256, 256, 2, None)):
+        r2c = dft.r2c_mats(nx) if cols is None \
+            else dft.sub_cols_r2c_mats(nx, tuple(range(cols[0],
+                                                       cols[0] + cols[1])))
+        c2r = dft.c2r_mats(nx) if cols is None \
+            else dft.sub_rows_c2r_mats(nx, tuple(range(cols[0],
+                                                       cols[0] + cols[1])))
+        r2c, c2r = dft.device_mats(r2c, device), dft.device_mats(c2r, device)
+        x = rand(pp, ny, nx)
+        yf, yb = c2c(ny, dft.FORWARD), c2c(ny, dft.BACKWARD)
+        got, forms = forms_of(dft_kernel.prdft2,
+                              lambda: dft_kernel.prdft2(x, r2c, yf))
+        if on_card and forms != {"matrix": 1, "fft": 1}:
+            fail(f"prdft2 nx={nx}: launches by form {forms}")
+        compare(f"prdft2 nx={nx} ny={ny} window={cols} form matrix+fft", got,
+                dft.prdft2_minor(x, r2c, yf))
+        k = c2r[0].shape[0]
+        gr, gi = rand(pp, k, ny), rand(pp, k, ny)
+        got, forms = forms_of(dft_kernel.pdft2_cr,
+                              lambda: dft_kernel.pdft2_cr(gr, gi, yb, c2r))
+        if on_card and forms != {"matrix": 1, "fft": 1}:
+            fail(f"pdft2_cr nx={nx}: launches by form {forms}")
+        compare(f"pdft2_cr nx={nx} ny={ny} window={cols} form fft+matrix",
+                (got,), (dft.pdft2_minor_cr(gr, gi, yb, c2r),))
+        cases += 2
+    print(f"odd shapes of the FFT and cluster forms: {cases} kernel-vs-plain "
+          f"cases within {KERNEL_TOL}, each in its expected form", flush=True)
+
+
+#: launches of one backward + forward(FULL) pair per path: (least, most),
+#: and for a DFT wrapper that launches, its launches by form (exactly)
+CLUSTER2 = (2, 2, {"cluster": 2})  # one cluster launch per call
+FFT2 = (2, 2, {"fft": 2})
+REAL2 = (2, 2, {"matrix": 1, "fft": 1})  # the real half, the complex half
+C2C_LAUNCHES = {"decompress_zdft": (1, None), "pdft2": CLUSTER2,
                 "zdft_compress": (1, None), "prdft2": (0, 0),
                 "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
                 "pdft2_swapped": (0, 0)}
-R2C_LAUNCHES = {"decompress_zdft": (1, None), "prdft2": (2, None),
-                "pdft2_cr": (2, None), "zdft_compress": (1, None),
+R2C_LAUNCHES = {"decompress_zdft": (1, None), "prdft2": REAL2,
+                "pdft2_cr": REAL2, "zdft_compress": (1, None),
                 "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
                 "pdft2_swapped": (0, 0)}
 #: the two-kernel route's pair, exactly
-C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
+C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
-                   "pdft2": (4, 4), "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                   "pdft2": CLUSTER2, "prdft2": (0, 0), "pdft2_cr": (0, 0),
                    "pdft2_swapped": (0, 0)}
-R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2),
+R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
-                   "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0),
+                   "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
                    "pdft2_swapped": (0, 0)}
 #: a batched pair launches what ONE single pair does, whatever B is
 C2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
-                        "pdft2": (4, 4), "prdft2": (0, 0),
+                        "pdft2": CLUSTER2, "prdft2": (0, 0),
                         "pdft2_cr": (0, 0), "gather": (0, 0),
                         "pdft_last": (0, 0), "pdft2_swapped": (0, 0)}
 R2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
-                        "prdft2": (2, 2), "pdft2_cr": (2, 2), "pdft2": (0, 0),
+                        "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
                         "gather": (0, 0), "pdft_last": (0, 0),
                         "pdft2_swapped": (0, 0)}
 #: record name -> the launch counter it reads
@@ -447,16 +633,32 @@ COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
               "zdft_compress_batched": "zdft_compress"}
 
 
+def reset_launches(counters):
+    """Set every launch counter, and every count by form, to 0."""
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "form_launches"):
+            c.form_launches = dict.fromkeys(c.form_launches, 0)
+
+
 def read_launches(path, counters, want):
-    """Each counter's launches since they were set to 0; fails when one
-    lies outside its ``want`` bounds."""
+    """Each counter's launches since :func:`reset_launches`; fails when
+    one lies outside its ``want`` bounds, or a DFT wrapper's launches by
+    form differ from ``want``'s (its third entry: every form not named
+    there must be 0)."""
     launches = {name: c.launches for name, c in counters.items()}
-    print(f"{path} path launches: {launches}", flush=True)
-    for name, (lo, hi) in want.items():
+    forms = {name: {f: k for f, k in c.form_launches.items() if k}
+             for name, c in counters.items() if hasattr(c, "form_launches")}
+    print(f"{path} path launches: {launches}; by form: {forms}", flush=True)
+    for name, (lo, hi, *by_form) in want.items():
         k = launches[name]
         if k < lo or (hi is not None and k > hi):
             fail(f"{path} path launched {name} {k} times, expected "
                  f"{lo}..{'' if hi is None else hi}")
+        expect = by_form[0] if by_form else {}
+        if name in forms and forms[name] != expect:
+            fail(f"{path} path launched {name} by form {forms[name]}, "
+                 f"expected {expect}")
     return launches
 
 
@@ -468,8 +670,7 @@ def pair_phase(sp, path, plan, values, oracle_rel, device, counters,
     complex128 oracle on the card (``oracle_rel(space)`` gives the
     relative l2 error), the round trip within 1e-6, and a second
     backward equal to the first."""
-    for c in counters.values():
-        c.launches = 0
+    reset_launches(counters)
     space = plan.backward(values)
     out = plan.forward(space, sp.Scaling.FULL)
     if device.type == "cuda":
@@ -593,9 +794,9 @@ def r2c_kernel_phase(plan, values, device):
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
+    cc = dft_kernel.stage_form(m1)
     recs.append(kernel_record(
-        "r2c", "pdft2_cr", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:277", err,
+        "r2c", "pdft2_cr", DFT2_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
         timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, m1, m2), device),
         timed_ms(lambda: dft.pdft2_minor_cr(gr, gi, m1, m2), device),
         timed_ms(lambda: torch.fft.irfft2(
@@ -604,8 +805,11 @@ def r2c_kernel_phase(plan, values, device):
         2 * pp * a * b * 4 + pp * b_out * a_out * 4
         + 2 * (b * b_out + a * a_out) * 4,
         fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
-        FLOP_PER_CMAC * pp * a * b * b_out
-        + FLOP_PER_RMAC * pp * b_out * a * a_out))
+        (fft_flops(pp * a, b) if cc == "fft"
+         else FLOP_PER_CMAC * pp * a * b * b_out)
+        + FLOP_PER_RMAC * pp * b_out * a * a_out, f"{cc}+matrix",
+        timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1), m2),
+                 device)))
 
     # prdft2, forward shapes: real (z, y, x) -> planar (z, w, y)
     f1, f2 = plan._mats["x_f"], plan._mats["y_f"]
@@ -613,9 +817,9 @@ def r2c_kernel_phase(plan, values, device):
     err = compare("r2c prdft2", fgot, dft.prdft2_minor(space, f1, f2))
     pp, a, b = space.shape
     b_out, a_out = f1[0].shape[1], f2[0].shape[1]
+    cc = dft_kernel.stage_form(f2)
     recs.append(kernel_record(
-        "r2c", "prdft2", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:277", err,
+        "r2c", "prdft2", DFT2_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
         timed_ms(lambda: dft_kernel.prdft2(space, f1, f2), device),
         timed_ms(lambda: dft.prdft2_minor(space, f1, f2), device),
         timed_ms(lambda: torch.fft.rfft2(space).transpose(-1, -2)
@@ -625,7 +829,10 @@ def r2c_kernel_phase(plan, values, device):
         + 2 * (b * b_out + a * a_out) * 4,
         rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_RMAC * pp * a * b * b_out
-        + FLOP_PER_CMAC * pp * b_out * a * a_out))
+        + (fft_flops(pp * b_out, a) if cc == "fft"
+           else FLOP_PER_CMAC * pp * b_out * a * a_out), f"matrix+{cc}",
+        timed_ms(lambda: dft_kernel.prdft2(space, f1, matrix_pair(f2)),
+                 device)))
 
     recs.append(zdft_compress_record("r2c", plan, fgot, device))
     print_records(recs)
@@ -784,13 +991,16 @@ def two_kernel_kernel_phase(path, plan, values, device):
     err_f = compare(f"{path} pdft_last forward", fy, dft.pdft_last(fr, fi, zf))
     sc = torch.complex(sr, si)
     recs.append(kernel_record(
-        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:165", max(err_b, err_f),
+        path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165",
+        max(err_b, err_f),
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
         timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
         timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
         4 * rows * dz * 4 + 2 * dz * dz * 4,
-        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz))
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
+        dft_kernel.stage_form(zb),
+        timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
+                 device)))
 
     vi = plan._value_indices
     got = gather_kernel.compress(*fy, vi, pair)
@@ -864,7 +1074,8 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
             batch, rows, dz), norm="forward"), device),
         batch * (nv * 8 + 2 * rows * dz * 4) + rows * dz * 4
         + 2 * dz * dz * 4,
-        batch * fft_flops(rows, dz), batch * FLOP_PER_CMAC * rows * dz * dz))
+        batch * fft_flops(rows, dz), batch * FLOP_PER_CMAC * rows * dz * dz,
+        "matrix"))
 
     fr, fi = got[0][:, :s].contiguous(), got[1][:, :s].contiguous()
     mf, csr = plan._mats["z_fs"], plan._csr
@@ -891,7 +1102,8 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
                  device),
         batch * (2 * s * dz * 4 + nv * 8) + (s + 1 + 2 * nv) * 4
         + 2 * dz * dz * 4,
-        batch * fft_flops(s, dz), batch * FLOP_PER_CMAC * s * dz * dz))
+        batch * fft_flops(s, dz), batch * FLOP_PER_CMAC * s * dz * dz,
+        "matrix"))
     print_records(recs)
     for r in recs:
         print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
@@ -906,8 +1118,7 @@ def batched_pair_phase(sp, path, plan, values, device, counters, want,
     one single pair), every band equal to the single pair on its band,
     timed against one single pair."""
     vb = band_values(plan, values, batch)
-    for c in counters.values():
-        c.launches = 0
+    reset_launches(counters)
     space_b = plan.backward_batched(vb)
     out_b = plan.forward_batched(space_b, sp.Scaling.FULL)
     if device.type == "cuda":
@@ -1129,15 +1340,15 @@ _S = DIST_SHARDS
 #: launches of one distributed backward + forward(FULL) pair: the z
 #: kernels once per shard, the xy stage once over all shards' planes
 DIST_C2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
-                     "pdft2_swapped": (4, 4), "pdft2": (0, 0),
+                     "pdft2_swapped": CLUSTER2, "pdft2": (0, 0),
                      "prdft2": (0, 0), "pdft2_cr": (0, 0), "gather": (0, 0),
                      "pdft_last": (0, 0)}
 DIST_R2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
-                     "pdft_last": (2, 2), "pdft2_swapped": (0, 0),
+                     "pdft_last": FFT2, "pdft2_swapped": (0, 0),
                      "pdft2": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
                      "gather": (0, 0)}
-DIST_C2C_2K_LAUNCHES = {"gather": (2 * _S, 2 * _S), "pdft_last": (2, 2),
-                        "pdft2_swapped": (4, 4), "decompress_zdft": (0, 0),
+DIST_C2C_2K_LAUNCHES = {"gather": (2 * _S, 2 * _S), "pdft_last": FFT2,
+                        "pdft2_swapped": CLUSTER2, "decompress_zdft": (0, 0),
                         "zdft_compress": (0, 0), "pdft2": (0, 0),
                         "prdft2": (0, 0), "pdft2_cr": (0, 0)}
 
@@ -1196,11 +1407,14 @@ def dist_kernel_phase(plan, stacked, device):
     fgot = dft_kernel.pdft2_swapped(*got, xf, yf)
     err_f = compare("dist c2c pdft2_swapped forward", fgot,
                     dft.cdft2_xy(*got, xf, yf))
+    two = compare("dist c2c pdft2_swapped backward, two-launch FFT form",
+                  fft_two_launch((gr, gi), xb, yb, swap_out=True), got)
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = xb[0].shape[1], yb[0].shape[1]
+    form = "+".join(dft_kernel.plane_forms(xb, yb, a))
     rec = kernel_record(
-        "dist_c2c", "pdft2_swapped", "spfft_tpu_torch/csrc/dft2.cu",
+        "dist_c2c", "pdft2_swapped", FFT_SRC,
         "spfft_tpu/ops/dft_kernel.py:277", max(err_b, err_f),
         timed_ms(lambda: dft_kernel.pdft2_swapped(gr, gi, xb, yb), device),
         timed_ms(lambda: dft.cdft2_xy(gr, gi, xb, yb), device),
@@ -1209,8 +1423,14 @@ def dist_kernel_phase(plan, stacked, device):
         2 * pp * a * b * 4 + 2 * pp * a_out * b_out * 4
         + 2 * (b * b_out + a * a_out) * 4,
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
-        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out))
+        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
+        timed_ms(lambda: dft_kernel.pdft2_swapped(
+            gr, gi, matrix_pair(xb), matrix_pair(yb)), device))
     print_records([rec])
+    ms2 = timed_ms(lambda: fft_two_launch((gr, gi), xb, yb, True), device)
+    print(f"dist c2c pdft2_swapped backward in the two-launch FFT form: "
+          f"{ms2:.4f} ms (reference; the path takes form {form}), "
+          f"max_abs_err against the {form} form {two[0]:.3e}", flush=True)
     return [rec]
 
 
@@ -1300,7 +1520,8 @@ def dist_z_kernel_phase(path, plan, stacked, device):
                 vpad[r][slot64[r]].view(ms, dz), norm="forward")), device),
             sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + 2 * dz * dz * 4
                                              + 2 * ms * dz * 4),
-            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz))
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz,
+            "matrix"))
         err = max(compare(f"{path} zdft_compress shard {r}", (cmp(r),),
                           (cmp(r, lambda *a: fk.zdft_compress_plain(
                               *a, False)),))
@@ -1316,7 +1537,8 @@ def dist_z_kernel_phase(path, plan, stacked, device):
                           * gs), device),
             sum(2 * ms * dz * 4 + (ms + 1 + 2 * nv) * 4 + 2 * dz * dz * 4
                 + nv * 8 for nv in nvs),
-            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz))
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz,
+            "matrix"))
         print(f"{path}: decompress_zdft zero sticks per shard {zids}, "
               f"values per shard {nvs} (max_values {dp.max_values}), "
               f"sticks per shard "
@@ -1353,13 +1575,16 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     sc = torch.complex(sr, si)
     rows = S * ms
     recs.append(kernel_record(
-        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:165", max(err_b, err_f),
+        path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165",
+        max(err_b, err_f),
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
         timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
         timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
         4 * rows * dz * 4 + 2 * dz * dz * 4,
-        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz))
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
+        dft_kernel.stage_form(zb),
+        timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
+                 device)))
 
     def gcmp(r, f=gk.gather):
         out = torch.empty((1, nvs[r], 2), device=device)
@@ -1445,13 +1670,15 @@ def dist_y_kernel_record(path, plan, stacked, device):
     xc = torch.complex(xr, xi)
     rows = xr.shape[0] * xr.shape[1]
     rec = kernel_record(
-        path, "pdft_last", "spfft_tpu_torch/csrc/dft2.cu",
-        "spfft_tpu/ops/dft_kernel.py:165", err,
+        path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165", err,
         timed_ms(lambda: dft_kernel.pdft_last(xr, xi, yb), device),
         timed_ms(lambda: dft.pdft_last(xr, xi, yb), device),
         timed_ms(lambda: torch.fft.ifft(xc, norm="forward"), device),
         4 * rows * y * 4 + 2 * y * y * 4,
-        fft_flops(rows, y), FLOP_PER_CMAC * rows * y * y)
+        fft_flops(rows, y), FLOP_PER_CMAC * rows * y * y,
+        dft_kernel.stage_form(yb),
+        timed_ms(lambda: dft_kernel.pdft_last(xr, xi, matrix_pair(yb)),
+                 device))
     print_records([rec])
     return [rec]
 
@@ -1554,8 +1781,7 @@ def dist_pair_phase(sp, path, plan, stacked, local, local_values,
     dp = plan.dist_plan
     if len(set(dp.num_planes)) != 1:
         fail(f"{path}: uneven slabs {dp.num_planes}")
-    for c in counters.values():
-        c.launches = 0
+    reset_launches(counters)
     space = plan.backward(stacked)
     out = plan.forward(space, sp.Scaling.FULL)
     if device.type == "cuda":
@@ -1612,8 +1838,7 @@ def dist_structure_phase(sp, path, plan, stacked, device, counters, want,
     to the same calls made one at a time."""
     full = sp.Scaling.FULL
     bands = torch.stack([stacked * (1 + b / 2) for b in range(batch)], 1)
-    for c in counters.values():
-        c.launches = 0
+    reset_launches(counters)
     space_b = plan.backward_batched(bands)
     out_b = plan.forward_batched(space_b, full)
     if device.type == "cuda":
@@ -1714,6 +1939,7 @@ def run(device, n=N):
     plan, trip, values = main_path_plan(sp, n, device)
     c2c = kernel_phase(plan, values, device)
     odd_shapes_phase(device)
+    fft_odd_shapes_phase(device)
     oracle = c2c_oracle_rel(plan, trip, values, device)
     set_launches(c2c, pair_phase(sp, "c2c", plan, values, oracle, device,
                                  counters, C2C_LAUNCHES))

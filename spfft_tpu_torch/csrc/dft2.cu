@@ -12,34 +12,33 @@
 //   "cc" + swap_out (pdft2_swapped): as "cc", stored back as (P, A', B'),
 //                    the C2C xy stage of the distributed plan,
 //
-// all f32. The TPU kernel keeps a whole plane in VMEM and swaps the two
-// minor axes there. A 256 x 256 complex plane is 512 KB, more than a
-// block's 227 KB of shared memory, so here each call is one stage kernel
-// launched twice: the first launch stores its result transposed within
-// each plane, (P, B', A), and the second launch contracts the new minor
-// axis and stores straight (pdft2_swapped: transposed once more, with
-// plane_rows = B', which puts the TPU kernel's second in-VMEM swap into
-// the store and costs no pass of its own). The mode picks the tile
-// product: "rc" runs a real-input first stage (RC: no imaginary operand,
-// 2 FMAs per element) and a complex second stage; "cr" a complex first
-// stage and a real-output second stage (CR: 2 FMAs, one output array).
-// The intermediate makes one
-// extra round trip through device memory (2 x 134 MB at 256^3 for "cc",
-// 2 x 68 MB for the half-spectrum grids of "rc" and "cr"), the known gap
-// for a later change (a cluster of blocks sharing one plane through
-// distributed shared memory).
+// all f32, in the matrix form: each DFT a product against plan-time
+// matrices. Since the complex stages moved to fft.cu (the FFT stage and
+// cluster kernels, for every complex stage whose matrices carry their
+// transform and whose length is 2^a 3^b 5^c), this kernel serves the real
+// stages of "rc" and "cr" (the R2C head and tail), complex stages whose
+// length has another prime factor (11, 13, ...), and matrix pairs passed
+// without their transform. Each call is one stage kernel launched twice:
+// the first launch stores its result transposed within each plane,
+// (P, B', A'), and the second contracts the new minor axis and stores
+// straight (pdft2_swapped: transposed once more, plane_rows = B'). The
+// mode picks the tile product: "rc" a real-input first stage (RC: no
+// imaginary operand, 2 FMAs per element), "cr" a real-output second stage
+// (CR: 2 FMAs, one output array). The intermediate makes one round trip
+// through device memory.
 //
 // Bound on the H100: operations, for the matrix form. A 256^3 "cc" call
-// is 2 x 65,536 rows x 256 x 256 complex multiply-adds, 6.9e10 FLOP in
-// this 4-product form, against 268 MB of operand traffic; at 67 TFLOP/s
-// FP32 and 3.35 TB/s the FLOPs take about 13x longer than the bytes. An
-// "rc" or "cr" call at 256^3 (half spectrum 129 wide) is 2.6e10 FLOP (one
-// 2-FMA real stage, one 4-FMA complex stage) against 135 MB: about 7x. The
-// design keeps every operand element in shared memory while it is reused
-// (X for all N outputs of its rows, each matrix tile for the block's 16
-// rows) and gives each thread a 4 x 4 register tile, so the FMA pipe and
-// not memory sets the pace. The ragged half-spectrum width (129) is
-// covered by the zero-padded k tail and the n < N masks of the tile.
+// in this form is 2 x 65,536 rows x 256 x 256 complex multiply-adds,
+// 6.9e10 FLOP in the 4-product form, against 268 MB of operand traffic;
+// at 67 TFLOP/s FP32 and 3.35 TB/s the FLOPs take about 13x longer than
+// the bytes (which is why the complex stages are FFTs now). An "rc" or
+// "cr" call at 256^3 (half spectrum 129 wide) is 2.6e10 FLOP against 135
+// MB: about 7x. The design keeps every operand element in shared memory
+// while it is reused (X for all N outputs of its rows, each matrix tile
+// for the block's 16 rows) and gives each thread a 4 x 4 register tile,
+// so the FMA pipe and not memory sets the pace. The ragged half-spectrum
+// width (129) is covered by the zero-padded k tail and the n < N masks of
+// the tile.
 
 #include "cdft_tile.cuh"
 

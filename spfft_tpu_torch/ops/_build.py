@@ -31,7 +31,7 @@ from ..errors import DeviceError, InvalidParameterError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("dft2.cu", "fused_compress.cu", "gather.cu")
+SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

@@ -7,6 +7,12 @@ matrix pair, with any scale folded into the matrix values. The matrix
 builders here give the JAX package's matrices bit for bit, so the two
 packages contract against the same constants.
 
+The complex matrices a plan hands its kernels are :class:`DftMats`
+(from :func:`device_c2c`): the matrix pair plus the transform it stands
+for (length, sign, scale, input and output windows) and the FFT form's
+twiddle table, so that ``ops.dft_kernel`` can compute the same function
+as an FFT (:func:`fft_factors`, :func:`fft_twiddles`).
+
 This module holds the plain PyTorch forms: :func:`pdft_last` (one stage)
 and :func:`pdft2_minor` (two stages around a swap of the two minor
 axes; :func:`cdft2_xy` swaps back, the distributed xy stage), and their
@@ -159,6 +165,88 @@ def device_mats(mats, device) -> tuple:
     """A numpy matrix pair as contiguous f32 tensors on ``device``."""
     return tuple(torch.as_tensor(np.asarray(m, np.float32), device=device)
                  for m in mats)
+
+
+# -- the FFT form of a complex DFT matrix -------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def fft_factors(n: int):
+    """The stage radices of the FFT form of a length-``n`` DFT, in the
+    order its stages take them (as many 4s as divide ``n``, then a 2, 3s,
+    5s), or None where ``n`` has another prime factor or exceeds
+    :data:`MATMUL_DFT_MAX`. ``()`` for n = 1."""
+    if not 1 <= n <= MATMUL_DFT_MAX:
+        return None
+    out, rest = [], n
+    for p in (4, 2, 3, 5):
+        while rest % p == 0:
+            out.append(p)
+            rest //= p
+    return tuple(out) if rest == 1 else None
+
+
+def radix_code(factors) -> int:
+    """``factors`` packed 3 bits each, the first stage lowest: the
+    ``radices`` argument of ``csrc/fft.cu``."""
+    return sum(p << (3 * i) for i, p in enumerate(factors))
+
+
+@functools.lru_cache(maxsize=64)
+def fft_twiddles(n: int, sign: int) -> np.ndarray:
+    """The FFT form's twiddle table, ``e^(sign 2 pi i m / n)`` for m < n,
+    complex128 (computed in float64; the kernel gets it rounded to f32)."""
+    s = +1 if sign == BACKWARD else -1
+    return np.exp(s * 2j * np.pi * np.arange(n) / n)
+
+
+class DftMats(tuple):
+    """A complex DFT matrix pair ``(cr, ci)`` that carries the function it
+    stands for, so a kernel can compute it as an FFT: the length ``n``,
+    ``sign``, ``scale``, the input window ``rows = (x0, w)`` (row k of the
+    matrix is position ``(x0 + k) % n``) and the output window ``cols =
+    (y0, w)`` (column j is position ``(y0 + j) % n``), and ``twiddles``,
+    the device table ``(2, n)`` f32 (real row, imaginary row of
+    :func:`fft_twiddles`) where :func:`fft_factors` has a factor list,
+    else None. It unpacks as the pair (``cr, ci = mats``), so every
+    matrix-form consumer takes it as it takes a plain pair."""
+
+    def __new__(cls, cr, ci, *, n, sign, scale, rows, cols, twiddles):
+        self = super().__new__(cls, (cr, ci))
+        self.n, self.sign, self.scale = n, sign, scale
+        self.rows, self.cols, self.twiddles = rows, cols, twiddles
+        return self
+
+    @property
+    def factors(self):
+        return fft_factors(self.n)
+
+
+def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
+               device="cpu") -> DftMats:
+    """The length-``n`` complex DFT matrices with ``scale`` folded in, as
+    :class:`DftMats` on ``device``: :func:`c2c_mats`, or with ``rows =
+    (x0, w)`` the window's rows (:func:`sub_rows_mats` of ``(x0 + arange(w))
+    % n``), with ``cols = (y0, w)`` the window's columns
+    (:func:`sub_cols_mats`), bit for bit."""
+    n, scale = int(n), float(scale)
+    rows = (0, n) if rows is None else (int(rows[0]) % n, int(rows[1]))
+    cols = (0, n) if cols is None else (int(cols[0]) % n, int(cols[1]))
+    if not (0 <= rows[1] <= n and 0 <= cols[1] <= n):
+        raise InvalidParameterError(
+            f"device_c2c: windows {rows} and {cols} must lie within the "
+            f"length {n}")
+    ri = (rows[0] + np.arange(rows[1])) % n
+    ci = (cols[0] + np.arange(cols[1])) % n
+    mats = tuple(np.ascontiguousarray(m[np.ix_(ri, ci)])
+                 for m in c2c_mats(n, sign, scale))
+    tw = None
+    if fft_factors(n) is not None:
+        t = fft_twiddles(n, sign)
+        tw = torch.as_tensor(np.stack([t.real, t.imag]).astype(np.float32),
+                             device=device)
+    return DftMats(*device_mats(mats, device), n=n,
+                   sign=BACKWARD if sign == BACKWARD else FORWARD,
+                   scale=scale, rows=rows, cols=cols, twiddles=tw)
 
 
 @functools.lru_cache(maxsize=1024)

@@ -6,9 +6,8 @@ kernel ``_kernel2`` in modes ``cc``, ``rc`` and ``cr``, launched at
 
 * :func:`pdft_last` is one planar complex DFT along the minor axis,
   ``(..., K) -> (..., N)`` against ``mats`` ``(K, N)``: the z stage of
-  the two-kernel route (rows are sticks). One launch of the stage
-  kernel in mode CC, stored straight; the JAX kernel's Karatsuba triple
-  becomes the tile's 4-product form.
+  the two-kernel route (rows are sticks), and the distributed plan's
+  y and split-x stages.
 
 * :func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a
   DFT over the minor axis B against ``mats1`` ``(B, B')``, a swap of the
@@ -26,15 +25,22 @@ kernel ``_kernel2`` in modes ``cc``, ``rc`` and ``cr``, launched at
 All matrix pairs may be rectangular (the split-x window's row- and
 column-selected matrices).
 
-On a CUDA tensor each wrapper launches ``csrc/dft2.cu``'s stage kernel
-twice: the first launch stores its result transposed within each plane,
-the second stores straight (:func:`pdft2_swapped`: transposed again, so
-the TPU kernel's second in-VMEM swap costs no pass of its own; see that
-file for why the TPU's in-VMEM swap has no direct counterpart, and what
-bounds the kernel: FP32 operations).
-Each wrapper counts its own launches, two per call, in ``.launches``
-(:func:`pdft_last`: one per call). On a CPU tensor it runs the plain
-version from :mod:`spfft_tpu_torch.ops.dft`.
+Forms. A complex (CC) stage whose matrices carry their function
+(``dft.DftMats`` from ``dft.device_c2c``) with a length of the form
+2^a 3^b 5^c runs as an FFT (``csrc/fft.cu``), bound by bytes: a CC plane
+call whose plane fits one cluster of 8 blocks is ONE launch of the
+cluster kernel (both FFTs and the swap with the intermediate in shared
+memory, form ``"cluster"``), any other such stage one launch of the FFT
+stage kernel (form ``"fft"``; a plane call is then two, the first
+stored transposed within each plane). A stage with another prime in its
+length, a matrix pair without its function, and the real stages of
+``prdft2`` / ``pdft2_cr`` (modes rc and cr) run the matrix form
+(``csrc/dft2.cu``, form ``"matrix"``, bound by FP32 operations): two
+launches per plane call. :func:`stage_form` and :func:`plane_forms` are
+the dispatch, by shape and matrix alone.
+Each wrapper counts its launches in ``.launches`` and by form in
+``.form_launches``. On a CPU tensor it runs the plain version from
+:mod:`spfft_tpu_torch.ops.dft` (matrix products, whatever the form).
 """
 
 from __future__ import annotations
@@ -47,21 +53,75 @@ from ..errors import InvalidParameterError
 from . import _build, dft
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 #: ``mode`` argument of csrc/dft2.cu's ``spfft_dft_stage`` (``TileMode`` of
 #: csrc/cdft_tile.cuh)
 _MODES = {"cc": 0, "rc": 1, "cr": 2}
 #: its argument types: the mode, the input planes, the matrix pair, the
 #: output planes, then M, K, N, plane_rows and the stream
-_ARGS = [ctypes.c_int] + [_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, _P]
+_ARGS = [_I] + [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P]
+#: csrc/fft.cu's ``spfft_fft_stage``: the input and output planes, the
+#: twiddle table, M, K, N, plane_rows, the transform (n, sign, scale, in0,
+#: out0, radices) and the stream
+_FFT_STAGE_ARGS = [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _I, _I, _I, _P]
+#: csrc/fft.cu's ``spfft_fft_plane``: the planes, both twiddle tables, P,
+#: A, B, B', A', each transform's (n, sign, in0, out0, radices), the scale,
+#: swap_out and the stream
+_FFT_PLANE_ARGS = [_P] * 6 + [_I] * 15 + [ctypes.c_float, _I, _P]
+#: blocks of the cluster kernel's cluster (one plane), and the complex
+#: elements one of its blocks holds (csrc/fft.cu's 512 threads x
+#: fft_tile.cuh's EPT = 16)
+CLUSTER_BLOCKS = 8
+CLUSTER_BLOCK_ELEMS = 512 * 16
+FORMS = ("matrix", "fft", "cluster")
 
 
-def _stage(mode: str, ins, mats, outs, plane_rows: int) -> None:
-    """One launch of the stage kernel in ``mode``: rows of ``ins`` (minor
+def stage_form(mats) -> str:
+    """The form of one complex stage against ``mats``: ``"fft"`` where the
+    pair carries its function (``dft.DftMats``) and its length has an
+    FFT factor list (``dft.fft_factors``), else ``"matrix"``."""
+    return "fft" if getattr(mats, "twiddles", None) is not None \
+        else "matrix"
+
+
+def plane_forms(mats1, mats2, a: int) -> tuple:
+    """The launches of one complex plane call on ``(P, a, B)`` planes,
+    over B against ``mats1`` then over A against ``mats2``:
+    ``("cluster",)`` where both stages take the FFT form and a plane fits
+    one cluster (a block's ceil(a / 8) rows of length ``mats1.n`` and its
+    ceil(B' / 8) columns of length ``mats2.n`` each within the elements it
+    holds), else one launch per stage in its :func:`stage_form`."""
+    forms = (stage_form(mats1), stage_form(mats2))
+    if forms == ("fft", "fft"):
+        b_out = mats1[0].shape[1]
+        if max(-(-a // CLUSTER_BLOCKS) * mats1.n,
+               -(-b_out // CLUSTER_BLOCKS) * mats2.n) <= CLUSTER_BLOCK_ELEMS:
+            return ("cluster",)
+    return forms
+
+
+def _count(wrapper, form: str) -> None:
+    wrapper.launches += 1
+    wrapper.form_launches[form] += 1
+
+
+def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
+    """One launch of a stage kernel in ``mode``: rows of ``ins`` (minor
     axis K; one real plane in mode rc) against ``mats`` (K, N) into
-    ``outs`` (one real plane in mode cr)."""
+    ``outs`` (one real plane in mode cr); the FFT stage kernel in mode cc
+    where :func:`stage_form` says so, else the matrix stage kernel.
+    Returns the form."""
     k, n = mats[0].shape
     m = ins[0].numel() // k
+    if mode == "cc" and stage_form(mats) == "fft":
+        fn = _build.function("fft.cu", "spfft_fft_stage", _FFT_STAGE_ARGS)
+        _build.launch(fn, "fft stage", ins[0].device,
+                      *(t.data_ptr() for t in (*ins, *outs, mats.twiddles)),
+                      m, k, n, plane_rows, mats.n, mats.sign, mats.scale,
+                      mats.rows[0], mats.cols[0],
+                      dft.radix_code(mats.factors))
+        return "fft"
     xr, xi = (*ins, None)[:2]
     yr, yi = (*outs, None)[:2]
     fn = _build.function("dft2.cu", "spfft_dft_stage", _ARGS)
@@ -69,6 +129,25 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> None:
                   *(None if t is None else t.data_ptr()
                     for t in (xr, xi, *mats, yr, yi)),
                   m, k, n, plane_rows)
+    return "matrix"
+
+
+def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:
+    """One launch of the cluster kernel: ``(P, A, B)`` planes over B
+    (``mats1``) then A (``mats2``) into ``(P, B', A')`` or, with
+    ``swap_out``, ``(P, A', B')``."""
+    p, a, b = ins[0].shape
+    fn = _build.function("fft.cu", "spfft_fft_plane", _FFT_PLANE_ARGS)
+
+    def spec(m):
+        return (m.n, m.sign, m.rows[0], m.cols[0], dft.radix_code(m.factors))
+
+    _build.launch(fn, "fft plane", ins[0].device,
+                  *(t.data_ptr() for t in (*ins, *outs, mats1.twiddles,
+                                           mats2.twiddles)),
+                  p, a, b, mats1[0].shape[1], mats2[0].shape[1],
+                  *spec(mats1), *spec(mats2), mats1.scale * mats2.scale,
+                  int(swap_out))
 
 
 def _check(name: str, ins, mats1, mats2):
@@ -92,12 +171,13 @@ def _check(name: str, ins, mats1, mats2):
 
 
 def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
-    """The body of the four wrappers: the stage kernel in ``modes[0]``
-    stored transposed within each plane, then in ``modes[1]`` stored
-    straight (``(P, B', A')``) or, with ``swap_out``, transposed again
-    (``(P, A', B')``), each launch counted in ``wrapper.launches``;
-    ``plain`` on a CPU tensor. Mode cr as the second stage gives one real
-    output."""
+    """The body of the four wrappers: one launch of the cluster kernel
+    where :func:`plane_forms` says so (mode cc both stages), else a stage
+    kernel in ``modes[0]`` stored transposed within each plane, then one in
+    ``modes[1]`` stored straight (``(P, B', A')``) or, with ``swap_out``,
+    transposed again (``(P, A', B')``), each launch counted in
+    ``wrapper.launches`` and ``wrapper.form_launches``; ``plain`` on a CPU
+    tensor. Mode cr as the second stage gives one real output."""
     name = wrapper.__name__
     p, a, b, b_out, a_out = _check(name, ins, mats1, mats2)
     x = ins[0]
@@ -107,17 +187,19 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
     oshape = (p, a_out, b_out) if swap_out else (p, b_out, a_out)
     out = tuple(torch.empty(oshape, dtype=torch.float32, device=x.device)
                 for _ in range(1 if real_out else 2))
-    if x.numel() == 0:
+    if x.numel() == 0 or out[0].numel() == 0:
         for t in out:
             t.zero_()
+    elif modes == ("cc", "cc") and plane_forms(mats1, mats2, a) == \
+            ("cluster",):
+        _plane(ins, mats1, mats2, out, swap_out)
+        _count(wrapper, "cluster")
     else:
         mid = tuple(torch.empty((p, b_out, a), dtype=torch.float32,
                                 device=x.device) for _ in range(2))
-        _stage(modes[0], ins, mats1, mid, plane_rows=a)
-        wrapper.launches += 1
-        _stage(modes[1], mid, mats2, out,
-               plane_rows=b_out if swap_out else 0)
-        wrapper.launches += 1
+        _count(wrapper, _stage(modes[0], ins, mats1, mid, plane_rows=a))
+        _count(wrapper, _stage(modes[1], mid, mats2, out,
+                               plane_rows=b_out if swap_out else 0))
     return out[0] if real_out else out
 
 
@@ -125,7 +207,8 @@ def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
     """Planar complex DFT along the minor axis, ``(..., K) -> (..., N)``
     against the ``(cr, ci)`` pair ``(K, N)``; any leading axes are rows.
     Each kernel launch (one per call) adds one to
-    ``pdft_last.launches``."""
+    ``pdft_last.launches`` and to its form's count in
+    ``pdft_last.form_launches``."""
     if xr.dim() < 1:
         raise InvalidParameterError(
             f"pdft_last: expected (..., K) operands, got {tuple(xr.shape)}")
@@ -144,8 +227,7 @@ def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
         for t in out:
             t.zero_()
         return out
-    _stage("cc", (xr, xi), mats, out, plane_rows=0)
-    pdft_last.launches += 1
+    _count(pdft_last, _stage("cc", (xr, xi), mats, out, plane_rows=0))
     return out
 
 
@@ -153,7 +235,7 @@ def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     """``(P, A, B) -> (P, B', A')`` planar complex DFT over both minor
     axes; ``mats1``/``mats2`` are ``(cr, ci)`` pairs of shapes
     ``(B, B')`` and ``(A, A')``. Each kernel launch adds one to
-    ``pdft2.launches`` (two per call)."""
+    ``pdft2.launches`` (one per call in the cluster form, else two)."""
     return _run2(pdft2, ("cc", "cc"), (xr, xi), mats1, mats2,
                  dft.pdft2_minor)
 
@@ -161,11 +243,9 @@ def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
 def pdft2_swapped(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     """``(P, A, B) -> (P, A', B')`` planar complex DFT over both minor
     axes, the result in the input's axis order: :func:`pdft2` with the
-    second launch storing transposed within each plane (``plane_rows =
-    B'``). Like ``pdft2`` it is bound by FP32 operations in its matrix
-    form (6.9e10 FLOP for 256 planes of 256 x 256 in the 4-product form,
-    13 x its 268 MB of operand traffic at the card's peaks). Each kernel
-    launch adds one to ``pdft2_swapped.launches`` (two per call)."""
+    last store transposed within each plane. Each kernel launch adds one
+    to ``pdft2_swapped.launches`` (one per call in the cluster form, else
+    two)."""
     return _run2(pdft2_swapped, ("cc", "cc"), (xr, xi), mats1, mats2,
                  dft.cdft2_xy, swap_out=True)
 
@@ -189,8 +269,6 @@ def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
                  dft.pdft2_minor_cr)
 
 
-pdft_last.launches = 0
-pdft2.launches = 0
-pdft2_swapped.launches = 0
-prdft2.launches = 0
-pdft2_cr.launches = 0
+for _w in (pdft_last, pdft2, pdft2_swapped, prdft2, pdft2_cr):
+    _w.launches = 0
+    _w.form_launches = dict.fromkeys(FORMS, 0)

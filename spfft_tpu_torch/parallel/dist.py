@@ -368,13 +368,16 @@ class DistributedTransformPlan:
         def mats(m):
             return dft.device_mats(m, dev)
 
+        def c2c(n, sign, **window):
+            return dft.device_c2c(n, sign, device=dev, **window)
+
         gs = 1.0 / float(self.global_size)
         self._mats = {
-            "z_b": mats(dft.c2c_mats(dp.dim_z, dft.BACKWARD)),
-            "z_f": mats(dft.c2c_mats(dp.dim_z, dft.FORWARD)),
-            "z_fs": mats(dft.c2c_mats(dp.dim_z, dft.FORWARD, scale=gs)),
-            "y_b": mats(dft.c2c_mats(dp.dim_y, dft.BACKWARD)),
-            "y_f": mats(dft.c2c_mats(dp.dim_y, dft.FORWARD)),
+            "z_b": c2c(dp.dim_z, dft.BACKWARD),
+            "z_f": c2c(dp.dim_z, dft.FORWARD),
+            "z_fs": c2c(dp.dim_z, dft.FORWARD, scale=gs),
+            "y_b": c2c(dp.dim_y, dft.BACKWARD),
+            "y_f": c2c(dp.dim_y, dft.FORWARD),
         }
         x0, w = self._split_x or (0, dp.dim_x_freq)
         rows = tuple(int(r) for r in (x0 + np.arange(w)) % dp.dim_x_freq)
@@ -382,10 +385,8 @@ class DistributedTransformPlan:
             self._mats["x_b"] = mats(dft.sub_rows_c2r_mats(dp.dim_x, rows))
             self._mats["x_f"] = mats(dft.sub_cols_r2c_mats(dp.dim_x, rows))
         else:
-            self._mats["x_b"] = mats(
-                dft.sub_rows_mats(dp.dim_x, dft.BACKWARD, rows))
-            self._mats["x_f"] = mats(
-                dft.sub_cols_mats(dp.dim_x, dft.FORWARD, rows))
+            self._mats["x_b"] = c2c(dp.dim_x, dft.BACKWARD, rows=(x0, w))
+            self._mats["x_f"] = c2c(dp.dim_x, dft.FORWARD, cols=(x0, w))
         # plane symmetry applies when the window starts at x = 0
         self._complete_x0 = self._r2c and x0 == 0
 

@@ -178,13 +178,16 @@ class TransformPlan:
         def mats(m):
             return dft.device_mats(m, dev)
 
+        def c2c(n, sign, **window):
+            return dft.device_c2c(n, sign, device=dev, **window)
+
         gs = 1.0 / float(self.global_size)
         self._mats = {
-            "z_b": mats(dft.c2c_mats(p.dim_z, dft.BACKWARD)),
-            "z_f": mats(dft.c2c_mats(p.dim_z, dft.FORWARD)),
-            "z_fs": mats(dft.c2c_mats(p.dim_z, dft.FORWARD, scale=gs)),
-            "y_b": mats(dft.c2c_mats(p.dim_y, dft.BACKWARD)),
-            "y_f": mats(dft.c2c_mats(p.dim_y, dft.FORWARD)),
+            "z_b": c2c(p.dim_z, dft.BACKWARD),
+            "z_f": c2c(p.dim_z, dft.FORWARD),
+            "z_fs": c2c(p.dim_z, dft.FORWARD, scale=gs),
+            "y_b": c2c(p.dim_y, dft.BACKWARD),
+            "y_f": c2c(p.dim_y, dft.FORWARD),
         }
         # the x matrices restricted to the window (without a split the
         # window is every frequency x, and the selection is the whole)
@@ -194,10 +197,8 @@ class TransformPlan:
             self._mats["x_b"] = mats(dft.sub_rows_c2r_mats(p.dim_x, rows))
             self._mats["x_f"] = mats(dft.sub_cols_r2c_mats(p.dim_x, rows))
         else:
-            self._mats["x_b"] = mats(
-                dft.sub_rows_mats(p.dim_x, dft.BACKWARD, rows))
-            self._mats["x_f"] = mats(
-                dft.sub_cols_mats(p.dim_x, dft.FORWARD, rows))
+            self._mats["x_b"] = c2c(p.dim_x, dft.BACKWARD, rows=(x0, w))
+            self._mats["x_f"] = c2c(p.dim_x, dft.FORWARD, cols=(x0, w))
         # plane symmetry applies to the x = 0 sub-column when the window
         # starts at 0; otherwise no x = 0 stick exists
         self._complete_x0 = self._r2c and x0 == 0
