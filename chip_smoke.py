@@ -47,7 +47,10 @@ Phases, each of which exits non-zero when it fails:
    run one call at a time;
 9. the new kernels at odd shapes (B = 3, both value layouts, odd dim_z,
    an empty stick, duplicates, the R2C zero stick) against their plain
-   versions;
+   versions, and the FFT form of both z kernels at every radix, dim_z 1
+   to 512 (and 13 in the matrix form), B = 3, both value layouts,
+   windows, an empty stick, duplicates and the R2C zero stick, each
+   call's form checked by its launch counts;
 10. the batched-versus-looped sweep (``{"batched_sweep": [...]}``): per
    band ms of a batched pair against B single pairs at n/2 and n, B in
    {2, 4, 8}, both paths (what ``spfft_tpu_torch.multi``'s gate rests
@@ -95,13 +98,15 @@ Forms. The complex DFT stages are no longer matrix products:
 through distributed shared memory), and the complex halves of
 ``prdft2`` and ``pdft2_cr`` the FFT stage (their real halves stay matrix
 products: form ``matrix+fft``). The fused z kernels
-(``decompress_zdft``, ``zdft_compress``) still compute their z-DFT as a
-matrix product (form ``matrix``), as does any stage whose length has a
-prime factor other than 2, 3 and 5. Each counted pair checks the
+(``decompress_zdft``, ``zdft_compress``) gather and transform in one
+launch of an FFT in shared memory (form ``fft``, ``csrc/fused_fft.cu``).
+Any stage or z kernel whose length has a prime factor other than 2, 3
+and 5, or whose matrices do not carry their function, computes its DFT
+as a matrix product (form ``matrix``). Each counted pair checks the
 launches of each wrapper by form (``form_launches``); no pair of the
-main paths takes the matrix form of a complex stage. Each record of a
-redesigned kernel carries ``form`` and ``matrix_ms``, the matrix form
-timed on the same inputs in the same run (the "before").
+main paths takes the matrix form of a complex stage or z kernel. Each
+record of a redesigned kernel carries ``form`` and ``matrix_ms``, the
+matrix form timed on the same inputs in the same run (the "before").
 ``design_bound_ms`` is the bound of the record's own design: for the
 FFT and cluster forms ``bound_ms`` itself; for a matrix product the
 cheapest matrix form (the Karatsuba triple at 6 FLOP per complex
@@ -202,6 +207,22 @@ def rfft_flops(lines: int, n: int) -> float:
     return fft_flops(lines, n) / 2
 
 
+def table_bytes(mats, form: str) -> int:
+    """Bytes of a DFT stage's tables as its form reads them: the FFT and
+    cluster forms read the (2, n) f32 twiddle table, the matrix form the
+    f32 matrix pair."""
+    if form in ("fft", "cluster"):
+        return 2 * mats.n * 4
+    return sum(m.numel() for m in mats[:2]) * 4
+
+
+def plane_table_bytes(mats1, mats2, forms) -> int:
+    """:func:`table_bytes` of a plane call's two stages in ``forms`` (a
+    cluster launch reads both stages' twiddle tables)."""
+    f1, f2 = ("fft", "fft") if forms == ("cluster",) else forms
+    return table_bytes(mats1, f1) + table_bytes(mats2, f2)
+
+
 def bound(nbytes: float, flops: float):
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -217,6 +238,11 @@ DESIGN_BOUND_MS = {}
 #: complex halves of prdft2 and pdft2_cr); the matrix form is dft2.cu
 FFT_SRC = "spfft_tpu_torch/csrc/fft.cu"
 DFT2_SRC = "spfft_tpu_torch/csrc/dft2.cu"
+#: the fused z kernels by form
+Z_SRC = {"fft": "spfft_tpu_torch/csrc/fused_fft.cu",
+         "matrix": "spfft_tpu_torch/csrc/fused_compress.cu"}
+DEC_REPLACES = "spfft_tpu/ops/fused_kernel.py:587"
+CMP_REPLACES = "spfft_tpu/ops/fused_kernel.py:783"
 
 
 def matrix_pair(mats):
@@ -326,17 +352,19 @@ def decompress_record(path, plan, values, device):
         torch.zeros(1, dtype=torch.complex64, device=device)])
     slot64 = plan._slot_src.long()
     rows = plan._slot_src.numel() // dz
+    form = fused_kernel.z_form(mz, dz)
     return kernel_record(
-        path, "decompress_zdft", "spfft_tpu_torch/csrc/fused_compress.cu",
-        "spfft_tpu/ops/fused_kernel.py:587", err,
+        path, "decompress_zdft", Z_SRC[form], DEC_REPLACES, err,
         timed_ms(lambda: fused_kernel.decompress_zdft(
             v, plan._slot_src, mz, dz, pair, zs), device),
         timed_ms(lambda: fused_kernel.decompress_zdft_plain(
             v, plan._slot_src, mz, dz, pair, zs), device),
         timed_ms(lambda: torch.fft.ifft(vpad[slot64].view(rows, dz),
                                         norm="forward"), device),
-        nv * 8 + rows * dz * 4 + 2 * dz * dz * 4 + 2 * rows * dz * 4,
-        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, "matrix"), got
+        nv * 8 + rows * dz * 4 + table_bytes(mz, form) + 2 * rows * dz * 4,
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, form,
+        timed_ms(lambda: fused_kernel.decompress_zdft(
+            v, plan._slot_src, matrix_pair(mz), dz, pair, zs), device)), got
 
 
 def kernel_phase(plan, values, device):
@@ -369,7 +397,8 @@ def kernel_phase(plan, values, device):
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
-    form = "+".join(dft_kernel.plane_forms(m1, m2, a))
+    forms = dft_kernel.plane_forms(m1, m2, a)
+    form = "+".join(forms)
     recs.append(kernel_record(
         "c2c", "pdft2", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
         timed_ms(lambda: dft_kernel.pdft2(gr, gi, m1, m2), device),
@@ -378,7 +407,7 @@ def kernel_phase(plan, values, device):
                  .transpose(-1, -2).contiguous(), device)
         if (b_out, a_out) == (b, a) else None,
         2 * pp * a * b * 4 + 2 * pp * b_out * a_out * 4
-        + 2 * (b * b_out + a * a_out) * 4,
+        + plane_table_bytes(m1, m2, forms),
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
         timed_ms(lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1),
@@ -410,16 +439,19 @@ def zdft_compress_record(path, plan, grid, device):
     fc = torch.complex(fr, fi)
     vi64 = torch.as_tensor(p.value_indices.astype(np.int64), device=device)
     gs = 1.0 / plan.global_size
+    form = fused_kernel.z_form(mf, dz)
     return kernel_record(
-        path, "zdft_compress", "spfft_tpu_torch/csrc/fused_compress.cu",
-        "spfft_tpu/ops/fused_kernel.py:783", err,
+        path, "zdft_compress", Z_SRC[form], CMP_REPLACES, err,
         timed_ms(lambda: fused_kernel.zdft_compress(fr, fi, mf, plan._csr,
                                                     pair), device),
         timed_ms(lambda: fused_kernel.zdft_compress_plain(
             fr, fi, mf, plan._csr, pair), device),
         timed_ms(lambda: torch.fft.fft(fc).view(-1)[vi64] * gs, device),
-        2 * s * dz * 4 + (s + 1 + 2 * nv) * 4 + 2 * dz * dz * 4 + nv * 8,
-        fft_flops(s, dz), FLOP_PER_CMAC * s * dz * dz, "matrix")
+        2 * s * dz * 4 + (s + 1 + 2 * nv) * 4 + table_bytes(mf, form)
+        + nv * 8,
+        fft_flops(s, dz), FLOP_PER_CMAC * s * dz * dz, form,
+        timed_ms(lambda: fused_kernel.zdft_compress(
+            fr, fi, matrix_pair(mf), plan._csr, pair), device))
 
 
 def odd_shapes_phase(device):
@@ -596,17 +628,118 @@ def fft_odd_shapes_phase(device):
           f"cases within {KERNEL_TOL}, each in its expected form", flush=True)
 
 
+def z_fft_odd_shapes_phase(device):
+    """The FFT form of both fused z kernels at shapes the paths do not
+    reach, against their plain versions, each call's form checked by its
+    launch counts: every radix (dim_z 1, 2, 3, 4, 5, 8, 12, 60, 100, 128,
+    384, 512) and 13 in the matrix form; one transform and B = 3 (each
+    band bit for bit against its single launch); both value layouts;
+    input and output windows off 0 and a scale; an empty stick, duplicate
+    triplets and the R2C zero stick (half of it given, a given value of
+    exactly 0 whose mirror is given, absent)."""
+    from spfft_tpu_torch.indexing import inverse_slot_map
+    from spfft_tpu_torch.ops import dft, fused_kernel as fk
+    rng = np.random.default_rng(SEED + 9)
+    on_card = device.type == "cuda"
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    def counted(wrapper, form, name, fn):
+        wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+        out = fn()
+        forms = {f: k for f, k in wrapper.form_launches.items() if k}
+        if on_card and forms != {form: 1}:
+            fail(f"{name}: launches by form {forms}, expected {form}")
+        return out
+
+    cases = 0
+    for dz, s, window in ((1, 40, {}), (2, 33, {}), (3, 21, {}), (4, 19, {}),
+                          (5, 17, {}), (8, 9, {}),
+                          (12, 37, {"rows": (5, 12), "cols": (3, 12)}),
+                          (60, 11, {}), (100, 7, {"cols": (91, 100)}),
+                          (128, 9, {}), (384, 9, {"rows": (200, 384)}),
+                          (512, 5, {}), (13, 21, {})):
+        form = "matrix" if dz == 13 else "fft"
+        zb = dft.device_c2c(dz, dft.BACKWARD, device=device, **window)
+        zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
+                            **window)
+        if fk.z_form(zb, dz) != form or fk.z_form(zf, dz) != form:
+            fail(f"z kernels dim_z={dz}: form {fk.z_form(zb, dz)}, "
+                 f"expected {form}")
+        kinds = (("half", 0), ("absent", -1)) + (
+            (("exact0", s - 1),) if dz >= 3 else ())
+        for kind, zid in kinds:
+            occ = rng.random((s, dz)) < 0.5
+            occ[s // 2] = False  # an empty stick
+            if zid >= 0:
+                occ[zid] = np.arange(dz) <= dz // 2
+                # exact0 zeroes slot 1; its mirror dz - 1 is given
+                occ[zid, dz - 1] |= kind == "exact0"
+            slots = np.flatnonzero(occ)
+            slots = np.concatenate([slots, slots[:3]])  # duplicate triplets
+            rng.shuffle(slots)
+            nv = len(slots)
+            ss = i32(np.concatenate([inverse_slot_map(slots, s * dz, nv),
+                                     np.full(dz, nv, np.int32)]))
+            csr = tuple(i32(t) for t in fk.compress_csr(slots, s, dz))
+            hits = np.flatnonzero(slots == zid * dz + 1)
+            for pair in (False, True):
+                for lead in ((), (3,)):
+                    name = (f"z kernels dim_z={dz} {window} zero stick "
+                            f"{kind} B={lead} pair={pair} form {form}")
+                    vals = rand(*lead, 2, nv) if pair else rand(*lead, nv, 2)
+                    if kind == "exact0":
+                        idx = torch.as_tensor(hits, device=device)
+                        if pair:
+                            vals[..., idx] = 0.0
+                        else:
+                            vals[..., idx, :] = 0.0
+                    got = counted(fk.decompress_zdft, form,
+                                  f"decompress_zdft {name}",
+                                  lambda: fk.decompress_zdft(
+                                      vals, ss, zb, dz, pair, zid))
+                    compare(f"decompress_zdft {name}", got,
+                            fk.decompress_zdft_plain(vals, ss, zb, dz, pair,
+                                                     zid))
+                    sr, si = rand(*lead, s, dz), rand(*lead, s, dz)
+                    out = counted(fk.zdft_compress, form,
+                                  f"zdft_compress {name}",
+                                  lambda: fk.zdft_compress(sr, si, zf, csr,
+                                                           pair))
+                    compare(f"zdft_compress {name}", (out,),
+                            (fk.zdft_compress_plain(sr, si, zf, csr, pair),))
+                    for b in range(lead[0] if lead else 0):
+                        one = fk.decompress_zdft(vals[b], ss, zb, dz, pair,
+                                                 zid)
+                        if not (torch.equal(one[0], got[0][b])
+                                and torch.equal(one[1], got[1][b])
+                                and torch.equal(fk.zdft_compress(
+                                    sr[b], si[b], zf, csr, pair), out[b])):
+                            fail(f"{name}: band {b} differs from its single "
+                                 f"launch")
+                    cases += 2
+    print(f"odd shapes of the fused z kernels' FFT form: {cases} "
+          f"kernel-vs-plain cases within {KERNEL_TOL}, each in its expected "
+          f"form, batched bands equal to single launches", flush=True)
+
+
 #: launches of one backward + forward(FULL) pair per path: (least, most),
 #: and for a DFT wrapper that launches, its launches by form (exactly)
 CLUSTER2 = (2, 2, {"cluster": 2})  # one cluster launch per call
 FFT2 = (2, 2, {"fft": 2})
 REAL2 = (2, 2, {"matrix": 1, "fft": 1})  # the real half, the complex half
-C2C_LAUNCHES = {"decompress_zdft": (1, None), "pdft2": CLUSTER2,
-                "zdft_compress": (1, None), "prdft2": (0, 0),
+ZFFT1 = (1, 1, {"fft": 1})  # one fused z launch per direction
+C2C_LAUNCHES = {"decompress_zdft": ZFFT1, "pdft2": CLUSTER2,
+                "zdft_compress": ZFFT1, "prdft2": (0, 0),
                 "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
                 "pdft2_swapped": (0, 0)}
-R2C_LAUNCHES = {"decompress_zdft": (1, None), "prdft2": REAL2,
-                "pdft2_cr": REAL2, "zdft_compress": (1, None),
+R2C_LAUNCHES = {"decompress_zdft": ZFFT1, "prdft2": REAL2,
+                "pdft2_cr": REAL2, "zdft_compress": ZFFT1,
                 "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
                 "pdft2_swapped": (0, 0)}
 #: the two-kernel route's pair, exactly
@@ -619,11 +752,11 @@ R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                    "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
                    "pdft2_swapped": (0, 0)}
 #: a batched pair launches what ONE single pair does, whatever B is
-C2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
+C2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
                         "pdft2": CLUSTER2, "prdft2": (0, 0),
                         "pdft2_cr": (0, 0), "gather": (0, 0),
                         "pdft_last": (0, 0), "pdft2_swapped": (0, 0)}
-R2C_BATCHED_LAUNCHES = {"decompress_zdft": (1, 1), "zdft_compress": (1, 1),
+R2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
                         "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
                         "gather": (0, 0), "pdft_last": (0, 0),
                         "pdft2_swapped": (0, 0)}
@@ -803,7 +936,7 @@ def r2c_kernel_phase(plan, values, device):
             gc.transpose(-1, -2), s=(b_out, a_out), norm="forward"), device)
         if a == p.dim_x_freq else None,
         2 * pp * a * b * 4 + pp * b_out * a_out * 4
-        + 2 * (b * b_out + a * a_out) * 4,
+        + table_bytes(m1, cc) + table_bytes(m2, "matrix"),
         fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
         (fft_flops(pp * a, b) if cc == "fft"
          else FLOP_PER_CMAC * pp * a * b * b_out)
@@ -826,7 +959,7 @@ def r2c_kernel_phase(plan, values, device):
                  .contiguous(), device)
         if b_out == p.dim_x_freq else None,
         pp * a * b * 4 + 2 * pp * b_out * a_out * 4
-        + 2 * (b * b_out + a * a_out) * 4,
+        + table_bytes(f1, "matrix") + table_bytes(f2, cc),
         rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_RMAC * pp * a * b * b_out
         + (fft_flops(pp * b_out, a) if cc == "fft"
@@ -996,7 +1129,7 @@ def two_kernel_kernel_phase(path, plan, values, device):
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
         timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
         timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
-        4 * rows * dz * 4 + 2 * dz * dz * 4,
+        4 * rows * dz * 4 + table_bytes(zb, dft_kernel.stage_form(zb)),
         fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
         dft_kernel.stage_form(zb),
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
@@ -1020,17 +1153,20 @@ def two_kernel_kernel_phase(path, plan, values, device):
 
 def route_phase(sp, path, fused, split, values):
     """The two-kernel route (``split``) against the fused route on the
-    same values, backward and forward(FULL), within ``KERNEL_TOL``; says
-    whether they are bit-identical."""
+    same values, backward and forward(FULL): bit-identical, since both
+    routes run the same FFT on the same sticks (fft_tile.cuh)."""
     full = sp.Scaling.FULL
     a, b = fused.backward(values), split.backward(values)
     err_b = compare(f"{path} two-kernel vs fused backward", (b,), (a,))
     fa, fb = fused.forward(a, full), split.forward(a, full)
     err_f = compare(f"{path} two-kernel vs fused forward", (fb,), (fa,))
+    same_b, same_f = torch.equal(a, b), torch.equal(fa, fb)
     print(f"{path} two-kernel vs fused route: backward max_abs_err="
-          f"{err_b[0]:.3e} (bit-identical: {torch.equal(a, b)}), forward "
-          f"max_abs_err={err_f[0]:.3e} (bit-identical: "
-          f"{torch.equal(fa, fb)})", flush=True)
+          f"{err_b[0]:.3e} (bit-identical: {same_b}), forward "
+          f"max_abs_err={err_f[0]:.3e} (bit-identical: {same_f})",
+          flush=True)
+    if not (same_b and same_f):
+        fail(f"{path}: the two-kernel and fused routes differ")
 
 
 def batched_kernel_phase(path, plan, values, device, batch=BATCH):
@@ -1062,10 +1198,9 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
     vpad = torch.cat([torch.view_as_complex(vrows), torch.zeros(
         (batch, 1), dtype=torch.complex64, device=device)], dim=1)
     slot64 = ss.long()
+    form = fused_kernel.z_form(mz, dz)
     recs.append(kernel_record(
-        path, "decompress_zdft_batched",
-        "spfft_tpu_torch/csrc/fused_compress.cu",
-        "spfft_tpu/ops/fused_kernel.py:587", err,
+        path, "decompress_zdft_batched", Z_SRC[form], DEC_REPLACES, err,
         timed_ms(lambda: fused_kernel.decompress_zdft(vb, ss, mz, dz, pair,
                                                       zs), device),
         timed_ms(lambda: fused_kernel.decompress_zdft_plain(
@@ -1073,9 +1208,10 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
         timed_ms(lambda: torch.fft.ifft(vpad[:, slot64].view(
             batch, rows, dz), norm="forward"), device),
         batch * (nv * 8 + 2 * rows * dz * 4) + rows * dz * 4
-        + 2 * dz * dz * 4,
+        + table_bytes(mz, form),
         batch * fft_flops(rows, dz), batch * FLOP_PER_CMAC * rows * dz * dz,
-        "matrix"))
+        form, timed_ms(lambda: fused_kernel.decompress_zdft(
+            vb, ss, matrix_pair(mz), dz, pair, zs), device)))
 
     fr, fi = got[0][:, :s].contiguous(), got[1][:, :s].contiguous()
     mf, csr = plan._mats["z_fs"], plan._csr
@@ -1090,10 +1226,9 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
     fc = torch.complex(fr, fi)
     vi64 = torch.as_tensor(p.value_indices.astype(np.int64), device=device)
     gs = 1.0 / plan.global_size
+    form = fused_kernel.z_form(mf, dz)
     recs.append(kernel_record(
-        path, "zdft_compress_batched",
-        "spfft_tpu_torch/csrc/fused_compress.cu",
-        "spfft_tpu/ops/fused_kernel.py:783", err,
+        path, "zdft_compress_batched", Z_SRC[form], CMP_REPLACES, err,
         timed_ms(lambda: fused_kernel.zdft_compress(fr, fi, mf, csr, pair),
                  device),
         timed_ms(lambda: fused_kernel.zdft_compress_plain(fr, fi, mf, csr,
@@ -1101,9 +1236,10 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
         timed_ms(lambda: torch.fft.fft(fc).view(batch, -1)[:, vi64] * gs,
                  device),
         batch * (2 * s * dz * 4 + nv * 8) + (s + 1 + 2 * nv) * 4
-        + 2 * dz * dz * 4,
+        + table_bytes(mf, form),
         batch * fft_flops(s, dz), batch * FLOP_PER_CMAC * s * dz * dz,
-        "matrix"))
+        form, timed_ms(lambda: fused_kernel.zdft_compress(
+            fr, fi, matrix_pair(mf), csr, pair), device)))
     print_records(recs)
     for r in recs:
         print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
@@ -1338,12 +1474,14 @@ def set_launches(recs, launches):
 DIST_SHARDS = 4
 _S = DIST_SHARDS
 #: launches of one distributed backward + forward(FULL) pair: the z
-#: kernels once per shard, the xy stage once over all shards' planes
-DIST_C2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
+#: kernels once per shard (FFT form), the xy stage once over all shards'
+#: planes
+ZFFT_S = (_S, _S, {"fft": _S})
+DIST_C2C_LAUNCHES = {"decompress_zdft": ZFFT_S, "zdft_compress": ZFFT_S,
                      "pdft2_swapped": CLUSTER2, "pdft2": (0, 0),
                      "prdft2": (0, 0), "pdft2_cr": (0, 0), "gather": (0, 0),
                      "pdft_last": (0, 0)}
-DIST_R2C_LAUNCHES = {"decompress_zdft": (_S, _S), "zdft_compress": (_S, _S),
+DIST_R2C_LAUNCHES = {"decompress_zdft": ZFFT_S, "zdft_compress": ZFFT_S,
                      "pdft_last": FFT2, "pdft2_swapped": (0, 0),
                      "pdft2": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
                      "gather": (0, 0)}
@@ -1412,7 +1550,8 @@ def dist_kernel_phase(plan, stacked, device):
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = xb[0].shape[1], yb[0].shape[1]
-    form = "+".join(dft_kernel.plane_forms(xb, yb, a))
+    forms = dft_kernel.plane_forms(xb, yb, a)
+    form = "+".join(forms)
     rec = kernel_record(
         "dist_c2c", "pdft2_swapped", FFT_SRC,
         "spfft_tpu/ops/dft_kernel.py:277", max(err_b, err_f),
@@ -1421,7 +1560,7 @@ def dist_kernel_phase(plan, stacked, device):
         timed_ms(lambda: torch.fft.ifft2(gc, norm="forward"), device)
         if (b_out, a_out) == (b, a) else None,
         2 * pp * a * b * 4 + 2 * pp * a_out * b_out * 4
-        + 2 * (b * b_out + a * a_out) * 4,
+        + plane_table_bytes(xb, yb, forms),
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
         timed_ms(lambda: dft_kernel.pdft2_swapped(
@@ -1510,35 +1649,40 @@ def dist_z_kernel_phase(path, plan, stacked, device):
                           f"{zids[r]})", dec(r),
                           dec(r, fk.decompress_zdft_plain))
                   for r in range(S))
+        form = fk.z_form(zb, dz)
         recs.append(kernel_record(
-            path, "decompress_zdft", "spfft_tpu_torch/csrc/fused_compress.cu",
-            "spfft_tpu/ops/fused_kernel.py:587", err, timed_ms(each(dec),
-                                                               device),
+            path, "decompress_zdft", Z_SRC[form], DEC_REPLACES, err,
+            timed_ms(each(dec), device),
             timed_ms(each(lambda r: dec(r, fk.decompress_zdft_plain)),
                      device),
             timed_ms(each(lambda r: torch.fft.ifft(
                 vpad[r][slot64[r]].view(ms, dz), norm="forward")), device),
-            sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + 2 * dz * dz * 4
+            sum(nv * 8 for nv in nvs) + S * (ms * dz * 4
+                                             + table_bytes(zb, form)
                                              + 2 * ms * dz * 4),
-            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz,
-            "matrix"))
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz, form,
+            timed_ms(each(lambda r: fk.decompress_zdft(
+                v[r], plan._t_slot_src[r], matrix_pair(zb), dz, False,
+                zids[r])), device)))
         err = max(compare(f"{path} zdft_compress shard {r}", (cmp(r),),
                           (cmp(r, lambda *a: fk.zdft_compress_plain(
                               *a, False)),))
                   for r in range(S))
         fc = torch.complex(fsr[0], fsi[0])
+        form = fk.z_form(zfs, dz)
         recs.append(kernel_record(
-            path, "zdft_compress", "spfft_tpu_torch/csrc/fused_compress.cu",
-            "spfft_tpu/ops/fused_kernel.py:783", err, timed_ms(each(cmp),
-                                                               device),
+            path, "zdft_compress", Z_SRC[form], CMP_REPLACES, err,
+            timed_ms(each(cmp), device),
             timed_ms(each(lambda r: cmp(r, lambda *a: fk.zdft_compress_plain(
                 *a, False))), device),
             timed_ms(each(lambda r: torch.fft.fft(fc[r]).view(-1)[vi64[r]]
                           * gs), device),
-            sum(2 * ms * dz * 4 + (ms + 1 + 2 * nv) * 4 + 2 * dz * dz * 4
-                + nv * 8 for nv in nvs),
-            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz,
-            "matrix"))
+            sum(2 * ms * dz * 4 + (ms + 1 + 2 * nv) * 4
+                + table_bytes(zfs, form) + nv * 8 for nv in nvs),
+            fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz, form,
+            timed_ms(each(lambda r: fk.zdft_compress(
+                fsr[:, r], fsi[:, r], matrix_pair(zfs), plan._t_csr[r])),
+                device)))
         print(f"{path}: decompress_zdft zero sticks per shard {zids}, "
               f"values per shard {nvs} (max_values {dp.max_values}), "
               f"sticks per shard "
@@ -1580,7 +1724,7 @@ def dist_z_kernel_phase(path, plan, stacked, device):
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
         timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
         timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
-        4 * rows * dz * 4 + 2 * dz * dz * 4,
+        4 * rows * dz * 4 + table_bytes(zb, dft_kernel.stage_form(zb)),
         fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
         dft_kernel.stage_form(zb),
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
@@ -1610,45 +1754,62 @@ def dist_odd_shards_phase(sp, device):
     the same plans on the CPU (where every wrapper runs its plain
     version): 5 shards with uneven sticks and slabs, one shard with no
     values, no sticks and no planes, another with sticks but no planes,
-    odd dim_z, the R2C (0,0) stick owned by the fourth shard; C2C and
-    R2C, fused and two-kernel; the backward and forward(FULL) within
-    ``KERNEL_TOL``, and a second backward identical to the first."""
+    the R2C (0,0) stick owned by the fourth shard; dim_z 13 (the fused z
+    kernels in their matrix form) and 12 (their FFT form, checked by the
+    launch counts); C2C and R2C, fused and two-kernel; the backward and
+    forward(FULL) within ``KERNEL_TOL``, and a second backward identical
+    to the first."""
+    from spfft_tpu_torch.ops import fused_kernel as fk
     rng = np.random.default_rng(SEED + 7)
     cpu = torch.device("cpu")
-    nx, ny, nz = dims = (12, 10, 13)
     weights = (3, 0, 1, 2, 1)  # stick share per shard
-    planes = [5, 0, 6, 0, 2]
     cases = 0
-    for kind in (sp.TransformType.C2C, sp.TransformType.R2C):
-        r2c = kind is sp.TransformType.R2C
-        xs = nx // 2 + 1 if r2c else nx
-        sticks = [(x, y) for x in range(xs) for y in range(ny)
-                  if (x, y) == (0, 0) or rng.random() < 0.6]
-        owner = rng.choice(len(weights), len(sticks),
-                           p=np.array(weights) / sum(weights))
-        owner[sticks.index((0, 0))] = 3
-        parts = [np.array([(x, y, z) for (x, y), o in zip(sticks, owner)
-                           if o == r for z in range(nz)
-                           if rng.random() < 0.7], np.int64).reshape(-1, 3)
-                 for r in range(len(weights))]
-        vals = [(rng.standard_normal(len(t)) + 1j * rng.standard_normal(
-            len(t))).astype(np.complex64) for t in parts]
-        for fused in (True, False):
-            got, want = (sp.make_distributed_plan(
-                kind, *dims, parts, planes, device=d, fused=fused)
-                for d in (device, cpu))
-            name = f"dist odd shards {kind.name} fused={fused}"
-            b = got.backward(vals)
-            compare(f"{name} backward", (b.cpu(),), (want.backward(vals),))
-            compare(f"{name} forward(FULL)",
-                    (got.forward(b, sp.Scaling.FULL).cpu(),),
-                    (want.forward(b.cpu(), sp.Scaling.FULL),))
-            if not torch.equal(got.backward(vals), b):
-                fail(f"{name}: a second backward differs from the first")
-            cases += 1
+    for nz in (13, 12):
+        nx, ny, nz = dims = (12, 10, nz)
+        planes = [5, 0, nz - 7, 0, 2]
+        z_form = "matrix" if nz == 13 else "fft"
+        for kind in (sp.TransformType.C2C, sp.TransformType.R2C):
+            r2c = kind is sp.TransformType.R2C
+            xs = nx // 2 + 1 if r2c else nx
+            sticks = [(x, y) for x in range(xs) for y in range(ny)
+                      if (x, y) == (0, 0) or rng.random() < 0.6]
+            owner = rng.choice(len(weights), len(sticks),
+                               p=np.array(weights) / sum(weights))
+            owner[sticks.index((0, 0))] = 3
+            parts = [np.array([(x, y, z) for (x, y), o in zip(sticks, owner)
+                               if o == r for z in range(nz)
+                               if rng.random() < 0.7], np.int64).reshape(-1, 3)
+                     for r in range(len(weights))]
+            vals = [(rng.standard_normal(len(t)) + 1j * rng.standard_normal(
+                len(t))).astype(np.complex64) for t in parts]
+            for fused in (True, False):
+                got, want = (sp.make_distributed_plan(
+                    kind, *dims, parts, planes, device=d, fused=fused)
+                    for d in (device, cpu))
+                name = (f"dist odd shards {kind.name} dim_z={nz} "
+                        f"fused={fused}")
+                for w in (fk.decompress_zdft, fk.zdft_compress):
+                    w.form_launches = dict.fromkeys(w.form_launches, 0)
+                b = got.backward(vals)
+                compare(f"{name} backward", (b.cpu(),),
+                        (want.backward(vals),))
+                compare(f"{name} forward(FULL)",
+                        (got.forward(b, sp.Scaling.FULL).cpu(),),
+                        (want.forward(b.cpu(), sp.Scaling.FULL),))
+                for w in (fk.decompress_zdft, fk.zdft_compress):
+                    forms = {f for f, k in w.form_launches.items() if k}
+                    if device.type == "cuda" and forms != (
+                            {z_form} if fused else set()):
+                        fail(f"{name}: {w.__name__} launched the forms "
+                             f"{w.form_launches}, expected {z_form}")
+                if not torch.equal(got.backward(vals), b):
+                    fail(f"{name}: a second backward differs from the "
+                         f"first")
+                cases += 1
     print(f"dist odd shards: {cases} plans (values per shard "
-          f"{[len(t) for t in parts]}, planes {planes}) on the card within "
-          f"{KERNEL_TOL} of the CPU's plain versions", flush=True)
+          f"{[len(t) for t in parts]}, planes {planes}; the fused z kernels "
+          f"in the matrix form at dim_z 13, the FFT form at 12) on the card "
+          f"within {KERNEL_TOL} of the CPU's plain versions", flush=True)
 
 
 def dist_y_kernel_record(path, plan, stacked, device):
@@ -1674,7 +1835,7 @@ def dist_y_kernel_record(path, plan, stacked, device):
         timed_ms(lambda: dft_kernel.pdft_last(xr, xi, yb), device),
         timed_ms(lambda: dft.pdft_last(xr, xi, yb), device),
         timed_ms(lambda: torch.fft.ifft(xc, norm="forward"), device),
-        4 * rows * y * 4 + 2 * y * y * 4,
+        4 * rows * y * 4 + table_bytes(yb, dft_kernel.stage_form(yb)),
         fft_flops(rows, y), FLOP_PER_CMAC * rows * y * y,
         dft_kernel.stage_form(yb),
         timed_ms(lambda: dft_kernel.pdft_last(xr, xi, matrix_pair(yb)),
@@ -1940,6 +2101,7 @@ def run(device, n=N):
     c2c = kernel_phase(plan, values, device)
     odd_shapes_phase(device)
     fft_odd_shapes_phase(device)
+    z_fft_odd_shapes_phase(device)
     oracle = c2c_oracle_rel(plan, trip, values, device)
     set_launches(c2c, pair_phase(sp, "c2c", plan, values, oracle, device,
                                  counters, C2C_LAUNCHES))

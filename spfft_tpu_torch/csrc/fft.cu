@@ -51,20 +51,6 @@ constexpr int CLUSTER = 8;  // blocks per plane: the portable size
 // share (32 rows of 256); two blocks an SM at 64 registers a thread
 constexpr int PLANE_THREADS = 512;
 
-// Threads and rows of one fft_stage_kernel block for length n: 512 threads
-// up to n = 256, 1024 above, and as many rows as fill EPT elements a
-// thread (32 rows at n = 256 and n = 512).
-void stage_block(int n, int* threads, int* rows) {
-  *threads = n > 256 ? 1024 : 512;
-  *rows = (*threads * EPT) / n;
-}
-
-bool pow2(int n) { return (n & (n - 1)) == 0; }
-
-__device__ __forceinline__ int wrap(int q, int n) {
-  return q >= n ? q - n : q;
-}
-
 // Shared memory of one cluster block: its buffer (the larger of RA rows of
 // n1 and RB rows of n2, real and imaginary) and both twiddle tables.
 size_t plane_smem(int A, int Bo, int n1, int n2) {
@@ -101,32 +87,11 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
   fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
   const float sc = sp.scale;
-  const bool vec = aligned16(yr, yi);
   if (plane_rows == 0) {
-    if (vec && sp.out0 == 0 && (N & 3) == 0) {  // 16 bytes a thread
-      const int N4 = N >> 2;
-      Walk w(N4);
-      for (int id = threadIdx.x; id < valid * N4; id += blockDim.x) {
-        const int o = w.row * stride + pad(4 * w.col);
-        const long long g = (m0 + w.row) * N4 + w.col;
-        reinterpret_cast<float4*>(yr)[g] = make_float4(
-            re[o] * sc, re[o + 1] * sc, re[o + 2] * sc, re[o + 3] * sc);
-        reinterpret_cast<float4*>(yi)[g] = make_float4(
-            im[o] * sc, im[o + 1] * sc, im[o + 2] * sc, im[o + 3] * sc);
-        w.next();
-      }
-    } else {
-      Walk w(N);
-      for (int id = threadIdx.x; id < valid * N; id += blockDim.x) {
-        const int o = w.row * stride + pad(wrap(sp.out0 + w.col, n));
-        const long long g = (m0 + w.row) * N + w.col;
-        yr[g] = re[o] * sc;
-        yi[g] = im[o] * sc;
-        w.next();
-      }
-    }
+    store_rows(re, im, valid, stride, n, N, sp.out0, sc, yr, yi, m0);
     return;
   }
+  const bool vec = aligned16(yr, yi);
   // transposed: element (j, r), r fastest, so neighbouring threads write
   // neighbouring a of one plane; the block's first row is (p0, a0)
   const long long p0 = m0 / plane_rows;
@@ -290,18 +255,6 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   }
 }
 
-static FftSpec make_spec(int n, int sign, float scale, int in0, int out0,
-                         int radices) {
-  FftSpec s;
-  s.n = n;
-  s.sign = sign;
-  s.scale = scale;
-  s.in0 = in0;
-  s.out0 = out0;
-  s.radices = radices;
-  return s;
-}
-
 // One launch of the FFT stage: rows (M, K) of (xr, xi) -> (yr, yi) (M, N),
 // the transform (n, sign, scale, in0, out0, radices) with twiddle table tw
 // ((2, n) f32 on the device), stored as plane_rows says.
@@ -312,8 +265,7 @@ extern "C" int spfft_fft_stage(const float* xr, const float* xi, float* yr,
                                void* stream) {
   int threads, rows;
   stage_block(n, &threads, &rows);
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)rows * row_stride(n) + 2 * (size_t)n);
+  const size_t smem = stage_smem(n, rows);
   auto kernel = pow2(n) ? fft_stage_kernel<true> : fft_stage_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -321,7 +273,7 @@ extern "C" int spfft_fft_stage(const float* xr, const float* xi, float* yr,
   const unsigned blocks = (unsigned)((M + rows - 1) / rows);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, tw, M, K, N, plane_rows, rows,
-      make_spec(n, sign, scale, in0, out0, radices));
+      FftSpec{n, sign, scale, in0, out0, radices});
   return (int)cudaGetLastError();
 }
 
@@ -343,7 +295,7 @@ extern "C" int spfft_fft_plane(const float* xr, const float* xi, float* yr,
   kernel<<<(unsigned)P * CLUSTER, PLANE_THREADS, smem,
            (cudaStream_t)stream>>>(
       xr, xi, yr, yi, tw1, tw2, A, B, Bo, Ao,
-      make_spec(n1, sign1, 1.f, in1, out1, rad1),
-      make_spec(n2, sign2, scale, in2, out2, rad2), swap_out);
+      FftSpec{n1, sign1, 1.f, in1, out1, rad1},
+      FftSpec{n2, sign2, scale, in2, out2, rad2}, swap_out);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// Shared device code of the package's FFT kernels (fft.cu): a block runs
-// complex FFTs of length n <= 512 = 2^a 3^b 5^c along the rows of a buffer
-// in shared memory, planar f32 (separate real and imaginary arrays).
+// Shared device code of the package's FFT kernels (fft.cu, fused_fft.cu):
+// a block runs complex FFTs of length n <= 512 = 2^a 3^b 5^c along the rows
+// of a buffer in shared memory, planar f32 (separate real and imaginary
+// arrays).
 //
 // Algorithm: the Stockham autosort FFT, mixed radix 4, 2, 3 and 5. Stage s
 // of radix P, after stages whose radices multiply to Ns, maps butterfly j
@@ -44,6 +45,23 @@ constexpr int EPT_PASS = 8;
 
 __host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 __host__ __device__ __forceinline__ int row_stride(int n) { return pad(n) | 1; }
+__host__ __device__ __forceinline__ bool pow2(int n) { return (n & (n - 1)) == 0; }
+// q mod n for 0 <= q < 2 n
+__device__ __forceinline__ int wrap(int q, int n) { return q >= n ? q - n : q; }
+
+// Threads and rows of a block that transforms whole rows of length n: 512
+// threads up to n = 256, 1024 above, and as many rows as fill EPT elements
+// a thread (32 rows at n = 256 and n = 512).
+inline void stage_block(int n, int* threads, int* rows) {
+  *threads = n > 256 ? 1024 : 512;
+  *rows = (*threads * EPT) / n;
+}
+
+// Shared memory of such a block: its rows (real and imaginary) and the
+// twiddle table.
+inline size_t stage_smem(int n, int rows) {
+  return sizeof(float) * (2 * (size_t)rows * row_stride(n) + 2 * (size_t)n);
+}
 
 // One transform as the plan describes it: length n, sign (+1 backward,
 // -1 forward), the scale applied at the store, the position of input
@@ -368,6 +386,40 @@ __device__ __forceinline__ void load_rows(float* re, float* im, int rows,
       re[o] = a[e];
       im[o] = b[e];
     }
+  }
+}
+
+// Store N outputs of each of the first `valid` buffer rows: output j of
+// row r (position (out0 + j) mod n) times sc at (yr, yi)[(row0 + r) N + j].
+// With out0 == 0, N a multiple of 4 and 16-byte aligned operands it stores
+// 16 bytes a thread.
+__device__ __forceinline__ void store_rows(const float* re, const float* im,
+                                           int valid, int stride, int n,
+                                           int N, int out0, float sc,
+                                           float* __restrict__ yr,
+                                           float* __restrict__ yi,
+                                           long long row0) {
+  if (out0 == 0 && (N & 3) == 0 && aligned16(yr, yi)) {
+    const int N4 = N >> 2;
+    Walk w(N4);
+    for (int id = threadIdx.x; id < valid * N4; id += blockDim.x) {
+      const int o = w.row * stride + pad(4 * w.col);
+      const long long g = (row0 + w.row) * N4 + w.col;
+      reinterpret_cast<float4*>(yr)[g] = make_float4(
+          re[o] * sc, re[o + 1] * sc, re[o + 2] * sc, re[o + 3] * sc);
+      reinterpret_cast<float4*>(yi)[g] = make_float4(
+          im[o] * sc, im[o + 1] * sc, im[o + 2] * sc, im[o + 3] * sc);
+      w.next();
+    }
+    return;
+  }
+  Walk w(N);
+  for (int id = threadIdx.x; id < valid * N; id += blockDim.x) {
+    const int o = w.row * stride + pad(wrap(out0 + w.col, n));
+    const long long g = (row0 + w.row) * N + w.col;
+    yr[g] = re[o] * sc;
+    yi[g] = im[o] * sc;
+    w.next();
   }
 }
 

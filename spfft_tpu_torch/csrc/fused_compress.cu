@@ -1,6 +1,10 @@
-// Sparse compression fused with the z-stick DFT: ports of the Pallas
-// kernels spfft_tpu/ops/fused_kernel.py:run_decompress_zdft (backward) and
-// run_zdft_compress (forward).
+// Sparse compression fused with the z-stick DFT, in matrix form: ports of
+// the Pallas kernels spfft_tpu/ops/fused_kernel.py:run_decompress_zdft
+// (backward) and run_zdft_compress (forward) for the z transforms the FFT
+// form (fused_fft.cu) does not take: a length dim_z with a prime factor
+// other than 2, 3 and 5, or a plain matrix pair that does not carry its
+// function (ops/fused_kernel.py: z_form). The z-DFT is a product against
+// the plan's matrix pair.
 //
 // decompress_zdft: each block owns BM = 16 consecutive z-sticks. It gathers
 // their 16 x dim_z slots from the sparse values through the plan-time
@@ -42,36 +46,20 @@
 // MATMUL_DFT_MAX, so the plan never has to decline them.
 //
 // Bound on the H100: operations. At 256^3 (51,431 sticks, 8,782,782
-// values) each kernel does 51,431 x 256 x 256 complex multiply-adds, 2.7e10
-// FLOP in this 4-product form, against about 230 MB of traffic; at 67
-// TFLOP/s FP32 and 3.35 TB/s the FLOPs take about 6x longer than the bytes.
-// Fusing the gather takes the raw stick array's round trip (105 MB each
-// way) off the memory side; the shared tile product keeps the FMA pipe fed.
-// The 256^3 R2C half sphere (25,717 sticks, 4,391,393 values) is half of
-// that work; its (0,0)-stick completion re-reads at most one mirror value
-// for each of the 256 slots of one stick, nothing beside the rest.
+// values) each kernel would do 51,431 x 256 x 256 complex multiply-adds,
+// 2.7e10 FLOP in this 4-product form, against about 230 MB of traffic; at
+// 67 TFLOP/s FP32 and 3.35 TB/s the FLOPs take about 6x longer than the
+// bytes. So the main paths take the FFT form, whose arithmetic is about
+// 50 times smaller and which is bound by bytes; this form stays for the
+// lengths the FFT form does not cover. Fusing the gather takes the raw
+// stick array's round trip off the memory side; the shared tile product
+// keeps the FMA pipe fed. An R2C (0,0)-stick completion re-reads at most
+// one mirror value for each slot of one stick.
 
 #include "cdft_tile.cuh"
+#include "values.cuh"
 
 using namespace spfft;
-
-// One value in the public layout: pair (2, N) or interleaved (N, 2).
-__device__ inline float2 read_value(const float* values, int pair,
-                                    long long num_values, long long v) {
-  if (pair) return make_float2(values[v], values[num_values + v]);
-  return reinterpret_cast<const float2*>(values)[v];
-}
-
-__device__ inline void write_value(float* values, int pair,
-                                   long long num_values, long long v,
-                                   float re, float im) {
-  if (pair) {
-    values[v] = re;
-    values[num_values + v] = im;
-  } else {
-    reinterpret_cast<float2*>(values)[v] = make_float2(re, im);
-  }
-}
 
 // The value feeding slot z of stick s, zero for an empty slot.
 __device__ inline float2 slot_value(const float* values,

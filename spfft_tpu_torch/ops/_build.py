@@ -31,7 +31,8 @@ from ..errors import DeviceError, InvalidParameterError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "gather.cu")
+SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "fused_fft.cu",
+           "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -117,6 +118,13 @@ def launch(fn, what: str, device, *args) -> None:
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise DeviceError(f"{what}: CUDA error {code} at launch")
+
+
+def count(wrapper, form: str) -> None:
+    """One launch of ``wrapper``'s kernel in ``form``: adds one to
+    ``wrapper.launches`` and to ``wrapper.form_launches[form]``."""
+    wrapper.launches += 1
+    wrapper.form_launches[form] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,

@@ -294,7 +294,10 @@ def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
     The plain 4-product form: Yr = Xr Cr - Xi Ci, Yi = Xr Ci + Xi Cr. It
     loses less in f32 than the JAX package's Karatsuba form, whose
     imaginary part is a difference of three sums, and so leaves more
-    room under the accuracy contract."""
+    room under the accuracy contract. Raises
+    :class:`~spfft_tpu_torch.errors.DeviceError` where ``torch.matmul``
+    is set to a reduced float32 precision (see :func:`pirdft_last`)."""
+    _require_fp32_matmul(xr, "pdft_last")
     cr, ci = mats
     return (torch.matmul(xr, cr) - torch.matmul(xi, ci),
             torch.matmul(xr, ci) + torch.matmul(xi, cr))

@@ -101,11 +101,6 @@ def plane_forms(mats1, mats2, a: int) -> tuple:
     return forms
 
 
-def _count(wrapper, form: str) -> None:
-    wrapper.launches += 1
-    wrapper.form_launches[form] += 1
-
-
 def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
     """One launch of a stage kernel in ``mode``: rows of ``ins`` (minor
     axis K; one real plane in mode rc) against ``mats`` (K, N) into
@@ -193,13 +188,14 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
     elif modes == ("cc", "cc") and plane_forms(mats1, mats2, a) == \
             ("cluster",):
         _plane(ins, mats1, mats2, out, swap_out)
-        _count(wrapper, "cluster")
+        _build.count(wrapper, "cluster")
     else:
         mid = tuple(torch.empty((p, b_out, a), dtype=torch.float32,
                                 device=x.device) for _ in range(2))
-        _count(wrapper, _stage(modes[0], ins, mats1, mid, plane_rows=a))
-        _count(wrapper, _stage(modes[1], mid, mats2, out,
-                               plane_rows=b_out if swap_out else 0))
+        _build.count(wrapper, _stage(modes[0], ins, mats1, mid,
+                                     plane_rows=a))
+        _build.count(wrapper, _stage(modes[1], mid, mats2, out,
+                                     plane_rows=b_out if swap_out else 0))
     return out[0] if real_out else out
 
 
@@ -227,7 +223,7 @@ def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
         for t in out:
             t.zero_()
         return out
-    _count(pdft_last, _stage("cc", (xr, xi), mats, out, plane_rows=0))
+    _build.count(pdft_last, _stage("cc", (xr, xi), mats, out, plane_rows=0))
     return out
 
 

@@ -8,20 +8,27 @@
   it completes the (x=0, y=0) stick before the z-DFT (the TPU kernel's
   ``_complete_zero_stick``, ``fused_kernel.py:350``).
 * :func:`zdft_compress` (forward): raw planar sticks -> z-DFT (any FULL
-  scale folded into the matrices) -> the sparse values, written through
+  scale carried by the z matrices) -> the sparse values, written through
   a plan-time CSR by stick (:func:`compress_csr`).
 
-On a CUDA tensor each wrapper launches its kernel in
-``csrc/fused_compress.cu`` (see that file for the design and what bounds
-it: FP32 operations). On a CPU tensor it runs the plain version beside
-it. Values are in the plan's public layout: interleaved ``(N, 2)``, or
-the planar pair ``(2, N)`` when ``pair`` is set.
+Forms, chosen by shape (:func:`z_form`): z matrices that carry their
+function (``dft.DftMats``) with a length dim_z of the form 2^a 3^b 5^c
+run the FFT form (``csrc/fused_fft.cu``: the gather fused with a
+Stockham FFT in shared memory, ``csrc/fft_tile.cuh``; bound by bytes);
+any other length, or a plain matrix pair, runs the matrix form
+(``csrc/fused_compress.cu``: the z-DFT as a product against the matrix
+pair, bound by FP32 operations). On a CUDA tensor each wrapper launches
+the kernel of its form; on a CPU tensor it runs the plain version beside
+it, whatever the form. Values are in the plan's public layout:
+interleaved ``(N, 2)``, or the planar pair ``(2, N)`` when ``pair`` is
+set.
 
 Both wrappers also take a leading batch ``B`` (values ``(B, N, 2)`` or
 ``(B, 2, N)``, sticks ``(B, S, dim_z)``): B transforms over one plan's
 tables in ONE launch, the batched grids of the TPU kernels
 (``_kernel_dec_zdft_batched``, ``_kernel_zdft_cmp_batched``). A launch
-counts once whatever B is.
+counts once whatever B is, in ``.launches`` and in ``.form_launches``
+by form.
 """
 
 from __future__ import annotations
@@ -32,16 +39,42 @@ import numpy as np
 import torch
 
 from ..errors import InvalidParameterError
-from . import _build, dft, stages
+from . import _build, dft, dft_kernel, stages
 
 _SRC = "fused_compress.cu"
+_FFT_SRC = "fused_fft.cu"
 _P = ctypes.c_void_p
-_DEC_ARGS = [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
-_CMP_ARGS = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int, _P]
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_DEC_ARGS = [_P] * 6 + [_LL, _I, _LL, _I, _LL, _I, _P]
+_CMP_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _I, _P]
+#: the transform's (n, sign, scale, in0, out0, radices) arguments of
+#: csrc/fused_fft.cu's entries, before the stream
+_SPEC_ARGS = [_I, _I, ctypes.c_float, _I, _I, _I, _P]
+#: spfft_decompress_zdft_fft: values, slot_src, the twiddle table, the
+#: output sticks, num_sticks, N, pair, zero_stick, batch, the transform
+_FFT_DEC_ARGS = [_P] * 5 + [_LL, _I, _I, _LL, _I] + _SPEC_ARGS
+#: spfft_zdft_compress_fft: the sticks, the twiddle table, the CSR, the
+#: values, num_sticks, N, pair, batch, the transform
+_FFT_CMP_ARGS = [_P] * 7 + [_LL, _I, _I, _I] + _SPEC_ARGS
 #: largest batch of one launch (the grid's y extent)
 MAX_BATCH = 65535
+FORMS = ("matrix", "fft")
+
+
+def z_form(mats, dim_z: int) -> str:
+    """The form of a fused z kernel against the z pair ``mats``: ``"fft"``
+    where the pair carries its function with an FFT factor list
+    (:func:`~spfft_tpu_torch.ops.dft_kernel.stage_form`) over the whole
+    stick (length ``dim_z``), else ``"matrix"``."""
+    return "fft" if dft_kernel.stage_form(mats) == "fft" \
+        and mats.n == dim_z else "matrix"
+
+
+def _spec(mats) -> tuple:
+    """The transform arguments of csrc/fused_fft.cu's entries."""
+    return (mats.n, mats.sign, mats.scale, mats.rows[0], mats.cols[0],
+            dft.radix_code(mats.factors))
 
 
 def compress_csr(value_indices: np.ndarray, num_sticks: int, dim_z: int):
@@ -103,7 +136,8 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     stick to complete hermitian before the z-DFT (an R2C plan's (0,0)
     stick; -1 = none), in every batch element. Every output slot is
     written. Each kernel launch (one per call, whatever B is) adds one to
-    ``decompress_zdft.launches``."""
+    ``decompress_zdft.launches`` and to its :func:`z_form`'s count in
+    ``decompress_zdft.form_launches``."""
     if values.dim() not in (2, 3):
         raise InvalidParameterError(
             f"decompress_zdft: expected (B?, N, 2) or (B?, 2, N) values, got "
@@ -136,16 +170,24 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     si = torch.empty_like(sr)
     if num_sticks == 0 or batch == 0:
         return sr, si
-    fn = _build.function(_SRC, "spfft_decompress_zdft", _DEC_ARGS)
-    _build.launch(fn, "decompress_zdft kernel", dev, values.data_ptr(),
-                  slot_src.data_ptr(), mats[0].data_ptr(),
-                  mats[1].data_ptr(), sr.data_ptr(), si.data_ptr(),
-                  num_sticks, dim_z, n, int(pair), int(zero_stick), batch)
-    decompress_zdft.launches += 1
+    form = z_form(mats, dim_z)
+    if form == "fft":
+        fn = _build.function(_FFT_SRC, "spfft_decompress_zdft_fft",
+                             _FFT_DEC_ARGS)
+        _build.launch(fn, "decompress_zdft fft kernel", dev,
+                      values.data_ptr(), slot_src.data_ptr(),
+                      mats.twiddles.data_ptr(), sr.data_ptr(), si.data_ptr(),
+                      num_sticks, n, int(pair), int(zero_stick), batch,
+                      *_spec(mats))
+    else:
+        fn = _build.function(_SRC, "spfft_decompress_zdft", _DEC_ARGS)
+        _build.launch(fn, "decompress_zdft kernel", dev, values.data_ptr(),
+                      slot_src.data_ptr(), mats[0].data_ptr(),
+                      mats[1].data_ptr(), sr.data_ptr(), si.data_ptr(),
+                      num_sticks, dim_z, n, int(pair), int(zero_stick),
+                      batch)
+    _build.count(decompress_zdft, form)
     return sr, si
-
-
-decompress_zdft.launches = 0
 
 
 # -- forward: z-DFT -> compress ----------------------------------------------
@@ -177,10 +219,12 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     """Raw planar sticks ``(B?, num_sticks, dim_z)`` -> z-DFT -> the
     sparse values, ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) f32.
 
-    ``mats`` is the forward z pair (FULL scale folded in); ``csr`` is
+    ``mats`` is the forward z pair, any FULL scale folded into its
+    matrices and carried as its ``scale``; ``csr`` is
     :func:`compress_csr`'s ``(stick_ptr, val_id, val_z)`` as int32
     tensors. Each value is written exactly once. Each kernel launch (one
-    per call, whatever B is) adds one to ``zdft_compress.launches``."""
+    per call, whatever B is) adds one to ``zdft_compress.launches`` and to
+    its :func:`z_form`'s count in ``zdft_compress.form_launches``."""
     if sr.dim() not in (2, 3):
         raise InvalidParameterError(
             f"zdft_compress: expected (B?, num_sticks, dim_z) sticks, got "
@@ -206,13 +250,26 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
                       device=dev)
     if num_sticks == 0 or batch == 0:
         return out
-    fn = _build.function(_SRC, "spfft_zdft_compress", _CMP_ARGS)
-    _build.launch(fn, "zdft_compress kernel", dev, sr.data_ptr(),
-                  si.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
-                  stick_ptr.data_ptr(), val_id.data_ptr(), val_z.data_ptr(),
-                  out.data_ptr(), num_sticks, dim_z, n, int(pair), batch)
-    zdft_compress.launches += 1
+    form = z_form(mats, dim_z)
+    if form == "fft":
+        fn = _build.function(_FFT_SRC, "spfft_zdft_compress_fft",
+                             _FFT_CMP_ARGS)
+        _build.launch(fn, "zdft_compress fft kernel", dev, sr.data_ptr(),
+                      si.data_ptr(), mats.twiddles.data_ptr(),
+                      stick_ptr.data_ptr(), val_id.data_ptr(),
+                      val_z.data_ptr(), out.data_ptr(), num_sticks, n,
+                      int(pair), batch, *_spec(mats))
+    else:
+        fn = _build.function(_SRC, "spfft_zdft_compress", _CMP_ARGS)
+        _build.launch(fn, "zdft_compress kernel", dev, sr.data_ptr(),
+                      si.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
+                      stick_ptr.data_ptr(), val_id.data_ptr(),
+                      val_z.data_ptr(), out.data_ptr(), num_sticks, dim_z, n,
+                      int(pair), batch)
+    _build.count(zdft_compress, form)
     return out
 
 
-zdft_compress.launches = 0
+for _w in (decompress_zdft, zdft_compress):
+    _w.launches = 0
+    _w.form_launches = dict.fromkeys(FORMS, 0)

@@ -286,3 +286,37 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_cpu_plan_refuses_reduced_fp32_matmul():
+    """Every complex stage of a ``device="cpu"`` plan is ``torch.matmul``
+    (``ops.dft.pdft_last``): under oneDNN's bf16 float32 matmul a whole
+    32^3 C2C plan raises ``DeviceError`` in backward and in forward
+    instead of returning a result off by about 1e-3, and with the setting
+    restored it is within 1e-6 of the dense f64 oracle both ways."""
+    mm = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
+    if mm is None or not hasattr(mm, "fp32_precision"):
+        pytest.skip("this PyTorch has no oneDNN fp32_precision setting")
+    dims = (32, 32, 32)
+    trip = _sphere(dims, 15)
+    rng = np.random.default_rng(21)
+    vals = (rng.standard_normal(len(trip))
+            + 1j * rng.standard_normal(len(trip))).astype(np.complex64)
+    plan = sp.make_local_plan(sp.TransformType.C2C, *dims, trip,
+                              device="cpu")
+    space = torch.from_numpy(np.stack([np.zeros(dims[::-1], np.float32)] * 2,
+                                      axis=-1))
+    prev = mm.fp32_precision
+    mm.fp32_precision = "bf16"
+    try:
+        with pytest.raises(sp.DeviceError, match="pdft_last"):
+            plan.backward(vals)
+        with pytest.raises(sp.DeviceError, match="pdft_last"):
+            plan.forward(space, sp.Scaling.FULL)
+    finally:
+        mm.fp32_precision = prev
+    got = plan.backward(vals)
+    want = _oracle_backward(dims, trip, vals)
+    assert _rel(_c(got), want) <= 1e-6
+    back = plan.forward(got, sp.Scaling.FULL)
+    assert _rel(_c(back), vals) <= 1e-6
