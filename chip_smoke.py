@@ -29,9 +29,14 @@ Phases, each of which exits non-zero when it fails:
 6. phases 3-5 for the R2C path: the non-redundant half of the 256^3
    sphere, values from a seeded real field band-limited to the sphere
    (complex128 on the card; the oracle is that field); the real xy
-   kernels ``prdft2`` and ``pdft2_cr`` and the (0,0)-stick completion of
-   ``decompress_zdft``, at the path's shapes and at odd R2C shapes; the
-   counted pair, which must not launch ``pdft2``;
+   kernels ``prdft2`` and ``pdft2_cr`` (their real halves in the real FFT
+   form, against the plain version, beside both halves as matrices) and
+   the (0,0)-stick completion of ``decompress_zdft``, at the path's
+   shapes and at odd R2C shapes (the real FFT form at every kind of even
+   length, the matrix form at odd lengths and other primes, windows
+   from 0, past 0 and wrapped, nonzero imaginary parts at DC and
+   Nyquist, which must not reach the output); the counted pair, which
+   must not launch ``pdft2`` nor a real stage in the matrix form;
 7. for each path, the two-kernel route (``fused=False``): the gather
    kernel in both directions (exact against its plain version) and
    ``pdft_last`` at the route's 256^3 shapes, then the counted pair
@@ -75,9 +80,11 @@ Phases, each of which exits non-zero when it fails:
    route (each shard's gather, exact, and ``pdft_last`` over all shards'
    sticks, then its pair: gather 8, ``pdft_last`` 2) against the fused
    one; and the R2C path (each shard's z kernels, the owner of the
-   (0,0) stick and the others; ``pdft_last`` at its y stage; its pair
-   with no ``pdft2_swapped`` and ``pdft_last`` 2) with its stage split
-   and structure checks;
+   (0,0) stick and the others; ``pdft_last`` at its y stage; its x
+   stage, ``pirdft_last`` and ``prdft_last`` in the real FFT form,
+   against the plain FP32 products it replaced, timed beside them; its
+   pair with no ``pdft2_swapped``, ``pdft_last`` 2 and each real x
+   launch once) with its stage split and structure checks;
 12. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
    ``{"kernels": [...]}`` (every kernel record of every path, each with
    its ``path``) and, last, one JSON line
@@ -95,20 +102,26 @@ Forms. The complex DFT stages are no longer matrix products:
 ``pdft_last`` is an FFT in shared memory (form ``fft``), ``pdft2`` and
 ``pdft2_swapped`` one launch of a cluster kernel per call (form
 ``cluster``: both FFTs of a plane in one cluster of 8 blocks, the swap
-through distributed shared memory), and the complex halves of
-``prdft2`` and ``pdft2_cr`` the FFT stage (their real halves stay matrix
-products: form ``matrix+fft``). The fused z kernels
+through distributed shared memory), the complex halves of ``prdft2``
+and ``pdft2_cr`` the FFT stage, and their real halves, like the
+distributed R2C x stage (``prdft_last``, ``pirdft_last``), a real FFT
+(form ``rfft``: a half-length complex FFT and a pass over the pairs of
+bins, ``csrc/rfft.cu``): ``prdft2`` is form ``rfft+fft``, ``pdft2_cr``
+``fft+rfft``. The fused z kernels
 (``decompress_zdft``, ``zdft_compress``) gather and transform in one
 launch of an FFT in shared memory (form ``fft``, ``csrc/fused_fft.cu``).
-Any stage or z kernel whose length has a prime factor other than 2, 3
-and 5, or whose matrices do not carry their function, computes its DFT
-as a matrix product (form ``matrix``). Each counted pair checks the
-launches of each wrapper by form (``form_launches``); no pair of the
-main paths takes the matrix form of a complex stage or z kernel. Each
+Any stage or z kernel whose length (for a real stage: an odd length, or
+its half) has a prime factor other than 2, 3 and 5, or whose matrices
+do not carry their function, computes its DFT as a matrix product (form
+``matrix``). Each counted pair checks the launches of each wrapper by
+form (``form_launches``); no pair of the main paths takes the matrix
+form of any stage or z kernel. Each
 record of a redesigned kernel carries ``form`` and ``matrix_ms``, the
 matrix form timed on the same inputs in the same run (the "before").
 ``design_bound_ms`` is the bound of the record's own design: for the
-FFT and cluster forms ``bound_ms`` itself; for a matrix product the
+one-launch FFT, real FFT and cluster forms ``bound_ms`` itself; for the
+two launches of ``prdft2`` / ``pdft2_cr`` their bytes with the
+intermediate written and read once more; for a matrix product the
 cheapest matrix form (the Karatsuba triple at 6 FLOP per complex
 multiply-add, 4 FLOP per real by complex one), of which the kernels'
 plain 4-product form reaches at most 3/4. It is printed on a line of its
@@ -208,10 +221,10 @@ def rfft_flops(lines: int, n: int) -> float:
 
 
 def table_bytes(mats, form: str) -> int:
-    """Bytes of a DFT stage's tables as its form reads them: the FFT and
-    cluster forms read the (2, n) f32 twiddle table, the matrix form the
-    f32 matrix pair."""
-    if form in ("fft", "cluster"):
+    """Bytes of a DFT stage's tables as its form reads them: the FFT,
+    real FFT and cluster forms read the (2, n) f32 twiddle table, the
+    matrix form the f32 matrix pair."""
+    if form in ("fft", "cluster", "rfft"):
         return 2 * mats.n * 4
     return sum(m.numel() for m in mats[:2]) * 4
 
@@ -235,8 +248,12 @@ DESIGN_BOUND_MS = {}
 
 
 #: the redesigned complex stages (pdft_last, pdft2, pdft2_swapped, the
-#: complex halves of prdft2 and pdft2_cr); the matrix form is dft2.cu
+#: complex halves of prdft2 and pdft2_cr); the real stages (the real
+#: halves, prdft_last, pirdft_last); the matrix form is dft2.cu
 FFT_SRC = "spfft_tpu_torch/csrc/fft.cu"
+RFFT_SRC = "spfft_tpu_torch/csrc/rfft.cu"
+#: _kernel2's real stages (modes rc and cr), launched there
+REAL_REPLACES = "spfft_tpu/ops/dft_kernel.py:277"
 DFT2_SRC = "spfft_tpu_torch/csrc/dft2.cu"
 #: the fused z kernels by form
 Z_SRC = {"fft": "spfft_tpu_torch/csrc/fused_fft.cu",
@@ -275,15 +292,18 @@ def fft_two_launch(ins, mats1, mats2, swap_out=False):
 
 def kernel_record(path, name, source, replaces, err, ms, plain_ms,
                   library_ms, nbytes, flops, design_flops, form=None,
-                  matrix_ms=None):
-    """One kernel's record. ``form``: ``fft``, ``cluster``, ``matrix``,
-    ``matrix+fft`` or None (no DFT); ``matrix_ms``: the matrix form on
-    the same inputs (a matrix-form kernel's own ``ms``). The design bound
-    of the FFT and cluster forms is ``bound_ms``."""
+                  matrix_ms=None, design_bytes=None):
+    """One kernel's record. ``form``: ``fft``, ``rfft``, ``cluster``,
+    ``matrix``, a two-launch ``rfft+fft`` / ``fft+rfft`` or None (no
+    DFT); ``matrix_ms``: the matrix form on the same inputs (a
+    matrix-form kernel's own ``ms``). The design bound of the one-launch
+    FFT forms is ``bound_ms``; any other form's is ``design_bytes``
+    (default ``nbytes``) against ``design_flops``."""
     b_ms, b_by = bound(nbytes, flops)
     DESIGN_BOUND_MS.setdefault(path, {})[name] = \
-        b_ms if form in ("fft", "cluster") else bound(nbytes,
-                                                      design_flops)[0]
+        b_ms if form in ("fft", "cluster", "rfft") else bound(
+            nbytes if design_bytes is None else design_bytes,
+            design_flops)[0]
     if form == "matrix" and matrix_ms is None:
         matrix_ms = ms
     return {"path": path, "name": name, "route": "cuda", "source": source,
@@ -732,34 +752,44 @@ def z_fft_odd_shapes_phase(device):
 #: and for a DFT wrapper that launches, its launches by form (exactly)
 CLUSTER2 = (2, 2, {"cluster": 2})  # one cluster launch per call
 FFT2 = (2, 2, {"fft": 2})
-REAL2 = (2, 2, {"matrix": 1, "fft": 1})  # the real half, the complex half
+REAL2 = (2, 2, {"rfft": 1, "fft": 1})  # the real half, the complex half
+#: the real x stage of a distributed R2C pair: one launch per direction
+RFFT1 = (1, 1, {"rfft": 1})
+#: the single-stage real wrappers, on every path but the distributed R2C
+NO_REAL_LAST = {"prdft_last": (0, 0), "pirdft_last": (0, 0)}
 ZFFT1 = (1, 1, {"fft": 1})  # one fused z launch per direction
 C2C_LAUNCHES = {"decompress_zdft": ZFFT1, "pdft2": CLUSTER2,
                 "zdft_compress": ZFFT1, "prdft2": (0, 0),
                 "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
-                "pdft2_swapped": (0, 0)}
+                "pdft2_swapped": (0, 0),
+                **NO_REAL_LAST}
 R2C_LAUNCHES = {"decompress_zdft": ZFFT1, "prdft2": REAL2,
                 "pdft2_cr": REAL2, "zdft_compress": ZFFT1,
                 "pdft2": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
-                "pdft2_swapped": (0, 0)}
+                "pdft2_swapped": (0, 0),
+                **NO_REAL_LAST}
 #: the two-kernel route's pair, exactly
 C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
                    "pdft2": CLUSTER2, "prdft2": (0, 0), "pdft2_cr": (0, 0),
-                   "pdft2_swapped": (0, 0)}
+                   "pdft2_swapped": (0, 0),
+                   **NO_REAL_LAST}
 R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                    "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
                    "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
-                   "pdft2_swapped": (0, 0)}
+                   "pdft2_swapped": (0, 0),
+                   **NO_REAL_LAST}
 #: a batched pair launches what ONE single pair does, whatever B is
 C2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
                         "pdft2": CLUSTER2, "prdft2": (0, 0),
                         "pdft2_cr": (0, 0), "gather": (0, 0),
-                        "pdft_last": (0, 0), "pdft2_swapped": (0, 0)}
+                        "pdft_last": (0, 0), "pdft2_swapped": (0, 0),
+                        **NO_REAL_LAST}
 R2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
                         "prdft2": REAL2, "pdft2_cr": REAL2, "pdft2": (0, 0),
                         "gather": (0, 0), "pdft_last": (0, 0),
-                        "pdft2_swapped": (0, 0)}
+                        "pdft2_swapped": (0, 0),
+                        **NO_REAL_LAST}
 #: record name -> the launch counter it reads
 COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
               "decompress_zdft_batched": "decompress_zdft",
@@ -927,22 +957,24 @@ def r2c_kernel_phase(plan, values, device):
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
-    cc = dft_kernel.stage_form(m1)
+    cc, rf = dft_kernel.stage_form(m1), dft_kernel.stage_form(m2)
+    nbytes = 2 * pp * a * b * 4 + pp * b_out * a_out * 4 \
+        + table_bytes(m1, cc) + table_bytes(m2, rf)
     recs.append(kernel_record(
-        "r2c", "pdft2_cr", DFT2_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
+        "r2c", "pdft2_cr", RFFT_SRC, REAL_REPLACES, err,
         timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, m1, m2), device),
         timed_ms(lambda: dft.pdft2_minor_cr(gr, gi, m1, m2), device),
         timed_ms(lambda: torch.fft.irfft2(
             gc.transpose(-1, -2), s=(b_out, a_out), norm="forward"), device)
         if a == p.dim_x_freq else None,
-        2 * pp * a * b * 4 + pp * b_out * a_out * 4
-        + table_bytes(m1, cc) + table_bytes(m2, "matrix"),
-        fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
+        nbytes, fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
         (fft_flops(pp * a, b) if cc == "fft"
          else FLOP_PER_CMAC * pp * a * b * b_out)
-        + FLOP_PER_RMAC * pp * b_out * a * a_out, f"{cc}+matrix",
-        timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1), m2),
-                 device)))
+        + (rfft_flops(pp * b_out, a_out) if rf == "rfft"
+           else FLOP_PER_RMAC * pp * b_out * a * a_out), f"{cc}+{rf}",
+        timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1),
+                                             matrix_pair(m2)), device),
+        design_bytes=nbytes + 2 * 2 * pp * b_out * a * 4))
 
     # prdft2, forward shapes: real (z, y, x) -> planar (z, w, y)
     f1, f2 = plan._mats["x_f"], plan._mats["y_f"]
@@ -950,22 +982,24 @@ def r2c_kernel_phase(plan, values, device):
     err = compare("r2c prdft2", fgot, dft.prdft2_minor(space, f1, f2))
     pp, a, b = space.shape
     b_out, a_out = f1[0].shape[1], f2[0].shape[1]
-    cc = dft_kernel.stage_form(f2)
+    rf, cc = dft_kernel.stage_form(f1), dft_kernel.stage_form(f2)
+    nbytes = pp * a * b * 4 + 2 * pp * b_out * a_out * 4 \
+        + table_bytes(f1, rf) + table_bytes(f2, cc)
     recs.append(kernel_record(
-        "r2c", "prdft2", DFT2_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
+        "r2c", "prdft2", RFFT_SRC, REAL_REPLACES, err,
         timed_ms(lambda: dft_kernel.prdft2(space, f1, f2), device),
         timed_ms(lambda: dft.prdft2_minor(space, f1, f2), device),
         timed_ms(lambda: torch.fft.rfft2(space).transpose(-1, -2)
                  .contiguous(), device)
         if b_out == p.dim_x_freq else None,
-        pp * a * b * 4 + 2 * pp * b_out * a_out * 4
-        + table_bytes(f1, "matrix") + table_bytes(f2, cc),
-        rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
-        FLOP_PER_RMAC * pp * a * b * b_out
+        nbytes, rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
+        (rfft_flops(pp * a, b) if rf == "rfft"
+         else FLOP_PER_RMAC * pp * a * b * b_out)
         + (fft_flops(pp * b_out, a) if cc == "fft"
-           else FLOP_PER_CMAC * pp * b_out * a * a_out), f"matrix+{cc}",
-        timed_ms(lambda: dft_kernel.prdft2(space, f1, matrix_pair(f2)),
-                 device)))
+           else FLOP_PER_CMAC * pp * b_out * a * a_out), f"{rf}+{cc}",
+        timed_ms(lambda: dft_kernel.prdft2(space, matrix_pair(f1),
+                                           matrix_pair(f2)), device),
+        design_bytes=nbytes + 2 * 2 * pp * b_out * a * 4))
 
     recs.append(zdft_compress_record("r2c", plan, fgot, device))
     print_records(recs)
@@ -973,17 +1007,26 @@ def r2c_kernel_phase(plan, values, device):
 
 
 def r2c_odd_shapes_phase(device):
-    """The R2C kernels at shapes the path does not reach: odd and even
-    real axes (7, 15, 24, 512; an odd one has no Nyquist bin), split
-    windows of the half spectrum with x0 == 0 and x0 > 0, and the
-    (0,0)-stick completion with no slot of the stick given, half of it
-    given, a given value of exactly 0 whose mirror slot is given (so only
-    completion by value fills it, not completion of empty slots), and no
-    zero stick at all, in both value layouts; each against its plain
-    version."""
+    """The R2C kernels at shapes the path does not reach: the real stages
+    of ``prdft2`` / ``pdft2_cr`` and the single-stage ``prdft_last`` /
+    ``pirdft_last`` in the real FFT form at even lengths of every kind
+    (2, 4, 6, 10, 24, 100, 250, 256, 512: half lengths 1, 2, odd,
+    powers of two, mixed radix) and in the matrix form at odd lengths (7,
+    15) and at 14 (a 7 in the half), with the plan's matrices and with
+    plain pairs, in windows of the half spectrum from 0, past 0 and
+    wrapped, scaled, with nonzero imaginary parts at DC and Nyquist
+    (changing them must leave the real inverse's output unchanged, bit for
+    bit, in the real FFT form), both stores of the real FFT stage kernel
+    (straight and transposed within planes), each call's form checked by
+    its launch counts; then the (0,0)-stick completion with no slot of the
+    stick given, half of it given, a given value of exactly 0 whose mirror
+    slot is given (so only completion by value fills it, not completion of
+    empty slots), and no zero stick at all, in both value layouts; each
+    against its plain version."""
     from spfft_tpu_torch.indexing import inverse_slot_map
     from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel
     rng = np.random.default_rng(SEED + 2)
+    on_card = device.type == "cuda"
 
     def rand(*shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
@@ -992,30 +1035,109 @@ def r2c_odd_shapes_phase(device):
     def mats(m):
         return dft.device_mats(m, device)
 
+    def counted(wrapper, want, name, fn):
+        """``fn()``, failing on the card unless ``wrapper`` launched
+        ``want`` (a dict by form) in it."""
+        wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+        out = fn()
+        got = {f: k for f, k in wrapper.form_launches.items() if k}
+        if on_card and got != want:
+            fail(f"{name}: launches by form {got}, expected {want}")
+        return out
+
     cases = 0
-    for nx, ny, pp, windows in ((7, 9, 3, ((0, 2), (1, 3))),
+    for nx, ny, pp, windows in ((2, 9, 3, ((1, 1),)),
+                                (4, 6, 3, ((0, 2), (2, 2))),
+                                (6, 5, 3, ((1, 3), (3, 2))),
+                                (7, 9, 3, ((0, 2), (1, 3))),
+                                (10, 12, 2, ((0, 3), (4, 2))),
+                                (14, 8, 3, ((0, 4), (6, 2))),
                                 (15, 20, 3, ((0, 3), (2, 4))),
-                                (24, 16, 3, ((0, 5), (3, 5))),
+                                (24, 16, 3, ((0, 5), (3, 5), (11, 4))),
+                                (100, 10, 2, ((0, 30), (40, 11))),
+                                (250, 6, 2, ((0, 120), (120, 6))),
+                                (256, 40, 2, ((0, 100), (50, 79))),
                                 (512, 9, 2, ((0, 100), (50, 120)))):
+        xf = nx // 2 + 1
         for win in (None,) + windows:
-            cols = None if win is None else tuple(range(win[0],
-                                                        win[0] + win[1]))
-            r2c = dft.r2c_mats(nx) if cols is None \
-                else dft.sub_cols_r2c_mats(nx, cols)
-            c2r = dft.c2r_mats(nx) if cols is None \
-                else dft.sub_rows_c2r_mats(nx, cols)
+            scale = 1.0 if win is None else 1.0 / nx
+            spec_r2c = dft.device_r2c(nx, scale, cols=win, device=device)
+            spec_c2r = dft.device_c2r(nx, scale, rows=win, device=device)
+            form = dft_kernel.stage_form(spec_r2c)
+            if form != ("rfft" if nx % 2 == 0 and nx != 14 else "matrix"):
+                fail(f"real stage nx={nx}: form {form}")
+            k = spec_r2c[0].shape[1]
             x = rand(pp, ny, nx)
-            m1, m2 = mats(r2c), mats(dft.c2c_mats(ny, dft.FORWARD))
-            compare(f"prdft2 nx={nx} window={win}",
-                    dft_kernel.prdft2(x, m1, m2),
-                    dft.prdft2_minor(x, m1, m2))
-            k = c2r[0].shape[0]
             xr, xi = rand(pp, k, ny), rand(pp, k, ny)
-            m1, m2 = mats(dft.c2c_mats(ny, dft.BACKWARD)), mats(c2r)
-            compare(f"pdft2_cr nx={nx} window={win}",
-                    (dft_kernel.pdft2_cr(xr, xi, m1, m2),),
-                    (dft.pdft2_minor_cr(xr, xi, m1, m2),))
-            cases += 2
+            bins = [(win[0] + j) % xf if win else j for j in range(k)]
+            dc_nyq = [j for j, q in enumerate(bins)
+                      if q == 0 or (nx % 2 == 0 and q == nx // 2)]
+            yf = dft.device_c2c(ny, dft.FORWARD, device=device)
+            yb = dft.device_c2c(ny, dft.BACKWARD, device=device)
+            for kind, r2c, c2r, f in (
+                    ("spec", spec_r2c, spec_c2r, form),
+                    ("plain", matrix_pair(spec_r2c), matrix_pair(spec_c2r),
+                     "matrix")):
+                name = f"nx={nx} window={win} {kind} form {f}"
+                compare(f"prdft2 {name}",
+                        counted(dft_kernel.prdft2, {f: 1, "fft": 1},
+                                f"prdft2 {name}",
+                                lambda: dft_kernel.prdft2(x, r2c, yf)),
+                        dft.prdft2_minor(x, r2c, yf))
+                compare(f"pdft2_cr {name}",
+                        (counted(dft_kernel.pdft2_cr, {"fft": 1, f: 1},
+                                 f"pdft2_cr {name}",
+                                 lambda: dft_kernel.pdft2_cr(xr, xi, yb,
+                                                             c2r)),),
+                        (dft.pdft2_minor_cr(xr, xi, yb, c2r),))
+                rows = rand(pp, 7, nx)
+                compare(f"prdft_last {name}",
+                        counted(dft_kernel.prdft_last, {f: 1},
+                                f"prdft_last {name}",
+                                lambda: dft_kernel.prdft_last(rows, r2c)),
+                        dft.prdft_last(rows, r2c))
+                hr, hi = rand(pp, 7, k), rand(pp, 7, k)
+                got = counted(dft_kernel.pirdft_last, {f: 1},
+                              f"pirdft_last {name}",
+                              lambda: dft_kernel.pirdft_last(hr, hi, c2r))
+                compare(f"pirdft_last {name}", (got,),
+                        (dft.pirdft_last(hr, hi, c2r),))
+                if f == "rfft" and dc_nyq:
+                    hi2 = hi.clone()
+                    hi2[..., dc_nyq] += 1.0 + rand(pp, 7, len(dc_nyq))
+                    if not torch.equal(
+                            dft_kernel.pirdft_last(hr, hi2, c2r), got):
+                        fail(f"pirdft_last {name}: the imaginary parts at "
+                             f"DC / Nyquist reached the output")
+                cases += 4
+    # the real FFT stage kernel's transposed store (prdft2's first launch
+    # takes it; the real inverse supports it too), many blocks, ragged
+    # planes
+    for nx, planes, plane_rows, win in ((256, 3, 700, None),
+                                        (24, 5, 129, (3, 7)),
+                                        (250, 2, 64, (100, 26))):
+        r2c = dft.device_r2c(nx, cols=win, device=device)
+        c2r = dft.device_c2r(nx, rows=win, device=device)
+        k = r2c[0].shape[1]
+        x = rand(planes, plane_rows, nx)
+        out = tuple(torch.empty((planes, k, plane_rows), device=device)
+                    for _ in range(2))
+        if on_card:
+            dft_kernel._stage("rc", (x,), r2c, out, plane_rows=plane_rows)
+        else:
+            out = tuple(t.transpose(1, 2) for t in dft.prdft_last(x, r2c))
+        compare(f"rfft stage rc nx={nx} transposed within {plane_rows} rows",
+                out, tuple(t.transpose(1, 2)
+                           for t in dft.prdft_last(x, r2c)))
+        y = (rand(planes, plane_rows, k), rand(planes, plane_rows, k))
+        real = torch.empty((planes, nx, plane_rows), device=device)
+        if on_card:
+            dft_kernel._stage("cr", y, c2r, (real,), plane_rows=plane_rows)
+        else:
+            real = dft.pirdft_last(*y, c2r).transpose(1, 2)
+        compare(f"rfft stage cr nx={nx} transposed within {plane_rows} rows",
+                (real,), (dft.pirdft_last(*y, c2r).transpose(1, 2),))
+        cases += 2
     for s, dz in ((37, 12), (21, 13), (9, 384)):
         zb = mats(dft.c2c_mats(dz, dft.BACKWARD))
         for kind, zid in (("half", 0), ("empty", s // 2), ("exact0", s - 1),
@@ -1480,15 +1602,18 @@ ZFFT_S = (_S, _S, {"fft": _S})
 DIST_C2C_LAUNCHES = {"decompress_zdft": ZFFT_S, "zdft_compress": ZFFT_S,
                      "pdft2_swapped": CLUSTER2, "pdft2": (0, 0),
                      "prdft2": (0, 0), "pdft2_cr": (0, 0), "gather": (0, 0),
-                     "pdft_last": (0, 0)}
+                     "pdft_last": (0, 0),
+                     **NO_REAL_LAST}
 DIST_R2C_LAUNCHES = {"decompress_zdft": ZFFT_S, "zdft_compress": ZFFT_S,
-                     "pdft_last": FFT2, "pdft2_swapped": (0, 0),
+                     "pdft_last": FFT2, "prdft_last": RFFT1,
+                     "pirdft_last": RFFT1, "pdft2_swapped": (0, 0),
                      "pdft2": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
                      "gather": (0, 0)}
 DIST_C2C_2K_LAUNCHES = {"gather": (2 * _S, 2 * _S), "pdft_last": FFT2,
                         "pdft2_swapped": CLUSTER2, "decompress_zdft": (0, 0),
                         "zdft_compress": (0, 0), "pdft2": (0, 0),
-                        "prdft2": (0, 0), "pdft2_cr": (0, 0)}
+                        "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                        **NO_REAL_LAST}
 
 
 def dist_plan(sp, n, trip, values, device, r2c=False):
@@ -1844,6 +1969,67 @@ def dist_y_kernel_record(path, plan, stacked, device):
     return [rec]
 
 
+def dist_x_kernel_records(path, plan, stacked, device):
+    """The distributed R2C x stage at the path's shapes (every shard's
+    planes, rows of ``dim_x`` reals and of the half spectrum's ``w``
+    bins): ``pirdft_last`` on the y stage's output and ``prdft_last`` on
+    its result, each against its plain version, the FP32 ``torch.matmul``
+    products that ran this stage before the real FFT form (timed beside
+    it, once: ``plain_ms``), with ``library_ms`` one ``torch.fft.irfft``
+    / ``rfft`` call."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, stages
+    dp = plan.dist_plan
+    gr, gi = plan._exchange(plan._z_backward(stacked[:, None]))
+    planes = (-1, dp.dim_y, plan._xf_eff)
+    yr, yi = stages._cdft_mid(gr.view(planes), gi.view(planes),
+                              plan._mats["y_b"])
+    xb, xf = plan._mats["x_b"], plan._mats["x_f"]
+    nx, w = dp.dim_x, xb[0].shape[0]
+    rows = yr.numel() // w
+    full = w == dp.dim_x_freq
+    space = dft_kernel.pirdft_last(yr, yi, xb)
+    err_b = compare(f"{path} pirdft_last {tuple(yr.shape)}", (space,),
+                    (dft.pirdft_last(yr, yi, xb),))
+    err_f = compare(f"{path} prdft_last {tuple(space.shape)}",
+                    dft_kernel.prdft_last(space, xf),
+                    dft.prdft_last(space, xf))
+    yc = torch.complex(yr, yi)
+    recs = []
+    for name, err, run, plain, lib, m in (
+            ("pirdft_last", err_b,
+             lambda m: dft_kernel.pirdft_last(yr, yi, m),
+             lambda: dft.pirdft_last(yr, yi, xb),
+             lambda: torch.fft.irfft(yc, n=nx, norm="forward"), xb),
+            ("prdft_last", err_f, lambda m: dft_kernel.prdft_last(space, m),
+             lambda: dft.prdft_last(space, xf),
+             lambda: torch.fft.rfft(space), xf)):
+        form = dft_kernel.stage_form(m)
+        recs.append(kernel_record(
+            path, name, RFFT_SRC, REAL_REPLACES, err,
+            timed_ms(lambda: run(m), device), timed_ms(plain, device),
+            timed_ms(lib, device) if full else None,
+            rows * nx * 4 + 2 * rows * w * 4 + table_bytes(m, form),
+            rfft_flops(rows, nx), FLOP_PER_RMAC * rows * nx * w, form,
+            timed_ms(lambda: run(matrix_pair(m)), device)))
+    print_records(recs)
+    print(f"{path} x stage: the FP32 torch.matmul (cuBLAS) products it ran "
+          f"before, {recs[0]['plain_ms']:.4f} ms backward and "
+          f"{recs[1]['plain_ms']:.4f} ms forward; the real FFT form "
+          f"{recs[0]['ms']:.4f} / {recs[1]['ms']:.4f} ms", flush=True)
+    # what the odd width of the half spectrum costs the real FFT form: the
+    # same rows with one bin fewer (w - 1, a multiple of 4 at 256^3)
+    if w > 1:
+        nb = dft.device_c2r(nx, rows=(0, w - 1), device=device)
+        nf = dft.device_r2c(nx, cols=(0, w - 1), device=device)
+        nr, ni = yr[..., :w - 1].contiguous(), yi[..., :w - 1].contiguous()
+        ms_b = timed_ms(lambda: dft_kernel.pirdft_last(nr, ni, nb), device)
+        ms_f = timed_ms(lambda: dft_kernel.prdft_last(space, nf), device)
+        print(f"{path} x stage, half spectrum {w} bins wide against "
+              f"{w - 1}: pirdft_last {recs[0]['ms']:.4f} / {ms_b:.4f} ms, "
+              f"prdft_last {recs[1]['ms']:.4f} / {ms_f:.4f} ms", flush=True)
+    return recs
+
+
 #: the stages of the distributed pair, in the order they run
 DIST_STAGES = ("z backward",) + tuple(
     f"exchange {s} backward" for s in ("pack", "transpose", "unpack")) + (
@@ -2070,10 +2256,12 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
                     counters):
     """Every distributed R2C phase; returns its kernel records (the
     per-shard z kernels, the owner's and the other shards' zero sticks
-    among them, and ``pdft_last`` at the y stage)."""
+    among them, ``pdft_last`` at the y stage, ``pirdft_last`` and
+    ``prdft_last`` at the x stage)."""
     plan, stacked = dist_plan(sp, n, trip, values, device, r2c=True)
     recs = dist_z_kernel_phase("dist_r2c", plan, stacked, device)
     recs += dist_y_kernel_record("dist_r2c", plan, stacked, device)
+    recs += dist_x_kernel_records("dist_r2c", plan, stacked, device)
     set_launches(recs, dist_pair_phase(
         sp, "dist r2c", plan, stacked, local, values, oracle_rel, device,
         counters, DIST_R2C_LAUNCHES))
@@ -2095,7 +2283,9 @@ def run(device, n=N):
                 "pdft2_cr": dft_kernel.pdft2_cr,
                 "zdft_compress": fused_kernel.zdft_compress,
                 "gather": gather_kernel.gather,
-                "pdft_last": dft_kernel.pdft_last}
+                "pdft_last": dft_kernel.pdft_last,
+                "prdft_last": dft_kernel.prdft_last,
+                "pirdft_last": dft_kernel.pirdft_last}
     sweep = []
     plan, trip, values = main_path_plan(sp, n, device)
     c2c = kernel_phase(plan, values, device)

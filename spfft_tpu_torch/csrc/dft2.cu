@@ -15,8 +15,11 @@
 // all f32, in the matrix form: each DFT a product against plan-time
 // matrices. Since the complex stages moved to fft.cu (the FFT stage and
 // cluster kernels, for every complex stage whose matrices carry their
-// transform and whose length is 2^a 3^b 5^c), this kernel serves the real
-// stages of "rc" and "cr" (the R2C head and tail), complex stages whose
+// transform and whose length is 2^a 3^b 5^c) and the real stages to
+// rfft.cu (the real FFT stage kernel, for every real stage whose matrices
+// carry their transform and whose length is even with a 2^a 3^b 5^c
+// half), this kernel serves only the rest: real stages of odd length or
+// whose half has another prime factor (14, 22, ...), complex stages whose
 // length has another prime factor (11, 13, ...), and matrix pairs passed
 // without their transform. Each call is one stage kernel launched twice:
 // the first launch stores its result transposed within each plane,

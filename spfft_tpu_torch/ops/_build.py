@@ -32,7 +32,7 @@ from ..errors import DeviceError, InvalidParameterError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "fused_fft.cu",
-           "gather.cu")
+           "gather.cu", "rfft.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -122,9 +122,10 @@ def launch(fn, what: str, device, *args) -> None:
 
 def count(wrapper, form: str) -> None:
     """One launch of ``wrapper``'s kernel in ``form``: adds one to
-    ``wrapper.launches`` and to ``wrapper.form_launches[form]``."""
+    ``wrapper.launches`` and to ``wrapper.form_launches[form]`` (a form
+    missing from that dict starts at 0)."""
     wrapper.launches += 1
-    wrapper.form_launches[form] += 1
+    wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,

@@ -7,11 +7,13 @@ matrix pair, with any scale folded into the matrix values. The matrix
 builders here give the JAX package's matrices bit for bit, so the two
 packages contract against the same constants.
 
-The complex matrices a plan hands its kernels are :class:`DftMats`
-(from :func:`device_c2c`): the matrix pair plus the transform it stands
-for (length, sign, scale, input and output windows) and the FFT form's
-twiddle table, so that ``ops.dft_kernel`` can compute the same function
-as an FFT (:func:`fft_factors`, :func:`fft_twiddles`).
+The matrices a plan hands its kernels are :class:`DftMats` (from
+:func:`device_c2c`, and for the real x axis of an R2C plan
+:func:`device_r2c` / :func:`device_c2r`): the matrix pair plus the
+transform it stands for (kind, length, sign, scale, input and output
+windows) and the FFT form's twiddle table, so that ``ops.dft_kernel``
+can compute the same function as an FFT (:func:`fft_factors`,
+:func:`rfft_factors`, :func:`fft_twiddles`).
 
 This module holds the plain PyTorch forms: :func:`pdft_last` (one stage)
 and :func:`pdft2_minor` (two stages around a swap of the two minor
@@ -199,26 +201,60 @@ def fft_twiddles(n: int, sign: int) -> np.ndarray:
     return np.exp(s * 2j * np.pi * np.arange(n) / n)
 
 
-class DftMats(tuple):
-    """A complex DFT matrix pair ``(cr, ci)`` that carries the function it
-    stands for, so a kernel can compute it as an FFT: the length ``n``,
-    ``sign``, ``scale``, the input window ``rows = (x0, w)`` (row k of the
-    matrix is position ``(x0 + k) % n``) and the output window ``cols =
-    (y0, w)`` (column j is position ``(y0 + j) % n``), and ``twiddles``,
-    the device table ``(2, n)`` f32 (real row, imaginary row of
-    :func:`fft_twiddles`) where :func:`fft_factors` has a factor list,
-    else None. It unpacks as the pair (``cr, ci = mats``), so every
-    matrix-form consumer takes it as it takes a plain pair."""
+def rfft_factors(n: int):
+    """The stage radices of the real FFT form of a length-``n`` real DFT:
+    those of the complex FFT of its half ``n // 2`` (:func:`fft_factors`),
+    or None where ``n`` is odd or its half has another prime factor."""
+    return fft_factors(n // 2) if n >= 2 and n % 2 == 0 else None
 
-    def __new__(cls, cr, ci, *, n, sign, scale, rows, cols, twiddles):
+
+class DftMats(tuple):
+    """A DFT matrix pair that carries the function it stands for, so a
+    kernel can compute it as an FFT: the ``kind`` (``"c2c"``: the complex
+    pair ``(cr, ci)``; ``"r2c"`` / ``"c2r"``: the real pairs of
+    :func:`r2c_mats` / :func:`c2r_mats`), the length ``n``, ``sign``,
+    ``scale``, the input window ``rows = (x0, w)`` (row k of the matrix is
+    position ``(x0 + k) % L``) and the output window ``cols = (y0, w)``
+    (column j is position ``(y0 + j) % L``), where L is ``n`` on a complex
+    axis and ``n // 2 + 1`` on a half spectrum (the input of c2r, the
+    output of r2c), and ``twiddles``, the device table ``(2, n)`` f32
+    (real row, imaginary row of :func:`fft_twiddles`) where
+    :attr:`factors` is a factor list, else None. It unpacks as the pair
+    (``cr, ci = mats``), so every matrix-form consumer takes it as it
+    takes a plain pair."""
+
+    def __new__(cls, cr, ci, *, n, sign, scale, rows, cols, twiddles,
+                kind="c2c"):
         self = super().__new__(cls, (cr, ci))
         self.n, self.sign, self.scale = n, sign, scale
         self.rows, self.cols, self.twiddles = rows, cols, twiddles
+        self.kind = kind
         return self
 
     @property
     def factors(self):
-        return fft_factors(self.n)
+        """The FFT form's stage radices: :func:`fft_factors` of ``n``, or
+        for a real kind :func:`rfft_factors`."""
+        return fft_factors(self.n) if self.kind == "c2c" \
+            else rfft_factors(self.n)
+
+
+def _window(win, length: int, what: str) -> tuple:
+    """``win = (x0, w)`` with ``x0`` taken modulo ``length`` (the whole
+    axis where None); raises where ``w`` exceeds ``length``."""
+    win = (0, length) if win is None else (int(win[0]) % length, int(win[1]))
+    if not 0 <= win[1] <= length:
+        raise InvalidParameterError(
+            f"{what}: window {win} must lie within the length {length}")
+    return win
+
+
+def _twiddles(n: int, sign: int, factors, device):
+    if factors is None:
+        return None
+    t = fft_twiddles(n, sign)
+    return torch.as_tensor(np.stack([t.real, t.imag]).astype(np.float32),
+                           device=device)
 
 
 def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
@@ -229,24 +265,53 @@ def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
     % n``), with ``cols = (y0, w)`` the window's columns
     (:func:`sub_cols_mats`), bit for bit."""
     n, scale = int(n), float(scale)
-    rows = (0, n) if rows is None else (int(rows[0]) % n, int(rows[1]))
-    cols = (0, n) if cols is None else (int(cols[0]) % n, int(cols[1]))
-    if not (0 <= rows[1] <= n and 0 <= cols[1] <= n):
-        raise InvalidParameterError(
-            f"device_c2c: windows {rows} and {cols} must lie within the "
-            f"length {n}")
+    rows = _window(rows, n, "device_c2c")
+    cols = _window(cols, n, "device_c2c")
     ri = (rows[0] + np.arange(rows[1])) % n
     ci = (cols[0] + np.arange(cols[1])) % n
     mats = tuple(np.ascontiguousarray(m[np.ix_(ri, ci)])
                  for m in c2c_mats(n, sign, scale))
-    tw = None
-    if fft_factors(n) is not None:
-        t = fft_twiddles(n, sign)
-        tw = torch.as_tensor(np.stack([t.real, t.imag]).astype(np.float32),
-                             device=device)
-    return DftMats(*device_mats(mats, device), n=n,
-                   sign=BACKWARD if sign == BACKWARD else FORWARD,
-                   scale=scale, rows=rows, cols=cols, twiddles=tw)
+    sign = BACKWARD if sign == BACKWARD else FORWARD
+    return DftMats(*device_mats(mats, device), n=n, sign=sign, scale=scale,
+                   rows=rows, cols=cols,
+                   twiddles=_twiddles(n, sign, fft_factors(n), device))
+
+
+def _device_real(kind: str, n: int, scale: float, win, device) -> DftMats:
+    n, scale = int(n), float(scale)
+    xf = n // 2 + 1
+    win = _window(win, xf, f"device_{kind}")
+    idx = tuple(int(i) for i in (win[0] + np.arange(win[1])) % xf)
+    if kind == "r2c":
+        mats, sign = sub_cols_r2c_mats(n, idx, scale), FORWARD
+        rows, cols = (0, n), win
+    else:
+        mats, sign = sub_rows_c2r_mats(n, idx, scale), BACKWARD
+        rows, cols = win, (0, n)
+    return DftMats(*device_mats(mats, device), n=n, sign=sign, scale=scale,
+                   rows=rows, cols=cols,
+                   twiddles=_twiddles(n, sign, rfft_factors(n), device),
+                   kind=kind)
+
+
+def device_r2c(n: int, scale: float = 1.0, cols=None,
+               device="cpu") -> DftMats:
+    """The forward real DFT of length ``n`` to the half spectrum, as
+    :class:`DftMats` of kind ``"r2c"`` on ``device``: :func:`r2c_mats`,
+    or with ``cols = (x0, w)`` the columns of bins ``(x0 + arange(w)) %
+    (n // 2 + 1)`` (:func:`sub_cols_r2c_mats`), bit for bit; its table is
+    ``fft_twiddles(n, FORWARD)`` where :func:`rfft_factors` has a list."""
+    return _device_real("r2c", n, scale, cols, device)
+
+
+def device_c2r(n: int, scale: float = 1.0, rows=None,
+               device="cpu") -> DftMats:
+    """The inverse real DFT of length ``n`` from the half spectrum, as
+    :class:`DftMats` of kind ``"c2r"`` on ``device``: :func:`c2r_mats`,
+    or with ``rows = (x0, w)`` the rows of bins ``(x0 + arange(w)) %
+    (n // 2 + 1)`` (:func:`sub_rows_c2r_mats`), bit for bit; its table is
+    ``fft_twiddles(n, BACKWARD)`` where :func:`rfft_factors` has a list."""
+    return _device_real("c2r", n, scale, rows, device)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -364,11 +429,12 @@ def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
     """Planar half spectrum -> real inverse along the minor axis:
     ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``.
 
-    This and :func:`prdft_last` are also the distributed R2C plan's x
-    stage on the card, where the JAX package too runs them outside any
-    kernel: ``torch.matmul``, which holds the precision contract only in
-    full FP32. Both read the process-wide matmul precision
-    (:func:`reduced_fp32_matmul`) and raise
+    This and :func:`prdft_last` are the plain versions of
+    ``ops.dft_kernel.pirdft_last`` / ``prdft_last`` (the distributed R2C
+    plan's x stage, which the JAX package runs outside any kernel), and
+    what those run on a CPU tensor: ``torch.matmul``, which holds the
+    precision contract only in full FP32. Both read the process-wide
+    matmul precision (:func:`reduced_fp32_matmul`) and raise
     :class:`~spfft_tpu_torch.errors.DeviceError` when TF32 (or bf16 on
     the CPU) is on, rather than return errors near 1e-3."""
     _require_fp32_matmul(yr, "pirdft_last")

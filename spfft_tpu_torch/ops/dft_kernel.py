@@ -8,6 +8,10 @@ kernel ``_kernel2`` in modes ``cc``, ``rc`` and ``cr``, launched at
   ``(..., K) -> (..., N)`` against ``mats`` ``(K, N)``: the z stage of
   the two-kernel route (rows are sticks), and the distributed plan's
   y and split-x stages.
+* :func:`prdft_last` and :func:`pirdft_last` are one real DFT along the
+  minor axis (real rows to the half spectrum, and back): the distributed
+  R2C plan's x stage, which the JAX package runs outside any kernel;
+  they are the real halves of :func:`prdft2` / :func:`pdft2_cr` alone.
 
 * :func:`pdft2` maps planar complex ``(P, A, B)`` to ``(P, B', A')``: a
   DFT over the minor axis B against ``mats1`` ``(B, B')``, a swap of the
@@ -32,15 +36,20 @@ call whose plane fits one cluster of 8 blocks is ONE launch of the
 cluster kernel (both FFTs and the swap with the intermediate in shared
 memory, form ``"cluster"``), any other such stage one launch of the FFT
 stage kernel (form ``"fft"``; a plane call is then two, the first
-stored transposed within each plane). A stage with another prime in its
-length, a matrix pair without its function, and the real stages of
-``prdft2`` / ``pdft2_cr`` (modes rc and cr) run the matrix form
-(``csrc/dft2.cu``, form ``"matrix"``, bound by FP32 operations): two
-launches per plane call. :func:`stage_form` and :func:`plane_forms` are
-the dispatch, by shape and matrix alone.
+stored transposed within each plane). A real stage (modes rc and cr)
+whose matrices carry their function (``dft.device_r2c`` /
+``dft.device_c2r``) with an even length whose half is 2^a 3^b 5^c runs
+as a real FFT, a half-length complex FFT and a pass over the pairs of
+bins (``csrc/rfft.cu``, form ``"rfft"``, bound by bytes): ``prdft2`` and
+``pdft2_cr`` are then one rfft and one fft launch. A stage with another
+prime in its (half) length, an odd real length and a matrix pair without
+its function run the matrix form (``csrc/dft2.cu``, form ``"matrix"``,
+bound by FP32 operations). :func:`stage_form` and :func:`plane_forms`
+are the dispatch, by shape and matrix alone.
 Each wrapper counts its launches in ``.launches`` and by form in
-``.form_launches``. On a CPU tensor it runs the plain version from
-:mod:`spfft_tpu_torch.ops.dft` (matrix products, whatever the form).
+``.form_launches`` (keyed by :data:`ALL_FORMS`). On a CPU tensor it runs
+the plain version from :mod:`spfft_tpu_torch.ops.dft` (matrix products,
+whatever the form).
 """
 
 from __future__ import annotations
@@ -69,20 +78,33 @@ _FFT_STAGE_ARGS = [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I, _I,
 #: A, B, B', A', each transform's (n, sign, in0, out0, radices), the scale,
 #: swap_out and the stream
 _FFT_PLANE_ARGS = [_P] * 6 + [_I] * 15 + [ctypes.c_float, _I, _P]
+#: csrc/rfft.cu's ``spfft_rfft_stage``: the mode, the input and output
+#: planes, the twiddle table, M, K, N, plane_rows, the transform (n,
+#: scale, the half-spectrum window's first bin, h's radices) and the
+#: stream
+_RFFT_ARGS = [_I] + [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I,
+                                ctypes.c_float, _I, _I, _P]
 #: blocks of the cluster kernel's cluster (one plane), and the complex
 #: elements one of its blocks holds (csrc/fft.cu's 512 threads x
 #: fft_tile.cuh's EPT = 16)
 CLUSTER_BLOCKS = 8
 CLUSTER_BLOCK_ELEMS = 512 * 16
+#: the forms of a complex stage
 FORMS = ("matrix", "fft", "cluster")
+#: every form a wrapper counts: a real stage's FFT form too
+ALL_FORMS = FORMS + ("rfft",)
+#: the kind of DftMats each real mode takes
+_REAL_KIND = {"rc": "r2c", "cr": "c2r"}
 
 
 def stage_form(mats) -> str:
-    """The form of one complex stage against ``mats``: ``"fft"`` where the
-    pair carries its function (``dft.DftMats``) and its length has an
-    FFT factor list (``dft.fft_factors``), else ``"matrix"``."""
-    return "fft" if getattr(mats, "twiddles", None) is not None \
-        else "matrix"
+    """The form of one stage against ``mats``: where the pair carries its
+    function (``dft.DftMats``) and a factor list (``DftMats.factors``),
+    ``"fft"`` for a complex pair and ``"rfft"`` for a real one (an even
+    length whose half has an FFT factor list), else ``"matrix"``."""
+    if getattr(mats, "twiddles", None) is None:
+        return "matrix"
+    return "fft" if mats.kind == "c2c" else "rfft"
 
 
 def plane_forms(mats1, mats2, a: int) -> tuple:
@@ -105,11 +127,27 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
     """One launch of a stage kernel in ``mode``: rows of ``ins`` (minor
     axis K; one real plane in mode rc) against ``mats`` (K, N) into
     ``outs`` (one real plane in mode cr); the FFT stage kernel in mode cc
-    where :func:`stage_form` says so, else the matrix stage kernel.
-    Returns the form."""
+    and the real FFT stage kernel in modes rc and cr where
+    :func:`stage_form` says so, else the matrix stage kernel. Returns the
+    form."""
     k, n = mats[0].shape
     m = ins[0].numel() // k
-    if mode == "cc" and stage_form(mats) == "fft":
+    form = stage_form(mats)
+    if form != "matrix" and mats.kind != _REAL_KIND.get(mode, "c2c"):
+        raise InvalidParameterError(
+            f"a {mats.kind} DFT spec cannot run a stage in mode {mode}")
+    xr, xi = (*ins, None)[:2]
+    yr, yi = (*outs, None)[:2]
+    if form == "rfft":
+        fn = _build.function("rfft.cu", "spfft_rfft_stage", _RFFT_ARGS)
+        _build.launch(fn, f"rfft stage {mode}", xr.device, _MODES[mode],
+                      *(None if t is None else t.data_ptr()
+                        for t in (xr, xi, yr, yi, mats.twiddles)),
+                      m, k, n, plane_rows, mats.n, mats.scale,
+                      (mats.cols if mode == "rc" else mats.rows)[0],
+                      dft.radix_code(mats.factors))
+        return "rfft"
+    if form == "fft":
         fn = _build.function("fft.cu", "spfft_fft_stage", _FFT_STAGE_ARGS)
         _build.launch(fn, "fft stage", ins[0].device,
                       *(t.data_ptr() for t in (*ins, *outs, mats.twiddles)),
@@ -117,8 +155,6 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
                       mats.rows[0], mats.cols[0],
                       dft.radix_code(mats.factors))
         return "fft"
-    xr, xi = (*ins, None)[:2]
-    yr, yi = (*outs, None)[:2]
     fn = _build.function("dft2.cu", "spfft_dft_stage", _ARGS)
     _build.launch(fn, f"dft2 stage {mode}", xr.device, _MODES[mode],
                   *(None if t is None else t.data_ptr()
@@ -199,32 +235,63 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
     return out[0] if real_out else out
 
 
+def _last(wrapper, mode: str, ins, mats, plain):
+    """The body of the single-stage wrappers: one launch of a stage
+    kernel in ``mode`` over the rows of ``ins`` (``(..., K)``; one real
+    input in mode rc) against ``mats`` ``(K, N)``, stored straight
+    (``(..., N)``; one real output in mode cr) and counted in
+    ``wrapper``; ``plain`` on a CPU tensor."""
+    name = wrapper.__name__
+    x = ins[0]
+    if x.dim() < 1:
+        raise InvalidParameterError(
+            f"{name}: expected (..., K) operands, got {tuple(x.shape)}")
+    k = x.shape[-1]
+    dev = x.device
+    _build.require(x, f"{name} input", torch.float32)
+    for t in ins[1:]:
+        _build.require(t, f"{name} input", torch.float32, x.shape, dev)
+    n = mats[0].shape[1] if mats[0].dim() == 2 else -1
+    for c in mats:
+        _build.require(c, f"{name} matrix", torch.float32, (k, n), dev)
+    if not _build.on_cuda(x, name):
+        return plain(*ins, mats)
+    out = tuple(torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
+                            device=dev)
+                for _ in range(1 if mode == "cr" else 2))
+    if x.numel() == 0 or n == 0:
+        for t in out:
+            t.zero_()
+    else:
+        _build.count(wrapper, _stage(mode, ins, mats, out, plane_rows=0))
+    return out[0] if mode == "cr" else out
+
+
 def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
     """Planar complex DFT along the minor axis, ``(..., K) -> (..., N)``
     against the ``(cr, ci)`` pair ``(K, N)``; any leading axes are rows.
     Each kernel launch (one per call) adds one to
     ``pdft_last.launches`` and to its form's count in
     ``pdft_last.form_launches``."""
-    if xr.dim() < 1:
-        raise InvalidParameterError(
-            f"pdft_last: expected (..., K) operands, got {tuple(xr.shape)}")
-    k = xr.shape[-1]
-    dev = xr.device
-    _build.require(xr, "pdft_last input", torch.float32)
-    _build.require(xi, "pdft_last input", torch.float32, xr.shape, dev)
-    n = mats[0].shape[1] if mats[0].dim() == 2 else -1
-    for c in mats:
-        _build.require(c, "pdft_last matrix", torch.float32, (k, n), dev)
-    if not _build.on_cuda(xr, "pdft_last"):
-        return dft.pdft_last(xr, xi, mats)
-    out = tuple(torch.empty(xr.shape[:-1] + (n,), dtype=torch.float32,
-                            device=dev) for _ in range(2))
-    if xr.numel() == 0 or n == 0:
-        for t in out:
-            t.zero_()
-        return out
-    _build.count(pdft_last, _stage("cc", (xr, xi), mats, out, plane_rows=0))
-    return out
+    return _last(pdft_last, "cc", (xr, xi), mats, dft.pdft_last)
+
+
+def prdft_last(x: torch.Tensor, mats):
+    """Real DFT along the minor axis to the planar half spectrum, ``(...,
+    n) -> (..., N)`` against the real pair ``mats`` ``(n, N)``
+    (``dft.device_r2c`` or a plain ``dft.r2c_mats`` pair); any leading
+    axes are rows. Each kernel launch (one per call) adds one to
+    ``prdft_last.launches`` and to its form's count."""
+    return _last(prdft_last, "rc", (x,), mats, dft.prdft_last)
+
+
+def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
+    """Planar half spectrum to the real inverse DFT along the minor axis,
+    ``(..., K) -> (..., n)`` against the real pair ``mats`` ``(K, n)``
+    (``dft.device_c2r`` or a plain ``dft.c2r_mats`` pair); any leading
+    axes are rows. Each kernel launch (one per call) adds one to
+    ``pirdft_last.launches`` and to its form's count."""
+    return _last(pirdft_last, "cr", (yr, yi), mats, dft.pirdft_last)
 
 
 def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
@@ -248,9 +315,10 @@ def pdft2_swapped(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
 
 def prdft2(x: torch.Tensor, mats1, mats2):
     """Real ``(P, A, B) -> (P, B', A')`` planar: the real DFT over B to
-    the half spectrum (``mats1`` ``(B, B')`` from ``dft.r2c_mats`` or its
-    column window), swap, a complex DFT over A (``mats2`` ``(A, A')``).
-    Each kernel launch adds one to ``prdft2.launches`` (two per call)."""
+    the half spectrum (``mats1`` ``(B, B')`` from ``dft.device_r2c``,
+    ``dft.r2c_mats`` or its column window), swap, a complex DFT over A
+    (``mats2`` ``(A, A')``). Each kernel launch adds one to
+    ``prdft2.launches`` (two per call)."""
     return _run2(prdft2, ("rc", "cc"), (x,), mats1, mats2,
                  dft.prdft2_minor)
 
@@ -258,13 +326,15 @@ def prdft2(x: torch.Tensor, mats1, mats2):
 def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     """Planar ``(P, A, B) -> `` real ``(P, B', A')``: a complex DFT over
     B (``mats1`` ``(B, B')``), swap, the real inverse DFT over A
-    (``mats2`` ``(A, A')`` from ``dft.c2r_mats`` or its row window).
+    (``mats2`` ``(A, A')`` from ``dft.device_c2r``, ``dft.c2r_mats`` or
+    its row window).
     Each kernel launch adds one to ``pdft2_cr.launches`` (two per
     call)."""
     return _run2(pdft2_cr, ("cc", "cr"), (xr, xi), mats1, mats2,
                  dft.pdft2_minor_cr)
 
 
-for _w in (pdft_last, pdft2, pdft2_swapped, prdft2, pdft2_cr):
+for _w in (pdft_last, prdft_last, pirdft_last, pdft2, pdft2_swapped,
+           prdft2, pdft2_cr):
     _w.launches = 0
-    _w.form_launches = dict.fromkeys(FORMS, 0)
+    _w.form_launches = dict.fromkeys(ALL_FORMS, 0)

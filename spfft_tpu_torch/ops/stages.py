@@ -12,8 +12,8 @@ The xy stages at the end run in the distributed plan's plane layout
 ``(planes, dim_y, x)`` (x the occupied window when split) on planar
 pairs, through the kernel wrappers of :mod:`.dft_kernel`: the C2C stage
 is one ``pdft2_swapped`` call; the split C2C stages and the R2C stages
-run ``pdft_last`` and, for the real x axis, the plain FP32 matrix
-products of :mod:`.dft`. They take the plan's device matrices instead of
+run ``pdft_last`` and, for the real x axis, ``prdft_last`` /
+``pirdft_last``. They take the plan's device matrices instead of
 building them from the dimensions.
 """
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import dft, dft_kernel
+from . import dft_kernel
 
 
 def gather_rows_with_sentinel(rows: torch.Tensor, idx: torch.Tensor):
@@ -148,19 +148,19 @@ def xy_forward_c2c_split(xr: torch.Tensor, xi: torch.Tensor, mats_x_cols,
 
 def xy_backward_r2c(gr: torch.Tensor, gi: torch.Tensor, mats_y, mats_c2r):
     """R2C backward xy stage: the y-DFT, then the real inverse x-DFT
-    (``mats_c2r`` ``(xf, dim_x)`` from ``dft.c2r_mats``) -> real ``(P,
-    dim_y, dim_x)``. With the window's rows (``dft.sub_rows_c2r_mats``)
+    (``mats_c2r`` ``(xf, dim_x)`` from ``dft.device_c2r``) -> real ``(P,
+    dim_y, dim_x)``. With the window's rows (``device_c2r(rows=...)``)
     and a ``(P, dim_y, w)`` grid it is the split stage too (the JAX
     package's ``xy_backward_r2c_split``): the matrices carry the
     window."""
     gr, gi = _cdft_mid(gr, gi, mats_y)
-    return dft.pirdft_last(gr, gi, mats_c2r)
+    return dft_kernel.pirdft_last(gr, gi, mats_c2r)
 
 
 def xy_forward_r2c(x: torch.Tensor, mats_r2c, mats_y):
     """R2C forward xy stage: the real x-DFT (``mats_r2c`` ``(dim_x,
-    xf)``, or the window's columns for the split stage, the JAX
-    package's ``xy_forward_r2c_split``), then the y-DFT -> planar ``(P,
-    dim_y, xf)``."""
-    gr, gi = dft.prdft_last(x, mats_r2c)
+    xf)`` from ``dft.device_r2c``, or the window's columns for the split
+    stage, the JAX package's ``xy_forward_r2c_split``), then the y-DFT
+    -> planar ``(P, dim_y, xf)``."""
+    gr, gi = dft_kernel.prdft_last(x, mats_r2c)
     return _cdft_mid(gr, gi, mats_y)

@@ -35,8 +35,9 @@ What runs on the card, per pair:
 * the xy stage once over all ``S * max_planes`` planes (the planes are
   independent): C2C one ``pdft2_swapped`` call (two launches) per
   direction; split-x C2C and R2C ``pdft_last`` for the y-DFT (and the
-  split C2C x-DFT), R2C's real x-DFT as an FP32 matrix product
-  (:func:`~spfft_tpu_torch.ops.dft.pirdft_last`).
+  split C2C x-DFT), R2C's real x-DFT one ``prdft_last`` /
+  ``pirdft_last`` launch (the real FFT form of ``csrc/rfft.cu`` where
+  dim_x is even with a 2^a 3^b 5^c half).
 
 FULL scaling is folded into the forward z matrix, as the local plan does
 (the JAX distributed forward multiplies after the gather; the two agree
@@ -365,9 +366,6 @@ class DistributedTransformPlan:
                                         device=dev)
                         if self._has_conj else None)
 
-        def mats(m):
-            return dft.device_mats(m, dev)
-
         def c2c(n, sign, **window):
             return dft.device_c2c(n, sign, device=dev, **window)
 
@@ -380,10 +378,11 @@ class DistributedTransformPlan:
             "y_f": c2c(dp.dim_y, dft.FORWARD),
         }
         x0, w = self._split_x or (0, dp.dim_x_freq)
-        rows = tuple(int(r) for r in (x0 + np.arange(w)) % dp.dim_x_freq)
         if self._r2c:
-            self._mats["x_b"] = mats(dft.sub_rows_c2r_mats(dp.dim_x, rows))
-            self._mats["x_f"] = mats(dft.sub_cols_r2c_mats(dp.dim_x, rows))
+            self._mats["x_b"] = dft.device_c2r(dp.dim_x, rows=(x0, w),
+                                               device=dev)
+            self._mats["x_f"] = dft.device_r2c(dp.dim_x, cols=(x0, w),
+                                               device=dev)
         else:
             self._mats["x_b"] = c2c(dp.dim_x, dft.BACKWARD, rows=(x0, w))
             self._mats["x_f"] = c2c(dp.dim_x, dft.FORWARD, cols=(x0, w))

@@ -175,9 +175,6 @@ class TransformPlan:
             self._conj = torch.as_tensor(m, dtype=torch.float32, device=dev)
         self._init_split_x()
 
-        def mats(m):
-            return dft.device_mats(m, dev)
-
         def c2c(n, sign, **window):
             return dft.device_c2c(n, sign, device=dev, **window)
 
@@ -192,10 +189,11 @@ class TransformPlan:
         # the x matrices restricted to the window (without a split the
         # window is every frequency x, and the selection is the whole)
         x0, w = self._split_x or (0, p.dim_x_freq)
-        rows = tuple(int(r) for r in (x0 + np.arange(w)) % p.dim_x_freq)
         if self._r2c:
-            self._mats["x_b"] = mats(dft.sub_rows_c2r_mats(p.dim_x, rows))
-            self._mats["x_f"] = mats(dft.sub_cols_r2c_mats(p.dim_x, rows))
+            self._mats["x_b"] = dft.device_c2r(p.dim_x, rows=(x0, w),
+                                               device=dev)
+            self._mats["x_f"] = dft.device_r2c(p.dim_x, cols=(x0, w),
+                                               device=dev)
         else:
             self._mats["x_b"] = c2c(p.dim_x, dft.BACKWARD, rows=(x0, w))
             self._mats["x_f"] = c2c(p.dim_x, dft.FORWARD, cols=(x0, w))

@@ -253,7 +253,8 @@ def _store(yr, yi, y, plane_rows):
 
 
 def _emulate(symbol, args):
-    """numpy stand-ins for csrc/fft.cu and csrc/dft2.cu's C entries."""
+    """numpy stand-ins for csrc/fft.cu and csrc/dft2.cu's C entries (and
+    csrc/rfft.cu's, emulated in test_torch_rfft)."""
     if symbol == "spfft_fft_stage":
         (xr, xi, yr, yi, tw, m, k, n_out, plane_rows, n, sign, scale, in0,
          out0, code) = args
@@ -271,6 +272,9 @@ def _emulate(symbol, args):
         if swap:
             y = y.transpose(0, 2, 1)
         _store(_view(yr, y.size), _view(yi, y.size), y.reshape(-1, 1), 0)
+    elif symbol == "spfft_rfft_stage":  # csrc/rfft.cu
+        from test_torch_rfft import emulate_rfft
+        emulate_rfft(args)
     else:
         assert symbol == "spfft_dft_stage"
         mode, xr, xi, cr, ci, yr, yi, m, k, n_out, plane_rows = args
