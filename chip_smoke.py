@@ -42,7 +42,9 @@ Phases, each of which exits non-zero when it fails:
    ``pdft_last`` at the route's 256^3 shapes, then the counted pair
    (gather 2, ``pdft_last`` 2 in the FFT form, no fused z kernel) with the
    same oracle, round-trip and repeat checks, timed beside the fused
-   pair, and its results against the fused route's;
+   pair, and its results against the fused route's; the gather at B = 4
+   both ways (exact, each band equal to a single launch) and the counted
+   batched two-kernel pair;
 8. for each path, batched execution at B = 4: the batched grids of both
    fused z kernels against their plain versions and, bit for bit,
    against four single launches; then the counted batched pair (one
@@ -52,10 +54,13 @@ Phases, each of which exits non-zero when it fails:
    run one call at a time;
 9. the new kernels at odd shapes (B = 3, both value layouts, odd dim_z,
    an empty stick, duplicates, the R2C zero stick) against their plain
-   versions, and the FFT form of both z kernels at every radix, dim_z 1
-   to 512 (and 13 in the matrix form), B = 3, both value layouts,
-   windows, an empty stick, duplicates and the R2C zero stick, each
-   call's form checked by its launch counts;
+   versions; the gather's scalar paths and shard axis exactly (num_out
+   not a multiple of 4, every operand one element off its alignment, B
+   in {1, 3, 5}, 5 shards with uneven tables and an empty shard); and
+   the FFT form of both z kernels at
+   every radix, dim_z 1 to 512 (and 13 in the matrix form), B = 3, both
+   value layouts, windows, an empty stick, duplicates and the R2C zero
+   stick, each call's form checked by its launch counts;
 10. the batched-versus-looped sweep (``{"batched_sweep": [...]}``): per
    band ms of a batched pair against B single pairs at n/2 and n, B in
    {2, 4, 8}, both paths (what ``spfft_tpu_torch.multi``'s gate rests
@@ -77,26 +82,36 @@ Phases, each of which exits non-zero when it fails:
    event after each (z, the exchange's pack, transpose and unpack, xy),
    equal to the public pair bit for bit; a batched B = 4 pair and the
    pointwise calls, bit for bit against single calls; the two-kernel
-   route (each shard's gather, exact, and ``pdft_last`` over all shards'
-   sticks, then its pair: gather 8, ``pdft_last`` 2) against the fused
-   one; and the R2C path (each shard's z kernels, the owner of the
-   (0,0) stick and the others; ``pdft_last`` at its y stage; its x
-   stage, ``pirdft_last`` and ``prdft_last`` in the real FFT form,
-   against the plain FP32 products it replaced, timed beside them; its
-   pair with no ``pdft2_swapped``, ``pdft_last`` 2 and each real x
-   launch once) with its stage split and structure checks;
+   route (the gather one launch a direction over every shard's stacked
+   tables, exact, a shard's padding value slots 0, and ``pdft_last`` over
+   all shards' sticks, then its pair: gather 2, ``pdft_last`` 2, and its
+   stage split) against the fused one, bit for bit; and the R2C path
+   (each shard's z kernels, the owner of the (0,0) stick and the others;
+   ``pdft_last`` at its y stage; its x stage, ``pirdft_last`` and
+   ``prdft_last`` in the real FFT form, against the plain FP32 products
+   it replaced, timed beside them; its pair with no ``pdft2_swapped``,
+   ``pdft_last`` 2 and each real x launch once) with its stage split and
+   structure checks, then its two-kernel route as C2C's (its pair:
+   gather 2, ``pdft_last`` 4 with the y stage's), bit for bit against the
+   fused route; the plans with uneven and empty shards hold the
+   two-kernel gathers exact on their own stacked tables;
 12. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
    ``{"kernels": [...]}`` (every kernel record of every path, each with
    its ``path``) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings over ``REPS`` runs after a
-warm-up. ``bound_ms`` is the least time the card could take for each
-function: the larger of the bytes it must move (each input read once,
-each output written once) over 3.35 TB/s and the FP32 operations the
-function needs over 67 TFLOP/s, the H100 SXM's published peaks. The
-operations are those of an FFT, 5 n log2 n per complex line of length
-n (half that for a real transform), so at these sizes the bytes bind.
+warm-up, one call between two events, so a call's host work (a wrapper's
+checks and launch) counts while the card waits. The gather's records
+also carry ``device_ms`` and ``library_device_ms``: the kernel and the
+library call on the device alone (``GRAPH_CALLS`` calls in one CUDA
+graph, replayed back to back). ``bound_ms`` is the least time the card
+could take for each function: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and the
+FP32 operations the function needs over 67 TFLOP/s, the H100 SXM's
+published peaks. The operations are those of an FFT, 5 n log2 n per
+complex line of length n (half that for a real transform), so at these
+sizes the bytes bind.
 
 Forms. The complex DFT stages are no longer matrix products:
 ``pdft_last`` is an FFT in shared memory (form ``fft``), ``pdft2`` and
@@ -189,6 +204,42 @@ def timed_ms(fn, device, reps=REPS, warmup=2) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+#: calls of one CUDA graph in :func:`graph_ms`
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn, device, calls=GRAPH_CALLS, reps=REPS):
+    """Device time of one call of ``fn`` in ms, without the host's share
+    that :func:`timed_ms` includes (a wrapper's checks and launch, while
+    the card waits): ``calls`` calls captured in one CUDA graph, replayed
+    back to back between CUDA events, median of ``reps`` replays per
+    call. None off the card."""
+    if device.type != "cuda":
+        return None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -292,7 +343,7 @@ def fft_two_launch(ins, mats1, mats2, swap_out=False):
 
 def kernel_record(path, name, source, replaces, err, ms, plain_ms,
                   library_ms, nbytes, flops, design_flops, form=None,
-                  matrix_ms=None, design_bytes=None):
+                  matrix_ms=None, design_bytes=None, device_ms=None):
     """One kernel's record. ``form``: ``fft``, ``rfft``, ``cluster``,
     ``matrix``, a two-launch ``rfft+fft`` / ``fft+rfft`` or None (no
     DFT); ``matrix_ms``: the matrix form on the same inputs (a
@@ -310,7 +361,9 @@ def kernel_record(path, name, source, replaces, err, ms, plain_ms,
             "replaces": replaces, "launches": None, "max_abs_err": err[0],
             "rel_err": err[1], "rel_l2": err[2], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "form": form, "matrix_ms": matrix_ms}
+            "library_ms": library_ms, "form": form, "matrix_ms": matrix_ms,
+            **({} if device_ms is None else {
+                "device_ms": device_ms[0], "library_device_ms": device_ms[1]})}
 
 
 def _ms(x):
@@ -327,7 +380,10 @@ def print_records(recs):
               f"library_ms={_ms(r['library_ms'])} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"design_bound_ms="
-              f"{DESIGN_BOUND_MS[r['path']][r['name']]:.4f}", flush=True)
+              f"{DESIGN_BOUND_MS[r['path']][r['name']]:.4f}"
+              + (f" device_ms={_ms(r['device_ms'])} library_device_ms="
+                 f"{_ms(r['library_device_ms'])}" if "device_ms" in r
+                 else ""), flush=True)
 
 
 def main_path_plan(sp, n, device):
@@ -792,6 +848,7 @@ R2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
                         **NO_REAL_LAST}
 #: record name -> the launch counter it reads
 COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
+              "gather_dec_batched": "gather", "gather_cmp_batched": "gather",
               "decompress_zdft_batched": "decompress_zdft",
               "zdft_compress_batched": "zdft_compress"}
 
@@ -1226,13 +1283,12 @@ def two_kernel_kernel_phase(path, plan, values, device):
         (v.t() if pair else v).contiguous()),
         torch.zeros(1, dtype=torch.complex64, device=device)])
     slot64 = ss.long()
-    recs.append(kernel_record(
-        path, "gather_dec", GATHER_SRC, GATHER_REPLACES, err,
-        timed_ms(lambda: gather_kernel.decompress(v, ss, dz, pair), device),
-        timed_ms(lambda: gather_kernel.decompress_plain(v, ss, dz, pair),
-                 device),
-        timed_ms(lambda: torch.index_select(vpad, 0, slot64), device),
-        nv * 8 + rows * dz * 4 + rows * dz * 8, 0.0, 0.0))
+    recs.append(gather_record(
+        path, "gather_dec", err,
+        lambda: gather_kernel.decompress(v, ss, dz, pair),
+        lambda: gather_kernel.decompress_plain(v, ss, dz, pair),
+        lambda: torch.index_select(vpad, 0, slot64),
+        nv * 8 + rows * dz * 4 + rows * dz * 8, device))
 
     zid = plan._zero_stick
     if zid >= 0:
@@ -1263,13 +1319,75 @@ def two_kernel_kernel_phase(path, plan, values, device):
                         (gather_kernel.compress_plain(*fy, vi, pair),))
     fc = torch.complex(*fy)
     vi64 = vi.long()
-    recs.append(kernel_record(
-        path, "gather_cmp", GATHER_SRC, GATHER_REPLACES, err,
-        timed_ms(lambda: gather_kernel.compress(*fy, vi, pair), device),
-        timed_ms(lambda: gather_kernel.compress_plain(*fy, vi, pair), device),
-        timed_ms(lambda: fc.view(-1)[vi64], device),
-        nv * 4 + 2 * nv * 8, 0.0, 0.0))
+    recs.append(gather_record(
+        path, "gather_cmp", err,
+        lambda: gather_kernel.compress(*fy, vi, pair),
+        lambda: gather_kernel.compress_plain(*fy, vi, pair),
+        lambda: fc.view(-1)[vi64], nv * 4 + 2 * nv * 8, device))
     print_records(recs)
+    return recs
+
+
+def gather_record(path, name, err, kernel, plain, library, nbytes, device):
+    """A gather record: the kernel, its plain version and the library call
+    timed one call at a time (:func:`timed_ms`, as every record), and the
+    kernel and the library call on the device alone (:func:`graph_ms`:
+    ``device_ms``, ``library_device_ms``)."""
+    return kernel_record(
+        path, name, GATHER_SRC, GATHER_REPLACES, err,
+        timed_ms(kernel, device), timed_ms(plain, device),
+        timed_ms(library, device), nbytes, 0.0, 0.0,
+        device_ms=(graph_ms(kernel, device), graph_ms(library, device)))
+
+
+def batched_gather_phase(path, plan, values, device, batch=BATCH):
+    """The gather both ways with ``batch`` bands at the path's shapes, as
+    the two-kernel route's batched pair runs it (one launch a direction,
+    the index read once for every band): exact against its plain version,
+    and each band equal to a single launch on it."""
+    from spfft_tpu_torch.ops import gather_kernel as gk
+    p = plan.index_plan
+    dz, nv, s = p.dim_z, p.num_values, p.num_sticks
+    pair = plan.pair_values_io
+    vb = band_values(plan, values, batch)
+    if plan._conj is not None:
+        vb = vb * plan._conj
+    ss, vi = plan._slot_src, plan._value_indices
+    rows = ss.numel() // dz
+    got = gk.decompress(vb, ss, dz, pair)
+    err_d = compare_exact(f"{path} gather decompress B={batch}", got,
+                          gk.decompress_plain(vb, ss, dz, pair))
+    fr, fi = got[0][:, :s].contiguous(), got[1][:, :s].contiguous()
+    out = gk.compress(fr, fi, vi, pair)
+    err_c = compare_exact(f"{path} gather compress B={batch}", (out,),
+                          (gk.compress_plain(fr, fi, vi, pair),))
+    for b in range(batch):
+        compare_exact(f"{path} gather decompress band {b} of {batch}",
+                      gk.decompress(vb[b], ss, dz, pair),
+                      (got[0][b], got[1][b]))
+        compare_exact(f"{path} gather compress band {b} of {batch}",
+                      (gk.compress(fr[b], fi[b], vi, pair),), (out[b],))
+    vrows = (vb.transpose(1, 2) if pair else vb).contiguous()
+    vpad = torch.cat([torch.view_as_complex(vrows), torch.zeros(
+        (batch, 1), dtype=torch.complex64, device=device)], dim=1)
+    slot64, vi64 = ss.long(), vi.long()
+    fc = torch.complex(fr, fi).view(batch, -1)
+    recs = [gather_record(
+        path, "gather_dec_batched", err_d,
+        lambda: gk.decompress(vb, ss, dz, pair),
+        lambda: gk.decompress_plain(vb, ss, dz, pair),
+        lambda: torch.index_select(vpad, 1, slot64),
+        batch * (nv * 8 + rows * dz * 8) + rows * dz * 4, device),
+        gather_record(
+        path, "gather_cmp_batched", err_c,
+        lambda: gk.compress(fr, fi, vi, pair),
+        lambda: gk.compress_plain(fr, fi, vi, pair),
+        lambda: torch.index_select(fc, 1, vi64),
+        nv * 4 + batch * 2 * nv * 8, device)]
+    print_records(recs)
+    for r in recs:
+        print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
+              f"per band (B={batch}, one launch)", flush=True)
     return recs
 
 
@@ -1521,7 +1639,7 @@ def new_odd_shapes_phase(device):
     gather_kernel.gather_plain(src, idx, want, valid)
     compare_exact("gather with a valid mask and out-of-range indices", got,
                   want)
-    cases += 1
+    cases += 1 + gather_odd_cases(device, rng)
 
     for lead, k, n_out, m in (
             ((37,), 12, 12, dft.c2c_mats(12, dft.BACKWARD)),
@@ -1584,6 +1702,76 @@ def new_odd_shapes_phase(device):
           f"equal to single launches)", flush=True)
 
 
+def gather_odd_cases(device, rng) -> int:
+    """The gather's scalar paths and shard axis against its plain version,
+    exact: num_out not a multiple of 4 (a ragged last group), every
+    operand one float (or index, or flag) off its alignment, interleaved
+    and planar values both ways, B in {1, 3, 5}, and 5 shards with uneven
+    tables padded past the source's extent, an empty shard, a mask and
+    out-of-range indices. Returns the number of cases."""
+    from spfft_tpu_torch.ops import gather_kernel as gk
+
+    def buf(shape, off, dtype=torch.float32, fill=None):
+        k = int(np.prod(shape))
+        if fill is None:
+            t = torch.as_tensor(rng.standard_normal(k + 4), dtype=dtype,
+                                device=device)
+        else:
+            t = torch.as_tensor(fill(k + 4), device=device).to(dtype)
+        return t[off:off + k].view(shape)
+
+    def planes(shape, off, interleaved):
+        if interleaved:
+            t = buf(shape + (2,), off)
+            return t[..., 0], t[..., 1]
+        t = buf(shape[:-1] + (2, shape[-1]), off)
+        return t[..., 0, :], t[..., 1, :]
+
+    cases = 0
+    for num_out in (1, 3, 5, 6, 7, 9, 13, 4001):
+        for off in (0, 1):
+            for batch in (1, 3, 5):
+                for il_src, il_out in ((True, False), (False, True)):
+                    n = 700
+                    src = planes((1, batch, n), off, il_src)
+                    idx = buf((1, num_out), off, torch.int32,
+                              lambda k: rng.integers(-3, n + 3, k))
+                    valid = buf((1, num_out), off, torch.bool,
+                                lambda k: rng.random(k) < 0.8)
+                    want = planes((1, batch, num_out), off, il_out)
+                    gk.gather_plain(src, idx, want, valid)
+                    got = planes((1, batch, num_out), off, il_out)
+                    gk.gather(src, idx, got, valid)
+                    compare_exact(
+                        f"gather num_out={num_out} off={off} B={batch} "
+                        f"interleaved src/out={il_src}/{il_out}", got, want)
+                    cases += 1
+    # 5 shards, uneven and one empty, stacked as the distributed plan
+    # stacks them: sources padded with random rows, each shard's indices
+    # in its own rows or out of range, its padding indices at n or past
+    extents = (900, 0, 333, 517, 61)
+    shards, n, num_out, batch = len(extents), max(extents), 1201, 3
+    src = planes((shards, batch, n), 0, True)
+    idx = np.stack([rng.integers(-2, e + 2, num_out) for e in extents])
+    idx = np.where(idx >= np.array(extents)[:, None],
+                   idx - np.array(extents)[:, None] + n, idx)
+    idx = torch.as_tensor(idx.astype(np.int32), device=device)
+    valid = torch.as_tensor(rng.random((shards, num_out)) < 0.9,
+                            device=device)
+    for il_out in (True, False):
+        for mask in (None, valid):
+            want = planes((shards, batch, num_out), 0, il_out)
+            gk.gather_plain(src, idx, want, mask)
+            got = planes((shards, batch, num_out), 0, il_out)
+            gk.gather(src, idx, got, mask)
+            compare_exact(f"gather {shards} shards {extents} interleaved "
+                          f"out={il_out} mask={mask is not None}", got, want)
+            cases += 1
+            if want[0][1].any() or want[1][1].any():
+                fail("gather: the empty shard's slots are not 0")
+    return cases
+
+
 def set_launches(recs, launches):
     for r in recs:
         r["launches"] = launches[COUNTER_OF.get(r["name"], r["name"])]
@@ -1609,11 +1797,18 @@ DIST_R2C_LAUNCHES = {"decompress_zdft": ZFFT_S, "zdft_compress": ZFFT_S,
                      "pirdft_last": RFFT1, "pdft2_swapped": (0, 0),
                      "pdft2": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
                      "gather": (0, 0)}
-DIST_C2C_2K_LAUNCHES = {"gather": (2 * _S, 2 * _S), "pdft_last": FFT2,
+#: the two-kernel route: the gather once a direction over all shards
+DIST_C2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": FFT2,
                         "pdft2_swapped": CLUSTER2, "decompress_zdft": (0, 0),
                         "zdft_compress": (0, 0), "pdft2": (0, 0),
                         "prdft2": (0, 0), "pdft2_cr": (0, 0),
                         **NO_REAL_LAST}
+#: and its R2C pair: ``pdft_last`` at the z stage and at the y stage
+DIST_R2C_2K_LAUNCHES = {"gather": (2, 2), "pdft_last": (4, 4, {"fft": 4}),
+                        "prdft_last": RFFT1, "pirdft_last": RFFT1,
+                        "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                        "pdft2_swapped": (0, 0), "pdft2": (0, 0),
+                        "prdft2": (0, 0), "pdft2_cr": (0, 0)}
 
 
 def dist_plan(sp, n, trip, values, device, r2c=False):
@@ -1728,6 +1923,44 @@ def dist_odd_shapes_phase(device):
           f"within {KERNEL_TOL}", flush=True)
 
 
+def dist_gather_dec(plan, v, f):
+    """A two-kernel distributed plan's decompress gather as the plan runs
+    it, one launch over every shard's stacked tables (``f``: the wrapper
+    or its plain version): values ``(S, B, max_values, 2)`` -> planar
+    sticks, each ``(B, S, max_sticks, dim_z)``."""
+    dp = plan.dist_plan
+    sr = torch.empty((v.shape[1], dp.num_shards, dp.max_sticks, dp.dim_z),
+                     device=v.device)
+    si = torch.empty_like(sr)
+    f((v[..., 0], v[..., 1]), plan._t_slot_src,
+      tuple(t.view(t.shape[0], t.shape[1], -1).transpose(0, 1)
+            for t in (sr, si)))
+    return sr, si
+
+
+def dist_gather_cmp(plan, sticks, f):
+    """The compress gather likewise: planar sticks ``(B, S, max_sticks,
+    dim_z)`` -> values ``(S, B, max_values, 2)``, every value slot
+    written."""
+    dp = plan.dist_plan
+    b = sticks[0].shape[0]
+    out = torch.empty((dp.num_shards, b, dp.max_values, 2),
+                      device=sticks[0].device)
+    f(tuple(t.reshape(b, dp.num_shards, -1).transpose(0, 1)
+            for t in sticks), plan._t_vi, (out[..., 0], out[..., 1]))
+    return out
+
+
+def check_padding(plan, out):
+    """Fails unless each shard's padding value slots of ``out`` ``(S, B,
+    max_values, 2)`` are 0; returns ``out``."""
+    for r, p in enumerate(plan.dist_plan.shard_plans):
+        if out[r, :, p.num_values:].any():
+            fail(f"gather compress: shard {r}'s padding value slots are "
+                 f"not 0")
+    return out
+
+
 def dist_z_kernel_phase(path, plan, stacked, device):
     """The per-shard z kernels of a distributed path at the path's
     shapes, each shard's launch against its plain version on the same
@@ -1735,10 +1968,11 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     its own ``slot_src`` row (sentinel ``max_values``, padding sticks up
     to ``max_sticks``) and its (0,0) stick, or -1 on the shards that do
     not own it; ``zdft_compress`` on the sticks the forward exchange
-    gives shard r, with its CSR over ``max_sticks``. ``fused=False``: the
-    gather both ways, exact, and ``pdft_last`` over every shard's sticks.
-    The inputs come from the plan's own stage methods; each record times
-    the launches of one direction (S per shard kernel)."""
+    gives shard r, with its CSR over ``max_sticks``; each record times the
+    S launches of one direction. ``fused=False``: the gather both ways,
+    one launch over every shard's stacked tables as the plan runs it,
+    exact (a shard's padding value slots 0), and ``pdft_last`` over every
+    shard's sticks. The inputs come from the plan's own stage methods."""
     from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel as fk, \
         gather_kernel as gk
     dp = plan.dist_plan
@@ -1816,26 +2050,25 @@ def dist_z_kernel_phase(path, plan, stacked, device):
         print_records(recs)
         return recs
 
-    flat = (1, ms * dz)
+    def gdec(f=gk.gather):
+        return dist_gather_dec(plan, v, f)
 
-    def gdec(r, f=gk.gather):
-        out = (torch.empty(flat, device=device),
-               torch.empty(flat, device=device))
-        f(gk.value_planes(v[r], False), plan._t_slot_src[r], out)
-        return out
-
-    err = max(compare_exact(f"{path} gather decompress shard {r}", gdec(r),
-                            gdec(r, gk.gather_plain)) for r in range(S))
-    recs.append(kernel_record(
-        path, "gather_dec", GATHER_SRC, GATHER_REPLACES, err,
-        timed_ms(each(gdec), device),
-        timed_ms(each(lambda r: gdec(r, gk.gather_plain)), device),
-        timed_ms(each(lambda r: torch.index_select(vpad[r], 0, slot64[r])),
-                 device),
+    err = compare_exact(f"{path} gather decompress, {S} shards in one "
+                        f"launch", gdec(), gdec(gk.gather_plain))
+    # the library call: one index_select over every shard's values with a
+    # zero row each (each shard's slot map offset to its rows)
+    mv = dp.max_values
+    vflat = torch.cat([torch.view_as_complex(v[:, 0].contiguous()),
+                       torch.zeros((S, 1), dtype=torch.complex64,
+                                   device=device)], 1).view(-1)
+    dec_rows = (plan._t_slot_src.long() + torch.arange(
+        S, device=device)[:, None] * (mv + 1)).view(-1)
+    recs.append(gather_record(
+        path, "gather_dec", err, gdec, lambda: gdec(gk.gather_plain),
+        lambda: torch.index_select(vflat, 0, dec_rows),
         sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + ms * dz * 8),
-        0.0, 0.0))
-    sr = torch.stack([gdec(r)[0].view(ms, dz) for r in range(S)])[None]
-    si = torch.stack([gdec(r)[1].view(ms, dz) for r in range(S)])[None]
+        device))
+    sr, si = gdec()
     err_b = compare(f"{path} pdft_last backward", dft_kernel.pdft_last(
         sr, si, zb), dft.pdft_last(sr, si, zb))
     fy = dft_kernel.pdft_last(fsr, fsi, zfs)
@@ -1855,21 +2088,26 @@ def dist_z_kernel_phase(path, plan, stacked, device):
         timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
                  device)))
 
-    def gcmp(r, f=gk.gather):
-        out = torch.empty((1, nvs[r], 2), device=device)
-        f((fy[0][:, r].reshape(flat), fy[1][:, r].reshape(flat)),
-          plan._t_vi[r], gk.value_planes(out, False))
-        return out
+    def gcmp(f=gk.gather):
+        return dist_gather_cmp(plan, fy, f)
 
-    err = max(compare_exact(f"{path} gather compress shard {r}", (gcmp(r),),
-                            (gcmp(r, gk.gather_plain),)) for r in range(S))
-    fc = torch.complex(*fy)[0]
-    recs.append(kernel_record(
-        path, "gather_cmp", GATHER_SRC, GATHER_REPLACES, err,
-        timed_ms(each(gcmp), device),
-        timed_ms(each(lambda r: gcmp(r, gk.gather_plain)), device),
-        timed_ms(each(lambda r: fc[r].view(-1)[vi64[r]]), device),
-        sum(nv * 4 + 2 * nv * 8 for nv in nvs), 0.0, 0.0))
+    err = compare_exact(f"{path} gather compress, {S} shards in one launch",
+                        (check_padding(plan, gcmp()),),
+                        (gcmp(gk.gather_plain),))
+    # the library call: one indexed read of every shard's slots and a zero
+    fc = torch.cat([torch.complex(*fy)[0].reshape(-1),
+                    torch.zeros(1, dtype=torch.complex64, device=device)])
+    vi = plan._t_vi.long()
+    cmp_rows = torch.where(vi < ms * dz, vi + torch.arange(
+        S, device=device)[:, None] * (ms * dz), S * ms * dz).view(-1)
+    recs.append(gather_record(
+        path, "gather_cmp", err, gcmp, lambda: gcmp(gk.gather_plain),
+        lambda: fc[cmp_rows], sum(nv * 4 + 2 * nv * 8 for nv in nvs),
+        device))
+    print(f"{path}: values per shard {nvs} (max_values {mv}), sticks per "
+          f"shard {[p.num_sticks for p in dp.shard_plans]} (max_sticks "
+          f"{ms}); each gather record is one launch over all {S} shards",
+          flush=True)
     print_records(recs)
     return recs
 
@@ -1930,6 +2168,22 @@ def dist_odd_shards_phase(sp, device):
                 if not torch.equal(got.backward(vals), b):
                     fail(f"{name}: a second backward differs from the "
                          f"first")
+                if not fused:  # its gathers on its stacked tables, exact
+                    from spfft_tpu_torch.ops import gather_kernel as gk
+                    v = got.shard_values(vals)[:, None]
+                    dp = got.dist_plan
+                    sticks = tuple(torch.as_tensor(rng.standard_normal(
+                        (1, dp.num_shards, dp.max_sticks, dp.dim_z)),
+                        dtype=torch.float32, device=device)
+                        for _ in range(2))
+                    compare_exact(f"{name} gather decompress",
+                                  dist_gather_dec(got, v, gk.gather),
+                                  dist_gather_dec(got, v, gk.gather_plain))
+                    compare_exact(f"{name} gather compress",
+                                  (check_padding(got, dist_gather_cmp(
+                                      got, sticks, gk.gather)),),
+                                  (dist_gather_cmp(got, sticks,
+                                                   gk.gather_plain),))
                 cases += 1
     print(f"dist odd shards: {cases} plans (values per shard "
           f"{[len(t) for t in parts]}, planes {planes}; the fused z kernels "
@@ -2248,6 +2502,7 @@ def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters):
     set_launches(recs2, dist_pair_phase(
         sp, "dist c2c two-kernel", plan2, stacked, local, values, oracle,
         device, counters, DIST_C2C_2K_LAUNCHES))
+    dist_breakdown_phase(sp, "dist c2c two-kernel", plan2, stacked, device)
     route_phase(sp, "dist c2c", plan, plan2, stacked)
     return recs + recs2
 
@@ -2257,7 +2512,8 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
     """Every distributed R2C phase; returns its kernel records (the
     per-shard z kernels, the owner's and the other shards' zero sticks
     among them, ``pdft_last`` at the y stage, ``pirdft_last`` and
-    ``prdft_last`` at the x stage)."""
+    ``prdft_last`` at the x stage; the two-kernel route's gather and z
+    stage ``pdft_last``)."""
     plan, stacked = dist_plan(sp, n, trip, values, device, r2c=True)
     recs = dist_z_kernel_phase("dist_r2c", plan, stacked, device)
     recs += dist_y_kernel_record("dist_r2c", plan, stacked, device)
@@ -2268,7 +2524,15 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
     dist_breakdown_phase(sp, "dist r2c", plan, stacked, device)
     dist_structure_phase(sp, "dist r2c", plan, stacked, device, counters,
                          DIST_R2C_LAUNCHES)
-    return recs
+    plan2 = sp.DistributedTransformPlan(plan.dist_plan, mesh=plan.mesh,
+                                        fused=False)
+    recs2 = dist_z_kernel_phase("dist_r2c_2k", plan2, stacked, device)
+    set_launches(recs2, dist_pair_phase(
+        sp, "dist r2c two-kernel", plan2, stacked, local, values, oracle_rel,
+        device, counters, DIST_R2C_2K_LAUNCHES))
+    dist_breakdown_phase(sp, "dist r2c two-kernel", plan2, stacked, device)
+    route_phase(sp, "dist r2c", plan, plan2, stacked)
+    return recs + recs2
 
 
 def run(device, n=N):
@@ -2301,6 +2565,11 @@ def run(device, n=N):
                                   oracle, device, counters, C2C_2K_LAUNCHES))
     route_phase(sp, "c2c", plan, plan2, values)
     c2c += recs
+    recs = batched_gather_phase("c2c", plan2, values, device)
+    set_launches(recs, batched_pair_phase(sp, "c2c two-kernel", plan2,
+                                          values, device, counters,
+                                          C2C_2K_LAUNCHES))
+    c2c += recs
     del plan2
     recs = batched_kernel_phase("c2c", plan, values, device)
     set_launches(recs, batched_pair_phase(sp, "c2c", plan, values, device,
@@ -2328,6 +2597,11 @@ def run(device, n=N):
                                   oracle_rel, device, counters,
                                   R2C_2K_LAUNCHES))
     route_phase(sp, "r2c", plan, plan2, values)
+    r2c += recs
+    recs = batched_gather_phase("r2c", plan2, values, device)
+    set_launches(recs, batched_pair_phase(sp, "r2c two-kernel", plan2,
+                                          values, device, counters,
+                                          R2C_2K_LAUNCHES))
     r2c += recs
     del plan2
     recs = batched_kernel_phase("r2c", plan, values, device)
@@ -2379,7 +2653,8 @@ def main() -> int:
           flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     device = torch.device("cuda", torch.cuda.current_device())

@@ -28,8 +28,9 @@ What runs on the card, per pair:
   ``decompress_zdft`` / ``zdft_compress`` kernels (its ``slot_src`` row,
   sentinel ``max_values``; its CSR over ``max_sticks`` sticks; its (0,0)
   stick, or -1 where another shard owns it) — S launches of each; or,
-  with ``fused=False``, the gather kernel once per shard in each
-  direction and one ``pdft_last`` over every shard's sticks;
+  with ``fused=False``, the gather kernel once in each direction over
+  every shard's stacked tables and one ``pdft_last`` over every shard's
+  sticks;
 * the block exchange (:mod:`.exchange`) as tensor gathers and one
   transposing copy;
 * the xy stage once over all ``S * max_planes`` planes (the planes are
@@ -220,6 +221,13 @@ def _check_out_of_slice(precision, exchange, overlap_chunks,
         raise _not_in_slice("wire_error_budget", "wire-ladder")
 
 
+def _shard_rows(sticks: torch.Tensor) -> torch.Tensor:
+    """Contiguous sticks ``(B, S, max_sticks, dim_z)`` as the gather's
+    ``(S, B, max_sticks * dim_z)`` view."""
+    b, s = sticks.shape[:2]
+    return sticks.view(b, s, -1).transpose(0, 1)
+
+
 class DistributedTransformPlan:
     """A distributed sparse 3D FFT over the S shards of a mesh —
     a distributed reference ``Transform`` (transform.hpp:56-227 with an
@@ -351,9 +359,17 @@ class DistributedTransformPlan:
                              fused_kernel.compress_csr(
                                  p.value_indices, dp.max_sticks, dp.dim_z))
                        for p in dp.shard_plans] if self._fused else []
-        self._t_vi = [] if self._fused else [
-            idx(self._vi[r, :p.num_values], np.int32)
-            for r, p in enumerate(dp.shard_plans)]
+        # the gather's (fused=False): value_indices stacked (S,
+        # max_values), padded with max_sticks * dim_z, the extent of a
+        # shard's stick rows (read as 0, as slot_src's sentinel
+        # max_values is), its rows 16 bytes apart (whole index loads)
+        self._t_vi = None
+        if not self._fused:
+            mv = dp.max_values
+            vi = np.full((dp.num_shards, -(-mv // 4) * 4),
+                         dp.max_sticks * dp.dim_z, np.int32)
+            vi[:, :mv] = self._vi
+            self._t_vi = idx(vi, np.int32)[:, :mv]
         # each shard's (0,0) stick, -1 where another shard owns it
         self._zero_sticks = [int(np.argmax(row)) if self._r2c and row.any()
                              else -1 for row in self._onehot]
@@ -392,7 +408,8 @@ class DistributedTransformPlan:
     def _device_tables(self) -> list:
         ts = [self._t_slot_src, self._t_zmap, self._t_col_inv, self._t_cols,
               self._t_z_src]
-        ts += [a for t in self._t_csr for a in t] + self._t_vi
+        ts += [a for t in self._t_csr for a in t]
+        ts += [] if self._t_vi is None else [self._t_vi]
         ts += [] if self._t_conj is None else [self._t_conj]
         ts += [m for pair in self._mats.values() for m in pair]
         return ts
@@ -401,32 +418,29 @@ class DistributedTransformPlan:
     def _z_backward(self, v: torch.Tensor):
         """Values ``(S, B, max_values, 2)`` -> z-transformed planar
         sticks, each ``(B, S, max_sticks, dim_z)``: per shard, the fused
-        kernel or the gather kernel (then one ``pdft_last`` for all)."""
+        kernel; or the gather kernel over all shards, then one
+        ``pdft_last``."""
         dp = self.dist_plan
         if self._t_conj is not None:
             v = v * self._t_conj
         b = v.shape[1]
         shape = (b, dp.num_shards, dp.max_sticks, dp.dim_z)
-        flat = (b, dp.max_sticks * dp.dim_z)
         sr = torch.empty(shape, dtype=torch.float32, device=self.device)
         si = torch.empty_like(sr)
         z = self._mats["z_b"]
-        for r in range(dp.num_shards):
-            zid = self._zero_sticks[r]
-            if self._fused:
+        if self._fused:
+            for r, zid in enumerate(self._zero_sticks):
                 sr[:, r], si[:, r] = fused_kernel.decompress_zdft(
                     v[r], self._t_slot_src[r], z, dp.dim_z, False, zid)
-                continue
-            gather_kernel.gather(gather_kernel.value_planes(v[r], False),
-                                 self._t_slot_src[r],
-                                 (sr[:, r].view(flat), si[:, r].view(flat)))
+            return sr, si
+        gather_kernel.gather((v[..., 0], v[..., 1]), self._t_slot_src,
+                             (_shard_rows(sr), _shard_rows(si)))
+        for r, zid in enumerate(self._zero_sticks):
             if zid >= 0:
                 sr[:, r, zid], si[:, r, zid] = \
                     stages.complete_stick_hermitian(sr[:, r, zid],
                                                     si[:, r, zid])
-        if not self._fused:
-            sr, si = dft_kernel.pdft_last(sr, si, z)
-        return sr, si
+        return dft_kernel.pdft_last(sr, si, z)
 
     def _exchange_steps(self, forward: bool = False) -> tuple:
         """The block exchange of one direction as its three steps, ``(name,
@@ -502,29 +516,26 @@ class DistributedTransformPlan:
     def _z_forward(self, sticks: tuple, scaled: bool) -> torch.Tensor:
         """Planar sticks ``(B, S, max_sticks, dim_z)`` -> values ``(S, B,
         max_values, 2)``, FULL scaling folded into the z matrix: per
-        shard, the fused kernel, or one ``pdft_last`` for all then the
-        gather kernel."""
+        shard, the fused kernel; or one ``pdft_last`` for all, then the
+        gather kernel over all shards, which writes every value slot (a
+        shard's padding as 0)."""
         dp = self.dist_plan
         sr, si = sticks
         b = sr.shape[0]
         m = self._mats
         z = m["z_fs" if scaled else "z_f"]
-        out = torch.zeros((dp.num_shards, b, dp.max_values, 2),
-                          dtype=torch.float32, device=self.device)
-        if not self._fused:
-            sr, si = dft_kernel.pdft_last(sr, si, z)
-        flat = (b, dp.max_sticks * dp.dim_z)
-        for r, p in enumerate(dp.shard_plans):
-            if self._fused:
+        shape = (dp.num_shards, b, dp.max_values, 2)
+        if self._fused:
+            out = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            for r, p in enumerate(dp.shard_plans):
                 out[r, :, :p.num_values] = fused_kernel.zdft_compress(
                     sr[:, r].contiguous(), si[:, r].contiguous(), z,
                     self._t_csr[r])
-            else:
-                gather_kernel.gather(
-                    (sr[:, r].view(flat), si[:, r].view(flat)),
-                    self._t_vi[r],
-                    gather_kernel.value_planes(out[r, :, :p.num_values],
-                                               False))
+        else:
+            sr, si = dft_kernel.pdft_last(sr, si, z)
+            out = torch.empty(shape, dtype=torch.float32, device=self.device)
+            gather_kernel.gather((_shard_rows(sr), _shard_rows(si)),
+                                 self._t_vi, (out[..., 0], out[..., 1]))
         return out if self._t_conj is None else out.mul_(self._t_conj)
 
     def _bwd_space(self, v: torch.Tensor):

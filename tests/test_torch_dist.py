@@ -53,6 +53,7 @@ from spfft_tpu_torch.parallel import exchange, mesh as tmesh
 from spfft_tpu_torch.utils import workloads
 
 from test_distributed import SCENARIOS, split_by_sticks, split_planes
+from test_torch_gather import emulated_gather  # noqa: F401 (a fixture)
 from test_util import (center_triplets, dense_backward,
                        dense_cube_from_values, dense_forward,
                        hermitian_triplets, random_sparse_triplets,
@@ -468,6 +469,69 @@ def test_two_kernel_route_matches_fused(name):
     assert _rel(_space(c, tb), _space(c, c["jb"])) <= TOL
     got = tp2.forward(torch.from_numpy(c["jb"]), sp.Scaling.FULL).numpy()
     assert _rel(_c(got), _c(c["jf_full"])) <= TOL
+
+
+@pytest.mark.parametrize("name", ["c2c_random_nonuniform_11x12x13",
+                                  "r2c_folded", "eight_empty", "single"])
+def test_stacked_value_indices_match_each_shard(name):
+    """The two-kernel route's stacked gather tables: row r of ``_t_vi``
+    is shard r's ``value_indices`` exactly, padded with ``max_sticks *
+    dim_z`` (past every shard's slots, read as 0). Each shard's indices
+    stay inside its own rows, and every padding index (``_t_vi``'s, and
+    ``_t_slot_src``'s sentinel ``max_values``) is at or past the stacked
+    source's extent, so the padding needs no per-shard extent."""
+    c = _case(name)
+    _, tp2 = _plans(c["kind"], c["dims"], c["parts"], c["planes"],
+                    fused=False)
+    dp = tp2.dist_plan
+    vi = tp2._t_vi.numpy()
+    assert vi.shape == (dp.num_shards, dp.max_values) and vi.dtype == np.int32
+    assert tp2._t_vi.stride() == (-(-dp.max_values // 4) * 4, 1)  # 16 bytes
+    for r, p in enumerate(dp.shard_plans):
+        np.testing.assert_array_equal(vi[r, :p.num_values], p.value_indices)
+        assert (vi[r, p.num_values:] == dp.max_sticks * dp.dim_z).all()
+        assert (vi[r, :p.num_values] < p.num_sticks * dp.dim_z).all()
+    ss = tp2._t_slot_src.numpy()
+    for r, p in enumerate(dp.shard_plans):
+        live = ss[r] < dp.max_values
+        assert (ss[r][live] < p.num_values).all()
+        assert not live[p.num_sticks * dp.dim_z:].any()
+        assert (ss[r][~live] == dp.max_values).all()
+    assert c["tp"]._t_vi is None  # the fused route keeps CSRs instead
+
+
+@pytest.mark.parametrize("name", ["c2c_random_nonuniform_11x12x13",
+                                  "r2c_folded", "eight_empty"])
+def test_two_kernel_route_writes_every_value_slot(monkeypatch, request,
+                                                  name):
+    """One gather launch a direction over every shard, through the
+    wrapper's launch path (``csrc/gather.cu``'s C entry emulated), with
+    every ``torch.empty`` filled with NaN: the forward's padding value
+    rows come out as 0, and the pair equals the plain route's bit for
+    bit (batched too)."""
+    c = _case(name)
+    _, tp2 = _plans(c["kind"], c["dims"], c["parts"], c["planes"],
+                    fused=False)
+    want_b = tp2.backward(c["vals"])
+    want_f = tp2.forward(want_b, sp.Scaling.FULL)
+    bands = tp2.shard_values_batch(_bands(c))
+    want_bb = tp2.backward_batched(bands)
+    empty = torch.empty
+
+    def nan_empty(*a, **k):
+        t = empty(*a, **k)
+        return t.fill_(np.nan) if t.is_floating_point() else t
+
+    emulated_gather = request.getfixturevalue("emulated_gather")
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    got_b = tp2.backward(c["vals"])
+    got_f = tp2.forward(got_b, sp.Scaling.FULL)
+    assert len(emulated_gather) == 2  # one launch a direction
+    assert torch.equal(got_b, want_b) and torch.equal(got_f, want_f)
+    for r, p in enumerate(tp2.dist_plan.shard_plans):
+        assert not got_f[r, p.num_values:].any()
+    assert torch.equal(tp2.backward_batched(bands), want_bb)
+    assert len(emulated_gather) == 3
 
 
 def test_forward_ignores_padding_rows():
