@@ -95,21 +95,36 @@ Phases, each of which exits non-zero when it fails:
    gather 2, ``pdft_last`` 4 with the y stage's), bit for bit against the
    fused route; the plans with uneven and empty shards hold the
    two-kernel gathers exact on their own stacked tables;
-12. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
-   ``{"kernels": [...]}`` (every kernel record of every path, each with
-   its ``path``) and, last, one JSON line
-   ``{"ok": true, "device": {...}}``.
+12. double precision (``double_phases``): phases 3–9 and 11 again with
+   ``precision="double"`` plans on the kernels' float64 instances (paths
+   ending in ``_f64``): each kernel at the 256^3 shapes against its
+   plain float64 version within ``DOUBLE_KERNEL_TOL`` (the gather
+   exact), the local C2C and R2C pairs on both routes (backward within
+   ``predicted_rel_error("double", 256)`` of the complex128 oracle, the
+   round trip within 3 times that, the single pairs' launch tables, the
+   routes bit for bit), B = 4 and pointwise calls bit for bit against
+   single calls, ``Grid`` / ``Transform`` and multi-transform, the
+   distributed C2C and R2C plans over 4 shards on both routes (within
+   twice ``predicted_rel_error`` of the local backward), and every form
+   at odd shapes in float64;
+13. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
+   ``{"kernels": [...]}`` (every kernel record of every path, float32
+   and float64, each with its ``path`` and ``dtype``) and, last, one
+   JSON line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings over ``REPS`` runs after a
 warm-up, one call between two events, so a call's host work (a wrapper's
-checks and launch) counts while the card waits. The gather's records
-also carry ``device_ms`` and ``library_device_ms``: the kernel and the
+checks and launch) counts while the card waits. Every record also
+carries ``device_ms`` and ``library_device_ms``: the kernel and the
 library call on the device alone (``GRAPH_CALLS`` calls in one CUDA
-graph, replayed back to back). ``bound_ms`` is the least time the card
-could take for each function: the larger of the bytes it must move
-(each input read once, each output written once) over 3.35 TB/s and the
-FP32 operations the function needs over 67 TFLOP/s, the H100 SXM's
-published peaks. The operations are those of an FFT, 5 n log2 n per
+graph, replayed back to back); each pair prints its time on the device
+alone likewise (``PAIR_GRAPH_CALLS`` pairs in one graph). ``bound_ms``
+is the least time the card could take for each function: the larger of
+the bytes it must move (each input read once, each output written once,
+4 bytes a real in float32 and 8 in float64) over 3.35 TB/s and the
+operations the function needs over the peak of their type, 67 TFLOP/s
+in FP32 and 34 TFLOP/s in FP64 (the CUDA cores; the H100 SXM's
+published peaks). The operations are those of an FFT, 5 n log2 n per
 complex line of length n (half that for a real transform), so at these
 sizes the bytes bind.
 
@@ -172,8 +187,17 @@ REPS = 10
 #: kernel-vs-composition tolerance (tests/test_fused_kernel.py).
 KERNEL_TOL = 2e-6
 ROUNDTRIP_TOL = 1e-6
+#: the same in float64 (the kernels' float64 instances against their plain
+#: float64 versions): at most 1e-14 relative l2 (an FFT's float64 error is
+#: about 1e-16 log2 n, a plain matrix product's about 1e-16 sqrt(n)), and
+#: 1e-13 on the largest element's error relative to the largest value
+DOUBLE_KERNEL_TOL = 1e-14
+DOUBLE_KERNEL_TOL_MAX = 1e-13
 MEM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+#: FP64 on the CUDA cores (the kernels use no tensor cores), the H100
+#: SXM's published peak
+FP64_FLOP_PER_S = 34e12
 #: real FLOP per complex multiply-add of the cheapest matrix-form DFT,
 #: and per real-by-complex multiply-add (the real stages of R2C)
 FLOP_PER_CMAC = 6.0
@@ -207,8 +231,10 @@ def timed_ms(fn, device, reps=REPS, warmup=2) -> float:
     return float(np.median(times))
 
 
-#: calls of one CUDA graph in :func:`graph_ms`
+#: calls of one CUDA graph in :func:`graph_ms`: a kernel's, and a whole
+#: pair's
 GRAPH_CALLS = 20
+PAIR_GRAPH_CALLS = 3
 
 
 def graph_ms(fn, device, calls=GRAPH_CALLS, reps=REPS):
@@ -243,9 +269,20 @@ def graph_ms(fn, device, calls=GRAPH_CALLS, reps=REPS):
     return float(np.median(times))
 
 
+def kernel_tol(dtype):
+    """The kernel-vs-plain tolerance of a result of ``dtype``: (relative
+    max error, relative l2)."""
+    if dtype == torch.float64:
+        return DOUBLE_KERNEL_TOL_MAX, DOUBLE_KERNEL_TOL
+    return KERNEL_TOL, KERNEL_TOL
+
+
 def compare(name, got, want):
     """(max_abs_err, relative max error, relative l2) of two results
-    (tuples of tensors); fails beyond ``KERNEL_TOL``."""
+    (tuples of tensors); fails beyond :func:`kernel_tol` of their real
+    type (``KERNEL_TOL`` in float32, ``DOUBLE_KERNEL_TOL`` in
+    float64)."""
+    tol_max, tol_l2 = kernel_tol(got[0].dtype)
     g = torch.cat([t.reshape(-1).double() for t in got])
     w = torch.cat([t.reshape(-1).double() for t in want])
     if not torch.isfinite(g).all():
@@ -255,9 +292,10 @@ def compare(name, got, want):
     rel_max = max_abs / scale if scale else max_abs
     rel_l2 = float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) \
         if scale else max_abs
-    if rel_max > KERNEL_TOL or rel_l2 > KERNEL_TOL:
+    if rel_max > tol_max or rel_l2 > tol_l2:
         fail(f"{name}: kernel vs plain max_abs={max_abs:.3e} "
-             f"rel_max={rel_max:.3e} rel_l2={rel_l2:.3e} > {KERNEL_TOL}")
+             f"rel_max={rel_max:.3e} rel_l2={rel_l2:.3e} > "
+             f"{tol_max} / {tol_l2}")
     return max_abs, rel_max, rel_l2
 
 
@@ -273,11 +311,12 @@ def rfft_flops(lines: int, n: int) -> float:
 
 def table_bytes(mats, form: str) -> int:
     """Bytes of a DFT stage's tables as its form reads them: the FFT,
-    real FFT and cluster forms read the (2, n) f32 twiddle table, the
-    matrix form the f32 matrix pair."""
+    real FFT and cluster forms read the (2, n) twiddle table, the matrix
+    form the matrix pair, both in the matrices' real type."""
+    e = mats[0].element_size()
     if form in ("fft", "cluster", "rfft"):
-        return 2 * mats.n * 4
-    return sum(m.numel() for m in mats[:2]) * 4
+        return 2 * mats.n * e
+    return sum(m.numel() for m in mats[:2]) * e
 
 
 def plane_table_bytes(mats1, mats2, forms) -> int:
@@ -287,9 +326,12 @@ def plane_table_bytes(mats1, mats2, forms) -> int:
     return table_bytes(mats1, f1) + table_bytes(mats2, f2)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype=torch.float32):
+    """The least time in ms of moving ``nbytes`` and doing ``flops``
+    operations of ``dtype``, and which of the two binds."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    peak = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -313,6 +355,11 @@ DEC_REPLACES = "spfft_tpu/ops/fused_kernel.py:587"
 CMP_REPLACES = "spfft_tpu/ops/fused_kernel.py:783"
 
 
+def complex_of(t: torch.Tensor) -> torch.dtype:
+    """The complex dtype of ``t``'s real type."""
+    return torch.complex128 if t.dtype == torch.float64 else torch.complex64
+
+
 def matrix_pair(mats):
     """The same matrices without the function they carry: a wrapper runs
     its matrix form on them (the "before" of the FFT forms)."""
@@ -328,9 +375,11 @@ def fft_two_launch(ins, mats1, mats2, swap_out=False):
     p, a, b = ins[0].shape
     b_out, a_out = mats1[0].shape[1], mats2[0].shape[1]
     dev = ins[0].device
-    mid = tuple(torch.empty((p, b_out, a), device=dev) for _ in range(2))
+    dt = ins[0].dtype
+    mid = tuple(torch.empty((p, b_out, a), dtype=dt, device=dev)
+                for _ in range(2))
     out = tuple(torch.empty((p, a_out, b_out) if swap_out
-                            else (p, b_out, a_out), device=dev)
+                            else (p, b_out, a_out), dtype=dt, device=dev)
                 for _ in range(2))
     if dev.type != "cuda":  # the stage kernels run only on the card
         return (dft.cdft2_xy if swap_out else dft.pdft2_minor)(
@@ -341,29 +390,52 @@ def fft_two_launch(ins, mats1, mats2, swap_out=False):
     return out
 
 
-def kernel_record(path, name, source, replaces, err, ms, plain_ms,
-                  library_ms, nbytes, flops, design_flops, form=None,
-                  matrix_ms=None, design_bytes=None, device_ms=None):
-    """One kernel's record. ``form``: ``fft``, ``rfft``, ``cluster``,
+def _first_tensor(out):
+    """The first tensor of a call's result (a tensor, or nested tuples
+    and lists of them)."""
+    while not isinstance(out, torch.Tensor):
+        out = out[0]
+    return out
+
+
+def kernel_record(path, name, source, replaces, err, kernel, plain,
+                  library, nbytes, flops, design_flops, form=None,
+                  matrix=None, design_bytes=None):
+    """One kernel's record, timed here: ``kernel``, its ``plain`` version,
+    the ``library`` yardstick (or None) and ``matrix``, the matrix form on
+    the same inputs (or None; a matrix-form kernel's ``matrix_ms`` is its
+    own ``ms``), each a call timed one call at a time
+    (:func:`timed_ms`), and the kernel and the library call on the device
+    alone (:func:`graph_ms`: ``device_ms``, ``library_device_ms``). The
+    record's ``dtype`` is the kernel's output's; its bounds take the
+    peak rate of that type. ``form``: ``fft``, ``rfft``, ``cluster``,
     ``matrix``, a two-launch ``rfft+fft`` / ``fft+rfft`` or None (no
-    DFT); ``matrix_ms``: the matrix form on the same inputs (a
-    matrix-form kernel's own ``ms``). The design bound of the one-launch
-    FFT forms is ``bound_ms``; any other form's is ``design_bytes``
-    (default ``nbytes``) against ``design_flops``."""
-    b_ms, b_by = bound(nbytes, flops)
+    DFT). The design bound of the one-launch FFT forms is ``bound_ms``;
+    any other form's is ``design_bytes`` (default ``nbytes``) against
+    ``design_flops``."""
+    out = _first_tensor(kernel())
+    dtype, device = out.dtype, out.device
+    del out
+    b_ms, b_by = bound(nbytes, flops, dtype)
     DESIGN_BOUND_MS.setdefault(path, {})[name] = \
         b_ms if form in ("fft", "cluster", "rfft") else bound(
             nbytes if design_bytes is None else design_bytes,
-            design_flops)[0]
-    if form == "matrix" and matrix_ms is None:
-        matrix_ms = ms
-    return {"path": path, "name": name, "route": "cuda", "source": source,
+            design_flops, dtype)[0]
+    ms = timed_ms(kernel, device)
+    matrix_ms = timed_ms(matrix, device) if matrix is not None else \
+        ms if form == "matrix" else None
+    return {"path": path, "name": name, "dtype": str(dtype).split(".")[-1],
+            "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err[0],
             "rel_err": err[1], "rel_l2": err[2], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "form": form, "matrix_ms": matrix_ms,
-            **({} if device_ms is None else {
-                "device_ms": device_ms[0], "library_device_ms": device_ms[1]})}
+            "device_ms": graph_ms(kernel, device),
+            "plain_ms": timed_ms(plain, device), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None if library is None else timed_ms(library,
+                                                                device),
+            "library_device_ms": None if library is None else graph_ms(
+                library, device),
+            "form": form, "matrix_ms": matrix_ms}
 
 
 def _ms(x):
@@ -386,20 +458,24 @@ def print_records(recs):
                  else ""), flush=True)
 
 
-def main_path_plan(sp, n, device):
+def main_path_plan(sp, n, device, precision="single"):
+    """The C2C path's plan at ``precision`` on the n^3 sphere, sorted
+    stick-major, and its values (N, 2) from numpy seed ``SEED`` (complex64
+    for a single plan, complex128 for a double one)."""
     from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
                                                  sort_triplets_stick_major)
     t0 = time.perf_counter()
     trip = sort_triplets_stick_major(spherical_cutoff_triplets(n),
                                      (n, n, n))
     plan = sp.make_local_plan(sp.TransformType.C2C, n, n, n, trip,
-                              device=device)
+                              precision=precision, device=device)
     rng = np.random.default_rng(SEED)
     m = len(trip)
     vals = (rng.standard_normal(m) + 1j * rng.standard_normal(m)) \
-        .astype(np.complex64)
+        .astype(np.complex64 if precision == "single" else np.complex128)
     values = torch.view_as_real(torch.from_numpy(vals)).to(device)
-    print(f"plan: C2C {n}^3 sphere, {plan.num_local_elements} values in "
+    print(f"plan: C2C {n}^3 sphere, {precision}, "
+          f"{plan.num_local_elements} values in "
           f"{plan.index_plan.num_sticks} sticks, split_x={plan.split_x}, "
           f"pair_io={plan.pair_values_io}, built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -425,31 +501,33 @@ def decompress_record(path, plan, values, device):
     err = compare(f"{path} decompress_zdft", got, want)
     vpad = torch.cat([torch.view_as_complex(
         (v.t() if pair else v).contiguous()),
-        torch.zeros(1, dtype=torch.complex64, device=device)])
+        torch.zeros(1, dtype=complex_of(v), device=device)])
     slot64 = plan._slot_src.long()
     rows = plan._slot_src.numel() // dz
     form = fused_kernel.z_form(mz, dz)
+    e = v.element_size()
     return kernel_record(
         path, "decompress_zdft", Z_SRC[form], DEC_REPLACES, err,
-        timed_ms(lambda: fused_kernel.decompress_zdft(
-            v, plan._slot_src, mz, dz, pair, zs), device),
-        timed_ms(lambda: fused_kernel.decompress_zdft_plain(
-            v, plan._slot_src, mz, dz, pair, zs), device),
-        timed_ms(lambda: torch.fft.ifft(vpad[slot64].view(rows, dz),
-                                        norm="forward"), device),
-        nv * 8 + rows * dz * 4 + table_bytes(mz, form) + 2 * rows * dz * 4,
+        lambda: fused_kernel.decompress_zdft(
+            v, plan._slot_src, mz, dz, pair, zs),
+        lambda: fused_kernel.decompress_zdft_plain(
+            v, plan._slot_src, mz, dz, pair, zs),
+        lambda: torch.fft.ifft(vpad[slot64].view(rows, dz),
+                               norm="forward"),
+        nv * 2 * e + rows * dz * 4 + table_bytes(mz, form)
+        + 2 * rows * dz * e,
         fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, form,
-        timed_ms(lambda: fused_kernel.decompress_zdft(
-            v, plan._slot_src, matrix_pair(mz), dz, pair, zs), device)), got
+        lambda: fused_kernel.decompress_zdft(
+            v, plan._slot_src, matrix_pair(mz), dz, pair, zs)), got
 
 
-def kernel_phase(plan, values, device):
+def kernel_phase(plan, values, device, path="c2c"):
     """Each kernel of the C2C path at its shapes vs its plain version."""
     from spfft_tpu_torch.ops import dft, dft_kernel, stages
     p = plan.index_plan
     recs = []
 
-    rec, (sr, si) = decompress_record("c2c", plan, values, device)
+    rec, (sr, si) = decompress_record(path, plan, values, device)
     recs.append(rec)
 
     # pdft2, backward shapes: (z, x, y) -> (z, y, x)
@@ -459,41 +537,43 @@ def kernel_phase(plan, values, device):
                                       p.dim_y)
     m1, m2 = plan._mats["y_b"], plan._mats["x_b"]
     got = dft_kernel.pdft2(gr, gi, m1, m2)
-    err_b = compare("pdft2 backward", got,
+    err_b = compare(f"{path} pdft2 backward", got,
                     dft.pdft2_minor(gr, gi, m1, m2))
     space = torch.stack(got, dim=-1)
     # pdft2, forward shapes: (z, y, x) -> (z, w, y)
     xr, xi = space[..., 0].contiguous(), space[..., 1].contiguous()
     f1, f2 = plan._mats["x_f"], plan._mats["y_f"]
     fgot = dft_kernel.pdft2(xr, xi, f1, f2)
-    err_f = compare("pdft2 forward", fgot, dft.pdft2_minor(xr, xi, f1, f2))
+    err_f = compare(f"{path} pdft2 forward", fgot,
+                    dft.pdft2_minor(xr, xi, f1, f2))
     err = max(err_b, err_f)
-    two = compare("pdft2 backward, two-launch FFT form",
+    two = compare(f"{path} pdft2 backward, two-launch FFT form",
                   fft_two_launch((gr, gi), m1, m2), got)
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
     forms = dft_kernel.plane_forms(m1, m2, a)
     form = "+".join(forms)
+    e = gr.element_size()
     recs.append(kernel_record(
-        "c2c", "pdft2", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
-        timed_ms(lambda: dft_kernel.pdft2(gr, gi, m1, m2), device),
-        timed_ms(lambda: dft.pdft2_minor(gr, gi, m1, m2), device),
-        timed_ms(lambda: torch.fft.ifft2(gc, norm="forward")
-                 .transpose(-1, -2).contiguous(), device)
+        path, "pdft2", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
+        lambda: dft_kernel.pdft2(gr, gi, m1, m2),
+        lambda: dft.pdft2_minor(gr, gi, m1, m2),
+        (lambda: torch.fft.ifft2(gc, norm="forward")
+         .transpose(-1, -2).contiguous())
         if (b_out, a_out) == (b, a) else None,
-        2 * pp * a * b * 4 + 2 * pp * b_out * a_out * 4
+        2 * pp * a * b * e + 2 * pp * b_out * a_out * e
         + plane_table_bytes(m1, m2, forms),
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
-        timed_ms(lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1),
-                                          matrix_pair(m2)), device)))
+        lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1),
+                                 matrix_pair(m2))))
     ms2 = timed_ms(lambda: fft_two_launch((gr, gi), m1, m2), device)
-    print(f"pdft2 backward in the two-launch FFT form: {ms2:.4f} ms "
+    print(f"{path} pdft2 backward in the two-launch FFT form: {ms2:.4f} ms "
           f"(reference; the path takes form {form}), max_abs_err against "
           f"the {form} form {two[0]:.3e}", flush=True)
 
-    recs.append(zdft_compress_record("c2c", plan, fgot, device))
+    recs.append(zdft_compress_record(path, plan, fgot, device))
     print_records(recs)
     return recs
 
@@ -516,21 +596,21 @@ def zdft_compress_record(path, plan, grid, device):
     vi64 = torch.as_tensor(p.value_indices.astype(np.int64), device=device)
     gs = 1.0 / plan.global_size
     form = fused_kernel.z_form(mf, dz)
+    e = fr.element_size()
     return kernel_record(
         path, "zdft_compress", Z_SRC[form], CMP_REPLACES, err,
-        timed_ms(lambda: fused_kernel.zdft_compress(fr, fi, mf, plan._csr,
-                                                    pair), device),
-        timed_ms(lambda: fused_kernel.zdft_compress_plain(
-            fr, fi, mf, plan._csr, pair), device),
-        timed_ms(lambda: torch.fft.fft(fc).view(-1)[vi64] * gs, device),
-        2 * s * dz * 4 + (s + 1 + 2 * nv) * 4 + table_bytes(mf, form)
-        + nv * 8,
+        lambda: fused_kernel.zdft_compress(fr, fi, mf, plan._csr, pair),
+        lambda: fused_kernel.zdft_compress_plain(
+            fr, fi, mf, plan._csr, pair),
+        lambda: torch.fft.fft(fc).view(-1)[vi64] * gs,
+        2 * s * dz * e + (s + 1 + 2 * nv) * 4 + table_bytes(mf, form)
+        + nv * 2 * e,
         fft_flops(s, dz), FLOP_PER_CMAC * s * dz * dz, form,
-        timed_ms(lambda: fused_kernel.zdft_compress(
-            fr, fi, matrix_pair(mf), plan._csr, pair), device))
+        lambda: fused_kernel.zdft_compress(
+            fr, fi, matrix_pair(mf), plan._csr, pair))
 
 
-def odd_shapes_phase(device):
+def odd_shapes_phase(device, dtype=torch.float32):
     """Each kernel at shapes the main path does not reach (axes that are
     not multiples of the tiles, rectangular split-x matrices, more than
     256 output columns, the 512 axis, empty sticks, duplicate values,
@@ -540,11 +620,11 @@ def odd_shapes_phase(device):
     rng = np.random.default_rng(SEED + 1)
 
     def rand(*shape):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                                device=device)
 
     def mats(m):
-        return dft.device_mats(m, device)
+        return dft.device_mats(m, device, dtype)
 
     cases = 0
     for (pp, a, b), m1, m2 in (
@@ -590,11 +670,11 @@ def odd_shapes_phase(device):
                     (fused_kernel.zdft_compress_plain(sr, si, zf, csr,
                                                       pair),))
             cases += 2
-    print(f"odd shapes: {cases} kernel-vs-plain cases within {KERNEL_TOL}",
-          flush=True)
+    print(f"odd shapes: {cases} kernel-vs-plain cases within "
+          f"{kernel_tol(dtype)[1]} ({dtype})", flush=True)
 
 
-def fft_odd_shapes_phase(device):
+def fft_odd_shapes_phase(device, dtype=torch.float32):
     """The redesigned complex stages at shapes the paths do not reach,
     against their plain versions, each call's form checked by its launch
     counts: ``pdft_last`` in the FFT form at every radix (n = 1, 2, 3, 5,
@@ -609,11 +689,12 @@ def fft_odd_shapes_phase(device):
     rng = np.random.default_rng(SEED + 8)
 
     def rand(*shape):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                                device=device)
 
     def c2c(n, sign, scale=1.0, **window):
-        return dft.device_c2c(n, sign, scale, device=device, **window)
+        return dft.device_c2c(n, sign, scale, device=device, dtype=dtype,
+                              **window)
 
     def forms_of(wrapper, fn):
         wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
@@ -682,7 +763,8 @@ def fft_odd_shapes_phase(device):
         c2r = dft.c2r_mats(nx) if cols is None \
             else dft.sub_rows_c2r_mats(nx, tuple(range(cols[0],
                                                        cols[0] + cols[1])))
-        r2c, c2r = dft.device_mats(r2c, device), dft.device_mats(c2r, device)
+        r2c = dft.device_mats(r2c, device, dtype)
+        c2r = dft.device_mats(c2r, device, dtype)
         x = rand(pp, ny, nx)
         yf, yb = c2c(ny, dft.FORWARD), c2c(ny, dft.BACKWARD)
         got, forms = forms_of(dft_kernel.prdft2,
@@ -701,10 +783,11 @@ def fft_odd_shapes_phase(device):
                 (got,), (dft.pdft2_minor_cr(gr, gi, yb, c2r),))
         cases += 2
     print(f"odd shapes of the FFT and cluster forms: {cases} kernel-vs-plain "
-          f"cases within {KERNEL_TOL}, each in its expected form", flush=True)
+          f"cases within {kernel_tol(dtype)[1]} ({dtype}), each in its "
+          f"expected form", flush=True)
 
 
-def z_fft_odd_shapes_phase(device):
+def z_fft_odd_shapes_phase(device, dtype=torch.float32):
     """The FFT form of both fused z kernels at shapes the paths do not
     reach, against their plain versions, each call's form checked by its
     launch counts: every radix (dim_z 1, 2, 3, 4, 5, 8, 12, 60, 100, 128,
@@ -719,7 +802,7 @@ def z_fft_odd_shapes_phase(device):
     on_card = device.type == "cuda"
 
     def rand(*shape):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                                device=device)
 
     def i32(a):
@@ -741,9 +824,10 @@ def z_fft_odd_shapes_phase(device):
                           (128, 9, {}), (384, 9, {"rows": (200, 384)}),
                           (512, 5, {}), (13, 21, {})):
         form = "matrix" if dz == 13 else "fft"
-        zb = dft.device_c2c(dz, dft.BACKWARD, device=device, **window)
-        zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
+        zb = dft.device_c2c(dz, dft.BACKWARD, device=device, dtype=dtype,
                             **window)
+        zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
+                            dtype=dtype, **window)
         if fk.z_form(zb, dz) != form or fk.z_form(zf, dz) != form:
             fail(f"z kernels dim_z={dz}: form {fk.z_form(zb, dz)}, "
                  f"expected {form}")
@@ -800,8 +884,9 @@ def z_fft_odd_shapes_phase(device):
                                  f"launch")
                     cases += 2
     print(f"odd shapes of the fused z kernels' FFT form: {cases} "
-          f"kernel-vs-plain cases within {KERNEL_TOL}, each in its expected "
-          f"form, batched bands equal to single launches", flush=True)
+          f"kernel-vs-plain cases within {kernel_tol(dtype)[1]} ({dtype}), "
+          f"each in its expected form, batched bands equal to single "
+          f"launches", flush=True)
 
 
 #: launches of one backward + forward(FULL) pair per path: (least, most),
@@ -882,14 +967,23 @@ def read_launches(path, counters, want):
     return launches
 
 
+def roundtrip_tol(sp, precision, n):
+    """The round trip's bound: ``ROUNDTRIP_TOL`` in single precision, 3
+    times ``predicted_rel_error("double", n)`` in double."""
+    if precision == "single":
+        return ROUNDTRIP_TOL
+    return 3 * sp.predicted_rel_error(precision, n, True)
+
+
 def pair_phase(sp, path, plan, values, oracle_rel, device, counters,
                want):
     """The public backward + forward(FULL) pair of ``path``, counted
     (``want``), checked and timed: the backward (the complex slab for
     C2C, the real one for R2C) within ``predicted_rel_error`` of the
-    complex128 oracle on the card (``oracle_rel(space)`` gives the
-    relative l2 error), the round trip within 1e-6, and a second
-    backward equal to the first."""
+    plan's precision of the complex128 oracle on the card
+    (``oracle_rel(space)`` gives the relative l2 error), the round trip
+    within :func:`roundtrip_tol`, and a second backward equal to the
+    first."""
     reset_launches(counters)
     space = plan.backward(values)
     out = plan.forward(space, sp.Scaling.FULL)
@@ -900,12 +994,13 @@ def pair_phase(sp, path, plan, values, oracle_rel, device, counters,
     shape = (plan.dim_z, plan.dim_y, plan.dim_x)
     if plan.transform_type is sp.TransformType.C2C:
         shape += (2,)
-    if tuple(space.shape) != shape or space.dtype != torch.float32 \
+    if tuple(space.shape) != shape or space.dtype != plan.real_dtype \
+            or out.dtype != plan.real_dtype \
             or not torch.isfinite(space).all():
         fail(f"{path} backward output malformed: {tuple(space.shape)} "
              f"{space.dtype}")
     rel = oracle_rel(space)
-    pred = sp.predicted_rel_error("single", max(shape[:3]), True)
+    pred = sp.predicted_rel_error(plan.precision, max(shape[:3]), True)
     print(f"{path} backward vs complex128 oracle: rel_l2={rel:.3e} "
           f"(predicted_rel_error={pred:.3e})", flush=True)
     if not rel <= pred:
@@ -913,16 +1008,22 @@ def pair_phase(sp, path, plan, values, oracle_rel, device, counters,
     vals_out = out.t() if plan.pair_values_io else out
     rt = float(torch.linalg.norm(vals_out.double() - values.double())
                / torch.linalg.norm(values.double()))
-    print(f"{path} forward(FULL) round trip: rel_l2={rt:.3e}", flush=True)
-    if not rt <= ROUNDTRIP_TOL:
-        fail(f"{path} round trip rel_l2 {rt:.3e} above {ROUNDTRIP_TOL}")
+    rt_tol = roundtrip_tol(sp, plan.precision, max(shape[:3]))
+    print(f"{path} forward(FULL) round trip: rel_l2={rt:.3e} (at most "
+          f"{rt_tol:.3e})", flush=True)
+    if not rt <= rt_tol:
+        fail(f"{path} round trip rel_l2 {rt:.3e} above {rt_tol:.3e}")
     if not torch.equal(plan.backward(values), space):
         fail(f"{path}: a second backward differs from the first")
 
-    pair_ms = timed_ms(lambda: plan.forward(plan.backward(values),
-                                            sp.Scaling.FULL), device)
+    def pair():
+        return plan.forward(plan.backward(values), sp.Scaling.FULL)
+
+    pair_ms = timed_ms(pair, device)
+    dev_ms = graph_ms(pair, device, PAIR_GRAPH_CALLS)
     print(f"{path} path pair (backward + forward FULL): {pair_ms:.4f} ms "
-          f"median of {REPS}", flush=True)
+          f"median of {REPS}; on the device alone {_ms(dev_ms)} ms",
+          flush=True)
     return launches
 
 
@@ -946,15 +1047,16 @@ def c2c_oracle_rel(plan, trip, values, device):
 
 # -- the R2C path -------------------------------------------------------------
 
-def r2c_plan(sp, n, device):
-    """The R2C path's plan on the non-redundant half of the n^3 sphere
-    (as bench.py builds it), sorted stick-major; values from a seeded
-    real field band-limited to the sphere, the half set's hermitian
-    closure. Returns the plan, the values (N, 2) f32 and the oracle of
-    backward: that field times n^3, real f64, from complex128 on
-    ``device``. The spectrum is rounded to complex64 before both are
-    taken, so the oracle is exact for the values the plan is given.
-    Returns the plan, its triplets, the values and the oracle."""
+def r2c_plan(sp, n, device, precision="single"):
+    """The R2C path's plan at ``precision`` on the non-redundant half of
+    the n^3 sphere (as bench.py builds it), sorted stick-major; values
+    from a seeded real field band-limited to the sphere, the half set's
+    hermitian closure. Returns the plan, the values (N, 2) in the plan's
+    real type and the oracle of backward: that field times n^3, real f64,
+    from complex128 on ``device``. In single precision the spectrum is
+    rounded to complex64 before both are taken, so the oracle is exact
+    for the values the plan is given. Returns the plan, its triplets, the
+    values and the oracle."""
     from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
                                                  sort_triplets_stick_major)
     t0 = time.perf_counter()
@@ -963,7 +1065,8 @@ def r2c_plan(sp, n, device):
     half = full[(x > 0) | ((x == 0) & ((y > 0) | ((y == 0) & (z >= 0))))]
     trip = sort_triplets_stick_major(half, (n, n, n))
     plan = sp.make_local_plan(sp.TransformType.R2C, n, n, n, trip,
-                              device=device)
+                              precision=precision, device=device)
+    cdt = torch.complex64 if precision == "single" else torch.complex128
 
     def storage(t):
         return torch.as_tensor(np.where(t < 0, t + n, t).astype(np.int64),
@@ -972,7 +1075,7 @@ def r2c_plan(sp, n, device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     spec = torch.fft.fftn(torch.randn((n, n, n), generator=gen,
                                       dtype=torch.float64, device=device))
-    spec = spec.to(torch.complex64).to(torch.complex128)
+    spec = spec.to(cdt).to(torch.complex128)
     sf = storage(full)
     mask = torch.zeros((n, n, n), dtype=torch.bool, device=device)
     mask[sf[:, 2], sf[:, 1], sf[:, 0]] = True
@@ -980,11 +1083,12 @@ def r2c_plan(sp, n, device):
     del mask, sf
     sh = storage(trip)
     values = torch.view_as_real(spec[sh[:, 2], sh[:, 1], sh[:, 0]]
-                                .to(torch.complex64)).contiguous()
+                                .to(cdt)).contiguous()
     oracle = torch.fft.ifftn(spec, norm="forward").real.contiguous()
     del spec
     p = plan.index_plan
-    print(f"plan: R2C {n}^3 half sphere, {plan.num_local_elements} values "
+    print(f"plan: R2C {n}^3 half sphere, {precision}, "
+          f"{plan.num_local_elements} values "
           f"in {p.num_sticks} sticks, dim_x_freq={p.dim_x_freq}, "
           f"zero_stick={p.zero_stick_id}, split_x={plan.split_x}, "
           f"pair_io={plan.pair_values_io}, built with its values in "
@@ -992,12 +1096,12 @@ def r2c_plan(sp, n, device):
     return plan, trip, values, oracle
 
 
-def r2c_kernel_phase(plan, values, device):
+def r2c_kernel_phase(plan, values, device, path="r2c"):
     """Each kernel of the R2C path at its shapes vs its plain version."""
     from spfft_tpu_torch.ops import dft, dft_kernel, stages
     p = plan.index_plan
     recs = []
-    rec, (sr, si) = decompress_record("r2c", plan, values, device)
+    rec, (sr, si) = decompress_record(path, plan, values, device)
     recs.append(rec)
 
     # pdft2_cr, backward shapes: planar (z, w, y) -> real (z, y, x)
@@ -1009,61 +1113,62 @@ def r2c_kernel_phase(plan, values, device):
         stages.complete_plane_hermitian_t(gr, gi)
     m1, m2 = plan._mats["y_b"], plan._mats["x_b"]
     space = dft_kernel.pdft2_cr(gr, gi, m1, m2)
-    err = compare("r2c pdft2_cr", (space,),
+    err = compare(f"{path} pdft2_cr", (space,),
                   (dft.pdft2_minor_cr(gr, gi, m1, m2),))
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = m1[0].shape[1], m2[0].shape[1]
     cc, rf = dft_kernel.stage_form(m1), dft_kernel.stage_form(m2)
-    nbytes = 2 * pp * a * b * 4 + pp * b_out * a_out * 4 \
+    e = gr.element_size()
+    nbytes = 2 * pp * a * b * e + pp * b_out * a_out * e \
         + table_bytes(m1, cc) + table_bytes(m2, rf)
     recs.append(kernel_record(
-        "r2c", "pdft2_cr", RFFT_SRC, REAL_REPLACES, err,
-        timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, m1, m2), device),
-        timed_ms(lambda: dft.pdft2_minor_cr(gr, gi, m1, m2), device),
-        timed_ms(lambda: torch.fft.irfft2(
-            gc.transpose(-1, -2), s=(b_out, a_out), norm="forward"), device)
+        path, "pdft2_cr", RFFT_SRC, REAL_REPLACES, err,
+        lambda: dft_kernel.pdft2_cr(gr, gi, m1, m2),
+        lambda: dft.pdft2_minor_cr(gr, gi, m1, m2),
+        (lambda: torch.fft.irfft2(
+            gc.transpose(-1, -2), s=(b_out, a_out), norm="forward"))
         if a == p.dim_x_freq else None,
         nbytes, fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
         (fft_flops(pp * a, b) if cc == "fft"
          else FLOP_PER_CMAC * pp * a * b * b_out)
         + (rfft_flops(pp * b_out, a_out) if rf == "rfft"
            else FLOP_PER_RMAC * pp * b_out * a * a_out), f"{cc}+{rf}",
-        timed_ms(lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1),
-                                             matrix_pair(m2)), device),
-        design_bytes=nbytes + 2 * 2 * pp * b_out * a * 4))
+        lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1),
+                                    matrix_pair(m2)),
+        design_bytes=nbytes + 2 * 2 * pp * b_out * a * e))
 
     # prdft2, forward shapes: real (z, y, x) -> planar (z, w, y)
     f1, f2 = plan._mats["x_f"], plan._mats["y_f"]
     fgot = dft_kernel.prdft2(space, f1, f2)
-    err = compare("r2c prdft2", fgot, dft.prdft2_minor(space, f1, f2))
+    err = compare(f"{path} prdft2", fgot, dft.prdft2_minor(space, f1, f2))
     pp, a, b = space.shape
     b_out, a_out = f1[0].shape[1], f2[0].shape[1]
     rf, cc = dft_kernel.stage_form(f1), dft_kernel.stage_form(f2)
-    nbytes = pp * a * b * 4 + 2 * pp * b_out * a_out * 4 \
+    nbytes = pp * a * b * e + 2 * pp * b_out * a_out * e \
         + table_bytes(f1, rf) + table_bytes(f2, cc)
     recs.append(kernel_record(
-        "r2c", "prdft2", RFFT_SRC, REAL_REPLACES, err,
-        timed_ms(lambda: dft_kernel.prdft2(space, f1, f2), device),
-        timed_ms(lambda: dft.prdft2_minor(space, f1, f2), device),
-        timed_ms(lambda: torch.fft.rfft2(space).transpose(-1, -2)
-                 .contiguous(), device)
+        path, "prdft2", RFFT_SRC, REAL_REPLACES, err,
+        lambda: dft_kernel.prdft2(space, f1, f2),
+        lambda: dft.prdft2_minor(space, f1, f2),
+        (lambda: torch.fft.rfft2(space).transpose(-1, -2)
+         .contiguous())
         if b_out == p.dim_x_freq else None,
         nbytes, rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         (rfft_flops(pp * a, b) if rf == "rfft"
          else FLOP_PER_RMAC * pp * a * b * b_out)
         + (fft_flops(pp * b_out, a) if cc == "fft"
            else FLOP_PER_CMAC * pp * b_out * a * a_out), f"{rf}+{cc}",
-        timed_ms(lambda: dft_kernel.prdft2(space, matrix_pair(f1),
-                                           matrix_pair(f2)), device),
-        design_bytes=nbytes + 2 * 2 * pp * b_out * a * 4))
+        lambda: dft_kernel.prdft2(space, matrix_pair(f1),
+                                  matrix_pair(f2)),
+        design_bytes=nbytes + 2 * 2 * pp * b_out * a * e))
 
-    recs.append(zdft_compress_record("r2c", plan, fgot, device))
+    recs.append(zdft_compress_record(path, plan, fgot, device))
     print_records(recs)
     return recs
 
 
-def r2c_odd_shapes_phase(device):
+def r2c_odd_shapes_phase(device, dtype=torch.float32):
     """The R2C kernels at shapes the path does not reach: the real stages
     of ``prdft2`` / ``pdft2_cr`` and the single-stage ``prdft_last`` /
     ``pirdft_last`` in the real FFT form at even lengths of every kind
@@ -1086,11 +1191,11 @@ def r2c_odd_shapes_phase(device):
     on_card = device.type == "cuda"
 
     def rand(*shape):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                                device=device)
 
     def mats(m):
-        return dft.device_mats(m, device)
+        return dft.device_mats(m, device, dtype)
 
     def counted(wrapper, want, name, fn):
         """``fn()``, failing on the card unless ``wrapper`` launched
@@ -1118,8 +1223,10 @@ def r2c_odd_shapes_phase(device):
         xf = nx // 2 + 1
         for win in (None,) + windows:
             scale = 1.0 if win is None else 1.0 / nx
-            spec_r2c = dft.device_r2c(nx, scale, cols=win, device=device)
-            spec_c2r = dft.device_c2r(nx, scale, rows=win, device=device)
+            spec_r2c = dft.device_r2c(nx, scale, cols=win, device=device,
+                                      dtype=dtype)
+            spec_c2r = dft.device_c2r(nx, scale, rows=win, device=device,
+                                      dtype=dtype)
             form = dft_kernel.stage_form(spec_r2c)
             if form != ("rfft" if nx % 2 == 0 and nx != 14 else "matrix"):
                 fail(f"real stage nx={nx}: form {form}")
@@ -1129,8 +1236,8 @@ def r2c_odd_shapes_phase(device):
             bins = [(win[0] + j) % xf if win else j for j in range(k)]
             dc_nyq = [j for j, q in enumerate(bins)
                       if q == 0 or (nx % 2 == 0 and q == nx // 2)]
-            yf = dft.device_c2c(ny, dft.FORWARD, device=device)
-            yb = dft.device_c2c(ny, dft.BACKWARD, device=device)
+            yf = dft.device_c2c(ny, dft.FORWARD, device=device, dtype=dtype)
+            yb = dft.device_c2c(ny, dft.BACKWARD, device=device, dtype=dtype)
             for kind, r2c, c2r, f in (
                     ("spec", spec_r2c, spec_c2r, form),
                     ("plain", matrix_pair(spec_r2c), matrix_pair(spec_c2r),
@@ -1173,11 +1280,12 @@ def r2c_odd_shapes_phase(device):
     for nx, planes, plane_rows, win in ((256, 3, 700, None),
                                         (24, 5, 129, (3, 7)),
                                         (250, 2, 64, (100, 26))):
-        r2c = dft.device_r2c(nx, cols=win, device=device)
-        c2r = dft.device_c2r(nx, rows=win, device=device)
+        r2c = dft.device_r2c(nx, cols=win, device=device, dtype=dtype)
+        c2r = dft.device_c2r(nx, rows=win, device=device, dtype=dtype)
         k = r2c[0].shape[1]
         x = rand(planes, plane_rows, nx)
-        out = tuple(torch.empty((planes, k, plane_rows), device=device)
+        out = tuple(torch.empty((planes, k, plane_rows), dtype=dtype,
+                                device=device)
                     for _ in range(2))
         if on_card:
             dft_kernel._stage("rc", (x,), r2c, out, plane_rows=plane_rows)
@@ -1187,7 +1295,8 @@ def r2c_odd_shapes_phase(device):
                 out, tuple(t.transpose(1, 2)
                            for t in dft.prdft_last(x, r2c)))
         y = (rand(planes, plane_rows, k), rand(planes, plane_rows, k))
-        real = torch.empty((planes, nx, plane_rows), device=device)
+        real = torch.empty((planes, nx, plane_rows), dtype=dtype,
+                           device=device)
         if on_card:
             dft_kernel._stage("cr", y, c2r, (real,), plane_rows=plane_rows)
         else:
@@ -1224,7 +1333,7 @@ def r2c_odd_shapes_phase(device):
                             vals, slot_src, zb, dz, pair, zid))
                 cases += 1
     print(f"odd R2C shapes: {cases} kernel-vs-plain cases within "
-          f"{KERNEL_TOL}", flush=True)
+          f"{kernel_tol(dtype)[1]} ({dtype})", flush=True)
 
 
 # -- the two-kernel route, batched execution, the round trip -----------------
@@ -1281,14 +1390,15 @@ def two_kernel_kernel_phase(path, plan, values, device):
                         gather_kernel.decompress_plain(v, ss, dz, pair))
     vpad = torch.cat([torch.view_as_complex(
         (v.t() if pair else v).contiguous()),
-        torch.zeros(1, dtype=torch.complex64, device=device)])
+        torch.zeros(1, dtype=complex_of(v), device=device)])
     slot64 = ss.long()
+    e = v.element_size()
     recs.append(gather_record(
         path, "gather_dec", err,
         lambda: gather_kernel.decompress(v, ss, dz, pair),
         lambda: gather_kernel.decompress_plain(v, ss, dz, pair),
         lambda: torch.index_select(vpad, 0, slot64),
-        nv * 8 + rows * dz * 4 + rows * dz * 8, device))
+        nv * 2 * e + rows * dz * 4 + rows * dz * 2 * e))
 
     zid = plan._zero_stick
     if zid >= 0:
@@ -1304,14 +1414,13 @@ def two_kernel_kernel_phase(path, plan, values, device):
     recs.append(kernel_record(
         path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165",
         max(err_b, err_f),
-        timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
-        timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
-        timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
-        4 * rows * dz * 4 + table_bytes(zb, dft_kernel.stage_form(zb)),
+        lambda: dft_kernel.pdft_last(sr, si, zb),
+        lambda: dft.pdft_last(sr, si, zb),
+        lambda: torch.fft.ifft(sc, norm="forward"),
+        4 * rows * dz * e + table_bytes(zb, dft_kernel.stage_form(zb)),
         fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
         dft_kernel.stage_form(zb),
-        timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
-                 device)))
+        lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb))))
 
     vi = plan._value_indices
     got = gather_kernel.compress(*fy, vi, pair)
@@ -1323,21 +1432,15 @@ def two_kernel_kernel_phase(path, plan, values, device):
         path, "gather_cmp", err,
         lambda: gather_kernel.compress(*fy, vi, pair),
         lambda: gather_kernel.compress_plain(*fy, vi, pair),
-        lambda: fc.view(-1)[vi64], nv * 4 + 2 * nv * 8, device))
+        lambda: fc.view(-1)[vi64], nv * 4 + 2 * nv * 2 * e))
     print_records(recs)
     return recs
 
 
-def gather_record(path, name, err, kernel, plain, library, nbytes, device):
-    """A gather record: the kernel, its plain version and the library call
-    timed one call at a time (:func:`timed_ms`, as every record), and the
-    kernel and the library call on the device alone (:func:`graph_ms`:
-    ``device_ms``, ``library_device_ms``)."""
-    return kernel_record(
-        path, name, GATHER_SRC, GATHER_REPLACES, err,
-        timed_ms(kernel, device), timed_ms(plain, device),
-        timed_ms(library, device), nbytes, 0.0, 0.0,
-        device_ms=(graph_ms(kernel, device), graph_ms(library, device)))
+def gather_record(path, name, err, kernel, plain, library, nbytes):
+    """A gather record (:func:`kernel_record`: no arithmetic, no form)."""
+    return kernel_record(path, name, GATHER_SRC, GATHER_REPLACES, err,
+                         kernel, plain, library, nbytes, 0.0, 0.0)
 
 
 def batched_gather_phase(path, plan, values, device, batch=BATCH):
@@ -1369,21 +1472,22 @@ def batched_gather_phase(path, plan, values, device, batch=BATCH):
                       (gk.compress(fr[b], fi[b], vi, pair),), (out[b],))
     vrows = (vb.transpose(1, 2) if pair else vb).contiguous()
     vpad = torch.cat([torch.view_as_complex(vrows), torch.zeros(
-        (batch, 1), dtype=torch.complex64, device=device)], dim=1)
+        (batch, 1), dtype=complex_of(vb), device=device)], dim=1)
     slot64, vi64 = ss.long(), vi.long()
     fc = torch.complex(fr, fi).view(batch, -1)
+    e = vb.element_size()
     recs = [gather_record(
         path, "gather_dec_batched", err_d,
         lambda: gk.decompress(vb, ss, dz, pair),
         lambda: gk.decompress_plain(vb, ss, dz, pair),
         lambda: torch.index_select(vpad, 1, slot64),
-        batch * (nv * 8 + rows * dz * 8) + rows * dz * 4, device),
+        batch * (nv * 2 * e + rows * dz * 2 * e) + rows * dz * 4),
         gather_record(
         path, "gather_cmp_batched", err_c,
         lambda: gk.compress(fr, fi, vi, pair),
         lambda: gk.compress_plain(fr, fi, vi, pair),
         lambda: torch.index_select(fc, 1, vi64),
-        nv * 4 + batch * 2 * nv * 8, device)]
+        nv * 4 + batch * 2 * nv * 2 * e)]
     print_records(recs)
     for r in recs:
         print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
@@ -1436,22 +1540,22 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
                  f"differs from its single launch")
     vrows = (vb.transpose(1, 2) if pair else vb).contiguous()
     vpad = torch.cat([torch.view_as_complex(vrows), torch.zeros(
-        (batch, 1), dtype=torch.complex64, device=device)], dim=1)
+        (batch, 1), dtype=complex_of(vb), device=device)], dim=1)
     slot64 = ss.long()
     form = fused_kernel.z_form(mz, dz)
+    e = vb.element_size()
     recs.append(kernel_record(
         path, "decompress_zdft_batched", Z_SRC[form], DEC_REPLACES, err,
-        timed_ms(lambda: fused_kernel.decompress_zdft(vb, ss, mz, dz, pair,
-                                                      zs), device),
-        timed_ms(lambda: fused_kernel.decompress_zdft_plain(
-            vb, ss, mz, dz, pair, zs), device),
-        timed_ms(lambda: torch.fft.ifft(vpad[:, slot64].view(
-            batch, rows, dz), norm="forward"), device),
-        batch * (nv * 8 + 2 * rows * dz * 4) + rows * dz * 4
+        lambda: fused_kernel.decompress_zdft(vb, ss, mz, dz, pair, zs),
+        lambda: fused_kernel.decompress_zdft_plain(
+            vb, ss, mz, dz, pair, zs),
+        lambda: torch.fft.ifft(vpad[:, slot64].view(
+            batch, rows, dz), norm="forward"),
+        batch * (nv * 2 * e + 2 * rows * dz * e) + rows * dz * 4
         + table_bytes(mz, form),
         batch * fft_flops(rows, dz), batch * FLOP_PER_CMAC * rows * dz * dz,
-        form, timed_ms(lambda: fused_kernel.decompress_zdft(
-            vb, ss, matrix_pair(mz), dz, pair, zs), device)))
+        form, lambda: fused_kernel.decompress_zdft(
+            vb, ss, matrix_pair(mz), dz, pair, zs)))
 
     fr, fi = got[0][:, :s].contiguous(), got[1][:, :s].contiguous()
     mf, csr = plan._mats["z_fs"], plan._csr
@@ -1469,17 +1573,14 @@ def batched_kernel_phase(path, plan, values, device, batch=BATCH):
     form = fused_kernel.z_form(mf, dz)
     recs.append(kernel_record(
         path, "zdft_compress_batched", Z_SRC[form], CMP_REPLACES, err,
-        timed_ms(lambda: fused_kernel.zdft_compress(fr, fi, mf, csr, pair),
-                 device),
-        timed_ms(lambda: fused_kernel.zdft_compress_plain(fr, fi, mf, csr,
-                                                          pair), device),
-        timed_ms(lambda: torch.fft.fft(fc).view(batch, -1)[:, vi64] * gs,
-                 device),
-        batch * (2 * s * dz * 4 + nv * 8) + (s + 1 + 2 * nv) * 4
+        lambda: fused_kernel.zdft_compress(fr, fi, mf, csr, pair),
+        lambda: fused_kernel.zdft_compress_plain(fr, fi, mf, csr, pair),
+        lambda: torch.fft.fft(fc).view(batch, -1)[:, vi64] * gs,
+        batch * (2 * s * dz * e + nv * 2 * e) + (s + 1 + 2 * nv) * 4
         + table_bytes(mf, form),
         batch * fft_flops(s, dz), batch * FLOP_PER_CMAC * s * dz * dz,
-        form, timed_ms(lambda: fused_kernel.zdft_compress(
-            fr, fi, matrix_pair(mf), csr, pair), device)))
+        form, lambda: fused_kernel.zdft_compress(
+            fr, fi, matrix_pair(mf), csr, pair)))
     print_records(recs)
     for r in recs:
         print(f"kernel {r['path']} {r['name']}: {r['ms'] / batch:.4f} ms "
@@ -1583,7 +1684,7 @@ def sweep_phase(sp, path, plan, values, device, out):
         del vb
 
 
-def new_odd_shapes_phase(device):
+def new_odd_shapes_phase(device, dtype=torch.float32):
     """The gather, ``pdft_last`` and the batched z kernels at shapes the
     paths do not reach: B = 3, both value layouts, odd dim_z, an empty
     stick, duplicate values, the sentinel, invalid and out-of-range
@@ -1594,11 +1695,11 @@ def new_odd_shapes_phase(device):
     rng = np.random.default_rng(SEED + 4)
 
     def rand(*shape):
-        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
                                device=device)
 
     def mats(m):
-        return dft.device_mats(m, device)
+        return dft.device_mats(m, device, dtype)
 
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
@@ -1633,13 +1734,15 @@ def new_odd_shapes_phase(device):
     src = (rand(3, 1000), rand(3, 1000))
     idx = i32(rng.integers(-5, 1010, 4000))
     valid = torch.as_tensor(rng.random(4000) < 0.7, device=device)
-    got = tuple(torch.empty((3, 4000), device=device) for _ in range(2))
-    want = tuple(torch.empty((3, 4000), device=device) for _ in range(2))
+    got = tuple(torch.empty((3, 4000), dtype=dtype, device=device)
+                for _ in range(2))
+    want = tuple(torch.empty((3, 4000), dtype=dtype, device=device)
+                 for _ in range(2))
     gather_kernel.gather(src, idx, got, valid)
     gather_kernel.gather_plain(src, idx, want, valid)
     compare_exact("gather with a valid mask and out-of-range indices", got,
                   want)
-    cases += 1 + gather_odd_cases(device, rng)
+    cases += 1 + gather_odd_cases(device, rng, dtype)
 
     for lead, k, n_out, m in (
             ((37,), 12, 12, dft.c2c_mats(12, dft.BACKWARD)),
@@ -1698,11 +1801,11 @@ def new_odd_shapes_phase(device):
                              f"single launch")
                 cases += 2
     print(f"odd shapes of the new kernels: {cases} kernel-vs-plain cases "
-          f"(the gather exact, the rest within {KERNEL_TOL}; batched bands "
-          f"equal to single launches)", flush=True)
+          f"(the gather exact, the rest within {kernel_tol(dtype)[1]} "
+          f"({dtype}); batched bands equal to single launches)", flush=True)
 
 
-def gather_odd_cases(device, rng) -> int:
+def gather_odd_cases(device, rng, real=torch.float32) -> int:
     """The gather's scalar paths and shard axis against its plain version,
     exact: num_out not a multiple of 4 (a ragged last group), every
     operand one float (or index, or flag) off its alignment, interleaved
@@ -1711,7 +1814,7 @@ def gather_odd_cases(device, rng) -> int:
     out-of-range indices. Returns the number of cases."""
     from spfft_tpu_torch.ops import gather_kernel as gk
 
-    def buf(shape, off, dtype=torch.float32, fill=None):
+    def buf(shape, off, dtype=real, fill=None):
         k = int(np.prod(shape))
         if fill is None:
             t = torch.as_tensor(rng.standard_normal(k + 4), dtype=dtype,
@@ -1821,26 +1924,30 @@ def dist_plan(sp, n, trip, values, device, r2c=False):
     t0 = time.perf_counter()
     parts = round_robin_stick_partition(trip, (n, n, n), _S)
     kind = sp.TransformType.R2C if r2c else sp.TransformType.C2C
+    precision = "double" if values.dtype == torch.float64 else "single"
     plan = sp.make_distributed_plan(kind, n, n, n, parts,
                                     even_plane_split(n, _S),
-                                    mesh=sp.make_mesh(_S, device))
+                                    mesh=sp.make_mesh(_S, device),
+                                    precision=precision)
 
     def storage(t):
         return torch.as_tensor(np.where(t < 0, t + n, t).astype(np.int64),
                                device=device)
 
-    cube = torch.zeros((n, n, n), dtype=torch.complex64, device=device)
+    cube = torch.zeros((n, n, n), dtype=complex_of(values), device=device)
     st = storage(trip)
     cube[st[:, 2], st[:, 1], st[:, 0]] = torch.view_as_complex(
         values.contiguous())
     dp = plan.dist_plan
-    stacked = torch.zeros((_S, dp.max_values, 2), device=device)
+    stacked = torch.zeros((_S, dp.max_values, 2), dtype=values.dtype,
+                          device=device)
     for r, part in enumerate(parts):
         sr = storage(part)
         stacked[r, :len(part)] = torch.view_as_real(
             cube[sr[:, 2], sr[:, 1], sr[:, 0]])
     del cube
-    print(f"plan: distributed {'R2C' if r2c else 'C2C'} {n}^3, {_S} shards "
+    print(f"plan: distributed {'R2C' if r2c else 'C2C'} {n}^3, {precision}, "
+          f"{_S} shards "
           f"on one card: sticks per shard "
           f"{[p.num_sticks for p in dp.shard_plans]}, planes "
           f"{list(dp.num_planes)}, max_values {dp.max_values}, split_x="
@@ -1849,7 +1956,7 @@ def dist_plan(sp, n, trip, values, device, r2c=False):
     return plan, stacked
 
 
-def dist_kernel_phase(plan, stacked, device):
+def dist_kernel_phase(plan, stacked, device, path="dist_c2c"):
     """``pdft2_swapped`` at the distributed C2C path's shapes, both
     directions, against its plain version (``ops.dft.cdft2_xy``)."""
     from spfft_tpu_torch.ops import dft, dft_kernel
@@ -1860,40 +1967,41 @@ def dist_kernel_phase(plan, stacked, device):
     m = plan._mats
     xb, yb, xf, yf = m["x_b"], m["y_b"], m["x_f"], m["y_f"]
     got = dft_kernel.pdft2_swapped(gr, gi, xb, yb)
-    err_b = compare("dist c2c pdft2_swapped backward", got,
+    err_b = compare(f"{path} pdft2_swapped backward", got,
                     dft.cdft2_xy(gr, gi, xb, yb))
     fgot = dft_kernel.pdft2_swapped(*got, xf, yf)
-    err_f = compare("dist c2c pdft2_swapped forward", fgot,
+    err_f = compare(f"{path} pdft2_swapped forward", fgot,
                     dft.cdft2_xy(*got, xf, yf))
-    two = compare("dist c2c pdft2_swapped backward, two-launch FFT form",
+    two = compare(f"{path} pdft2_swapped backward, two-launch FFT form",
                   fft_two_launch((gr, gi), xb, yb, swap_out=True), got)
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
     b_out, a_out = xb[0].shape[1], yb[0].shape[1]
     forms = dft_kernel.plane_forms(xb, yb, a)
     form = "+".join(forms)
+    e = gr.element_size()
     rec = kernel_record(
-        "dist_c2c", "pdft2_swapped", FFT_SRC,
+        path, "pdft2_swapped", FFT_SRC,
         "spfft_tpu/ops/dft_kernel.py:277", max(err_b, err_f),
-        timed_ms(lambda: dft_kernel.pdft2_swapped(gr, gi, xb, yb), device),
-        timed_ms(lambda: dft.cdft2_xy(gr, gi, xb, yb), device),
-        timed_ms(lambda: torch.fft.ifft2(gc, norm="forward"), device)
+        lambda: dft_kernel.pdft2_swapped(gr, gi, xb, yb),
+        lambda: dft.cdft2_xy(gr, gi, xb, yb),
+        (lambda: torch.fft.ifft2(gc, norm="forward"))
         if (b_out, a_out) == (b, a) else None,
-        2 * pp * a * b * 4 + 2 * pp * a_out * b_out * 4
+        2 * pp * a * b * e + 2 * pp * a_out * b_out * e
         + plane_table_bytes(xb, yb, forms),
         fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
         FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
-        timed_ms(lambda: dft_kernel.pdft2_swapped(
-            gr, gi, matrix_pair(xb), matrix_pair(yb)), device))
+        lambda: dft_kernel.pdft2_swapped(
+            gr, gi, matrix_pair(xb), matrix_pair(yb)))
     print_records([rec])
     ms2 = timed_ms(lambda: fft_two_launch((gr, gi), xb, yb, True), device)
-    print(f"dist c2c pdft2_swapped backward in the two-launch FFT form: "
+    print(f"{path} pdft2_swapped backward in the two-launch FFT form: "
           f"{ms2:.4f} ms (reference; the path takes form {form}), "
           f"max_abs_err against the {form} form {two[0]:.3e}", flush=True)
     return [rec]
 
 
-def dist_odd_shapes_phase(device):
+def dist_odd_shapes_phase(device, dtype=torch.float32):
     """``pdft2_swapped`` at shapes the path does not reach (P in {1, 3},
     A != B, rectangular and windowed matrices, a ragged 129-row K, axes
     above 256) against its plain version."""
@@ -1913,14 +2021,15 @@ def dist_odd_shapes_phase(device):
               dft.sub_cols_mats(9, dft.FORWARD, (0, 1, 2, 3))))
     for (pp, a, b), m1, m2 in cases:
         xr, xi = (torch.as_tensor(rng.standard_normal((pp, a, b)),
-                                  dtype=torch.float32, device=device)
+                                  dtype=dtype, device=device)
                   for _ in range(2))
-        m1, m2 = dft.device_mats(m1, device), dft.device_mats(m2, device)
+        m1 = dft.device_mats(m1, device, dtype)
+        m2 = dft.device_mats(m2, device, dtype)
         compare(f"pdft2_swapped {(pp, a, b)}",
                 dft_kernel.pdft2_swapped(xr, xi, m1, m2),
                 dft.cdft2_xy(xr, xi, m1, m2))
     print(f"odd shapes of pdft2_swapped: {len(cases)} kernel-vs-plain cases "
-          f"within {KERNEL_TOL}", flush=True)
+          f"within {kernel_tol(dtype)[1]} ({dtype})", flush=True)
 
 
 def dist_gather_dec(plan, v, f):
@@ -1930,7 +2039,7 @@ def dist_gather_dec(plan, v, f):
     sticks, each ``(B, S, max_sticks, dim_z)``."""
     dp = plan.dist_plan
     sr = torch.empty((v.shape[1], dp.num_shards, dp.max_sticks, dp.dim_z),
-                     device=v.device)
+                     dtype=v.dtype, device=v.device)
     si = torch.empty_like(sr)
     f((v[..., 0], v[..., 1]), plan._t_slot_src,
       tuple(t.view(t.shape[0], t.shape[1], -1).transpose(0, 1)
@@ -1945,7 +2054,7 @@ def dist_gather_cmp(plan, sticks, f):
     dp = plan.dist_plan
     b = sticks[0].shape[0]
     out = torch.empty((dp.num_shards, b, dp.max_values, 2),
-                      device=sticks[0].device)
+                      dtype=sticks[0].dtype, device=sticks[0].device)
     f(tuple(t.reshape(b, dp.num_shards, -1).transpose(0, 1)
             for t in sticks), plan._t_vi, (out[..., 0], out[..., 1]))
     return out
@@ -1987,8 +2096,9 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     zids = plan._zero_sticks
     slot64 = [plan._t_slot_src[r].long() for r in range(S)]
     vpad = [torch.cat([torch.view_as_complex(v[r, 0].contiguous()),
-                       torch.zeros(1, dtype=torch.complex64, device=device)])
+                       torch.zeros(1, dtype=complex_of(v), device=device)])
             for r in range(S)]
+    e = v.element_size()
     vi64 = [torch.as_tensor(p.value_indices.astype(np.int64), device=device)
             for p in dp.shard_plans]
     gs = 1.0 / plan.global_size
@@ -2011,18 +2121,17 @@ def dist_z_kernel_phase(path, plan, stacked, device):
         form = fk.z_form(zb, dz)
         recs.append(kernel_record(
             path, "decompress_zdft", Z_SRC[form], DEC_REPLACES, err,
-            timed_ms(each(dec), device),
-            timed_ms(each(lambda r: dec(r, fk.decompress_zdft_plain)),
-                     device),
-            timed_ms(each(lambda r: torch.fft.ifft(
-                vpad[r][slot64[r]].view(ms, dz), norm="forward")), device),
-            sum(nv * 8 for nv in nvs) + S * (ms * dz * 4
-                                             + table_bytes(zb, form)
-                                             + 2 * ms * dz * 4),
+            each(dec),
+            each(lambda r: dec(r, fk.decompress_zdft_plain)),
+            each(lambda r: torch.fft.ifft(
+                vpad[r][slot64[r]].view(ms, dz), norm="forward")),
+            sum(nv * 2 * e for nv in nvs) + S * (ms * dz * 4
+                                                 + table_bytes(zb, form)
+                                                 + 2 * ms * dz * e),
             fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz, form,
-            timed_ms(each(lambda r: fk.decompress_zdft(
+            each(lambda r: fk.decompress_zdft(
                 v[r], plan._t_slot_src[r], matrix_pair(zb), dz, False,
-                zids[r])), device)))
+                zids[r]))))
         err = max(compare(f"{path} zdft_compress shard {r}", (cmp(r),),
                           (cmp(r, lambda *a: fk.zdft_compress_plain(
                               *a, False)),))
@@ -2031,17 +2140,16 @@ def dist_z_kernel_phase(path, plan, stacked, device):
         form = fk.z_form(zfs, dz)
         recs.append(kernel_record(
             path, "zdft_compress", Z_SRC[form], CMP_REPLACES, err,
-            timed_ms(each(cmp), device),
-            timed_ms(each(lambda r: cmp(r, lambda *a: fk.zdft_compress_plain(
-                *a, False))), device),
-            timed_ms(each(lambda r: torch.fft.fft(fc[r]).view(-1)[vi64[r]]
-                          * gs), device),
-            sum(2 * ms * dz * 4 + (ms + 1 + 2 * nv) * 4
-                + table_bytes(zfs, form) + nv * 8 for nv in nvs),
+            each(cmp),
+            each(lambda r: cmp(r, lambda *a: fk.zdft_compress_plain(
+                *a, False))),
+            each(lambda r: torch.fft.fft(fc[r]).view(-1)[vi64[r]]
+                 * gs),
+            sum(2 * ms * dz * e + (ms + 1 + 2 * nv) * 4
+                + table_bytes(zfs, form) + nv * 2 * e for nv in nvs),
             fft_flops(S * ms, dz), FLOP_PER_CMAC * S * ms * dz * dz, form,
-            timed_ms(each(lambda r: fk.zdft_compress(
-                fsr[:, r], fsi[:, r], matrix_pair(zfs), plan._t_csr[r])),
-                device)))
+            each(lambda r: fk.zdft_compress(
+                fsr[:, r], fsi[:, r], matrix_pair(zfs), plan._t_csr[r]))))
         print(f"{path}: decompress_zdft zero sticks per shard {zids}, "
               f"values per shard {nvs} (max_values {dp.max_values}), "
               f"sticks per shard "
@@ -2059,15 +2167,14 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     # zero row each (each shard's slot map offset to its rows)
     mv = dp.max_values
     vflat = torch.cat([torch.view_as_complex(v[:, 0].contiguous()),
-                       torch.zeros((S, 1), dtype=torch.complex64,
+                       torch.zeros((S, 1), dtype=complex_of(v),
                                    device=device)], 1).view(-1)
     dec_rows = (plan._t_slot_src.long() + torch.arange(
         S, device=device)[:, None] * (mv + 1)).view(-1)
     recs.append(gather_record(
         path, "gather_dec", err, gdec, lambda: gdec(gk.gather_plain),
         lambda: torch.index_select(vflat, 0, dec_rows),
-        sum(nv * 8 for nv in nvs) + S * (ms * dz * 4 + ms * dz * 8),
-        device))
+        sum(nv * 2 * e for nv in nvs) + S * (ms * dz * 4 + ms * dz * 2 * e)))
     sr, si = gdec()
     err_b = compare(f"{path} pdft_last backward", dft_kernel.pdft_last(
         sr, si, zb), dft.pdft_last(sr, si, zb))
@@ -2079,14 +2186,13 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     recs.append(kernel_record(
         path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165",
         max(err_b, err_f),
-        timed_ms(lambda: dft_kernel.pdft_last(sr, si, zb), device),
-        timed_ms(lambda: dft.pdft_last(sr, si, zb), device),
-        timed_ms(lambda: torch.fft.ifft(sc, norm="forward"), device),
-        4 * rows * dz * 4 + table_bytes(zb, dft_kernel.stage_form(zb)),
+        lambda: dft_kernel.pdft_last(sr, si, zb),
+        lambda: dft.pdft_last(sr, si, zb),
+        lambda: torch.fft.ifft(sc, norm="forward"),
+        4 * rows * dz * e + table_bytes(zb, dft_kernel.stage_form(zb)),
         fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz,
         dft_kernel.stage_form(zb),
-        timed_ms(lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb)),
-                 device)))
+        lambda: dft_kernel.pdft_last(sr, si, matrix_pair(zb))))
 
     def gcmp(f=gk.gather):
         return dist_gather_cmp(plan, fy, f)
@@ -2096,14 +2202,13 @@ def dist_z_kernel_phase(path, plan, stacked, device):
                         (gcmp(gk.gather_plain),))
     # the library call: one indexed read of every shard's slots and a zero
     fc = torch.cat([torch.complex(*fy)[0].reshape(-1),
-                    torch.zeros(1, dtype=torch.complex64, device=device)])
+                    torch.zeros(1, dtype=complex_of(v), device=device)])
     vi = plan._t_vi.long()
     cmp_rows = torch.where(vi < ms * dz, vi + torch.arange(
         S, device=device)[:, None] * (ms * dz), S * ms * dz).view(-1)
     recs.append(gather_record(
         path, "gather_cmp", err, gcmp, lambda: gcmp(gk.gather_plain),
-        lambda: fc[cmp_rows], sum(nv * 4 + 2 * nv * 8 for nv in nvs),
-        device))
+        lambda: fc[cmp_rows], sum(nv * 4 + 2 * nv * 2 * e for nv in nvs)))
     print(f"{path}: values per shard {nvs} (max_values {mv}), sticks per "
           f"shard {[p.num_sticks for p in dp.shard_plans]} (max_sticks "
           f"{ms}); each gather record is one launch over all {S} shards",
@@ -2112,7 +2217,7 @@ def dist_z_kernel_phase(path, plan, stacked, device):
     return recs
 
 
-def dist_odd_shards_phase(sp, device):
+def dist_odd_shards_phase(sp, device, precision="single"):
     """Distributed plans the 256^3 paths do not reach, on the card against
     the same plans on the CPU (where every wrapper runs its plain
     version): 5 shards with uneven sticks and slabs, one shard with no
@@ -2144,13 +2249,14 @@ def dist_odd_shards_phase(sp, device):
                                if rng.random() < 0.7], np.int64).reshape(-1, 3)
                      for r in range(len(weights))]
             vals = [(rng.standard_normal(len(t)) + 1j * rng.standard_normal(
-                len(t))).astype(np.complex64) for t in parts]
+                len(t))).astype(np.complex64 if precision == "single"
+                                else np.complex128) for t in parts]
             for fused in (True, False):
                 got, want = (sp.make_distributed_plan(
-                    kind, *dims, parts, planes, device=d, fused=fused)
-                    for d in (device, cpu))
-                name = (f"dist odd shards {kind.name} dim_z={nz} "
-                        f"fused={fused}")
+                    kind, *dims, parts, planes, device=d, fused=fused,
+                    precision=precision) for d in (device, cpu))
+                name = (f"dist odd shards {kind.name} {precision} "
+                        f"dim_z={nz} fused={fused}")
                 for w in (fk.decompress_zdft, fk.zdft_compress):
                     w.form_launches = dict.fromkeys(w.form_launches, 0)
                 b = got.backward(vals)
@@ -2174,7 +2280,7 @@ def dist_odd_shards_phase(sp, device):
                     dp = got.dist_plan
                     sticks = tuple(torch.as_tensor(rng.standard_normal(
                         (1, dp.num_shards, dp.max_sticks, dp.dim_z)),
-                        dtype=torch.float32, device=device)
+                        dtype=got.real_dtype, device=device)
                         for _ in range(2))
                     compare_exact(f"{name} gather decompress",
                                   dist_gather_dec(got, v, gk.gather),
@@ -2185,10 +2291,12 @@ def dist_odd_shards_phase(sp, device):
                                   (dist_gather_cmp(got, sticks,
                                                    gk.gather_plain),))
                 cases += 1
+    tol = kernel_tol(torch.float64 if precision == "double"
+                     else torch.float32)[1]
     print(f"dist odd shards: {cases} plans (values per shard "
           f"{[len(t) for t in parts]}, planes {planes}; the fused z kernels "
           f"in the matrix form at dim_z 13, the FFT form at 12) on the card "
-          f"within {KERNEL_TOL} of the CPU's plain versions", flush=True)
+          f"within {tol} of the CPU's plain versions", flush=True)
 
 
 def dist_y_kernel_record(path, plan, stacked, device):
@@ -2209,16 +2317,16 @@ def dist_y_kernel_record(path, plan, stacked, device):
               for d, m in (("backward", yb), ("forward", yf)))
     xc = torch.complex(xr, xi)
     rows = xr.shape[0] * xr.shape[1]
+    e = xr.element_size()
     rec = kernel_record(
         path, "pdft_last", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:165", err,
-        timed_ms(lambda: dft_kernel.pdft_last(xr, xi, yb), device),
-        timed_ms(lambda: dft.pdft_last(xr, xi, yb), device),
-        timed_ms(lambda: torch.fft.ifft(xc, norm="forward"), device),
-        4 * rows * y * 4 + table_bytes(yb, dft_kernel.stage_form(yb)),
+        lambda: dft_kernel.pdft_last(xr, xi, yb),
+        lambda: dft.pdft_last(xr, xi, yb),
+        lambda: torch.fft.ifft(xc, norm="forward"),
+        4 * rows * y * e + table_bytes(yb, dft_kernel.stage_form(yb)),
         fft_flops(rows, y), FLOP_PER_CMAC * rows * y * y,
         dft_kernel.stage_form(yb),
-        timed_ms(lambda: dft_kernel.pdft_last(xr, xi, matrix_pair(yb)),
-                 device))
+        lambda: dft_kernel.pdft_last(xr, xi, matrix_pair(yb)))
     print_records([rec])
     return [rec]
 
@@ -2248,6 +2356,7 @@ def dist_x_kernel_records(path, plan, stacked, device):
                     dft_kernel.prdft_last(space, xf),
                     dft.prdft_last(space, xf))
     yc = torch.complex(yr, yi)
+    e = yr.element_size()
     recs = []
     for name, err, run, plain, lib, m in (
             ("pirdft_last", err_b,
@@ -2260,11 +2369,11 @@ def dist_x_kernel_records(path, plan, stacked, device):
         form = dft_kernel.stage_form(m)
         recs.append(kernel_record(
             path, name, RFFT_SRC, REAL_REPLACES, err,
-            timed_ms(lambda: run(m), device), timed_ms(plain, device),
-            timed_ms(lib, device) if full else None,
-            rows * nx * 4 + 2 * rows * w * 4 + table_bytes(m, form),
+            lambda: run(m), plain,
+            lib if full else None,
+            rows * nx * e + 2 * rows * w * e + table_bytes(m, form),
             rfft_flops(rows, nx), FLOP_PER_RMAC * rows * nx * w, form,
-            timed_ms(lambda: run(matrix_pair(m)), device)))
+            lambda: run(matrix_pair(m))))
     print_records(recs)
     print(f"{path} x stage: the FP32 torch.matmul (cuBLAS) products it ran "
           f"before, {recs[0]['plain_ms']:.4f} ms backward and "
@@ -2273,8 +2382,10 @@ def dist_x_kernel_records(path, plan, stacked, device):
     # what the odd width of the half spectrum costs the real FFT form: the
     # same rows with one bin fewer (w - 1, a multiple of 4 at 256^3)
     if w > 1:
-        nb = dft.device_c2r(nx, rows=(0, w - 1), device=device)
-        nf = dft.device_r2c(nx, cols=(0, w - 1), device=device)
+        nb = dft.device_c2r(nx, rows=(0, w - 1), device=device,
+                            dtype=yr.dtype)
+        nf = dft.device_r2c(nx, cols=(0, w - 1), device=device,
+                            dtype=yr.dtype)
         nr, ni = yr[..., :w - 1].contiguous(), yi[..., :w - 1].contiguous()
         ms_b = timed_ms(lambda: dft_kernel.pirdft_last(nr, ni, nb), device)
         ms_f = timed_ms(lambda: dft_kernel.prdft_last(space, nf), device)
@@ -2375,10 +2486,12 @@ def dist_pair_phase(sp, path, plan, stacked, local, local_values,
     """The public distributed backward + forward(FULL) pair, counted
     (``want``) and checked: the backward, its slabs stacked in z order,
     within ``predicted_rel_error`` of the complex128 oracle on the card
-    and within ``KERNEL_TOL`` of the local plan's backward of the same
-    values; the round trip within 1e-6; a second backward identical to
-    the first; the median pair time beside the local pair's, timed in
-    turns (local, distributed, distributed, local)."""
+    and, of the local plan's backward of the same values, within
+    ``KERNEL_TOL`` (single) or twice ``predicted_rel_error`` relative l2
+    (double); the round trip within :func:`roundtrip_tol`; a second
+    backward identical to the first; the median pair time beside the
+    local pair's, timed in turns (local, distributed, distributed,
+    local)."""
     dp = plan.dist_plan
     if len(set(dp.num_planes)) != 1:
         fail(f"{path}: uneven slabs {dp.num_planes}")
@@ -2392,26 +2505,38 @@ def dist_pair_phase(sp, path, plan, stacked, local, local_values,
     shape = (_S, dp.max_planes, dp.dim_y, dp.dim_x)
     if not dp.hermitian:
         shape += (2,)
-    if tuple(space.shape) != shape or space.dtype != torch.float32 \
+    if tuple(space.shape) != shape or space.dtype != plan.real_dtype \
+            or out.dtype != plan.real_dtype \
             or not torch.isfinite(space).all():
         fail(f"{path} backward output malformed: {tuple(space.shape)} "
              f"{space.dtype}")
     full = space.reshape((dp.dim_z,) + shape[2:])
     rel = oracle_rel(full)
-    pred = sp.predicted_rel_error("single", dp.dim_z, True)
+    pred = sp.predicted_rel_error(plan.precision, dp.dim_z, True)
     print(f"{path} backward vs complex128 oracle: rel_l2={rel:.3e} "
           f"(predicted_rel_error={pred:.3e})", flush=True)
     if not rel <= pred:
         fail(f"{path} backward rel_l2 {rel:.3e} above {pred:.3e}")
-    err = compare(f"{path} backward vs the local plan's", (full,),
-                  (local.backward(local_values),))
+    lb = local.backward(local_values)
+    if plan.precision == "single":
+        err = compare(f"{path} backward vs the local plan's", (full,), (lb,))
+    else:
+        d = float(torch.linalg.norm(full.double() - lb.double())
+                  / torch.linalg.norm(lb.double()))
+        err = (float((full - lb).abs().max()), None, d)
+        if not d <= 2 * pred:
+            fail(f"{path} backward vs the local plan's: rel_l2={d:.3e} "
+                 f"above twice predicted_rel_error, {2 * pred:.3e}")
+    del lb
     print(f"{path} backward vs the local plan's on the same values: "
           f"max_abs_err={err[0]:.3e} rel_l2={err[2]:.3e}", flush=True)
     rt = float(torch.linalg.norm(out.double() - stacked.double())
                / torch.linalg.norm(stacked.double()))
-    print(f"{path} forward(FULL) round trip: rel_l2={rt:.3e}", flush=True)
-    if not rt <= ROUNDTRIP_TOL:
-        fail(f"{path} round trip rel_l2 {rt:.3e} above {ROUNDTRIP_TOL}")
+    rt_tol = roundtrip_tol(sp, plan.precision, dp.dim_z)
+    print(f"{path} forward(FULL) round trip: rel_l2={rt:.3e} (at most "
+          f"{rt_tol:.3e})", flush=True)
+    if not rt <= rt_tol:
+        fail(f"{path} round trip rel_l2 {rt:.3e} above {rt_tol:.3e}")
     if not torch.equal(plan.backward(stacked), space):
         fail(f"{path}: a second backward differs from the first")
     del full, out
@@ -2422,11 +2547,14 @@ def dist_pair_phase(sp, path, plan, stacked, local, local_values,
         lambda: plan.forward(plan.backward(stacked), full_),
         lambda: plan.forward(plan.backward(stacked), full_),
         lambda: local.forward(local.backward(local_values), full_))]
+    dev_ms = graph_ms(lambda: plan.forward(plan.backward(stacked), full_),
+                      device, PAIR_GRAPH_CALLS)
     print(f"{path} path pair (backward + forward FULL): "
           f"{(t[1] + t[2]) / 2:.4f} ms against the local pair's "
           f"{(t[0] + t[3]) / 2:.4f} ms (medians of {REPS}, in turns "
-          f"{[round(x, 4) for x in t]}); exchange_wire_bytes="
-          f"{plan.exchange_wire_bytes()} per direction", flush=True)
+          f"{[round(x, 4) for x in t]}); on the device alone {_ms(dev_ms)} "
+          f"ms; exchange_wire_bytes={plan.exchange_wire_bytes()} per "
+          f"direction", flush=True)
     return launches
 
 
@@ -2481,57 +2609,65 @@ def dist_structure_phase(sp, path, plan, stacked, device, counters, want,
           f"equal to the calls made one at a time", flush=True)
 
 
-def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters):
-    """Every distributed C2C phase; returns its kernel records (the fused
-    route's ``pdft2_swapped`` and per-shard z kernels, the two-kernel
-    route's gather and ``pdft_last``)."""
+def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters,
+                    tag=""):
+    """Every distributed C2C phase at the precision of ``values`` (its
+    paths named with ``tag``, "_f64" for the double ones); returns its
+    kernel records (the fused route's ``pdft2_swapped`` and per-shard z
+    kernels, the two-kernel route's gather and ``pdft_last``)."""
     plan, stacked = dist_plan(sp, n, trip, values, device)
-    recs = dist_kernel_phase(plan, stacked, device)
-    recs += dist_z_kernel_phase("dist_c2c", plan, stacked, device)
-    dist_odd_shapes_phase(device)
-    dist_odd_shards_phase(sp, device)
+    name = "dist c2c" + tag.replace("_", " ")
+    recs = dist_kernel_phase(plan, stacked, device, "dist_c2c" + tag)
+    recs += dist_z_kernel_phase("dist_c2c" + tag, plan, stacked, device)
+    dist_odd_shapes_phase(device, plan.real_dtype)
+    dist_odd_shards_phase(sp, device, plan.precision)
     set_launches(recs, dist_pair_phase(
-        sp, "dist c2c", plan, stacked, local, values, oracle, device,
+        sp, name, plan, stacked, local, values, oracle, device,
         counters, DIST_C2C_LAUNCHES))
-    dist_breakdown_phase(sp, "dist c2c", plan, stacked, device)
-    dist_structure_phase(sp, "dist c2c", plan, stacked, device, counters,
+    dist_breakdown_phase(sp, name, plan, stacked, device)
+    dist_structure_phase(sp, name, plan, stacked, device, counters,
                          DIST_C2C_LAUNCHES)
     plan2 = sp.DistributedTransformPlan(plan.dist_plan, mesh=plan.mesh,
-                                        fused=False)
-    recs2 = dist_z_kernel_phase("dist_c2c_2k", plan2, stacked, device)
+                                        fused=False,
+                                        precision=plan.precision)
+    recs2 = dist_z_kernel_phase("dist_c2c_2k" + tag, plan2, stacked, device)
     set_launches(recs2, dist_pair_phase(
-        sp, "dist c2c two-kernel", plan2, stacked, local, values, oracle,
+        sp, f"{name} two-kernel", plan2, stacked, local, values, oracle,
         device, counters, DIST_C2C_2K_LAUNCHES))
-    dist_breakdown_phase(sp, "dist c2c two-kernel", plan2, stacked, device)
-    route_phase(sp, "dist c2c", plan, plan2, stacked)
+    dist_breakdown_phase(sp, f"{name} two-kernel", plan2, stacked, device)
+    route_phase(sp, name, plan, plan2, stacked)
     return recs + recs2
 
 
 def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
-                    counters):
-    """Every distributed R2C phase; returns its kernel records (the
-    per-shard z kernels, the owner's and the other shards' zero sticks
-    among them, ``pdft_last`` at the y stage, ``pirdft_last`` and
-    ``prdft_last`` at the x stage; the two-kernel route's gather and z
-    stage ``pdft_last``)."""
+                    counters, tag=""):
+    """Every distributed R2C phase at the precision of ``values`` (its
+    paths named with ``tag``); returns its kernel records (the per-shard
+    z kernels, the owner's and the other shards' zero sticks among them,
+    ``pdft_last`` at the y stage, ``pirdft_last`` and ``prdft_last`` at
+    the x stage; the two-kernel route's gather and z stage
+    ``pdft_last``)."""
     plan, stacked = dist_plan(sp, n, trip, values, device, r2c=True)
-    recs = dist_z_kernel_phase("dist_r2c", plan, stacked, device)
-    recs += dist_y_kernel_record("dist_r2c", plan, stacked, device)
-    recs += dist_x_kernel_records("dist_r2c", plan, stacked, device)
+    name = "dist r2c" + tag.replace("_", " ")
+    path = "dist_r2c" + tag
+    recs = dist_z_kernel_phase(path, plan, stacked, device)
+    recs += dist_y_kernel_record(path, plan, stacked, device)
+    recs += dist_x_kernel_records(path, plan, stacked, device)
     set_launches(recs, dist_pair_phase(
-        sp, "dist r2c", plan, stacked, local, values, oracle_rel, device,
+        sp, name, plan, stacked, local, values, oracle_rel, device,
         counters, DIST_R2C_LAUNCHES))
-    dist_breakdown_phase(sp, "dist r2c", plan, stacked, device)
-    dist_structure_phase(sp, "dist r2c", plan, stacked, device, counters,
+    dist_breakdown_phase(sp, name, plan, stacked, device)
+    dist_structure_phase(sp, name, plan, stacked, device, counters,
                          DIST_R2C_LAUNCHES)
     plan2 = sp.DistributedTransformPlan(plan.dist_plan, mesh=plan.mesh,
-                                        fused=False)
-    recs2 = dist_z_kernel_phase("dist_r2c_2k", plan2, stacked, device)
+                                        fused=False,
+                                        precision=plan.precision)
+    recs2 = dist_z_kernel_phase("dist_r2c_2k" + tag, plan2, stacked, device)
     set_launches(recs2, dist_pair_phase(
-        sp, "dist r2c two-kernel", plan2, stacked, local, values, oracle_rel,
+        sp, f"{name} two-kernel", plan2, stacked, local, values, oracle_rel,
         device, counters, DIST_R2C_2K_LAUNCHES))
-    dist_breakdown_phase(sp, "dist r2c two-kernel", plan2, stacked, device)
-    route_phase(sp, "dist r2c", plan, plan2, stacked)
+    dist_breakdown_phase(sp, f"{name} two-kernel", plan2, stacked, device)
+    route_phase(sp, name, plan, plan2, stacked)
     return recs + recs2
 
 
@@ -2619,7 +2755,119 @@ def run(device, n=N):
     sweep_phase(sp, "c2c", plan, values, device, sweep)
     plan, _, values, _ = r2c_plan(sp, n // 2, device)
     sweep_phase(sp, "r2c", plan, values, device, sweep)
-    return c2c + r2c + dist, sweep
+    del plan, values
+    return c2c + r2c + dist + double_phases(sp, device, counters, n), sweep
+
+
+def grid_phase(sp, path, plan, trip, values, device):
+    """The double plan through ``Grid`` / ``Transform`` and
+    ``multi_transform_backward`` / ``_forward`` of two transforms of one
+    plan (one batched execution): each result equal bit for bit to the
+    plan's own calls."""
+    p = plan.index_plan
+    grid = sp.Grid(p.dim_x, p.dim_y, p.dim_z, p.num_sticks,
+                   precision=plan.precision, device=device)
+    t = grid.create_transform(sp.ProcessingUnit.DEVICE, p.transform_type,
+                              p.dim_x, p.dim_y, p.dim_z, indices=trip)
+    want = plan.backward(values)
+    if t.precision != plan.precision or not torch.equal(t.backward(values),
+                                                        want):
+        fail(f"{path} Grid transform: backward differs from the plan's")
+    full = sp.Scaling.FULL
+    pair = [t, t.clone()]
+    spaces = sp.multi_transform_backward(pair, [values, values])
+    outs = sp.multi_transform_forward(pair, spaces, [full, full])
+    want_f = plan.forward(want, full)
+    for s_, o in zip(spaces, outs):
+        if not (torch.equal(s_, want) and torch.equal(o, want_f)):
+            fail(f"{path} multi-transform: a result differs from the "
+                 f"plan's")
+    print(f"{path} Grid / Transform and multi-transform of 2: equal to the "
+          f"plan's calls bit for bit", flush=True)
+
+
+def double_phases(sp, device, counters, n=N):
+    """The phases above for ``precision="double"`` plans, on the kernels'
+    float64 instances (records with paths ending in ``_f64``): at the
+    paths' 256^3 shapes each kernel against its plain float64 version
+    (``DOUBLE_KERNEL_TOL``); the local C2C and R2C pairs on both routes
+    against the complex128 oracle within ``predicted_rel_error("double",
+    n)``, the round trip within 3 times that, the launches by form of the
+    single pairs' tables, the routes bit for bit; B = 4 and pointwise
+    calls bit for bit against single calls; ``Grid`` and multi-transform;
+    the distributed C2C and R2C plans over 4 shards, both routes, within
+    twice ``predicted_rel_error`` of the local plans; and every form at
+    odd shapes in float64. Returns the kernel records."""
+    f64 = torch.float64
+    plan, trip, values = main_path_plan(sp, n, device, "double")
+    recs = kernel_phase(plan, values, device, "c2c_f64")
+    oracle = c2c_oracle_rel(plan, trip, values, device)
+    set_launches(recs, pair_phase(sp, "c2c f64", plan, values, oracle,
+                                  device, counters, C2C_LAUNCHES))
+    plan2 = sp.TransformPlan(plan.index_plan, precision="double",
+                             device=device, fused=False)
+    more = two_kernel_kernel_phase("c2c_f64", plan2, values, device)
+    set_launches(more, pair_phase(sp, "c2c f64 two-kernel", plan2, values,
+                                  oracle, device, counters, C2C_2K_LAUNCHES))
+    route_phase(sp, "c2c f64", plan, plan2, values)
+    recs += more
+    more = batched_gather_phase("c2c_f64", plan2, values, device)
+    set_launches(more, batched_pair_phase(sp, "c2c f64 two-kernel", plan2,
+                                          values, device, counters,
+                                          C2C_2K_LAUNCHES))
+    recs += more
+    del plan2
+    more = batched_kernel_phase("c2c_f64", plan, values, device)
+    set_launches(more, batched_pair_phase(sp, "c2c f64", plan, values,
+                                          device, counters,
+                                          C2C_BATCHED_LAUNCHES))
+    recs += more
+    pointwise_phase(sp, "c2c f64", plan, values, device)
+    grid_phase(sp, "c2c f64", plan, trip, values, device)
+    recs += dist_c2c_phases(sp, n, plan, trip, values, oracle, device,
+                            counters, "_f64")
+    del plan, trip, values, oracle
+
+    plan, trip, values, oracle = r2c_plan(sp, n, device, "double")
+    more = r2c_kernel_phase(plan, values, device, "r2c_f64")
+
+    def oracle_rel(space):
+        return float(torch.linalg.norm(space.double() - oracle)
+                     / torch.linalg.norm(oracle))
+
+    set_launches(more, pair_phase(sp, "r2c f64", plan, values, oracle_rel,
+                                  device, counters, R2C_LAUNCHES))
+    recs += more
+    plan2 = sp.TransformPlan(plan.index_plan, precision="double",
+                             device=device, fused=False)
+    more = two_kernel_kernel_phase("r2c_f64", plan2, values, device)
+    set_launches(more, pair_phase(sp, "r2c f64 two-kernel", plan2, values,
+                                  oracle_rel, device, counters,
+                                  R2C_2K_LAUNCHES))
+    route_phase(sp, "r2c f64", plan, plan2, values)
+    recs += more
+    more = batched_gather_phase("r2c_f64", plan2, values, device)
+    set_launches(more, batched_pair_phase(sp, "r2c f64 two-kernel", plan2,
+                                          values, device, counters,
+                                          R2C_2K_LAUNCHES))
+    recs += more
+    del plan2
+    more = batched_kernel_phase("r2c_f64", plan, values, device)
+    set_launches(more, batched_pair_phase(sp, "r2c f64", plan, values,
+                                          device, counters,
+                                          R2C_BATCHED_LAUNCHES))
+    recs += more
+    pointwise_phase(sp, "r2c f64", plan, values, device)
+    recs += dist_r2c_phases(sp, n, plan, trip, values, oracle_rel, device,
+                            counters, "_f64")
+    del plan, trip, values, oracle
+
+    odd_shapes_phase(device, f64)
+    fft_odd_shapes_phase(device, f64)
+    z_fft_odd_shapes_phase(device, f64)
+    r2c_odd_shapes_phase(device, f64)
+    new_odd_shapes_phase(device, f64)
+    return recs
 
 
 def main() -> int:

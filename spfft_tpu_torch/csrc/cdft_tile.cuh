@@ -1,9 +1,10 @@
 // Shared device code of the package's DFT kernels (dft2.cu,
 // fused_compress.cu): one thread block computes a BM-row slab of a
-// matrix product in planar f32,
+// matrix product in planar reals of type T (float, or double for
+// double-precision plans),
 //
 //     Y[BM, N] = X[BM, K] * C[K, N],   C = Ma + i Mb, stored as separate
-//                                       real and imaginary f32 arrays,
+//                                       real and imaginary arrays,
 //
 // in one of three modes (TileMode): complex X and Y (the complex DFT
 // stages), real X (the real forward DFT: Yr = X Ma, Yi = X Mb), or real Y
@@ -17,9 +18,12 @@
 // epilogue (a straight store, a store transposed within each plane, or a
 // scatter of sparse values).
 //
-// Arithmetic: the plain 4-product complex form with FP32 FMA on the CUDA
+// Arithmetic: the plain 4-product complex form with FMA in T on the CUDA
 // cores (no tensor cores: TF32 keeps about three decimal digits and fails
 // the library's accuracy contract, as Precision.DEFAULT did on the TPU).
+// A double block holds BM = 8 rows (TM = 2 a thread, one 16-byte double2
+// of X), half a float block's 16, so that its shared memory at K = N =
+// 512 (196,736 bytes) fits the 227 KB a block may have.
 // Each thread sums one BK-deep slice of the contraction into a fresh
 // partial and adds the partial to its running sum. A length-256
 // contraction summed in one sequential chain loses about 4e-7 relative
@@ -30,14 +34,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "real.cuh"
+
 namespace spfft {
 
-constexpr int BM = 16;        // rows per block
 constexpr int BK = 16;        // depth of one matrix tile and of one partial sum
 constexpr int BN = 256;       // output columns per pass over the matrix
 constexpr int THREADS = 256;  // 4 row groups x 64 column groups
-constexpr int TM = 4;         // rows per thread
 constexpr int TN = 4;         // adjacent columns per thread
+
+// The row shape of a T block: TM rows a thread (16 bytes of X: 4 floats,
+// 2 doubles), BM = 4 TM rows a block.
+template <class T>
+struct Rows {
+  static constexpr int TM = Real<T>::W;
+  static constexpr int BM = 4 * TM;
+};
 
 __host__ __device__ inline int round_up(int a, int b) {
   return (a + b - 1) / b * b;
@@ -51,32 +63,36 @@ enum TileMode {
 
 // Dynamic shared memory of one block for a (K, N) matrix: the staged rows
 // X (transposed, k-major), one BK x BN matrix tile, and the result Y.
+template <class T>
 __host__ __device__ inline size_t tile_smem_bytes(int K, int N,
                                                   int mode = CC) {
+  constexpr int BM = Rows<T>::BM;
   const size_t kp = (size_t)round_up(K, BK);
   const size_t x_planes = mode == RC ? 1 : 2;
   const size_t y_planes = mode == CR ? 1 : 2;
-  return sizeof(float) * (x_planes * kp * BM + 2 * (size_t)BK * BN +
-                          y_planes * (size_t)BM * (N + 1));
+  return sizeof(T) * (x_planes * kp * BM + 2 * (size_t)BK * BN +
+                      y_planes * (size_t)BM * (N + 1));
 }
 
+template <class T>
 struct Tile {
-  float* xr;  // [kp][BM]: X[r][k] at xr[k * BM + r]; zero for k >= K
-  float* xi;  // null in mode RC
-  float* cr;  // [BK][BN] current matrix tile
-  float* ci;
-  float* yr;  // [BM][ldy]: Y[r][n] at yr[r * ldy + n]
-  float* yi;  // null in mode CR
+  T* xr;  // [kp][BM]: X[r][k] at xr[k * BM + r]; zero for k >= K
+  T* xi;  // null in mode RC
+  T* cr;  // [BK][BN] current matrix tile
+  T* ci;
+  T* yr;  // [BM][ldy]: Y[r][n] at yr[r * ldy + n]
+  T* yi;  // null in mode CR
   int kp;
-  int ldy;    // N + 1: odd for even N, so a column read is conflict-free
+  int ldy;  // N + 1: odd for even N, so a column read is conflict-free
 };
 
-template <int MODE>
-__device__ inline Tile carve_tile(float* base, int K, int N) {
-  Tile t;
+template <int MODE, class T>
+__device__ inline Tile<T> carve_tile(T* base, int K, int N) {
+  constexpr int BM = Rows<T>::BM;
+  Tile<T> t;
   t.kp = round_up(K, BK);
   t.ldy = N + 1;
-  float* p = base;
+  T* p = base;
   t.xr = p;
   p += (size_t)t.kp * BM;
   t.xi = nullptr;
@@ -91,16 +107,17 @@ __device__ inline Tile carve_tile(float* base, int K, int N) {
   return t;
 }
 
-// Stage the block's rows: load(r, k) returns X[r][k] as (re, im) for
-// r < BM, k < K (zero for rows past the end of the operand; im is not
+// Stage the block's rows: load(r, k) returns X[r][k] as a (re, im) pair
+// for r < BM, k < K (zero for rows past the end of the operand; im is not
 // read in mode RC). Reads walk k fastest, so a dense row source is read
 // coalesced.
-template <int MODE, class Load>
-__device__ inline void stage_rows(const Tile& t, int K, Load load) {
+template <int MODE, class T, class Load>
+__device__ inline void stage_rows(const Tile<T>& t, int K, Load load) {
+  constexpr int BM = Rows<T>::BM;
   for (int idx = threadIdx.x; idx < BM * t.kp; idx += THREADS) {
     const int r = idx / t.kp;
     const int k = idx - r * t.kp;
-    float2 v = make_float2(0.f, 0.f);
+    typename Real<T>::Pair v = make_pair(T(0), T(0));
     if (k < K) v = load(r, k);
     t.xr[k * BM + r] = v.x;
     if (MODE != RC) t.xi[k * BM + r] = v.y;
@@ -108,22 +125,37 @@ __device__ inline void stage_rows(const Tile& t, int K, Load load) {
   __syncthreads();
 }
 
+// TN consecutive T of shared memory (16-byte aligned) into v
+template <class T>
+__device__ __forceinline__ void load_tn(const T* p, T (&v)[TN]) {
+  constexpr int W = Real<T>::W;
+#pragma unroll
+  for (int q = 0; q < TN / W; ++q) {
+    T w[W];
+    load16(p + q * W, w);
+#pragma unroll
+    for (int t = 0; t < W; ++t) v[q * W + t] = w[t];
+  }
+}
+
 // Y = X * C for the staged rows in mode MODE; C is (K, N) row-major, real
 // and imaginary parts (Ma, Mb) separate. Ends with Y complete in shared
 // memory (after a barrier). In mode CR the two accumulators hold Xr Ma
 // and Xi Mb, summed in the epilogue, as the plain form sums two products.
-template <int MODE>
-__device__ inline void tile_product(const Tile& t, int K, int N,
-                                    const float* __restrict__ cr,
-                                    const float* __restrict__ ci) {
+template <int MODE, class T>
+__device__ inline void tile_product(const Tile<T>& t, int K, int N,
+                                    const T* __restrict__ cr,
+                                    const T* __restrict__ ci) {
+  constexpr int TM = Rows<T>::TM;
+  constexpr int BM = Rows<T>::BM;
   const int ty = threadIdx.x / (BN / TN);
   const int tx = threadIdx.x % (BN / TN);
   for (int n0 = 0; n0 < N; n0 += BN) {
-    float accr[TM][TN], acci[TM][TN];
+    T accr[TM][TN], acci[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = 0.f;
+      for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = T(0);
 
     for (int k0 = 0; k0 < t.kp; k0 += BK) {
       for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
@@ -132,48 +164,44 @@ __device__ inline void tile_product(const Tile& t, int K, int N,
         const int k = k0 + kk;
         const bool ok = k < K && n < N;
         const size_t g = (size_t)k * N + n;
-        t.cr[idx] = ok ? cr[g] : 0.f;
-        t.ci[idx] = ok ? ci[g] : 0.f;
+        t.cr[idx] = ok ? cr[g] : T(0);
+        t.ci[idx] = ok ? ci[g] : T(0);
       }
       __syncthreads();
 
-      float pr[TM][TN], pi[TM][TN];
+      T pr[TM][TN], pi[TM][TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) pr[i][j] = pi[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) pr[i][j] = pi[i][j] = T(0);
 
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        const float4 xr4 =
-            *reinterpret_cast<const float4*>(t.xr + (k0 + kk) * BM + ty * TM);
-        float4 xi4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (MODE != RC)
-          xi4 = *reinterpret_cast<const float4*>(t.xi + (k0 + kk) * BM +
-                                                 ty * TM);
-        const float4 cr4 =
-            *reinterpret_cast<const float4*>(t.cr + kk * BN + tx * TN);
-        const float4 ci4 =
-            *reinterpret_cast<const float4*>(t.ci + kk * BN + tx * TN);
-        const float ar[TM] = {xr4.x, xr4.y, xr4.z, xr4.w};
-        const float ai[TM] = {xi4.x, xi4.y, xi4.z, xi4.w};
-        const float br[TN] = {cr4.x, cr4.y, cr4.z, cr4.w};
-        const float bi[TN] = {ci4.x, ci4.y, ci4.z, ci4.w};
+        T ar[TM], ai[TM], br[TN], bi[TN];
+        load16(t.xr + (k0 + kk) * BM + ty * TM, ar);
+        if (MODE != RC) {
+          load16(t.xi + (k0 + kk) * BM + ty * TM, ai);
+        } else {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) ai[i] = T(0);
+        }
+        load_tn(t.cr + kk * BN + tx * TN, br);
+        load_tn(t.ci + kk * BN + tx * TN, bi);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
             if (MODE == CC) {
-              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
-              pr[i][j] = fmaf(-ai[i], bi[j], pr[i][j]);
-              pi[i][j] = fmaf(ar[i], bi[j], pi[i][j]);
-              pi[i][j] = fmaf(ai[i], br[j], pi[i][j]);
+              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+              pr[i][j] = fma_t(-ai[i], bi[j], pr[i][j]);
+              pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
+              pi[i][j] = fma_t(ai[i], br[j], pi[i][j]);
             } else if (MODE == RC) {
-              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
-              pi[i][j] = fmaf(ar[i], bi[j], pi[i][j]);
+              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+              pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
             } else {
-              pr[i][j] = fmaf(ar[i], br[j], pr[i][j]);
-              pi[i][j] = fmaf(ai[i], bi[j], pi[i][j]);
+              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+              pi[i][j] = fma_t(ai[i], bi[j], pi[i][j]);
             }
           }
       }

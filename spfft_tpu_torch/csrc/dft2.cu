@@ -12,7 +12,8 @@
 //   "cc" + swap_out (pdft2_swapped): as "cc", stored back as (P, A', B'),
 //                    the C2C xy stage of the distributed plan,
 //
-// all f32, in the matrix form: each DFT a product against plan-time
+// in float, or double for double-precision plans (the entry
+// spfft_dft_stage_f64), in the matrix form: each DFT a product against plan-time
 // matrices. Since the complex stages moved to fft.cu (the FFT stage and
 // cluster kernels, for every complex stage whose matrices carry their
 // transform and whose length is 2^a 3^b 5^c) and the real stages to
@@ -38,7 +39,7 @@
 // "cr" call at 256^3 (half spectrum 129 wide) is 2.6e10 FLOP against 135
 // MB: about 7x. The design keeps every operand element in shared memory
 // while it is reused (X for all N outputs of its rows, each matrix tile
-// for the block's 16 rows) and gives each thread a 4 x 4 register tile,
+// for the block's BM rows) and gives each thread a TM x 4 register tile,
 // so the FMA pipe and not memory sets the pace. The ragged half-spectrum
 // width (129) is covered by the zero-padded k tail and the n < N masks of
 // the tile.
@@ -51,22 +52,21 @@ using namespace spfft;
 // plane_rows == A > 0: row m = p * A + a, Y[m][n] stored at
 //                      y[(p * N + n) * A + a] (transposed within a plane).
 // xi is not read in mode RC; yi is not written in mode CR.
-template <int MODE>
+template <int MODE, class T>
 __global__ void __launch_bounds__(THREADS)
-    dft_stage_kernel(const float* __restrict__ xr,
-                     const float* __restrict__ xi,
-                     const float* __restrict__ cr,
-                     const float* __restrict__ ci, float* __restrict__ yr,
-                     float* __restrict__ yi, long long M, int K, int N,
-                     int plane_rows) {
+    dft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                     const T* __restrict__ cr, const T* __restrict__ ci,
+                     T* __restrict__ yr, T* __restrict__ yi, long long M,
+                     int K, int N, int plane_rows) {
+  constexpr int BM = Rows<T>::BM;
   extern __shared__ float4 smem[];
-  const Tile t = carve_tile<MODE>(reinterpret_cast<float*>(smem), K, N);
+  const Tile<T> t = carve_tile<MODE>(reinterpret_cast<T*>(smem), K, N);
   const long long m0 = (long long)blockIdx.x * BM;
   stage_rows<MODE>(t, K, [&](int r, int k) {
     const long long m = m0 + r;
-    if (m >= M) return make_float2(0.f, 0.f);
+    if (m >= M) return make_pair(T(0), T(0));
     const long long g = m * K + k;
-    return make_float2(xr[g], MODE == RC ? 0.f : xi[g]);
+    return make_pair(xr[g], MODE == RC ? T(0) : xi[g]);
   });
   tile_product<MODE>(t, K, N, cr, ci);
   if (plane_rows == 0) {
@@ -96,26 +96,24 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int MODE>
-static int launch_stage(const float* xr, const float* xi, const float* cr,
-                        const float* ci, float* yr, float* yi, long long M,
-                        int K, int N, int plane_rows, void* stream) {
-  const size_t smem = tile_smem_bytes(K, N, MODE);
-  cudaError_t err = allow_smem(dft_stage_kernel<MODE>, smem);
+template <int MODE, class T>
+static int launch_stage(const T* xr, const T* xi, const T* cr, const T* ci,
+                        T* yr, T* yi, long long M, int K, int N,
+                        int plane_rows, void* stream) {
+  constexpr int BM = Rows<T>::BM;
+  const size_t smem = tile_smem_bytes<T>(K, N, MODE);
+  cudaError_t err = allow_smem(dft_stage_kernel<MODE, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  dft_stage_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  dft_stage_kernel<MODE, T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       xr, xi, cr, ci, yr, yi, M, K, N, plane_rows);
   return (int)cudaGetLastError();
 }
 
-// One launch of the stage kernel in `mode` (CC, RC or CR of cdft_tile.cuh):
-// rows (M, K) of (xr, xi) against the pair (cr, ci) (K, N) into (yr, yi).
-// xi is null in mode RC (real rows), yi in mode CR (real output).
-extern "C" int spfft_dft_stage(int mode, const float* xr, const float* xi,
-                               const float* cr, const float* ci, float* yr,
-                               float* yi, long long M, int K, int N,
-                               int plane_rows, void* stream) {
+template <class T>
+static int launch_mode(int mode, const T* xr, const T* xi, const T* cr,
+                       const T* ci, T* yr, T* yi, long long M, int K, int N,
+                       int plane_rows, void* stream) {
   switch (mode) {
     case CC:
       return launch_stage<CC>(xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
@@ -128,4 +126,25 @@ extern "C" int spfft_dft_stage(int mode, const float* xr, const float* xi,
                               stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// One launch of the stage kernel in `mode` (CC, RC or CR of cdft_tile.cuh):
+// rows (M, K) of (xr, xi) against the pair (cr, ci) (K, N) into (yr, yi).
+// xi is null in mode RC (real rows), yi in mode CR (real output). _f64: the
+// same on double operands.
+extern "C" int spfft_dft_stage(int mode, const float* xr, const float* xi,
+                               const float* cr, const float* ci, float* yr,
+                               float* yi, long long M, int K, int N,
+                               int plane_rows, void* stream) {
+  return launch_mode(mode, xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
+                     stream);
+}
+
+extern "C" int spfft_dft_stage_f64(int mode, const double* xr,
+                                   const double* xi, const double* cr,
+                                   const double* ci, double* yr, double* yi,
+                                   long long M, int K, int N, int plane_rows,
+                                   void* stream) {
+  return launch_mode(mode, xr, xi, cr, ci, yr, yi, M, K, N, plane_rows,
+                     stream);
 }

@@ -36,28 +36,41 @@
 // intermediate of a plane transform stays on chip, stores are coalesced
 // (128-byte runs in every transposed store), and the twiddles come from
 // the plan's table in shared memory.
+//
+// Both kernels are templates on the real type T (real.cuh): float, and
+// double for double-precision plans, whose entries carry the suffix _f64.
+// A double instance moves twice the bytes (a 256^3 pdft2 call 537 MB,
+// 0.16 ms at 3.35 TB/s) with 16-byte double2 accesses where the float one
+// moves float4s; its FLOPs (FP64 CUDA cores, 34 TFLOP/s) stay under its
+// bytes' time. Its stage blocks have at most 512 threads and its cluster
+// blocks run one an SM (fft_tile.cuh: Bounds), so that a thread may hold
+// 128 registers; a 256^2 plane's cluster block then takes 143,872 bytes
+// of shared memory.
 
 #include <cooperative_groups.h>
 
 #include "fft_tile.cuh"
 
 namespace cg = cooperative_groups;
+using namespace spfft;
 using namespace spfft::fft;
 
 namespace {
 
 constexpr int CLUSTER = 8;  // blocks per plane: the portable size
 // threads of a cluster block: EPT elements each hold a 256 x 256 plane's
-// share (32 rows of 256); two blocks an SM at 64 registers a thread
+// share (32 rows of 256); Bounds<T>::PLANE_BLOCKS blocks an SM (float:
+// two, at 64 registers a thread; double: one, at 128)
 constexpr int PLANE_THREADS = 512;
 
 // Shared memory of one cluster block: its buffer (the larger of RA rows of
 // n1 and RB rows of n2, real and imaginary) and both twiddle tables.
+template <class T>
 size_t plane_smem(int A, int Bo, int n1, int n2) {
   const int RA = (A + CLUSTER - 1) / CLUSTER;
   const int RB = (Bo + CLUSTER - 1) / CLUSTER;
   const size_t words = (size_t)max(RA * row_stride(n1), RB * row_stride(n2));
-  return sizeof(float) * (2 * words + 2 * (size_t)(n1 + n2));
+  return sizeof(T) * (2 * words + 2 * (size_t)(n1 + n2));
 }
 
 }  // namespace
@@ -65,28 +78,28 @@ size_t plane_smem(int A, int Bo, int n1, int n2) {
 // plane_rows == 0: Y[m][j] stored at y[m * N + j].
 // plane_rows == A > 0: row m = p * A + a, Y[m][j] stored at
 //                      y[(p * N + j) * A + a] (transposed within a plane).
-template <bool POW2>
-__global__ void __launch_bounds__(1024)
-    fft_stage_kernel(const float* __restrict__ xr,
-                     const float* __restrict__ xi, float* __restrict__ yr,
-                     float* __restrict__ yi, const float* __restrict__ tw,
-                     long long M, int K, int N, int plane_rows, int rows,
-                     FftSpec sp) {
+template <bool POW2, class T>
+__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+    fft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                     T* __restrict__ yr, T* __restrict__ yi,
+                     const T* __restrict__ tw, long long M, int K, int N,
+                     int plane_rows, int rows, FftSpec<T> sp) {
+  constexpr int W = Real<T>::W;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int n = sp.n;
   const int stride = row_stride(n);
-  float* re = smem;
-  float* im = re + rows * stride;
-  float* twr = im + rows * stride;
-  float* twi = twr + n;
+  T* re = smem;
+  T* im = re + rows * stride;
+  T* twr = im + rows * stride;
+  T* twi = twr + n;
   const long long m0 = (long long)blockIdx.x * rows;
   const int valid = (int)min((long long)rows, M - m0);
   load_twiddles(twr, twi, tw, n);
   load_rows(re, im, rows, valid, stride, n, K, sp.in0, xr, xi, m0);
   __syncthreads();
   fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
-  const float sc = sp.scale;
+  const T sc = sp.scale;
   if (plane_rows == 0) {
     store_rows(re, im, valid, stride, n, N, sp.out0, sc, yr, yi, m0);
     return;
@@ -96,8 +109,7 @@ __global__ void __launch_bounds__(1024)
   // neighbouring a of one plane; the block's first row is (p0, a0)
   const long long p0 = m0 / plane_rows;
   const int a0 = (int)(m0 - p0 * plane_rows);
-  const int u =
-      vec && ((plane_rows | valid | a0) & 3) == 0 ? 4 : 1;
+  const int u = vec && (plane_rows | valid | a0) % W == 0 ? W : 1;
   Walk w(valid / u);
   for (int id = threadIdx.x; id < valid * N / u; id += blockDim.x) {
     const int j = w.row;
@@ -111,14 +123,16 @@ __global__ void __launch_bounds__(1024)
       pp += d;
     }
     const long long g = (pp * N + j) * plane_rows + a;
-    if (u == 4) {  // rows r .. r + 3: one plane, 16 bytes
+    if (u == W) {  // rows r .. r + W - 1: one plane, 16 bytes
       const int o = r * stride + q;
-      reinterpret_cast<float4*>(yr + g)[0] =
-          make_float4(re[o] * sc, re[o + stride] * sc,
-                      re[o + 2 * stride] * sc, re[o + 3 * stride] * sc);
-      reinterpret_cast<float4*>(yi + g)[0] =
-          make_float4(im[o] * sc, im[o + stride] * sc,
-                      im[o + 2 * stride] * sc, im[o + 3 * stride] * sc);
+      T vr[W], vi[W];
+#pragma unroll
+      for (int t = 0; t < W; ++t) {
+        vr[t] = re[o + t * stride] * sc;
+        vi[t] = im[o + t * stride] * sc;
+      }
+      store16(yr + g, vr);
+      store16(yi + g, vi);
     } else {
       yr[g] = re[r * stride + q] * sc;
       yi[g] = im[r * stride + q] * sc;
@@ -132,17 +146,18 @@ __global__ void __launch_bounds__(1024)
 // (A inputs, Ao outputs); s2's scale (the product of both transforms'
 // scales) is applied at the store. The caller guarantees RA * n1 and
 // RB * n2 <= PLANE_THREADS * EPT.
-template <bool POW2>
+template <bool POW2, class T>
 __global__ void __cluster_dims__(CLUSTER, 1, 1)
-    __launch_bounds__(PLANE_THREADS, 2)
-        fft_plane_kernel(const float* __restrict__ xr,
-                         const float* __restrict__ xi, float* __restrict__ yr,
-                         float* __restrict__ yi,
-                         const float* __restrict__ tw1,
-                         const float* __restrict__ tw2, int A, int B, int Bo,
-                         int Ao, FftSpec s1, FftSpec s2, int swap_out) {
+    __launch_bounds__(PLANE_THREADS, Bounds<T>::PLANE_BLOCKS)
+        fft_plane_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                         T* __restrict__ yr, T* __restrict__ yi,
+                         const T* __restrict__ tw1,
+                         const T* __restrict__ tw2, int A, int B, int Bo,
+                         int Ao, FftSpec<T> s1, FftSpec<T> s2,
+                         int swap_out) {
+  constexpr int W = Real<T>::W;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.block_rank();
   const long long p = blockIdx.x / CLUSTER;
@@ -151,12 +166,12 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   const int RA = (A + CLUSTER - 1) / CLUSTER;
   const int RB = (Bo + CLUSTER - 1) / CLUSTER;
   const int words = max(RA * st1, RB * st2);
-  float* re = smem;
-  float* im = re + words;
-  float* twr1 = im + words;
-  float* twi1 = twr1 + n1;
-  float* twr2 = twi1 + n1;
-  float* twi2 = twr2 + n2;
+  T* re = smem;
+  T* im = re + words;
+  T* twr1 = im + words;
+  T* twi1 = twr1 + n1;
+  T* twr2 = twi1 + n1;
+  T* twi2 = twr2 + n2;
   load_twiddles(twr1, twi1, tw1, n1);
   load_twiddles(twr2, twi2, tw2, n2);
 
@@ -174,7 +189,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   const int j0 = c * RB;
   const int rb = max(0, min(RB, Bo - j0));
   const float inv_ra = 1.f / (float)RA;
-  float gr[EPT], gi[EPT];
+  T gr[EPT], gi[EPT];
   Walk w(max(rb, 1));
 #pragma unroll
   for (int e = 0; e < EPT; ++e, w.next()) {
@@ -204,27 +219,31 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   w = Walk(max(rb, 1));
   for (int id = threadIdx.x; id < rb * (n2 - A); id += PLANE_THREADS) {
     const int o = w.col * st2 + pad(wrap(s2.in0 + A + w.row, n2));
-    re[o] = 0.f;
-    im[o] = 0.f;
+    re[o] = T(0);
+    im[o] = T(0);
     w.next();
   }
   __syncthreads();
   fft_rows<POW2>(re, im, rb, st2, s2, twr2, twi2);
 
-  const float sc = s2.scale;
+  const T sc = s2.scale;
   const bool vec = aligned16(yr, yi);
+  T vr[W], vi[W];
   if (!swap_out) {  // (P, Bo, Ao): element (jj, i), i fastest
-    const int u = vec && s2.out0 == 0 && (Ao & 3) == 0 ? 4 : 1;
+    const int u = vec && s2.out0 == 0 && Ao % W == 0 ? W : 1;
     w = Walk(Ao / u);
     for (int id = threadIdx.x; id < rb * Ao / u; id += PLANE_THREADS) {
       const int i = u * w.col;
       const long long g = (p * Bo + j0 + w.row) * Ao + i;
-      if (u == 4) {  // positions i .. i + 3: one padded run
+      if (u == W) {  // positions i .. i + W - 1: one padded run
         const int o = w.row * st2 + pad(i);
-        reinterpret_cast<float4*>(yr + g)[0] = make_float4(
-            re[o] * sc, re[o + 1] * sc, re[o + 2] * sc, re[o + 3] * sc);
-        reinterpret_cast<float4*>(yi + g)[0] = make_float4(
-            im[o] * sc, im[o + 1] * sc, im[o + 2] * sc, im[o + 3] * sc);
+#pragma unroll
+        for (int t = 0; t < W; ++t) {
+          vr[t] = re[o + t] * sc;
+          vi[t] = im[o + t] * sc;
+        }
+        store16(yr + g, vr);
+        store16(yi + g, vi);
       } else {
         const int o = w.row * st2 + pad(wrap(s2.out0 + i, n2));
         yr[g] = re[o] * sc;
@@ -233,19 +252,20 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
       w.next();
     }
   } else {  // (P, Ao, Bo): element (i, jj), jj fastest, runs of RB along B'
-    const int u = vec && (Bo & 3) == 0 && (RB & 3) == 0 ? 4 : 1;
+    const int u = vec && Bo % W == 0 && RB % W == 0 ? W : 1;
     w = Walk(max(rb / u, 1));
     for (int id = threadIdx.x; id < rb * Ao / u; id += PLANE_THREADS) {
       const int jj = u * w.col;
       const int o = jj * st2 + pad(wrap(s2.out0 + w.row, n2));
       const long long g = (p * Ao + w.row) * Bo + j0 + jj;
-      if (u == 4) {  // columns jj .. jj + 3: 16 bytes
-        reinterpret_cast<float4*>(yr + g)[0] =
-            make_float4(re[o] * sc, re[o + st2] * sc, re[o + 2 * st2] * sc,
-                        re[o + 3 * st2] * sc);
-        reinterpret_cast<float4*>(yi + g)[0] =
-            make_float4(im[o] * sc, im[o + st2] * sc, im[o + 2 * st2] * sc,
-                        im[o + 3 * st2] * sc);
+      if (u == W) {  // columns jj .. jj + W - 1: 16 bytes
+#pragma unroll
+        for (int t = 0; t < W; ++t) {
+          vr[t] = re[o + t * st2] * sc;
+          vi[t] = im[o + t * st2] * sc;
+        }
+        store16(yr + g, vr);
+        store16(yi + g, vi);
       } else {
         yr[g] = re[o] * sc;
         yi[g] = im[o] * sc;
@@ -255,47 +275,94 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   }
 }
 
-// One launch of the FFT stage: rows (M, K) of (xr, xi) -> (yr, yi) (M, N),
-// the transform (n, sign, scale, in0, out0, radices) with twiddle table tw
-// ((2, n) f32 on the device), stored as plane_rows says.
-extern "C" int spfft_fft_stage(const float* xr, const float* xi, float* yr,
-                               float* yi, const float* tw, long long M,
-                               int K, int N, int plane_rows, int n, int sign,
-                               float scale, int in0, int out0, int radices,
-                               void* stream) {
+namespace {
+
+template <class T>
+int launch_stage(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
+                 long long M, int K, int N, int plane_rows, int n, int sign,
+                 T scale, int in0, int out0, int radices, void* stream) {
   int threads, rows;
-  stage_block(n, &threads, &rows);
-  const size_t smem = stage_smem(n, rows);
-  auto kernel = pow2(n) ? fft_stage_kernel<true> : fft_stage_kernel<false>;
+  stage_block<T>(n, &threads, &rows);
+  const size_t smem = stage_smem<T>(n, rows);
+  auto kernel =
+      pow2(n) ? fft_stage_kernel<true, T> : fft_stage_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + rows - 1) / rows);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, tw, M, K, N, plane_rows, rows,
-      FftSpec{n, sign, scale, in0, out0, radices});
+      FftSpec<T>{n, sign, scale, in0, out0, radices});
   return (int)cudaGetLastError();
 }
 
-// One launch of the cluster plane kernel over P planes (A, B) -> (Bo, Ao)
-// or, with swap_out, (Ao, Bo): transform 1 over B, transform 2 over A, the
-// product `scale` of their scales applied at the store.
-extern "C" int spfft_fft_plane(const float* xr, const float* xi, float* yr,
-                               float* yi, const float* tw1, const float* tw2,
-                               int P, int A, int B, int Bo, int Ao, int n1,
-                               int sign1, int in1, int out1, int rad1, int n2,
-                               int sign2, int in2, int out2, int rad2,
-                               float scale, int swap_out, void* stream) {
-  const size_t smem = plane_smem(A, Bo, n1, n2);
-  auto kernel = pow2(n1) && pow2(n2) ? fft_plane_kernel<true>
-                                     : fft_plane_kernel<false>;
+template <class T>
+int launch_plane(const T* xr, const T* xi, T* yr, T* yi, const T* tw1,
+                 const T* tw2, int P, int A, int B, int Bo, int Ao, int n1,
+                 int sign1, int in1, int out1, int rad1, int n2, int sign2,
+                 int in2, int out2, int rad2, T scale, int swap_out,
+                 void* stream) {
+  const size_t smem = plane_smem<T>(A, Bo, n1, n2);
+  auto kernel = pow2(n1) && pow2(n2) ? fft_plane_kernel<true, T>
+                                     : fft_plane_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)P * CLUSTER, PLANE_THREADS, smem,
            (cudaStream_t)stream>>>(
       xr, xi, yr, yi, tw1, tw2, A, B, Bo, Ao,
-      FftSpec{n1, sign1, 1.f, in1, out1, rad1},
-      FftSpec{n2, sign2, scale, in2, out2, rad2}, swap_out);
+      FftSpec<T>{n1, sign1, T(1), in1, out1, rad1},
+      FftSpec<T>{n2, sign2, scale, in2, out2, rad2}, swap_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch of the FFT stage: rows (M, K) of (xr, xi) -> (yr, yi) (M, N),
+// the transform (n, sign, scale, in0, out0, radices) with twiddle table tw
+// ((2, n) on the device), stored as plane_rows says. _f64: the same on
+// double operands.
+extern "C" int spfft_fft_stage(const float* xr, const float* xi, float* yr,
+                               float* yi, const float* tw, long long M,
+                               int K, int N, int plane_rows, int n, int sign,
+                               float scale, int in0, int out0, int radices,
+                               void* stream) {
+  return launch_stage(xr, xi, yr, yi, tw, M, K, N, plane_rows, n, sign,
+                      scale, in0, out0, radices, stream);
+}
+
+extern "C" int spfft_fft_stage_f64(const double* xr, const double* xi,
+                                   double* yr, double* yi, const double* tw,
+                                   long long M, int K, int N, int plane_rows,
+                                   int n, int sign, double scale, int in0,
+                                   int out0, int radices, void* stream) {
+  return launch_stage(xr, xi, yr, yi, tw, M, K, N, plane_rows, n, sign,
+                      scale, in0, out0, radices, stream);
+}
+
+// One launch of the cluster plane kernel over P planes (A, B) -> (Bo, Ao)
+// or, with swap_out, (Ao, Bo): transform 1 over B, transform 2 over A, the
+// product `scale` of their scales applied at the store. _f64: the same on
+// double operands.
+extern "C" int spfft_fft_plane(const float* xr, const float* xi, float* yr,
+                               float* yi, const float* tw1, const float* tw2,
+                               int P, int A, int B, int Bo, int Ao, int n1,
+                               int sign1, int in1, int out1, int rad1, int n2,
+                               int sign2, int in2, int out2, int rad2,
+                               float scale, int swap_out, void* stream) {
+  return launch_plane(xr, xi, yr, yi, tw1, tw2, P, A, B, Bo, Ao, n1, sign1,
+                      in1, out1, rad1, n2, sign2, in2, out2, rad2, scale,
+                      swap_out, stream);
+}
+
+extern "C" int spfft_fft_plane_f64(const double* xr, const double* xi,
+                                   double* yr, double* yi, const double* tw1,
+                                   const double* tw2, int P, int A, int B,
+                                   int Bo, int Ao, int n1, int sign1, int in1,
+                                   int out1, int rad1, int n2, int sign2,
+                                   int in2, int out2, int rad2, double scale,
+                                   int swap_out, void* stream) {
+  return launch_plane(xr, xi, yr, yi, tw1, tw2, P, A, B, Bo, Ao, n1, sign1,
+                      in1, out1, rad1, n2, sign2, in2, out2, rad2, scale,
+                      swap_out, stream);
 }

@@ -1,7 +1,7 @@
-// Shared device code of the package's FFT kernels (fft.cu, fused_fft.cu):
-// a block runs complex FFTs of length n <= 512 = 2^a 3^b 5^c along the rows
-// of a buffer in shared memory, planar f32 (separate real and imaginary
-// arrays).
+// Shared device code of the package's FFT kernels (fft.cu, fused_fft.cu,
+// rfft.cu): a block runs complex FFTs of length n <= 512 = 2^a 3^b 5^c
+// along the rows of a buffer in shared memory, planar (separate real and
+// imaginary arrays) in the real type T, float or double (real.cuh).
 //
 // Algorithm: the Stockham autosort FFT, mixed radix 4, 2, 3 and 5. Stage s
 // of radix P, after stages whose radices multiply to Ns, maps butterfly j
@@ -14,15 +14,21 @@
 // and leaves the row in natural order after the last stage: no bit
 // reversal. The stage radices and the twiddle table come from the plan
 // (ops/dft.py: fft_factors, fft_twiddles): the table holds e^(sign 2 pi i
-// m / n), m < n, computed in float64 on the host and rounded to f32, so
-// w^(t k) is entry t k n / (Ns P). No __sinf / __cosf: an FFT's f32 error
-// then grows with log n, where a dense product's grows with sqrt(n).
+// m / n), m < n, computed in float64 on the host and rounded to T, so
+// w^(t k) is entry t k n / (Ns P). No __sinf / __cosf: an FFT's error then
+// grows with log n, where a dense product's grows with sqrt(n). Every
+// constant is a T (Consts<T>): a float constant left in a double instance
+// would cost about 1e-8.
 //
 // Each thread reads its butterflies' P inputs into registers, the block
 // meets at a barrier, and each thread writes its P outputs back into the
 // same buffer: one buffer, two barriers per stage. A block holds at most
 // EPT complex elements per thread (rows * n <= blockDim.x * EPT), so the
-// register arrays have a size fixed at compile time.
+// register arrays have a size fixed at compile time. A double instance
+// needs twice the registers and shared memory of a float one: its blocks
+// have at most 512 threads (Bounds<double>), so that a thread may hold 128
+// registers, and half the rows of a float block at n > 256, so that the
+// buffer fits the 227 KB a block may have.
 //
 // Layout: element q of row r sits at r * stride + pad(q). pad() inserts one
 // word after every 32, so the first stages' writes at power-of-two strides
@@ -34,14 +40,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "real.cuh"
+
 namespace spfft {
 namespace fft {
 
 constexpr int EPT = 16;  // complex elements of the buffer per thread
 // complex elements per thread in one pass of the FFT: fft_rows works on
 // chunks of blockDim.x * EPT_PASS / n rows, so that a stage holds at most
-// 2 * ceil(EPT_PASS / P) * P floats a thread across its barrier
+// 2 * ceil(EPT_PASS / P) * P reals a thread across its barrier
 constexpr int EPT_PASS = 8;
+
+// The launch bounds of a T instance: the most threads of a stage block
+// (float: 1024 at 64 registers a thread; double: 512 at 128), and the
+// cluster kernel's blocks an SM (512 threads each: float 2, double 1).
+template <class T>
+struct Bounds {
+  static constexpr int STAGE_THREADS = sizeof(T) == 4 ? 1024 : 512;
+  static constexpr int PLANE_BLOCKS = sizeof(T) == 4 ? 2 : 1;
+};
 
 __host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 __host__ __device__ __forceinline__ int row_stride(int n) { return pad(n) | 1; }
@@ -50,17 +67,20 @@ __host__ __device__ __forceinline__ bool pow2(int n) { return (n & (n - 1)) == 0
 __device__ __forceinline__ int wrap(int q, int n) { return q >= n ? q - n : q; }
 
 // Threads and rows of a block that transforms whole rows of length n: 512
-// threads up to n = 256, 1024 above, and as many rows as fill EPT elements
-// a thread (32 rows at n = 256 and n = 512).
+// threads up to n = 256, Bounds<T>::STAGE_THREADS above, and as many rows
+// as fill EPT elements a thread (32 rows at n = 256; at n = 512, 32 in
+// float and 16 in double).
+template <class T>
 inline void stage_block(int n, int* threads, int* rows) {
-  *threads = n > 256 ? 1024 : 512;
+  *threads = n > 256 ? Bounds<T>::STAGE_THREADS : 512;
   *rows = (*threads * EPT) / n;
 }
 
 // Shared memory of such a block: its rows (real and imaginary) and the
 // twiddle table.
+template <class T>
 inline size_t stage_smem(int n, int rows) {
-  return sizeof(float) * (2 * (size_t)rows * row_stride(n) + 2 * (size_t)n);
+  return sizeof(T) * (2 * (size_t)rows * row_stride(n) + 2 * (size_t)n);
 }
 
 // One transform as the plan describes it: length n, sign (+1 backward,
@@ -68,42 +88,59 @@ inline size_t stage_smem(int n, int rows) {
 // element 0 (in0: input k sits at (in0 + k) mod n, other positions are 0)
 // and of output element 0 (out0: output j is position (out0 + j) mod n),
 // and the stage radices, 3 bits each, the first stage lowest.
+template <class T>
 struct FftSpec {
   int n;
   int sign;
-  float scale;
+  T scale;
   int in0;
   int out0;
   int radices;
 };
 
-// sin and cos of 2 pi / 3, 2 pi / 5 and 4 pi / 5, rounded from double
-constexpr float S3 = 0.86602540378443864676f;
-constexpr float C5_1 = 0.30901699437494742410f;
-constexpr float C5_2 = -0.80901699437494742410f;
-constexpr float S5_1 = 0.95105651629515357212f;
-constexpr float S5_2 = 0.58778525229247312917f;
-
-// v <- DFT_P(v) with kernel e^(sign 2 pi i jk / P); s is sign as a float
-template <int P>
-__device__ __forceinline__ void small_dft(float (&r)[P], float (&i)[P], float s);
+// sin and cos of 2 pi / 3, 2 pi / 5 and 4 pi / 5, each rounded once from
+// its decimal expansion to T
+template <class T>
+struct Consts;
 
 template <>
-__device__ __forceinline__ void small_dft<2>(float (&r)[2], float (&i)[2], float) {
-  const float ar = r[0] - r[1], ai = i[0] - i[1];
+struct Consts<float> {
+  static constexpr float HALF = 0.5f;
+  static constexpr float S3 = 0.86602540378443864676f;
+  static constexpr float C5_1 = 0.30901699437494742410f;
+  static constexpr float C5_2 = -0.80901699437494742410f;
+  static constexpr float S5_1 = 0.95105651629515357212f;
+  static constexpr float S5_2 = 0.58778525229247312917f;
+};
+
+template <>
+struct Consts<double> {
+  static constexpr double HALF = 0.5;
+  static constexpr double S3 = 0.86602540378443864676;
+  static constexpr double C5_1 = 0.30901699437494742410;
+  static constexpr double C5_2 = -0.80901699437494742410;
+  static constexpr double S5_1 = 0.95105651629515357212;
+  static constexpr double S5_2 = 0.58778525229247312917;
+};
+
+// v <- DFT_P(v) with kernel e^(sign 2 pi i jk / P), P the arrays' length;
+// s is sign as a T
+template <class T>
+__device__ __forceinline__ void small_dft(T (&r)[2], T (&i)[2], T) {
+  const T ar = r[0] - r[1], ai = i[0] - i[1];
   r[0] += r[1];
   i[0] += i[1];
   r[1] = ar;
   i[1] = ai;
 }
 
-template <>
-__device__ __forceinline__ void small_dft<4>(float (&r)[4], float (&i)[4], float s) {
-  const float t0r = r[0] + r[2], t0i = i[0] + i[2];
-  const float t1r = r[0] - r[2], t1i = i[0] - i[2];
-  const float t2r = r[1] + r[3], t2i = i[1] + i[3];
+template <class T>
+__device__ __forceinline__ void small_dft(T (&r)[4], T (&i)[4], T s) {
+  const T t0r = r[0] + r[2], t0i = i[0] + i[2];
+  const T t1r = r[0] - r[2], t1i = i[0] - i[2];
+  const T t2r = r[1] + r[3], t2i = i[1] + i[3];
   // (a1 - a3) * (s i)
-  const float t3r = -s * (i[1] - i[3]), t3i = s * (r[1] - r[3]);
+  const T t3r = -s * (i[1] - i[3]), t3i = s * (r[1] - r[3]);
   r[0] = t0r + t2r;
   i[0] = t0i + t2i;
   r[2] = t0r - t2r;
@@ -114,13 +151,14 @@ __device__ __forceinline__ void small_dft<4>(float (&r)[4], float (&i)[4], float
   i[3] = t1i - t3i;
 }
 
-template <>
-__device__ __forceinline__ void small_dft<3>(float (&r)[3], float (&i)[3], float s) {
-  const float tr = r[1] + r[2], ti = i[1] + i[2];
-  const float dr = r[1] - r[2], di = i[1] - i[2];
-  const float mr = r[0] - 0.5f * tr, mi = i[0] - 0.5f * ti;
+template <class T>
+__device__ __forceinline__ void small_dft(T (&r)[3], T (&i)[3], T s) {
+  using C = Consts<T>;
+  const T tr = r[1] + r[2], ti = i[1] + i[2];
+  const T dr = r[1] - r[2], di = i[1] - i[2];
+  const T mr = r[0] - C::HALF * tr, mi = i[0] - C::HALF * ti;
   // s i (sqrt(3) / 2) d
-  const float er = -s * S3 * di, ei = s * S3 * dr;
+  const T er = -s * C::S3 * di, ei = s * C::S3 * dr;
   r[0] += tr;
   i[0] += ti;
   r[1] = mr + er;
@@ -129,21 +167,22 @@ __device__ __forceinline__ void small_dft<3>(float (&r)[3], float (&i)[3], float
   i[2] = mi - ei;
 }
 
-template <>
-__device__ __forceinline__ void small_dft<5>(float (&r)[5], float (&i)[5], float s) {
-  const float b1r = r[1] + r[4], b1i = i[1] + i[4];
-  const float b2r = r[2] + r[3], b2i = i[2] + i[3];
-  const float d1r = r[1] - r[4], d1i = i[1] - i[4];
-  const float d2r = r[2] - r[3], d2i = i[2] - i[3];
-  const float m1r = r[0] + C5_1 * b1r + C5_2 * b2r;
-  const float m1i = i[0] + C5_1 * b1i + C5_2 * b2i;
-  const float m2r = r[0] + C5_2 * b1r + C5_1 * b2r;
-  const float m2i = i[0] + C5_2 * b1i + C5_1 * b2i;
+template <class T>
+__device__ __forceinline__ void small_dft(T (&r)[5], T (&i)[5], T s) {
+  using C = Consts<T>;
+  const T b1r = r[1] + r[4], b1i = i[1] + i[4];
+  const T b2r = r[2] + r[3], b2i = i[2] + i[3];
+  const T d1r = r[1] - r[4], d1i = i[1] - i[4];
+  const T d2r = r[2] - r[3], d2i = i[2] - i[3];
+  const T m1r = r[0] + C::C5_1 * b1r + C::C5_2 * b2r;
+  const T m1i = i[0] + C::C5_1 * b1i + C::C5_2 * b2i;
+  const T m2r = r[0] + C::C5_2 * b1r + C::C5_1 * b2r;
+  const T m2i = i[0] + C::C5_2 * b1i + C::C5_1 * b2i;
   // s i (S1 d1 + S2 d2) and s i (S2 d1 - S1 d2)
-  const float e1r = -s * (S5_1 * d1i + S5_2 * d2i);
-  const float e1i = s * (S5_1 * d1r + S5_2 * d2r);
-  const float e2r = -s * (S5_2 * d1i - S5_1 * d2i);
-  const float e2i = s * (S5_2 * d1r - S5_1 * d2r);
+  const T e1r = -s * (C::S5_1 * d1i + C::S5_2 * d2i);
+  const T e1i = s * (C::S5_1 * d1r + C::S5_2 * d2r);
+  const T e2r = -s * (C::S5_2 * d1i - C::S5_1 * d2i);
+  const T e2i = s * (C::S5_2 * d1r - C::S5_1 * d2r);
   r[0] += b1r + b2r;
   i[0] += b1i + b2i;
   r[1] = m1r + e1r;
@@ -163,16 +202,16 @@ __device__ __forceinline__ void small_dft<5>(float (&r)[5], float (&i)[5], float
 // blockDim.x): a thread keeps one j, k and set of twiddles for all its
 // butterflies, and its rows step by blockDim.x / (n / P), with shifts and
 // masks in place of divisions.
-template <int P, bool POW2>
-__device__ __forceinline__ void stage(float* re, float* im, int rows, int n,
-                                      int stride, int ns, const float* twr,
-                                      const float* twi, float s) {
+template <int P, bool POW2, class T>
+__device__ __forceinline__ void stage(T* re, T* im, int rows, int n,
+                                      int stride, int ns, const T* twr,
+                                      const T* twi, T s) {
   constexpr int MAXB = (EPT_PASS + P - 1) / P;
   const int q = n / P;
   const int total = rows * q;
   const int tstep = n / (ns * P);
   const int qlog = __ffs(q) - 1;  // used where POW2
-  float vr[MAXB][P], vi[MAXB][P];
+  T vr[MAXB][P], vi[MAXB][P];
   int row = POW2 ? threadIdx.x >> qlog : threadIdx.x / q;
   int j = threadIdx.x - row * q;
   int k = POW2 ? j & (ns - 1) : j % ns;
@@ -189,22 +228,22 @@ __device__ __forceinline__ void stage(float* re, float* im, int rows, int n,
       }
     }
     if (id < total) {
-      const float* xr = re + row * stride;
-      const float* xi = im + row * stride;
+      const T* xr = re + row * stride;
+      const T* xi = im + row * stride;
 #pragma unroll
       for (int t = 0; t < P; ++t) {
         const int a = pad(j + t * q);
-        float ar = xr[a], ai = xi[a];
+        T ar = xr[a], ai = xi[a];
         if (t > 0 && k > 0) {
-          const float c = twr[t * k * tstep], sn = twi[t * k * tstep];
-          const float br = ar * c - ai * sn;
+          const T c = twr[t * k * tstep], sn = twi[t * k * tstep];
+          const T br = ar * c - ai * sn;
           ai = ar * sn + ai * c;
           ar = br;
         }
         vr[b][t] = ar;
         vi[b][t] = ai;
       }
-      small_dft<P>(vr[b], vi[b], s);
+      small_dft(vr[b], vi[b], s);
     }
   }
   __syncthreads();
@@ -225,8 +264,8 @@ __device__ __forceinline__ void stage(float* re, float* im, int rows, int n,
     }
     if (id < total) {
       const int base = (j - k) * P + k;
-      float* yr = re + row * stride;
-      float* yi = im + row * stride;
+      T* yr = re + row * stride;
+      T* yi = im + row * stride;
 #pragma unroll
       for (int t = 0; t < P; ++t) {
         yr[pad(base + t * ns)] = vr[b][t];
@@ -243,15 +282,15 @@ __device__ __forceinline__ void stage(float* re, float* im, int rows, int n,
 // the block calls it. POW2: n is a power of two (radices 4 and 2 only) and
 // blockDim.x a multiple of 256. Not inlined: its register allocation then
 // does not share the calling kernel's live values (which made it spill).
-template <bool POW2>
-__device__ __noinline__ void fft_rows(float* re, float* im, int rows,
-                                         int stride, const FftSpec& sp,
-                                         const float* twr, const float* twi) {
-  const float s = (float)sp.sign;
+template <bool POW2, class T>
+__device__ __noinline__ void fft_rows(T* re, T* im, int rows, int stride,
+                                      const FftSpec<T>& sp, const T* twr,
+                                      const T* twi) {
+  const T s = (T)sp.sign;
   const int chunk = blockDim.x * EPT_PASS / sp.n;
   for (int r0 = 0; r0 < rows; r0 += chunk) {
-    float* cr = re + r0 * stride;
-    float* ci = im + r0 * stride;
+    T* cr = re + r0 * stride;
+    T* ci = im + r0 * stride;
     const int nr = min(chunk, rows - r0);
     int ns = 1;
     for (int code = sp.radices; code != 0; code >>= 3) {
@@ -283,8 +322,9 @@ __device__ __noinline__ void fft_rows(float* re, float* im, int rows,
 }
 
 // Copy the plan's twiddle table ((2, n): cos row, sin row) to shared memory.
-__device__ __forceinline__ void load_twiddles(float* twr, float* twi,
-                                              const float* __restrict__ tw,
+template <class T>
+__device__ __forceinline__ void load_twiddles(T* twr, T* twi,
+                                              const T* __restrict__ tw,
                                               int n) {
   for (int m = threadIdx.x; m < n; m += blockDim.x) {
     twr[m] = tw[m];
@@ -319,59 +359,57 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
 }
 
 // Stage `valid` rows of K inputs (global rows row0, row0 + 1, ... of
-// (xr, xi), K floats apart) into buffer rows 0..rows-1 (rows * n <=
+// (xr, xi), K reals apart) into buffer rows 0..rows-1 (rows * n <=
 // blockDim.x * EPT), each input k at position (in0 + k) mod n and every
 // other position zero (rows past `valid` all zero). Each thread issues all
 // its loads before its first shared-memory store. With the whole row given
-// (K == n, in0 == 0, n a multiple of 4, 16-byte aligned operands) it reads
-// 16 bytes a thread.
-__device__ __forceinline__ void load_rows(float* re, float* im, int rows,
-                                          int valid, int stride, int n, int K,
-                                          int in0,
-                                          const float* __restrict__ xr,
-                                          const float* __restrict__ xi,
+// (K == n, in0 == 0, n a multiple of W = Real<T>::W, 16-byte aligned
+// operands) it reads 16 bytes a thread.
+template <class T>
+__device__ __forceinline__ void load_rows(T* re, T* im, int rows, int valid,
+                                          int stride, int n, int K, int in0,
+                                          const T* __restrict__ xr,
+                                          const T* __restrict__ xi,
                                           long long row0) {
-  if (K == n && in0 == 0 && (n & 3) == 0 && aligned16(xr, xi)) {
-    constexpr int V = EPT / 4;
-    const int n4 = n >> 2;
-    const float4* x4r = reinterpret_cast<const float4*>(xr);
-    const float4* x4i = reinterpret_cast<const float4*>(xi);
-    float4 a[V], b[V];
-    Walk w(n4);
+  constexpr int W = Real<T>::W;
+  if (K == n && in0 == 0 && n % W == 0 && aligned16(xr, xi)) {
+    constexpr int V = EPT / W;
+    const int nw = n / W;
+    T a[V][W], b[V][W];
+    Walk w(nw);
 #pragma unroll
     for (int e = 0; e < V; ++e, w.next()) {
-      a[e] = b[e] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (w.row < valid) {
-        const long long g = (row0 + w.row) * n4 + w.col;
-        a[e] = x4r[g];
-        b[e] = x4i[g];
+        const long long g = ((row0 + w.row) * nw + w.col) * W;
+        load16(xr + g, a[e]);
+        load16(xi + g, b[e]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < W; ++t) a[e][t] = b[e][t] = T(0);
       }
     }
-    w = Walk(n4);
+    w = Walk(nw);
 #pragma unroll
     for (int e = 0; e < V; ++e, w.next()) {
       if (w.row < rows) {
-        // positions 4 col .. 4 col + 3 lie in one padded run
-        const int o = w.row * stride + pad(4 * w.col);
-        re[o] = a[e].x;
-        re[o + 1] = a[e].y;
-        re[o + 2] = a[e].z;
-        re[o + 3] = a[e].w;
-        im[o] = b[e].x;
-        im[o + 1] = b[e].y;
-        im[o + 2] = b[e].z;
-        im[o + 3] = b[e].w;
+        // positions W col .. W col + W - 1 lie in one padded run
+        const int o = w.row * stride + pad(W * w.col);
+#pragma unroll
+        for (int t = 0; t < W; ++t) {
+          re[o + t] = a[e][t];
+          im[o + t] = b[e][t];
+        }
       }
     }
     return;
   }
-  float a[EPT], b[EPT];
+  T a[EPT], b[EPT];
   Walk w(n);
 #pragma unroll
   for (int e = 0; e < EPT; ++e, w.next()) {
     int k = w.col - in0;
     if (k < 0) k += n;
-    a[e] = b[e] = 0.f;
+    a[e] = b[e] = T(0);
     if (w.row < valid && k < K) {
       const long long g = (row0 + w.row) * K + k;
       a[e] = xr[g];
@@ -391,24 +429,30 @@ __device__ __forceinline__ void load_rows(float* re, float* im, int rows,
 
 // Store N outputs of each of the first `valid` buffer rows: output j of
 // row r (position (out0 + j) mod n) times sc at (yr, yi)[(row0 + r) N + j].
-// With out0 == 0, N a multiple of 4 and 16-byte aligned operands it stores
+// With out0 == 0, N a multiple of W and 16-byte aligned operands it stores
 // 16 bytes a thread.
-__device__ __forceinline__ void store_rows(const float* re, const float* im,
+template <class T>
+__device__ __forceinline__ void store_rows(const T* re, const T* im,
                                            int valid, int stride, int n,
-                                           int N, int out0, float sc,
-                                           float* __restrict__ yr,
-                                           float* __restrict__ yi,
+                                           int N, int out0, T sc,
+                                           T* __restrict__ yr,
+                                           T* __restrict__ yi,
                                            long long row0) {
-  if (out0 == 0 && (N & 3) == 0 && aligned16(yr, yi)) {
-    const int N4 = N >> 2;
-    Walk w(N4);
-    for (int id = threadIdx.x; id < valid * N4; id += blockDim.x) {
-      const int o = w.row * stride + pad(4 * w.col);
-      const long long g = (row0 + w.row) * N4 + w.col;
-      reinterpret_cast<float4*>(yr)[g] = make_float4(
-          re[o] * sc, re[o + 1] * sc, re[o + 2] * sc, re[o + 3] * sc);
-      reinterpret_cast<float4*>(yi)[g] = make_float4(
-          im[o] * sc, im[o + 1] * sc, im[o + 2] * sc, im[o + 3] * sc);
+  constexpr int W = Real<T>::W;
+  if (out0 == 0 && N % W == 0 && aligned16(yr, yi)) {
+    const int NW = N / W;
+    Walk w(NW);
+    for (int id = threadIdx.x; id < valid * NW; id += blockDim.x) {
+      const int o = w.row * stride + pad(W * w.col);
+      const long long g = ((row0 + w.row) * NW + w.col) * W;
+      T a[W], b[W];
+#pragma unroll
+      for (int t = 0; t < W; ++t) {
+        a[t] = re[o + t] * sc;
+        b[t] = im[o + t] * sc;
+      }
+      store16(yr + g, a);
+      store16(yi + g, b);
       w.next();
     }
     return;

@@ -46,6 +46,12 @@
 // compress moves the sticks, the CSR and the values (0.074 ms). The matrix
 // form did 51,431 x 256 x 256 complex multiply-adds, about 50 times the
 // FFT's arithmetic, and was bound by operations.
+//
+// Both kernels are templates on the real type T (real.cuh): float, and
+// double for double-precision plans (entries with the suffix _f64), which
+// move twice the value and stick bytes (decompress 0.136 ms at 256^3)
+// with 16-byte double2 values and sticks, complete the R2C zero stick in
+// double and run on fft_tile.cuh's Bounds<double> blocks.
 
 #include "fft_tile.cuh"
 #include "values.cuh"
@@ -58,23 +64,24 @@ using namespace spfft::fft;
 constexpr int GATHER = 8;
 
 // values (batch, N, 2) or (batch, 2, N) -> sticks (batch, num_sticks, n);
-// rows sticks a block of stage_block's threads (64 registers a thread).
-template <bool POW2>
-__global__ void __launch_bounds__(1024)
-    decompress_zdft_fft_kernel(const float* __restrict__ values,
+// rows sticks a block of stage_block's threads.
+template <bool POW2, class T>
+__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+    decompress_zdft_fft_kernel(const T* __restrict__ values,
                                const int* __restrict__ slot_src,
-                               const float* __restrict__ tw,
-                               float* __restrict__ sr, float* __restrict__ si,
-                               long long num_sticks, int num_values, int pair,
-                               long long zero_stick, int rows, FftSpec sp) {
+                               const T* __restrict__ tw, T* __restrict__ sr,
+                               T* __restrict__ si, long long num_sticks,
+                               int num_values, int pair, long long zero_stick,
+                               int rows, FftSpec<T> sp) {
+  using Pair = typename Real<T>::Pair;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int n = sp.n;
   const int stride = row_stride(n);
-  float* re = smem;
-  float* im = re + rows * stride;
-  float* twr = im + rows * stride;
-  float* twi = twr + n;
+  T* re = smem;
+  T* im = re + rows * stride;
+  T* twr = im + rows * stride;
+  T* twi = twr + n;
   const long long s0 = (long long)blockIdx.x * rows;
   const int valid = (int)min((long long)rows, num_sticks - s0);
   values += (long long)blockIdx.y * 2 * num_values;
@@ -87,7 +94,7 @@ __global__ void __launch_bounds__(1024)
   Walk w(n);
   for (int e0 = 0; e0 < EPT; e0 += GATHER) {
     int src[GATHER];
-    float2 v[GATHER];
+    Pair v[GATHER];
 #pragma unroll
     for (int g = 0; g < GATHER; ++g) {
       const int id = threadIdx.x + (e0 + g) * blockDim.x;
@@ -97,7 +104,7 @@ __global__ void __launch_bounds__(1024)
     for (int g = 0; g < GATHER; ++g) {
       v[g] = (unsigned)src[g] < (unsigned)num_values
                  ? read_value(values, pair, num_values, src[g])
-                 : make_float2(0.f, 0.f);
+                 : make_pair(T(0), T(0));
     }
 #pragma unroll
     for (int g = 0; g < GATHER; ++g, w.next()) {
@@ -115,10 +122,10 @@ __global__ void __launch_bounds__(1024)
     const int r = (int)zr;
     for (int z = threadIdx.x; z < n; z += blockDim.x) {
       const int o = r * stride + pad(wrap(sp.in0 + z, n));
-      if (re[o] == 0.f && im[o] == 0.f) {
+      if (re[o] == T(0) && im[o] == T(0)) {
         const int m = ss[r * n + (z == 0 ? 0 : n - z)];
         if ((unsigned)m < (unsigned)num_values) {
-          const float2 c = read_value(values, pair, num_values, m);
+          const Pair c = read_value(values, pair, num_values, m);
           re[o] = c.x;
           im[o] = -c.y;
         }
@@ -131,25 +138,26 @@ __global__ void __launch_bounds__(1024)
 }
 
 // sticks (batch, num_sticks, n) -> values (batch, N, 2) or (batch, 2, N);
-// rows sticks a block of stage_block's threads (64 registers a thread).
-template <bool POW2>
-__global__ void __launch_bounds__(1024)
-    zdft_compress_fft_kernel(const float* __restrict__ sr,
-                             const float* __restrict__ si,
-                             const float* __restrict__ tw,
+// rows sticks a block of stage_block's threads.
+template <bool POW2, class T>
+__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+    zdft_compress_fft_kernel(const T* __restrict__ sr,
+                             const T* __restrict__ si,
+                             const T* __restrict__ tw,
                              const int* __restrict__ stick_ptr,
                              const int* __restrict__ val_id,
                              const int* __restrict__ val_z,
-                             float* __restrict__ values, long long num_sticks,
-                             int num_values, int pair, int rows, FftSpec sp) {
+                             T* __restrict__ values, long long num_sticks,
+                             int num_values, int pair, int rows,
+                             FftSpec<T> sp) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int n = sp.n;
   const int stride = row_stride(n);
-  float* re = smem;
-  float* im = re + rows * stride;
-  float* twr = im + rows * stride;
-  float* twi = twr + n;
+  T* re = smem;
+  T* im = re + rows * stride;
+  T* twr = im + rows * stride;
+  T* twi = twr + n;
   int* ptr = reinterpret_cast<int*>(twi + n);  // rows + 1 entries
   const long long s0 = (long long)blockIdx.x * rows;
   const int valid = (int)min((long long)rows, num_sticks - s0);
@@ -163,7 +171,7 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
   fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
 
-  const float sc = sp.scale;
+  const T sc = sp.scale;
   const int hi_e = ptr[valid];
   for (int e = ptr[0] + threadIdx.x; e < hi_e; e += blockDim.x) {
     int lo = 0, hi = valid;  // ptr[lo] <= e < ptr[hi]
@@ -179,20 +187,19 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// One launch for `batch` transforms: values (batch, N, 2) or (batch, 2, N)
-// through slot_src (num_sticks * n int32 entries, sentinel N) -> sticks
-// (batch, num_sticks, n); the transform (n, sign, scale, in0, out0,
-// radices) with twiddle table tw ((2, n) f32 on the device).
-extern "C" int spfft_decompress_zdft_fft(
-    const float* values, const int* slot_src, const float* tw, float* sr,
-    float* si, long long num_sticks, int num_values, int pair,
-    long long zero_stick, int batch, int n, int sign, float scale, int in0,
-    int out0, int radices, void* stream) {
+namespace {
+
+template <class T>
+int launch_decompress(const T* values, const int* slot_src, const T* tw,
+                      T* sr, T* si, long long num_sticks, int num_values,
+                      int pair, long long zero_stick, int batch, int n,
+                      int sign, T scale, int in0, int out0, int radices,
+                      void* stream) {
   int threads, rows;
-  stage_block(n, &threads, &rows);
-  const size_t smem = stage_smem(n, rows);
-  auto kernel = pow2(n) ? decompress_zdft_fft_kernel<true>
-                        : decompress_zdft_fft_kernel<false>;
+  stage_block<T>(n, &threads, &rows);
+  const size_t smem = stage_smem<T>(n, rows);
+  auto kernel = pow2(n) ? decompress_zdft_fft_kernel<true, T>
+                        : decompress_zdft_fft_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -200,24 +207,21 @@ extern "C" int spfft_decompress_zdft_fft(
                     (unsigned)batch);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       values, slot_src, tw, sr, si, num_sticks, num_values, pair, zero_stick,
-      rows, FftSpec{n, sign, scale, in0, out0, radices});
+      rows, FftSpec<T>{n, sign, scale, in0, out0, radices});
   return (int)cudaGetLastError();
 }
 
-// One launch for `batch` transforms: sticks (batch, num_sticks, n) ->
-// values (batch, N, 2) or (batch, 2, N) through the CSR by stick
-// (stick_ptr (num_sticks + 1,), val_id and val_z (N,), int32); the
-// transform as for spfft_decompress_zdft_fft.
-extern "C" int spfft_zdft_compress_fft(
-    const float* sr, const float* si, const float* tw, const int* stick_ptr,
-    const int* val_id, const int* val_z, float* values, long long num_sticks,
-    int num_values, int pair, int batch, int n, int sign, float scale,
-    int in0, int out0, int radices, void* stream) {
+template <class T>
+int launch_compress(const T* sr, const T* si, const T* tw,
+                    const int* stick_ptr, const int* val_id,
+                    const int* val_z, T* values, long long num_sticks,
+                    int num_values, int pair, int batch, int n, int sign,
+                    T scale, int in0, int out0, int radices, void* stream) {
   int threads, rows;
-  stage_block(n, &threads, &rows);
-  const size_t smem = stage_smem(n, rows) + sizeof(int) * (rows + 1);
-  auto kernel = pow2(n) ? zdft_compress_fft_kernel<true>
-                        : zdft_compress_fft_kernel<false>;
+  stage_block<T>(n, &threads, &rows);
+  const size_t smem = stage_smem<T>(n, rows) + sizeof(int) * (rows + 1);
+  auto kernel = pow2(n) ? zdft_compress_fft_kernel<true, T>
+                        : zdft_compress_fft_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -225,6 +229,59 @@ extern "C" int spfft_zdft_compress_fft(
                     (unsigned)batch);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       sr, si, tw, stick_ptr, val_id, val_z, values, num_sticks, num_values,
-      pair, rows, FftSpec{n, sign, scale, in0, out0, radices});
+      pair, rows, FftSpec<T>{n, sign, scale, in0, out0, radices});
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch for `batch` transforms: values (batch, N, 2) or (batch, 2, N)
+// through slot_src (num_sticks * n int32 entries, sentinel N) -> sticks
+// (batch, num_sticks, n); the transform (n, sign, scale, in0, out0,
+// radices) with twiddle table tw ((2, n) on the device). _f64: the same on
+// double operands.
+extern "C" int spfft_decompress_zdft_fft(
+    const float* values, const int* slot_src, const float* tw, float* sr,
+    float* si, long long num_sticks, int num_values, int pair,
+    long long zero_stick, int batch, int n, int sign, float scale, int in0,
+    int out0, int radices, void* stream) {
+  return launch_decompress(values, slot_src, tw, sr, si, num_sticks,
+                           num_values, pair, zero_stick, batch, n, sign,
+                           scale, in0, out0, radices, stream);
+}
+
+extern "C" int spfft_decompress_zdft_fft_f64(
+    const double* values, const int* slot_src, const double* tw, double* sr,
+    double* si, long long num_sticks, int num_values, int pair,
+    long long zero_stick, int batch, int n, int sign, double scale, int in0,
+    int out0, int radices, void* stream) {
+  return launch_decompress(values, slot_src, tw, sr, si, num_sticks,
+                           num_values, pair, zero_stick, batch, n, sign,
+                           scale, in0, out0, radices, stream);
+}
+
+// One launch for `batch` transforms: sticks (batch, num_sticks, n) ->
+// values (batch, N, 2) or (batch, 2, N) through the CSR by stick
+// (stick_ptr (num_sticks + 1,), val_id and val_z (N,), int32); the
+// transform as for spfft_decompress_zdft_fft. _f64: the same on double
+// operands.
+extern "C" int spfft_zdft_compress_fft(
+    const float* sr, const float* si, const float* tw, const int* stick_ptr,
+    const int* val_id, const int* val_z, float* values, long long num_sticks,
+    int num_values, int pair, int batch, int n, int sign, float scale,
+    int in0, int out0, int radices, void* stream) {
+  return launch_compress(sr, si, tw, stick_ptr, val_id, val_z, values,
+                         num_sticks, num_values, pair, batch, n, sign, scale,
+                         in0, out0, radices, stream);
+}
+
+extern "C" int spfft_zdft_compress_fft_f64(
+    const double* sr, const double* si, const double* tw,
+    const int* stick_ptr, const int* val_id, const int* val_z,
+    double* values, long long num_sticks, int num_values, int pair,
+    int batch, int n, int sign, double scale, int in0, int out0,
+    int radices, void* stream) {
+  return launch_compress(sr, si, tw, stick_ptr, val_id, val_z, values,
+                         num_sticks, num_values, pair, batch, n, sign, scale,
+                         in0, out0, radices, stream);
 }

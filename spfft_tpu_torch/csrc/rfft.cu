@@ -30,8 +30,8 @@
 // inside it. The half spectrum needs h + 1 slots a row: rows are
 // row_stride(h + 1) apart (odd, so column reads stay conflict-free). The
 // stage twiddles (length h) and the post-twiddles e^(-+2 pi i k / n) both
-// come from the plan's f64 table of length n rounded to f32 (its even
-// entries are the length-h table), no __sinf.
+// come from the plan's f64 table of length n rounded to the kernel's real
+// type (its even entries are the length-h table), no __sinf.
 //
 // Blocks, buffer and launch follow fft.cu's fft_stage_kernel: stage_block
 // (h)'s threads and rows, the FFT of fft_tile.cuh, and a store straight or
@@ -46,9 +46,15 @@
 // at 3.35 TB/s. The FFT needs 5 h log2 h + ~10 h FLOP a row, under 0.01 ms
 // at 67 TFLOP/s. The matrix form did 2.6e10 FLOP for a prdft2 call and
 // was bound by operations.
+//
+// The kernel is a template on the real type T (real.cuh): float, and
+// double for double-precision plans (entry spfft_rfft_stage_f64), whose
+// stage moves 269 MB at 256^3 (0.080 ms) with double2 accesses and whose
+// blocks follow fft_tile.cuh's Bounds<double>.
 
 #include "fft_tile.cuh"
 
+using namespace spfft;
 using namespace spfft::fft;
 
 namespace {
@@ -57,36 +63,35 @@ constexpr int RC = 1;  // the codes of dft2.cu's modes (cdft_tile.cuh)
 constexpr int CR = 2;
 constexpr int MAX_ROWS = 512;  // a block's rows for short lengths
 
-// Stage `valid` rows of K floats (a contiguous run in device memory from
-// x + m0 * K) into shared memory: float f = r * K + k of the run goes to
+// Stage `valid` rows of K reals (a contiguous run in device memory from
+// x + m0 * K) into shared memory: real f = r * K + k of the run goes to
 // dst(k)[r * stride]. Each thread issues its loads of a round before its
 // stores; 16 bytes a load where the run is aligned.
-template <class Dst>
-__device__ __forceinline__ void load_flat(const float* __restrict__ x,
+template <class T, class Dst>
+__device__ __forceinline__ void load_flat(const T* __restrict__ x,
                                           long long m0, int valid, int K,
                                           int stride, Dst dst) {
   constexpr int V = 4;
-  const float* src = x + m0 * K;
+  constexpr int W = Real<T>::W;
+  const T* src = x + m0 * K;
   const int total = valid * K;
-  const int nv = aligned16(src, src) ? total >> 2 : 0;
-  const float4* src4 = reinterpret_cast<const float4*>(src);
+  const int nv = aligned16(src, src) ? total / W : 0;
   for (int v0 = 0; v0 < nv; v0 += V * blockDim.x) {
-    float4 a[V];
+    T a[V][W];
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const int v = v0 + threadIdx.x + e * blockDim.x;
-      if (v < nv) a[e] = src4[v];
+      if (v < nv) load16(src + W * v, a[e]);
     }
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const int v = v0 + threadIdx.x + e * blockDim.x;
       if (v < nv) {
-        int r = (4 * v) / K;
-        int k = 4 * v - r * K;
-        const float f[4] = {a[e].x, a[e].y, a[e].z, a[e].w};
+        int r = (W * v) / K;
+        int k = W * v - r * K;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          dst(k)[r * stride] = f[t];
+        for (int t = 0; t < W; ++t) {
+          dst(k)[r * stride] = a[e][t];
           if (++k == K) {
             k = 0;
             ++r;
@@ -95,36 +100,37 @@ __device__ __forceinline__ void load_flat(const float* __restrict__ x,
       }
     }
   }
-  for (int f = 4 * nv + threadIdx.x; f < total; f += blockDim.x) {
+  for (int f = W * nv + threadIdx.x; f < total; f += blockDim.x) {
     const int r = f / K;
     dst(f - r * K)[r * stride] = src[f];
   }
 }
 
-// The mirror of load_flat: float f = r * N + j of the run from y + m0 * N
+// The mirror of load_flat: real f = r * N + j of the run from y + m0 * N
 // is src(j)[r * stride] times sc.
-template <class Src>
-__device__ __forceinline__ void store_flat(float* __restrict__ y,
-                                           long long m0, int valid, int N,
-                                           int stride, float sc, Src src) {
-  float* dst = y + m0 * N;
+template <class T, class Src>
+__device__ __forceinline__ void store_flat(T* __restrict__ y, long long m0,
+                                           int valid, int N, int stride,
+                                           T sc, Src src) {
+  constexpr int W = Real<T>::W;
+  T* dst = y + m0 * N;
   const int total = valid * N;
-  const int nv = aligned16(dst, dst) ? total >> 2 : 0;
+  const int nv = aligned16(dst, dst) ? total / W : 0;
   for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-    int r = (4 * v) / N;
-    int j = 4 * v - r * N;
-    float f[4];
+    int r = (W * v) / N;
+    int j = W * v - r * N;
+    T f[W];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
+    for (int t = 0; t < W; ++t) {
       f[t] = src(j)[r * stride] * sc;
       if (++j == N) {
         j = 0;
         ++r;
       }
     }
-    reinterpret_cast<float4*>(dst)[v] = make_float4(f[0], f[1], f[2], f[3]);
+    store16(dst + W * v, f);
   }
-  for (int f = 4 * nv + threadIdx.x; f < total; f += blockDim.x) {
+  for (int f = W * nv + threadIdx.x; f < total; f += blockDim.x) {
     const int r = f / N;
     dst[f] = src(f - r * N)[r * stride] * sc;
   }
@@ -134,15 +140,14 @@ __device__ __forceinline__ void store_flat(float* __restrict__ y,
 // j: src(j)[(m - m0) * stride] times sc, stored at
 // y[(p * N + j) * plane_rows + a] (transposed within each plane): element
 // (j, r), r fastest, 16 bytes along a where the plane allows.
-template <class Src>
-__device__ __forceinline__ void store_planes(float* __restrict__ y,
-                                             long long m0, int valid, int N,
-                                             int stride, int plane_rows,
-                                             float sc, Src src) {
+template <class T, class Src>
+__device__ __forceinline__ void store_planes(T* __restrict__ y, long long m0,
+                                             int valid, int N, int stride,
+                                             int plane_rows, T sc, Src src) {
+  constexpr int W = Real<T>::W;
   const long long p0 = m0 / plane_rows;
   const int a0 = (int)(m0 - p0 * plane_rows);
-  const int u =
-      aligned16(y, y) && ((plane_rows | valid | a0) & 3) == 0 ? 4 : 1;
+  const int u = aligned16(y, y) && (plane_rows | valid | a0) % W == 0 ? W : 1;
   Walk w(valid / u);
   for (int id = threadIdx.x; id < valid * N / u; id += blockDim.x) {
     const int j = w.row;
@@ -155,11 +160,12 @@ __device__ __forceinline__ void store_planes(float* __restrict__ y,
       pp += d;
     }
     const long long g = (pp * N + j) * plane_rows + a;
-    const float* s = src(j) + r * stride;
-    if (u == 4) {  // rows r .. r + 3: one plane, 16 bytes
-      reinterpret_cast<float4*>(y + g)[0] =
-          make_float4(s[0] * sc, s[stride] * sc, s[2 * stride] * sc,
-                      s[3 * stride] * sc);
+    const T* s = src(j) + r * stride;
+    if (u == W) {  // rows r .. r + W - 1: one plane, 16 bytes
+      T f[W];
+#pragma unroll
+      for (int t = 0; t < W; ++t) f[t] = s[t * stride] * sc;
+      store16(y + g, f);
     } else {
       y[g] = s[0] * sc;
     }
@@ -175,26 +181,26 @@ __device__ __forceinline__ void store_planes(float* __restrict__ y,
 // carries the scale; tw is the plan's (2, n) table e^(sign 2 pi i m / n).
 // plane_rows == 0: straight stores; plane_rows > 0: transposed within
 // planes, as fft.cu's stage kernel stores.
-template <int MODE, bool POW2>
-__global__ void __launch_bounds__(1024)
-    rfft_stage_kernel(const float* __restrict__ xr,
-                      const float* __restrict__ xi, float* __restrict__ yr,
-                      float* __restrict__ yi, const float* __restrict__ tw,
-                      long long M, int K, int N, int plane_rows, int rows,
-                      FftSpec sp) {
+template <int MODE, bool POW2, class T>
+__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+    rfft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                      T* __restrict__ yr, T* __restrict__ yi,
+                      const T* __restrict__ tw, long long M, int K, int N,
+                      int plane_rows, int rows, FftSpec<T> sp) {
+  constexpr T HALF = Consts<T>::HALF;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int h = sp.n;
   const int n = 2 * h;
   const int xf = h + 1;
   const int hp = h / 2 + 1;  // pairs (k, h - k) a row, k = 0 .. h / 2
   const int stride = row_stride(xf);
-  float* re = smem;
-  float* im = re + rows * stride;
-  float* twr = im + rows * stride;  // length-h stage table
-  float* twi = twr + h;
-  float* pwr = twi + h;  // post-twiddles e^(sign 2 pi i k / n), k < hp
-  float* pwi = pwr + hp;
+  T* re = smem;
+  T* im = re + rows * stride;
+  T* twr = im + rows * stride;  // length-h stage table
+  T* twi = twr + h;
+  T* pwr = twi + h;  // post-twiddles e^(sign 2 pi i k / n), k < hp
+  T* pwi = pwr + hp;
   const long long m0 = (long long)blockIdx.x * rows;
   const int valid = (int)min((long long)rows, M - m0);
   for (int m = threadIdx.x; m < h; m += blockDim.x) {
@@ -216,15 +222,15 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
     Walk w(hp);
     for (int id = threadIdx.x; id < valid * hp; id += blockDim.x) {
-      float* rr = re + w.row * stride;
-      float* ri = im + w.row * stride;
+      T* rr = re + w.row * stride;
+      T* ri = im + w.row * stride;
       const int k = w.col;
       const int qk = pad(k), qm = pad(k == 0 ? 0 : h - k);
-      const float a = rr[qk], b = ri[qk], c = rr[qm], d = ri[qm];
-      const float er = 0.5f * (a + c), ei = 0.5f * (b - d);
-      const float orr = 0.5f * (b + d), oi = -0.5f * (a - c);
-      const float tr = pwr[k] * orr - pwi[k] * oi;
-      const float ti = pwr[k] * oi + pwi[k] * orr;
+      const T a = rr[qk], b = ri[qk], c = rr[qm], d = ri[qm];
+      const T er = HALF * (a + c), ei = HALF * (b - d);
+      const T orr = HALF * (b + d), oi = -HALF * (a - c);
+      const T tr = pwr[k] * orr - pwi[k] * oi;
+      const T ti = pwr[k] * oi + pwi[k] * orr;
       rr[qk] = er + tr;
       ri[qk] = ei + ti;
       if (h - k != k) {  // X[h - k] = conj(E - W O); k = 0 writes X[h]
@@ -235,7 +241,7 @@ __global__ void __launch_bounds__(1024)
     }
     __syncthreads();
     const int out0 = sp.out0;
-    auto bin = [&](const float* base) {
+    auto bin = [&](const T* base) {
       return [=](int j) { return base + pad(wrap(out0 + j, xf)); };
     };
     if (plane_rows == 0) {
@@ -249,8 +255,8 @@ __global__ void __launch_bounds__(1024)
     if (K < xf) {  // bins outside the window are zero
       Walk w(xf);
       for (int id = threadIdx.x; id < valid * xf; id += blockDim.x) {
-        re[w.row * stride + pad(w.col)] = 0.f;
-        im[w.row * stride + pad(w.col)] = 0.f;
+        re[w.row * stride + pad(w.col)] = T(0);
+        im[w.row * stride + pad(w.col)] = T(0);
         w.next();
       }
       __syncthreads();
@@ -263,18 +269,18 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
     Walk w(hp);
     for (int id = threadIdx.x; id < valid * hp; id += blockDim.x) {
-      float* rr = re + w.row * stride;
-      float* ri = im + w.row * stride;
+      T* rr = re + w.row * stride;
+      T* ri = im + w.row * stride;
       const int k = w.col;
       const int qk = pad(k), qm = pad(h - k);
       // Im X[0] and Im X[h] are not read: the matrices drop them
-      const float a = rr[qk], c = rr[qm];
-      const float b = k == 0 ? 0.f : ri[qk];
-      const float d = k == 0 ? 0.f : ri[qm];
-      const float ar = a + c, ai = b - d;
-      const float br = a - c, bi = b + d;
-      const float tr = pwr[k] * br - pwi[k] * bi;
-      const float ti = pwr[k] * bi + pwi[k] * br;
+      const T a = rr[qk], c = rr[qm];
+      const T b = k == 0 ? T(0) : ri[qk];
+      const T d = k == 0 ? T(0) : ri[qm];
+      const T ar = a + c, ai = b - d;
+      const T br = a - c, bi = b + d;
+      const T tr = pwr[k] * br - pwi[k] * bi;
+      const T ti = pwr[k] * bi + pwi[k] * br;
       rr[qk] = ar - ti;  // Z[k] = A + i W B
       ri[qk] = ai + tr;
       if (k != 0 && h - k != k) {  // Z[h - k] = conj(A - i W B)
@@ -295,41 +301,63 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// One launch of the real FFT stage in `mode` (1: RC, 2: CR, the codes of
-// dft2.cu's spfft_dft_stage): rows (M, K) of (xr, xi) -> (M, N) of (yr,
-// yi); xi is null in RC, yi in CR. The transform: even length n with
-// h = n / 2 of the form 2^a 3^b 5^c (radices: h's stage radices, 3 bits
-// each), the scale applied at the store, the half-spectrum window's first
-// bin x0 (RC: output j is bin (x0 + j) mod (h + 1); CR: input k is that
-// bin), and tw, the (2, n) f32 table e^(sign 2 pi i m / n) with sign -1
-// in RC and +1 in CR.
-extern "C" int spfft_rfft_stage(int mode, const float* xr, const float* xi,
-                                float* yr, float* yi, const float* tw,
-                                long long M, int K, int N, int plane_rows,
-                                int n, float scale, int x0, int radices,
-                                void* stream) {
+namespace {
+
+template <class T>
+int launch_rfft(int mode, const T* xr, const T* xi, T* yr, T* yi,
+                const T* tw, long long M, int K, int N, int plane_rows, int n,
+                T scale, int x0, int radices, void* stream) {
   const int h = n / 2;
   const bool ok = n >= 2 && (n & 1) == 0 && M > 0 &&
                   (mode == RC ? K == n && N >= 1 && N <= h + 1
                               : mode == CR && N == n && K >= 1 && K <= h + 1);
   if (!ok) return (int)cudaErrorInvalidValue;
   int threads, rows;
-  stage_block(h, &threads, &rows);
+  stage_block<T>(h, &threads, &rows);
   rows = min(rows, MAX_ROWS);
   const size_t smem =
-      sizeof(float) * (2 * (size_t)rows * row_stride(h + 1) + 2 * (size_t)h +
-                       2 * (size_t)(h / 2 + 1));
+      sizeof(T) * (2 * (size_t)rows * row_stride(h + 1) + 2 * (size_t)h +
+                   2 * (size_t)(h / 2 + 1));
   const bool p2 = pow2(h);
-  auto kernel = mode == RC ? (p2 ? rfft_stage_kernel<RC, true>
-                                 : rfft_stage_kernel<RC, false>)
-                           : (p2 ? rfft_stage_kernel<CR, true>
-                                 : rfft_stage_kernel<CR, false>);
+  auto kernel = mode == RC ? (p2 ? rfft_stage_kernel<RC, true, T>
+                                 : rfft_stage_kernel<RC, false, T>)
+                           : (p2 ? rfft_stage_kernel<CR, true, T>
+                                 : rfft_stage_kernel<CR, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + rows - 1) / rows);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, tw, M, K, N, plane_rows, rows,
-      FftSpec{h, mode == RC ? -1 : 1, scale, x0, x0, radices});
+      FftSpec<T>{h, mode == RC ? -1 : 1, scale, x0, x0, radices});
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch of the real FFT stage in `mode` (1: RC, 2: CR, the codes of
+// dft2.cu's spfft_dft_stage): rows (M, K) of (xr, xi) -> (M, N) of (yr,
+// yi); xi is null in RC, yi in CR. The transform: even length n with
+// h = n / 2 of the form 2^a 3^b 5^c (radices: h's stage radices, 3 bits
+// each), the scale applied at the store, the half-spectrum window's first
+// bin x0 (RC: output j is bin (x0 + j) mod (h + 1); CR: input k is that
+// bin), and tw, the (2, n) table e^(sign 2 pi i m / n) with sign -1 in RC
+// and +1 in CR. _f64: the same on double operands.
+extern "C" int spfft_rfft_stage(int mode, const float* xr, const float* xi,
+                                float* yr, float* yi, const float* tw,
+                                long long M, int K, int N, int plane_rows,
+                                int n, float scale, int x0, int radices,
+                                void* stream) {
+  return launch_rfft(mode, xr, xi, yr, yi, tw, M, K, N, plane_rows, n, scale,
+                     x0, radices, stream);
+}
+
+extern "C" int spfft_rfft_stage_f64(int mode, const double* xr,
+                                    const double* xi, double* yr, double* yi,
+                                    const double* tw, long long M, int K,
+                                    int N, int plane_rows, int n,
+                                    double scale, int x0, int radices,
+                                    void* stream) {
+  return launch_rfft(mode, xr, xi, yr, yi, tw, M, K, N, plane_rows, n, scale,
+                     x0, radices, stream);
 }

@@ -12,6 +12,12 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises :class:`~spfft_tpu_torch.errors.DeviceError` when
 it is not 0 (a refused launch never runs, and a later synchronize would not
 report it).
+
+Each kernel has one entry per real type, instanced from one template:
+``spfft_<name>`` on float32 operands and ``spfft_<name>_f64`` on float64
+(:func:`entry`); :data:`REAL_TYPES` are the operand dtypes a kernel
+takes, and :func:`call_dtype` checks that every operand of a call shares
+one of them.
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "fused_fft.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
+#: the operand dtypes every kernel takes, and the ctypes type of a scalar
+#: of each (a scale argument)
+REAL_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 _lock = threading.Lock()
 _libs = {}  #: guarded by _lock; source name -> ctypes.CDLL
@@ -128,15 +137,37 @@ def count(wrapper, form: str) -> None:
     wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
 
 
+def entry(symbol: str, dtype) -> str:
+    """The C entry of ``symbol``'s kernel for operands of ``dtype``:
+    ``symbol`` itself for float32, ``symbol + "_f64"`` for float64."""
+    return symbol if dtype == torch.float32 else symbol + "_f64"
+
+
+def call_dtype(t: torch.Tensor, name: str):
+    """The dtype of ``t``, one of :data:`REAL_TYPES` (the dtype every
+    other operand of the call must share); raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
+    dtype = getattr(t, "dtype", None)
+    if not isinstance(t, torch.Tensor) or dtype not in REAL_TYPES:
+        raise InvalidParameterError(
+            f"{name}: expected a torch.float32 or torch.float64 tensor, got "
+            f"{dtype if dtype is not None else type(t).__name__}")
+    return dtype
+
+
 def require(t: torch.Tensor, name: str, dtype, shape=None,
             device=None) -> None:
     """The wrappers' operand rules: a contiguous tensor of ``dtype``
     (and ``shape``, and on ``device``, where given); raises
-    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise. A
+    real operand of another real type than the call's names both: the
+    kernels take no mixture of float32 and float64."""
     if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        got = getattr(t, 'dtype', type(t).__name__)
+        mix = " (every operand of a call shares one real type)" \
+            if dtype in REAL_TYPES and got in REAL_TYPES else ""
         raise InvalidParameterError(
-            f"{name}: expected a {dtype} tensor, got "
-            f"{getattr(t, 'dtype', type(t).__name__)}")
+            f"{name}: expected a {dtype} tensor, got {got}{mix}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise InvalidParameterError(
             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -145,6 +176,18 @@ def require(t: torch.Tensor, name: str, dtype, shape=None,
             f"{name}: expected a tensor on {device}, got {t.device}")
     if not t.is_contiguous():
         raise InvalidParameterError(f"{name}: expected a contiguous tensor")
+
+
+def require_mats(mats, name: str, dtype, shape, device) -> None:
+    """A DFT matrix pair of ``dtype`` and ``shape`` on ``device``, and
+    its twiddle table of ``dtype`` where it carries one
+    (``ops.dft.DftMats``); raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
+    for c in mats:
+        require(c, f"{name} matrix", dtype, shape, device)
+    tw = getattr(mats, "twiddles", None)
+    if tw is not None:
+        require(tw, f"{name} twiddle table", dtype, (2, mats.n), device)
 
 
 def on_cuda(t: torch.Tensor, what: str) -> bool:

@@ -2,10 +2,12 @@
 (counterpart of ``spfft_tpu.ops.dft``).
 
 Every DFT stage of the plan contracts the minor axis of a planar
-(separate real and imaginary f32 tensors) operand against a plan-time
-matrix pair, with any scale folded into the matrix values. The matrix
-builders here give the JAX package's matrices bit for bit, so the two
-packages contract against the same constants.
+(separate real and imaginary tensors) operand against a plan-time
+matrix pair, with any scale folded into the matrix values, in the plan's
+real type: float32 for a single-precision plan, float64 for a double one
+(every matrix function takes ``dtype``; the values are computed in
+float64 and rounded once). The float32 matrices are the JAX package's
+bit for bit, so the two packages contract against the same constants.
 
 The matrices a plan hands its kernels are :class:`DftMats` (from
 :func:`device_c2c`, and for the real x axis of an R2C plan
@@ -51,16 +53,34 @@ BACKWARD = +1   # unnormalised inverse DFT (e^{+2 pi i k n / N})
 FORWARD = -1    # plain DFT
 
 
+def _roots(km: np.ndarray, n: int, sign: int, dtype) -> np.ndarray:
+    """e^(sign 2 pi i k m / n) for the products ``km`` of a DFT matrix's
+    indices, complex128. For a float64 matrix the products are reduced
+    mod n (the angles would otherwise carry the float64 error of angles
+    up to 2 pi n, about 1e-13 at n = 512) and the parts that are 0 are
+    exactly 0 (cos(pi / 2), sin(pi) ...: the imaginary weights of the
+    self-conjugate bins of a real DFT vanish, as its FFT form drops
+    them). A float32 matrix takes the angles as they are, so that it
+    stays the JAX package's bit for bit."""
+    if np.dtype(dtype) != np.float64:
+        return np.exp(sign * 2j * np.pi * km / n)
+    w = np.exp(sign * 2j * np.pi * (km % n) / n)
+    re, im = w.real.copy(), w.imag.copy()
+    re[np.abs(re) < 1e-12] = 0.0  # |a nonzero part| >= sin(2 pi / n)
+    im[np.abs(im) < 1e-12] = 0.0
+    return re + 1j * im
+
+
 @functools.lru_cache(maxsize=32)
-def _build_dft_mats(n: int, sign: int, scale: float):
-    """(Cr, Ci) f32 numpy constants for the length-``n`` DFT with
-    ``scale`` folded in — the first two of the JAX package's Karatsuba
-    triple, bit for bit (this package uses the 4-product form, which
-    needs no Cr + Ci sum)."""
+def _build_dft_mats(n: int, sign: int, scale: float, dtype=np.float32):
+    """(Cr, Ci) numpy constants of ``dtype`` for the length-``n`` DFT
+    with ``scale`` folded in — in float32 the first two of the JAX
+    package's Karatsuba triple, bit for bit (this package uses the
+    4-product form, which needs no Cr + Ci sum)."""
     k = np.arange(n)
-    m = np.exp(sign * 2j * np.pi * np.outer(k, k) / n) * scale
-    return (np.ascontiguousarray(m.real.astype(np.float32)),
-            np.ascontiguousarray(m.imag.astype(np.float32)))
+    m = _roots(np.outer(k, k), n, sign, dtype) * scale
+    return (np.ascontiguousarray(m.real.astype(dtype)),
+            np.ascontiguousarray(m.imag.astype(dtype)))
 
 
 def _check_direct(n: int) -> None:
@@ -71,101 +91,120 @@ def _check_direct(n: int) -> None:
             f"not in this slice of the port (a later slice adds them)")
 
 
-def c2c_mats(n: int, sign: int, scale: float = 1.0):
-    """Matrices ``(cr, ci)``, each ``(n, n)``, for a complex
-    length-``n`` DFT with ``scale`` folded in. ``sign=BACKWARD`` with
-    ``scale=1`` is the library's unnormalised inverse (ifft * n)."""
+def c2c_mats(n: int, sign: int, scale: float = 1.0, dtype=np.float32):
+    """Matrices ``(cr, ci)``, each ``(n, n)`` of numpy ``dtype``, for a
+    complex length-``n`` DFT with ``scale`` folded in. ``sign=BACKWARD``
+    with ``scale=1`` is the library's unnormalised inverse (ifft * n)."""
     _check_direct(n)
     s = +1 if sign == BACKWARD else -1
-    return _build_dft_mats(int(n), s, float(scale))
+    return _build_dft_mats(int(n), s, float(scale), np.dtype(dtype).type)
 
 
 @functools.lru_cache(maxsize=32)
-def _rdft_mats(n: int, scale: float):
+def _rdft_mats(n: int, scale: float, dtype=np.float32):
     """Forward real-to-halfspectrum matrices ``(n, n//2+1)``: Yr = X @ A,
-    Yi = X @ B (the JAX package's ``_rdft_mats``, bit for bit)."""
+    Yi = X @ B (in float32 the JAX package's ``_rdft_mats``, bit for
+    bit)."""
     xf = n // 2 + 1
     k = np.arange(xf)
-    m = np.exp(-2j * np.pi * np.outer(np.arange(n), k) / n) * scale
-    return (np.ascontiguousarray(m.real.astype(np.float32)),
-            np.ascontiguousarray(m.imag.astype(np.float32)))
+    m = _roots(np.outer(np.arange(n), k), n, -1, dtype) * scale
+    return (np.ascontiguousarray(m.real.astype(dtype)),
+            np.ascontiguousarray(m.imag.astype(dtype)))
 
 
 @functools.lru_cache(maxsize=32)
-def _irdft_mats(n: int, scale: float):
+def _irdft_mats(n: int, scale: float, dtype=np.float32):
     """Halfspectrum-to-real matrices ``(n//2+1, n)``: x = Yr @ A + Yi @ B
-    (the JAX package's ``_irdft_mats``, bit for bit). From hermitian
-    symmetry, x[m] = sum_k w[k] (Yr[k] cos(2 pi k m / n) - Yi[k] sin(2 pi
-    k m / n)) with w = 1 for the self-conjugate bins (k = 0 and, for even
-    n, k = n/2) and 2 otherwise: the doubling stands in for the missing
-    negative-frequency half."""
+    (in float32 the JAX package's ``_irdft_mats``, bit for bit). From
+    hermitian symmetry, x[m] = sum_k w[k] (Yr[k] cos(2 pi k m / n) -
+    Yi[k] sin(2 pi k m / n)) with w = 1 for the self-conjugate bins (k =
+    0 and, for even n, k = n/2) and 2 otherwise: the doubling stands in
+    for the missing negative-frequency half."""
     xf = n // 2 + 1
     k = np.arange(xf)
     w = np.full(xf, 2.0)
     w[0] = 1.0
     if n % 2 == 0:
         w[-1] = 1.0
-    ang = 2 * np.pi * np.outer(k, np.arange(n)) / n
-    a = (w[:, None] * np.cos(ang)) * scale
-    b = (w[:, None] * -np.sin(ang)) * scale
-    return (np.ascontiguousarray(a.astype(np.float32)),
-            np.ascontiguousarray(b.astype(np.float32)))
+    if np.dtype(dtype) == np.float64:
+        r = _roots(np.outer(k, np.arange(n)), n, 1, dtype)
+        cos, sin = r.real, r.imag
+    else:
+        ang = 2 * np.pi * np.outer(k, np.arange(n)) / n
+        cos, sin = np.cos(ang), np.sin(ang)
+    a = (w[:, None] * cos) * scale
+    b = (w[:, None] * -sin) * scale
+    return (np.ascontiguousarray(a.astype(dtype)),
+            np.ascontiguousarray(b.astype(dtype)))
 
 
-def r2c_mats(n: int, scale: float = 1.0):
-    """Matrices ``(a, b)``, each ``(n, n//2+1)``, of the forward real
-    DFT to the half spectrum (reference rfft layout, dim_x_freq =
-    n//2+1 — src/parameters/parameters.cpp:49)."""
+def r2c_mats(n: int, scale: float = 1.0, dtype=np.float32):
+    """Matrices ``(a, b)``, each ``(n, n//2+1)`` of numpy ``dtype``, of
+    the forward real DFT to the half spectrum (reference rfft layout,
+    dim_x_freq = n//2+1 — src/parameters/parameters.cpp:49)."""
     _check_direct(n)
-    return _rdft_mats(int(n), float(scale))
+    return _rdft_mats(int(n), float(scale), np.dtype(dtype).type)
 
 
-def c2r_mats(n: int, scale: float = 1.0):
-    """Matrices ``(a, b)``, each ``(n//2+1, n)``, of the unnormalised
-    inverse real DFT from the half spectrum (irfft * n)."""
+def c2r_mats(n: int, scale: float = 1.0, dtype=np.float32):
+    """Matrices ``(a, b)``, each ``(n//2+1, n)`` of numpy ``dtype``, of
+    the unnormalised inverse real DFT from the half spectrum (irfft *
+    n)."""
     _check_direct(n)
-    return _irdft_mats(int(n), float(scale))
+    return _irdft_mats(int(n), float(scale), np.dtype(dtype).type)
 
 
 @functools.lru_cache(maxsize=32)
-def sub_rows_mats(n: int, sign: int, rows: tuple, scale: float = 1.0):
+def sub_rows_mats(n: int, sign: int, rows: tuple, scale: float = 1.0,
+                  dtype=np.float32):
     """Row-selected complex DFT matrices ``(len(rows), n)``: the split-x
     contraction from the occupied positions only (wrapped windows are
     non-contiguous row selections)."""
     idx = np.asarray(rows)
     return tuple(np.ascontiguousarray(m[idx])
-                 for m in c2c_mats(n, sign, scale))
+                 for m in c2c_mats(n, sign, scale, dtype))
 
 
 @functools.lru_cache(maxsize=32)
-def sub_cols_mats(n: int, sign: int, cols: tuple, scale: float = 1.0):
+def sub_cols_mats(n: int, sign: int, cols: tuple, scale: float = 1.0,
+                  dtype=np.float32):
     """Column-selected complex DFT matrices ``(n, len(cols))``: produce
     only the occupied output positions."""
     idx = np.asarray(cols)
     return tuple(np.ascontiguousarray(m[:, idx])
-                 for m in c2c_mats(n, sign, scale))
+                 for m in c2c_mats(n, sign, scale, dtype))
 
 
 @functools.lru_cache(maxsize=32)
-def sub_rows_c2r_mats(n: int, rows: tuple, scale: float = 1.0):
+def sub_rows_c2r_mats(n: int, rows: tuple, scale: float = 1.0,
+                      dtype=np.float32):
     """Row-selected inverse-real matrices ``(len(rows), n)``: half-spectrum
     window -> dense real axis (the hermitian weights ride along with
     their rows)."""
     idx = np.asarray(rows)
-    return tuple(np.ascontiguousarray(m[idx]) for m in c2r_mats(n, scale))
+    return tuple(np.ascontiguousarray(m[idx])
+                 for m in c2r_mats(n, scale, dtype))
 
 
 @functools.lru_cache(maxsize=32)
-def sub_cols_r2c_mats(n: int, cols: tuple, scale: float = 1.0):
+def sub_cols_r2c_mats(n: int, cols: tuple, scale: float = 1.0,
+                      dtype=np.float32):
     """Column-selected forward-real matrices ``(n, len(cols))``: real
     axis -> half-spectrum window."""
     idx = np.asarray(cols)
-    return tuple(np.ascontiguousarray(m[:, idx]) for m in r2c_mats(n, scale))
+    return tuple(np.ascontiguousarray(m[:, idx])
+                 for m in r2c_mats(n, scale, dtype))
 
 
-def device_mats(mats, device) -> tuple:
-    """A numpy matrix pair as contiguous f32 tensors on ``device``."""
-    return tuple(torch.as_tensor(np.asarray(m, np.float32), device=device)
+#: the numpy real type of each torch real type the kernels take
+NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def device_mats(mats, device, dtype=torch.float32) -> tuple:
+    """A numpy matrix pair as contiguous tensors of ``dtype`` (float32 or
+    float64) on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(m, NP_REAL[dtype]),
+                                 device=device)
                  for m in mats)
 
 
@@ -196,7 +235,8 @@ def radix_code(factors) -> int:
 @functools.lru_cache(maxsize=64)
 def fft_twiddles(n: int, sign: int) -> np.ndarray:
     """The FFT form's twiddle table, ``e^(sign 2 pi i m / n)`` for m < n,
-    complex128 (computed in float64; the kernel gets it rounded to f32)."""
+    complex128 (computed in float64; the kernel gets it rounded once to
+    its real type)."""
     s = +1 if sign == BACKWARD else -1
     return np.exp(s * 2j * np.pi * np.arange(n) / n)
 
@@ -217,11 +257,11 @@ class DftMats(tuple):
     position ``(x0 + k) % L``) and the output window ``cols = (y0, w)``
     (column j is position ``(y0 + j) % L``), where L is ``n`` on a complex
     axis and ``n // 2 + 1`` on a half spectrum (the input of c2r, the
-    output of r2c), and ``twiddles``, the device table ``(2, n)`` f32
-    (real row, imaginary row of :func:`fft_twiddles`) where
-    :attr:`factors` is a factor list, else None. It unpacks as the pair
-    (``cr, ci = mats``), so every matrix-form consumer takes it as it
-    takes a plain pair."""
+    output of r2c), and ``twiddles``, the device table ``(2, n)`` in the
+    matrices' dtype (real row, imaginary row of :func:`fft_twiddles`)
+    where :attr:`factors` is a factor list, else None. It unpacks as the
+    pair (``cr, ci = mats``), so every matrix-form consumer takes it as
+    it takes a plain pair."""
 
     def __new__(cls, cr, ci, *, n, sign, scale, rows, cols, twiddles,
                 kind="c2c"):
@@ -249,69 +289,76 @@ def _window(win, length: int, what: str) -> tuple:
     return win
 
 
-def _twiddles(n: int, sign: int, factors, device):
+def _twiddles(n: int, sign: int, factors, device, dtype):
     if factors is None:
         return None
     t = fft_twiddles(n, sign)
-    return torch.as_tensor(np.stack([t.real, t.imag]).astype(np.float32),
+    return torch.as_tensor(np.stack([t.real, t.imag]).astype(NP_REAL[dtype]),
                            device=device)
 
 
 def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
-               device="cpu") -> DftMats:
+               device="cpu", dtype=torch.float32) -> DftMats:
     """The length-``n`` complex DFT matrices with ``scale`` folded in, as
-    :class:`DftMats` on ``device``: :func:`c2c_mats`, or with ``rows =
-    (x0, w)`` the window's rows (:func:`sub_rows_mats` of ``(x0 + arange(w))
-    % n``), with ``cols = (y0, w)`` the window's columns
-    (:func:`sub_cols_mats`), bit for bit."""
+    :class:`DftMats` of ``dtype`` (float32 or float64) on ``device``:
+    :func:`c2c_mats`, or with ``rows = (x0, w)`` the window's rows
+    (:func:`sub_rows_mats` of ``(x0 + arange(w)) % n``), with ``cols =
+    (y0, w)`` the window's columns (:func:`sub_cols_mats`), bit for
+    bit."""
     n, scale = int(n), float(scale)
     rows = _window(rows, n, "device_c2c")
     cols = _window(cols, n, "device_c2c")
     ri = (rows[0] + np.arange(rows[1])) % n
     ci = (cols[0] + np.arange(cols[1])) % n
     mats = tuple(np.ascontiguousarray(m[np.ix_(ri, ci)])
-                 for m in c2c_mats(n, sign, scale))
+                 for m in c2c_mats(n, sign, scale, NP_REAL[dtype]))
     sign = BACKWARD if sign == BACKWARD else FORWARD
-    return DftMats(*device_mats(mats, device), n=n, sign=sign, scale=scale,
-                   rows=rows, cols=cols,
-                   twiddles=_twiddles(n, sign, fft_factors(n), device))
+    return DftMats(*device_mats(mats, device, dtype), n=n, sign=sign,
+                   scale=scale, rows=rows, cols=cols,
+                   twiddles=_twiddles(n, sign, fft_factors(n), device,
+                                      dtype))
 
 
-def _device_real(kind: str, n: int, scale: float, win, device) -> DftMats:
+def _device_real(kind: str, n: int, scale: float, win, device,
+                 dtype) -> DftMats:
     n, scale = int(n), float(scale)
     xf = n // 2 + 1
     win = _window(win, xf, f"device_{kind}")
     idx = tuple(int(i) for i in (win[0] + np.arange(win[1])) % xf)
+    real = NP_REAL[dtype]
     if kind == "r2c":
-        mats, sign = sub_cols_r2c_mats(n, idx, scale), FORWARD
+        mats, sign = sub_cols_r2c_mats(n, idx, scale, real), FORWARD
         rows, cols = (0, n), win
     else:
-        mats, sign = sub_rows_c2r_mats(n, idx, scale), BACKWARD
+        mats, sign = sub_rows_c2r_mats(n, idx, scale, real), BACKWARD
         rows, cols = win, (0, n)
-    return DftMats(*device_mats(mats, device), n=n, sign=sign, scale=scale,
-                   rows=rows, cols=cols,
-                   twiddles=_twiddles(n, sign, rfft_factors(n), device),
+    return DftMats(*device_mats(mats, device, dtype), n=n, sign=sign,
+                   scale=scale, rows=rows, cols=cols,
+                   twiddles=_twiddles(n, sign, rfft_factors(n), device,
+                                      dtype),
                    kind=kind)
 
 
 def device_r2c(n: int, scale: float = 1.0, cols=None,
-               device="cpu") -> DftMats:
+               device="cpu", dtype=torch.float32) -> DftMats:
     """The forward real DFT of length ``n`` to the half spectrum, as
-    :class:`DftMats` of kind ``"r2c"`` on ``device``: :func:`r2c_mats`,
-    or with ``cols = (x0, w)`` the columns of bins ``(x0 + arange(w)) %
-    (n // 2 + 1)`` (:func:`sub_cols_r2c_mats`), bit for bit; its table is
-    ``fft_twiddles(n, FORWARD)`` where :func:`rfft_factors` has a list."""
-    return _device_real("r2c", n, scale, cols, device)
+    :class:`DftMats` of kind ``"r2c"`` and ``dtype`` on ``device``:
+    :func:`r2c_mats`, or with ``cols = (x0, w)`` the columns of bins
+    ``(x0 + arange(w)) % (n // 2 + 1)`` (:func:`sub_cols_r2c_mats`), bit
+    for bit; its table is ``fft_twiddles(n, FORWARD)`` where
+    :func:`rfft_factors` has a list."""
+    return _device_real("r2c", n, scale, cols, device, dtype)
 
 
 def device_c2r(n: int, scale: float = 1.0, rows=None,
-               device="cpu") -> DftMats:
+               device="cpu", dtype=torch.float32) -> DftMats:
     """The inverse real DFT of length ``n`` from the half spectrum, as
-    :class:`DftMats` of kind ``"c2r"`` on ``device``: :func:`c2r_mats`,
-    or with ``rows = (x0, w)`` the rows of bins ``(x0 + arange(w)) %
-    (n // 2 + 1)`` (:func:`sub_rows_c2r_mats`), bit for bit; its table is
-    ``fft_twiddles(n, BACKWARD)`` where :func:`rfft_factors` has a list."""
-    return _device_real("c2r", n, scale, rows, device)
+    :class:`DftMats` of kind ``"c2r"`` and ``dtype`` on ``device``:
+    :func:`c2r_mats`, or with ``rows = (x0, w)`` the rows of bins
+    ``(x0 + arange(w)) % (n // 2 + 1)`` (:func:`sub_rows_c2r_mats`), bit
+    for bit; its table is ``fft_twiddles(n, BACKWARD)`` where
+    :func:`rfft_factors` has a list."""
+    return _device_real("c2r", n, scale, rows, device, dtype)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -405,6 +452,11 @@ def reduced_fp32_matmul(device: torch.device):
 
 
 def _require_fp32_matmul(t: torch.Tensor, name: str) -> None:
+    """Raise where ``t`` is float32 and ``torch.matmul`` computes float32
+    products in a reduced precision; float64 products are never
+    reduced."""
+    if t.dtype != torch.float32:
+        return
     mode = reduced_fp32_matmul(t.device)
     if mode is not None:
         raise DeviceError(

@@ -44,8 +44,14 @@ bins (``csrc/rfft.cu``, form ``"rfft"``, bound by bytes): ``prdft2`` and
 ``pdft2_cr`` are then one rfft and one fft launch. A stage with another
 prime in its (half) length, an odd real length and a matrix pair without
 its function run the matrix form (``csrc/dft2.cu``, form ``"matrix"``,
-bound by FP32 operations). :func:`stage_form` and :func:`plane_forms`
+bound by operations). :func:`stage_form` and :func:`plane_forms`
 are the dispatch, by shape and matrix alone.
+
+Every operand, matrix and twiddle table of a call shares one real type,
+float32 or float64 (a double-precision plan's); the wrappers take the
+kernels' entry for it (``spfft_fft_stage`` or ``spfft_fft_stage_f64``,
+one template's two instances) and refuse a mixture. A float64 launch
+counts under the same form as a float32 one.
 Each wrapper counts its launches in ``.launches`` and by form in
 ``.form_launches`` (keyed by :data:`ALL_FORMS`). On a CPU tensor it runs
 the plain version from :mod:`spfft_tpu_torch.ops.dft` (matrix products,
@@ -69,21 +75,32 @@ _MODES = {"cc": 0, "rc": 1, "cr": 2}
 #: its argument types: the mode, the input planes, the matrix pair, the
 #: output planes, then M, K, N, plane_rows and the stream
 _ARGS = [_I] + [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _P]
-#: csrc/fft.cu's ``spfft_fft_stage``: the input and output planes, the
-#: twiddle table, M, K, N, plane_rows, the transform (n, sign, scale, in0,
-#: out0, radices) and the stream
-_FFT_STAGE_ARGS = [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _I, _I, _I, _P]
-#: csrc/fft.cu's ``spfft_fft_plane``: the planes, both twiddle tables, P,
-#: A, B, B', A', each transform's (n, sign, in0, out0, radices), the scale,
-#: swap_out and the stream
-_FFT_PLANE_ARGS = [_P] * 6 + [_I] * 15 + [ctypes.c_float, _I, _P]
-#: csrc/rfft.cu's ``spfft_rfft_stage``: the mode, the input and output
-#: planes, the twiddle table, M, K, N, plane_rows, the transform (n,
-#: scale, the half-spectrum window's first bin, h's radices) and the
-#: stream
-_RFFT_ARGS = [_I] + [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I,
-                                ctypes.c_float, _I, _I, _P]
+
+
+def _fft_stage_args(real):
+    """csrc/fft.cu's ``spfft_fft_stage``: the input and output planes,
+    the twiddle table, M, K, N, plane_rows, the transform (n, sign, scale
+    of ctypes type ``real``, in0, out0, radices) and the stream."""
+    return [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I, _I, real, _I, _I,
+                       _I, _P]
+
+
+def _fft_plane_args(real):
+    """csrc/fft.cu's ``spfft_fft_plane``: the planes, both twiddle
+    tables, P, A, B, B', A', each transform's (n, sign, in0, out0,
+    radices), the scale (``real``), swap_out and the stream."""
+    return [_P] * 6 + [_I] * 15 + [real, _I, _P]
+
+
+def _rfft_args(real):
+    """csrc/rfft.cu's ``spfft_rfft_stage``: the mode, the input and
+    output planes, the twiddle table, M, K, N, plane_rows, the transform
+    (n, scale (``real``), the half-spectrum window's first bin, h's
+    radices) and the stream."""
+    return [_I] + [_P] * 5 + [ctypes.c_longlong, _I, _I, _I, _I, real, _I,
+                              _I, _P]
+
+
 #: blocks of the cluster kernel's cluster (one plane), and the complex
 #: elements one of its blocks holds (csrc/fft.cu's 512 threads x
 #: fft_tile.cuh's EPT = 16)
@@ -138,8 +155,12 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
             f"a {mats.kind} DFT spec cannot run a stage in mode {mode}")
     xr, xi = (*ins, None)[:2]
     yr, yi = (*outs, None)[:2]
+    dtype = xr.dtype
+    real = _build.REAL_TYPES[dtype]
     if form == "rfft":
-        fn = _build.function("rfft.cu", "spfft_rfft_stage", _RFFT_ARGS)
+        fn = _build.function("rfft.cu",
+                             _build.entry("spfft_rfft_stage", dtype),
+                             _rfft_args(real))
         _build.launch(fn, f"rfft stage {mode}", xr.device, _MODES[mode],
                       *(None if t is None else t.data_ptr()
                         for t in (xr, xi, yr, yi, mats.twiddles)),
@@ -148,14 +169,16 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
                       dft.radix_code(mats.factors))
         return "rfft"
     if form == "fft":
-        fn = _build.function("fft.cu", "spfft_fft_stage", _FFT_STAGE_ARGS)
+        fn = _build.function("fft.cu", _build.entry("spfft_fft_stage", dtype),
+                             _fft_stage_args(real))
         _build.launch(fn, "fft stage", ins[0].device,
                       *(t.data_ptr() for t in (*ins, *outs, mats.twiddles)),
                       m, k, n, plane_rows, mats.n, mats.sign, mats.scale,
                       mats.rows[0], mats.cols[0],
                       dft.radix_code(mats.factors))
         return "fft"
-    fn = _build.function("dft2.cu", "spfft_dft_stage", _ARGS)
+    fn = _build.function("dft2.cu", _build.entry("spfft_dft_stage", dtype),
+                         _ARGS)
     _build.launch(fn, f"dft2 stage {mode}", xr.device, _MODES[mode],
                   *(None if t is None else t.data_ptr()
                     for t in (xr, xi, *mats, yr, yi)),
@@ -168,7 +191,9 @@ def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:
     (``mats1``) then A (``mats2``) into ``(P, B', A')`` or, with
     ``swap_out``, ``(P, A', B')``."""
     p, a, b = ins[0].shape
-    fn = _build.function("fft.cu", "spfft_fft_plane", _FFT_PLANE_ARGS)
+    dtype = ins[0].dtype
+    fn = _build.function("fft.cu", _build.entry("spfft_fft_plane", dtype),
+                         _fft_plane_args(_build.REAL_TYPES[dtype]))
 
     def spec(m):
         return (m.n, m.sign, m.rows[0], m.cols[0], dft.radix_code(m.factors))
@@ -182,9 +207,11 @@ def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:
 
 
 def _check(name: str, ins, mats1, mats2):
-    """The operand rules of the three wrappers; returns ``(p, a, b,
-    b_out, a_out)``."""
+    """The operand rules of the plane wrappers: every operand and matrix
+    of the input's real type (float32 or float64), and its twiddle table
+    too; returns ``(p, a, b, b_out, a_out)``."""
     x = ins[0]
+    dtype = _build.call_dtype(x, f"{name} input")
     if x.dim() != 3:
         raise InvalidParameterError(
             f"{name}: expected (P, A, B) operands, got {tuple(x.shape)}")
@@ -192,12 +219,11 @@ def _check(name: str, ins, mats1, mats2):
     b_out = mats1[0].shape[1]
     a_out = mats2[0].shape[1]
     dev = x.device
-    _build.require(x, f"{name} input", torch.float32)
+    _build.require(x, f"{name} input", dtype)
     for t in ins[1:]:
-        _build.require(t, f"{name} input", torch.float32, x.shape, dev)
+        _build.require(t, f"{name} input", dtype, x.shape, dev)
     for m, shape in ((mats1, (b, b_out)), (mats2, (a, a_out))):
-        for c in m:
-            _build.require(c, f"{name} matrix", torch.float32, shape, dev)
+        _build.require_mats(m, name, dtype, shape, dev)
     return p, a, b, b_out, a_out
 
 
@@ -216,7 +242,7 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
         return plain(*ins, mats1, mats2)
     real_out = modes[1] == "cr"
     oshape = (p, a_out, b_out) if swap_out else (p, b_out, a_out)
-    out = tuple(torch.empty(oshape, dtype=torch.float32, device=x.device)
+    out = tuple(torch.empty(oshape, dtype=x.dtype, device=x.device)
                 for _ in range(1 if real_out else 2))
     if x.numel() == 0 or out[0].numel() == 0:
         for t in out:
@@ -226,7 +252,7 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
         _plane(ins, mats1, mats2, out, swap_out)
         _build.count(wrapper, "cluster")
     else:
-        mid = tuple(torch.empty((p, b_out, a), dtype=torch.float32,
+        mid = tuple(torch.empty((p, b_out, a), dtype=x.dtype,
                                 device=x.device) for _ in range(2))
         _build.count(wrapper, _stage(modes[0], ins, mats1, mid,
                                      plane_rows=a))
@@ -243,21 +269,20 @@ def _last(wrapper, mode: str, ins, mats, plain):
     ``wrapper``; ``plain`` on a CPU tensor."""
     name = wrapper.__name__
     x = ins[0]
+    dtype = _build.call_dtype(x, f"{name} input")
     if x.dim() < 1:
         raise InvalidParameterError(
             f"{name}: expected (..., K) operands, got {tuple(x.shape)}")
     k = x.shape[-1]
     dev = x.device
-    _build.require(x, f"{name} input", torch.float32)
+    _build.require(x, f"{name} input", dtype)
     for t in ins[1:]:
-        _build.require(t, f"{name} input", torch.float32, x.shape, dev)
+        _build.require(t, f"{name} input", dtype, x.shape, dev)
     n = mats[0].shape[1] if mats[0].dim() == 2 else -1
-    for c in mats:
-        _build.require(c, f"{name} matrix", torch.float32, (k, n), dev)
+    _build.require_mats(mats, name, dtype, (k, n), dev)
     if not _build.on_cuda(x, name):
         return plain(*ins, mats)
-    out = tuple(torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
-                            device=dev)
+    out = tuple(torch.empty(x.shape[:-1] + (n,), dtype=dtype, device=dev)
                 for _ in range(1 if mode == "cr" else 2))
     if x.numel() == 0 or n == 0:
         for t in out:

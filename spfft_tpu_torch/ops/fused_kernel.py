@@ -17,11 +17,13 @@ run the FFT form (``csrc/fused_fft.cu``: the gather fused with a
 Stockham FFT in shared memory, ``csrc/fft_tile.cuh``; bound by bytes);
 any other length, or a plain matrix pair, runs the matrix form
 (``csrc/fused_compress.cu``: the z-DFT as a product against the matrix
-pair, bound by FP32 operations). On a CUDA tensor each wrapper launches
+pair, bound by operations). On a CUDA tensor each wrapper launches
 the kernel of its form; on a CPU tensor it runs the plain version beside
 it, whatever the form. Values are in the plan's public layout:
 interleaved ``(N, 2)``, or the planar pair ``(2, N)`` when ``pair`` is
-set.
+set. Values, sticks, matrices and twiddle table share one real type,
+float32 or float64 (a double-precision plan's: the entries with the
+suffix ``_f64``); a mixture is refused.
 
 Both wrappers also take a leading batch ``B`` (values ``(B, N, 2)`` or
 ``(B, 2, N)``, sticks ``(B, S, dim_z)``): B transforms over one plan's
@@ -48,15 +50,27 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _DEC_ARGS = [_P] * 6 + [_LL, _I, _LL, _I, _LL, _I, _P]
 _CMP_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _I, _P]
-#: the transform's (n, sign, scale, in0, out0, radices) arguments of
-#: csrc/fused_fft.cu's entries, before the stream
-_SPEC_ARGS = [_I, _I, ctypes.c_float, _I, _I, _I, _P]
-#: spfft_decompress_zdft_fft: values, slot_src, the twiddle table, the
-#: output sticks, num_sticks, N, pair, zero_stick, batch, the transform
-_FFT_DEC_ARGS = [_P] * 5 + [_LL, _I, _I, _LL, _I] + _SPEC_ARGS
-#: spfft_zdft_compress_fft: the sticks, the twiddle table, the CSR, the
-#: values, num_sticks, N, pair, batch, the transform
-_FFT_CMP_ARGS = [_P] * 7 + [_LL, _I, _I, _I] + _SPEC_ARGS
+
+
+def _spec_args(real):
+    """The transform's (n, sign, scale (ctypes type ``real``), in0, out0,
+    radices) arguments of csrc/fused_fft.cu's entries, and the stream."""
+    return [_I, _I, real, _I, _I, _I, _P]
+
+
+def _fft_dec_args(real):
+    """spfft_decompress_zdft_fft: values, slot_src, the twiddle table,
+    the output sticks, num_sticks, N, pair, zero_stick, batch, the
+    transform."""
+    return [_P] * 5 + [_LL, _I, _I, _LL, _I] + _spec_args(real)
+
+
+def _fft_cmp_args(real):
+    """spfft_zdft_compress_fft: the sticks, the twiddle table, the CSR,
+    the values, num_sticks, N, pair, batch, the transform."""
+    return [_P] * 7 + [_LL, _I, _I, _I] + _spec_args(real)
+
+
 #: largest batch of one launch (the grid's y extent)
 MAX_BATCH = 65535
 FORMS = ("matrix", "fft")
@@ -128,9 +142,10 @@ def decompress_zdft_plain(values, slot_src, mats, dim_z: int, pair: bool,
 def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
                     dim_z: int, pair: bool = False, zero_stick: int = -1):
     """Sparse values -> z-transformed planar sticks ``(sr, si)``, each
-    ``(B?, slot_src.numel() // dim_z, dim_z)`` f32.
+    ``(B?, slot_src.numel() // dim_z, dim_z)`` of the values' real type.
 
-    ``values`` is ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) f32;
+    ``values`` is ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``), float32
+    or float64, and ``mats`` of the same type;
     ``slot_src`` is the int32 inverse slot map, sentinel N = zero;
     ``mats`` the backward z pair ``(dim_z, dim_z)``; ``zero_stick`` the
     stick to complete hermitian before the z-DFT (an R2C plan's (0,0)
@@ -142,10 +157,11 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
         raise InvalidParameterError(
             f"decompress_zdft: expected (B?, N, 2) or (B?, 2, N) values, got "
             f"{tuple(values.shape)}")
+    dtype = _build.call_dtype(values, "decompress_zdft values")
     lead = tuple(values.shape[:-2])
     n = values.shape[-1] if pair else values.shape[-2]
     dev = values.device
-    _build.require(values, "decompress_zdft values", torch.float32,
+    _build.require(values, "decompress_zdft values", dtype,
                    lead + _values_shape(n, pair))
     _build.require(slot_src, "decompress_zdft slot_src", torch.int32,
                    device=dev)
@@ -153,9 +169,7 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
         raise InvalidParameterError(
             f"decompress_zdft: slot_src must be flat with a multiple of "
             f"dim_z={dim_z} slots, got {tuple(slot_src.shape)}")
-    for c in mats:
-        _build.require(c, "decompress_zdft matrix", torch.float32,
-                       (dim_z, dim_z), dev)
+    _build.require_mats(mats, "decompress_zdft", dtype, (dim_z, dim_z), dev)
     num_sticks = slot_src.numel() // dim_z
     if not -1 <= zero_stick < num_sticks:
         raise InvalidParameterError(
@@ -165,22 +179,24 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     if not _build.on_cuda(values, "decompress_zdft"):
         return decompress_zdft_plain(values, slot_src, mats, dim_z, pair,
                                      zero_stick)
-    sr = torch.empty(lead + (num_sticks, dim_z), dtype=torch.float32,
-                     device=dev)
+    sr = torch.empty(lead + (num_sticks, dim_z), dtype=dtype, device=dev)
     si = torch.empty_like(sr)
     if num_sticks == 0 or batch == 0:
         return sr, si
     form = z_form(mats, dim_z)
     if form == "fft":
-        fn = _build.function(_FFT_SRC, "spfft_decompress_zdft_fft",
-                             _FFT_DEC_ARGS)
+        fn = _build.function(_FFT_SRC,
+                             _build.entry("spfft_decompress_zdft_fft", dtype),
+                             _fft_dec_args(_build.REAL_TYPES[dtype]))
         _build.launch(fn, "decompress_zdft fft kernel", dev,
                       values.data_ptr(), slot_src.data_ptr(),
                       mats.twiddles.data_ptr(), sr.data_ptr(), si.data_ptr(),
                       num_sticks, n, int(pair), int(zero_stick), batch,
                       *_spec(mats))
     else:
-        fn = _build.function(_SRC, "spfft_decompress_zdft", _DEC_ARGS)
+        fn = _build.function(_SRC,
+                             _build.entry("spfft_decompress_zdft", dtype),
+                             _DEC_ARGS)
         _build.launch(fn, "decompress_zdft kernel", dev, values.data_ptr(),
                       slot_src.data_ptr(), mats[0].data_ptr(),
                       mats[1].data_ptr(), sr.data_ptr(), si.data_ptr(),
@@ -206,7 +222,7 @@ def zdft_compress_plain(sr, si, mats, csr, pair: bool):
     slot = stick * dim_z + val_z.long()
     vid = val_id.long()
     out = torch.empty(lead + _values_shape(val_id.numel(), pair),
-                      dtype=torch.float32, device=sr.device)
+                      dtype=sr.dtype, device=sr.device)
     re, im = (out[..., 0, :], out[..., 1, :]) if pair \
         else (out[..., 0], out[..., 1])
     re[..., vid] = yr.flatten(-2)[..., slot]
@@ -217,7 +233,8 @@ def zdft_compress_plain(sr, si, mats, csr, pair: bool):
 def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
                   pair: bool = False):
     """Raw planar sticks ``(B?, num_sticks, dim_z)`` -> z-DFT -> the
-    sparse values, ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) f32.
+    sparse values, ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) of the
+    sticks' real type (float32 or float64, the matrices' too).
 
     ``mats`` is the forward z pair, any FULL scale folded into its
     matrices and carried as its ``scale``; ``csr`` is
@@ -234,11 +251,10 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     dev = sr.device
     stick_ptr, val_id, val_z = csr
     n = val_id.numel()
-    _build.require(sr, "zdft_compress sr", torch.float32)
-    _build.require(si, "zdft_compress si", torch.float32, sr.shape, dev)
-    for c in mats:
-        _build.require(c, "zdft_compress matrix", torch.float32,
-                       (dim_z, dim_z), dev)
+    dtype = _build.call_dtype(sr, "zdft_compress sr")
+    _build.require(sr, "zdft_compress sr", dtype)
+    _build.require(si, "zdft_compress si", dtype, sr.shape, dev)
+    _build.require_mats(mats, "zdft_compress", dtype, (dim_z, dim_z), dev)
     _build.require(stick_ptr, "zdft_compress stick_ptr", torch.int32,
                    (num_sticks + 1,), dev)
     _build.require(val_id, "zdft_compress val_id", torch.int32, (n,), dev)
@@ -246,21 +262,22 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     batch = _batch(lead, "zdft_compress")
     if not _build.on_cuda(sr, "zdft_compress"):
         return zdft_compress_plain(sr, si, mats, csr, pair)
-    out = torch.empty(lead + _values_shape(n, pair), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty(lead + _values_shape(n, pair), dtype=dtype, device=dev)
     if num_sticks == 0 or batch == 0:
         return out
     form = z_form(mats, dim_z)
     if form == "fft":
-        fn = _build.function(_FFT_SRC, "spfft_zdft_compress_fft",
-                             _FFT_CMP_ARGS)
+        fn = _build.function(_FFT_SRC,
+                             _build.entry("spfft_zdft_compress_fft", dtype),
+                             _fft_cmp_args(_build.REAL_TYPES[dtype]))
         _build.launch(fn, "zdft_compress fft kernel", dev, sr.data_ptr(),
                       si.data_ptr(), mats.twiddles.data_ptr(),
                       stick_ptr.data_ptr(), val_id.data_ptr(),
                       val_z.data_ptr(), out.data_ptr(), num_sticks, n,
                       int(pair), batch, *_spec(mats))
     else:
-        fn = _build.function(_SRC, "spfft_zdft_compress", _CMP_ARGS)
+        fn = _build.function(_SRC, _build.entry("spfft_zdft_compress", dtype),
+                             _CMP_ARGS)
         _build.launch(fn, "zdft_compress kernel", dev, sr.data_ptr(),
                       si.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
                       stick_ptr.data_ptr(), val_id.data_ptr(),

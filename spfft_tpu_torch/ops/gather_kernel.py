@@ -10,8 +10,10 @@ decompositions.
 
 * :func:`gather` — ``out[s, b, j] = src[s, b, idx[s, j]]`` where
   ``valid[s, j]`` and ``0 <= idx[s, j] < n``, else 0, on planar
-  f32 views with a leading shard axis (optional: a local plan's tables
-  have none) and batch, in one launch whatever S and B are.
+  float32 or float64 views (``spfft_gather`` or ``spfft_gather_f64``,
+  one template's two instances; source and output of one type) with a
+  leading shard axis (optional: a local plan's tables have none) and
+  batch, in one launch whatever S and B are.
 * :func:`decompress` — sparse values -> planar z-sticks through the
   plan's inverse slot map ``slot_src`` (sentinel ``num_values`` = empty).
 * :func:`compress` — planar z-sticks -> sparse values through
@@ -55,26 +57,30 @@ def _strides(t: torch.Tensor, sharded: bool) -> list:
 
 
 def _layout_word(src, src_st, idx_ptr, idx_sst, valid_ptr, valid_sst, out,
-                 out_st) -> int:
+                 out_st, esize: int) -> int:
     """csrc/gather.cu's layout word from the planes' addresses (``src``,
-    ``out``: (re, im) pairs), their (shard, batch, element) strides and
-    the tables' addresses and shard strides (``valid_ptr`` None: no
-    mask): each wide access only where every group of 4 slots finds it
-    aligned."""
+    ``out``: (re, im) pairs), their (shard, batch, element) strides, the
+    tables' addresses and shard strides (``valid_ptr`` None: no mask)
+    and the planes' element size ``esize`` in bytes (4 or 8): each wide
+    access only where every group of 4 slots finds it aligned. A pair
+    (re, im) is 2 ``esize`` bytes and must lie on a multiple of that; a
+    planar group's 16-byte stores need its start on 16 bytes."""
     word = 0
     if idx_ptr % 16 == 0 and idx_sst % 4 == 0:
         word |= IDX_VEC
     if valid_ptr is not None and valid_ptr % 4 == 0 and valid_sst % 4 == 0:
         word |= VALID_VEC
+    pair = 2 * esize
+    per16 = 16 // esize  # elements in 16 bytes
     (re, im), (ss, sb, se) = src, src_st
-    if se == 2 and im == re + 4 and re % 8 == 0 and ss % 2 == 0 \
+    if se == 2 and im == re + esize and re % pair == 0 and ss % 2 == 0 \
             and sb % 2 == 0:
         word |= SRC_PAIR
     (re, im), (os_, ob, oe) = out, out_st
-    if oe == 1 and re % 16 == 0 and im % 16 == 0 and os_ % 4 == 0 \
-            and ob % 4 == 0:
+    if oe == 1 and re % 16 == 0 and im % 16 == 0 and os_ % per16 == 0 \
+            and ob % per16 == 0:
         word |= OUT_PLANAR
-    elif oe == 2 and im == re + 4 and re % 8 == 0 and os_ % 2 == 0 \
+    elif oe == 2 and im == re + esize and re % pair == 0 and os_ % 2 == 0 \
             and ob % 2 == 0:
         word |= OUT_PAIR
     return word
@@ -107,14 +113,22 @@ def gather_plain(src, idx, out, valid=None) -> None:
             o[r].copy_(stages.gather_rows_with_sentinel(s[r].t(), i[r]).t())
 
 
-def _check_planes(name, planes, dims, shape=None):
-    """Two f32 views of ``dims`` axes on one device with equal strides."""
+def _check_planes(name, planes, dims, shape=None, dtype=None):
+    """Two views of ``dims`` axes on one device with equal strides, of
+    ``dtype`` (where None, of one type, float32 or float64); returns
+    their dtype."""
     re, im = planes
+    if dtype is None:
+        dtype = getattr(re, "dtype", None)
+        if dtype not in _build.REAL_TYPES:
+            dtype = torch.float32
     for t in planes:
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            got = getattr(t, 'dtype', type(t).__name__)
             raise InvalidParameterError(
-                f"gather {name}: expected float32 tensors, got "
-                f"{getattr(t, 'dtype', type(t).__name__)}")
+                f"gather {name}: expected {dtype} tensors, got {got} "
+                f"(both planes of the source and of the output share one "
+                f"real type, float32 or float64)")
         if t.dim() != dims:
             raise InvalidParameterError(
                 f"gather {name}: expected "
@@ -129,6 +143,7 @@ def _check_planes(name, planes, dims, shape=None):
         raise InvalidParameterError(
             f"gather {name}: expected shape {tuple(shape)}, got "
             f"{tuple(re.shape)}")
+    return dtype
 
 
 def _check_table(t, name, dtype, shape, device) -> None:
@@ -153,9 +168,10 @@ def gather(src, idx: torch.Tensor, out, valid=None) -> None:
     (every slot when None) and ``0 <= idx[s, j] < n``, else 0, for the
     real and imaginary ``k``, in place.
 
-    ``src`` and ``out`` are ``(re, im)`` pairs of f32 ``(S, B, n)`` and
-    ``(S, B, num_out)`` views (any strides, the two views of a pair
-    alike, so interleaved rows and planar planes are both views);
+    ``src`` and ``out`` are ``(re, im)`` pairs of ``(S, B, n)`` and
+    ``(S, B, num_out)`` views, all four float32 or all four float64 (any
+    strides, the two views of a pair alike, so interleaved rows and
+    planar planes are both views);
     ``idx`` is int32 ``(S, num_out)`` and ``valid`` bool ``(S, num_out)``,
     each with contiguous rows. Stacked per-shard tables pad each shard
     with indices at or past ``n``, which give 0. Without the shard axis
@@ -167,13 +183,14 @@ def gather(src, idx: torch.Tensor, out, valid=None) -> None:
             f"gather idx: expected a (num_out,) or (shards, num_out) "
             f"tensor, got {getattr(idx, 'shape', type(idx).__name__)}")
     sharded = idx.dim() == 2
-    _check_planes("source", src, 2 + sharded)
+    dtype = _check_planes("source", src, 2 + sharded)
     shape = src[0].shape
     n, num_out = shape[-1], idx.shape[-1]
     dev = src[0].device
     table = (shape[0], num_out) if sharded else (num_out,)
     _check_table(idx, "gather idx", torch.int32, table, dev)
-    _check_planes("output", out, 2 + sharded, shape[:-1] + (num_out,))
+    _check_planes("output", out, 2 + sharded, shape[:-1] + (num_out,),
+                  dtype)
     if out[0].device != dev:
         raise InvalidParameterError(
             f"gather output: expected a tensor on {dev}, got "
@@ -190,7 +207,7 @@ def gather(src, idx: torch.Tensor, out, valid=None) -> None:
             f"({MAX_SHARDS} shards, batch 2^31 - 1)")
     if shards == 0 or b == 0 or num_out == 0:
         return
-    fn = _build.function(_SRC, "spfft_gather", _ARGS)
+    fn = _build.function(_SRC, _build.entry("spfft_gather", dtype), _ARGS)
     src_p = (src[0].data_ptr(), src[1].data_ptr())
     out_p = (out[0].data_ptr(), out[1].data_ptr())
     src_st, out_st = _strides(src[0], sharded), _strides(out[0], sharded)
@@ -203,7 +220,7 @@ def gather(src, idx: torch.Tensor, out, valid=None) -> None:
         idx_p, idx_sst, valid_p, valid_sst, *out_p, out_st[2], out_st[1],
         out_st[0], num_out, b, shards,
         _layout_word(src_p, src_st, idx_p, idx_sst, valid_p, valid_sst,
-                     out_p, out_st))
+                     out_p, out_st, src[0].element_size()))
     gather.launches += 1
 
 
@@ -229,9 +246,10 @@ def values_shape(batch, num_values: int, pair: bool) -> tuple:
 def decompress(values: torch.Tensor, slot_src: torch.Tensor, dim_z: int,
                pair: bool = False):
     """Sparse values -> planar sticks ``(sr, si)``, each ``(B?,
-    slot_src.numel() // dim_z, dim_z)`` f32 (leading B when ``values``
-    is batched): every slot written, the sentinel ``num_values`` as 0
-    (the plan's trailing sentinel stick comes out as zeros)."""
+    slot_src.numel() // dim_z, dim_z)`` of the values' real type
+    (leading B when ``values`` is batched): every slot written, the
+    sentinel ``num_values`` as 0 (the plan's trailing sentinel stick
+    comes out as zeros)."""
     if values.dim() not in (2, 3):
         raise InvalidParameterError(
             f"decompress: expected (B?, N, 2) or (B?, 2, N) values, got "
@@ -243,7 +261,7 @@ def decompress(values: torch.Tensor, slot_src: torch.Tensor, dim_z: int,
     src = value_planes(values, pair)
     lead = values.shape[:1] if values.dim() == 3 else ()
     shape = lead + (slot_src.numel() // dim_z, dim_z)
-    sr = torch.empty(shape, dtype=torch.float32, device=values.device)
+    sr = torch.empty(shape, dtype=values.dtype, device=values.device)
     si = torch.empty_like(sr)
     flat = (src[0].shape[0], slot_src.numel())
     gather(src, slot_src, (sr.view(flat), si.view(flat)))
@@ -273,18 +291,19 @@ def compress_plain(sr: torch.Tensor, si: torch.Tensor,
 def compress(sr: torch.Tensor, si: torch.Tensor, value_indices: torch.Tensor,
              pair: bool = False) -> torch.Tensor:
     """Planar sticks ``(B?, S, dim_z)`` -> the sparse values at the flat
-    slots ``value_indices`` (int32), ``(B?, N, 2)`` f32 (``(B?, 2, N)``
-    with ``pair``)."""
+    slots ``value_indices`` (int32), ``(B?, N, 2)`` (``(B?, 2, N)`` with
+    ``pair``) of the sticks' real type."""
     if sr.dim() not in (2, 3):
         raise InvalidParameterError(
             f"compress: expected (B?, S, dim_z) sticks, got "
             f"{tuple(sr.shape)}")
+    dtype = _build.call_dtype(sr, "compress sticks")
     for t in (sr, si):
-        _build.require(t, "compress sticks", torch.float32, sr.shape)
+        _build.require(t, "compress sticks", dtype, sr.shape)
     batch = sr.shape[0] if sr.dim() == 3 else None
     flat = (1 if batch is None else batch, sr.shape[-2] * sr.shape[-1])
     out = torch.empty(values_shape(batch, value_indices.numel(), pair),
-                      dtype=torch.float32, device=sr.device)
+                      dtype=dtype, device=sr.device)
     gather((sr.view(flat), si.view(flat)), value_indices,
            value_planes(out, pair))
     return out

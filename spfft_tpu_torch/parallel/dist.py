@@ -42,7 +42,10 @@ What runs on the card, per pair:
 
 FULL scaling is folded into the forward z matrix, as the local plan does
 (the JAX distributed forward multiplies after the gather; the two agree
-within the f32 tolerance). The JAX package's TPU window tables, uniform
+within the precision's tolerance). ``precision="double"`` runs every
+stage, table and matrix in float64 through the kernels' float64
+instances, and the exchange moves 16-byte values, as the local plan
+does. The JAX package's TPU window tables, uniform
 per-shard table padding and fused-kernel decline gates have no
 counterpart: the CUDA kernels take every shard's shape.
 
@@ -51,8 +54,7 @@ local :class:`~spfft_tpu_torch.plan.TransformPlan` (the reference treats
 a size-1 communicator as local, grid_internal.cpp:182), keeping the
 stacked API. Not in this slice, each raising a typed error that names
 its slice: the compact, ring and float-wire exchanges, ``overlap_chunks
-> 1``, the wire ladder, ``precision="double"`` and a mesh over several
-devices.
+> 1``, the wire ladder and a mesh over several devices.
 """
 
 from __future__ import annotations
@@ -71,14 +73,11 @@ from ..plan import (PAIR_IO_THRESHOLD, TransformPlan, _not_in_slice,
                     resolve_device)
 from ..timing import timed_transform
 from ..types import ExchangeType, Scaling, TransformType
-from ..utils.dtypes import as_interleaved, real_dtype
+from ..utils.dtypes import as_interleaved, real_dtype, torch_real_dtype
 from .exchange import (all_to_all_blocks, pack_freq_to_blocks,
                        pack_space_to_blocks, unpack_blocks_to_grid,
                        unpack_blocks_to_sticks)
 from .mesh import Mesh, make_mesh
-
-#: bytes of one complex64 element on the wire (rung 0, "full")
-_WIRE_ELEM_BYTES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,8 +195,6 @@ def _check_out_of_slice(precision, exchange, overlap_chunks,
                         wire_precision, wire_error_budget) -> None:
     """The typed refusals of what this slice does not run."""
     real_dtype(precision)
-    if precision != "single":
-        raise _not_in_slice(f"precision={precision!r}", "double-precision")
     if exchange.compact or exchange == ExchangeType.UNBUFFERED:
         raise _not_in_slice(f"the {exchange.value} exchange",
                             "compact, ring and overlap exchange")
@@ -258,6 +255,9 @@ class DistributedTransformPlan:
                 f"{dp.num_shards} shards")
         self.dist_plan = dp
         self.precision = precision
+        #: the torch real type of every tensor the plan computes on
+        self.real_dtype = torch_real_dtype(precision)
+        self._np_real = real_dtype(precision)
         self.mesh = mesh
         self.axis_name = mesh.axis_name
         self.device = mesh.device
@@ -330,7 +330,8 @@ class DistributedTransformPlan:
         self._has_conj = any(
             p.value_conj is not None and bool(p.value_conj.any())
             for p in dp.shard_plans)
-        conj_mult = np.ones((S, mv if self._has_conj else 1, 2), np.float32)
+        conj_mult = np.ones((S, mv if self._has_conj else 1, 2),
+                            self._np_real)
         for r, p in enumerate(dp.shard_plans):
             if self._has_conj and p.value_conj is not None:
                 conj_mult[r, :p.num_values, 1] = np.where(p.value_conj,
@@ -382,8 +383,10 @@ class DistributedTransformPlan:
                                         device=dev)
                         if self._has_conj else None)
 
+        rdt = self.real_dtype
+
         def c2c(n, sign, **window):
-            return dft.device_c2c(n, sign, device=dev, **window)
+            return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
         self._mats = {
@@ -396,9 +399,9 @@ class DistributedTransformPlan:
         x0, w = self._split_x or (0, dp.dim_x_freq)
         if self._r2c:
             self._mats["x_b"] = dft.device_c2r(dp.dim_x, rows=(x0, w),
-                                               device=dev)
+                                               device=dev, dtype=rdt)
             self._mats["x_f"] = dft.device_r2c(dp.dim_x, cols=(x0, w),
-                                               device=dev)
+                                               device=dev, dtype=rdt)
         else:
             self._mats["x_b"] = c2c(dp.dim_x, dft.BACKWARD, rows=(x0, w))
             self._mats["x_f"] = c2c(dp.dim_x, dft.FORWARD, cols=(x0, w))
@@ -425,7 +428,7 @@ class DistributedTransformPlan:
             v = v * self._t_conj
         b = v.shape[1]
         shape = (b, dp.num_shards, dp.max_sticks, dp.dim_z)
-        sr = torch.empty(shape, dtype=torch.float32, device=self.device)
+        sr = torch.empty(shape, dtype=self.real_dtype, device=self.device)
         si = torch.empty_like(sr)
         z = self._mats["z_b"]
         if self._fused:
@@ -526,14 +529,16 @@ class DistributedTransformPlan:
         z = m["z_fs" if scaled else "z_f"]
         shape = (dp.num_shards, b, dp.max_values, 2)
         if self._fused:
-            out = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            out = torch.zeros(shape, dtype=self.real_dtype,
+                              device=self.device)
             for r, p in enumerate(dp.shard_plans):
                 out[r, :, :p.num_values] = fused_kernel.zdft_compress(
                     sr[:, r].contiguous(), si[:, r].contiguous(), z,
                     self._t_csr[r])
         else:
             sr, si = dft_kernel.pdft_last(sr, si, z)
-            out = torch.empty(shape, dtype=torch.float32, device=self.device)
+            out = torch.empty(shape, dtype=self.real_dtype,
+                              device=self.device)
             gather_kernel.gather((_shard_rows(sr), _shard_rows(si)),
                                  self._t_vi, (out[..., 0], out[..., 1]))
         return out if self._t_conj is None else out.mul_(self._t_conj)
@@ -556,7 +561,7 @@ class DistributedTransformPlan:
             return space.transpose(0, 1).contiguous()
         xr, xi = space
         out = torch.empty((xr.shape[1], xr.shape[0]) + tuple(xr.shape[2:])
-                          + (2,), dtype=torch.float32, device=self.device)
+                          + (2,), dtype=self.real_dtype, device=self.device)
         out[..., 0] = xr.transpose(0, 1)
         out[..., 1] = xi.transpose(0, 1)
         return out
@@ -635,21 +640,27 @@ class DistributedTransformPlan:
     def fused_dist_fwd_fallback_reason(self) -> Optional[str]:
         return None
 
+    @property
+    def _wire_elem_bytes(self) -> int:
+        """Bytes of one complex element on the wire: 8 (complex64) for a
+        single plan, 16 (complex128) for a double one."""
+        return 2 * self.real_dtype.itemsize
+
     def exchange_wire_bytes(self, forward: bool = False) -> int:
         """Total off-shard bytes of ONE exchange, summed over shards: the
         padded block layout ships ``S * (S - 1) * max_sticks *
-        max_planes`` complex64 elements whatever the distribution, in
-        both directions."""
+        max_planes`` complex elements of the plan's precision whatever
+        the distribution, in both directions."""
         dp = self.dist_plan
         return (dp.num_shards * (dp.num_shards - 1) * dp.max_sticks
-                * dp.max_planes * _WIRE_ELEM_BYTES)
+                * dp.max_planes * self._wire_elem_bytes)
 
     def exchange_busiest_link_bytes(self, forward: bool = False) -> int:
         """Max over shards of the off-shard bytes one shard sends (or
         receives) in ONE exchange of the padded block layout."""
         dp = self.dist_plan
         return ((dp.num_shards - 1) * dp.max_sticks * dp.max_planes
-                * _WIRE_ELEM_BYTES)
+                * self._wire_elem_bytes)
 
     def estimated_device_bytes(self) -> int:
         """Bytes of the tables and matrices the plan keeps on its device
@@ -659,12 +670,12 @@ class DistributedTransformPlan:
 
     # -- data movement helpers -----------------------------------------------
     def shard_values(self, values_per_shard: Sequence) -> torch.Tensor:
-        """Per-shard value arrays -> the padded ``(S, max_values, 2)`` f32
-        tensor on the plan's device."""
+        """Per-shard value arrays -> the padded ``(S, max_values, 2)``
+        tensor of the plan's real type on its device."""
         dp = self.dist_plan
         if len(values_per_shard) != dp.num_shards:
             raise InvalidParameterError("one value array per shard required")
-        out = np.zeros((dp.num_shards, dp.max_values, 2), np.float32)
+        out = np.zeros((dp.num_shards, dp.max_values, 2), self._np_real)
         for r, v in enumerate(values_per_shard):
             if isinstance(v, torch.Tensor):
                 v = v.detach().cpu().numpy()
@@ -692,11 +703,12 @@ class DistributedTransformPlan:
 
     def shard_space(self, slabs: Sequence) -> torch.Tensor:
         """Per-shard space-domain slabs -> the padded ``(S, max_planes,
-        dim_y, dim_x[, 2])`` f32 tensor on the plan's device."""
+        dim_y, dim_x[, 2])`` tensor of the plan's real type on its
+        device."""
         dp = self.dist_plan
         if len(slabs) != dp.num_shards:
             raise InvalidParameterError("one slab per shard required")
-        out = np.zeros((dp.num_shards,) + self._slab_shape(), np.float32)
+        out = np.zeros((dp.num_shards,) + self._slab_shape(), self._np_real)
         for r, slab in enumerate(slabs):
             if isinstance(slab, torch.Tensor):
                 slab = slab.detach().cpu().numpy()
@@ -707,7 +719,7 @@ class DistributedTransformPlan:
                     raise InvalidParameterError(
                         f"shard {r}: expected real slab {expect}, got "
                         f"{np.shape(slab)}")
-                arr = np.asarray(slab, np.float32)
+                arr = np.asarray(slab, self._np_real)
             else:
                 arr = as_interleaved(slab, self.precision)
                 if arr.shape != expect + (2,):
@@ -730,15 +742,16 @@ class DistributedTransformPlan:
         return out
 
     def _tensor(self, t: torch.Tensor, shape: tuple, what: str):
-        """A caller's tensor -> contiguous f32 of ``shape`` on the plan's
-        device (complex tensors as interleaved pairs)."""
+        """A caller's tensor -> contiguous tensor of the plan's real type
+        and ``shape`` on its device (complex tensors as interleaved
+        pairs)."""
         t = t.to(self.device)
         if t.is_complex():
             t = torch.view_as_real(t)
         if tuple(t.shape) != shape:
             raise InvalidParameterError(
                 f"expected {what} of shape {shape}, got {tuple(t.shape)}")
-        return t.to(torch.float32).contiguous()
+        return t.to(self.real_dtype).contiguous()
 
     def _values(self, values) -> torch.Tensor:
         """Values as ``(S, max_values, 2)`` on the device: a tensor as it

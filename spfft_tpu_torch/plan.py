@@ -1,5 +1,6 @@
 """Local (single-device) sparse 3D FFT plans: the port of
-``spfft_tpu/plan.py``'s single-precision C2C and R2C paths.
+``spfft_tpu/plan.py``'s C2C and R2C paths, in single and double
+precision.
 
 Pipeline (reference: src/execution/execution_host.cpp:249-352; the JAX
 package's matmul-DFT "T layout" path):
@@ -38,10 +39,16 @@ version. With no ``device`` and no CUDA device the plan refuses to build
 (:class:`~spfft_tpu_torch.errors.DeviceError`); it never carries on
 quietly on the CPU.
 
+Precision: ``precision="double"`` runs the whole pipeline in float64 —
+values, sticks, planes, matrices and twiddle tables — through the
+float64 instances of the same CUDA kernels (native FP64 on the card: no
+double-single, no cast to float32 anywhere on the way), and returns
+float64 results; ``"single"`` runs it in float32.
+
 Not in this slice of the port, each raising a typed error that names
-it: ``precision="double"``, axes above ``ops.dft.MATMUL_DFT_MAX`` (the
-JAX package also runs an R2C x axis up to 1024 direct),
-``donate_inputs=True`` and the plan-artifact restore.
+it: axes above ``ops.dft.MATMUL_DFT_MAX`` (the JAX package also runs an
+R2C x axis up to 1024 direct), ``donate_inputs=True`` and the
+plan-artifact restore.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from .indexing import (IndexPlan, build_index_plan, inverse_col_map,
 from .ops import dft, dft_kernel, fused_kernel, gather_kernel, stages
 from .timing import timed_transform
 from .types import Scaling, TransformType
-from .utils.dtypes import as_interleaved, real_dtype
+from .utils.dtypes import as_interleaved, real_dtype, torch_real_dtype
 
 #: Plans with at least this many values take and return value arrays in
 #: the planar PAIR layout (2, N) — row 0 real, row 1 imaginary — instead
@@ -74,7 +81,11 @@ def predicted_rel_error(precision: str, max_dim: int,
     a dense f64 oracle, for values of bounded dynamic range — the JAX
     package's accuracy contract (``spfft_tpu.plan.predicted_rel_error``,
     docs/precision.md), which this package is held to: err ~ 2.8e-7 *
-    (n/64)^0.13 in single precision."""
+    (n/64)^0.13 in single precision, 5e-15 * (n/64)^0.13 in double. A
+    double plan of this package runs native FP64 on the card, so its
+    envelope is the native one (``device_double=False``, the default);
+    ``device_double=True`` is the JAX package's double-single mode on a
+    TPU, which this package does not have."""
     if mdft_covered is None:
         mdft_covered = dft.mdft_coverable((max_dim,))
     shape = (max(max_dim, 1) / 64.0) ** 0.13
@@ -125,18 +136,16 @@ def _on_device(t: torch.Tensor) -> bool:
 class TransformPlan:
     """A sparse 3D FFT on a single device — a local reference
     ``Transform`` (reference: include/spfft/transform.hpp:56-227), C2C or
-    R2C, single precision in this slice. ``fused=False`` takes the
-    two-kernel route (the module docstring); ``donate_inputs=True``
-    raises, as it is not in this slice."""
+    R2C, in single or double ``precision`` (float32 or float64 through
+    and through). ``fused=False`` takes the two-kernel route (the module
+    docstring); ``donate_inputs=True`` raises, as it is not in this
+    slice."""
 
     def __init__(self, index_plan: IndexPlan, precision: str = "single",
                  device=None, fused: bool = True,
                  donate_inputs: bool = False):
         p = index_plan
         real_dtype(precision)
-        if precision != "single":
-            raise _not_in_slice(f"precision={precision!r}",
-                                "double-precision")
         if donate_inputs:
             raise _not_in_slice("donate_inputs=True", "serving")
         if not dft.mdft_axes(p.dim_x, p.dim_y, p.dim_z):
@@ -145,6 +154,8 @@ class TransformPlan:
                 f"{p.dim_x}, {p.dim_y}, {p.dim_z})", "long-axis")
         self.index_plan = p
         self.precision = precision
+        #: the torch real type of every tensor the plan computes on
+        self.real_dtype = torch_real_dtype(precision)
         self.device = resolve_device(device)
         self._pair_io = p.num_values >= PAIR_IO_THRESHOLD
         self._r2c = p.hermitian
@@ -169,14 +180,15 @@ class TransformPlan:
         self._conj = None
         if p.value_conj is not None and np.asarray(p.value_conj).any():
             # folded values are stored conjugated: ±1 on the imaginary
-            # lane of backward input and forward output, exact in f32
+            # lane of backward input and forward output, exact in any type
             s = np.where(np.asarray(p.value_conj), -1.0, 1.0)
             m = np.stack([np.ones_like(s), s], axis=0 if self._pair_io else -1)
-            self._conj = torch.as_tensor(m, dtype=torch.float32, device=dev)
+            self._conj = torch.as_tensor(m, dtype=self.real_dtype, device=dev)
         self._init_split_x()
+        rdt = self.real_dtype
 
         def c2c(n, sign, **window):
-            return dft.device_c2c(n, sign, device=dev, **window)
+            return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
         self._mats = {
@@ -191,9 +203,9 @@ class TransformPlan:
         x0, w = self._split_x or (0, p.dim_x_freq)
         if self._r2c:
             self._mats["x_b"] = dft.device_c2r(p.dim_x, rows=(x0, w),
-                                               device=dev)
+                                               device=dev, dtype=rdt)
             self._mats["x_f"] = dft.device_r2c(p.dim_x, cols=(x0, w),
-                                               device=dev)
+                                               device=dev, dtype=rdt)
         else:
             self._mats["x_b"] = c2c(p.dim_x, dft.BACKWARD, rows=(x0, w))
             self._mats["x_f"] = c2c(p.dim_x, dft.FORWARD, cols=(x0, w))
@@ -389,8 +401,9 @@ class TransformPlan:
         ``(num_values, 2)`` interleaved (or ``(2, num_values)`` for
         pair-layout plans), a tensor or a numpy array. Returns the
         unnormalised inverse DFT (details.rst "Transform Definition") on
-        the plan's device: the ``(dim_z, dim_y, dim_x, 2)`` f32 slab for
-        C2C, the real ``(dim_z, dim_y, dim_x)`` f32 slab for R2C."""
+        the plan's device, in the plan's real type (float32, or float64
+        for a double plan): the ``(dim_z, dim_y, dim_x, 2)`` slab for
+        C2C, the real ``(dim_z, dim_y, dim_x)`` slab for R2C."""
         v = self._coerce_values(values)
         with timed_transform("backward") as box:
             box.value = self._public_space(self._bwd_space(v))
@@ -399,8 +412,9 @@ class TransformPlan:
     def forward(self, space, scaling: Scaling = Scaling.NONE) -> torch.Tensor:
         """Space -> frequency. ``space`` is the ``(dim_z, dim_y, dim_x)``
         slab: complex or ``(..., 2)`` interleaved for C2C, real for R2C
-        (a complex slab is refused). Returns ``(num_values, 2)`` f32
-        values — ``(2, num_values)`` for pair-layout plans;
+        (a complex slab is refused). Returns ``(num_values, 2)`` values
+        of the plan's real type — ``(2, num_values)`` for pair-layout
+        plans;
         ``Scaling.FULL`` multiplies by 1/(Nx·Ny·Nz) (details.rst
         "Normalization"), folded into the z matrix."""
         scaling = Scaling(scaling)
@@ -449,10 +463,11 @@ class TransformPlan:
 
     def _batch_tensor(self, batch, per) -> Optional[torch.Tensor]:
         """A tensor or prestaged array already shaped ``(B,) + per`` ->
-        a contiguous f32 tensor on the plan's device; None otherwise."""
+        a contiguous tensor of the plan's real type on its device; None
+        otherwise."""
         if isinstance(batch, torch.Tensor) and batch.dim() == len(per) + 1 \
                 and tuple(batch.shape[1:]) == per and not batch.is_complex():
-            return batch.to(self.device, torch.float32).contiguous()
+            return batch.to(self.device, self.real_dtype).contiguous()
         if self._prestaged(batch, per):  # copied, as _coerce_values does
             return torch.tensor(batch, device=self.device)
         return None
@@ -505,8 +520,9 @@ class TransformPlan:
         """backward -> ``fn(space, *fn_args)`` -> forward: the plane-wave
         inner loop of applying a local operator in the space domain.
         ``fn`` receives the space slab in its public layout, ``(dim_z,
-        dim_y, dim_x, 2)`` f32 for C2C, real ``(dim_z, dim_y, dim_x)``
-        for R2C, on the plan's device, and returns the same shape; data
+        dim_y, dim_x, 2)`` for C2C, real ``(dim_z, dim_y, dim_x)`` for
+        R2C, in the plan's real type on its device, and returns the same
+        shape; data
         that changes between calls (a potential) goes through
         ``fn_args``. ``fn=None`` is the identity round trip, kept planar
         throughout. Returns the values in the plan's layout."""
@@ -534,17 +550,17 @@ class TransformPlan:
 
     # -- input coercion ------------------------------------------------------
     def _coerce_values(self, values, device=None) -> torch.Tensor:
-        """Values -> contiguous f32 tensor on the plan's device (or on
-        ``device``) in the plan's layout: (N, 2), or (2, N) for
-        pair-layout plans. A numpy input is copied (it may be read-only,
-        or the caller's)."""
+        """Values -> contiguous tensor of the plan's real type on its
+        device (or on ``device``) in the plan's layout: (N, 2), or (2, N)
+        for pair-layout plans. A numpy input is copied (it may be
+        read-only, or the caller's)."""
         n = self.index_plan.num_values
         device = self.device if device is None else device
         if isinstance(values, torch.Tensor):
             t = values.to(device)
             if t.is_complex():
                 t = torch.view_as_real(t)
-            t = t.to(torch.float32)
+            t = t.to(self.real_dtype)
             if self._pair_io and tuple(t.shape) == (2, n):
                 return t.contiguous()
             if tuple(t.shape) == (n, 2):
@@ -554,7 +570,7 @@ class TransformPlan:
         arr = np.asarray(values)
         if self._pair_io and arr.shape == (2, n) \
                 and not np.iscomplexobj(arr):
-            return torch.tensor(arr, dtype=torch.float32, device=device)
+            return torch.tensor(arr, dtype=self.real_dtype, device=device)
         arr = as_interleaved(arr, self.precision)
         if arr.shape != (n, 2):
             raise InvalidParameterError(
@@ -563,9 +579,9 @@ class TransformPlan:
         return t.t().contiguous() if self._pair_io else t
 
     def _coerce_space(self, space, device=None) -> torch.Tensor:
-        """Space slab -> contiguous f32 tensor on the plan's device (or
-        on ``device``): (dim_z, dim_y, dim_x, 2) for C2C, real (dim_z,
-        dim_y, dim_x) for R2C. A numpy input is copied."""
+        """Space slab -> contiguous tensor of the plan's real type on its
+        device (or on ``device``): (dim_z, dim_y, dim_x, 2) for C2C, real
+        (dim_z, dim_y, dim_x) for R2C. A numpy input is copied."""
         p = self.index_plan
         device = self.device if device is None else device
         shape3 = (self.local_z_length, p.dim_y, p.dim_x)
@@ -581,13 +597,13 @@ class TransformPlan:
                     f"{'complex ' if complex_in else ''}"
                     f"{tuple(space.shape)}")
             if isinstance(space, torch.Tensor):
-                return space.to(device, torch.float32).contiguous()
-            return torch.tensor(space, dtype=torch.float32, device=device)
+                return space.to(device, self.real_dtype).contiguous()
+            return torch.tensor(space, dtype=self.real_dtype, device=device)
         if isinstance(space, torch.Tensor):
             t = space.to(device)
             if t.is_complex():
                 t = torch.view_as_real(t)
-            t = t.to(torch.float32)
+            t = t.to(self.real_dtype)
         else:
             t = torch.tensor(as_interleaved(space, self.precision),
                              device=device)

@@ -5,7 +5,8 @@ The reference stores complex data as interleaved real pairs
 (docs/source/details.rst "Complex Number Format"); the public value and
 space layouts of this package keep a trailing axis of extent 2, like
 the JAX package, so that the two compare like with like. Inside, the
-pipeline is planar: separate real and imaginary f32 tensors.
+pipeline is planar: separate real and imaginary tensors of the plan's
+real type, float32 for ``"single"`` and float64 for ``"double"``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ def real_dtype(precision: str):
     except KeyError:
         raise InvalidParameterError(
             f"precision must be 'double' or 'single', got {precision!r}")
+
+
+def torch_real_dtype(precision: str) -> torch.dtype:
+    """torch real dtype of a precision name: the type of every tensor a
+    plan of that precision computes on."""
+    return torch.float64 if real_dtype(precision) is np.float64 \
+        else torch.float32
 
 
 def complex_dtype(precision: str):

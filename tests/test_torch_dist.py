@@ -797,7 +797,6 @@ OUT_OF_SLICE = {
     "overlap": ({"overlap_chunks": 2}, "overlap"),
     "wire_precision": ({"wire_precision": 3}, "wire"),
     "wire_budget": ({"wire_error_budget": 1e-3}, "wire"),
-    "double": ({"precision": "double"}, "double"),
 }
 
 

@@ -235,11 +235,13 @@ def test_dispatch_by_shape():
 
 # -- the launch path, with the C entries emulated -----------------------------
 
-def _view(ptr, count):
-    """A writable numpy view of ``count`` f32 at a CPU tensor's address."""
+def _view(ptr, count, real=np.float32):
+    """A writable numpy view of ``count`` reals of type ``real`` (float32
+    or float64) at a CPU tensor's address."""
     if count == 0:
-        return np.zeros(0, np.float32)
-    return np.ctypeslib.as_array((ctypes.c_float * count).from_address(ptr))
+        return np.zeros(0, real)
+    ctype = ctypes.c_float if real == np.float32 else ctypes.c_double
+    return np.ctypeslib.as_array((ctype * count).from_address(ptr))
 
 
 def _store(yr, yi, y, plane_rows):
@@ -252,57 +254,71 @@ def _store(yr, yi, y, plane_rows):
         yi[:] = y.imag.reshape(-1)
 
 
+def entry_real(symbol):
+    """A C entry's base name and the numpy type of its operands: the
+    suffix ``_f64`` marks the float64 instance of a kernel."""
+    if symbol.endswith("_f64"):
+        return symbol[:-4], np.float64
+    return symbol, np.float32
+
+
 def _emulate(symbol, args):
     """numpy stand-ins for csrc/fft.cu and csrc/dft2.cu's C entries (and
-    csrc/rfft.cu's, emulated in test_torch_rfft)."""
+    csrc/rfft.cu's, emulated in test_torch_rfft), float32 and float64."""
+    symbol, real = entry_real(symbol)
+
+    def view(ptr, count):
+        return _view(ptr, count, real)
+
     if symbol == "spfft_fft_stage":
         (xr, xi, yr, yi, tw, m, k, n_out, plane_rows, n, sign, scale, in0,
          out0, code) = args
-        x = (_view(xr, m * k) + 1j * _view(xi, m * k)).reshape(m, k)
-        y = _fft(x, n, sign, scale, (in0, k), (out0, n_out), code, tw)
-        _store(_view(yr, m * n_out), _view(yi, m * n_out), y, plane_rows)
+        x = (view(xr, m * k) + 1j * view(xi, m * k)).reshape(m, k)
+        y = _fft(x, n, sign, scale, (in0, k), (out0, n_out), code, tw, real)
+        _store(view(yr, m * n_out), view(yi, m * n_out), y, plane_rows)
     elif symbol == "spfft_fft_plane":
         (xr, xi, yr, yi, tw1, tw2, p, a, b, b_out, a_out, n1, sign1, in1,
          out1, code1, n2, sign2, in2, out2, code2, scale, swap) = args
-        x = (_view(xr, p * a * b) + 1j * _view(xi, p * a * b)).reshape(
+        x = (view(xr, p * a * b) + 1j * view(xi, p * a * b)).reshape(
             p, a, b)
-        g = _fft(x, n1, sign1, 1.0, (in1, b), (out1, b_out), code1, tw1)
+        g = _fft(x, n1, sign1, 1.0, (in1, b), (out1, b_out), code1, tw1,
+                 real)
         y = _fft(g.transpose(0, 2, 1), n2, sign2, scale, (in2, a),
-                 (out2, a_out), code2, tw2)
+                 (out2, a_out), code2, tw2, real)
         if swap:
             y = y.transpose(0, 2, 1)
-        _store(_view(yr, y.size), _view(yi, y.size), y.reshape(-1, 1), 0)
+        _store(view(yr, y.size), view(yi, y.size), y.reshape(-1, 1), 0)
     elif symbol == "spfft_rfft_stage":  # csrc/rfft.cu
         from test_torch_rfft import emulate_rfft
-        emulate_rfft(args)
+        emulate_rfft(args, real)
     else:
         assert symbol == "spfft_dft_stage"
         mode, xr, xi, cr, ci, yr, yi, m, k, n_out, plane_rows = args
-        mat = (_view(cr, k * n_out) + 1j * _view(ci, k * n_out)).reshape(
+        mat = (view(cr, k * n_out) + 1j * view(ci, k * n_out)).reshape(
             k, n_out).astype(np.complex128)
-        xre = _view(xr, m * k).reshape(m, k).astype(np.float64)
+        xre = view(xr, m * k).reshape(m, k).astype(np.float64)
         if mode == 1:  # rc
             y = xre @ mat.real + 1j * (xre @ mat.imag)
         else:
-            xim = _view(xi, m * k).reshape(m, k).astype(np.float64)
+            xim = view(xi, m * k).reshape(m, k).astype(np.float64)
             if mode == 0:
                 y = (xre + 1j * xim) @ mat
             else:  # cr
                 y = xre @ mat.real + xim @ mat.imag + 0j
-        _store(_view(yr, m * n_out),
-               None if yi is None else _view(yi, m * n_out), y, plane_rows)
+        _store(view(yr, m * n_out),
+               None if yi is None else view(yi, m * n_out), y, plane_rows)
 
 
-def _fft(x, n, sign, scale, rows, cols, code, tw_ptr):
+def _fft(x, n, sign, scale, rows, cols, code, tw_ptr, real=np.float32):
     factors = []
     while code:
         factors.append(code & 7)
         code >>= 3
     assert tuple(factors) == dft.fft_factors(n)
-    t = _view(tw_ptr, 2 * n).astype(np.float64)
+    t = _view(tw_ptr, 2 * n, real).astype(np.float64)
     want_t = dft.fft_twiddles(n, sign)
-    np.testing.assert_array_equal(t[:n], want_t.real.astype(np.float32))
-    np.testing.assert_array_equal(t[n:], want_t.imag.astype(np.float32))
+    np.testing.assert_array_equal(t[:n], want_t.real.astype(real))
+    np.testing.assert_array_equal(t[n:], want_t.imag.astype(real))
     buf = np.zeros(x.shape[:-1] + (n,), np.complex128)
     buf[..., (rows[0] + np.arange(rows[1])) % n] = x
     y = stockham(buf, sign, factors, t[:n] + 1j * t[n:])

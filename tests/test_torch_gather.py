@@ -270,14 +270,19 @@ def _assert_aligned(addrs, align, what):
     assert (addrs % align == 0).all(), f"{what}: a wide access off {align}"
 
 
-def emulate_gather(args):
-    """numpy stand-in for csrc/gather.cu's ``spfft_gather``: computes the
-    function through the raw pointers, strides and extents, and checks
-    that each wide access the layout word allows is aligned for every
-    whole group of 4 slots."""
+def emulate_gather(args, esize=4):
+    """numpy stand-in for csrc/gather.cu's ``spfft_gather`` (``esize`` 4)
+    and ``spfft_gather_f64`` (``esize`` 8): computes the function through
+    the raw pointers, strides and extents, and checks that each wide
+    access the layout word allows is aligned for every whole group of 4
+    slots: a pair load or an interleaved double store on its 2 ``esize``
+    bytes, a planar group's stores and an interleaved float group's
+    float4s from 16 bytes (or the float row's first 8)."""
     (sre, sim, se, sb, ss, n, idx, isst, valid, vsst, ore, oim, oe, ob, os_,
      num_out, batch, shards, layout) = args
     gk = gather_kernel
+    ctype = ctypes.c_float if esize == 4 else ctypes.c_double
+    real = np.dtype(ctype)
     j0 = np.arange(num_out // 4) * 4  # every whole group
     s = np.arange(shards)[:, None, None]
     b = np.arange(batch)[None, :, None]
@@ -288,10 +293,12 @@ def emulate_gather(args):
     if layout & gk.OUT_PLANAR:
         assert oe == 1
         for base in (ore, oim):
-            _assert_aligned(base + 4 * (s * os_ + b * ob + j0), 16, "out")
-    if layout & gk.OUT_PAIR:  # float4s from the row's first 16 bytes
-        assert oe == 2 and oim == ore + 4
-        _assert_aligned(ore + 4 * (s * os_ + b * ob + 2 * j0), 8, "out")
+            _assert_aligned(base + esize * (s * os_ + b * ob + j0), 16,
+                            "out")
+    if layout & gk.OUT_PAIR:  # float4s from the row's first 16 bytes, or
+        assert oe == 2 and oim == ore + esize  # one double2 a slot
+        _assert_aligned(ore + esize * (s * os_ + b * ob + 2 * j0),
+                        2 * esize, "out")
     i = _strided(idx, (shards, num_out), (isst, 1), ctypes.c_int) \
         .astype(np.int64)
     ok = (i >= 0) & (i < n)
@@ -299,17 +306,17 @@ def emulate_gather(args):
         ok &= _strided(valid, (shards, num_out), (vsst, 1),
                        ctypes.c_ubyte) != 0
     if layout & gk.SRC_PAIR:
-        assert se == 2 and sim == sre + 4
-        _assert_aligned(sre + 4 * (s * ss + b * sb + 2 * np.where(
-            ok, i, 0)[:, None]), 8, "source")
+        assert se == 2 and sim == sre + esize
+        _assert_aligned(sre + esize * (s * ss + b * sb + 2 * np.where(
+            ok, i, 0)[:, None]), 2 * esize, "source")
     take = np.broadcast_to(np.where(ok, i, 0)[:, None], (shards, batch,
                                                          num_out))
     for src_ptr, out_ptr in ((sre, ore), (sim, oim)):
-        src = _strided(src_ptr, (shards, batch, n), (ss, sb, se))
+        src = _strided(src_ptr, (shards, batch, n), (ss, sb, se), ctype)
         got = np.take_along_axis(src, take, 2) if n else \
-            np.zeros(take.shape, np.float32)
-        _strided(out_ptr, (shards, batch, num_out), (os_, ob, oe))[...] = \
-            np.where(ok[:, None], got, np.float32(0))
+            np.zeros(take.shape, real)
+        _strided(out_ptr, (shards, batch, num_out), (os_, ob, oe),
+                 ctype)[...] = np.where(ok[:, None], got, real.type(0))
 
 
 class _Emulated:
@@ -317,6 +324,9 @@ class _Emulated:
     tensors, each launch run by :func:`emulate_gather`; ``calls`` holds
     each launch's layout word."""
     require = staticmethod(_build.require)
+    call_dtype = staticmethod(_build.call_dtype)
+    entry = staticmethod(_build.entry)
+    REAL_TYPES = _build.REAL_TYPES
     calls = []
 
     @staticmethod
@@ -325,14 +335,15 @@ class _Emulated:
 
     @staticmethod
     def function(source, symbol, argtypes):
-        assert (source, symbol) == ("gather.cu", "spfft_gather")
+        assert source == "gather.cu"
+        assert symbol in ("spfft_gather", "spfft_gather_f64")
         assert len(argtypes) == 20  # the operands, then the stream
         return symbol
 
     @classmethod
     def launch(cls, fn, what, device, *args):
         cls.calls.append(args[-1])
-        emulate_gather(args)
+        emulate_gather(args, 8 if fn.endswith("_f64") else 4)
 
 
 @pytest.fixture

@@ -207,9 +207,6 @@ def test_unsupported_modes_raise_typed_errors():
         # the JAX package runs an R2C x axis up to 1024 direct
         sp.make_local_plan(sp.TransformType.R2C, 600, 2, 2, trip,
                            device="cpu")
-    with pytest.raises(sp.InvalidParameterError, match="double"):
-        sp.make_local_plan(sp.TransformType.C2C, 4, 4, 4, trip,
-                           precision="double", device="cpu")
     with pytest.raises(sp.InvalidParameterError, match="MATMUL_DFT_MAX"):
         sp.make_local_plan(sp.TransformType.C2C, 600, 2, 2, trip,
                            device="cpu")

@@ -110,14 +110,15 @@ def rfft_form(mode, x, n, scale, x0, width, table, dtype=np.complex128):
     return out * real(scale)
 
 
-def _table(n, sign):
+def _table(n, sign, real=np.float32):
     t = dft.fft_twiddles(n, sign)
-    return np.stack([t.real, t.imag]).astype(np.float32)
+    return np.stack([t.real, t.imag]).astype(real)
 
 
-def emulate_rfft(args):
-    """``spfft_rfft_stage`` on the operands behind the pointers (the
-    emulations of test_torch_fft and test_torch_zfft hand it theirs)."""
+def emulate_rfft(args, real=np.float32):
+    """``spfft_rfft_stage`` (``real`` float32) or ``spfft_rfft_stage_f64``
+    (float64) on the operands behind the pointers (the emulations of
+    test_torch_fft and test_torch_zfft hand it theirs)."""
     (mode, xr, xi, yr, yi, tw, m, k, n_out, plane_rows, n, scale, x0,
      code) = args
     factors = []
@@ -125,20 +126,24 @@ def emulate_rfft(args):
         factors.append(code & 7)
         code >>= 3
     assert tuple(factors) == dft.rfft_factors(n)
-    table = _view(tw, 2 * n).reshape(2, n)
+
+    def view(ptr, count):
+        return _view(ptr, count, real)
+
+    table = view(tw, 2 * n).reshape(2, n)
     sign = dft.FORWARD if mode == RC else dft.BACKWARD
-    np.testing.assert_array_equal(table, _table(n, sign))
-    scale = np.float32(scale)  # the kernel takes an f32 scale
+    np.testing.assert_array_equal(table, _table(n, sign, real))
+    scale = real(scale)  # the kernel takes its scale in its real type
     if mode == RC:
         assert xi is None and k == n and 1 <= n_out <= n // 2 + 1
-        x = _view(xr, m * k).reshape(m, k)
+        x = view(xr, m * k).reshape(m, k)
         y = rfft_form(RC, x, n, scale, x0, n_out, table)
-        _store(_view(yr, m * n_out), _view(yi, m * n_out), y, plane_rows)
+        _store(view(yr, m * n_out), view(yi, m * n_out), y, plane_rows)
     else:
         assert mode == CR and yi is None and n_out == n
-        x = (_view(xr, m * k) + 1j * _view(xi, m * k)).reshape(m, k)
+        x = (view(xr, m * k) + 1j * view(xi, m * k)).reshape(m, k)
         y = rfft_form(CR, x, n, scale, x0, k, table)
-        _store(_view(yr, m * n_out), None, y, plane_rows)
+        _store(view(yr, m * n_out), None, y, plane_rows)
 
 
 WRAPPERS = (dft_kernel.pdft_last, dft_kernel.prdft_last,

@@ -46,7 +46,8 @@ import spfft_tpu_torch as sp
 from spfft_tpu_torch.indexing import inverse_slot_map
 from spfft_tpu_torch.ops import _build, dft, dft_kernel, fused_kernel
 
-from test_torch_fft import _emulate as _emulate_dft, _view, stockham
+from test_torch_fft import (_emulate as _emulate_dft, _view, entry_real,
+                            stockham)
 from test_util import (dense_cube_from_values, hermitian_triplets,
                        random_sparse_triplets, random_values, sample_cube)
 
@@ -62,10 +63,10 @@ def _ints(ptr, count):
     return np.ctypeslib.as_array((ctypes.c_int * count).from_address(ptr))
 
 
-def _values(ptr, batch, nv, pair):
+def _values(ptr, batch, nv, pair, real=np.float32):
     """A writable view of the values at ``ptr``, ``(batch, 2, nv)`` or
-    ``(batch, nv, 2)``."""
-    v = _view(ptr, batch * 2 * nv)
+    ``(batch, nv, 2)``, of type ``real``."""
+    v = _view(ptr, batch * 2 * nv, real)
     return v.reshape(batch, 2, nv) if pair else v.reshape(batch, nv, 2)
 
 
@@ -84,33 +85,35 @@ def _factors(code):
     return out
 
 
-def _fft_form(x, n, sign, scale, in0, out0, code, tw_ptr):
+def _fft_form(x, n, sign, scale, in0, out0, code, tw_ptr, real=np.float32):
     """What fused_fft.cu computes on raw sticks ``x`` (..., n): slot k at
-    position (in0 + k) mod n, the Stockham FFT on the table at ``tw_ptr``,
-    output j from position (out0 + j) mod n times ``scale``."""
+    position (in0 + k) mod n, the Stockham FFT on the table (of type
+    ``real``) at ``tw_ptr``, output j from position (out0 + j) mod n
+    times ``scale``."""
     assert tuple(_factors(code)) == dft.fft_factors(n)
-    t = _view(tw_ptr, 2 * n).astype(np.float64)
+    t = _view(tw_ptr, 2 * n, real).astype(np.float64)
     want = dft.fft_twiddles(n, sign)
-    np.testing.assert_array_equal(t[:n], want.real.astype(np.float32))
-    np.testing.assert_array_equal(t[n:], want.imag.astype(np.float32))
+    np.testing.assert_array_equal(t[:n], want.real.astype(real))
+    np.testing.assert_array_equal(t[n:], want.imag.astype(real))
     buf = np.zeros(x.shape, np.complex128)
     buf[..., (in0 + np.arange(n)) % n] = x
     y = stockham(buf, sign, _factors(code), t[:n] + 1j * t[n:])
     return y[..., (out0 + np.arange(n)) % n] * scale
 
 
-def _matrix_form(x, cr, ci, n):
+def _matrix_form(x, cr, ci, n, real=np.float32):
     """x (..., n) against the matrix pair, summed over k in one fixed
     order (a BLAS product's order may depend on the operand's address)."""
-    m = (_view(cr, n * n) + 1j * _view(ci, n * n)).reshape(n, n)
+    m = (_view(cr, n * n, real) + 1j * _view(ci, n * n, real)).reshape(n, n)
     return sum(x[..., k, None] * m[k].astype(np.complex128)
                for k in range(n))
 
 
-def _gather(values, slot_src, num_sticks, n, nv, pair, zero_stick, batch):
+def _gather(values, slot_src, num_sticks, n, nv, pair, zero_stick, batch,
+            real=np.float32):
     """The raw sticks ``(batch, num_sticks, n)`` a decompress kernel
     gathers, the zero stick completed from the values before completion."""
-    v = _values(values, batch, nv, pair)
+    v = _values(values, batch, nv, pair, real)
     vals = v[:, 0] + 1j * v[:, 1] if pair else v[..., 0] + 1j * v[..., 1]
     ss = _ints(slot_src, num_sticks * n).reshape(num_sticks, n)
     x = np.concatenate([vals, np.zeros((batch, 1))], axis=1)[:, ss]
@@ -122,50 +125,56 @@ def _gather(values, slot_src, num_sticks, n, nv, pair, zero_stick, batch):
 
 
 def _compress(x, stick_ptr, val_id, val_z, values, num_sticks, nv, pair,
-              batch):
+              batch, real=np.float32):
     """Write each value of the CSR from the transformed sticks ``x``
     (output columns in order)."""
     ptr = _ints(stick_ptr, num_sticks + 1)
     stick = np.repeat(np.arange(num_sticks), np.diff(ptr))
     y = np.empty((batch, nv), np.complex128)
     y[:, _ints(val_id, nv)] = x[:, stick, _ints(val_z, nv)]
-    _put_values(_values(values, batch, nv, pair), pair, y)
+    _put_values(_values(values, batch, nv, pair, real), pair, y)
 
 
 def _emulate(symbol, args):
     """numpy stand-ins for the C entries of csrc/fused_fft.cu and
-    csrc/fused_compress.cu; any other symbol goes to test_torch_fft's."""
-    if symbol == "spfft_decompress_zdft_fft":
+    csrc/fused_compress.cu, float32 and float64 (the suffix ``_f64``);
+    any other symbol goes to test_torch_fft's."""
+    base, real = entry_real(symbol)
+
+    def view(ptr, count):
+        return _view(ptr, count, real)
+
+    if base == "spfft_decompress_zdft_fft":
         (values, slot_src, tw, sr, si, s, nv, pair, zs, batch, n, sign,
          scale, in0, out0, code) = args
-        x = _gather(values, slot_src, s, n, nv, pair, zs, batch)
-        y = _fft_form(x, n, sign, scale, in0, out0, code, tw)
-    elif symbol == "spfft_decompress_zdft":
+        x = _gather(values, slot_src, s, n, nv, pair, zs, batch, real)
+        y = _fft_form(x, n, sign, scale, in0, out0, code, tw, real)
+    elif base == "spfft_decompress_zdft":
         (values, slot_src, cr, ci, sr, si, s, n, nv, pair, zs,
          batch) = args
         y = _matrix_form(_gather(values, slot_src, s, n, nv, pair, zs,
-                                 batch), cr, ci, n)
-    elif symbol == "spfft_zdft_compress_fft":
+                                 batch, real), cr, ci, n, real)
+    elif base == "spfft_zdft_compress_fft":
         (sr, si, tw, ptr, vid, vz, values, s, nv, pair, batch, n, sign,
          scale, in0, out0, code) = args
-        x = (_view(sr, batch * s * n) + 1j * _view(si, batch * s * n)) \
+        x = (view(sr, batch * s * n) + 1j * view(si, batch * s * n)) \
             .reshape(batch, s, n)
-        _compress(_fft_form(x, n, sign, scale, in0, out0, code, tw), ptr,
-                  vid, vz, values, s, nv, pair, batch)
+        _compress(_fft_form(x, n, sign, scale, in0, out0, code, tw, real),
+                  ptr, vid, vz, values, s, nv, pair, batch, real)
         return
-    elif symbol == "spfft_zdft_compress":
+    elif base == "spfft_zdft_compress":
         (sr, si, cr, ci, ptr, vid, vz, values, s, n, nv, pair,
          batch) = args
-        x = (_view(sr, batch * s * n) + 1j * _view(si, batch * s * n)) \
+        x = (view(sr, batch * s * n) + 1j * view(si, batch * s * n)) \
             .reshape(batch, s, n)
-        _compress(_matrix_form(x, cr, ci, n), ptr, vid, vz, values, s, nv,
-                  pair, batch)
+        _compress(_matrix_form(x, cr, ci, n, real), ptr, vid, vz, values, s,
+                  nv, pair, batch, real)
         return
     else:
         _emulate_dft(symbol, args)
         return
-    _view(sr, y.size)[:] = y.real.reshape(-1)
-    _view(si, y.size)[:] = y.imag.reshape(-1)
+    view(sr, y.size)[:] = y.real.reshape(-1)
+    view(si, y.size)[:] = y.imag.reshape(-1)
 
 
 @pytest.fixture
