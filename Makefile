@@ -4,6 +4,8 @@
 # first import, see spfft_tpu/native/__init__.py); `make capi` builds the
 # embeddable C API library libspfft_tpu.so (include/spfft_tpu.h);
 # `make example-c` builds and runs the C example against it.
+# `make capi-torch` builds the PyTorch / CUDA port's drop-in library,
+# build/torch_capi/libspfft_tpu_torch.so (include/spfft_tpu_torch.h).
 
 PY_INCLUDES := $(shell python3-config --includes)
 PY_LDFLAGS  := $(shell python3-config --ldflags --embed)
@@ -15,7 +17,7 @@ CACHE_TAG   := $(shell python3 -c "import sys; print(sys.implementation.cache_ta
 PLANNER_SO  := $(NATIVE_DIR)/_planner_$(CACHE_TAG).so
 CAPI_SO     := lib/libspfft_tpu.so
 
-.PHONY: all native capi example-c test ci ci-tpu trace-smoke \
+.PHONY: all native capi capi-torch example-c test ci ci-tpu trace-smoke \
         control-smoke fused-smoke store-smoke chaos-smoke \
         cluster-smoke pod-smoke bench-check lint analyze clean
 
@@ -246,6 +248,11 @@ capi: $(CAPI_SO)
 $(CAPI_SO): $(NATIVE_DIR)/capi.cpp include/spfft_tpu.h
 	@mkdir -p lib
 	$(CXX) $(CXXFLAGS) -shared -Iinclude $(PY_INCLUDES) $< -o $@ $(PY_LDFLAGS)
+
+# The port's library (spfft_tpu_torch/native/capi.cpp): built by the
+# package's own build function, which rebuilds only when it is stale.
+capi-torch:
+	python3 -c "from spfft_tpu_torch.native import build_capi; print(build_capi())"
 
 example-c: $(CAPI_SO)
 	@mkdir -p build

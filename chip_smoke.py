@@ -107,7 +107,32 @@ Phases, each of which exits non-zero when it fails:
    distributed C2C and R2C plans over 4 shards on both routes (within
    twice ``predicted_rel_error`` of the local backward), and every form
    at odd shapes in float64;
-13. one JSON line ``{"design_bound_ms": {...}}``, one JSON line
+13. the C ABI (``capi_phase``): build ``libspfft_tpu_torch.so``
+   (``spfft_tpu_torch.native.build_capi``, its seconds printed), compile
+   ``examples/example.c`` against the JAX package's header, unchanged,
+   and ``spfft_tpu_torch/native/capi_drive.c`` against the library, and
+   run the example (it must print OK); in this process, through
+   ``ctypes``, the main path (256^3 sphere, numpy seed 0, C2C single,
+   ``PALLAS_AUTO``): ``backward``, ``forward(FULL)`` and
+   ``execute_pair`` bit for bit the Python API's on the same host
+   arrays, the backward within ``predicted_rel_error`` of the complex128
+   oracle, the launches by form of the C pair and of ``execute_pair``
+   each equal to ``C2C_LAUNCHES`` (counts set to 0 before each, read
+   after); the error surface on the card (``COMPACT_BUFFERED`` -> 5, an
+   invalid handle -> 2, an out-of-bounds index -> 7); then
+   ``capi_drive`` in a process of its own per case (its own embedded
+   interpreter): C2C single on ``PALLAS_AUTO`` and ``PALLAS_OFF`` (the
+   latter also bit for bit the former), R2C single, C2C double and
+   distributed C2C over 4 shards, each with ``multi_backward`` /
+   ``multi_forward`` at B = 4 under one handle (but ``PALLAS_OFF``),
+   every output bit for bit the Python API's on the same inputs; each
+   call's host-clock ms (the drive's median of 10 after 2 warm-ups)
+   beside the Python API's on host arrays and on device-resident ones,
+   and the bytes over PCIe with the GB/s they imply, each line with the
+   card's name and power limit; and the rate of one 134.2 MB copy each
+   way from pageable and from pinned host memory;
+14. one JSON line ``{"batched_sweep": [...]}``, one ``{"capi": {...}}``
+   (phase 13's numbers), one ``{"design_bound_ms": {...}}``, one
    ``{"kernels": [...]}`` (every kernel record of every path, float32
    and float64, each with its ``path`` and ``dtype``) and, last, one
    JSON line ``{"ok": true, "device": {...}}``.
@@ -168,6 +193,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2671,21 +2697,27 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
     return recs + recs2
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper, by the name the launch tables use; each
+    counts its launches (``.launches``, and by form ``.form_launches``)."""
+    from spfft_tpu_torch.ops import dft_kernel, fused_kernel, gather_kernel
+    return {"decompress_zdft": fused_kernel.decompress_zdft,
+            "pdft2": dft_kernel.pdft2,
+            "pdft2_swapped": dft_kernel.pdft2_swapped,
+            "prdft2": dft_kernel.prdft2,
+            "pdft2_cr": dft_kernel.pdft2_cr,
+            "zdft_compress": fused_kernel.zdft_compress,
+            "gather": gather_kernel.gather,
+            "pdft_last": dft_kernel.pdft_last,
+            "prdft_last": dft_kernel.prdft_last,
+            "pirdft_last": dft_kernel.pirdft_last}
+
+
 def run(device, n=N):
     """Every phase after the build on ``device`` at size ``n``, both
     paths; returns the kernel records and the batched sweep's rows."""
     import spfft_tpu_torch as sp
-    from spfft_tpu_torch.ops import dft_kernel, fused_kernel, gather_kernel
-    counters = {"decompress_zdft": fused_kernel.decompress_zdft,
-                "pdft2": dft_kernel.pdft2,
-                "pdft2_swapped": dft_kernel.pdft2_swapped,
-                "prdft2": dft_kernel.prdft2,
-                "pdft2_cr": dft_kernel.pdft2_cr,
-                "zdft_compress": fused_kernel.zdft_compress,
-                "gather": gather_kernel.gather,
-                "pdft_last": dft_kernel.pdft_last,
-                "prdft_last": dft_kernel.prdft_last,
-                "pirdft_last": dft_kernel.pirdft_last}
+    counters = launch_counters()
     sweep = []
     plan, trip, values = main_path_plan(sp, n, device)
     c2c = kernel_phase(plan, values, device)
@@ -2870,6 +2902,432 @@ def double_phases(sp, device, counters, n=N):
     return recs
 
 
+# -- the C ABI: libspfft_tpu_torch.so ------------------------------------------
+
+#: SpfftTpuPallasMode: AUTO the fused route, OFF the two-kernel route
+PALLAS_AUTO, PALLAS_OFF = -1, 0
+CAPI_BATCH = 4
+#: the C drive's cases (``native/capi_drive.c``), each in a process of its
+#: own: name -> (R2C, double, SpfftTpuPallasMode, shards (0: a local
+#: plan), batch)
+CAPI_CASES = {"c2c": (False, False, PALLAS_AUTO, 0, CAPI_BATCH),
+              "c2c_off": (False, False, PALLAS_OFF, 0, 1),
+              "r2c": (True, False, PALLAS_AUTO, 0, CAPI_BATCH),
+              "c2c_f64": (False, True, PALLAS_AUTO, 0, CAPI_BATCH),
+              "dist_c2c": (False, False, PALLAS_AUTO, _S, CAPI_BATCH)}
+CAPI_CALLS = ("backward", "forward", "pair", "multi_backward",
+              "multi_forward")
+
+
+def capi_lib(path):
+    """The port's library loaded into this process (``RTLD_LOCAL``, it
+    shares this interpreter), typed for the calls the phase makes."""
+    import ctypes
+    c_int, c_ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib = ctypes.CDLL(str(path))
+    sigs = {"spfft_tpu_abi_version": [],
+            "spfft_tpu_init": [ctypes.c_char_p],
+            "spfft_tpu_plan_create": [vp, c_int, c_int, c_int, c_int, c_ll,
+                                      vp, c_int, c_int],
+            "spfft_tpu_plan_create_distributed": [
+                vp, c_int, c_int, c_int, c_int, c_int, vp, vp, vp, c_int,
+                c_int, c_int],
+            "spfft_tpu_plan_destroy": [vp],
+            "spfft_tpu_backward": [vp, vp, vp],
+            "spfft_tpu_forward": [vp, vp, c_int, vp],
+            "spfft_tpu_execute_pair": [vp, vp, c_int, vp]}
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, c_int
+    lib.spfft_tpu_error_string.argtypes = [c_int]
+    lib.spfft_tpu_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def capi_check(lib, what, code, want=0):
+    if code != want:
+        fail(f"C ABI {what} returned {code} "
+             f"({lib.spfft_tpu_error_string(code).decode()}), expected "
+             f"{want}")
+
+
+def capi_build():
+    """Build the library and compile ``examples/example.c`` (against the
+    JAX package's header, unchanged) and ``capi_drive.c`` against it;
+    returns their paths and the library's build seconds."""
+    from pathlib import Path
+
+    from spfft_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build_capi()
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    example = native.build_program(
+        Path(__file__).resolve().parent / "examples" / "example.c",
+        "example_c")
+    drive = native.build_program(native.DRIVE, "capi_drive")
+    print(f"capi build: libspfft_tpu_torch.so {lib_s:.2f} s, example.c and "
+          f"capi_drive.c {time.perf_counter() - t0:.2f} s (g++)", flush=True)
+    return lib, example, drive, lib_s
+
+
+def capi_run(args, what):
+    """Run a C program of the C ABI (its own embedded interpreter) with
+    this interpreter's site directories and the repository on its path;
+    fails unless it exits 0."""
+    from spfft_tpu_torch import native
+    out = subprocess.run([str(a) for a in args], capture_output=True,
+                         text=True, timeout=900, env=native.embed_env())
+    if out.returncode != 0:
+        fail(f"{what} exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def host_ms(fn, device, reps=REPS, warmup=2) -> float:
+    """Median host-clock ms of ``fn`` (ended by a synchronize), the C
+    drive's protocol: 2 warm-ups, ``reps`` timed."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def capi_in_process(sp, lib, device, n, counters):
+    """The main path through the C ABI in this process: the 256^3 sphere,
+    numpy seed 0, C2C single, PALLAS_AUTO. backward, forward(FULL) and
+    execute_pair bit for bit the Python API's on the same host arrays, the
+    backward within ``predicted_rel_error`` of the complex128 oracle, the
+    launches by form of the C pair and of execute_pair each equal to
+    ``C2C_LAUNCHES``; then the error surface on the card. Returns the
+    plan creation's seconds and the pair's launches."""
+    import ctypes
+
+    from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
+                                                 sort_triplets_stick_major)
+    trip = np.ascontiguousarray(sort_triplets_stick_major(
+        spherical_cutoff_triplets(n), (n, n, n)), np.int32)
+    rng = np.random.default_rng(SEED)
+    m = len(trip)
+    values = np.ascontiguousarray(torch.view_as_real(torch.from_numpy(
+        (rng.standard_normal(m) + 1j * rng.standard_normal(m))
+        .astype(np.complex64))).numpy())
+    h = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    capi_check(lib, "plan_create", lib.spfft_tpu_plan_create(
+        ctypes.addressof(h), 0, n, n, n, m, trip.ctypes.data, 0,
+        PALLAS_AUTO))
+    create_s = time.perf_counter() - t0
+    plan = sp.make_local_plan(sp.TransformType.C2C, n, n, n, trip,
+                              device=device)
+    space = np.empty((n, n, n, 2), np.float32)
+    fwd, pair = np.empty_like(values), np.empty_like(values)
+    reset_launches(counters)
+    capi_check(lib, "backward", lib.spfft_tpu_backward(
+        h, values.ctypes.data, space.ctypes.data))
+    capi_check(lib, "forward", lib.spfft_tpu_forward(
+        h, space.ctypes.data, 1, fwd.ctypes.data))
+    launches = read_launches("capi c2c", counters, C2C_LAUNCHES)
+    reset_launches(counters)
+    capi_check(lib, "execute_pair", lib.spfft_tpu_execute_pair(
+        h, values.ctypes.data, 1, pair.ctypes.data))
+    read_launches("capi c2c execute_pair", counters, C2C_LAUNCHES)
+    full = sp.Scaling.FULL
+    for what, got, want in (
+            ("backward", space, plan.backward(values)),
+            ("forward(FULL)", fwd, plan.forward(space, full)),
+            ("execute_pair", pair, plan.apply_pointwise(values,
+                                                        scaling=full))):
+        if not np.array_equal(got, want.cpu().numpy()):
+            fail(f"capi c2c {what} differs from the Python API's on the "
+                 f"same host arrays")
+    rel = c2c_oracle_rel(plan, trip, torch.from_numpy(values).to(device),
+                         device)(torch.from_numpy(space).to(device))
+    pred = sp.predicted_rel_error("single", n, True)
+    print(f"capi c2c in process: plan_create {create_s:.2f} s; backward, "
+          f"forward(FULL), execute_pair bit for bit the Python API's; "
+          f"backward vs complex128 oracle rel_l2={rel:.3e} "
+          f"(predicted_rel_error={pred:.3e})", flush=True)
+    if not rel <= pred:
+        fail(f"capi c2c backward rel_l2 {rel:.3e} above {pred:.3e}")
+
+    # the error surface on the card
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    parts = round_robin_stick_partition(trip, (n, n, n), _S)
+    dtrip = np.ascontiguousarray(np.concatenate(parts), np.int32)
+    vps = np.array([len(p) for p in parts], np.int64)
+    pps = np.array(even_plane_split(n, _S), np.int32)
+    d = ctypes.c_void_p()
+    capi_check(lib, "plan_create_distributed(COMPACT_BUFFERED)",
+               lib.spfft_tpu_plan_create_distributed(
+                   ctypes.addressof(d), 0, n, n, n, _S, vps.ctypes.data,
+                   dtrip.ctypes.data, pps.ctypes.data, 0, 3, PALLAS_AUTO), 5)
+    capi_check(lib, "backward(invalid handle)", lib.spfft_tpu_backward(
+        12345, values.ctypes.data, space.ctypes.data), 2)
+    bad = np.array([[n, 0, 0]], np.int32)
+    capi_check(lib, "plan_create(bad index)", lib.spfft_tpu_plan_create(
+        ctypes.addressof(d), 0, n, n, n, 1, bad.ctypes.data, 0,
+        PALLAS_AUTO), 7)
+    capi_check(lib, "plan_destroy", lib.spfft_tpu_plan_destroy(h))
+    print("capi error surface on the card: COMPACT_BUFFERED -> 5, invalid "
+          "handle -> 2, out-of-bounds index -> 7", flush=True)
+    return create_s, launches
+
+
+def capi_case_inputs(sp, n, r2c, double, shards, batch, device):
+    """A drive case's triplets (the sphere, or its non-redundant half;
+    per-shard lists concatenated for a distributed case), its ``batch``
+    value sets (numpy seeds SEED, SEED + 1, ...) and its Python plan."""
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition,
+                                                 spherical_cutoff_triplets,
+                                                 sort_triplets_stick_major)
+    trip = spherical_cutoff_triplets(n)
+    if r2c:
+        x, y, z = trip.T
+        trip = trip[(x > 0) | ((x == 0) & ((y > 0) | ((y == 0)
+                                                      & (z >= 0))))]
+    trip = sort_triplets_stick_major(trip, (n, n, n))
+    kind = sp.TransformType.R2C if r2c else sp.TransformType.C2C
+    precision = "double" if double else "single"
+    if shards:
+        parts = round_robin_stick_partition(trip, (n, n, n), shards)
+        trip = np.concatenate(parts)
+        plan = sp.make_distributed_plan(kind, n, n, n, parts,
+                                        even_plane_split(n, shards),
+                                        mesh=sp.make_mesh(shards, device),
+                                        precision=precision)
+    else:
+        plan = sp.make_local_plan(kind, n, n, n, trip, precision=precision,
+                                  device=device)
+    vals = np.stack([np.random.default_rng(SEED + b).standard_normal(
+        (len(trip), 2)) for b in range(batch)]).astype(
+            np.float64 if double else np.float32)
+    return np.ascontiguousarray(trip, np.int32), vals, plan
+
+
+def capi_case_refs(sp, plan, vals, device):
+    """The Python API's results for a drive case, in the C layout on the
+    host: backward of each value set, forward(FULL) of each, execute_pair
+    (FULL) of the first; and the API's times, ``(on host arrays,
+    device-resident)`` ms per call (per band for a batch) in the drive's
+    protocol. On host arrays: numpy in (a distributed plan's per-shard
+    lists), the result copied into a host buffer."""
+    full = sp.Scaling.FULL
+    dist = hasattr(plan, "dist_plan")
+    batch = len(vals)
+    if dist:
+        dp = plan.dist_plan
+        counts = [p.num_values for p in dp.shard_plans]
+        host_in = [np.split(v, np.cumsum(counts)[:-1]) for v in vals]
+
+        def c_space(s):
+            return torch.cat([s[r, :k] for r, k in enumerate(dp.num_planes)])
+
+        def c_values(o):
+            return torch.cat([o[r, :k] for r, k in enumerate(counts)])
+
+        def host_space(s):
+            s = s.cpu().numpy()
+            return [s[r, :k] for r, k in enumerate(dp.num_planes)]
+        dev_in = [plan.shard_values(v) for v in host_in]
+        dev_b = torch.stack(dev_in, dim=1)
+    else:
+        host_in = list(vals)
+
+        def c_space(s):
+            return s
+
+        def c_values(o):
+            return o.t() if plan.pair_values_io else o
+
+        def host_space(s):
+            return s.cpu().numpy()
+        dev_in = [torch.from_numpy(v).to(device) for v in vals]
+        dev_b = torch.stack(dev_in)
+    spaces = [plan.backward(v) for v in dev_in]
+    refs = {"backward": np.stack([c_space(s).cpu().numpy() for s in spaces]),
+            "forward": np.stack([c_values(plan.forward(s, full)).cpu().numpy()
+                                 for s in spaces]),
+            "pair": np.ascontiguousarray(c_values(plan.apply_pointwise(
+                dev_in[0], scaling=full)).cpu().numpy())}
+    sp_host = [host_space(s) for s in spaces]
+    space_buf = torch.empty(spaces[0].shape, dtype=spaces[0].dtype)
+    val_buf = torch.empty(dev_in[0].shape, dtype=spaces[0].dtype)
+    calls = {
+        "backward": (lambda: space_buf.copy_(plan.backward(host_in[0])),
+                     lambda: plan.backward(dev_in[0])),
+        "forward": (lambda: val_buf.copy_(plan.forward(sp_host[0], full)),
+                    lambda: plan.forward(spaces[0], full)),
+        "pair": (lambda: val_buf.copy_(plan.apply_pointwise(
+                     host_in[0], scaling=full)),
+                 lambda: plan.apply_pointwise(dev_in[0], scaling=full))}
+    if batch > 1:
+        space_b = plan.backward_batched(dev_b)
+        space_b_buf = torch.empty(space_b.shape, dtype=space_b.dtype)
+        val_b_buf = torch.empty(dev_b.shape, dtype=dev_b.dtype)
+        # a local plan takes a batch staged in one host array, moved in
+        # one copy (``batch_row_template``); a distributed one, the lists
+        host_b = (host_in, sp_host) if dist else (vals, np.stack(sp_host))
+        calls["multi_backward"] = (
+            lambda: space_b_buf.copy_(plan.backward_batched(host_b[0])),
+            lambda: plan.backward_batched(dev_b))
+        calls["multi_forward"] = (
+            lambda: val_b_buf.copy_(plan.forward_batched(host_b[1], full)),
+            lambda: plan.forward_batched(space_b, full))
+    ms = {}
+    for call, (host_fn, dev_fn) in calls.items():
+        per = batch if call.startswith("multi") else 1
+        ms[call] = (host_ms(host_fn, device) / per,
+                    host_ms(dev_fn, device) / per)
+    return refs, ms
+
+
+def capi_drive_phase(sp, drive, device, n, smi):
+    """Each case of :data:`CAPI_CASES` through ``capi_drive`` (a process
+    of its own, its own embedded interpreter): every output bit for bit
+    the Python API's on the same inputs (the two-kernel case also the
+    fused case's), and each call's time beside the Python API's on host
+    arrays and on device-resident ones, with the bytes the call moves
+    over PCIe. Returns the rows ``PERF.md`` records."""
+    import shutil
+
+    from spfft_tpu_torch import native
+    root = native.BUILD_DIR / "drive"
+    rows = {}
+    fused_refs = None
+    for name, (r2c, double, pallas, shards, batch) in CAPI_CASES.items():
+        trip, vals, plan = capi_case_inputs(sp, n, r2c, double, shards,
+                                            batch, device)
+        if pallas == PALLAS_OFF:
+            plan = sp.TransformPlan(plan.index_plan, device=device,
+                                    fused=False, precision=plan.precision)
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        (d / "case.txt").write_text(
+            f"{int(r2c)} {n} {n} {n} {int(double)} {pallas} {shards} "
+            f"{batch}\n")
+        trip.tofile(d / "triplets.bin")
+        vals.tofile(d / "values.bin")
+        if shards:
+            dp = plan.dist_plan
+            (d / "shards.bin").write_bytes(
+                np.array([p.num_values for p in dp.shard_plans],
+                         np.int64).tobytes()
+                + np.array(dp.num_planes, np.int32).tobytes())
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out = capi_run([drive, d], f"capi_drive {name}")
+        line = [ln for ln in out.splitlines() if ln.startswith("capi_drive")]
+        c_ms = {k: float(v) for k, v in re.findall(
+            r"(\w+)_(?:ms|s)=([0-9.]+)", line[-1])}
+        refs, py_ms = capi_case_refs(sp, plan, vals, device)
+        files = {"backward": refs["backward"][0], "forward":
+                 refs["forward"][0], "pair": refs["pair"]}
+        if batch > 1:
+            files["multi_backward"] = refs["backward"]
+            files["multi_forward"] = refs["forward"]
+        for call, want in files.items():
+            got = np.fromfile(d / f"{call}.bin", want.dtype)
+            if got.size != want.size or not np.array_equal(
+                    got, want.reshape(-1)):
+                fail(f"capi_drive {name} {call} differs from the Python "
+                     f"API's on the same inputs")
+            if fused_refs is not None and name == "c2c_off" and \
+                    not np.array_equal(got, fused_refs[call].reshape(-1)):
+                fail(f"capi_drive c2c_off {call} differs from the fused "
+                     f"route's (c2c)")
+        if name == "c2c":
+            fused_refs = files
+        shutil.rmtree(d, ignore_errors=True)
+        vbytes = vals[0].nbytes
+        sbytes = refs["backward"][0].nbytes
+        moves = {"backward": (vbytes, sbytes), "forward": (sbytes, vbytes),
+                 "pair": (vbytes, vbytes),
+                 "multi_backward": (vbytes, sbytes),
+                 "multi_forward": (sbytes, vbytes)}
+        row = {"create_s": c_ms["create"]}
+        for call in CAPI_CALLS:
+            if call not in py_ms:
+                continue
+            to_card, back = moves[call]
+            c = c_ms[call]
+            host, dev = py_ms[call]
+            row[call] = {"c_ms": c, "python_host_ms": host,
+                         "python_device_ms": dev, "h2d_bytes": to_card,
+                         "d2h_bytes": back}
+            print(f"capi {name} {call}{' per band' if call in CAPI_CALLS[3:] else ''}: "
+                  f"C {c:.4f} ms, Python API on host arrays {host:.4f} ms, "
+                  f"device-resident {dev:.4f} ms; {to_card / 1e6:.2f} MB to "
+                  f"the card + {back / 1e6:.2f} MB back = "
+                  f"{(to_card + back) / c / 1e6:.2f} GB/s through C "
+                  f"({smi})", flush=True)
+        print(f"capi {name}: plan_create through C {c_ms['create']:.2f} s, "
+              f"every output bit for bit the Python API's"
+              + (" and the fused route's" if name == "c2c_off" else "")
+              + f" ({smi})", flush=True)
+        rows[name] = row
+        del plan, vals, refs
+    return rows
+
+
+def capi_copy_rates(device, nbytes: int, smi: str) -> dict:
+    """GB/s of one host-to-device and one device-to-host copy of
+    ``nbytes`` (the 256^3 C2C space's 134.2 MB), from pageable host memory
+    (what a C caller's buffers are, and what the C ABI copies from and
+    into) and from pinned memory: what the C ABI's copies could reach.
+    Host clock, the drive's protocol."""
+    if device.type != "cuda":
+        return {}
+    dev = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+    rates = {}
+    for kind, pin in (("pageable", False), ("pinned", True)):
+        host = torch.ones(nbytes // 4, dtype=torch.float32, pin_memory=pin)
+        rates[kind] = {
+            "h2d_gb_s": nbytes / host_ms(lambda: dev.copy_(host), device)
+            / 1e6,
+            "d2h_gb_s": nbytes / host_ms(lambda: host.copy_(dev), device)
+            / 1e6}
+    print(f"capi host copies of {nbytes / 1e6:.1f} MB: pageable "
+          f"{rates['pageable']['h2d_gb_s']:.2f} GB/s to the card, "
+          f"{rates['pageable']['d2h_gb_s']:.2f} back; pinned "
+          f"{rates['pinned']['h2d_gb_s']:.2f} / "
+          f"{rates['pinned']['d2h_gb_s']:.2f} ({smi})", flush=True)
+    return rates
+
+
+def capi_phase(sp, device, counters, smi, n=N):
+    """The C ABI: build the library (its seconds), compile and run
+    ``examples/example.c`` (must print OK), the main path in this process
+    (:func:`capi_in_process`), then :func:`capi_drive_phase`. Returns the
+    ``{"capi": ...}`` record."""
+    from spfft_tpu_torch import capi_bridge
+    os.environ[capi_bridge.DEVICE_ENV] = device.type
+    lib_path, example, drive, lib_s = capi_build()
+    out = capi_run([example], "examples/example.c")
+    if not out.strip().endswith("OK"):
+        fail(f"examples/example.c did not print OK:\n{out}")
+    print("capi examples/example.c (built against include/spfft_tpu.h, "
+          "linked to libspfft_tpu_torch.so): OK", flush=True)
+    lib = capi_lib(lib_path)
+    capi_check(lib, "abi_version", lib.spfft_tpu_abi_version(), 2)
+    capi_check(lib, "init", lib.spfft_tpu_init(None))
+    create_s, launches = capi_in_process(sp, lib, device, n, counters)
+    rows = capi_drive_phase(sp, drive, device, n, smi)
+    rates = capi_copy_rates(device, n ** 3 * 8, smi)
+    return {"build_s": lib_s, "in_process_create_s": create_s,
+            "in_process_launches": launches, "cases": rows,
+            "copy_rates": rates, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -2887,7 +3345,8 @@ def main() -> int:
         timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2907,7 +3366,10 @@ def main() -> int:
 
     device = torch.device("cuda", torch.cuda.current_device())
     recs, sweep = run(device)
+    import spfft_tpu_torch as sp
+    capi = capi_phase(sp, device, launch_counters(), card)
     print(json.dumps({"batched_sweep": sweep}), flush=True)
+    print(json.dumps({"capi": capi}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

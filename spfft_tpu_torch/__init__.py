@@ -25,6 +25,12 @@ plan over S shards held on one device with the block exchange::
 
 Pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
 on the host.
+
+C and Fortran programs reach the same plans through the drop-in C ABI
+``libspfft_tpu_torch.so`` (``include/spfft_tpu_torch.h``, the symbols of
+the JAX package's ``include/spfft_tpu.h``), built by
+``spfft_tpu_torch.native.build_capi``; its Python side is
+``spfft_tpu_torch.capi_bridge``.
 """
 
 from .errors import (DeviceError, DuplicateIndicesError, ErrorCode,

@@ -272,7 +272,9 @@ def test_port_never_imports_jax():
             "spfft_tpu_torch.parallel.exchange",
             "spfft_tpu_torch.parallel.mesh",
             "spfft_tpu_torch.utils.dtypes",
-            "spfft_tpu_torch.utils.workloads", "chip_smoke"]
+            "spfft_tpu_torch.utils.workloads",
+            "spfft_tpu_torch.capi_bridge", "spfft_tpu_torch.native",
+            "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
