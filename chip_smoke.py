@@ -131,11 +131,46 @@ Phases, each of which exits non-zero when it fails:
    and the bytes over PCIe with the GB/s they imply, each line with the
    card's name and power limit; and the rate of one 134.2 MB copy each
    way from pageable and from pinned host memory;
-14. one JSON line ``{"batched_sweep": [...]}``, one ``{"capi": {...}}``
-   (phase 13's numbers), one ``{"design_bound_ms": {...}}``, one
-   ``{"kernels": [...]}`` (every kernel record of every path, float32
-   and float64, each with its ``path`` and ``dtype``) and, last, one
-   JSON line ``{"ok": true, "device": {...}}``.
+14. the long axes (``long_axes_phase``), at full width: C2C on the 768^3
+   sphere (``spherical_cutoff_triplets(768)`` stick-major, 237M values in
+   463k sticks, numpy seed 0, single precision), whose every axis, 768 =
+   24 x 32, takes the two-pass FFT (``csrc/fft_long.cu``); the plan's
+   time and the host memory the planner took, its route (the pair
+   layout; the two-kernel route, the fused kernels declining the z axis
+   with ``"dimz_over_cap"``); ``pdft_last`` (the z stage) and ``pdft2``
+   at the path's shapes against their plain versions (the two-stage
+   product), timed beside ``torch.fft`` and beside their two-launch form
+   (pass 1, then pass 2) on the same inputs; the counted pair (gather 2,
+   ``pdft_last`` 2 and ``pdft2`` 4 launches in the two-pass form, one a
+   stage, no fused z launch, no ``torch.fft`` call) with the backward
+   within ``predicted_rel_error("single", 768)`` of the complex128
+   oracle, the round trip within 1e-6, a repeat, the pair per call and
+   on the device alone and the peak device memory; then the same for
+   R2C on the half sphere, whose x axis (half 384) takes the real FFT
+   form;
+15. the long forms at odd shapes (``long_odd_shapes_phase``, float32 and
+   float64): ``pdft_last`` at z lengths 520 (20 x 26, a direct factor),
+   521 (the long matrix form, ``csrc/dft2.cu`` staged), 1024, 1080, 2048,
+   4097 and 8192 (above the one-launch kernel's 4096: pass 1, then pass
+   2) and 1031 (``torch.fft``, counted by form only), whole and windowed;
+   the plane wrappers with long stages (8192 and 5200 in two launches);
+   the real stages at 1000, 1022
+   (long matrix), 1024 (the real FFT at half 512) and 1031; each call's
+   launches by form; then plans (``long_plans_phase``): distributed C2C
+   (521, 64, 1024) and R2C (1022, 64, 520) over 4 shards against the
+   local plan (2e-6 in float32, twice ``predicted_rel_error`` in float64)
+   with records of their long forms, and a local double C2C (768, 64,
+   1024) against its oracle;
+16. the benchmark CLI (``benchmark_phase``): ``spfft_tpu_torch.benchmark
+   .main`` in this process at ``-d 256 -r 10`` (C2C), ``-t r2c``,
+   ``--shards 4`` and ``-d 768 -s 0.25 -r 5``, each JSON printed;
+17. one JSON line ``{"batched_sweep": [...]}``, one ``{"benchmark":
+   [...]}`` (phase 16's parameters), one ``{"capi": {...}}``
+   (phase 13's numbers), one ``{"design_bound_ms": {...}}``, the
+   script's wall time, one ``{"kernels": [...]}`` (every kernel record
+   of every path, float32 and float64, each with its ``path`` and
+   ``dtype``) and, last, one JSON line ``{"ok": true, "device":
+   {...}}``.
 
 Times are medians of CUDA-event timings over ``REPS`` runs after a
 warm-up, one call between two events, so a call's host work (a wrapper's
@@ -197,12 +232,16 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 os.environ["CUDA_VISIBLE_DEVICES"] = \
     os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+#: the script's start, for its wall time
+T_START = time.perf_counter()
 
 N = 256
 SEED = 0
@@ -392,6 +431,12 @@ def matrix_pair(mats):
     return (mats[0], mats[1])
 
 
+def uncounted():
+    """A stand-in wrapper for stage launches made outside the wrappers
+    (the forms a record is compared with): their counts go nowhere."""
+    return types.SimpleNamespace(launches=0, form_launches={})
+
+
 def fft_two_launch(ins, mats1, mats2, swap_out=False):
     """``pdft2`` (``pdft2_swapped`` with ``swap_out``) in the two-launch
     FFT form: csrc/fft.cu's stage kernel over B stored transposed within
@@ -410,8 +455,8 @@ def fft_two_launch(ins, mats1, mats2, swap_out=False):
     if dev.type != "cuda":  # the stage kernels run only on the card
         return (dft.cdft2_xy if swap_out else dft.pdft2_minor)(
             *ins, mats1, mats2)
-    dft_kernel._stage("cc", ins, mats1, mid, plane_rows=a)
-    dft_kernel._stage("cc", mid, mats2, out,
+    dft_kernel._stage(uncounted(), "cc", ins, mats1, mid, plane_rows=a)
+    dft_kernel._stage(uncounted(), "cc", mid, mats2, out,
                       plane_rows=b_out if swap_out else 0)
     return out
 
@@ -488,11 +533,10 @@ def main_path_plan(sp, n, device, precision="single"):
     """The C2C path's plan at ``precision`` on the n^3 sphere, sorted
     stick-major, and its values (N, 2) from numpy seed ``SEED`` (complex64
     for a single plan, complex128 for a double one)."""
-    from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
-                                                 sort_triplets_stick_major)
+    from spfft_tpu_torch.utils.workloads import \
+        spherical_cutoff_triplets_stick_major
     t0 = time.perf_counter()
-    trip = sort_triplets_stick_major(spherical_cutoff_triplets(n),
-                                     (n, n, n))
+    trip = spherical_cutoff_triplets_stick_major(n)
     plan = sp.make_local_plan(sp.TransformType.C2C, n, n, n, trip,
                               precision=precision, device=device)
     rng = np.random.default_rng(SEED)
@@ -1083,13 +1127,13 @@ def r2c_plan(sp, n, device, precision="single"):
     rounded to complex64 before both are taken, so the oracle is exact
     for the values the plan is given. Returns the plan, its triplets, the
     values and the oracle."""
-    from spfft_tpu_torch.utils.workloads import (spherical_cutoff_triplets,
-                                                 sort_triplets_stick_major)
+    from spfft_tpu_torch.utils.workloads import \
+        spherical_cutoff_triplets_stick_major
     t0 = time.perf_counter()
-    full = spherical_cutoff_triplets(n)
+    full = spherical_cutoff_triplets_stick_major(n)
     x, y, z = full[:, 0], full[:, 1], full[:, 2]
-    half = full[(x > 0) | ((x == 0) & ((y > 0) | ((y == 0) & (z >= 0))))]
-    trip = sort_triplets_stick_major(half, (n, n, n))
+    # a subset of a stick-major set keeps its order
+    trip = full[(x > 0) | ((x == 0) & ((y > 0) | ((y == 0) & (z >= 0))))]
     plan = sp.make_local_plan(sp.TransformType.R2C, n, n, n, trip,
                               precision=precision, device=device)
     cdt = torch.complex64 if precision == "single" else torch.complex128
@@ -1314,7 +1358,8 @@ def r2c_odd_shapes_phase(device, dtype=torch.float32):
                                 device=device)
                     for _ in range(2))
         if on_card:
-            dft_kernel._stage("rc", (x,), r2c, out, plane_rows=plane_rows)
+            dft_kernel._stage(uncounted(), "rc", (x,), r2c, out,
+                              plane_rows=plane_rows)
         else:
             out = tuple(t.transpose(1, 2) for t in dft.prdft_last(x, r2c))
         compare(f"rfft stage rc nx={nx} transposed within {plane_rows} rows",
@@ -1324,7 +1369,8 @@ def r2c_odd_shapes_phase(device, dtype=torch.float32):
         real = torch.empty((planes, nx, plane_rows), dtype=dtype,
                            device=device)
         if on_card:
-            dft_kernel._stage("cr", y, c2r, (real,), plane_rows=plane_rows)
+            dft_kernel._stage(uncounted(), "cr", y, c2r, (real,),
+                              plane_rows=plane_rows)
         else:
             real = dft.pirdft_last(*y, c2r).transpose(1, 2)
         compare(f"rfft stage cr nx={nx} transposed within {plane_rows} rows",
@@ -2697,6 +2743,725 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
     return recs + recs2
 
 
+# -- the long axes (above 512): the two-pass FFT, the long matrix form, the
+# real FFT to 1024 and torch.fft --------------------------------------------
+
+#: the long axes' full-width cell: the 768^3 sphere (237M values), every
+#: axis 768 = 24 x 32 in the two-pass form
+LONG_N = 768
+LONG_SRC = "spfft_tpu_torch/csrc/fft_long.cu"
+#: the long forms are forms of the stage wrappers (rows 7 and 3-6 of the
+#: kernel table); the JAX package runs these lengths as XLA dots
+#: (spfft_tpu/ops/dft.py:268 _pdft_two_stage) or jnp.fft, not Pallas
+STAGE_REPLACES = "spfft_tpu/ops/dft_kernel.py:165"
+PLANE_REPLACES = "spfft_tpu/ops/dft_kernel.py:277"
+#: the 768^3 pairs: the two-kernel route (the fused kernels decline a z of
+#: 768), the z stage and each plane stage one two-pass launch a direction
+LONG_C2C_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2, {"two_pass": 2}),
+                     "pdft2": (4, 4, {"two_pass": 4}),
+                     "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                     "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                     "pdft2_swapped": (0, 0), **NO_REAL_LAST}
+LONG_R2C_LAUNCHES = {"gather": (2, 2), "pdft_last": (2, 2, {"two_pass": 2}),
+                     "prdft2": (2, 2, {"rfft": 1, "two_pass": 1}),
+                     "pdft2_cr": (2, 2, {"two_pass": 1, "rfft": 1}),
+                     "decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                     "pdft2": (0, 0), "pdft2_swapped": (0, 0),
+                     **NO_REAL_LAST}
+
+
+def _rss_bytes() -> int:
+    """The process's resident bytes now (Linux ``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def peak_rss_over(fn, every_s: float = 0.02):
+    """``fn()`` and the host memory it took: the peak of the process's
+    resident bytes, sampled every ``every_s`` seconds while it runs, less
+    its resident bytes before."""
+    import threading
+    before = _rss_bytes()
+    peak = [before]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(every_s):
+            peak[0] = max(peak[0], _rss_bytes())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        t.join()
+    peak[0] = max(peak[0], _rss_bytes())
+    return out, peak[0] - before
+
+
+def stage_bytes(mats, rows: int, e: int) -> int:
+    """Bytes a DFT stage must move: ``rows`` input rows of K and output
+    rows of N (planar complex; a real side one plane) read and written
+    once, and its tables."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    k, n = dft.mats_shape(mats)
+    kin = 1 if getattr(mats, "kind", "c2c") == "r2c" else 2
+    kout = 1 if getattr(mats, "kind", "c2c") == "c2r" else 2
+    if dft_kernel.stage_form(mats) in ("fft", "rfft", "two_pass"):
+        tables = mats.twiddles.numel()  # the FFT forms read the table only
+    else:
+        tables = sum(t.numel() for t in mats)
+    return (rows * (kin * k + kout * n) + tables) * e
+
+
+def stage_flops(mats, rows: int) -> float:
+    """FFT operations of a stage of ``rows`` lines (half for a real
+    transform)."""
+    n = mats.n
+    return (rfft_flops if mats.kind != "c2c" else fft_flops)(rows, n)
+
+
+def stage_design(mats, rows: int, e: int):
+    """The design bound's (bytes, operations) of a stage in its form: the
+    two-pass form moves its intermediate once more (written by pass 1,
+    read by pass 2); the matrix forms do K N multiply-adds a row."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    form = dft_kernel.stage_form(mats)
+    nbytes = stage_bytes(mats, rows, e)
+    if form == "two_pass":
+        return nbytes + 4 * rows * mats.n * e, stage_flops(mats, rows)
+    if form in ("matrix", "long_matrix"):
+        k, n = dft.mats_shape(mats)
+        per = FLOP_PER_CMAC if mats.kind == "c2c" else FLOP_PER_RMAC
+        return nbytes, per * rows * k * n
+    return nbytes, stage_flops(mats, rows)
+
+
+def stage_library(mode, ins, mats):
+    """The library yardstick of one stage: one ``torch.fft`` call along
+    the same axis (``ifft``/``fft``, ``rfft``, ``irfft``) on the inputs
+    expanded to the whole axis, never called by the package."""
+    from spfft_tpu_torch.ops import dft
+    n = mats.n
+    if mode == "rc":
+        x = ins[0]
+        return lambda: torch.fft.rfft(x)
+    length = n if mode == "cc" else n // 2 + 1
+    z = torch.complex(dft.expand_window(ins[0], mats.rows, length),
+                      dft.expand_window(ins[1], mats.rows, length))
+    if mode == "cr":
+        return lambda: torch.fft.irfft(z, n=n, norm="forward")
+    if mats.sign > 0:
+        return lambda: torch.fft.ifft(z, norm="forward")
+    return lambda: torch.fft.fft(z)
+
+
+def long_stage_record(path, name, wrapper, plain, mode, ins, mats, err,
+                      source=LONG_SRC, replaces=STAGE_REPLACES):
+    """A record of one single-stage wrapper call in a long form."""
+    from spfft_tpu_torch.ops import dft_kernel
+    x = ins[0]
+    e = x.element_size()
+    rows = x.numel() // x.shape[-1]
+    dbytes, dflops = stage_design(mats, rows, e)
+    return kernel_record(
+        path, name, source, replaces, err, lambda: wrapper(*ins, mats),
+        lambda: plain(*ins, mats), stage_library(mode, ins, mats),
+        stage_bytes(mats, rows, e), stage_flops(mats, rows), dflops,
+        dft_kernel.stage_form(mats), None, dbytes)
+
+
+def long_plane_record(path, name, wrapper, plain, modes, ins, mats1, mats2,
+                      err, library):
+    """A record of one plane wrapper call ``(P, A, B)``: two stages, each
+    in its form, the intermediate through device memory once."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    p, a, b = ins[0].shape
+    e = ins[0].element_size()
+    b_out = dft.mats_shape(mats1)[1]
+    nbytes = stage_bytes(mats1, p * a, e) + stage_bytes(mats2, p * b_out, e) \
+        - 2 * 2 * p * a * b_out * e  # the intermediate is not the function's
+    d1 = stage_design(mats1, p * a, e)
+    d2 = stage_design(mats2, p * b_out, e)
+    forms = [dft_kernel.stage_form(m) for m in (mats1, mats2)]
+    src = LONG_SRC if "two_pass" in forms else FFT_SRC
+    return kernel_record(
+        path, name, src, PLANE_REPLACES, err,
+        lambda: wrapper(*ins, mats1, mats2), lambda: plain(*ins, mats1, mats2),
+        library, nbytes, stage_flops(mats1, p * a)
+        + stage_flops(mats2, p * b_out), d1[1] + d2[1], "+".join(forms),
+        None, d1[0] + d2[0])
+
+
+def long_two_launch(ins, mats1, mats2=None):
+    """``pdft_last`` against ``mats1`` (``mats2`` None) or ``pdft2`` with
+    every stage in the two-pass form's two launches, csrc/fft_long.cu's
+    pass 1 then pass 2 (the form the wrappers take for a row longer than
+    ``LONG_WHOLE_N``); not counted."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    x = ins[0]
+
+    def stage(src, mats, shape, plane_rows):
+        if dft_kernel.stage_form(mats) != "two_pass":
+            fail(f"long_two_launch: a stage of form "
+                 f"{dft_kernel.stage_form(mats)}")
+        out = tuple(torch.empty(shape, dtype=x.dtype, device=x.device)
+                    for _ in range(2))
+        dft_kernel._long_passes(uncounted(), src, mats, out, plane_rows,
+                                one_launch=False)
+        return out
+
+    b_out = dft.mats_shape(mats1)[1]
+    if mats2 is None:
+        return stage(ins, mats1, x.shape[:-1] + (b_out,), 0)
+    p, a, _ = x.shape
+    mid = stage(ins, mats1, (p, b_out, a), a)
+    return stage(mid, mats2, (p, b_out, dft.mats_shape(mats2)[1]), 0)
+
+
+def two_launch(rec, fn, two, device):
+    """The record's call ``fn`` against ``two``, the same call with every
+    two-pass stage in its two-launch form (:func:`long_two_launch`):
+    checked against the one-launch result (``KERNEL_TOL``) and timed on
+    the same inputs, as ``two_launch_ms``."""
+    want, got = fn(), two()
+    compare(f"{rec['path']} {rec['name']} two-launch form", got,
+            want if isinstance(want, tuple) else (want,))
+    del got, want
+    rec["two_launch_ms"] = timed_ms(two, device)
+    print(f"kernel {rec['path']} {rec['name']}: two-launch form "
+          f"{rec['two_launch_ms']:.4f} ms against {rec['ms']:.4f} in one "
+          f"launch (same inputs)", flush=True)
+
+
+def long_c2c_records(path, plan, values, device):
+    """The 768^3 C2C path's kernels at its shapes against their plain
+    versions: ``pdft_last`` (the z stage of the two-kernel route, two
+    passes) and ``pdft2`` (both plane stages two-pass), backward."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, gather_kernel, stages
+    p = plan.index_plan
+    v = plan._coerce_values(values)
+    sr, si = gather_kernel.decompress(v, plan._slot_src, p.dim_z,
+                                      plan.pair_values_io)
+    del v
+    zb = plan._mats["z_b"]
+    got = dft_kernel.pdft_last(sr, si, zb)
+    err = compare(f"{path} pdft_last backward (two-pass)", got,
+                  dft.pdft_last(sr, si, zb))
+    recs = [long_stage_record(path, "pdft_last", dft_kernel.pdft_last,
+                              dft.pdft_last, "cc", (sr, si), zb, err)]
+    two_launch(recs[-1], lambda: dft_kernel.pdft_last(sr, si, zb),
+               lambda: long_two_launch((sr, si), zb), device)
+    del sr, si
+    gr = stages.sticks_to_grid_padded(got[0], plan._col_inv, plan._grid_w,
+                                      p.dim_y)
+    gi = stages.sticks_to_grid_padded(got[1], plan._col_inv, plan._grid_w,
+                                      p.dim_y)
+    del got
+    m1, m2 = plan._mats["y_b"], plan._mats["x_b"]
+    out = dft_kernel.pdft2(gr, gi, m1, m2)
+    err = compare(f"{path} pdft2 backward (two-pass)", out,
+                  dft.pdft2_minor(gr, gi, m1, m2))
+    del out
+    gc = torch.complex(gr, gi)
+    recs.append(long_plane_record(
+        path, "pdft2", dft_kernel.pdft2, dft.pdft2_minor, ("cc", "cc"),
+        (gr, gi), m1, m2, err,
+        lambda: torch.fft.ifft2(gc, norm="forward").transpose(-1, -2)
+        .contiguous()))
+    two_launch(recs[-1], lambda: dft_kernel.pdft2(gr, gi, m1, m2),
+               lambda: long_two_launch((gr, gi), m1, m2), device)
+    print_records(recs)
+    return recs
+
+
+def long_r2c_records(path, plan, values, device):
+    """The 768^3 R2C path's plane kernels at its shapes: ``pdft2_cr``
+    (the y stage two-pass, the real x stage a real FFT of half 384) and
+    ``prdft2``."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    p = plan.index_plan
+    space = plan._bwd_space(plan._coerce_values(values))
+    planes = (-1, p.dim_y, p.dim_x)
+    x = space.reshape(planes)
+    f1, f2 = plan._mats["x_f"], plan._mats["y_f"]
+    got = dft_kernel.prdft2(x, f1, f2)
+    err = compare(f"{path} prdft2 (rfft + two-pass)", got,
+                  dft.prdft2_minor(x, f1, f2))
+    recs = [long_plane_record(
+        path, "prdft2", dft_kernel.prdft2, dft.prdft2_minor, ("rc", "cc"),
+        (x,), f1, f2, err,
+        lambda: torch.fft.fft(torch.fft.rfft(x), dim=-2).transpose(-1, -2)
+        .contiguous())]
+    gr, gi = got[0].contiguous(), got[1].contiguous()
+    del got
+    m1, m2 = plan._mats["y_b"], plan._mats["x_b"]
+    out = dft_kernel.pdft2_cr(gr, gi, m1, m2)
+    err = compare(f"{path} pdft2_cr (two-pass + rfft)", (out,),
+                  (dft.pdft2_minor_cr(gr, gi, m1, m2),))
+    del out, space
+    gc = torch.complex(gr, gi)
+    recs.append(long_plane_record(
+        path, "pdft2_cr", dft_kernel.pdft2_cr, dft.pdft2_minor_cr,
+        ("cc", "cr"), (gr, gi), m1, m2, err,
+        lambda: torch.fft.irfft(torch.fft.ifft(gc, dim=-1, norm="forward")
+                                .transpose(-1, -2), n=p.dim_x,
+                                norm="forward")))
+    print_records(recs)
+    return recs
+
+
+def long_axes_phase(sp, device, counters):
+    """The long axes at full width: C2C on ``spherical_cutoff_triplets
+    (768)`` sorted stick-major, single precision, values from numpy seed
+    ``SEED``, then R2C on the half sphere (``r2c_plan``): the plan's time
+    and the host memory the planner took, its route (two-kernel, the
+    fused kernels' decline, the pair layout), each kernel at the path's
+    shapes against its plain version, and the counted pair
+    (``pair_phase``: the backward within ``predicted_rel_error("single",
+    768)`` of the complex128 oracle, the round trip within 1e-6, a
+    repeat, the pair per call and on the device alone) with the peak
+    device memory. Returns the records."""
+    from spfft_tpu_torch.utils.workloads import \
+        spherical_cutoff_triplets_stick_major
+    n = LONG_N
+    t0 = time.perf_counter()
+    trip = spherical_cutoff_triplets_stick_major(n)
+    t_trip = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan, rss = peak_rss_over(lambda: sp.make_local_plan(
+        sp.TransformType.C2C, n, n, n, trip, device=device))
+    plan_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    m = len(trip)
+    vals = (rng.standard_normal(m) + 1j * rng.standard_normal(m)) \
+        .astype(np.complex64)
+    values = torch.view_as_real(torch.from_numpy(vals)).to(device)
+    del vals
+    p = plan.index_plan
+    print(f"plan: C2C {n}^3 sphere, single, {plan.num_local_elements} "
+          f"values in {p.num_sticks} sticks, split_x={plan.split_x}, "
+          f"pair_io={plan.pair_values_io}, fused_active="
+          f"{plan.fused_active}, fused_fallback_reasons="
+          f"{plan.fused_fallback_reasons}; triplets {t_trip:.2f} s, plan "
+          f"built in {plan_s:.2f} s, host memory the planner took "
+          f"{rss / 2**30:.2f} GiB (peak resident over the build)",
+          flush=True)
+    if rss <= 0:
+        fail(f"long{n}: the planner's host memory read {rss} bytes")
+    if not plan.pair_values_io or plan.fused_active \
+            or plan.fused_fallback_reasons != {"dec": "dimz_over_cap",
+                                               "cmp": "dimz_over_cap"}:
+        fail(f"long{n}: expected the pair layout and the two-kernel route")
+    path = f"long{n}"
+    recs = long_c2c_records(path, plan, values, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    oracle = c2c_oracle_rel(plan, trip, values, device)
+    set_launches(recs, pair_phase(sp, f"{path} c2c", plan, values, oracle,
+                                  device, counters, LONG_C2C_LAUNCHES))
+    print(f"{path} c2c: peak device memory over the pair phase (oracle "
+          f"included) {torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
+          f"GiB", flush=True)
+    del plan, trip, values, oracle
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    plan, _, values, oracle = r2c_plan(sp, n, device)
+    print(f"{path} r2c: plan with its values in "
+          f"{time.perf_counter() - t0:.2f} s, fused_fallback_reasons="
+          f"{plan.fused_fallback_reasons}", flush=True)
+    rrecs = long_r2c_records(path + "_r2c", plan, values, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def oracle_rel(space):
+        return float(torch.linalg.norm(space.double() - oracle)
+                     / torch.linalg.norm(oracle))
+
+    set_launches(rrecs, pair_phase(sp, f"{path} r2c", plan, values,
+                                   oracle_rel, device, counters,
+                                   LONG_R2C_LAUNCHES))
+    print(f"{path} r2c: peak device memory over the pair phase "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB",
+          flush=True)
+    del plan, values, oracle
+    torch.cuda.empty_cache()
+    return recs + rrecs
+
+
+#: the odd long lengths: z lengths by form, R2C x lengths by form
+LONG_Z = (520, 521, 1024, 1080, 2048, 4097, 8192, 1031)
+#: the longest row csrc/fft_long.cu's one-launch kernel holds (WHOLE_N): a
+#: two-pass stage is one launch up to it, pass 1 then pass 2 above it
+LONG_WHOLE_N = 4096
+LONG_X_R2C = (1000, 1022, 1024, 1031)
+
+
+def _long_rows(rng, rows, k, dtype, device):
+    return tuple(torch.as_tensor(rng.standard_normal((rows, k)), dtype=dtype,
+                                 device=device) for _ in range(2))
+
+
+def _check_forms(name, wrapper, want):
+    from spfft_tpu_torch.ops import dft_kernel
+    got = {f: k for f, k in wrapper.form_launches.items() if k}
+    if got != want:
+        fail(f"{name}: launched by form {got}, expected {want}")
+    launches = sum(k for f, k in want.items() if f != "library")
+    if wrapper.launches != launches:
+        fail(f"{name}: {wrapper.launches} launches, expected {launches}")
+    wrapper.launches = 0
+    wrapper.form_launches = dict.fromkeys(dft_kernel.ALL_FORMS, 0)
+
+
+def _want(*mats):
+    """The launches by form a call over stages ``mats`` must count: one a
+    stage, two for a two-pass stage longer than ``LONG_WHOLE_N``."""
+    from spfft_tpu_torch.ops import dft_kernel
+    out = {}
+    for m in mats:
+        f = dft_kernel.stage_form(m)
+        out[f] = out.get(f, 0) + (
+            2 if f == "two_pass" and m.n > LONG_WHOLE_N else 1)
+    return out
+
+
+def long_odd_shapes_phase(sp, device, counters, dtype):
+    """Each long form on the card against its plain version at small
+    shapes, in ``dtype``: ``pdft_last`` at z lengths ``LONG_Z`` (two-pass
+    with 2^a 3^b 5^c factors and with a direct factor, the long matrix
+    form to 1024, ``torch.fft`` above), whole and windowed; ``pdft2`` /
+    ``pdft2_swapped`` with long stages on either axis; the real stages at
+    ``LONG_X_R2C`` (the real FFT to 1024, the long matrix form,
+    ``torch.fft``), alone and inside ``prdft2`` / ``pdft2_cr``; each
+    call's launches by form checked (the two-pass form in one launch up to
+    ``LONG_WHOLE_N``, in two above it: 4097, 8192)."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    if device.type == "cuda" and dft_kernel.long_row_max() != LONG_WHOLE_N:
+        fail(f"csrc/fft_long.cu holds rows of {dft_kernel.long_row_max()} "
+             f"in one launch, expected {LONG_WHOLE_N}")
+    rng = np.random.default_rng(SEED)
+    reset_launches(counters)
+    cases = 0
+    for n in LONG_Z:
+        for sign, window in ((dft.BACKWARD, {}), (dft.FORWARD, {}),
+                             (dft.BACKWARD, {"rows": (n - 50, 300)}),
+                             (dft.FORWARD, {"cols": (n - 7, 100)})):
+            m = dft.device_c2c(n, sign, 1.0 / n, device=device, dtype=dtype,
+                               **window)
+            x = _long_rows(rng, 257, m.shape[0], dtype, device)
+            got = dft_kernel.pdft_last(*x, m)
+            compare(f"pdft_last {n} {sign} {window}", got,
+                    dft.pdft_last(*x, m))
+            _check_forms(f"pdft_last {n}", dft_kernel.pdft_last, _want(m))
+            cases += 1
+    for (p, a, b), (n1, w1), (n2, w2) in (
+            ((3, 64, 520), (520, {}), (64, {})),
+            ((2, 520, 48), (48, {}), (520, {})),
+            ((2, 33, 768), (768, {"rows": (760, 768)}), (33, {})),
+            ((2, 40, 1000), (1000, {"cols": (990, 20)}), (40, {})),
+            ((3, 17, 521), (521, {}), (17, {})),
+            ((1, 521, 520), (520, {}), (521, {})),
+            ((2, 6, 1031), (1031, {}), (6, {})),
+            ((1, 3, 8192), (8192, {}), (3, {})),
+            ((1, 5200, 2), (2, {}), (5200, {"cols": (5190, 20)}))):
+        m1 = dft.device_c2c(n1, dft.BACKWARD, device=device, dtype=dtype,
+                            **w1)
+        m2 = dft.device_c2c(n2, dft.BACKWARD, 0.5, device=device,
+                            dtype=dtype, **w2)
+        x = tuple(torch.as_tensor(rng.standard_normal((p, a, b)),
+                                  dtype=dtype, device=device)
+                  for _ in range(2))
+        for wrapper, plain in ((dft_kernel.pdft2, dft.pdft2_minor),
+                               (dft_kernel.pdft2_swapped, dft.cdft2_xy)):
+            compare(f"{wrapper.__name__} {(p, a, b)}", wrapper(*x, m1, m2),
+                    plain(*x, m1, m2))
+            _check_forms(f"{wrapper.__name__} {(p, a, b)}", wrapper,
+                         _want(m1, m2))
+            cases += 1
+    for n in LONG_X_R2C:
+        xf = n // 2 + 1
+        for cols in (None, (3, xf - 10)):
+            r2c = dft.device_r2c(n, 1.0 / n, cols=cols, device=device,
+                                 dtype=dtype)
+            c2r = dft.device_c2r(n, rows=cols, device=device, dtype=dtype)
+            x = torch.as_tensor(rng.standard_normal((3, 40, n)), dtype=dtype,
+                                device=device)
+            compare(f"prdft_last {n} {cols}", dft_kernel.prdft_last(x, r2c),
+                    dft.prdft_last(x, r2c))
+            _check_forms(f"prdft_last {n}", dft_kernel.prdft_last, _want(r2c))
+            k = r2c.shape[1]
+            y = tuple(torch.as_tensor(rng.standard_normal((3, 40, k)),
+                                      dtype=dtype, device=device)
+                      for _ in range(2))
+            compare(f"pirdft_last {n} {cols}", (dft_kernel.pirdft_last(
+                *y, c2r),), (dft.pirdft_last(*y, c2r),))
+            _check_forms(f"pirdft_last {n}", dft_kernel.pirdft_last,
+                         _want(c2r))
+            my = dft.device_c2c(40, dft.FORWARD, device=device, dtype=dtype)
+            compare(f"prdft2 {n} {cols}", dft_kernel.prdft2(x, r2c, my),
+                    dft.prdft2_minor(x, r2c, my))
+            _check_forms(f"prdft2 {n}", dft_kernel.prdft2, _want(r2c, my))
+            yy = tuple(torch.as_tensor(rng.standard_normal((3, k, 40)),
+                                       dtype=dtype, device=device)
+                       for _ in range(2))
+            mb = dft.device_c2c(40, dft.BACKWARD, device=device, dtype=dtype)
+            compare(f"pdft2_cr {n} {cols}", (dft_kernel.pdft2_cr(
+                *yy, mb, c2r),), (dft.pdft2_minor_cr(*yy, mb, c2r),))
+            _check_forms(f"pdft2_cr {n}", dft_kernel.pdft2_cr, _want(mb, c2r))
+            cases += 4
+    print(f"odd shapes of the long forms ({dtype}): {cases} kernel-vs-plain "
+          f"cases within {kernel_tol(dtype)[1]}, each call's launches by "
+          f"form as its stages' lengths say (torch.fft counted by form "
+          f"only), the two-pass form in one launch and in two", flush=True)
+
+
+def _sparse_sticks(dims, keep, seed, half=False):
+    """Every z of a seeded random ``keep`` share of the (x, y) sticks
+    (with ``half``, x below the Nyquist plane: a hermitian half set needs
+    no completion there, only at x = 0, which the plans complete)."""
+    nx, ny, nz = dims
+    rng = np.random.default_rng(seed)
+    xs = (nx + 1) // 2 if half else nx
+    xy = np.stack(np.meshgrid(np.arange(xs), np.arange(ny), indexing="ij"),
+                  -1).reshape(-1, 2)
+    xy = xy[rng.random(len(xy)) < keep]
+    z = np.arange(nz)
+    return np.concatenate([np.repeat(xy, nz, 0),
+                           np.tile(z, len(xy))[:, None]], 1).astype(np.int32)
+
+
+def _spectrum(dims, trip, device, dtype, seed):
+    """Hermitian values at ``trip``: the spectrum of a seeded real field,
+    and the field times the grid size (the backward's oracle)."""
+    nx, ny, nz = dims
+    gen = torch.Generator(device=device).manual_seed(seed)
+    field = torch.randn((nz, ny, nx), generator=gen, dtype=torch.float64,
+                        device=device)
+    spec = torch.fft.fftn(field)
+    t = torch.as_tensor(trip.astype(np.int64), device=device)
+    vals = torch.view_as_real(spec[t[:, 2], t[:, 1], t[:, 0]]
+                              .to(complex_of(torch.zeros(0, dtype=dtype))))
+    return vals.contiguous(), field * (nx * ny * nz)
+
+
+#: the long-axis plans of the odd phase: distributed C2C with an x of 521
+#: (the long matrix form) and a z of 1024 (two-pass), distributed R2C with
+#: an x of 1022 (long matrix, half 511 = 7 x 73) and a z of 520 (two-pass
+#: with the direct factor 26), a local double plan with x 768 and z 1024
+LONG_DIST = {"c2c": (521, 64, 1024), "r2c": (1022, 64, 520)}
+LONG_F64 = (768, 64, 1024)
+
+
+def long_plans_phase(sp, device, counters):
+    """Plans with long axes at small stick sets, on the card: each
+    distributed plan over 4 shards against the local plan on the same
+    values (backward within 2e-6, float32, or twice
+    ``predicted_rel_error``, float64, the round trip) with its pair
+    counted, and ``LONG_F64`` in double against its oracle; records of
+    the long forms these pairs run, at their shapes, timed. Returns the
+    records."""
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    recs = []
+    for kind, dims in LONG_DIST.items():
+        r2c = kind == "r2c"
+        for dtype in (torch.float32, torch.float64):
+            precision = "single" if dtype == torch.float32 else "double"
+            trip = _sparse_sticks(dims, 0.05, 3, r2c)
+            tt = sp.TransformType[kind.upper()]
+            vals, field = _spectrum(dims, trip, device, dtype, 4)
+            local = sp.make_local_plan(tt, *dims, trip, precision=precision,
+                                       device=device)
+            parts = round_robin_stick_partition(trip, dims, _S)
+            plan = sp.make_distributed_plan(
+                tt, *dims, parts, even_plane_split(dims[2], _S),
+                mesh=sp.make_mesh(_S, device), precision=precision)
+            trip_t = torch.as_tensor(trip.astype(np.int64), device=device)
+            cube = torch.zeros(dims[::-1], dtype=complex_of(vals),
+                               device=device)
+            cube[trip_t[:, 2], trip_t[:, 1], trip_t[:, 0]] = \
+                torch.view_as_complex(vals)
+            stacked = plan.shard_values(
+                [cube[torch.as_tensor(pp[:, 2].astype(np.int64)),
+                      torch.as_tensor(pp[:, 1].astype(np.int64)),
+                      torch.as_tensor(pp[:, 0].astype(np.int64))]
+                 for pp in parts])
+            del cube
+            path = f"long_dist_{kind}" + ("_f64" if precision == "double"
+                                          else "")
+            reset_launches(counters)
+            space = plan.backward(stacked)
+            out = plan.forward(space, sp.Scaling.FULL)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            forms = {k: {f: v for f, v in c.form_launches.items() if v}
+                     for k, c in counters.items()
+                     if hasattr(c, "form_launches")}
+            print(f"{path} pair {dims}: launches {launches}; by form "
+                  f"{forms}", flush=True)
+            lb = local.backward(vals)
+            full = space.reshape(lb.shape)
+            pred = sp.predicted_rel_error(precision, max(dims), True)
+            d = float(torch.linalg.norm(full.double() - lb.double())
+                      / torch.linalg.norm(lb.double()))
+            tol = KERNEL_TOL if precision == "single" else 2 * pred
+            rt = float(torch.linalg.norm(out.double() - stacked.double())
+                       / torch.linalg.norm(stacked.double()))
+            print(f"{path}: backward vs the local plan's rel_l2={d:.3e} "
+                  f"(at most {tol:.3e}), round trip {rt:.3e}", flush=True)
+            if not d <= tol or not rt <= roundtrip_tol(sp, precision,
+                                                       max(dims)):
+                fail(f"{path}: backward {d:.3e} or round trip {rt:.3e} "
+                     f"out of bounds")
+            want = "long_matrix"
+            got_x = forms.get("prdft_last" if r2c else "pdft2_swapped", {})
+            if want not in got_x or forms["decompress_zdft"] or \
+                    forms["zdft_compress"] or \
+                    forms["pdft_last"].get("two_pass", 0) < 2:
+                fail(f"{path}: expected the long matrix x stage and a "
+                     f"two-pass z stage on the two-kernel route, got "
+                     f"{forms}")
+            if precision == "single":
+                recs += long_dist_records(path, plan, stacked, forms)
+            del plan, local, space, out, stacked, lb, full, field
+            torch.cuda.empty_cache()
+
+    # the local double plan with a 768 x axis and a 1024 z axis
+    dims = LONG_F64
+    trip = _sparse_sticks(dims, 0.05, 5)
+    rng = np.random.default_rng(SEED)
+    v = rng.standard_normal(len(trip)) + 1j * rng.standard_normal(len(trip))
+    values = torch.view_as_real(torch.from_numpy(v)).to(device)
+    plan = sp.make_local_plan(sp.TransformType.C2C, *dims, trip,
+                              precision="double", device=device)
+    reset_launches(counters)
+    space = plan.backward(values)
+    torch.cuda.synchronize()
+    forms = {k: {f: n for f, n in c.form_launches.items() if n}
+             for k, c in counters.items() if hasattr(c, "form_launches")}
+    rel = c2c_oracle_rel(plan, trip, values, device)(space)
+    pred = sp.predicted_rel_error("double", max(dims), True)
+    print(f"long local C2C {dims} double: backward vs complex128 oracle "
+          f"rel_l2={rel:.3e} (predicted_rel_error={pred:.3e}); launches by "
+          f"form {forms}", flush=True)
+    if not rel <= pred:
+        fail(f"long local double {dims}: rel_l2 {rel:.3e} above {pred:.3e}")
+    if forms["pdft_last"] != {"two_pass": 1} \
+            or forms["pdft2"] != {"fft": 1, "two_pass": 1}:
+        fail(f"long local double {dims}: forms {forms}")
+    del plan, space, values
+    torch.cuda.empty_cache()
+    return recs
+
+
+def long_dist_records(path, plan, stacked, forms):
+    """Records of the distributed long-axis pair's new forms at its
+    shapes: the two-kernel z stage (``pdft_last``, two-pass) and the x
+    stage (the long matrix form: ``pdft2_swapped`` for C2C,
+    ``prdft_last`` / ``pirdft_last`` for R2C), against their plain
+    versions, each with the pair's launches."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, gather_kernel
+    dp = plan.dist_plan
+    sr, si = plan._z_backward(stacked[:, None])  # (1, S, max_sticks, dz)
+    zb = plan._mats["z_b"]
+    # the sticks before the z stage: the gather alone
+    gr = torch.empty_like(sr)
+    gi = torch.empty_like(si)
+    v = stacked[:, None]
+    if plan._t_conj is not None:
+        v = v * plan._t_conj
+    from spfft_tpu_torch.parallel.dist import _shard_rows
+    gather_kernel.gather((v[..., 0], v[..., 1]), plan._t_slot_src,
+                         (_shard_rows(gr), _shard_rows(gi)))
+    err = compare(f"{path} pdft_last (z)", dft_kernel.pdft_last(gr, gi, zb),
+                  dft.pdft_last(gr, gi, zb))
+    recs = [long_stage_record(path, "pdft_last", dft_kernel.pdft_last,
+                              dft.pdft_last, "cc", (gr, gi), zb, err)]
+    grid = plan._exchange((sr, si))
+    planes = (-1, dp.dim_y, plan._xf_eff)
+    m = plan._mats
+    if dp.hermitian:
+        hr, hi = stages_mid(grid, planes, m["y_b"])
+        xb = m["x_b"]
+        err = compare(f"{path} pirdft_last (x)", (dft_kernel.pirdft_last(
+            hr, hi, xb),), (dft.pirdft_last(hr, hi, xb),))
+        recs.append(long_stage_record(
+            path, "pirdft_last", dft_kernel.pirdft_last, dft.pirdft_last,
+            "cr", (hr, hi), xb, err, DFT2_SRC, REAL_REPLACES))
+        xs = dft.pirdft_last(hr, hi, xb).contiguous()
+        xf = m["x_f"]
+        err = compare(f"{path} prdft_last (x)", dft_kernel.prdft_last(xs, xf),
+                      dft.prdft_last(xs, xf))
+        recs.append(long_stage_record(
+            path, "prdft_last", dft_kernel.prdft_last, dft.prdft_last, "rc",
+            (xs,), xf, err, DFT2_SRC, REAL_REPLACES))
+    else:
+        gr2, gi2 = grid[0].reshape(planes), grid[1].reshape(planes)
+        m1, m2 = m["x_b"], m["y_b"]
+        err = compare(f"{path} pdft2_swapped (x long matrix, y fft)",
+                      dft_kernel.pdft2_swapped(gr2, gi2, m1, m2),
+                      dft.cdft2_xy(gr2, gi2, m1, m2))
+        gc = torch.complex(gr2, gi2)
+        rec = long_plane_record(
+            path, "pdft2_swapped", dft_kernel.pdft2_swapped, dft.cdft2_xy,
+            ("cc", "cc"), (gr2, gi2), m1, m2, err,
+            lambda: torch.fft.ifft2(gc, norm="forward"))
+        rec["source"] = DFT2_SRC
+        recs.append(rec)
+    for r in recs:  # the pair's launches of the record's forms
+        r["launches"] = sum(forms[r["name"]].get(f, 0)
+                            for f in r["form"].split("+"))
+    print_records(recs)
+    return recs
+
+
+def stages_mid(grid, planes, mats_y):
+    """The distributed R2C y stage (``ops.stages._cdft_mid``) on an
+    exchanged grid: the half-spectrum planes after the y DFT."""
+    from spfft_tpu_torch.ops import stages
+    return stages._cdft_mid(grid[0].reshape(planes), grid[1].reshape(planes),
+                            mats_y)
+
+
+#: the CLI runs of ``benchmark_phase``
+BENCH_RUNS = (["-d", "256", "-r", "10"],
+              ["-d", "256", "-r", "10", "-t", "r2c"],
+              ["-d", "256", "-r", "10", "--shards", "4"],
+              ["-d", "768", "-s", "0.25", "-r", "5"])
+
+
+def benchmark_phase(card: str) -> list:
+    """``python -m spfft_tpu_torch.benchmark`` in this process for each of
+    ``BENCH_RUNS``: exit code 0, its JSON ``parameters`` on the card
+    (``backend`` cuda, ``pallas`` true, the card's name and power limit);
+    prints each JSON. Returns the parameters."""
+    import contextlib
+    import io
+    from spfft_tpu_torch import benchmark
+    out = []
+    for argv in BENCH_RUNS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = benchmark.main(argv)
+        text = buf.getvalue()
+        if rc != 0:
+            fail(f"benchmark {' '.join(argv)} exited {rc}:\n{text[-2000:]}")
+        params = json.loads(text[:text.index("\n}\n") + 2])
+        if params["backend"] != "cuda" or not params["pallas"] \
+                or not params["device_kind"] or not params["power_limit"]:
+            fail(f"benchmark {' '.join(argv)}: {params}")
+        print(f"benchmark {' '.join(argv)} ({card}; "
+              f"{time.perf_counter() - t0:.1f} s with its plan): "
+              f"{json.dumps(params)}", flush=True)
+        out.append(params)
+        torch.cuda.empty_cache()
+    return out
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the launch tables use; each
     counts its launches (``.launches``, and by form ``.form_launches``)."""
@@ -3367,10 +4132,21 @@ def main() -> int:
     device = torch.device("cuda", torch.cuda.current_device())
     recs, sweep = run(device)
     import spfft_tpu_torch as sp
+    t_long = time.perf_counter()
+    recs += long_axes_phase(sp, device, launch_counters())
+    for dtype in (torch.float32, torch.float64):
+        long_odd_shapes_phase(sp, device, launch_counters(), dtype)
+    recs += long_plans_phase(sp, device, launch_counters())
+    print(f"long-axis phases: {time.perf_counter() - t_long:.1f} s",
+          flush=True)
+    bench = benchmark_phase(card)
     capi = capi_phase(sp, device, launch_counters(), card)
     print(json.dumps({"batched_sweep": sweep}), flush=True)
+    print(json.dumps({"benchmark": bench}), flush=True)
     print(json.dumps({"capi": capi}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
+    print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

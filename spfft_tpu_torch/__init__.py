@@ -6,10 +6,13 @@ values on z-sticks <-> a dense space-domain grid. The JAX package
 transforms with PyTorch and hand-written CUDA kernels for the H100
 (``csrc/``, built with ``nvcc`` at first use). It never imports JAX.
 
-The port covers the local single-precision C2C and R2C plans, their
-batched and pointwise execution, the two-kernel route (``fused=False``),
-the ``Grid`` / ``Transform`` / multi-transform API, and the distributed
-plan over S shards held on one device with the block exchange::
+The port covers the local C2C and R2C plans in single and double
+precision at every dims the JAX package plans (axes above 512 through
+the two-pass FFT, the long matrix form or ``torch.fft``), their batched
+and pointwise execution, the two-kernel route (``fused=False``), the
+``Grid`` / ``Transform`` / multi-transform API, the distributed plan
+over S shards held on one device with the block exchange, and the
+benchmark CLI ``python -m spfft_tpu_torch.benchmark``::
 
     import spfft_tpu_torch as sp
     plan = sp.make_local_plan(sp.TransformType.C2C, 64, 64, 64, triplets)

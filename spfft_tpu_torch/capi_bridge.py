@@ -26,8 +26,9 @@ kernels' plain PyTorch versions on the host; anything else
 
 ``SpfftTpuPallasMode`` names the JAX package's Pallas compression kernels.
 Here ``AUTO`` and ``ON`` take the fused route (the fused compression +
-z-FFT CUDA kernels) and ``OFF`` the two-kernel route (``fused=False``: the
-gather kernel and ``pdft_last``). A distributed plan refuses what it does
+z-FFT CUDA kernels; a z axis above 512, which they decline, the
+two-kernel route, and ``plan_info`` item 13 reads 0) and ``OFF`` the
+two-kernel route (``fused=False``: the gather kernel and ``pdft_last``). A distributed plan refuses what it does
 not run (the compact, float-wire and ring exchanges) with
 ``InvalidParameterError``, which goes back to the caller as code 5.
 

@@ -29,6 +29,12 @@
 // contraction summed in one sequential chain loses about 4e-7 relative
 // (l2); in slices of 16 it loses about 1.3e-7, which keeps three passes
 // inside predicted_rel_error("single", 256) = 3.35e-7.
+// Long axes (K or N above 512, to 1024: kernel B, dft2.cu) no longer fit
+// whole: a double block at K = N = 1024 would take 327,808 bytes. There X
+// is staged in chunks of KC = 256 k (tile_product_staged), re-read from
+// global memory (L2) for each BN-wide pass over the output, and the same
+// BK-slice partial sums run over every chunk; Y stays whole, BM (N + 1)
+// a plane (double, K = N = 1024: 229,504 bytes with the matrix tile).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,6 +48,7 @@ constexpr int BK = 16;        // depth of one matrix tile and of one partial sum
 constexpr int BN = 256;       // output columns per pass over the matrix
 constexpr int THREADS = 256;  // 4 row groups x 64 column groups
 constexpr int TN = 4;         // adjacent columns per thread
+constexpr int KC = 256;       // k of one staged chunk of X (long axes)
 
 // The row shape of a T block: TM rows a thread (16 bytes of X: 4 floats,
 // 2 doubles), BM = 4 TM rows a block.
@@ -62,12 +69,14 @@ enum TileMode {
 };
 
 // Dynamic shared memory of one block for a (K, N) matrix: the staged rows
-// X (transposed, k-major), one BK x BN matrix tile, and the result Y.
+// X (transposed, k-major; with `staged`, one chunk of KC k), one BK x BN
+// matrix tile, and the result Y.
 template <class T>
 __host__ __device__ inline size_t tile_smem_bytes(int K, int N,
-                                                  int mode = CC) {
+                                                  int mode = CC,
+                                                  bool staged = false) {
   constexpr int BM = Rows<T>::BM;
-  const size_t kp = (size_t)round_up(K, BK);
+  const size_t kp = (size_t)round_up(staged ? min(K, KC) : K, BK);
   const size_t x_planes = mode == RC ? 1 : 2;
   const size_t y_planes = mode == CR ? 1 : 2;
   return sizeof(T) * (x_planes * kp * BM + 2 * (size_t)BK * BN +
@@ -138,6 +147,104 @@ __device__ __forceinline__ void load_tn(const T* p, T (&v)[TN]) {
   }
 }
 
+// acc += X C[kbase .. kbase + kp) for the BN output columns from n0, with
+// X's rows kbase .. kbase + kp - 1 staged in the tile (X[r][kbase + k] at
+// xr[k * BM + r]); C is (K, N) row-major, real and imaginary parts (Ma,
+// Mb) separate. In mode CR the two accumulators hold Xr Ma and Xi Mb.
+template <int MODE, class T>
+__device__ inline void tile_accumulate(const Tile<T>& t, int kbase, int K,
+                                       int N, int n0, const T* __restrict__ cr,
+                                       const T* __restrict__ ci,
+                                       T (&accr)[Rows<T>::TM][TN],
+                                       T (&acci)[Rows<T>::TM][TN]) {
+  constexpr int TM = Rows<T>::TM;
+  constexpr int BM = Rows<T>::BM;
+  const int ty = threadIdx.x / (BN / TN);
+  const int tx = threadIdx.x % (BN / TN);
+  for (int k0 = 0; k0 < t.kp; k0 += BK) {
+    for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
+      const int kk = idx / BN;
+      const int n = n0 + (idx - kk * BN);
+      const int k = kbase + k0 + kk;
+      const bool ok = k < K && n < N;
+      const size_t g = (size_t)k * N + n;
+      t.cr[idx] = ok ? cr[g] : T(0);
+      t.ci[idx] = ok ? ci[g] : T(0);
+    }
+    __syncthreads();
+
+    T pr[TM][TN], pi[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) pr[i][j] = pi[i][j] = T(0);
+
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      T ar[TM], ai[TM], br[TN], bi[TN];
+      load16(t.xr + (k0 + kk) * BM + ty * TM, ar);
+      if (MODE != RC) {
+        load16(t.xi + (k0 + kk) * BM + ty * TM, ai);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) ai[i] = T(0);
+      }
+      load_tn(t.cr + kk * BN + tx * TN, br);
+      load_tn(t.ci + kk * BN + tx * TN, bi);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          if (MODE == CC) {
+            pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+            pr[i][j] = fma_t(-ai[i], bi[j], pr[i][j]);
+            pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
+            pi[i][j] = fma_t(ai[i], br[j], pi[i][j]);
+          } else if (MODE == RC) {
+            pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+            pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
+          } else {
+            pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
+            pi[i][j] = fma_t(ai[i], bi[j], pi[i][j]);
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        accr[i][j] += pr[i][j];
+        acci[i][j] += pi[i][j];
+      }
+    __syncthreads();  // the matrix tile is overwritten next
+  }
+}
+
+// The BN output columns from n0 of the accumulators into Y (mode CR: their
+// sum).
+template <int MODE, class T>
+__device__ inline void tile_store(const Tile<T>& t, int N, int n0,
+                                  const T (&accr)[Rows<T>::TM][TN],
+                                  const T (&acci)[Rows<T>::TM][TN]) {
+  constexpr int TM = Rows<T>::TM;
+  const int ty = threadIdx.x / (BN / TN);
+  const int tx = threadIdx.x % (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx * TN + j;
+      if (n < N) {
+        if (MODE == CR) {
+          t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j] + acci[i][j];
+        } else {
+          t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j];
+          t.yi[(ty * TM + i) * t.ldy + n] = acci[i][j];
+        }
+      }
+    }
+}
+
 // Y = X * C for the staged rows in mode MODE; C is (K, N) row-major, real
 // and imaginary parts (Ma, Mb) separate. Ends with Y complete in shared
 // memory (after a barrier). In mode CR the two accumulators hold Xr Ma
@@ -147,87 +254,39 @@ __device__ inline void tile_product(const Tile<T>& t, int K, int N,
                                     const T* __restrict__ cr,
                                     const T* __restrict__ ci) {
   constexpr int TM = Rows<T>::TM;
-  constexpr int BM = Rows<T>::BM;
-  const int ty = threadIdx.x / (BN / TN);
-  const int tx = threadIdx.x % (BN / TN);
   for (int n0 = 0; n0 < N; n0 += BN) {
     T accr[TM][TN], acci[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = T(0);
+    tile_accumulate<MODE>(t, 0, K, N, n0, cr, ci, accr, acci);
+    tile_store<MODE>(t, N, n0, accr, acci);
+  }
+  __syncthreads();
+}
 
-    for (int k0 = 0; k0 < t.kp; k0 += BK) {
-      for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-        const int kk = idx / BN;
-        const int n = n0 + (idx - kk * BN);
-        const int k = k0 + kk;
-        const bool ok = k < K && n < N;
-        const size_t g = (size_t)k * N + n;
-        t.cr[idx] = ok ? cr[g] : T(0);
-        t.ci[idx] = ok ? ci[g] : T(0);
-      }
-      __syncthreads();
-
-      T pr[TM][TN], pi[TM][TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) pr[i][j] = pi[i][j] = T(0);
-
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        T ar[TM], ai[TM], br[TN], bi[TN];
-        load16(t.xr + (k0 + kk) * BM + ty * TM, ar);
-        if (MODE != RC) {
-          load16(t.xi + (k0 + kk) * BM + ty * TM, ai);
-        } else {
-#pragma unroll
-          for (int i = 0; i < TM; ++i) ai[i] = T(0);
-        }
-        load_tn(t.cr + kk * BN + tx * TN, br);
-        load_tn(t.ci + kk * BN + tx * TN, bi);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            if (MODE == CC) {
-              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
-              pr[i][j] = fma_t(-ai[i], bi[j], pr[i][j]);
-              pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
-              pi[i][j] = fma_t(ai[i], br[j], pi[i][j]);
-            } else if (MODE == RC) {
-              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
-              pi[i][j] = fma_t(ar[i], bi[j], pi[i][j]);
-            } else {
-              pr[i][j] = fma_t(ar[i], br[j], pr[i][j]);
-              pi[i][j] = fma_t(ai[i], bi[j], pi[i][j]);
-            }
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          accr[i][j] += pr[i][j];
-          acci[i][j] += pi[i][j];
-        }
-      __syncthreads();  // the matrix tile is overwritten next
-    }
+// tile_product for a tile whose X holds one chunk of t.kp k (carved for
+// min(K, KC)): for each BN-wide pass over the output, every chunk of the
+// rows is staged through load(r, k) (stage_rows) and accumulated.
+template <int MODE, class T, class Load>
+__device__ inline void tile_product_staged(const Tile<T>& t, int K, int N,
+                                           const T* __restrict__ cr,
+                                           const T* __restrict__ ci,
+                                           Load load) {
+  constexpr int TM = Rows<T>::TM;
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    T accr[TM][TN], acci[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx * TN + j;
-        if (n < N) {
-          if (MODE == CR) {
-            t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j] + acci[i][j];
-          } else {
-            t.yr[(ty * TM + i) * t.ldy + n] = accr[i][j];
-            t.yi[(ty * TM + i) * t.ldy + n] = acci[i][j];
-          }
-        }
-      }
+      for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = T(0);
+    for (int kbase = 0; kbase < K; kbase += t.kp) {
+      stage_rows<MODE>(t, min(t.kp, K - kbase),
+                       [&](int r, int k) { return load(r, kbase + k); });
+      tile_accumulate<MODE>(t, kbase, K, N, n0, cr, ci, accr, acci);
+    }
+    tile_store<MODE>(t, N, n0, accr, acci);
   }
   __syncthreads();
 }

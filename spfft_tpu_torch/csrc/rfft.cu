@@ -3,8 +3,11 @@
 // modes "rc" (prdft2, the R2C forward head) and "cr" (pdft2_cr, the R2C
 // backward tail), launched at :277, and of the distributed R2C plan's x
 // stage, for transforms the plan describes (ops/dft.py: DftMats of kind
-// r2c / c2r) with an even length n <= 512 whose half h = n / 2 is
-// 2^a 3^b 5^c. Other lengths stay in the matrix form (dft2.cu).
+// r2c / c2r) with an even length n <= 1024 whose half h = n / 2 is
+// 2^a 3^b 5^c (the real axes above 512 too: ops/dft.py real_form). Other
+// lengths stay in the matrix form (dft2.cu). At h = 512 a block holds 32
+// rows in float (16 in double) of row_stride(513) = 529 slots: 135,424
+// bytes of rows either way, within the 227 KB a block may have.
 //
 // A real transform of length n is a complex one of length h plus a pass
 // over the pairs of bins (k, h - k), the textbook real FFT:

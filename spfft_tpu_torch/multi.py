@@ -46,7 +46,9 @@ def _check(transforms: Sequence[Transform], args: Sequence, what: str):
 #: transform at a time. The gate counts elements whatever the
 #: precision: in double, chip_smoke.py's batched pair at 256^3, B = 4,
 #: took 3.9997 ms per band against 4.3987 for one pair (C2C) and 1.5600
-#: against 1.7400 (R2C) on the same card.
+#: against 1.7400 (R2C) on the same card. Long-axis plans pass the same
+#: gate, with no knob of their own: a 768^3 grid (452,984,832 points) is
+#: above it for any B >= 1, so its batches run one transform at a time.
 FUSED_BATCH_MAX_GRID = 134_217_728
 
 

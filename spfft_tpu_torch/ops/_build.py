@@ -37,8 +37,8 @@ from ..errors import DeviceError, InvalidParameterError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("dft2.cu", "fft.cu", "fused_compress.cu", "fused_fft.cu",
-           "gather.cu", "rfft.cu")
+SOURCES = ("dft2.cu", "fft.cu", "fft_long.cu", "fused_compress.cu",
+           "fused_fft.cu", "gather.cu", "rfft.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -129,11 +129,18 @@ def launch(fn, what: str, device, *args) -> None:
         raise DeviceError(f"{what}: CUDA error {code} at launch")
 
 
+#: the form of a stage that runs a PyTorch call (``torch.fft``), not a
+#: kernel of this package
+LIBRARY = "library"
+
+
 def count(wrapper, form: str) -> None:
     """One launch of ``wrapper``'s kernel in ``form``: adds one to
     ``wrapper.launches`` and to ``wrapper.form_launches[form]`` (a form
-    missing from that dict starts at 0)."""
-    wrapper.launches += 1
+    missing from that dict starts at 0). A :data:`LIBRARY` call launches
+    no kernel of the package: it adds to its form's count only."""
+    if form != LIBRARY:
+        wrapper.launches += 1
     wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
 
 
@@ -181,10 +188,17 @@ def require(t: torch.Tensor, name: str, dtype, shape=None,
 def require_mats(mats, name: str, dtype, shape, device) -> None:
     """A DFT matrix pair of ``dtype`` and ``shape`` on ``device``, and
     its twiddle table of ``dtype`` where it carries one
-    (``ops.dft.DftMats``); raises
-    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
+    (``ops.dft.DftMats``), whose ``shape`` (where it has one: a stage of
+    the two-pass or ``torch.fft`` form holds no pair) is ``shape`` too;
+    raises :class:`~spfft_tpu_torch.errors.InvalidParameterError`
+    otherwise."""
     for c in mats:
         require(c, f"{name} matrix", dtype, shape, device)
+    got = getattr(mats, "shape", None)
+    if got is not None and tuple(got) != tuple(shape):
+        raise InvalidParameterError(
+            f"{name}: expected a DFT stage of shape {tuple(shape)}, got "
+            f"{tuple(got)}")
     tw = getattr(mats, "twiddles", None)
     if tw is not None:
         require(tw, f"{name} twiddle table", dtype, (2, mats.n), device)

@@ -47,6 +47,25 @@ its function run the matrix form (``csrc/dft2.cu``, form ``"matrix"``,
 bound by operations). :func:`stage_form` and :func:`plane_forms`
 are the dispatch, by shape and matrix alone.
 
+Long axes (above ``dft.MATMUL_DFT_MAX``, routed by length at plan time,
+``dft.c2c_form`` / ``dft.real_form``). A complex stage with a split n =
+n1 n2 runs the two-pass FFT (``csrc/fft_long.cu``, form ``"two_pass"``:
+a pass over n1 with the twiddle W_n^(i2 k1) in its epilogue, then a pass
+over n2 whose store puts the bins in natural order, straight or
+transposed within each plane as the stage kernels store; one launch a
+stage where a row fits a block, :func:`long_row_max`, else one a pass),
+held to the two-stage product (``dft.two_pass_plain``); an unsplittable
+complex stage up to 1024 and a real stage up to 1024 with no real FFT
+form run the matrix stage kernel with its contraction staged through
+shared memory in chunks (``csrc/dft2.cu``, form ``"long_matrix"``); a
+real stage up to 1024 whose half is 2^a 3^b 5^c runs the real FFT form;
+anything longer ``torch.fft`` (form ``"library"``: a PyTorch call, not a
+kernel of this package, so it counts by form only, never in
+``.launches``). The two-pass and ``torch.fft`` forms run whole axes: a
+window is expanded to the whole axis before them and taken out after
+(the JAX package's ``_expand_x_window`` / ``_extract_x_window``).
+:func:`plane_forms` never takes the cluster form for a long stage.
+
 Every operand, matrix and twiddle table of a call shares one real type,
 float32 or float64 (a double-precision plan's); the wrappers take the
 kernels' entry for it (``spfft_fft_stage`` or ``spfft_fft_stage_f64``,
@@ -55,7 +74,7 @@ counts under the same form as a float32 one.
 Each wrapper counts its launches in ``.launches`` and by form in
 ``.form_launches`` (keyed by :data:`ALL_FORMS`). On a CPU tensor it runs
 the plain version from :mod:`spfft_tpu_torch.ops.dft` (matrix products,
-whatever the form).
+the two-stage product or ``torch.fft``, whatever the form).
 """
 
 from __future__ import annotations
@@ -92,6 +111,15 @@ def _fft_plane_args(real):
     return [_P] * 6 + [_I] * 15 + [real, _I, _P]
 
 
+def _long_args(real):
+    """csrc/fft_long.cu's ``spfft_fft_long``: the pass (0: both in one
+    launch), the input and output planes, the length-n twiddle table, M,
+    n, n1, n2, plane_rows, sign, the scale (``real``), each factor's
+    radices (0: its direct DFT) and the stream."""
+    return [_I] + [_P] * 5 + [ctypes.c_longlong] + [_I] * 5 + [real, _I, _I,
+                                                               _P]
+
+
 def _rfft_args(real):
     """csrc/rfft.cu's ``spfft_rfft_stage``: the mode, the input and
     output planes, the twiddle table, M, K, N, plane_rows, the transform
@@ -108,20 +136,24 @@ CLUSTER_BLOCKS = 8
 CLUSTER_BLOCK_ELEMS = 512 * 16
 #: the forms of a complex stage
 FORMS = ("matrix", "fft", "cluster")
-#: every form a wrapper counts: a real stage's FFT form too
-ALL_FORMS = FORMS + ("rfft",)
+#: every form a wrapper counts: a real stage's FFT form and the long-axis
+#: forms too
+ALL_FORMS = FORMS + ("rfft", "two_pass", "long_matrix", "library")
 #: the kind of DftMats each real mode takes
 _REAL_KIND = {"rc": "r2c", "cr": "c2r"}
 
 
 def stage_form(mats) -> str:
-    """The form of one stage against ``mats``: where the pair carries its
-    function (``dft.DftMats``) and a factor list (``DftMats.factors``),
-    ``"fft"`` for a complex pair and ``"rfft"`` for a real one (an even
-    length whose half has an FFT factor list), else ``"matrix"``."""
-    if getattr(mats, "twiddles", None) is None:
-        return "matrix"
-    return "fft" if mats.kind == "c2c" else "rfft"
+    """The form of one stage against ``mats``: the ``form`` a
+    ``dft.DftMats`` carries (``"fft"``, ``"rfft"``, ``"matrix"``,
+    ``"two_pass"``, ``"long_matrix"``, ``"library"``); for a plain pair
+    without its function ``"matrix"``, or ``"long_matrix"`` where either
+    side exceeds ``dft.MATMUL_DFT_MAX``."""
+    form = getattr(mats, "form", None)
+    if form is not None:
+        return form
+    return "long_matrix" if max(dft.mats_shape(mats)) > dft.MATMUL_DFT_MAX \
+        else "matrix"
 
 
 def plane_forms(mats1, mats2, a: int) -> tuple:
@@ -133,26 +165,104 @@ def plane_forms(mats1, mats2, a: int) -> tuple:
     holds), else one launch per stage in its :func:`stage_form`."""
     forms = (stage_form(mats1), stage_form(mats2))
     if forms == ("fft", "fft"):
-        b_out = mats1[0].shape[1]
+        b_out = dft.mats_shape(mats1)[1]
         if max(-(-a // CLUSTER_BLOCKS) * mats1.n,
                -(-b_out // CLUSTER_BLOCKS) * mats2.n) <= CLUSTER_BLOCK_ELEMS:
             return ("cluster",)
     return forms
 
 
-def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
-    """One launch of a stage kernel in ``mode``: rows of ``ins`` (minor
-    axis K; one real plane in mode rc) against ``mats`` (K, N) into
-    ``outs`` (one real plane in mode cr); the FFT stage kernel in mode cc
-    and the real FFT stage kernel in modes rc and cr where
-    :func:`stage_form` says so, else the matrix stage kernel. Returns the
-    form."""
-    k, n = mats[0].shape
+def _store(res, outs, plane_rows: int) -> None:
+    """Copy results ``(..., N)`` into ``outs`` as a stage kernel stores
+    them: straight, or transposed within planes of ``plane_rows`` rows."""
+    for r, o in zip(res, outs):
+        n = r.shape[-1]
+        if plane_rows == 0:
+            o.view(-1, n).copy_(r.reshape(-1, n))
+        else:
+            o.view(-1, n, plane_rows).copy_(
+                r.reshape(-1, plane_rows, n).transpose(1, 2))
+
+
+def long_row_max() -> int:
+    """The longest row one block of csrc/fft_long.cu holds whole (its
+    ``WHOLE_N``, read from the built library): a two-pass stage up to it
+    is one launch, above it two (pass 1, then pass 2)."""
+    return _build.function("fft_long.cu", "spfft_fft_long_whole_n", ())()
+
+
+def _two_pass(wrapper, ins, mats, outs, plane_rows: int) -> None:
+    """The two-pass form of csrc/fft_long.cu on the rows of ``ins``: one
+    launch where a row fits a block (:func:`long_row_max`), else pass 1
+    into an intermediate and pass 2 (:func:`_long_passes`)."""
+    _long_passes(wrapper, ins, mats, outs, plane_rows,
+                 one_launch=mats.n <= long_row_max())
+
+
+def _long_passes(wrapper, ins, mats, outs, plane_rows: int,
+                 one_launch: bool) -> None:
+    """csrc/fft_long.cu's passes, both in one launch (``one_launch``) or
+    pass 1 into an intermediate then pass 2, on the rows of ``ins``
+    (their window expanded to the whole axis), each launch counted in
+    ``wrapper``; into ``outs`` (or, where the output window is not the
+    whole axis, into whole rows whose window is then taken out)."""
+    n = mats.n
+    n1, n2 = mats.split
+    xr, xi = (dft.expand_window(t, mats.rows, n) for t in ins)
+    dtype = xr.dtype
+    m = xr.numel() // n
+    fn = _build.function("fft_long.cu", _build.entry("spfft_fft_long", dtype),
+                         _long_args(_build.REAL_TYPES[dtype]))
+    whole = tuple(mats.cols) == (0, n)
+    dst = outs if whole else (torch.empty_like(xr), torch.empty_like(xr))
+    rows = plane_rows if whole else 0
+    codes = (dft.radix_code(dft.fft_factors(n1)),
+             dft.radix_code(dft.fft_factors(n2)))
+    if one_launch:
+        steps = ((0, (xr, xi), dst, rows),)
+    else:
+        mid = (torch.empty_like(xr), torch.empty_like(xr))
+        steps = ((1, (xr, xi), mid, 0), (2, mid, dst, rows))
+    for p, src, out, prows in steps:
+        _build.launch(fn, f"fft_long pass {p}", xr.device, p,
+                      *(t.data_ptr() for t in (*src, *out, mats.twiddles)),
+                      m, n, n1, n2, prows, mats.sign, mats.scale, *codes)
+        _build.count(wrapper, "two_pass")
+    if not whole:
+        _store(tuple(dft.extract_window(t, mats.cols, n) for t in dst),
+               outs, plane_rows)
+
+
+#: the plain version of each mode's stage, as a tuple of outputs
+_PLAIN = {"cc": dft.pdft_last,
+          "rc": dft.prdft_last,
+          "cr": lambda yr, yi, mats: (dft.pirdft_last(yr, yi, mats),)}
+
+
+def _stage(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
+    """One stage in ``mode``: rows of ``ins`` (minor axis K; one real
+    plane in mode rc) against ``mats`` (K, N) into ``outs`` (one real
+    plane in mode cr), stored straight or transposed within planes of
+    ``plane_rows`` rows: the FFT stage kernel in mode cc and the real FFT
+    stage kernel in modes rc and cr where :func:`stage_form` says so, the
+    launches of the two-pass form, ``torch.fft`` in the ``"library"``
+    form, else the matrix stage kernel (staged in chunks where a side
+    exceeds 512). Each launch, and the ``torch.fft`` call, is counted in
+    ``wrapper`` by its form where it is made."""
+    k, n = dft.mats_shape(mats)
     m = ins[0].numel() // k
     form = stage_form(mats)
-    if form != "matrix" and mats.kind != _REAL_KIND.get(mode, "c2c"):
+    if form not in ("matrix", "long_matrix") \
+            and mats.kind != _REAL_KIND.get(mode, "c2c"):
         raise InvalidParameterError(
             f"a {mats.kind} DFT spec cannot run a stage in mode {mode}")
+    if form == "library":
+        _store(_PLAIN[mode](*ins, mats), outs, plane_rows)
+        _build.count(wrapper, "library")
+        return
+    if form == "two_pass":
+        _two_pass(wrapper, ins, mats, outs, plane_rows)
+        return
     xr, xi = (*ins, None)[:2]
     yr, yi = (*outs, None)[:2]
     dtype = xr.dtype
@@ -167,7 +277,8 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
                       m, k, n, plane_rows, mats.n, mats.scale,
                       (mats.cols if mode == "rc" else mats.rows)[0],
                       dft.radix_code(mats.factors))
-        return "rfft"
+        _build.count(wrapper, "rfft")
+        return
     if form == "fft":
         fn = _build.function("fft.cu", _build.entry("spfft_fft_stage", dtype),
                              _fft_stage_args(real))
@@ -176,14 +287,15 @@ def _stage(mode: str, ins, mats, outs, plane_rows: int) -> str:
                       m, k, n, plane_rows, mats.n, mats.sign, mats.scale,
                       mats.rows[0], mats.cols[0],
                       dft.radix_code(mats.factors))
-        return "fft"
+        _build.count(wrapper, "fft")
+        return
     fn = _build.function("dft2.cu", _build.entry("spfft_dft_stage", dtype),
                          _ARGS)
     _build.launch(fn, f"dft2 stage {mode}", xr.device, _MODES[mode],
                   *(None if t is None else t.data_ptr()
                     for t in (xr, xi, *mats, yr, yi)),
                   m, k, n, plane_rows)
-    return "matrix"
+    _build.count(wrapper, form)
 
 
 def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:
@@ -201,7 +313,8 @@ def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:
     _build.launch(fn, "fft plane", ins[0].device,
                   *(t.data_ptr() for t in (*ins, *outs, mats1.twiddles,
                                            mats2.twiddles)),
-                  p, a, b, mats1[0].shape[1], mats2[0].shape[1],
+                  p, a, b, dft.mats_shape(mats1)[1],
+                  dft.mats_shape(mats2)[1],
                   *spec(mats1), *spec(mats2), mats1.scale * mats2.scale,
                   int(swap_out))
 
@@ -216,8 +329,8 @@ def _check(name: str, ins, mats1, mats2):
         raise InvalidParameterError(
             f"{name}: expected (P, A, B) operands, got {tuple(x.shape)}")
     p, a, b = x.shape
-    b_out = mats1[0].shape[1]
-    a_out = mats2[0].shape[1]
+    b_out = dft.mats_shape(mats1)[1]
+    a_out = dft.mats_shape(mats2)[1]
     dev = x.device
     _build.require(x, f"{name} input", dtype)
     for t in ins[1:]:
@@ -254,10 +367,9 @@ def _run2(wrapper, modes, ins, mats1, mats2, plain, swap_out=False):
     else:
         mid = tuple(torch.empty((p, b_out, a), dtype=x.dtype,
                                 device=x.device) for _ in range(2))
-        _build.count(wrapper, _stage(modes[0], ins, mats1, mid,
-                                     plane_rows=a))
-        _build.count(wrapper, _stage(modes[1], mid, mats2, out,
-                                     plane_rows=b_out if swap_out else 0))
+        _stage(wrapper, modes[0], ins, mats1, mid, plane_rows=a)
+        _stage(wrapper, modes[1], mid, mats2, out,
+               plane_rows=b_out if swap_out else 0)
     return out[0] if real_out else out
 
 
@@ -278,7 +390,8 @@ def _last(wrapper, mode: str, ins, mats, plain):
     _build.require(x, f"{name} input", dtype)
     for t in ins[1:]:
         _build.require(t, f"{name} input", dtype, x.shape, dev)
-    n = mats[0].shape[1] if mats[0].dim() == 2 else -1
+    shape = dft.mats_shape(mats)
+    n = shape[1] if len(shape) == 2 else -1
     _build.require_mats(mats, name, dtype, (k, n), dev)
     if not _build.on_cuda(x, name):
         return plain(*ins, mats)
@@ -288,14 +401,15 @@ def _last(wrapper, mode: str, ins, mats, plain):
         for t in out:
             t.zero_()
     else:
-        _build.count(wrapper, _stage(mode, ins, mats, out, plane_rows=0))
+        _stage(wrapper, mode, ins, mats, out, plane_rows=0)
     return out[0] if mode == "cr" else out
 
 
 def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
     """Planar complex DFT along the minor axis, ``(..., K) -> (..., N)``
     against the ``(cr, ci)`` pair ``(K, N)``; any leading axes are rows.
-    Each kernel launch (one per call) adds one to
+    Each kernel launch (one per call; two in the two-pass form above
+    :func:`long_row_max`, none in the ``torch.fft`` form) adds one to
     ``pdft_last.launches`` and to its form's count in
     ``pdft_last.form_launches``."""
     return _last(pdft_last, "cc", (xr, xi), mats, dft.pdft_last)
@@ -305,8 +419,9 @@ def prdft_last(x: torch.Tensor, mats):
     """Real DFT along the minor axis to the planar half spectrum, ``(...,
     n) -> (..., N)`` against the real pair ``mats`` ``(n, N)``
     (``dft.device_r2c`` or a plain ``dft.r2c_mats`` pair); any leading
-    axes are rows. Each kernel launch (one per call) adds one to
-    ``prdft_last.launches`` and to its form's count."""
+    axes are rows. Each kernel launch (one per call; none in the
+    ``torch.fft`` form) adds one to ``prdft_last.launches`` and to its
+    form's count."""
     return _last(prdft_last, "rc", (x,), mats, dft.prdft_last)
 
 
@@ -314,8 +429,9 @@ def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
     """Planar half spectrum to the real inverse DFT along the minor axis,
     ``(..., K) -> (..., n)`` against the real pair ``mats`` ``(K, n)``
     (``dft.device_c2r`` or a plain ``dft.c2r_mats`` pair); any leading
-    axes are rows. Each kernel launch (one per call) adds one to
-    ``pirdft_last.launches`` and to its form's count."""
+    axes are rows. Each kernel launch (one per call; none in the
+    ``torch.fft`` form) adds one to ``pirdft_last.launches`` and to its
+    form's count."""
     return _last(pirdft_last, "cr", (yr, yi), mats, dft.pirdft_last)
 
 
@@ -323,7 +439,8 @@ def pdft2(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     """``(P, A, B) -> (P, B', A')`` planar complex DFT over both minor
     axes; ``mats1``/``mats2`` are ``(cr, ci)`` pairs of shapes
     ``(B, B')`` and ``(A, A')``. Each kernel launch adds one to
-    ``pdft2.launches`` (one per call in the cluster form, else two)."""
+    ``pdft2.launches`` (one per call in the cluster form, else one per
+    stage, two for a two-pass stage above :func:`long_row_max`)."""
     return _run2(pdft2, ("cc", "cc"), (xr, xi), mats1, mats2,
                  dft.pdft2_minor)
 
@@ -333,7 +450,7 @@ def pdft2_swapped(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     axes, the result in the input's axis order: :func:`pdft2` with the
     last store transposed within each plane. Each kernel launch adds one
     to ``pdft2_swapped.launches`` (one per call in the cluster form, else
-    two)."""
+    one per stage, two for a two-pass stage above :func:`long_row_max`)."""
     return _run2(pdft2_swapped, ("cc", "cc"), (xr, xi), mats1, mats2,
                  dft.cdft2_xy, swap_out=True)
 
@@ -343,7 +460,8 @@ def prdft2(x: torch.Tensor, mats1, mats2):
     the half spectrum (``mats1`` ``(B, B')`` from ``dft.device_r2c``,
     ``dft.r2c_mats`` or its column window), swap, a complex DFT over A
     (``mats2`` ``(A, A')``). Each kernel launch adds one to
-    ``prdft2.launches`` (two per call)."""
+    ``prdft2.launches`` (two per call; three where the complex stage
+    takes the two-pass form above :func:`long_row_max`)."""
     return _run2(prdft2, ("rc", "cc"), (x,), mats1, mats2,
                  dft.prdft2_minor)
 
@@ -354,7 +472,8 @@ def pdft2_cr(xr: torch.Tensor, xi: torch.Tensor, mats1, mats2):
     (``mats2`` ``(A, A')`` from ``dft.device_c2r``, ``dft.c2r_mats`` or
     its row window).
     Each kernel launch adds one to ``pdft2_cr.launches`` (two per
-    call)."""
+    call; three where the complex stage takes the two-pass form above
+    :func:`long_row_max`)."""
     return _run2(pdft2_cr, ("cc", "cr"), (xr, xi), mats1, mats2,
                  dft.pdft2_minor_cr)
 

@@ -11,6 +11,12 @@
   scale carried by the z matrices) -> the sparse values, written through
   a plan-time CSR by stick (:func:`compress_csr`).
 
+Both kernels hold a whole stick in shared memory, so they take a z axis
+of at most ``dft.MATMUL_DFT_MAX``; a longer one is declined
+(:func:`eligible_dim`, the JAX package's reason ``"dimz_over_cap"``,
+``spfft_tpu/ops/fused_kernel.py:139-149``) and the plan takes the
+two-kernel route, whose z stage runs the long forms.
+
 Forms, chosen by shape (:func:`z_form`): z matrices that carry their
 function (``dft.DftMats``) with a length dim_z of the form 2^a 3^b 5^c
 run the FFT form (``csrc/fused_fft.cu``: the gather fused with a
@@ -74,6 +80,25 @@ def _fft_cmp_args(real):
 #: largest batch of one launch (the grid's y extent)
 MAX_BATCH = 65535
 FORMS = ("matrix", "fft")
+
+
+#: the longest z axis the fused kernels hold
+MAX_DIM_Z = dft.MATMUL_DFT_MAX
+
+
+def eligible_dim(dim_z: int):
+    """None where the fused kernels take a z axis of ``dim_z``, else the
+    reason they decline it, as the JAX package's ``eligible_dim`` words
+    it: ``"dimz_over_cap"`` above :data:`MAX_DIM_Z`."""
+    return None if int(dim_z) <= MAX_DIM_Z else "dimz_over_cap"
+
+
+def _require_eligible(dim_z: int, name: str) -> None:
+    why = eligible_dim(dim_z)
+    if why is not None:
+        raise InvalidParameterError(
+            f"{name}: the fused kernels decline dim_z={dim_z} ({why}: above "
+            f"{MAX_DIM_Z}); a plan takes the two-kernel route there")
 
 
 def z_form(mats, dim_z: int) -> str:
@@ -169,6 +194,7 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
         raise InvalidParameterError(
             f"decompress_zdft: slot_src must be flat with a multiple of "
             f"dim_z={dim_z} slots, got {tuple(slot_src.shape)}")
+    _require_eligible(dim_z, "decompress_zdft")
     _build.require_mats(mats, "decompress_zdft", dtype, (dim_z, dim_z), dev)
     num_sticks = slot_src.numel() // dim_z
     if not -1 <= zero_stick < num_sticks:
@@ -254,6 +280,7 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     dtype = _build.call_dtype(sr, "zdft_compress sr")
     _build.require(sr, "zdft_compress sr", dtype)
     _build.require(si, "zdft_compress si", dtype, sr.shape, dev)
+    _require_eligible(dim_z, "zdft_compress")
     _build.require_mats(mats, "zdft_compress", dtype, (dim_z, dim_z), dev)
     _build.require(stick_ptr, "zdft_compress stick_ptr", torch.int32,
                    (num_sticks + 1,), dev)

@@ -45,9 +45,14 @@ FULL scaling is folded into the forward z matrix, as the local plan does
 within the precision's tolerance). ``precision="double"`` runs every
 stage, table and matrix in float64 through the kernels' float64
 instances, and the exchange moves 16-byte values, as the local plan
-does. The JAX package's TPU window tables, uniform
-per-shard table padding and fused-kernel decline gates have no
-counterpart: the CUDA kernels take every shard's shape.
+does. The JAX package's TPU window tables and uniform per-shard table
+padding have no counterpart: the CUDA kernels take every shard's shape.
+Its one fused-kernel decline kept here is by length: a z axis above
+``ops.fused_kernel.MAX_DIM_Z`` (``"dimz_over_cap"``,
+``fused_dist_fallback_reason``) takes the two-kernel route. Long axes run
+as in the local plan: each stage takes its form by its length
+(``ops.dft.c2c_form`` / ``real_form``), in the per-shard z stage, the y
+stage and the split or R2C x stages.
 
 A plan of one shard below ``PAIR_IO_THRESHOLD`` values runs through the
 local :class:`~spfft_tpu_torch.plan.TransformPlan` (the reference treats
@@ -261,7 +266,10 @@ class DistributedTransformPlan:
         self.mesh = mesh
         self.axis_name = mesh.axis_name
         self.device = mesh.device
-        self._fused = bool(fused)
+        #: why the fused z kernels decline this plan's z axis, or None
+        self._fused_reason = fused_kernel.eligible_dim(dp.dim_z) \
+            if fused else None
+        self._fused = bool(fused) and self._fused_reason is None
         self._r2c = dp.hermitian
         self._init_split_x()
         self._build_tables()
@@ -272,7 +280,8 @@ class DistributedTransformPlan:
                 and dp.shard_plans[0].num_values < PAIR_IO_THRESHOLD:
             self._local1 = TransformPlan(dp.shard_plans[0],
                                          precision=precision,
-                                         device=self.device, fused=fused)
+                                         device=self.device,
+                                         fused=self._fused)
 
     # -- static tables (the JAX package's, entry for entry) ------------------
     def _init_split_x(self) -> None:
@@ -414,7 +423,7 @@ class DistributedTransformPlan:
         ts += [a for t in self._t_csr for a in t]
         ts += [] if self._t_vi is None else [self._t_vi]
         ts += [] if self._t_conj is None else [self._t_conj]
-        ts += [m for pair in self._mats.values() for m in pair]
+        ts += [t for m in self._mats.values() for t in m.tensors]
         return ts
 
     # -- the pipeline, on stacked planar operands (B, S, ...) ----------------
@@ -632,13 +641,17 @@ class DistributedTransformPlan:
 
     @property
     def fused_dist_fallback_reason(self) -> Optional[str]:
-        """Always None: the CUDA kernels take every shard's shape, and the
-        two-kernel route is only ever the caller's choice."""
-        return None
+        """Why the fused backward z stage is not running:
+        ``"dimz_over_cap"`` where ``fused=True`` was asked for and dim_z
+        exceeds ``ops.fused_kernel.MAX_DIM_Z`` (the plan then takes the
+        two-kernel route), else None (the CUDA kernels take every shard's
+        shape, and otherwise the two-kernel route is the caller's
+        choice)."""
+        return self._fused_reason
 
     @property
     def fused_dist_fwd_fallback_reason(self) -> Optional[str]:
-        return None
+        return self._fused_reason
 
     @property
     def _wire_elem_bytes(self) -> int:

@@ -45,10 +45,16 @@ float64 instances of the same CUDA kernels (native FP64 on the card: no
 double-single, no cast to float32 anywhere on the way), and returns
 float64 results; ``"single"`` runs it in float32.
 
+Long axes: every dims the JAX package plans is planned here. Each axis
+takes its form by its length alone (``ops.dft.c2c_form`` /
+``real_form``): above ``ops.dft.MATMUL_DFT_MAX`` the two-pass FFT, the
+long matrix form or ``torch.fft`` (``ops.dft_kernel``). The fused z
+kernels hold a stick of at most 512: a longer z axis is declined
+(``fused_fallback_reasons``, ``"dimz_over_cap"``) and the plan takes the
+two-kernel route.
+
 Not in this slice of the port, each raising a typed error that names
-it: axes above ``ops.dft.MATMUL_DFT_MAX`` (the JAX package also runs an
-R2C x axis up to 1024 direct), ``donate_inputs=True`` and the
-plan-artifact restore.
+it: ``donate_inputs=True`` and the plan-artifact restore.
 """
 
 from __future__ import annotations
@@ -148,10 +154,6 @@ class TransformPlan:
         real_dtype(precision)
         if donate_inputs:
             raise _not_in_slice("donate_inputs=True", "serving")
-        if not dft.mdft_axes(p.dim_x, p.dim_y, p.dim_z):
-            raise _not_in_slice(
-                f"an axis above MATMUL_DFT_MAX={dft.MATMUL_DFT_MAX} (dims "
-                f"{p.dim_x}, {p.dim_y}, {p.dim_z})", "long-axis")
         self.index_plan = p
         self.precision = precision
         #: the torch real type of every tensor the plan computes on
@@ -159,7 +161,11 @@ class TransformPlan:
         self.device = resolve_device(device)
         self._pair_io = p.num_values >= PAIR_IO_THRESHOLD
         self._r2c = p.hermitian
-        self._fused = bool(fused)
+        why = fused_kernel.eligible_dim(p.dim_z)
+        #: per direction, why a fused z kernel declined (JAX's keys)
+        self._fused_reasons = {"dec": why, "cmp": why} \
+            if fused and why is not None else {}
+        self._fused = bool(fused) and why is None
         dev = self.device
 
         def idx32(a):
@@ -296,16 +302,29 @@ class TransformPlan:
     def fused_active(self) -> bool:
         """True when both directions run the fused compression + z-DFT
         kernels (``ops.fused_kernel``); False on the two-kernel route
-        (``fused=False``)."""
+        (``fused=False``, or a z axis the fused kernels decline)."""
         return self._fused
 
     @property
     def fused_fallback_reasons(self) -> dict:
         """Per-direction reasons a fused kernel declined, as in the JAX
-        package: always ``{}`` here, since the CUDA kernels take every
-        shape the plan takes and the two-kernel route is only ever the
-        caller's choice."""
-        return {}
+        package (``{"dec": reason, "cmp": reason}``): ``"dimz_over_cap"``
+        for both where ``fused=True`` was asked for and dim_z exceeds
+        ``ops.fused_kernel.MAX_DIM_Z``; ``{}`` where the fused kernels run
+        or the two-kernel route was the caller's choice."""
+        return dict(self._fused_reasons)
+
+    @property
+    def predicted_error(self) -> float:
+        """:func:`predicted_rel_error` of this plan: its precision, its
+        longest axis, and whether the JAX package's matrix forms cover its
+        axes (``ops.dft.mdft_coverable``, a hermitian x axis direct only);
+        where they do not, the ``torch.fft`` form runs and the model's
+        uncalibrated factor applies."""
+        p = self.index_plan
+        dims = (p.dim_x, p.dim_y, p.dim_z)
+        return predicted_rel_error(self.precision, max(dims),
+                                   dft.mdft_coverable(dims, p.hermitian))
 
     # -- the pipeline, on planar operands with an optional leading batch ----
     def _bwd_space(self, v: torch.Tensor):

@@ -15,8 +15,10 @@ import enum
 
 class ExchangeType(enum.Enum):
     """Distributed exchange algorithm selector (reference: types.h:33-62).
-    The distributed plan is not ported yet; the enum is kept so that
-    values translate between the two packages."""
+    The distributed plan (``parallel.dist``) runs ``DEFAULT`` and
+    ``BUFFERED``, the block exchange; the others raise a typed
+    not-in-slice error, and their values translate between the two
+    packages."""
 
     DEFAULT = "default"
     BUFFERED = "buffered"

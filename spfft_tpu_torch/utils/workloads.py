@@ -47,6 +47,40 @@ def spherical_cutoff_triplets(n: int, radius: int | None = None) -> np.ndarray:
     return np.stack([X[mask], Y[mask], Z[mask]], axis=1)
 
 
+def spherical_cutoff_triplets_stick_major(n: int,
+                                          radius: int | None = None):
+    """:func:`spherical_cutoff_triplets` already in the order
+    :func:`sort_triplets_stick_major` gives it (sticks by storage (x, y),
+    z ascending in storage order), built stick by stick instead of
+    sorted: equal to ``sort_triplets_stick_major(
+    spherical_cutoff_triplets(n, radius), (n, n, n))``, without the
+    meshgrid of n^3 points per axis and the sort (at n = 768, 237M
+    triplets, most of a minute of host time)."""
+    s = np.arange(n)
+    c = np.where(s > n // 2, s - n, s).astype(np.int64)
+    r = n // 2 if radius is None else radius
+    cx, cy = np.meshgrid(c, c, indexing="ij")
+    r2 = cx * cx + cy * cy
+    keep = (r2 <= r * r).ravel()
+    cx, cy = cx.ravel()[keep], cy.ravel()[keep]
+    zr = np.sqrt(r * r - r2.ravel()[keep]).astype(np.int64)
+    while True:  # the exact integer square root
+        hi = (zr + 1) ** 2 <= r * r - cx * cx - cy * cy
+        lo = zr * zr > r * r - cx * cx - cy * cy
+        if not hi.any() and not lo.any():
+            break
+        zr = zr + hi - lo
+    pos = np.minimum(zr, n // 2) + 1      # z = 0 .. min(zr, n // 2)
+    neg = np.minimum(zr, (n - 1) // 2)    # z = -neg .. -1, storage order
+    count = pos + neg
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    j = np.arange(int(count.sum()), dtype=np.int64) - np.repeat(start, count)
+    pr = np.repeat(pos, count)
+    z = np.where(j < pr, j, j - pr - np.repeat(neg, count))
+    return np.stack([np.repeat(cx, count), np.repeat(cy, count), z],
+                    axis=1).astype(np.int32)
+
+
 def sort_triplets_stick_major(triplets: np.ndarray, dims) -> np.ndarray:
     """Sort sparse triplets stick-major (by storage (x, y)) and
     z-ascending within each stick — the layout the reference recommends

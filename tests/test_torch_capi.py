@@ -544,6 +544,41 @@ def test_local_against_jax_and_python_api(lib, name, kind, prec):
     assert jax_bridge.plan_destroy(pid)[0] == 0
 
 
+def test_long_axes_handle_plans_and_matches_jax(lib):
+    """A local C2C handle with a 600-long x axis and a 520 z axis, sparse
+    sticks: it plans (code 0; before the port ran the long axes, code 5)
+    and its backward and forward(FULL) agree with the JAX package's
+    bridge within 2e-6."""
+    dims = (600, 4, 520)
+    rng = np.random.default_rng(5)
+    xy = np.stack([rng.integers(0, dims[0], 24), rng.integers(0, dims[1], 24)],
+                  1)
+    xy = np.unique(xy, axis=0)
+    z = np.arange(dims[2])
+    trip = np.ascontiguousarray(np.concatenate(
+        [np.repeat(xy, len(z), 0), np.tile(z, len(xy))[:, None]], 1),
+        np.int32)
+    values = c2c_values(trip, SINGLE)
+    h = ctypes.c_void_p()
+    assert lib.spfft_tpu_plan_create(ctypes.addressof(h), C2C, *dims,
+                                     len(trip), addr(trip), SINGLE,
+                                     AUTO) == 0
+    code, pid = jax_bridge.plan_create(C2C, *dims, len(trip), addr(trip),
+                                       SINGLE, AUTO)
+    assert code == 0
+    shape = dims[::-1] + (2,)
+    got, want = (np.empty(shape, np.float32) for _ in range(2))
+    assert lib.spfft_tpu_backward(h.value, addr(values), addr(got)) == 0
+    assert jax_bridge.backward(pid, addr(values), addr(want))[0] == 0
+    assert rel(got, want) <= TOL
+    fg, fw = (np.empty_like(values) for _ in range(2))
+    assert lib.spfft_tpu_forward(h.value, addr(want), FULL, addr(fg)) == 0
+    assert jax_bridge.forward(pid, addr(want), FULL, addr(fw))[0] == 0
+    assert rel(fg, fw) <= TOL
+    assert lib.spfft_tpu_plan_destroy(h.value) == 0
+    assert jax_bridge.plan_destroy(pid)[0] == 0
+
+
 @pytest.mark.parametrize("kind", [C2C, R2C], ids=["c2c", "r2c"])
 def test_distributed_against_jax_and_python_api(lib, kind):
     """A distributed plan over 4 shards (round-robin sticks, even slabs)

@@ -80,8 +80,10 @@ def test_sub_mats_equal_jax():
 
 
 def test_long_axes_raise_typed_error():
-    with pytest.raises(InvalidParameterError, match="later slice"):
-        dft.c2c_mats(513, dft.FORWARD)
+    """Every length plans now; a length with neither a split nor a direct
+    form (the ``torch.fft`` form) has no matrix pair to build."""
+    with pytest.raises(InvalidParameterError, match="no dense DFT"):
+        dft.c2c_mats(1031, dft.FORWARD)
 
 
 def test_mdft_coverable_matches_jax():

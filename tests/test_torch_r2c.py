@@ -94,9 +94,11 @@ def test_real_mats_equal_jax(n):
 
 
 def test_real_mats_above_the_cap_raise():
+    """The real matrices run to the direct fallback cap (1024), as the JAX
+    package's; a longer real axis runs ``torch.fft`` and has none."""
     for build in (dft.r2c_mats, dft.c2r_mats):
-        with pytest.raises(InvalidParameterError, match="MATMUL_DFT_MAX"):
-            build(513)
+        with pytest.raises(InvalidParameterError, match="no dense DFT"):
+            build(1031)
 
 
 # -- prdft2 / pdft2_cr --------------------------------------------------------

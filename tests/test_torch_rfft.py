@@ -32,6 +32,8 @@ in f32, the JAX side as f32 matrix products whose error grows with
 sqrt(n), this side as an FFT whose error grows with log n.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -434,7 +436,9 @@ def test_real_last_transposed_store(emulated):
         x = _t(rng, 3, 8, nx)
         k = m[0].shape[1]
         out = tuple(torch.empty((3, k, 8)) for _ in range(2))
-        assert dft_kernel._stage("rc", (x,), m, out, plane_rows=8) == "rfft"
+        counter = types.SimpleNamespace(launches=0, form_launches={})
+        dft_kernel._stage(counter, "rc", (x,), m, out, plane_rows=8)
+        assert counter.form_launches == {"rfft": 1} and counter.launches == 1
         want = dft.prdft_last(x, m)
         for g, w in zip(out, want):
             np.testing.assert_allclose(g.numpy(), w.transpose(1, 2).numpy(),
@@ -442,7 +446,8 @@ def test_real_last_transposed_store(emulated):
         c = dft.device_c2r(nx, rows=win)
         y = (_t(rng, 3, 8, k), _t(rng, 3, 8, k))
         real = torch.empty((3, nx, 8))
-        assert dft_kernel._stage("cr", y, c, (real,), plane_rows=8) == "rfft"
+        dft_kernel._stage(counter, "cr", y, c, (real,), plane_rows=8)
+        assert counter.form_launches == {"rfft": 2} and counter.launches == 2
         np.testing.assert_allclose(
             real.numpy(), dft.pirdft_last(*y, c).transpose(1, 2).numpy(),
             rtol=0, atol=2e-5)
