@@ -150,17 +150,23 @@ Phases, each of which exits non-zero when it fails:
    form;
 15. the long forms at odd shapes (``long_odd_shapes_phase``, float32 and
    float64): ``pdft_last`` at z lengths 520 (20 x 26, a direct factor),
-   521 (the long matrix form, ``csrc/dft2.cu`` staged), 1024, 1080, 2048,
-   4097 and 8192 (above the one-launch kernel's 4096: pass 1, then pass
-   2) and 1031 (``torch.fft``, counted by form only), whole and windowed;
-   the plane wrappers with long stages (8192 and 5200 in two launches);
-   the real stages at 1000, 1022
-   (long matrix), 1024 (the real FFT at half 512) and 1031; each call's
-   launches by form; then plans (``long_plans_phase``): distributed C2C
-   (521, 64, 1024) and R2C (1022, 64, 520) over 4 shards against the
-   local plan (2e-6 in float32, twice ``predicted_rel_error`` in float64)
-   with records of their long forms, and a local double C2C (768, 64,
-   1024) against its oracle;
+   521, 997 and 1021 (Bluestein's FFT, ``csrc/bluestein.cu``), 1024,
+   1080, 2048, 4097 and 8192 (above the one-launch kernel's 4096: pass 1,
+   then pass 2) and 1031 (``torch.fft``, counted by form only), whole and
+   windowed, both signs; the plane wrappers with long stages (8192 and
+   5200 in two launches); the real stages at 520 and 1022 (Bluestein),
+   1000, 1024 (the real FFT at half 512) and 1031, whole and windowed;
+   each call's launches by form; then plans (``long_plans_phase``):
+   distributed C2C (521, 64, 1024) and R2C (1022, 64, 520) over 4 shards
+   against the local plan (2e-6 in float32, twice
+   ``predicted_rel_error`` in float64), the local plan's backward within
+   ``predicted_rel_error`` of its oracle, with records of their long
+   forms in both precisions, and a local double C2C (768, 64, 1024)
+   against its oracle; the float64 records of the 768^3 stages
+   (``long_f64_records``: random rows at the path's shapes); one record
+   of the matrix form at 448 = 2^6 x 7 (``matrix_length_record``), a
+   length the reference's ``good_fft_order`` admits, beside
+   ``torch.fft``;
 16. the benchmark CLI (``benchmark_phase``): ``spfft_tpu_torch.benchmark
    .main`` in this process at ``-d 256 -r 10`` (C2C), ``-t r2c``,
    ``--shards 4`` and ``-d 768 -s 0.25 -r 5``, each JSON printed;
@@ -2743,13 +2749,14 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
     return recs + recs2
 
 
-# -- the long axes (above 512): the two-pass FFT, the long matrix form, the
-# real FFT to 1024 and torch.fft --------------------------------------------
+# -- the long axes (above 512): the two-pass FFT, Bluestein's FFT, the real
+# FFT to 1024 and torch.fft ---------------------------------------------------
 
 #: the long axes' full-width cell: the 768^3 sphere (237M values), every
 #: axis 768 = 24 x 32 in the two-pass form
 LONG_N = 768
 LONG_SRC = "spfft_tpu_torch/csrc/fft_long.cu"
+BLUESTEIN_SRC = "spfft_tpu_torch/csrc/bluestein.cu"
 #: the long forms are forms of the stage wrappers (rows 7 and 3-6 of the
 #: kernel table); the JAX package runs these lengths as XLA dots
 #: (spfft_tpu/ops/dft.py:268 _pdft_two_stage) or jnp.fft, not Pallas
@@ -2808,8 +2815,11 @@ def stage_bytes(mats, rows: int, e: int) -> int:
     k, n = dft.mats_shape(mats)
     kin = 1 if getattr(mats, "kind", "c2c") == "r2c" else 2
     kout = 1 if getattr(mats, "kind", "c2c") == "c2r" else 2
-    if dft_kernel.stage_form(mats) in ("fft", "rfft", "two_pass"):
+    form = dft_kernel.stage_form(mats)
+    if form in ("fft", "rfft", "two_pass"):
         tables = mats.twiddles.numel()  # the FFT forms read the table only
+    elif form == "bluestein":  # the chirp, spectrum and twiddles
+        tables = sum(t.numel() for t in mats.bluestein)
     else:
         tables = sum(t.numel() for t in mats)
     return (rows * (kin * k + kout * n) + tables) * e
@@ -2825,13 +2835,19 @@ def stage_flops(mats, rows: int) -> float:
 def stage_design(mats, rows: int, e: int):
     """The design bound's (bytes, operations) of a stage in its form: the
     two-pass form moves its intermediate once more (written by pass 1,
-    read by pass 2); the matrix forms do K N multiply-adds a row."""
+    read by pass 2); the Bluestein form moves the function's bytes and
+    does two complex FFTs of its length M and 8 M operations (the chirp
+    and spectrum products) a row; the matrix form does K N multiply-adds
+    a row."""
     from spfft_tpu_torch.ops import dft, dft_kernel
     form = dft_kernel.stage_form(mats)
     nbytes = stage_bytes(mats, rows, e)
     if form == "two_pass":
         return nbytes + 4 * rows * mats.n * e, stage_flops(mats, rows)
-    if form in ("matrix", "long_matrix"):
+    if form == "bluestein":
+        m = mats.bluestein.m
+        return nbytes, 2 * fft_flops(rows, m) + 8.0 * rows * m
+    if form == "matrix":
         k, n = dft.mats_shape(mats)
         per = FLOP_PER_CMAC if mats.kind == "c2c" else FLOP_PER_RMAC
         return nbytes, per * rows * k * n
@@ -2885,7 +2901,8 @@ def long_plane_record(path, name, wrapper, plain, modes, ins, mats1, mats2,
     d1 = stage_design(mats1, p * a, e)
     d2 = stage_design(mats2, p * b_out, e)
     forms = [dft_kernel.stage_form(m) for m in (mats1, mats2)]
-    src = LONG_SRC if "two_pass" in forms else FFT_SRC
+    src = LONG_SRC if "two_pass" in forms else \
+        BLUESTEIN_SRC if "bluestein" in forms else FFT_SRC
     return kernel_record(
         path, name, src, PLANE_REPLACES, err,
         lambda: wrapper(*ins, mats1, mats2), lambda: plain(*ins, mats1, mats2),
@@ -3091,12 +3108,14 @@ def long_axes_phase(sp, device, counters):
     return recs + rrecs
 
 
-#: the odd long lengths: z lengths by form, R2C x lengths by form
-LONG_Z = (520, 521, 1024, 1080, 2048, 4097, 8192, 1031)
+#: the odd long lengths: z lengths by form (520 two-pass with a direct
+#: factor; 521, 997 and 1021 Bluestein), R2C x lengths by form (520 and
+#: 1022 Bluestein)
+LONG_Z = (520, 521, 997, 1021, 1024, 1080, 2048, 4097, 8192, 1031)
 #: the longest row csrc/fft_long.cu's one-launch kernel holds (WHOLE_N): a
 #: two-pass stage is one launch up to it, pass 1 then pass 2 above it
 LONG_WHOLE_N = 4096
-LONG_X_R2C = (1000, 1022, 1024, 1031)
+LONG_X_R2C = (520, 1000, 1022, 1024, 1031)
 
 
 def _long_rows(rng, rows, k, dtype, device):
@@ -3131,11 +3150,11 @@ def _want(*mats):
 def long_odd_shapes_phase(sp, device, counters, dtype):
     """Each long form on the card against its plain version at small
     shapes, in ``dtype``: ``pdft_last`` at z lengths ``LONG_Z`` (two-pass
-    with 2^a 3^b 5^c factors and with a direct factor, the long matrix
-    form to 1024, ``torch.fft`` above), whole and windowed; ``pdft2`` /
+    with 2^a 3^b 5^c factors and with a direct factor, Bluestein to 1024,
+    ``torch.fft`` above), whole and windowed, both signs; ``pdft2`` /
     ``pdft2_swapped`` with long stages on either axis; the real stages at
-    ``LONG_X_R2C`` (the real FFT to 1024, the long matrix form,
-    ``torch.fft``), alone and inside ``prdft2`` / ``pdft2_cr``; each
+    ``LONG_X_R2C`` (the real FFT to 1024, Bluestein, ``torch.fft``),
+    whole and windowed, alone and inside ``prdft2`` / ``pdft2_cr``; each
     call's launches by form checked (the two-pass form in one launch up to
     ``LONG_WHOLE_N``, in two above it: 4097, 8192)."""
     from spfft_tpu_torch.ops import dft, dft_kernel
@@ -3248,11 +3267,40 @@ def _spectrum(dims, trip, device, dtype, seed):
 
 
 #: the long-axis plans of the odd phase: distributed C2C with an x of 521
-#: (the long matrix form) and a z of 1024 (two-pass), distributed R2C with
-#: an x of 1022 (long matrix, half 511 = 7 x 73) and a z of 520 (two-pass
-#: with the direct factor 26), a local double plan with x 768 and z 1024
+#: (Bluestein) and a z of 1024 (two-pass), distributed R2C with an x of
+#: 1022 (Bluestein, half 511 = 7 x 73) and a z of 520 (two-pass with the
+#: direct factor 26), a local double plan with x 768 and z 1024
 LONG_DIST = {"c2c": (521, 64, 1024), "r2c": (1022, 64, 520)}
 LONG_F64 = (768, 64, 1024)
+
+
+def sparse_oracle_rel(dims, trip, vals, field, r2c, space) -> float:
+    """The backward ``space`` of the values ``vals`` at ``trip`` against
+    a dense complex128 oracle on the card: C2C the values on the grid
+    through ``ifftn``; R2C the half spectrum of the sticks, with the
+    mirror of each stick of the x = 0 plane (the plans' hermitian
+    completion; ``field``'s spectrum holds both), through ``irfftn``."""
+    nx, ny, nz = dims
+    t = torch.as_tensor(trip.astype(np.int64), device=space.device)
+    if not r2c:
+        grid = torch.zeros((nz, ny, nx), dtype=torch.complex128,
+                           device=space.device)
+        grid[t[:, 2], t[:, 1], t[:, 0]] = torch.view_as_complex(
+            vals.double().contiguous())
+        ref = torch.fft.ifftn(grid, norm="forward")
+        got = torch.view_as_complex(space.double().contiguous())
+    else:
+        spec = torch.fft.fftn(field / (nx * ny * nz))
+        half = torch.zeros((nz, ny, nx // 2 + 1), dtype=torch.complex128,
+                           device=space.device)
+        xy = torch.unique(t[:, :2], dim=0)
+        half[:, xy[:, 1], xy[:, 0]] = spec[:, xy[:, 1], xy[:, 0]]
+        y0 = xy[xy[:, 0] == 0, 1]
+        half[:, (-y0) % ny, 0] = spec[:, (-y0) % ny, 0]
+        del spec
+        ref = torch.fft.irfftn(half, s=(nz, ny, nx), norm="forward")
+        got = space.double()
+    return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
 
 
 def long_plans_phase(sp, device, counters):
@@ -3260,9 +3308,10 @@ def long_plans_phase(sp, device, counters):
     distributed plan over 4 shards against the local plan on the same
     values (backward within 2e-6, float32, or twice
     ``predicted_rel_error``, float64, the round trip) with its pair
-    counted, and ``LONG_F64`` in double against its oracle; records of
-    the long forms these pairs run, at their shapes, timed. Returns the
-    records."""
+    counted, the local plan's backward within ``predicted_rel_error`` of
+    its oracle (the field), and ``LONG_F64`` in double against its
+    oracle; records of the long forms these pairs run, at their shapes,
+    timed, in both precisions. Returns the records."""
     from spfft_tpu_torch.utils.workloads import (even_plane_split,
                                                  round_robin_stick_partition)
     recs = []
@@ -3305,6 +3354,12 @@ def long_plans_phase(sp, device, counters):
             lb = local.backward(vals)
             full = space.reshape(lb.shape)
             pred = sp.predicted_rel_error(precision, max(dims), True)
+            orel = sparse_oracle_rel(dims, trip, vals, field, r2c, lb)
+            print(f"{path}: the local plan's backward vs its complex128 "
+                  f"oracle rel_l2={orel:.3e} (predicted_rel_error="
+                  f"{pred:.3e})", flush=True)
+            if not orel <= pred:
+                fail(f"{path}: local backward {orel:.3e} above {pred:.3e}")
             d = float(torch.linalg.norm(full.double() - lb.double())
                       / torch.linalg.norm(lb.double()))
             tol = KERNEL_TOL if precision == "single" else 2 * pred
@@ -3316,16 +3371,16 @@ def long_plans_phase(sp, device, counters):
                                                        max(dims)):
                 fail(f"{path}: backward {d:.3e} or round trip {rt:.3e} "
                      f"out of bounds")
-            want = "long_matrix"
+            want = "bluestein"
             got_x = forms.get("prdft_last" if r2c else "pdft2_swapped", {})
             if want not in got_x or forms["decompress_zdft"] or \
                     forms["zdft_compress"] or \
-                    forms["pdft_last"].get("two_pass", 0) < 2:
-                fail(f"{path}: expected the long matrix x stage and a "
-                     f"two-pass z stage on the two-kernel route, got "
-                     f"{forms}")
-            if precision == "single":
-                recs += long_dist_records(path, plan, stacked, forms)
+                    forms["pdft_last"].get("two_pass", 0) < 2 or \
+                    any(f.get("library") for f in forms.values()):
+                fail(f"{path}: expected the Bluestein x stage, a two-pass "
+                     f"z stage on the two-kernel route and no torch.fft "
+                     f"call, got {forms}")
+            recs += long_dist_records(path, plan, stacked, forms)
             del plan, local, space, out, stacked, lb, full, field
             torch.cuda.empty_cache()
 
@@ -3360,7 +3415,7 @@ def long_plans_phase(sp, device, counters):
 def long_dist_records(path, plan, stacked, forms):
     """Records of the distributed long-axis pair's new forms at its
     shapes: the two-kernel z stage (``pdft_last``, two-pass) and the x
-    stage (the long matrix form: ``pdft2_swapped`` for C2C,
+    stage (the Bluestein form: ``pdft2_swapped`` for C2C,
     ``prdft_last`` / ``pirdft_last`` for R2C), against their plain
     versions, each with the pair's launches."""
     from spfft_tpu_torch.ops import dft, dft_kernel, gather_kernel
@@ -3390,18 +3445,18 @@ def long_dist_records(path, plan, stacked, forms):
             hr, hi, xb),), (dft.pirdft_last(hr, hi, xb),))
         recs.append(long_stage_record(
             path, "pirdft_last", dft_kernel.pirdft_last, dft.pirdft_last,
-            "cr", (hr, hi), xb, err, DFT2_SRC, REAL_REPLACES))
+            "cr", (hr, hi), xb, err, BLUESTEIN_SRC, REAL_REPLACES))
         xs = dft.pirdft_last(hr, hi, xb).contiguous()
         xf = m["x_f"]
         err = compare(f"{path} prdft_last (x)", dft_kernel.prdft_last(xs, xf),
                       dft.prdft_last(xs, xf))
         recs.append(long_stage_record(
             path, "prdft_last", dft_kernel.prdft_last, dft.prdft_last, "rc",
-            (xs,), xf, err, DFT2_SRC, REAL_REPLACES))
+            (xs,), xf, err, BLUESTEIN_SRC, REAL_REPLACES))
     else:
         gr2, gi2 = grid[0].reshape(planes), grid[1].reshape(planes)
         m1, m2 = m["x_b"], m["y_b"]
-        err = compare(f"{path} pdft2_swapped (x long matrix, y fft)",
+        err = compare(f"{path} pdft2_swapped (x Bluestein, y fft)",
                       dft_kernel.pdft2_swapped(gr2, gi2, m1, m2),
                       dft.cdft2_xy(gr2, gi2, m1, m2))
         gc = torch.complex(gr2, gi2)
@@ -3409,13 +3464,164 @@ def long_dist_records(path, plan, stacked, forms):
             path, "pdft2_swapped", dft_kernel.pdft2_swapped, dft.cdft2_xy,
             ("cc", "cc"), (gr2, gi2), m1, m2, err,
             lambda: torch.fft.ifft2(gc, norm="forward"))
-        rec["source"] = DFT2_SRC
         recs.append(rec)
     for r in recs:  # the pair's launches of the record's forms
         r["launches"] = sum(forms[r["name"]].get(f, 0)
                             for f in r["form"].split("+"))
     print_records(recs)
     return recs
+
+
+#: the float64 records of the 768^3 stages: the z stage's rows (the
+#: sphere's sticks)
+LONG_F64_Z_ROWS = 463188
+
+
+def long_f64_records(device):
+    """The 768^3 path's two-pass stages in float64 at its shapes, on
+    seeded random rows (a double plan of the 768^3 sphere is not built):
+    ``pdft_last`` over the z stage's ``LONG_F64_Z_ROWS`` sticks and
+    ``pdft2`` over the 768 planes of 768 x 768, each against its plain
+    version and ``torch.fft`` in complex128. A record's launches are
+    those of its one checked call, counted alone and held to
+    :func:`_want`. Returns the records."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    n = LONG_N
+    path = f"long{n}_f64"
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    dt = torch.float64
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=dt, device=device)
+
+    def counted(name, wrapper, want, *args):
+        # one call, counted alone: its launches are the record's
+        wrapper.launches = 0
+        wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+        out = wrapper(*args)
+        torch.cuda.synchronize()
+        got = {f: k for f, k in wrapper.form_launches.items() if k}
+        if got != want or wrapper.launches != sum(want.values()):
+            fail(f"{path} {name}: launched {wrapper.launches} times, by "
+                 f"form {got}, expected {want}")
+        return out, wrapper.launches
+
+    zb = dft.device_c2c(n, dft.BACKWARD, device=device, dtype=dt)
+    sr, si = rand(LONG_F64_Z_ROWS, n), rand(LONG_F64_Z_ROWS, n)
+    got, launches = counted("pdft_last", dft_kernel.pdft_last, _want(zb),
+                            sr, si, zb)
+    err = compare(f"{path} pdft_last backward (two-pass)", got,
+                  dft.pdft_last(sr, si, zb))
+    recs = [long_stage_record(path, "pdft_last", dft_kernel.pdft_last,
+                              dft.pdft_last, "cc", (sr, si), zb, err)]
+    recs[-1]["launches"] = launches
+    del sr, si, got
+    torch.cuda.empty_cache()
+    gr, gi = rand(n, n, n), rand(n, n, n)
+    got, launches = counted("pdft2", dft_kernel.pdft2, _want(zb, zb),
+                            gr, gi, zb, zb)
+    err = compare(f"{path} pdft2 backward (two-pass)", got,
+                  dft.pdft2_minor(gr, gi, zb, zb))
+    del got
+    gc = torch.complex(gr, gi)
+    recs.append(long_plane_record(
+        path, "pdft2", dft_kernel.pdft2, dft.pdft2_minor, ("cc", "cc"),
+        (gr, gi), zb, zb, err,
+        lambda: torch.fft.ifft2(gc, norm="forward").transpose(-1, -2)
+        .contiguous()))
+    recs[-1]["launches"] = launches
+    print_records(recs)
+    del gr, gi, gc
+    torch.cuda.empty_cache()
+    return recs
+
+
+#: a matrix-form length the reference admits (``good_fft_order``: 2^6 x 7)
+#: and the z stage it is timed on (the sticks of a 448^3 sphere)
+MATRIX_N = 448
+MATRIX_ROWS = 157696
+
+
+def matrix_length_record(device):
+    """``pdft_last`` at ``MATRIX_N`` (the matrix form, ``csrc/dft2.cu``:
+    a length with a 7) over ``MATRIX_ROWS`` seeded random rows, against
+    its plain version and one ``torch.fft`` call: measured, not changed.
+    Returns the record."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = tuple(torch.randn((MATRIX_ROWS, MATRIX_N), generator=gen,
+                          device=device) for _ in range(2))
+    m = dft.device_c2c(MATRIX_N, dft.BACKWARD, device=device)
+    if dft_kernel.stage_form(m) != "matrix":
+        fail(f"pdft_last {MATRIX_N}: form {dft_kernel.stage_form(m)}")
+    err = compare(f"matrix{MATRIX_N} pdft_last", dft_kernel.pdft_last(*x, m),
+                  dft.pdft_last(*x, m))
+    rec = long_stage_record(f"matrix{MATRIX_N}", "pdft_last",
+                            dft_kernel.pdft_last, dft.pdft_last, "cc", x, m,
+                            err, DFT2_SRC)
+    print_records([rec])
+    return rec
+
+
+def ptxas_spills(log: str) -> dict:
+    """``{kernel: (registers, spill store bytes)}`` of every entry
+    function in an ``nvcc -Xptxas -v`` log, by mangled name. An entry's
+    lines run from its ``Compiling entry function`` to the next one; its
+    spill stores are the sum over every function listed there (the entry
+    and the functions it calls)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, None]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name][1] = (out[name][1] or 0) + int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+#: the redesigned long-axis kernels whose float instances must not spill
+NO_SPILL = {"fft_long.cu": ("fft_long_whole_kernel", "fft_long_col_kernel",
+                            "fft_long_kernel"),
+            "bluestein.cu": ("bluestein_kernel",)}
+
+
+def spill_check(build_log: dict) -> None:
+    """Print the registers and spill stores of each instance of the
+    redesigned kernels (``NO_SPILL``), read from the build log kept with
+    each library (``_build.build_log``). Fails where a source has no log,
+    a kernel has no float instance, an instance's real type, registers or
+    spill stores cannot be read, or a float instance spills."""
+    for src, kernels in NO_SPILL.items():
+        if not build_log.get(src):
+            fail(f"{src}: no nvcc log beside its library")
+        floats = set()
+        for name, (regs, spill) in ptxas_spills(build_log[src]).items():
+            kern = next((k for k in kernels if k in name), None)
+            if kern is None:
+                continue
+            # the template arguments: ...kernelILi64EfE... (float) / dE
+            m = re.search(kern + r"I(?:L[a-z]\d+E)*([fd])E", name)
+            if m is None or regs is None or spill is None:
+                fail(f"{src}: {name}: real type, registers or spill stores "
+                     f"not read from the log ({regs}, {spill})")
+            real = {"f": "float", "d": "double"}[m.group(1)]
+            print(f"ptxas {src}: {name} ({kern}, {real}): {regs} registers, "
+                  f"{spill} bytes spill stores", flush=True)
+            if real == "float":
+                floats.add(kern)
+                if spill:
+                    fail(f"{src}: {name} spills {spill} bytes in float")
+        if floats != set(kernels):
+            fail(f"{src}: no float instance of "
+                 f"{sorted(set(kernels) - floats)} in the log")
 
 
 def stages_mid(grid, planes, mats_y):
@@ -4128,6 +4334,7 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    spill_check(_build.build_log)
 
     device = torch.device("cuda", torch.cuda.current_device())
     recs, sweep = run(device)
@@ -4137,13 +4344,16 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         long_odd_shapes_phase(sp, device, launch_counters(), dtype)
     recs += long_plans_phase(sp, device, launch_counters())
-    print(f"long-axis phases: {time.perf_counter() - t_long:.1f} s",
-          flush=True)
+    recs += long_f64_records(device)
+    matrix = matrix_length_record(device)
+    print(f"long-axis phases: {time.perf_counter() - t_long:.1f} s "
+          f"({card})", flush=True)
     bench = benchmark_phase(card)
     capi = capi_phase(sp, device, launch_counters(), card)
     print(json.dumps({"batched_sweep": sweep}), flush=True)
     print(json.dumps({"benchmark": bench}), flush=True)
     print(json.dumps({"capi": capi}), flush=True)
+    print(json.dumps({"matrix_length": matrix}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)

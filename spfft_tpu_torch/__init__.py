@@ -8,7 +8,7 @@ transforms with PyTorch and hand-written CUDA kernels for the H100
 
 The port covers the local C2C and R2C plans in single and double
 precision at every dims the JAX package plans (axes above 512 through
-the two-pass FFT, the long matrix form or ``torch.fft``), their batched
+the two-pass FFT, Bluestein's FFT or ``torch.fft``), their batched
 and pointwise execution, the two-kernel route (``fused=False``), the
 ``Grid`` / ``Transform`` / multi-transform API, the distributed plan
 over S shards held on one device with the block exchange, and the

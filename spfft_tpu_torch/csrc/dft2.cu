@@ -31,13 +31,10 @@
 // (CR: 2 FMAs, one output array). The intermediate makes one round trip
 // through device memory.
 //
-// Long axes (kernel B): a side K or N above 512, to 1024 (an unsplittable
-// complex length such as 521 or 1021, a real length with no real FFT form
-// such as 1022, whose half 511 = 7 x 73), runs the same kernel with its
-// rows staged through shared memory in chunks of KC = 256 k
-// (cdft_tile.cuh: tile_product_staged), since a whole contraction no
-// longer fits a block; the result stays whole in shared memory for the
-// same stores. Not cuBLAS: no cuBLAS call runs on the card.
+// Sides above 512 are not this kernel's: a complex length in (512, 1024]
+// with no two-pass split and a real one with no real FFT form run
+// bluestein.cu (form "bluestein"), whose FFTs need O(n log n) where a
+// product needs n^2. Not cuBLAS: no cuBLAS call runs on the card.
 //
 // Bound on the H100: operations, for the matrix form. A 256^3 "cc" call
 // in this form is 2 x 65,536 rows x 256 x 256 complex multiply-adds,
@@ -60,7 +57,7 @@ using namespace spfft;
 // plane_rows == A > 0: row m = p * A + a, Y[m][n] stored at
 //                      y[(p * N + n) * A + a] (transposed within a plane).
 // xi is not read in mode RC; yi is not written in mode CR.
-template <int MODE, bool STAGED, class T>
+template <int MODE, class T>
 __global__ void __launch_bounds__(THREADS)
     dft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                      const T* __restrict__ cr, const T* __restrict__ ci,
@@ -68,21 +65,15 @@ __global__ void __launch_bounds__(THREADS)
                      int K, int N, int plane_rows) {
   constexpr int BM = Rows<T>::BM;
   extern __shared__ float4 smem[];
-  const Tile<T> t = carve_tile<MODE>(reinterpret_cast<T*>(smem),
-                                     STAGED ? min(K, KC) : K, N);
+  const Tile<T> t = carve_tile<MODE>(reinterpret_cast<T*>(smem), K, N);
   const long long m0 = (long long)blockIdx.x * BM;
-  auto load = [&](int r, int k) {
+  stage_rows<MODE>(t, K, [&](int r, int k) {
     const long long m = m0 + r;
     if (m >= M) return make_pair(T(0), T(0));
     const long long g = m * K + k;
     return make_pair(xr[g], MODE == RC ? T(0) : xi[g]);
-  };
-  if constexpr (STAGED) {
-    tile_product_staged<MODE>(t, K, N, cr, ci, load);
-  } else {
-    stage_rows<MODE>(t, K, load);
-    tile_product<MODE>(t, K, N, cr, ci);
-  }
+  });
+  tile_product<MODE>(t, K, N, cr, ci);
   if (plane_rows == 0) {
     for (int idx = threadIdx.x; idx < BM * N; idx += THREADS) {
       const int r = idx / N;
@@ -110,10 +101,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// the longest side of a contraction held whole in shared memory
-constexpr int WHOLE_SIDE_MAX = 512;
-// the longest side of any contraction (a long axis)
-constexpr int SIDE_MAX = 1024;
+// the longest side of a contraction (held whole in shared memory)
+constexpr int SIDE_MAX = 512;
 
 template <int MODE, class T>
 static int launch_stage(const T* xr, const T* xi, const T* cr, const T* ci,
@@ -122,14 +111,11 @@ static int launch_stage(const T* xr, const T* xi, const T* cr, const T* ci,
   constexpr int BM = Rows<T>::BM;
   if (K < 1 || N < 1 || K > SIDE_MAX || N > SIDE_MAX)
     return (int)cudaErrorInvalidValue;
-  const bool staged = K > WHOLE_SIDE_MAX || N > WHOLE_SIDE_MAX;
-  const size_t smem = tile_smem_bytes<T>(K, N, MODE, staged);
-  auto kernel = staged ? dft_stage_kernel<MODE, true, T>
-                       : dft_stage_kernel<MODE, false, T>;
-  cudaError_t err = allow_smem(kernel, smem);
+  const size_t smem = tile_smem_bytes<T>(K, N, MODE);
+  cudaError_t err = allow_smem(dft_stage_kernel<MODE, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  dft_stage_kernel<MODE, T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       xr, xi, cr, ci, yr, yi, M, K, N, plane_rows);
   return (int)cudaGetLastError();
 }

@@ -14,99 +14,61 @@
 //     transposed within planes as the stage kernels store (row m = p A + a
 //     at y[(p n + k) A + a]).
 //
-// Two kernels:
+// Three kernels:
 //
 //   fft_long_whole_kernel (pass 0): where a row fits a block (n <= WHOLE_N
-//     = 4096), ONE launch: a block loads R = WHOLE_N / n whole rows (one
-//     contiguous run), each into
-//     the pass-1 layout of shared memory (sub-row (r, i2) holds i1), runs
-//     pass 1, then moves the rows through registers into the pass-2
-//     layout (sub-row (r, k1) holds i2), multiplying by W_n^(i2 k1) on the
-//     way, runs pass 2 and stores. Device memory sees each element read
-//     once and written once, as a single-pass FFT;
-//   fft_long_kernel (passes 1 and 2, one launch each): any n, rows of one
-//     pass's length L (n1 or n2) at a time, as fft.cu's stage kernel holds
-//     them (stage_block), the intermediate t through device memory. Pass 1
-//     reads and writes along i2, pass 2 reads its rows as one contiguous
-//     run and stores along k1 (runs of n1) or, transposed, along a.
+//     = 4096), ONE launch, a four-step FFT in one block of R rows. Pass 1:
+//     a thread takes one column (r, i2), the n1 elements i1 of one sub-row
+//     (n2 apart in the row; neighbouring threads take neighbouring i2, so
+//     the loads are coalesced), runs its n1-point FFT in registers
+//     (fft_reg.cuh), multiplies by W_n^(i2 k1) from a shared-memory table
+//     of the n entries and writes once into the pass-2 layout (sub-row (r,
+//     k1) holds i2). After one barrier, pass 2: a thread reads one (r, k1)
+//     sub-row of n2 values, runs its FFT in registers, scales and stores k
+//     = k2 n1 + k1 (neighbouring threads write neighbouring k1), or, for
+//     the transposed store, writes the bins back and, after a second
+//     barrier, the block stores them with its rows fastest. One exchange
+//     through shared memory a row and two barriers, where a Stockham FFT
+//     in shared memory meets one a radix stage (six at 768 = 24 x 32).
+//     Device memory sees each element read once and written once.
+//   fft_long_col_kernel (pass 1 of a longer row whose n1 has a register
+//     plan): the same column pass with no shared memory but the factor's
+//     table, W_n^(i2 k1) read from the plan's table (L2), the intermediate
+//     t stored in the input's view (coalesced along i2).
+//   fft_long_kernel (passes 1 and 2 of a longer row, one launch each, the
+//     shared-memory path): rows of one pass's length L (n1 or n2) at a
+//     time, as fft.cu's stage kernel holds them (stage_block), the
+//     intermediate t through device memory. Pass 1 reads and writes along
+//     i2, pass 2 reads its rows as one contiguous run and stores along k1
+//     (runs of n1) or, transposed, along a.
 //
-// A factor of the form 2^a 3^b 5^c runs fft_tile.cuh's Stockham FFT, any
-// other (26 = 2 x 13 in 520 = 20 x 26) a direct DFT of the row in shared
-// memory (dft_rows: each output summed in slices of 16 terms, as
-// cdft_tile.cuh's matrix tile sums, against the sub-table). Every twiddle
-// comes from the plan's table of length n, e^(sign 2 pi i m / n) computed
-// in float64 on the host and rounded once to T: a pass's stage table is
-// its every (n / L)-th entry, W_n^(i2 k1) is entry i2 k1 (< n). No
-// __sinf. Offsets into the operands are 64-bit (a 768^3 grid is 453M
-// elements a plane of the pair).
+// A factor has a register plan where it is 2^a 3^b 5^c and at most
+// reg_max<T>() (64 in float, 32 in double: fft_reg.cuh); the wrapper says
+// which passes take it (paths: bit 0 pass 1, bit 1 pass 2), by length at
+// plan time. Any other factor keeps the shared-memory path inside the same
+// kernel: fft_tile.cuh's Stockham FFT for a 2^a 3^b 5^c factor above
+// reg_max, a direct DFT of the row (dft_rows, summed in slices of 16) for
+// a factor with another prime (26 in 520 = 20 x 26). Every twiddle comes
+// from the plan's table of length n, e^(sign 2 pi i m / n) computed in
+// float64 on the host and rounded once to T: a factor's table is its
+// every (n / L)-th entry, W_n^(i2 k1) is entry i2 k1 (< n). No __sinf.
+// Offsets into the operands are 64-bit (a 768^3 grid is 453M elements a
+// plane of the pair).
 //
 // Bound on the H100: bytes. One launch reads and writes the operand once:
-// at 768^3 the xy stage moves 7.2 GB (2.2 ms at 3.35 TB/s) against 3.8e10
-// FLOP (0.6 ms at 67 TFLOP/s); two launches move it twice. The templates
-// on T (real.cuh) give the float and double instances (entries
-// spfft_fft_long and spfft_fft_long_f64).
+// at 768^3 the z stage moves 5.7 GB (1.70 ms at 3.35 TB/s) against 1.8e10
+// FLOP (0.27 ms at 67 TFLOP/s); two launches move it twice. The whole
+// kernel's threads and launch bounds come from ptxas: a class of register
+// rows of at most 32 (float) runs two blocks of 256 threads an SM at up to
+// 128 registers, one of 64 a block of 256 at up to 255; neither spills in
+// float (chip_smoke.py prints ptxas' registers and spills per instance).
+// The templates on T (real.cuh) give the float and double instances
+// (entries spfft_fft_long and spfft_fft_long_f64).
 
-#include "fft_tile.cuh"
+#include "fft_reg.cuh"
 
 using namespace spfft;
 using namespace spfft::fft;
-
-namespace {
-
-// terms of one partial sum of the direct DFT
-constexpr int DSLICE = 16;
-
-// The DFT of length L along the first `rows` rows of the buffer, in place,
-// computed directly: out[k] = sum_j x[j] W^(j k), W^m = (twr[m], twi[m]) the
-// length-L table in shared memory. rows * L <= blockDim.x * E, so a thread
-// holds at most E outputs in registers between the two barriers.
-template <int E, class T>
-__device__ __noinline__ void dft_rows(T* re, T* im, int rows, int stride,
-                                      int L, const T* twr, const T* twi) {
-  T yr[E], yi[E];
-  const int total = rows * L;
-  Walk w(L);
-#pragma unroll
-  for (int e = 0; e < E; ++e, w.next()) {
-    if (threadIdx.x + e * blockDim.x < total) {
-      const T* xr = re + w.row * stride;
-      const T* xi = im + w.row * stride;
-      const int k = w.col;
-      T sr = T(0), si = T(0);
-      int t = 0;  // j k mod L
-      for (int j0 = 0; j0 < L; j0 += DSLICE) {
-        T pr = T(0), pi = T(0);
-        const int j1 = min(j0 + DSLICE, L);
-        for (int j = j0; j < j1; ++j) {
-          const T a = xr[pad(j)], b = xi[pad(j)];
-          const T c = twr[t], s = twi[t];
-          pr = fma_t(a, c, pr);
-          pr = fma_t(-b, s, pr);
-          pi = fma_t(a, s, pi);
-          pi = fma_t(b, c, pi);
-          t += k;
-          if (t >= L) t -= L;
-        }
-        sr += pr;
-        si += pi;
-      }
-      yr[e] = sr;
-      yi[e] = si;
-    }
-  }
-  __syncthreads();
-  w = Walk(L);
-#pragma unroll
-  for (int e = 0; e < E; ++e, w.next()) {
-    if (threadIdx.x + e * blockDim.x < total) {
-      re[w.row * stride + pad(w.col)] = yr[e];
-      im[w.row * stride + pad(w.col)] = yi[e];
-    }
-  }
-  __syncthreads();
-}
-
-}  // namespace
 
 // Pass `pass` (1 or 2) over the M rows of length n = n1 n2: buffer rows are
 // the rows q = q0 .. q0 + valid - 1 of the pass's (M G, L) view (pass 1: L =
@@ -114,7 +76,7 @@ __device__ __noinline__ void dft_rows(T* re, T* im, int rows, int stride,
 // sp describes the pass's transform of length L (sign, scale, radices); tw
 // is the plan's (2, n) table.
 template <bool POW2, bool DIRECT, class T>
-__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+__global__ void __launch_bounds__(512)
     fft_long_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                     T* __restrict__ yr, T* __restrict__ yi,
                     const T* __restrict__ tw, long long M, int n, int n1,
@@ -248,36 +210,79 @@ struct Walk3 {
   }
 };
 
-// threads of a whole-row block, the elements each holds in registers when
-// the rows change layout, and the longest row a block holds. Two blocks an
-// SM (64 registers a thread): one block of 128-register threads left the
-// SM a quarter occupied and ran slower than the two launches on the H100.
-constexpr int WHOLE_THREADS = 512;
-constexpr int WHOLE_EPT = 8;
-constexpr int WHOLE_N = WHOLE_THREADS * WHOLE_EPT;
+// The one-launch kernel's shape: the longest row (WHOLE_N), the most
+// threads of a block, and the complex elements a block holds at most (a
+// buffer of 64 KB: float 8192, double 4096).
+constexpr int WHOLE_N = 4096;
+constexpr int WHOLE_THREADS = 256;
 
-// Pass 0: the whole transform of `rows` rows a block (rows n <= blockDim.x
-// WHOLE_EPT). s1 / s2 describe the passes (lengths n1 / n2, sign; s2
-// carries the scale; radices 0: the factor's direct DFT). P1 / P2: that
-// pass's factor is a power of two with an FFT form.
-template <bool P1, bool P2, class T>
-__global__ void __launch_bounds__(WHOLE_THREADS, 2)
+template <class T>
+struct Whole {
+  static constexpr int ELEMS = sizeof(T) == 4 ? 8192 : 4096;
+};
+
+// Blocks an SM of an instance whose register rows are at most MAXL long:
+// float rows of 32 fit two blocks of 256 threads (128 registers a thread),
+// rows of 64 and double rows one.
+template <int MAXL, class T>
+struct Occupancy {
+  static constexpr int BLOCKS = sizeof(T) == 4 && MAXL <= 32 ? 2 : 1;
+};
+
+// The register lengths an instance of class MAXL compiles for each pass:
+// class 32 every row whose register factors are at most 32, class 64 the
+// rest (a factor in (32, 64] of n > 512: n1 >= 513 / 64 > 8, and n2 >= n1
+// or n2 > 32).
+template <int MAXL>
+struct Lens {
+  static constexpr int P1_LO = MAXL > 32 ? 9 : 2;
+  static constexpr int P2_LO = MAXL > 32 ? 33 : 2;
+};
+
+template <int MAXL>
+constexpr bool class_takes(bool reg1, int n1, bool reg2, int n2) {
+  return (!reg1 || reg_len(n1, Lens<MAXL>::P1_LO, MAXL)) &&
+         (!reg2 || reg_len(n2, Lens<MAXL>::P2_LO, MAXL));
+}
+
+// Pass 0: the whole transform of `rows` rows a block (rows n <=
+// Whole<T>::ELEMS, or one row). s1 / s2 describe the passes (lengths n1 /
+// n2, sign; s2 carries the scale; radices 0: the factor's direct DFT);
+// paths bit 0 / bit 1: pass 1 / pass 2 in registers (a plan of at most
+// MAXL). Shared memory: the pass-2 layout Q (sub-row (r, k1) of n2), the
+// pass-1 layout P (sub-row (r, i2) of n1) where pass 1 takes the
+// shared-memory path, the n-table padded as a row is (entry m at pad(m):
+// W_n^(i2 k1) read by neighbouring i2 falls in distinct banks), and the
+// factors' tables.
+template <int MAXL, class T>
+__global__ void __launch_bounds__(WHOLE_THREADS, (Occupancy<MAXL, T>::BLOCKS))
     fft_long_whole_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                           T* __restrict__ yr, T* __restrict__ yi,
                           const T* __restrict__ tw, long long M, int n,
                           int plane_rows, int rows, FftSpec<T> s1,
-                          FftSpec<T> s2) {
+                          FftSpec<T> s2, int paths) {
   extern __shared__ float4 smem4[];
   T* smem = reinterpret_cast<T*>(smem4);
   const int n1 = s1.n, n2 = s2.n;
   const int st1 = row_stride(n1), st2 = row_stride(n2);
-  const int words = max(rows * n2 * st1, rows * n1 * st2);
-  T* re = smem;
-  T* im = re + words;
-  T* t1r = im + words;
+  const bool reg1 = paths & 1, reg2 = paths & 2;
+  const int wq = rows * n1 * st2;
+  const int wp = reg1 ? 0 : rows * n2 * st1;
+  const int tn = pad(n - 1) + 1;
+  T* qr = smem;
+  T* qi = qr + wq;
+  T* pr = qi + wq;
+  T* pi = pr + wp;
+  T* tbr = pi + wp;
+  T* tbi = tbr + tn;
+  T* t1r = tbi + tn;
   T* t1i = t1r + n1;
   T* t2r = t1i + n1;
   T* t2i = t2r + n2;
+  for (int m = threadIdx.x; m < n; m += blockDim.x) {
+    tbr[pad(m)] = tw[m];
+    tbi[pad(m)] = tw[n + m];
+  }
   for (int m = threadIdx.x; m < n1; m += blockDim.x) {
     t1r[m] = tw[m * n2];
     t1i[m] = tw[n + m * n2];
@@ -289,68 +294,122 @@ __global__ void __launch_bounds__(WHOLE_THREADS, 2)
   const long long m0 = (long long)blockIdx.x * rows;
   const int valid = (int)min((long long)rows, M - m0);
   const int total = valid * n;
-
-  // element f = r n + i1 n2 + i2 of the block's run -> sub-row r n2 + i2,
-  // position i1 (neighbouring threads: neighbouring i2, odd stride apart)
   const long long base = m0 * n;
-  Walk3 w(n1, n2);
-  for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
-    const int o = (w.a * n2 + w.c) * st1 + pad(w.b);
-    re[o] = xr[base + f];
-    im[o] = xi[base + f];
-  }
+  const T s = (T)s1.sign;
+  // the shared-memory paths inline where the register rows are short (a
+  // call there made the kernel spill), in functions of their own beside
+  // rows of 64
+  constexpr bool INL = MAXL <= 32;
   __syncthreads();
-  if (s1.radices)
-    fft_rows<P1>(re, im, valid * n2, st1, s1, t1r, t1i);
-  else
-    dft_rows<WHOLE_EPT>(re, im, valid * n2, st1, n1, t1r, t1i);
 
-  // sub-row (r, i2), position k1 -> sub-row (r, k1), position i2, times
-  // W_n^(i2 k1): element id = r n + i2 n1 + k1, k1 fastest
-  T vr[WHOLE_EPT], vi[WHOLE_EPT];
-  w = Walk3(n2, n1);
+  if (reg1) {
+    // column (r, i2): x[base + r n + i1 n2 + i2], i1 < n1, in registers;
+    // bin k1 times W_n^(i2 k1) into sub-row (r, k1), position i2
+    with_len<Lens<MAXL>::P1_LO, MAXL>(n1, [&](auto len) {
+      constexpr int L = decltype(len)::value;
+      for (int c = threadIdx.x; c < valid * n2; c += blockDim.x) {
+        const int r = c / n2;
+        const int i2 = c - r * n2;
+        const long long a = base + (long long)r * n + i2;
+        T vr[L], vi[L];
 #pragma unroll
-  for (int e = 0; e < WHOLE_EPT; ++e, w.next()) {
-    if (threadIdx.x + e * blockDim.x < total) {
-      const int o = (w.a * n2 + w.b) * st1 + pad(w.c);
-      const T ar = re[o], ai = im[o];
-      const int t = w.b * w.c;
-      const T c = tw[t], s = tw[n + t];
-      vr[e] = ar * c - ai * s;
-      vi[e] = ar * s + ai * c;
-    }
-  }
-  __syncthreads();
-  w = Walk3(n2, n1);
+        for (int q = 0; q < L; ++q) {
+          vr[q] = xr[a + q * n2];
+          vi[q] = xi[a + q * n2];
+        }
+        reg_fft<L>(vr, vi, t1r, t1i, s);
+        fence_loads();
+        T* o_r = qr + r * L * st2 + pad(i2);
+        T* o_i = qi + r * L * st2 + pad(i2);
+        o_r[0] = vr[0];
+        o_i[0] = vi[0];
 #pragma unroll
-  for (int e = 0; e < WHOLE_EPT; ++e, w.next()) {
-    if (threadIdx.x + e * blockDim.x < total) {
-      const int o = (w.a * n1 + w.c) * st2 + pad(w.b);
-      re[o] = vr[e];
-      im[o] = vi[e];
+        for (int k1 = 1; k1 < L; ++k1) {
+          const int t = pad(i2 * k1);
+          const T cw = tbr[t], sw = tbi[t];
+          o_r[k1 * st2] = vr[k1] * cw - vi[k1] * sw;
+          o_i[k1 * st2] = vr[k1] * sw + vi[k1] * cw;
+        }
+      }
+    });
+  } else {
+    // the pass-1 layout: element f = r n + i1 n2 + i2 of the block's run
+    // -> sub-row (r, i2), position i1; its transform in shared memory
+    Walk3 w(n1, n2);
+    for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
+      const int o = (w.a * n2 + w.c) * st1 + pad(w.b);
+      pr[o] = xr[base + f];
+      pi[o] = xi[base + f];
     }
-  }
-  __syncthreads();
-  if (s2.radices)
-    fft_rows<P2>(re, im, valid * n1, st2, s2, t2r, t2i);
-  else
-    dft_rows<WHOLE_EPT>(re, im, valid * n1, st2, n2, t2r, t2i);
-
-  const T sc = s2.scale;
-  if (plane_rows == 0) {  // output f = r n + k2 n1 + k1: k1 fastest
+    __syncthreads();
+    smem_rows<INL>(pr, pi, valid * n2, st1, s1, t1r, t1i);
+    // element (r, i2, k1), k1 fastest, times W_n^(i2 k1) into Q
     w = Walk3(n2, n1);
     for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
-      const int o = (w.a * n1 + w.c) * st2 + pad(w.b);
-      yr[base + f] = re[o] * sc;
-      yi[base + f] = im[o] * sc;
+      const int o = (w.a * n2 + w.b) * st1 + pad(w.c);
+      const T ar = pr[o], ai = pi[o];
+      const int t = pad(w.b * w.c);
+      const T cw = tbr[t], sw = tbi[t];
+      const int d = (w.a * n1 + w.c) * st2 + pad(w.b);
+      qr[d] = ar * cw - ai * sw;
+      qi[d] = ar * sw + ai * cw;
     }
-    return;
   }
+  __syncthreads();
+
+  const T sc = s2.scale;
+  if (reg2) {
+    // sub-row (r, k1) in registers; bin k2 is output k = k2 n1 + k1
+    with_len<Lens<MAXL>::P2_LO, MAXL>(n2, [&](auto len) {
+      constexpr int L = decltype(len)::value;
+      for (int c = threadIdx.x; c < valid * n1; c += blockDim.x) {
+        T* q_r = qr + c * st2;
+        T* q_i = qi + c * st2;
+        T vr[L], vi[L];
+#pragma unroll
+        for (int i2 = 0; i2 < L; ++i2) {
+          vr[i2] = q_r[pad(i2)];
+          vi[i2] = q_i[pad(i2)];
+        }
+        reg_fft<L>(vr, vi, t2r, t2i, s);
+        if (plane_rows == 0) {
+          const int r = c / n1;
+          const long long a = base + (long long)r * n + (c - r * n1);
+#pragma unroll
+          for (int k2 = 0; k2 < L; ++k2) {
+            yr[a + k2 * n1] = vr[k2] * sc;
+            yi[a + k2 * n1] = vi[k2] * sc;
+          }
+        } else {  // back into the sub-row, for the transposed store
+#pragma unroll
+          for (int k2 = 0; k2 < L; ++k2) {
+            q_r[pad(k2)] = vr[k2] * sc;
+            q_i[pad(k2)] = vi[k2] * sc;
+          }
+        }
+      }
+    });
+    if (plane_rows == 0) return;
+  } else {
+    smem_rows<INL>(qr, qi, valid * n1, st2, s2, t2r, t2i);
+    if (plane_rows == 0) {  // output f = r n + k2 n1 + k1: k1 fastest
+      Walk3 w(n2, n1);
+      for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
+        const int o = (w.a * n1 + w.c) * st2 + pad(w.b);
+        yr[base + f] = qr[o] * sc;
+        yi[base + f] = qi[o] * sc;
+      }
+      return;
+    }
+  }
+  __syncthreads();
   // transposed within planes: element (k2, k1, r), r fastest, so that
-  // neighbouring threads write neighbouring a of one plane
+  // neighbouring threads write neighbouring a of one plane (the register
+  // path wrote its bins scaled)
+  const T tsc = reg2 ? T(1) : sc;
   const long long p0 = m0 / plane_rows;
   const int a0 = (int)(m0 - p0 * plane_rows);
-  w = Walk3(n1, valid);
+  Walk3 w(n1, valid);
   for (int id = threadIdx.x; id < total; id += blockDim.x, w.next()) {
     const int r = w.c;
     const int o = (r * n1 + w.b) * st2 + pad(w.a);
@@ -363,53 +422,159 @@ __global__ void __launch_bounds__(WHOLE_THREADS, 2)
       p += d;
     }
     const long long g = (p * n + k) * plane_rows + a;
-    yr[g] = re[o] * sc;
-    yi[g] = im[o] * sc;
+    yr[g] = qr[o] * tsc;
+    yi[g] = qi[o] * tsc;
+  }
+}
+
+// Pass 1 of a row longer than WHOLE_N whose n1 has a register plan: column
+// (m, i2) of the M n2 columns a thread, x[m n + i1 n2 + i2] in registers,
+// its n1-point FFT, bin k1 times W_n^(i2 k1) (the plan's table, read
+// through L2) at t[m n + k1 n2 + i2]. Neighbouring threads take
+// neighbouring i2: every load and store is coalesced. The bins wait in
+// shared memory (bin k of thread t at k COL_THREADS + t), so that the
+// epilogue's twiddle loads do not meet the whole row in registers.
+constexpr int COL_THREADS = 128;
+
+template <int MAXL, class T>
+__global__ void __launch_bounds__(COL_THREADS, 1)
+    fft_long_col_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                        T* __restrict__ yr, T* __restrict__ yi,
+                        const T* __restrict__ tw, long long M, int n, int n1,
+                        int n2, int sign) {
+  __shared__ T t1r[MAXL], t1i[MAXL];
+  extern __shared__ float4 smem4[];  // 2 n1 COL_THREADS
+  T* br = reinterpret_cast<T*>(smem4);
+  T* bi = br + n1 * COL_THREADS;
+  for (int m = threadIdx.x; m < n1; m += blockDim.x) {
+    t1r[m] = tw[(long long)m * n2];
+    t1i[m] = tw[n + (long long)m * n2];
+  }
+  __syncthreads();
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= M * n2) return;
+  const long long row = c / n2;
+  const int i2 = (int)(c - row * n2);
+  const long long a = row * n + i2;
+  with_len<Lens<MAXL>::P1_LO, MAXL>(n1, [&](auto len) {
+    constexpr int L = decltype(len)::value;
+    T vr[L], vi[L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      vr[q] = xr[a + (long long)q * n2];
+      vi[q] = xi[a + (long long)q * n2];
+    }
+    reg_fft<L>(vr, vi, t1r, t1i, (T)sign);
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      br[k * COL_THREADS + threadIdx.x] = vr[k];
+      bi[k * COL_THREADS + threadIdx.x] = vi[k];
+    }
+  });
+  fence_loads();
+  yr[a] = br[threadIdx.x];
+  yi[a] = bi[threadIdx.x];
+  for (int k1 = 1; k1 < n1; ++k1) {
+    const int t = i2 * k1;
+    const T cw = tw[t], sw = tw[n + t];
+    const T vr = br[k1 * COL_THREADS + threadIdx.x];
+    const T vi = bi[k1 * COL_THREADS + threadIdx.x];
+    yr[a + (long long)k1 * n2] = vr * cw - vi * sw;
+    yi[a + (long long)k1 * n2] = vr * sw + vi * cw;
   }
 }
 
 namespace {
 
-template <class T>
-int launch_whole(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
-                 long long M, int n, int n1, int n2, int plane_rows, int sign,
-                 T scale, int rad1, int rad2, void* stream) {
-  const int rows = WHOLE_N / n;
-  const size_t words = (size_t)max(rows * n2 * row_stride(n1),
-                                   rows * n1 * row_stride(n2));
-  const size_t smem = sizeof(T) * (2 * words + 2 * (size_t)(n1 + n2));
-  const bool p1 = rad1 != 0 && pow2(n1), p2 = rad2 != 0 && pow2(n2);
-  auto kernel = p1 ? (p2 ? fft_long_whole_kernel<true, true, T>
-                         : fft_long_whole_kernel<true, false, T>)
-                   : (p2 ? fft_long_whole_kernel<false, true, T>
-                         : fft_long_whole_kernel<false, false, T>);
+template <int MAXL, class T>
+int launch_whole_class(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
+                       long long M, int n, int plane_rows, int rows,
+                       int threads, size_t smem, FftSpec<T> s1,
+                       FftSpec<T> s2, int paths, void* stream) {
+  auto kernel = fft_long_whole_kernel<MAXL, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + rows - 1) / rows);
-  kernel<<<blocks, WHOLE_THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, tw, M, n, plane_rows, rows,
-      FftSpec<T>{n1, sign, T(1), 0, 0, rad1},
-      FftSpec<T>{n2, sign, scale, 0, 0, rad2});
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, tw, M, n, plane_rows, rows, s1, s2, paths);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_whole(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
+                 long long M, int n, int n1, int n2, int plane_rows, int sign,
+                 T scale, int rad1, int rad2, int paths, void* stream) {
+  constexpr int RM = reg_max<T>();
+  const bool reg1 = paths & 1, reg2 = paths & 2;
+  // rows: about 256 threads of pass-1 columns, within ELEMS
+  const int rows = max(1, min(WHOLE_THREADS / n2, Whole<T>::ELEMS / n));
+  const int threads = min(WHOLE_THREADS, (rows * n2 + 31) / 32 * 32);
+  const size_t wq = (size_t)rows * n1 * row_stride(n2);
+  const size_t wp = reg1 ? 0 : (size_t)rows * n2 * row_stride(n1);
+  const size_t smem = sizeof(T) * (2 * (wq + wp) + 2 * (size_t)(pad(n - 1) + 1)
+                                   + 2 * (size_t)(n1 + n2));
+  const FftSpec<T> s1{n1, sign, T(1), 0, 0, rad1};
+  const FftSpec<T> s2{n2, sign, scale, 0, 0, rad2};
+  // the class of the longest register row; a length outside the class's
+  // compiled lengths is refused, never run
+  const int longest = max(reg1 ? n1 : 0, reg2 ? n2 : 0);
+  if (longest == 0)
+    return launch_whole_class<0>(xr, xi, yr, yi, tw, M, n, plane_rows, rows,
+                                 threads, smem, s1, s2, paths, stream);
+  if (longest <= 32) {
+    if (!class_takes<32>(reg1, n1, reg2, n2))
+      return (int)cudaErrorInvalidValue;
+    return launch_whole_class<32>(xr, xi, yr, yi, tw, M, n, plane_rows,
+                                  rows, threads, smem, s1, s2, paths, stream);
+  }
+  if constexpr (RM > 32) {
+    if (!class_takes<RM>(reg1, n1, reg2, n2))
+      return (int)cudaErrorInvalidValue;
+    return launch_whole_class<RM>(xr, xi, yr, yi, tw, M, n, plane_rows,
+                                  rows, threads, smem, s1, s2, paths, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <class T>
 int launch_long(int pass, const T* xr, const T* xi, T* yr, T* yi,
                 const T* tw, long long M, int n, int n1, int n2,
                 int plane_rows, int sign, T scale, int rad1, int rad2,
-                void* stream) {
+                int paths, void* stream) {
   if (pass < 0 || pass > 2 || n1 < 2 || n2 < 2 || n1 > 512 || n2 > 512 ||
-      n1 * n2 != n || M <= 0 || plane_rows < 0 ||
-      (pass == 0 && n > WHOLE_N))
+      n1 * n2 != n || M <= 0 || plane_rows < 0 || paths < 0 || paths > 3 ||
+      (pass == 0 && n > WHOLE_N) || (pass == 2 && (paths & 2)))
     return (int)cudaErrorInvalidValue;
   if (pass == 0)
     return launch_whole(xr, xi, yr, yi, tw, M, n, n1, n2, plane_rows, sign,
-                        scale, rad1, rad2, stream);
+                        scale, rad1, rad2, paths, stream);
+  if (pass == 1 && (paths & 1)) {
+    constexpr int RM = reg_max<T>();
+    if (!reg_len(n1, Lens<RM>::P1_LO, RM)) return (int)cudaErrorInvalidValue;
+    const long long cols = M * n2;
+    const unsigned blocks =
+        (unsigned)((cols + COL_THREADS - 1) / COL_THREADS);
+    const size_t smem = sizeof(T) * 2 * (size_t)n1 * COL_THREADS;
+    auto kernel = fft_long_col_kernel<RM, T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, COL_THREADS, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, tw, M, n, n1, n2, sign);
+    return (int)cudaGetLastError();
+  }
   const int L = pass == 1 ? n1 : n2;
   const int radices = pass == 1 ? rad1 : rad2;
+  // fft.cu's stage block of at most 512 threads (128 registers a thread:
+  // at 64, as 1024 threads would have, the shared-memory FFT spilled)
   int threads, rows;
   stage_block<T>(L, &threads, &rows);
+  if (threads > 512) {
+    rows = rows * 512 / threads;
+    threads = 512;
+  }
   const size_t smem = stage_smem<T>(L, rows);
   auto kernel = radices == 0 ? fft_long_kernel<false, true, T>
                 : pow2(L)    ? fft_long_kernel<true, false, T>
@@ -434,14 +599,17 @@ int launch_long(int pass, const T* xr, const T* xi, T* yr, T* yi,
 // last pass) 0 for straight stores, A > 0 for stores transposed within
 // planes of A rows; the scale is applied at the last pass's store; rad1 /
 // rad2 the factors' stage radices (3 bits each, the first stage lowest), 0
-// for a factor's direct DFT. _f64: the same on double operands.
+// for a factor's direct DFT; paths bit 0 / bit 1: pass 1 / pass 2 holds
+// its factor's rows in registers (a 2^a 3^b 5^c factor of at most 64 in
+// float, 32 in double; pass 2 of a two-launch row never). _f64: the same
+// on double operands.
 extern "C" int spfft_fft_long(int pass, const float* xr, const float* xi,
                               float* yr, float* yi, const float* tw,
                               long long M, int n, int n1, int n2,
                               int plane_rows, int sign, float scale,
-                              int rad1, int rad2, void* stream) {
+                              int rad1, int rad2, int paths, void* stream) {
   return launch_long(pass, xr, xi, yr, yi, tw, M, n, n1, n2, plane_rows, sign,
-                     scale, rad1, rad2, stream);
+                     scale, rad1, rad2, paths, stream);
 }
 
 extern "C" int spfft_fft_long_f64(int pass, const double* xr,
@@ -449,11 +617,19 @@ extern "C" int spfft_fft_long_f64(int pass, const double* xr,
                                   const double* tw, long long M, int n,
                                   int n1, int n2, int plane_rows, int sign,
                                   double scale, int rad1, int rad2,
-                                  void* stream) {
+                                  int paths, void* stream) {
   return launch_long(pass, xr, xi, yr, yi, tw, M, n, n1, n2, plane_rows, sign,
-                     scale, rad1, rad2, stream);
+                     scale, rad1, rad2, paths, stream);
 }
 
 // The longest row pass 0 takes (WHOLE_N): the wrappers launch pass 0 up to
 // it and passes 1 and 2 above it.
 extern "C" int spfft_fft_long_whole_n() { return WHOLE_N; }
+
+// Has a factor of length L a register plan in the kernels of double (f64
+// nonzero) or float (a 2^a 3^b 5^c length up to reg_max): the wrappers set
+// paths by it.
+extern "C" int spfft_fft_long_reg_plan(int L, int f64) {
+  return f64 ? reg_len(L, 2, reg_max<double>())
+             : reg_len(L, 2, reg_max<float>());
+}

@@ -280,12 +280,16 @@ __device__ __forceinline__ void stage(T* re, T* im, int rows, int n,
 // in place, natural order in and out, in chunks of blockDim.x * EPT_PASS / n
 // rows; twr / twi are the plan's table in shared memory. Every thread of
 // the block calls it. POW2: n is a power of two (radices 4 and 2 only) and
-// blockDim.x a multiple of 256. Not inlined: its register allocation then
-// does not share the calling kernel's live values (which made it spill).
+// blockDim.x a multiple of 256. fft_rows is not inlined: its register
+// allocation then does not share the calling kernel's live values (which
+// made the stage kernels spill); fft_rows_inline is the same code for a
+// kernel whose live values around it are few (the call itself made those
+// spill).
 template <bool POW2, class T>
-__device__ __noinline__ void fft_rows(T* re, T* im, int rows, int stride,
-                                      const FftSpec<T>& sp, const T* twr,
-                                      const T* twi) {
+__device__ __forceinline__ void fft_rows_inline(T* re, T* im, int rows,
+                                                int stride,
+                                                const FftSpec<T>& sp,
+                                                const T* twr, const T* twi) {
   const T s = (T)sp.sign;
   const int chunk = blockDim.x * EPT_PASS / sp.n;
   for (int r0 = 0; r0 < rows; r0 += chunk) {
@@ -319,6 +323,13 @@ __device__ __noinline__ void fft_rows(T* re, T* im, int rows, int stride,
       ns *= p;
     }
   }
+}
+
+template <bool POW2, class T>
+__device__ __noinline__ void fft_rows(T* re, T* im, int rows, int stride,
+                                      const FftSpec<T>& sp, const T* twr,
+                                      const T* twi) {
+  fft_rows_inline<POW2>(re, im, rows, stride, sp, twr, twi);
 }
 
 // Copy the plan's twiddle table ((2, n): cos row, sin row) to shared memory.

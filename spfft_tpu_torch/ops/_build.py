@@ -37,8 +37,8 @@ from ..errors import DeviceError, InvalidParameterError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("dft2.cu", "fft.cu", "fft_long.cu", "fused_compress.cu",
-           "fused_fft.cu", "gather.cu", "rfft.cu")
+SOURCES = ("bluestein.cu", "dft2.cu", "fft.cu", "fft_long.cu",
+           "fused_compress.cu", "fused_fft.cu", "gather.cu", "rfft.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -48,8 +48,9 @@ REAL_TYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 _lock = threading.Lock()
 _libs = {}  #: guarded by _lock; source name -> ctypes.CDLL
-#: source name -> nvcc's output of the build made in this process
-#: (ptxas register and shared-memory report); guarded by _lock
+#: source name -> nvcc's output of the build of its loaded library
+#: (ptxas register, spill and shared-memory report), kept beside the
+#: library as ``<library>.log``; guarded by _lock
 build_log = {}
 
 
@@ -70,10 +71,15 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{Path(name).stem}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(library: Path) -> Path:
+    return library.with_suffix(".log")
+
+
 def build(names=SOURCES) -> dict:
     """Compile the named sources that have no up-to-date library yet,
-    all ``nvcc`` processes at once, and load every named library.
-    Returns ``{name: seconds}`` for the sources compiled by this call."""
+    all ``nvcc`` processes at once, and load every named library with its
+    build's log (:data:`build_log`). Returns ``{name: seconds}`` for the
+    sources compiled by this call."""
     with _lock:
         todo = [n for n in names if n not in _libs]
         out = {n: _library_path(n) for n in todo}
@@ -92,11 +98,14 @@ def build(names=SOURCES) -> dict:
             for n, (proc, tmp, t0) in procs.items():
                 log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
                 seconds[n] = time.perf_counter() - t0
-                build_log[n] = log
                 if proc.returncode != 0:
                     raise DeviceError(
                         f"nvcc failed on csrc/{n} (exit {proc.returncode}):"
                         f"\n{log[-4000:]}")
+                # the log first: a library on disk always has its log
+                tmp_log = tmp.with_suffix(".log.tmp")
+                tmp_log.write_text(log)
+                os.replace(tmp_log, _log_path(out[n]))
                 os.replace(tmp, out[n])
         finally:
             for proc, _, _ in procs.values():
@@ -105,6 +114,9 @@ def build(names=SOURCES) -> dict:
                     proc.wait()
         for n in todo:
             _libs[n] = ctypes.CDLL(str(out[n]))
+            log = _log_path(out[n])
+            if log.exists():
+                build_log[n] = log.read_text()
         return seconds
 
 
@@ -189,9 +201,9 @@ def require_mats(mats, name: str, dtype, shape, device) -> None:
     """A DFT matrix pair of ``dtype`` and ``shape`` on ``device``, and
     its twiddle table of ``dtype`` where it carries one
     (``ops.dft.DftMats``), whose ``shape`` (where it has one: a stage of
-    the two-pass or ``torch.fft`` form holds no pair) is ``shape`` too;
-    raises :class:`~spfft_tpu_torch.errors.InvalidParameterError`
-    otherwise."""
+    the two-pass, Bluestein or ``torch.fft`` form holds no pair) is
+    ``shape`` too, and its Bluestein tables where it carries them; raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` otherwise."""
     for c in mats:
         require(c, f"{name} matrix", dtype, shape, device)
     got = getattr(mats, "shape", None)
@@ -202,6 +214,13 @@ def require_mats(mats, name: str, dtype, shape, device) -> None:
     tw = getattr(mats, "twiddles", None)
     if tw is not None:
         require(tw, f"{name} twiddle table", dtype, (2, mats.n), device)
+    bt = getattr(mats, "bluestein", None)
+    if bt is not None:
+        for t, what, length in ((bt.chirp, "chirp", mats.n),
+                                (bt.spectrum, "spectrum", bt.m),
+                                (bt.twiddles, "twiddle table", bt.m)):
+            require(t, f"{name} Bluestein {what}", dtype, (2, length),
+                    device)
 
 
 def on_cuda(t: torch.Tensor, what: str) -> bool:

@@ -34,9 +34,11 @@ complex axis above :data:`MATMUL_DFT_MAX` with a balanced split n = n1 n2
 table and the small tables of its plain version (the two-stage product,
 :class:`TwoStageMats`); an unsplittable complex axis up to
 :data:`MATMUL_DFT_DIRECT_FALLBACK_MAX`, and a real axis up to it that has
-no real FFT form, the long matrix form (a dense pair); anything else
-``torch.fft`` (form ``"library"``: the counterpart of the JAX package's
-``jnp.fft`` path, which is XLA, not Pallas). Those two are the one
+no real FFT form, Bluestein's chirp-z FFT (form ``"bluestein"``: no dense
+pair either, only the chirp, the convolution's spectrum and its twiddles,
+:class:`BluesteinTables`; plain version :func:`bluestein_plain`);
+anything else ``torch.fft`` (form ``"library"``: the counterpart of the
+JAX package's ``jnp.fft`` path, which is XLA, not Pallas). Those two are the one
 routing rule: :func:`mdft_coverable` (the JAX package's structural
 predicate, which the precision model reads) is derived from them.
 """
@@ -55,8 +57,8 @@ from ..errors import DeviceError, InvalidParameterError
 #: two-pass form.
 MATMUL_DFT_MAX = 512
 
-#: Longest unfactorable axis of the direct (long matrix) form, and the
-#: longest real axis of the direct and real FFT forms; longer such axes
+#: Longest unfactorable complex axis of the Bluestein form, and the
+#: longest real axis of the Bluestein and real FFT forms; longer such axes
 #: run ``torch.fft`` (form ``"library"``).
 MATMUL_DFT_DIRECT_FALLBACK_MAX = 1024
 
@@ -305,26 +307,26 @@ def c2c_form(n: int) -> str:
     """The form of a complex length-``n`` stage, by length alone:
     ``"fft"`` (n <= 512 of the form 2^a 3^b 5^c), ``"matrix"`` (other n <=
     512), ``"two_pass"`` (n > 512 with :func:`two_stage_factor`),
-    ``"long_matrix"`` (unsplittable n <= 1024) or ``"library"``."""
+    ``"bluestein"`` (unsplittable n <= 1024) or ``"library"``."""
     n = int(n)
     if n <= MATMUL_DFT_MAX:
         return "fft" if fft_factors(n) is not None else "matrix"
     if two_stage_factor(n) is not None:
         return "two_pass"
-    return "long_matrix" if n <= MATMUL_DFT_DIRECT_FALLBACK_MAX \
+    return "bluestein" if n <= MATMUL_DFT_DIRECT_FALLBACK_MAX \
         else "library"
 
 
 def real_form(n: int) -> str:
     """The form of a real length-``n`` stage (R2C or C2R): ``"rfft"``
     (even n <= 1024 whose half is 2^a 3^b 5^c), ``"matrix"`` (other n <=
-    512), ``"long_matrix"`` (other n <= 1024) or ``"library"``."""
+    512), ``"bluestein"`` (other n <= 1024) or ``"library"``."""
     n = int(n)
     if n > MATMUL_DFT_DIRECT_FALLBACK_MAX:
         return "library"
     if rfft_factors(n) is not None:
         return "rfft"
-    return "matrix" if n <= MATMUL_DFT_MAX else "long_matrix"
+    return "matrix" if n <= MATMUL_DFT_MAX else "bluestein"
 
 
 class TwoStageMats(tuple):
@@ -353,6 +355,81 @@ def _two_stage_mats(n: int, s: int, scale: float, dtype=np.float32):
                         np.ascontiguousarray(w.imag.astype(dtype)))
 
 
+#: the longest factor one thread of the Bluestein kernel holds in
+#: registers, and the longest (even) one a float lane pair holds: the plan
+#: time's copy of csrc/fft_reg.cuh's has_plan (plans are made without a
+#: card); the wrapper holds each float M to the library's own rule
+#: (``dft_kernel.reg_plan``)
+REG_ROW_MAX, REG_PAIR_MAX = 32, 64
+
+
+@functools.lru_cache(maxsize=1024)
+def bluestein_length(n: int) -> int:
+    """The length M of the Bluestein form's circular convolution: the
+    smallest 2^a 3^b 5^c >= 2 n - 1 whose :func:`bluestein_split` has
+    factors that run in registers in float (each at most
+    :data:`REG_ROW_MAX`, or even and at most :data:`REG_PAIR_MAX`): 1080
+    = 30 x 36 for 521 and 520, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for
+    1021 and 1022 (1125 = 25 x 45 and 2025 = 45 x 45 give way to 1152 and
+    2048)."""
+    m = max(1, 2 * int(n) - 1)
+    while True:
+        rest = m
+        for p in (2, 3, 5):
+            while rest % p == 0:
+                rest //= p
+        if rest == 1 and all(f <= REG_ROW_MAX or (
+                f <= REG_PAIR_MAX and f % 2 == 0)
+                for f in bluestein_split(m)):
+            return m
+        m += 1
+
+
+def bluestein_split(m: int) -> tuple:
+    """``(m1, m2)``, ``m1 * m2 == m``, the factors of the Bluestein
+    kernel's four-step FFT of length ``m``: :func:`two_stage_factor`
+    (30 x 36 for 1080, 32 x 64 for 2048), or ``(1, m)`` where it has none
+    (a length within :data:`MATMUL_DFT_MAX`)."""
+    return two_stage_factor(m) or (1, m)
+
+
+class BluesteinTables(tuple):
+    """The tables of the Bluestein form of a length-``n`` DFT, in one real
+    type, each ``(2, len)`` (real row, imaginary row), computed in float64
+    and rounded once: ``chirp`` w[j] = e^(sign i pi j^2 / n) (j^2 reduced
+    mod 2n) of length n; ``spectrum`` B = FFT_M(h) / M times the caller's
+    scale, h the length-M wrap of conj(w) (h[d] = h[M - d] = conj(w[d]), 0
+    between); ``twiddles`` e^(-2 pi i m / M), the forward table of both
+    length-M FFTs. ``m`` is M (:func:`bluestein_length`), ``split`` its
+    (m1, m2). It unpacks as ``(chirp, spectrum, twiddles)``."""
+
+    def __new__(cls, m, chirp, spectrum, twiddles):
+        self = super().__new__(cls, (chirp, spectrum, twiddles))
+        self.m, self.split = m, bluestein_split(m)
+        self.chirp, self.spectrum, self.twiddles = chirp, spectrum, twiddles
+        return self
+
+
+@functools.lru_cache(maxsize=64)
+def _bluestein_tables(n: int, sign: int, scale: float, dtype=np.float32):
+    """Numpy :class:`BluesteinTables` of the length-``n`` DFT of ``sign``
+    with ``scale`` folded into the spectrum, rounded once to ``dtype``."""
+    m = bluestein_length(n)
+    j = np.arange(n, dtype=np.int64)
+    w = np.exp((1 if sign == BACKWARD else -1) * 1j * np.pi
+               * ((j * j) % (2 * n)) / n)
+    h = np.zeros(m, np.complex128)
+    h[:n] = np.conj(w)
+    h[m - n + 1:] = np.conj(w[1:][::-1])
+    spec = np.fft.fft(h) * (scale / m)
+
+    def planes(z):
+        return np.ascontiguousarray(np.stack([z.real, z.imag]).astype(dtype))
+
+    return BluesteinTables(m, planes(w), planes(spec),
+                           planes(fft_twiddles(m, FORWARD)))
+
+
 class DftMats(tuple):
     """A DFT stage's tables, carrying the function they stand for, so a
     kernel can compute it in its form: the ``kind`` (``"c2c"``; ``"r2c"``
@@ -368,13 +445,14 @@ class DftMats(tuple):
     n)`` in the tables' dtype (real row, imaginary row of
     :func:`fft_twiddles`) of the FFT, real FFT and two-pass forms, else
     None. The matrix forms unpack as their pair (``cr, ci = mats``); the
-    two-pass and ``torch.fft`` forms hold no pair (an empty tuple), and a
-    two-pass one carries ``plain``, the device tables of its plain
-    version (:class:`TwoStageMats`). :attr:`shape` is ``(K, N)``, the
+    two-pass, Bluestein and ``torch.fft`` forms hold no pair (an empty
+    tuple); a two-pass one carries ``plain``, the device tables of its
+    plain version (:class:`TwoStageMats`), a Bluestein one ``bluestein``,
+    its device :class:`BluesteinTables`. :attr:`shape` is ``(K, N)``, the
     stage's input and output widths."""
 
     def __new__(cls, cr, ci, *, n, sign, scale, rows, cols, twiddles,
-                kind="c2c", form=None, plain=None):
+                kind="c2c", form=None, plain=None, bluestein=None):
         self = super().__new__(cls, () if cr is None else (cr, ci))
         if form is None:  # a pair with its table has its FFT form
             form = "matrix" if twiddles is None \
@@ -382,6 +460,7 @@ class DftMats(tuple):
         self.n, self.sign, self.scale = n, sign, scale
         self.rows, self.cols, self.twiddles = rows, cols, twiddles
         self.kind, self.form, self.plain = kind, form, plain
+        self.bluestein = bluestein
         return self
 
     @property
@@ -409,6 +488,8 @@ class DftMats(tuple):
         if self.plain is not None:
             out += (*self.plain.mats1, *self.plain.mats2, self.plain.tr,
                     self.plain.ti)
+        if self.bluestein is not None:
+            out += tuple(self.bluestein)
         return out
 
 
@@ -430,6 +511,15 @@ def _window(win, length: int, what: str) -> tuple:
     return win
 
 
+def device_bluestein(n: int, sign: int, scale: float, device,
+                     dtype) -> BluesteinTables:
+    """The :class:`BluesteinTables` of a length-``n`` DFT as tensors of
+    ``dtype`` on ``device``."""
+    t = _bluestein_tables(int(n), sign, float(scale), NP_REAL[dtype])
+    return BluesteinTables(t.m, *(torch.as_tensor(a, device=device)
+                                  for a in t))
+
+
 def _twiddles(n: int, sign: int, device, dtype):
     t = fft_twiddles(n, sign)
     return torch.as_tensor(np.stack([t.real, t.imag]).astype(NP_REAL[dtype]),
@@ -445,7 +535,8 @@ def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
     (:func:`sub_rows_mats` of ``(x0 + arange(w)) % n``), with ``cols =
     (y0, w)`` the window's columns (:func:`sub_cols_mats`), bit for bit;
     the two-pass form the length-n table and its plain version's
-    :class:`TwoStageMats`; the ``torch.fft`` form nothing."""
+    :class:`TwoStageMats`; the Bluestein form its
+    :class:`BluesteinTables`; the ``torch.fft`` form nothing."""
     n, scale = int(n), float(scale)
     rows = _window(rows, n, "device_c2c")
     cols = _window(cols, n, "device_c2c")
@@ -455,6 +546,9 @@ def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
                 form=form)
     if form == "library":
         return DftMats(None, None, twiddles=None, **spec)
+    if form == "bluestein":
+        return DftMats(None, None, twiddles=None, bluestein=device_bluestein(
+            n, sign, scale, device, dtype), **spec)
     tw = _twiddles(n, sign, device, dtype) \
         if form in ("fft", "two_pass") else None
     if form == "two_pass":
@@ -485,6 +579,9 @@ def _device_real(kind: str, n: int, scale: float, win, device,
                 kind=kind, form=form)
     if form == "library":
         return DftMats(None, None, twiddles=None, **spec)
+    if form == "bluestein":
+        return DftMats(None, None, twiddles=None, bluestein=device_bluestein(
+            n, sign, scale, device, dtype), **spec)
     idx = tuple(int(i) for i in (win[0] + np.arange(win[1])) % xf)
     real = NP_REAL[dtype]
     mats = sub_cols_r2c_mats(n, idx, scale, real) if kind == "r2c" \
@@ -498,12 +595,13 @@ def device_r2c(n: int, scale: float = 1.0, cols=None,
                device="cpu", dtype=torch.float32) -> DftMats:
     """The forward real DFT of length ``n`` to the half spectrum, as
     :class:`DftMats` of kind ``"r2c"`` and ``dtype`` on ``device`` in the
-    form :func:`real_form` gives its length: up to
-    :data:`MATMUL_DFT_DIRECT_FALLBACK_MAX`, :func:`r2c_mats`, or with
-    ``cols = (x0, w)`` the columns of bins ``(x0 + arange(w)) % (n // 2 +
-    1)`` (:func:`sub_cols_r2c_mats`), bit for bit, and the table
-    ``fft_twiddles(n, FORWARD)`` in the real FFT form; above it no
-    tables (``torch.fft.rfft``)."""
+    form :func:`real_form` gives its length: in the matrix and real FFT
+    forms :func:`r2c_mats`, or with ``cols = (x0, w)`` the columns of
+    bins ``(x0 + arange(w)) % (n // 2 + 1)`` (:func:`sub_cols_r2c_mats`),
+    bit for bit, and in the real FFT form the table ``fft_twiddles(n,
+    FORWARD)``; in the Bluestein form its :class:`BluesteinTables`; above
+    :data:`MATMUL_DFT_DIRECT_FALLBACK_MAX` no tables
+    (``torch.fft.rfft``)."""
     return _device_real("r2c", n, scale, cols, device, dtype)
 
 
@@ -511,11 +609,12 @@ def device_c2r(n: int, scale: float = 1.0, rows=None,
                device="cpu", dtype=torch.float32) -> DftMats:
     """The inverse real DFT of length ``n`` from the half spectrum, as
     :class:`DftMats` of kind ``"c2r"`` and ``dtype`` on ``device`` in the
-    form :func:`real_form` gives its length: :func:`c2r_mats`, or with
-    ``rows = (x0, w)`` the rows of bins ``(x0 + arange(w)) % (n // 2 +
-    1)`` (:func:`sub_rows_c2r_mats`), bit for bit, and the table
-    ``fft_twiddles(n, BACKWARD)`` in the real FFT form; above the
-    fallback cap no tables (``torch.fft.irfft``)."""
+    form :func:`real_form` gives its length: in the matrix and real FFT
+    forms :func:`c2r_mats`, or with ``rows = (x0, w)`` the rows of bins
+    ``(x0 + arange(w)) % (n // 2 + 1)`` (:func:`sub_rows_c2r_mats`), bit
+    for bit, and in the real FFT form the table ``fft_twiddles(n,
+    BACKWARD)``; in the Bluestein form its :class:`BluesteinTables`;
+    above the fallback cap no tables (``torch.fft.irfft``)."""
     return _device_real("c2r", n, scale, rows, device, dtype)
 
 
@@ -556,13 +655,16 @@ def pdft_last(xr: torch.Tensor, xi: torch.Tensor, mats):
     Xr Ci + Xi Cr. It loses less in f32 than the JAX package's Karatsuba
     form, whose imaginary part is a difference of three sums, and so
     leaves more room under the accuracy contract. The two-pass form: the
-    two-stage product (:func:`two_pass_plain`); the ``torch.fft`` form:
-    :func:`library_c2c`. Raises
+    two-stage product (:func:`two_pass_plain`); the Bluestein form:
+    :func:`bluestein_plain`; the ``torch.fft`` form: :func:`library_c2c`.
+    Raises
     :class:`~spfft_tpu_torch.errors.DeviceError` where ``torch.matmul``
     is set to a reduced float32 precision (see :func:`pirdft_last`)."""
     form = getattr(mats, "form", None)
     if form == "two_pass":
         return two_pass_plain(xr, xi, mats)
+    if form == "bluestein":
+        return bluestein_plain("cc", (xr, xi), mats)
     if form == "library":
         return library_c2c(xr, xi, mats)
     _require_fp32_matmul(xr, "pdft_last")
@@ -600,6 +702,49 @@ def two_pass_plain(xr: torch.Tensor, xi: torch.Tensor, mats):
     yi = yi.transpose(-1, -2).reshape(lead + (n,))
     return (extract_window(yr, mats.cols, n),
             extract_window(yi, mats.cols, n))
+
+
+def bluestein_plain(mode: str, ins, mats):
+    """The Bluestein form of a stage in ``mode`` (``"cc"``: planar
+    complex rows ``ins = (xr, xi)``; ``"rc"``: real rows ``(x,)``;
+    ``"cr"``: the planar half-spectrum window) against its
+    :class:`DftMats`, as the Bluestein kernel (``csrc/bluestein.cu``)
+    computes it, in the tables' real type: a[j] = x[j] w[j] on the input
+    window (cr: bin k of the window times 1 for the self-conjugate bins,
+    2 for the others, the upper half 0), zero-padded to M; the inverse of
+    FFT_M(a) times the spectrum B (1/M and the scale in it, so the
+    inverse is unnormalised); times w[k]; the output window (cr: the real
+    part). Both length-M FFTs are ``torch.fft`` calls. Returns a pair of
+    planes (cc, rc) or one real tensor (cr)."""
+    n, bt = mats.n, mats.bluestein
+    w = torch.complex(bt.chirp[0], bt.chirp[1])
+    spec = torch.complex(bt.spectrum[0], bt.spectrum[1])
+    xf = n // 2 + 1
+    if mode == "rc":
+        a = torch.complex(ins[0], torch.zeros_like(ins[0]))
+    elif mode == "cc":
+        a = torch.complex(expand_window(ins[0], mats.rows, n),
+                          expand_window(ins[1], mats.rows, n))
+    else:
+        half = torch.complex(expand_window(ins[0], mats.rows, xf),
+                             expand_window(ins[1], mats.rows, xf))
+        c = torch.full((xf,), 2.0, dtype=ins[0].dtype, device=w.device)
+        c[0] = 1.0
+        if n % 2 == 0:
+            c[xf - 1] = 1.0
+        a = torch.zeros(half.shape[:-1] + (n,), dtype=half.dtype,
+                        device=half.device)
+        a[..., :xf] = half * c
+    conv = torch.fft.ifft(torch.fft.fft(a * w, n=bt.m) * spec,
+                          norm="forward")[..., :n]
+    y = conv * w
+    if mode == "cr":
+        return y.real.contiguous()
+    if mode == "rc":
+        y = extract_window(y[..., :xf], mats.cols, xf)
+    else:
+        y = extract_window(y, mats.cols, n)
+    return y.real.contiguous(), y.imag.contiguous()
 
 
 def library_c2c(xr: torch.Tensor, xi: torch.Tensor, mats):
@@ -671,11 +816,14 @@ def _require_fp32_matmul(t: torch.Tensor, name: str) -> None:
 
 def prdft_last(x: torch.Tensor, mats):
     """Real forward DFT along the minor axis -> planar half spectrum:
-    ``(..., n) -> (..., N)`` against :func:`r2c_mats` ``(n, N)``, or for
-    the ``torch.fft`` form ``torch.fft.rfft`` times the scale, its output
-    window taken out. Raises
+    ``(..., n) -> (..., N)`` against :func:`r2c_mats` ``(n, N)``, for the
+    Bluestein form :func:`bluestein_plain`, or for the ``torch.fft`` form
+    ``torch.fft.rfft`` times the scale, its output window taken out.
+    Raises
     :class:`~spfft_tpu_torch.errors.DeviceError` where ``torch.matmul``
     is set to a reduced float32 precision (see :func:`pirdft_last`)."""
+    if getattr(mats, "form", None) == "bluestein":
+        return bluestein_plain("rc", (x,), mats)
     if getattr(mats, "form", None) == "library":
         y = torch.fft.rfft(x)
         if mats.scale != 1.0:
@@ -689,8 +837,9 @@ def prdft_last(x: torch.Tensor, mats):
 
 def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
     """Planar half spectrum -> real inverse along the minor axis:
-    ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``, or for
-    the ``torch.fft`` form the input window expanded to the half
+    ``(..., K) -> (..., n)`` against :func:`c2r_mats` ``(K, n)``, for the
+    Bluestein form :func:`bluestein_plain`, or for the ``torch.fft`` form
+    the input window expanded to the half
     spectrum, the imaginary parts of its self-conjugate bins dropped (as
     the matrices drop them) and ``torch.fft.irfft`` unnormalised times
     the scale.
@@ -703,6 +852,8 @@ def pirdft_last(yr: torch.Tensor, yi: torch.Tensor, mats):
     matmul precision (:func:`reduced_fp32_matmul`) and raise
     :class:`~spfft_tpu_torch.errors.DeviceError` when TF32 (or bf16 on
     the CPU) is on, rather than return errors near 1e-3."""
+    if getattr(mats, "form", None) == "bluestein":
+        return bluestein_plain("cr", (yr, yi), mats)
     if getattr(mats, "form", None) == "library":
         n = mats.n
         xf = n // 2 + 1

@@ -54,17 +54,22 @@ a pass over n1 with the twiddle W_n^(i2 k1) in its epilogue, then a pass
 over n2 whose store puts the bins in natural order, straight or
 transposed within each plane as the stage kernels store; one launch a
 stage where a row fits a block, :func:`long_row_max`, else one a pass),
-held to the two-stage product (``dft.two_pass_plain``); an unsplittable
-complex stage up to 1024 and a real stage up to 1024 with no real FFT
-form run the matrix stage kernel with its contraction staged through
-shared memory in chunks (``csrc/dft2.cu``, form ``"long_matrix"``); a
-real stage up to 1024 whose half is 2^a 3^b 5^c runs the real FFT form;
-anything longer ``torch.fft`` (form ``"library"``: a PyTorch call, not a
-kernel of this package, so it counts by form only, never in
-``.launches``). The two-pass and ``torch.fft`` forms run whole axes: a
-window is expanded to the whole axis before them and taken out after
-(the JAX package's ``_expand_x_window`` / ``_extract_x_window``).
-:func:`plane_forms` never takes the cluster form for a long stage.
+held to the two-stage product (``dft.two_pass_plain``); each factor
+with a register plan (:func:`reg_plan`) runs its FFT in registers, any
+other the shared-memory path of the same kernel (the wrapper passes
+which, ``paths``). An unsplittable complex stage up to 1024 and a real
+stage up to 1024 with no real FFT form run Bluestein's chirp-z FFT, one
+launch of ``csrc/bluestein.cu`` (form ``"bluestein"``: two length-M FFTs
+in one block, M = ``dft.bluestein_length(n)``), held to
+``dft.bluestein_plain``; a real stage up to 1024 whose half is 2^a 3^b
+5^c runs the real FFT form; anything longer ``torch.fft`` (form
+``"library"``: a PyTorch call, not a kernel of this package, so it
+counts by form only, never in ``.launches``). The two-pass and
+``torch.fft`` forms run whole axes: a window is expanded to the whole
+axis before them and taken out after (the JAX package's
+``_expand_x_window`` / ``_extract_x_window``); the Bluestein kernel
+takes the windows itself. :func:`plane_forms` never takes the cluster
+form for a long stage.
 
 Every operand, matrix and twiddle table of a call shares one real type,
 float32 or float64 (a double-precision plan's); the wrappers take the
@@ -115,9 +120,18 @@ def _long_args(real):
     """csrc/fft_long.cu's ``spfft_fft_long``: the pass (0: both in one
     launch), the input and output planes, the length-n twiddle table, M,
     n, n1, n2, plane_rows, sign, the scale (``real``), each factor's
-    radices (0: its direct DFT) and the stream."""
+    radices (0: its direct DFT), the paths (bit 0 / bit 1: pass 1 / pass
+    2 in registers) and the stream."""
     return [_I] + [_P] * 5 + [ctypes.c_longlong] + [_I] * 5 + [real, _I, _I,
-                                                               _P]
+                                                               _I, _P]
+
+
+#: csrc/bluestein.cu's ``spfft_bluestein``: the mode, the input and
+#: output planes, the chirp, spectrum and twiddle tables, the rows, K, N,
+#: plane_rows, n, the windows' first positions x0 and y0, M, m1, m2, the
+#: factors' radices, the paths (bit 0 / bit 1: m1 / m2 in registers) and
+#: the stream
+_BLUESTEIN_ARGS = [_I] + [_P] * 7 + [ctypes.c_longlong] + [_I] * 12 + [_P]
 
 
 def _rfft_args(real):
@@ -138,7 +152,7 @@ CLUSTER_BLOCK_ELEMS = 512 * 16
 FORMS = ("matrix", "fft", "cluster")
 #: every form a wrapper counts: a real stage's FFT form and the long-axis
 #: forms too
-ALL_FORMS = FORMS + ("rfft", "two_pass", "long_matrix", "library")
+ALL_FORMS = FORMS + ("rfft", "two_pass", "bluestein", "library")
 #: the kind of DftMats each real mode takes
 _REAL_KIND = {"rc": "r2c", "cr": "c2r"}
 
@@ -146,14 +160,30 @@ _REAL_KIND = {"rc": "r2c", "cr": "c2r"}
 def stage_form(mats) -> str:
     """The form of one stage against ``mats``: the ``form`` a
     ``dft.DftMats`` carries (``"fft"``, ``"rfft"``, ``"matrix"``,
-    ``"two_pass"``, ``"long_matrix"``, ``"library"``); for a plain pair
-    without its function ``"matrix"``, or ``"long_matrix"`` where either
-    side exceeds ``dft.MATMUL_DFT_MAX``."""
+    ``"two_pass"``, ``"bluestein"``, ``"library"``); for a plain pair
+    without its function ``"matrix"``. A plain pair with a side above
+    ``dft.MATMUL_DFT_MAX`` has no form (the long forms need the function
+    a ``DftMats`` carries) and raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError`."""
     form = getattr(mats, "form", None)
     if form is not None:
         return form
-    return "long_matrix" if max(dft.mats_shape(mats)) > dft.MATMUL_DFT_MAX \
-        else "matrix"
+    if max(dft.mats_shape(mats)) > dft.MATMUL_DFT_MAX:
+        raise InvalidParameterError(
+            f"a plain matrix pair of shape {dft.mats_shape(mats)} has a side "
+            f"above {dft.MATMUL_DFT_MAX}: pass the stage as dft.DftMats "
+            f"(dft.device_c2c / device_r2c / device_c2r)")
+    return "matrix"
+
+
+def reg_plan(source: str, n: int, dtype) -> bool:
+    """Does a factor of length ``n`` run its FFT in registers in the
+    kernels of ``source`` (``"fft_long.cu"`` or ``"bluestein.cu"``) on
+    ``dtype``? The library's own rule (csrc/fft_reg.cuh), read through
+    its ``spfft_<name>_reg_plan``; any other factor takes the
+    shared-memory path of the same kernel."""
+    fn = _build.function(source, f"spfft_{source[:-3]}_reg_plan", (_I, _I))
+    return bool(fn(n, int(dtype == torch.float64)))
 
 
 def plane_forms(mats1, mats2, a: int) -> tuple:
@@ -218,6 +248,10 @@ def _long_passes(wrapper, ins, mats, outs, plane_rows: int,
     rows = plane_rows if whole else 0
     codes = (dft.radix_code(dft.fft_factors(n1)),
              dft.radix_code(dft.fft_factors(n2)))
+    # pass 2 of two launches (n2 above 64 for every row longer than the
+    # one-launch kernel's) takes the shared-memory path
+    paths = int(reg_plan("fft_long.cu", n1, dtype)) | (
+        int(reg_plan("fft_long.cu", n2, dtype)) << 1 if one_launch else 0)
     if one_launch:
         steps = ((0, (xr, xi), dst, rows),)
     else:
@@ -226,11 +260,43 @@ def _long_passes(wrapper, ins, mats, outs, plane_rows: int,
     for p, src, out, prows in steps:
         _build.launch(fn, f"fft_long pass {p}", xr.device, p,
                       *(t.data_ptr() for t in (*src, *out, mats.twiddles)),
-                      m, n, n1, n2, prows, mats.sign, mats.scale, *codes)
+                      m, n, n1, n2, prows, mats.sign, mats.scale, *codes,
+                      paths)
         _build.count(wrapper, "two_pass")
     if not whole:
         _store(tuple(dft.extract_window(t, mats.cols, n) for t in dst),
                outs, plane_rows)
+
+
+def _bluestein(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
+    """One launch of csrc/bluestein.cu in ``mode`` on the rows of ``ins``
+    (their input window as ``mats.rows`` says) into ``outs`` (the output
+    window), stored straight or transposed within planes of
+    ``plane_rows`` rows, counted in ``wrapper``."""
+    bt = mats.bluestein
+    k, n_out = dft.mats_shape(mats)
+    xr, xi = (*ins, None)[:2]
+    yr, yi = (*outs, None)[:2]
+    dtype = xr.dtype
+    m1, m2 = bt.split
+    paths = int(reg_plan("bluestein.cu", m1, dtype)) | int(
+        reg_plan("bluestein.cu", m2, dtype)) << 1
+    if dtype == torch.float32 and paths != 3:
+        raise InvalidParameterError(
+            f"Bluestein length {bt.m} = {m1} x {m2} (dft.bluestein_length"
+            f"({mats.n})) has a factor without a float register plan in "
+            f"csrc/bluestein.cu")
+    fn = _build.function("bluestein.cu",
+                         _build.entry("spfft_bluestein", dtype),
+                         _BLUESTEIN_ARGS)
+    _build.launch(fn, f"bluestein {mode}", xr.device, _MODES[mode],
+                  *(None if t is None else t.data_ptr()
+                    for t in (xr, xi, yr, yi, *bt)),
+                  xr.numel() // k, k, n_out, plane_rows, mats.n,
+                  mats.rows[0], mats.cols[0], bt.m, m1, m2,
+                  dft.radix_code(dft.fft_factors(m1)),
+                  dft.radix_code(dft.fft_factors(m2)), paths)
+    _build.count(wrapper, "bluestein")
 
 
 #: the plain version of each mode's stage, as a tuple of outputs
@@ -245,15 +311,14 @@ def _stage(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
     plane in mode cr), stored straight or transposed within planes of
     ``plane_rows`` rows: the FFT stage kernel in mode cc and the real FFT
     stage kernel in modes rc and cr where :func:`stage_form` says so, the
-    launches of the two-pass form, ``torch.fft`` in the ``"library"``
-    form, else the matrix stage kernel (staged in chunks where a side
-    exceeds 512). Each launch, and the ``torch.fft`` call, is counted in
-    ``wrapper`` by its form where it is made."""
+    launches of the two-pass form, the Bluestein kernel, ``torch.fft`` in
+    the ``"library"`` form, else the matrix stage kernel. Each launch,
+    and the ``torch.fft`` call, is counted in ``wrapper`` by its form
+    where it is made."""
     k, n = dft.mats_shape(mats)
     m = ins[0].numel() // k
     form = stage_form(mats)
-    if form not in ("matrix", "long_matrix") \
-            and mats.kind != _REAL_KIND.get(mode, "c2c"):
+    if form != "matrix" and mats.kind != _REAL_KIND.get(mode, "c2c"):
         raise InvalidParameterError(
             f"a {mats.kind} DFT spec cannot run a stage in mode {mode}")
     if form == "library":
@@ -262,6 +327,9 @@ def _stage(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
         return
     if form == "two_pass":
         _two_pass(wrapper, ins, mats, outs, plane_rows)
+        return
+    if form == "bluestein":
+        _bluestein(wrapper, mode, ins, mats, outs, plane_rows)
         return
     xr, xi = (*ins, None)[:2]
     yr, yi = (*outs, None)[:2]
@@ -295,7 +363,7 @@ def _stage(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
                   *(None if t is None else t.data_ptr()
                     for t in (xr, xi, *mats, yr, yi)),
                   m, k, n, plane_rows)
-    _build.count(wrapper, form)
+    _build.count(wrapper, "matrix")
 
 
 def _plane(ins, mats1, mats2, outs, swap_out: bool) -> None:

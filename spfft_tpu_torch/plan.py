@@ -47,8 +47,8 @@ float64 results; ``"single"`` runs it in float32.
 
 Long axes: every dims the JAX package plans is planned here. Each axis
 takes its form by its length alone (``ops.dft.c2c_form`` /
-``real_form``): above ``ops.dft.MATMUL_DFT_MAX`` the two-pass FFT, the
-long matrix form or ``torch.fft`` (``ops.dft_kernel``). The fused z
+``real_form``): above ``ops.dft.MATMUL_DFT_MAX`` the two-pass FFT,
+Bluestein's FFT or ``torch.fft`` (``ops.dft_kernel``). The fused z
 kernels hold a stick of at most 512: a longer z axis is declined
 (``fused_fallback_reasons``, ``"dimz_over_cap"``) and the plan takes the
 two-kernel route.

@@ -17,10 +17,15 @@ two-stage product, a matrix product or ``torch.fft``). Cases:
 * a shrunk cap (as the JAX package's ``tiny_cap`` fixture,
   tests/test_dft_two_stage.py): a 12^3 plan whose every axis takes the
   two-pass form, on the plain versions and on the launch path;
+* the Bluestein form (``dft.bluestein_plain``) against ``np.fft`` at
+  521, 997, 1021 (complex) and 520, 1022 (real), both precisions, within
+  ``predicted_rel_error``;
 * the launch path with the C entries emulated in numpy: the two-pass
   kernel (``csrc/fft_long.cu``) block by block, as its index arithmetic
-  runs on the card, the long matrix form and the ``torch.fft`` form, each
-  counted by form.
+  runs on the card (rows a block, register or shared-memory path of each
+  factor, read from the source), the Bluestein kernel
+  (``csrc/bluestein.cu``) block by block with its tables, windows and
+  stores, and the ``torch.fft`` form, each counted by form.
 
 Tolerance: 2e-6 relative l2 against the JAX package in single precision,
 1e-12 in double; the dense oracle within ``predicted_rel_error``.
@@ -69,7 +74,7 @@ def _mdft_axes(*dims, direct=(), direct_any=()):
     ``direct`` with a dense complex pair, every axis in ``direct_any``
     with a real form off ``torch.fft``."""
     return (all(dft.c2c_form(d) != "library" for d in dims)
-            and all(dft.c2c_form(d) in ("fft", "matrix", "long_matrix")
+            and all(dft.c2c_form(d) in ("fft", "matrix", "bluestein")
                     for d in direct)
             and all(dft.real_form(d) != "library" for d in direct_any))
 
@@ -89,23 +94,41 @@ def test_two_stage_factor_and_predicate_match_jax(monkeypatch):
 def test_forms_by_length():
     assert [dft.c2c_form(n) for n in (512, 11, 520, 521, 768, 1024, 1031,
                                       2048, 1033)] == \
-        ["fft", "matrix", "two_pass", "long_matrix", "two_pass", "two_pass",
+        ["fft", "matrix", "two_pass", "bluestein", "two_pass", "two_pass",
          "library", "two_pass", "library"]
     assert [dft.real_form(n) for n in (512, 11, 768, 1000, 1022, 1024,
                                        1031, 2048)] == \
-        ["rfft", "matrix", "rfft", "rfft", "long_matrix", "rfft", "library",
+        ["rfft", "matrix", "rfft", "rfft", "bluestein", "rfft", "library",
          "library"]
     m = dft.device_c2c(768, dft.BACKWARD)
     assert len(m) == 0 and m.split == (24, 32) and m.shape == (768, 768)
     assert tuple(m.twiddles.shape) == (2, 768)
     assert isinstance(dft.c2c_mats(768, dft.FORWARD), dft.TwoStageMats)
+    # the Bluestein form holds no dense pair: its chirp, spectrum and
+    # twiddles, of the convolution's length M
+    assert [dft.c2c_form(n) for n in (521, 997, 1021)] == ["bluestein"] * 3
+    assert [dft.real_form(n) for n in (520, 1022)] == ["bluestein"] * 2
+    for n, m, split in ((521, 1080, (30, 36)), (997, 2000, (40, 50)),
+                        (1021, 2048, (32, 64)), (1022, 2048, (32, 64)),
+                        (520, 1080, (30, 36))):
+        b = dft.device_c2c(n, dft.FORWARD) if dft.c2c_form(n) == "bluestein" \
+            else dft.device_r2c(n)
+        assert len(b) == 0 and b.form == "bluestein" and b.twiddles is None
+        bt = b.bluestein
+        assert (bt.m, bt.split) == (m, split) == (dft.bluestein_length(n),
+                                                  dft.bluestein_split(m))
+        assert [tuple(t.shape) for t in bt] == [(2, n), (2, m), (2, m)]
+        assert len(b.tensors) == 3
+    # a bare pair above 512 has no form (no plan passes one)
+    with pytest.raises(sp.InvalidParameterError, match="DftMats"):
+        dft_kernel.stage_form(dft.device_mats(dft.c2c_mats(521, 1), "cpu"))
 
 
 @pytest.mark.parametrize("precision", ["single", "double"])
 @pytest.mark.parametrize("n", LENGTHS)
 def test_plain_forms_match_numpy(n, precision):
-    """The plain version of each form (the two-stage product, the long
-    matrix, ``torch.fft``) against ``np.fft``: complex both ways, real
+    """The plain version of each form (the two-stage product,
+    Bluestein, ``torch.fft``) against ``np.fft``: complex both ways, real
     to the half spectrum and back, with windows."""
     dtype = torch.float32 if precision == "single" else torch.float64
     rng = np.random.default_rng(n)
@@ -204,7 +227,7 @@ def _hermitian_values(dims, trip, seed):
 
 
 C2C_PLANS = {"z1024": (8, 8, 1024), "x521": (521, 6, 4), "y768": (4, 768, 3),
-             "z520": (6, 5, 520), "x1031": (1031, 3, 2)}
+             "z520": (6, 5, 520), "x1031": (1031, 3, 2), "x997": (997, 4, 3)}
 R2C_PLANS = {"x1000": (1000, 4, 3), "x1022": (1022, 3, 4),
              "x1031": (1031, 3, 2), "x768z520": (768, 2, 520)}
 
@@ -313,15 +336,65 @@ def test_distributed_plan_with_a_long_z_matches_jax(kind):
 EMU_ROWS = 7
 
 
-def _cu_constant(name):
-    """An ``int`` constant of csrc/fft_long.cu, read from the source."""
+def _src_int(name, source="fft_long.cu"):
+    """An integer constant ``name = value`` of a csrc source, read from
+    the source."""
+    src = (_build.CSRC / source).read_text()
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def _src_float_double(pattern, source):
+    """The ``(float, double)`` pair of a ``sizeof(T) == 4 ? a : b``
+    choice that follows ``pattern`` in a csrc source."""
+    src = (_build.CSRC / source).read_text()
+    m = re.search(pattern + r"\s*sizeof\(T\) == 4 \? (\d+) : (\d+);", src)
+    return {np.float32: int(m.group(1)), np.float64: int(m.group(2))}
+
+
+#: the longest row of the one-launch kernel, as the source sets it: what
+#: ``spfft_fft_long_whole_n`` returns
+WHOLE_N = _src_int("WHOLE_N")
+WHOLE_THREADS = _src_int("WHOLE_THREADS")
+#: the complex elements a one-launch block holds at most, by real type
+WHOLE_ELEMS = _src_float_double(r"ELEMS =", "fft_long.cu")
+#: the longest factor held in registers, by real type (fft_reg.cuh)
+REG_MAX = _src_float_double(r"reg_max\(\) \{\s*return", "fft_reg.cuh")
+
+
+def _reg(L, real):
+    """Has a factor of length L a register plan (fft_reg.cuh's reg_len up
+    to reg_max)?"""
+    return 2 <= L <= REG_MAX[real] and dft.fft_factors(L) is not None
+
+
+_REG_SRC = (_build.CSRC / "fft_reg.cuh").read_text()
+#: the Bluestein kernel's register rule, read from fft_reg.cuh: one
+#: thread's row of at most BL_ROW_MAX (has_plan), or in float a lane
+#: pair's even row in (PAIR_LO, PAIR_MAX] (pair_len)
+BL_ROW_MAX = int(re.search(r"has_plan\(int L\) \{\s*return reg_len\(L, 2, "
+                           r"(\d+)\)", _REG_SRC).group(1))
+PAIR_LO, PAIR_MAX = map(int, re.search(
+    r"pair_len\(int L\) \{\s*return L > (\d+) && L <= (\d+) && "
+    r"L % 2 == 0 && smooth\(L\);", _REG_SRC).groups())
+
+
+def _bl_reg(L, real):
+    """Has a factor of length L a register plan in the Bluestein kernel
+    (fft_reg.cuh's has_plan)?"""
+    if L < 2 or dft.fft_factors(L) is None:
+        return False
+    return L <= BL_ROW_MAX or (real == np.float32 and PAIR_LO < L <= PAIR_MAX
+                               and L % 2 == 0)
+
+
+def _class_lens(maxl):
+    """The register lengths (pass 1, pass 2) the one-launch kernel's class
+    ``maxl`` compiles (fft_long.cu's Lens), read from the source."""
     src = (_build.CSRC / "fft_long.cu").read_text()
-    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-
-
-#: the longest row of the one-launch kernel, as the source sets it
-#: (WHOLE_THREADS x WHOLE_EPT): what ``spfft_fft_long_whole_n`` returns
-WHOLE_N = _cu_constant("WHOLE_THREADS") * _cu_constant("WHOLE_EPT")
+    lo = [re.search(rf"{v} = MAXL > 32 \? (\d+) : (\d+);", src).groups()
+          for v in ("P1_LO", "P2_LO")]
+    pick = 0 if maxl > 32 else 1
+    return [range(int(g[pick]), maxl + 1) for g in lo]
 
 
 def _pass_dft(buf, L, n, sign, code, tw):
@@ -347,12 +420,17 @@ def _pass_dft(buf, L, n, sign, code, tw):
 def emulate_long(args, real):
     """``spfft_fft_long`` (``_f64``) block by block, with the kernel's own
     index arithmetic: buffer row b of block q0 is row q0 + b of the pass's
-    (M G, L) view, (m0 + (r0 + b) // G, (r0 + b) % G)."""
+    (M G, L) view, (m0 + (r0 + b) // G, (r0 + b) % G). Pass 1 of two
+    launches takes its factor's register plan where it has one (the
+    column kernel: the same function); pass 2 never."""
     (pas, xr, xi, yr, yi, tw, m, n, n1, n2, plane_rows, sign, scale,
-     code1, code2) = args
+     code1, code2, paths) = args
     if pas == 0:
         emulate_whole(args, real)
         return
+    assert paths == int(_reg(n1, real))
+    if paths:  # the column kernel's class takes n1
+        assert n1 in _class_lens(REG_MAX[real])[0]
     code = code1 if pas == 1 else code2
     cdt = np.complex64 if real == np.float32 else np.complex128
     x = (_view(xr, m * n, real) + 1j * _view(xi, m * n, real)).astype(cdt)
@@ -400,13 +478,21 @@ def emulate_long(args, real):
 
 def emulate_whole(args, real):
     """``spfft_fft_long`` pass 0 (``fft_long_whole_kernel``) block by
-    block, with the kernel's index arithmetic: a block's R = 4096 // n
-    rows load into sub-rows (r, i2) of n1, pass 1, move to sub-rows (r,
-    k1) of n2 times W_n^(i2 k1), pass 2, and store straight or transposed
-    within planes."""
+    block, with the kernel's index arithmetic: a block's R = max(1,
+    min(WHOLE_THREADS // n2, ELEMS // n)) rows; pass 1 over the columns
+    (r, i2) of n1, times W_n^(i2 k1) into sub-rows (r, k1) of n2; pass 2
+    over those; stores straight or transposed within planes. Each pass's
+    path (registers or shared memory) as the wrapper passes it, which
+    must be its factor's register plan."""
     (_, xr, xi, yr, yi, tw, m, n, n1, n2, plane_rows, sign, scale, code1,
-     code2) = args
+     code2, paths) = args
     assert n <= WHOLE_N
+    reg1, reg2 = _reg(n1, real), _reg(n2, real)
+    assert paths == int(reg1) | int(reg2) << 1
+    longest = max(n1 if reg1 else 0, n2 if reg2 else 0)
+    if longest:  # the instance's class compiles both register lengths
+        lens = _class_lens(32 if longest <= 32 else REG_MAX[real])
+        assert (not reg1 or n1 in lens[0]) and (not reg2 or n2 in lens[1])
     cdt = np.complex64 if real == np.float32 else np.complex128
     x = (_view(xr, m * n, real) + 1j * _view(xi, m * n, real)).astype(cdt)
     ydr, ydi = _view(yr, m * n, real), _view(yi, m * n, real)
@@ -414,7 +500,7 @@ def emulate_whole(args, real):
     table = (t[:n] + 1j * t[n:]).astype(cdt)
     assert code1 == dft.radix_code(dft.fft_factors(n1))
     assert code2 == dft.radix_code(dft.fft_factors(n2))
-    rows = WHOLE_N // n
+    rows = max(1, min(WHOLE_THREADS // n2, WHOLE_ELEMS[real] // n))
     for m0 in range(0, m, rows):
         valid = min(rows, m - m0)
         total = valid * n
@@ -441,10 +527,115 @@ def emulate_whole(args, real):
         ydi[dst] = val.imag
 
 
+def _bluestein_rows(m1, m2, real):
+    """The rows of a Bluestein block (csrc/bluestein.cu's
+    launch_bluestein): about BL_THREADS work items in the busier phase (a
+    row above 32 is a lane pair's, two items), fewer while the block's
+    shared memory (bl_smem: both layouts and the factors' tables) exceeds
+    BL_SMEM_MAX over the blocks an SM holds (two in float, one in
+    double)."""
+    def pad(i):
+        return i + (i >> 5)
+
+    def smem(rows):
+        words = rows * (m2 * (pad(m1) | 1) + m1 * (pad(m2) | 1))
+        return np.dtype(real).itemsize * (2 * words + 2 * (m1 + m2))
+
+    p1 = 2 if _bl_reg(m1, real) and m1 > 32 else 1
+    p2 = 2 if _bl_reg(m2, real) and m2 > 32 else 1
+    items = max(m2 * p1, m1 * p2)
+    smax = _src_int("BL_SMEM_MAX", "bluestein.cu") // (
+        2 if real == np.float32 else 1)
+    rows = max(1, _src_int("BL_THREADS", "bluestein.cu") // items)
+    while rows > 1 and smem(rows) > smax:
+        rows -= 1
+    return rows
+
+
+def emulate_bluestein(args, real):
+    """``spfft_bluestein`` (``_f64``) block by block as the kernel runs
+    it: its tables read through the pointers the wrapper passes and
+    checked against the plan's, a[j] from the input window (mode cr: the
+    hermitian weights), S1 over i1 (m1) times W_M^(i2 k1), S2 over i2
+    (m2) times B conjugated, over k2 again times W_M^(k1 j_a), S3 over k1,
+    the conjugate times the chirp, stored from the output window straight
+    or transposed within planes."""
+    (mode, xr, xi, yr, yi, chirp, spec, tw, count, k_in, n_out, plane_rows,
+     n, x0, y0, mm, m1, m2, rad1, rad2, paths) = args
+    cdt = np.complex64 if real == np.float32 else np.complex128
+
+    def table(ptr, length):
+        t = _view(ptr, 2 * length, real)
+        return t[:length] + 1j * t[length:]
+
+    w, b, tab = table(chirp, n), table(spec, mm), table(tw, mm)
+    assert mm == dft.bluestein_length(n) and m1 * m2 == mm
+    assert (m1, m2) == dft.bluestein_split(mm)
+    np.testing.assert_array_equal(
+        tab, (lambda z: z.real.astype(real) + 1j * z.imag.astype(real))(
+            dft.fft_twiddles(mm, dft.FORWARD)))
+    sign = dft.BACKWARD if np.angle(w[1]) > 0 else dft.FORWARD
+    want = dft._bluestein_tables(n, sign, 1.0, real)
+    np.testing.assert_array_equal(np.stack([w.real, w.imag]), want.chirp)
+    assert rad1 == dft.radix_code(dft.fft_factors(m1))
+    assert rad2 == dft.radix_code(dft.fft_factors(m2))
+    assert paths == int(_bl_reg(m1, real)) | int(_bl_reg(m2, real)) << 1
+    assert real == np.float64 or paths == 3  # float: registers only
+    l_in = n // 2 + 1 if mode == 2 else n
+    l_out = n // 2 + 1 if mode == 1 else n
+    assert 0 <= x0 < l_in and 0 <= y0 < l_out
+    assert k_in <= l_in and n_out <= l_out
+    x = _view(xr, count * k_in, real).reshape(count, k_in).astype(cdt)
+    if mode != 1:
+        x = x + 1j * _view(xi, count * k_in, real).reshape(count, k_in)
+    ydr = _view(yr, count * n_out, real)
+    ydi = None if mode == 2 else _view(yi, count * n_out, real)
+    # the input position of each a[j], j < n, and its weight
+    j = np.arange(n)
+    q = (j - x0) % l_in
+    ok = (j < l_in) & (q < k_in)
+    weight = np.where((j == 0) | (2 * j == n), 1.0, 2.0) if mode == 2 \
+        else np.ones(n)
+    o = (j - y0) % l_out
+    out_ok = (j < l_out) & (o < n_out)
+    t1, t2 = tab[np.arange(m1) * m2], tab[np.arange(m2) * m1]
+    f1, f2 = dft.fft_factors(m1), dft.fft_factors(m2)
+    rows = _bluestein_rows(m1, m2, real)
+    for g0 in range(0, count, rows):
+        valid = min(rows, count - g0)
+        a = np.zeros((valid, mm), cdt)
+        a[:, j[ok]] = x[g0:g0 + valid, q[ok]] * weight[ok] * w[ok]
+        # S1: columns (r, i2) of m1, times W_M^(i2 k1) -> [r, k1, i2]
+        s1 = stockham(a.reshape(valid, m1, m2).transpose(0, 2, 1), -1, f1, t1)
+        s1 = s1 * tab[np.outer(np.arange(m2), np.arange(m1))]
+        qq = s1.transpose(0, 2, 1)
+        # S2: sub-rows (r, k1) of m2; bins k = k2 m1 + k1 times B, conj
+        z = stockham(qq, -1, f2, t2)
+        z = np.conj(z * b[np.arange(m2)[None, :] * m1
+                          + np.arange(m1)[:, None]])
+        u = stockham(z, -1, f2, t2) * tab[np.outer(np.arange(m1),
+                                                    np.arange(m2))]
+        # S3: sub-rows (r, j_a) of m1; j = j_a + m2 j_b
+        v = stockham(u.transpose(0, 2, 1), -1, f1, t1)
+        y = np.conj(v.transpose(0, 2, 1).reshape(valid, mm)[:, :n]) * w
+        g = np.arange(g0, g0 + valid)
+        if plane_rows == 0:
+            dst = g[:, None] * n_out + o[out_ok][None, :]
+        else:
+            p, aa = np.divmod(g, plane_rows)
+            dst = (p[:, None] * n_out + o[out_ok][None, :]) * plane_rows \
+                + aa[:, None]
+        ydr[dst.reshape(-1)] = y[:, out_ok].real.reshape(-1)
+        if ydi is not None:
+            ydi[dst.reshape(-1)] = y[:, out_ok].imag.reshape(-1)
+
+
 def _emulate_any(symbol, args):
     base, real = entry_real(symbol)
     if base == "spfft_fft_long":
         emulate_long(args, real)
+    elif base == "spfft_bluestein":
+        emulate_bluestein(args, real)
     else:
         _emulate(symbol, args)
 
@@ -467,6 +658,9 @@ def emulated(monkeypatch):
     def function(source, symbol, argtypes):
         if symbol == "spfft_fft_long_whole_n":
             return lambda: WHOLE_N
+        if symbol.endswith("_reg_plan"):
+            rule = _reg if source == "fft_long.cu" else _bl_reg
+            return lambda L, f64: int(rule(L, (np.float32, np.float64)[f64]))
         return source, symbol
 
     monkeypatch.setattr(_build, "function", function)
@@ -569,8 +763,8 @@ def test_plane_wrappers_long_launch_path(emulated, case):
 
 @pytest.mark.parametrize("n", [1000, 768, 1022, 1031])
 def test_real_wrappers_long_launch_path(emulated, n):
-    """The real stages above 512: the real FFT form (1000, 768), the long
-    matrix form (1022) and ``torch.fft`` (1031), alone and as the real
+    """The real stages above 512: the real FFT form (1000, 768), the
+    Bluestein form (1022) and ``torch.fft`` (1031), alone and as the real
     halves of ``prdft2`` / ``pdft2_cr``."""
     rng = np.random.default_rng(n)
     xf = n // 2 + 1
@@ -598,6 +792,167 @@ def test_real_wrappers_long_launch_path(emulated, n):
     assert _rel(got.numpy(), want.double().numpy()) <= 2e-6
     assert dft_kernel.pdft2_cr.form_launches == _counts(fft=1, **{form: 1})
     assert len(emulated) == sum(w.launches for w in WRAPPERS)
+
+
+BLUESTEIN_C2C = (521, 997, 1021)
+BLUESTEIN_REAL = (520, 1022)
+
+
+@pytest.mark.parametrize("precision", ["single", "double"])
+@pytest.mark.parametrize("n", BLUESTEIN_C2C + BLUESTEIN_REAL)
+def test_bluestein_plain_matches_numpy(n, precision):
+    """``dft.bluestein_plain`` (through ``pdft_last`` / ``prdft_last`` /
+    ``pirdft_last``) against float64 ``np.fft`` within
+    ``predicted_rel_error``: complex both ways at 521, 997, 1021; real to
+    the half spectrum and back at 520 and 1022 (and at the complex
+    lengths, odd real axes)."""
+    dtype = torch.float32 if precision == "single" else torch.float64
+    real = np.float32 if precision == "single" else np.float64
+    bound = sp.predicted_rel_error(precision, n, True)
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((16, n)) + 1j * rng.standard_normal((16, n)))
+    x = x.real.astype(real) + 1j * x.imag.astype(real)
+    if n in BLUESTEIN_C2C:
+        for sign in (dft.BACKWARD, dft.FORWARD):
+            m = dft.device_c2c(n, sign, dtype=dtype)
+            assert m.form == "bluestein"
+            got = dft.pdft_last(torch.from_numpy(x.real.copy()),
+                                torch.from_numpy(x.imag.copy()), m)
+            want = np.fft.ifft(x) * n if sign == dft.BACKWARD \
+                else np.fft.fft(x)
+            assert got[0].dtype == dtype
+            assert _rel(got[0].numpy() + 1j * got[1].numpy(), want) <= bound
+    r = x.real.copy()
+    mr = dft.device_r2c(n, dtype=dtype)
+    assert mr.form == "bluestein"
+    got = dft.prdft_last(torch.from_numpy(r), mr)
+    assert _rel(got[0].numpy() + 1j * got[1].numpy(), np.fft.rfft(r)) \
+        <= bound
+    spec = np.fft.rfft(r)
+    got = dft.pirdft_last(torch.from_numpy(spec.real.copy()),
+                          torch.from_numpy(spec.imag.copy()),
+                          dft.device_c2r(n, dtype=dtype))
+    assert _rel(got.numpy(), n * r) <= bound
+
+
+#: (n, mode, leading shape, window): the Bluestein kernel's launch cases
+BLUESTEIN_CASES = [
+    (521, "cc", (4,), {}), (521, "cc", (2, 3), {"rows": (500, 30)}),
+    (997, "cc", (3,), {"cols": (990, 20)}),
+    (1021, "cc", (3,), {"rows": (1000, 40), "cols": (5, 700)}),
+    (520, "rc", (3,), {"cols": (7, 200)}), (520, "cr", (3,), {}),
+    (1022, "rc", (2,), {}), (1022, "cr", (2,), {"rows": (500, 12)}),
+    (997, "cr", (2, 2), {"rows": (3, 400)})]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", range(len(BLUESTEIN_CASES)))
+def test_bluestein_launch_path(emulated, case, dtype):
+    """The Bluestein kernel's C entry through the wrappers' launch path
+    (``emulate_bluestein``): every mode, both signs, windows on either
+    side, the rows of a block; alone (straight stores) and as the first
+    stage of a plane call (stored transposed within planes), against
+    ``dft.bluestein_plain``; one launch a stage, counted by form."""
+    n, mode, lead, window = BLUESTEIN_CASES[case]
+    rng = np.random.default_rng(case)
+    tol = 2e-6 if dtype == torch.float32 else 1e-12
+    signs = (dft.BACKWARD, dft.FORWARD) if mode == "cc" else (None,)
+    for sign in signs:
+        if mode == "cc":
+            m = dft.device_c2c(n, sign, 0.5, dtype=dtype, **window)
+        elif mode == "rc":
+            m = dft.device_r2c(n, 0.5, cols=window.get("cols"), dtype=dtype)
+        else:
+            m = dft.device_c2r(n, 2.0, rows=window.get("rows"), dtype=dtype)
+        assert dft_kernel.stage_form(m) == "bluestein"
+        k = m.shape[0]
+        ins = (_t(rng, *lead, k, dtype=dtype),) if mode == "rc" else \
+            (_t(rng, *lead, k, dtype=dtype), _t(rng, *lead, k, dtype=dtype))
+        wrapper, plain = {"cc": (dft_kernel.pdft_last, dft.pdft_last),
+                          "rc": (dft_kernel.prdft_last, dft.prdft_last),
+                          "cr": (dft_kernel.pirdft_last,
+                                 dft.pirdft_last)}[mode]
+        got, want = wrapper(*ins, m), plain(*ins, m)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert got[0].shape == want[0].shape == lead + (m.shape[1],)
+        g = sum(t.double().numpy() * u for t, u in zip(got, (1, 1j)))
+        w = sum(t.double().numpy() * u for t, u in zip(want, (1, 1j)))
+        assert _rel(g, w) <= tol
+        assert wrapper.form_launches == _counts(bluestein=1)
+        wrapper.form_launches = _counts()
+    # the first stage of a plane call: stored transposed within planes
+    a = 5
+    if mode == "cc":
+        m2 = dft.device_c2c(a, dft.FORWARD, dtype=dtype)
+        x = (_t(rng, 2, a, m.shape[0], dtype=dtype),
+             _t(rng, 2, a, m.shape[0], dtype=dtype))
+        pairs = ((dft_kernel.pdft2, dft.pdft2_minor),
+                 (dft_kernel.pdft2_swapped, dft.cdft2_xy))
+    elif mode == "rc":
+        m2 = dft.device_c2c(a, dft.FORWARD, dtype=dtype)
+        x = (_t(rng, 2, a, n, dtype=dtype),)
+        pairs = ((dft_kernel.prdft2, dft.prdft2_minor),)
+    else:  # the real inverse is the second stage of pdft2_cr
+        m2, m = m, dft.device_c2c(a, dft.BACKWARD, dtype=dtype)
+        x = (_t(rng, 2, m2.shape[0], a, dtype=dtype),
+             _t(rng, 2, m2.shape[0], a, dtype=dtype))
+        pairs = ((dft_kernel.pdft2_cr, dft.pdft2_minor_cr),)
+    for wrapper, plain in pairs:
+        got, want = wrapper(*x, m, m2), plain(*x, m, m2)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        g = sum(t.double().numpy() * u for t, u in zip(got, (1, 1j)))
+        w = sum(t.double().numpy() * u for t, u in zip(want, (1, 1j)))
+        assert g.shape == w.shape
+        assert _rel(g, w) <= tol
+        assert wrapper.form_launches["bluestein"] == 1
+    assert len(emulated) == sum(w.launches for w in WRAPPERS)
+    assert all(c.startswith(("spfft_bluestein", "spfft_fft_stage"))
+               for c in emulated)
+
+
+def test_bluestein_lengths_have_register_plans():
+    """The plan time's copy of the Bluestein kernel's register rule
+    (``dft.REG_ROW_MAX``, ``REG_PAIR_MAX``) is the source's (fft_reg.cuh:
+    has_plan, pair_len), and every M that ``dft.bluestein_length`` gives
+    for a length in (512, 1024] splits into factors with a float register
+    plan there (the launch refuses a float M without)."""
+    assert (dft.REG_ROW_MAX, dft.REG_PAIR_MAX) == (BL_ROW_MAX, PAIR_MAX)
+    assert PAIR_LO == BL_ROW_MAX
+    for n in range(dft.MATMUL_DFT_MAX + 1, 1025):
+        mm = dft.bluestein_length(n)
+        assert all(_bl_reg(f, np.float32) for f in dft.bluestein_split(mm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reg_plan_reads_each_library(emulated, dtype):
+    """``dft_kernel.reg_plan`` is the library's rule (its
+    ``spfft_<name>_reg_plan``): kernel A holds any 2^a 3^b 5^c factor up
+    to reg_max in one thread, the Bluestein kernel up to 32 or, in float,
+    an even one up to 64 in a lane pair."""
+    real = np.float32 if dtype == torch.float32 else np.float64
+    for L in range(1, 80):
+        assert dft_kernel.reg_plan("fft_long.cu", L, dtype) == _reg(L, real)
+        assert dft_kernel.reg_plan("bluestein.cu", L, dtype) == \
+            _bl_reg(L, real)
+    assert dft_kernel.reg_plan("fft_long.cu", 45, dtype) == \
+        (dtype == torch.float32)
+    assert not dft_kernel.reg_plan("bluestein.cu", 45, dtype)
+
+
+def test_bluestein_launch_refuses_a_float_factor_without_a_plan(
+        emulated, monkeypatch):
+    """A float Bluestein stage whose M has a factor the library holds in
+    no register plan raises before any launch (the kernel takes float
+    rows in registers only)."""
+    monkeypatch.setattr(dft_kernel, "reg_plan",
+                        lambda source, L, dtype: L <= 32)
+    m = dft.device_c2c(521, dft.BACKWARD)  # 1080 = 30 x 36
+    x = (torch.zeros(2, 521), torch.zeros(2, 521))
+    with pytest.raises(sp.InvalidParameterError, match="register plan"):
+        dft_kernel.pdft_last(*x, m)
+    assert emulated == [] and dft_kernel.pdft_last.launches == 0
 
 
 @pytest.fixture
