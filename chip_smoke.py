@@ -3,6 +3,7 @@
 plain PyTorch version.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ptxas-of TREE   # another tree's ptxas report
 
 Phases, each of which exits non-zero when it fails:
 
@@ -33,7 +34,9 @@ Phases, each of which exits non-zero when it fails:
    form, against the plain version, beside both halves as matrices) and
    the (0,0)-stick completion of ``decompress_zdft``, at the path's
    shapes and at odd R2C shapes (the real FFT form at every kind of even
-   length, the matrix form at odd lengths and other primes, windows
+   length, radix 7 and 11 halves too, the Bluestein form at odd lengths
+   and halves with a prime of 13 or more, plain pairs in the matrix form,
+   windows
    from 0, past 0 and wrapped, nonzero imaginary parts at DC and
    Nyquist, which must not reach the output); the counted pair, which
    must not launch ``pdft2`` nor a real stage in the matrix form;
@@ -151,8 +154,10 @@ Phases, each of which exits non-zero when it fails:
 15. the long forms at odd shapes (``long_odd_shapes_phase``, float32 and
    float64): ``pdft_last`` at z lengths 520 (20 x 26, a direct factor),
    521, 997 and 1021 (Bluestein's FFT, ``csrc/bluestein.cu``), 1024,
-   1080, 2048, 4097 and 8192 (above the one-launch kernel's 4096: pass 1,
-   then pass 2) and 1031 (``torch.fft``, counted by form only), whole and
+   1080, 2016 (42 x 48: a radix-7 factor in shared memory beside a float
+   register factor above 32), 2048, 4097, 4480 and 8192 (above the
+   one-launch kernel's 4096: pass 1, then pass 2; 4480 = 64 x 70 has a 7
+   in pass 2) and 1031 (``torch.fft``, counted by form only), whole and
    windowed, both signs; the plane wrappers with long stages (8192 and
    5200 in two launches); the real stages at 520 and 1022 (Bluestein),
    1000, 1024 (the real FFT at half 512) and 1031, whole and windowed;
@@ -163,10 +168,29 @@ Phases, each of which exits non-zero when it fails:
    ``predicted_rel_error`` of its oracle, with records of their long
    forms in both precisions, and a local double C2C (768, 64, 1024)
    against its oracle; the float64 records of the 768^3 stages
-   (``long_f64_records``: random rows at the path's shapes); one record
-   of the matrix form at 448 = 2^6 x 7 (``matrix_length_record``), a
-   length the reference's ``good_fft_order`` admits, beside
-   ``torch.fft``;
+   (``long_f64_records``: random rows at the path's shapes);
+15b. the lengths up to 512 that ran the matrix form before radix 7 / 11
+   and Bluestein below 513, float32 and float64, each record one call
+   counted alone against its plain version and beside the matrix form on
+   the same inputs and one ``torch.fft`` call: ``radix_records`` (row 7M,
+   ``pdft_last`` at 448 = 2^6 x 7, a length the reference's
+   ``good_fft_order`` admits, over a 448^3 sphere's 157,696 z sticks; at
+   352, 462 and 343; ``pdft2`` on 112^3 in two stage launches; kernel A
+   at 896 = 28 x 32 beside its factor 28 on the direct DFT path),
+   ``bluestein_small_records`` (Bluestein at 13, 26, 52, 100, 257, 416,
+   509 complex, 135, 375, 510 both real modes), ``fused_prime_record``
+   (the fused z kernels' matrix form at dim_z 416 beside gather +
+   Bluestein), and ``length_phases``: the 448^3 C2C path (47,077,534
+   values) and R2C half sphere, each kernel at its shapes beside the
+   matrix form, and the counted pairs against the complex128 oracle
+   within ``predicted_rel_error("single", 448)`` = 3.606e-7, no launch in
+   the matrix form, then both again in float64 on the same index plans
+   (``*_f64``, within ``predicted_rel_error("double", 448)``); the local
+   R2C plan at 375^3, whose odd x takes Bluestein: each kernel at its
+   shapes against its plain version (``prdft2`` / ``pdft2_cr`` in
+   Bluestein's rc / cr modes with stores transposed within planes, the
+   fused z kernels at dim_z 375) in float32, and its counted pair within
+   3.524e-7;
 16. the benchmark CLI (``benchmark_phase``): ``spfft_tpu_torch.benchmark
    .main`` in this process at ``-d 256 -r 10`` (C2C), ``-t r2c``,
    ``--shards 4`` and ``-d 768 -s 0.25 -r 5``, each JSON printed;
@@ -206,10 +230,12 @@ bins, ``csrc/rfft.cu``): ``prdft2`` is form ``rfft+fft``, ``pdft2_cr``
 ``fft+rfft``. The fused z kernels
 (``decompress_zdft``, ``zdft_compress``) gather and transform in one
 launch of an FFT in shared memory (form ``fft``, ``csrc/fused_fft.cu``).
-Any stage or z kernel whose length (for a real stage: an odd length, or
-its half) has a prime factor other than 2, 3 and 5, or whose matrices
-do not carry their function, computes its DFT as a matrix product (form
-``matrix``). Each counted pair checks the launches of each wrapper by
+The FFT forms take radices 4, 2, 3, 5, 7 and 11. A stage whose length
+(for a real stage: an odd length, or its half) has a prime factor of 13
+or more runs Bluestein's FFT (form ``bluestein``); a stage whose
+matrices do not carry their function, and a fused z kernel at such a
+dim_z, compute the DFT as a matrix product (form ``matrix``). Each
+counted pair checks the launches of each wrapper by
 form (``form_launches``); no pair of the main paths takes the matrix
 form of any stage or z kernel. Each
 record of a redesigned kernel carries ``form`` and ``matrix_ms``, the
@@ -302,9 +328,10 @@ def timed_ms(fn, device, reps=REPS, warmup=2) -> float:
     return float(np.median(times))
 
 
-#: calls of one CUDA graph in :func:`graph_ms`: a kernel's, and a whole
-#: pair's
-GRAPH_CALLS = 20
+#: calls of one CUDA graph in :func:`graph_ms`: a kernel's (10, down from
+#: 20 to hold the run's wall time as the lengths up to 512 joined it), and
+#: a whole pair's
+GRAPH_CALLS = 10
 PAIR_GRAPH_CALLS = 3
 
 
@@ -382,8 +409,11 @@ def rfft_flops(lines: int, n: int) -> float:
 
 def table_bytes(mats, form: str) -> int:
     """Bytes of a DFT stage's tables as its form reads them: the FFT,
-    real FFT and cluster forms read the (2, n) twiddle table, the matrix
-    form the matrix pair, both in the matrices' real type."""
+    real FFT and cluster forms read the (2, n) twiddle table, the
+    Bluestein form its chirp, spectrum and twiddles, the matrix form the
+    matrix pair, each in the tables' real type."""
+    if form == "bluestein":
+        return sum(t.numel() * t.element_size() for t in mats.bluestein)
     e = mats[0].element_size()
     if form in ("fft", "cluster", "rfft"):
         return 2 * mats.n * e
@@ -432,9 +462,27 @@ def complex_of(t: torch.Tensor) -> torch.dtype:
 
 
 def matrix_pair(mats):
-    """The same matrices without the function they carry: a wrapper runs
-    its matrix form on them (the "before" of the FFT forms)."""
-    return (mats[0], mats[1])
+    """The same function as a plain matrix pair, without the function it
+    carries: a wrapper runs its matrix form (``csrc/dft2.cu``) on it, the
+    "before" of the FFT forms. A stage whose form holds no pair (the
+    Bluestein form) gets the pair the matrix builders give its function,
+    bit for bit the pair its matrix form held."""
+    if len(mats):
+        return (mats[0], mats[1])
+    from spfft_tpu_torch.ops import dft
+    t = mats.bluestein.chirp
+    if mats.kind == "c2c":
+        m = dft.device_c2c(mats.n, mats.sign, mats.scale, rows=mats.rows,
+                           cols=mats.cols, device=t.device, dtype=t.dtype,
+                           form="matrix")
+        return (m[0], m[1])
+    xf = mats.n // 2 + 1
+    win = mats.cols if mats.kind == "r2c" else mats.rows
+    idx = tuple(int(i) for i in (win[0] + np.arange(win[1])) % xf)
+    build = dft.sub_cols_r2c_mats if mats.kind == "r2c" \
+        else dft.sub_rows_c2r_mats
+    return dft.device_mats(build(mats.n, idx, mats.scale,
+                                 dft.NP_REAL[t.dtype]), t.device, t.dtype)
 
 
 def uncounted():
@@ -625,25 +673,8 @@ def kernel_phase(plan, values, device, path="c2c"):
     err = max(err_b, err_f)
     two = compare(f"{path} pdft2 backward, two-launch FFT form",
                   fft_two_launch((gr, gi), m1, m2), got)
-    gc = torch.complex(gr, gi)
-    pp, a, b = gr.shape
-    b_out, a_out = m1[0].shape[1], m2[0].shape[1]
-    forms = dft_kernel.plane_forms(m1, m2, a)
-    form = "+".join(forms)
-    e = gr.element_size()
-    recs.append(kernel_record(
-        path, "pdft2", FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
-        lambda: dft_kernel.pdft2(gr, gi, m1, m2),
-        lambda: dft.pdft2_minor(gr, gi, m1, m2),
-        (lambda: torch.fft.ifft2(gc, norm="forward")
-         .transpose(-1, -2).contiguous())
-        if (b_out, a_out) == (b, a) else None,
-        2 * pp * a * b * e + 2 * pp * b_out * a_out * e
-        + plane_table_bytes(m1, m2, forms),
-        fft_flops(pp * a, b) + fft_flops(pp * b_out, a),
-        FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out), form,
-        lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1),
-                                 matrix_pair(m2))))
+    recs.append(pdft2_record(path, "pdft2", (gr, gi), m1, m2, err))
+    form = recs[-1]["form"]
     ms2 = timed_ms(lambda: fft_two_launch((gr, gi), m1, m2), device)
     print(f"{path} pdft2 backward in the two-launch FFT form: {ms2:.4f} ms "
           f"(reference; the path takes form {form}), max_abs_err against "
@@ -652,6 +683,37 @@ def kernel_phase(plan, values, device, path="c2c"):
     recs.append(zdft_compress_record(path, plan, fgot, device))
     print_records(recs)
     return recs
+
+
+def pdft2_record(path, name, ins, m1, m2, err):
+    """The record of ``pdft2`` on planes ``ins`` ``(P, A, B)`` over B
+    (``m1``) then A (``m2``), backward transforms, in the forms
+    ``plane_forms`` gives, with one ``torch.fft.ifft2`` call as the
+    library yardstick and the matrix form on the same inputs; the design
+    bound of the two-launch FFT form moves the intermediate once more."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    gr, gi = ins
+    gc = torch.complex(gr, gi)
+    pp, a, b = gr.shape
+    b_out, a_out = dft.mats_shape(m1)[1], dft.mats_shape(m2)[1]
+    forms = dft_kernel.plane_forms(m1, m2, a)
+    e = gr.element_size()
+    nbytes = 2 * pp * a * b * e + 2 * pp * b_out * a_out * e \
+        + plane_table_bytes(m1, m2, forms)
+    flops = fft_flops(pp * a, b) + fft_flops(pp * b_out, a)
+    return kernel_record(
+        path, name, FFT_SRC, "spfft_tpu/ops/dft_kernel.py:277", err,
+        lambda: dft_kernel.pdft2(gr, gi, m1, m2),
+        lambda: dft.pdft2_minor(gr, gi, m1, m2),
+        (lambda: torch.fft.ifft2(gc, norm="forward")
+         .transpose(-1, -2).contiguous())
+        if (b_out, a_out) == (b, a) else None,
+        nbytes, flops,
+        flops if set(forms) <= {"fft", "cluster"}
+        else FLOP_PER_CMAC * pp * (a * b * b_out + b_out * a * a_out),
+        "+".join(forms),
+        lambda: dft_kernel.pdft2(gr, gi, matrix_pair(m1), matrix_pair(m2)),
+        nbytes + 2 * 2 * pp * b_out * a * e if len(forms) == 2 else None)
 
 
 def zdft_compress_record(path, plan, grid, device):
@@ -754,13 +816,15 @@ def fft_odd_shapes_phase(device, dtype=torch.float32):
     """The redesigned complex stages at shapes the paths do not reach,
     against their plain versions, each call's form checked by its launch
     counts: ``pdft_last`` in the FFT form at every radix (n = 1, 2, 3, 5,
-    12, 45, 60, 100, 128, 384, 512), ragged row counts, input and output
-    windows (wrapped), both signs and a scale, and at prime lengths (11,
-    13) in the matrix form; ``pdft2`` and ``pdft2_swapped`` in the
-    cluster form (P = 1, A not a multiple of 8, rectangular, windowed,
-    3·5-smooth, a ragged 129-row K), the two-launch FFT form (512²
-    planes), a mixed FFT + matrix call and the matrix form; ``prdft2``
-    and ``pdft2_cr`` with their complex half in the FFT form."""
+    7, 11, 12, 45, 49, 60, 77, 100, 121, 128, 343, 384, 448, 462, 512),
+    ragged row counts, input and output windows (wrapped), both signs and
+    a scale, at primes of 13 or more (13, 509) in the Bluestein form and
+    in the matrix form (a plain pair); ``pdft2`` and ``pdft2_swapped`` in
+    the cluster form (P = 1, A not a multiple of 8, rectangular,
+    windowed, 3·5-smooth, a ragged 129-row K), the two-launch FFT form
+    (512² planes, and every plane with radix 7 or 11: 56², 112², 448²,
+    7 x 300), a Bluestein + FFT call and the matrix form; ``prdft2`` and
+    ``pdft2_cr`` with their complex half in the FFT form."""
     from spfft_tpu_torch.ops import dft, dft_kernel
     rng = np.random.default_rng(SEED + 8)
 
@@ -789,19 +853,30 @@ def fft_odd_shapes_phase(device, dtype=torch.float32):
             ((1001,), 256, 1, 1.0, {}), ((65,), 128, -1, 0.25, {}),
             ((9,), 384, 1, 1.0, {}), ((3,), 512, -1, 1 / 512,
                                       {"cols": (500, 100)}),
-            ((21,), 13, 1, 1.0, {}), ((4,), 11, -1, 0.5, {"rows": (9, 4)})):
+            ((21,), 13, 1, 1.0, {}), ((4,), 11, -1, 0.5, {"rows": (9, 4)}),
+            ((33,), 7, 1, 1.0, {}), ((17,), 49, -1, 1.0, {"cols": (40, 30)}),
+            ((9,), 77, 1, 1 / 77, {}), ((5, 3), 121, -1, 1.0,
+                                        {"rows": (100, 50)}),
+            ((1001,), 343, 1, 1.0, {}), ((65,), 448, -1, 0.25,
+                                         {"rows": (440, 100)}),
+            ((7,), 462, 1, 1.0, {"cols": (450, 30)}),
+            ((3,), 352, -1, 1.0, {}), ((11,), 509, 1, 1.0,
+                                       {"rows": (500, 20)})):
         m = c2c(n, sign, scale, **window)
-        k = m[0].shape[0]
+        k = dft.mats_shape(m)[0]
         xr, xi = rand(*lead, k), rand(*lead, k)
-        got, forms = forms_of(dft_kernel.pdft_last,
-                              lambda: dft_kernel.pdft_last(xr, xi, m))
-        want_form = dft_kernel.stage_form(m)
-        if want_form != ("matrix" if n in (11, 13) else "fft") or (
-                on_card and forms != {want_form: 1}):
-            fail(f"pdft_last n={n}: form {forms}, expected {want_form}")
-        compare(f"pdft_last {lead + (k,)} n={n} {window} form {want_form}",
-                got, dft.pdft_last(xr, xi, m))
-        cases += 1
+        for mm, want_form in ((m, dft.c2c_form(n)),
+                              (matrix_pair(m), "matrix")):
+            if mm is not m and n not in (11, 13, 448):
+                continue  # the matrix form at a few lengths
+            got, forms = forms_of(dft_kernel.pdft_last,
+                                  lambda: dft_kernel.pdft_last(xr, xi, mm))
+            if dft_kernel.stage_form(mm) != want_form or (
+                    on_card and forms != {want_form: 1}):
+                fail(f"pdft_last n={n}: form {forms}, expected {want_form}")
+            compare(f"pdft_last {lead + (k,)} n={n} {window} form "
+                    f"{want_form}", got, dft.pdft_last(xr, xi, mm))
+            cases += 1
     planes = (  # (P, A, B), mats1 over B, mats2 over A, forms
         ((3, 20, 24), c2c(24, 1), c2c(20, -1), ("cluster",)),
         ((5, 9, 16), c2c(16, -1), c2c(24, 1, rows=(20, 9)), ("cluster",)),
@@ -812,8 +887,14 @@ def fft_odd_shapes_phase(device, dtype=torch.float32):
          ("cluster",)),
         ((2, 512, 9), c2c(9, 1), c2c(512, 1), ("cluster",)),
         ((2, 512, 512), c2c(512, 1), c2c(512, -1, 0.5), ("fft", "fft")),
-        ((2, 7, 300), c2c(300, -1), c2c(7, -1), ("fft", "matrix")),
-        ((2, 11, 13), c2c(13, 1), c2c(11, 1), ("matrix", "matrix")))
+        ((2, 7, 300), c2c(300, -1), c2c(7, -1), ("fft", "fft")),
+        ((3, 56, 56), c2c(56, 1), c2c(56, -1, 1 / 56), ("fft", "fft")),
+        ((2, 100, 112), c2c(112, -1), c2c(112, -1, rows=(0, 100)),
+         ("fft", "fft")),
+        ((1, 448, 448), c2c(448, 1), c2c(448, 1), ("fft", "fft")),
+        ((2, 11, 13), c2c(13, 1), c2c(11, 1), ("bluestein", "fft")),
+        ((2, 11, 13), matrix_pair(c2c(13, 1)), matrix_pair(c2c(11, 1)),
+         ("matrix", "matrix")))
     for (pp, a, b), m1, m2, want in planes:
         if dft_kernel.plane_forms(m1, m2, a) != want:
             fail(f"plane {(pp, a, b)}: forms "
@@ -866,9 +947,11 @@ def fft_odd_shapes_phase(device, dtype=torch.float32):
 def z_fft_odd_shapes_phase(device, dtype=torch.float32):
     """The FFT form of both fused z kernels at shapes the paths do not
     reach, against their plain versions, each call's form checked by its
-    launch counts: every radix (dim_z 1, 2, 3, 4, 5, 8, 12, 60, 100, 128,
-    384, 512) and 13 in the matrix form; one transform and B = 3 (each
-    band bit for bit against its single launch); both value layouts;
+    launch counts: every radix (dim_z 1, 2, 3, 4, 5, 7, 8, 11, 12, 60, 77,
+    100, 128, 384, 448, 512) and 13 in the matrix form (the plan's z
+    matrices there, ``fused_kernel.z_mats_form``); one transform and B =
+    3 (each band bit for bit against its single launch); both value
+    layouts;
     input and output windows off 0 and a scale; an empty stick, duplicate
     triplets and the R2C zero stick (half of it given, a given value of
     exactly 0 whose mirror is given, absent)."""
@@ -898,12 +981,15 @@ def z_fft_odd_shapes_phase(device, dtype=torch.float32):
                           (12, 37, {"rows": (5, 12), "cols": (3, 12)}),
                           (60, 11, {}), (100, 7, {"cols": (91, 100)}),
                           (128, 9, {}), (384, 9, {"rows": (200, 384)}),
-                          (512, 5, {}), (13, 21, {})):
+                          (512, 5, {}), (13, 21, {}), (7, 23, {}),
+                          (11, 19, {"rows": (4, 11)}), (77, 9, {}),
+                          (448, 5, {"cols": (400, 448)})):
         form = "matrix" if dz == 13 else "fft"
+        zm = fk.z_mats_form(dz)
         zb = dft.device_c2c(dz, dft.BACKWARD, device=device, dtype=dtype,
-                            **window)
+                            form=zm, **window)
         zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
-                            dtype=dtype, **window)
+                            dtype=dtype, form=zm, **window)
         if fk.z_form(zb, dz) != form or fk.z_form(zf, dz) != form:
             fail(f"z kernels dim_z={dz}: form {fk.z_form(zb, dz)}, "
                  f"expected {form}")
@@ -1193,25 +1279,23 @@ def r2c_kernel_phase(plan, values, device, path="r2c"):
                   (dft.pdft2_minor_cr(gr, gi, m1, m2),))
     gc = torch.complex(gr, gi)
     pp, a, b = gr.shape
-    b_out, a_out = m1[0].shape[1], m2[0].shape[1]
+    b_out, a_out = dft.mats_shape(m1)[1], dft.mats_shape(m2)[1]
     cc, rf = dft_kernel.stage_form(m1), dft_kernel.stage_form(m2)
     e = gr.element_size()
     nbytes = 2 * pp * a * b * e + pp * b_out * a_out * e \
         + table_bytes(m1, cc) + table_bytes(m2, rf)
+    pairs = matrix_pair(m1), matrix_pair(m2)
     recs.append(kernel_record(
-        path, "pdft2_cr", RFFT_SRC, REAL_REPLACES, err,
+        path, "pdft2_cr", BLUESTEIN_SRC if rf == "bluestein" else RFFT_SRC,
+        REAL_REPLACES, err,
         lambda: dft_kernel.pdft2_cr(gr, gi, m1, m2),
         lambda: dft.pdft2_minor_cr(gr, gi, m1, m2),
         (lambda: torch.fft.irfft2(
             gc.transpose(-1, -2), s=(b_out, a_out), norm="forward"))
         if a == p.dim_x_freq else None,
         nbytes, fft_flops(pp * a, b) + rfft_flops(pp * b_out, a_out),
-        (fft_flops(pp * a, b) if cc == "fft"
-         else FLOP_PER_CMAC * pp * a * b * b_out)
-        + (rfft_flops(pp * b_out, a_out) if rf == "rfft"
-           else FLOP_PER_RMAC * pp * b_out * a * a_out), f"{cc}+{rf}",
-        lambda: dft_kernel.pdft2_cr(gr, gi, matrix_pair(m1),
-                                    matrix_pair(m2)),
+        stage_design(m1, pp * a, e)[1] + stage_design(m2, pp * b_out, e)[1],
+        f"{cc}+{rf}", lambda: dft_kernel.pdft2_cr(gr, gi, *pairs),
         design_bytes=nbytes + 2 * 2 * pp * b_out * a * e))
 
     # prdft2, forward shapes: real (z, y, x) -> planar (z, w, y)
@@ -1219,24 +1303,22 @@ def r2c_kernel_phase(plan, values, device, path="r2c"):
     fgot = dft_kernel.prdft2(space, f1, f2)
     err = compare(f"{path} prdft2", fgot, dft.prdft2_minor(space, f1, f2))
     pp, a, b = space.shape
-    b_out, a_out = f1[0].shape[1], f2[0].shape[1]
+    b_out, a_out = dft.mats_shape(f1)[1], dft.mats_shape(f2)[1]
     rf, cc = dft_kernel.stage_form(f1), dft_kernel.stage_form(f2)
     nbytes = pp * a * b * e + 2 * pp * b_out * a_out * e \
         + table_bytes(f1, rf) + table_bytes(f2, cc)
+    pairs = matrix_pair(f1), matrix_pair(f2)
     recs.append(kernel_record(
-        path, "prdft2", RFFT_SRC, REAL_REPLACES, err,
+        path, "prdft2", BLUESTEIN_SRC if rf == "bluestein" else RFFT_SRC,
+        REAL_REPLACES, err,
         lambda: dft_kernel.prdft2(space, f1, f2),
         lambda: dft.prdft2_minor(space, f1, f2),
         (lambda: torch.fft.rfft2(space).transpose(-1, -2)
          .contiguous())
         if b_out == p.dim_x_freq else None,
         nbytes, rfft_flops(pp * a, b) + fft_flops(pp * b_out, a),
-        (rfft_flops(pp * a, b) if rf == "rfft"
-         else FLOP_PER_RMAC * pp * a * b * b_out)
-        + (fft_flops(pp * b_out, a) if cc == "fft"
-           else FLOP_PER_CMAC * pp * b_out * a * a_out), f"{rf}+{cc}",
-        lambda: dft_kernel.prdft2(space, matrix_pair(f1),
-                                  matrix_pair(f2)),
+        stage_design(f1, pp * a, e)[1] + stage_design(f2, pp * b_out, e)[1],
+        f"{rf}+{cc}", lambda: dft_kernel.prdft2(space, *pairs),
         design_bytes=nbytes + 2 * 2 * pp * b_out * a * e))
 
     recs.append(zdft_compress_record(path, plan, fgot, device))
@@ -1247,16 +1329,17 @@ def r2c_kernel_phase(plan, values, device, path="r2c"):
 def r2c_odd_shapes_phase(device, dtype=torch.float32):
     """The R2C kernels at shapes the path does not reach: the real stages
     of ``prdft2`` / ``pdft2_cr`` and the single-stage ``prdft_last`` /
-    ``pirdft_last`` in the real FFT form at even lengths of every kind
-    (2, 4, 6, 10, 24, 100, 250, 256, 512: half lengths 1, 2, odd,
-    powers of two, mixed radix) and in the matrix form at odd lengths (7,
-    15) and at 14 (a 7 in the half), with the plan's matrices and with
-    plain pairs, in windows of the half spectrum from 0, past 0 and
-    wrapped, scaled, with nonzero imaginary parts at DC and Nyquist
-    (changing them must leave the real inverse's output unchanged, bit for
-    bit, in the real FFT form), both stores of the real FFT stage kernel
-    (straight and transposed within planes), each call's form checked by
-    its launch counts; then the (0,0)-stick completion with no slot of the
+    ``pirdft_last`` in the real FFT form at even lengths of every kind (2, 4,
+    6, 10, 14, 22, 24, 100, 250, 256, 448, 512: half lengths 1, 2, odd, powers
+    of two, mixed radix, radix 7 and 11) and in the Bluestein form at odd
+    lengths (7, 15, 375) and at 26 (a 13 in the half), with the plan's
+    matrices and with plain pairs (the matrix form), in windows of the half
+    spectrum from 0, past 0 and wrapped, scaled, with nonzero imaginary parts
+    at DC and Nyquist (changing them must leave the real inverse's output
+    unchanged, bit for bit, in the real FFT form), both stores of the real FFT
+    stage kernel (straight and transposed within planes), each call's form
+    checked by its launch counts; then the (0,0)-stick completion with no
+    slot of the
     stick given, half of it given, a given value of exactly 0 whose mirror
     slot is given (so only completion by value fills it, not completion of
     empty slots), and no zero stick at all, in both value layouts; each
@@ -1291,6 +1374,10 @@ def r2c_odd_shapes_phase(device, dtype=torch.float32):
                                 (10, 12, 2, ((0, 3), (4, 2))),
                                 (14, 8, 3, ((0, 4), (6, 2))),
                                 (15, 20, 3, ((0, 3), (2, 4))),
+                                (22, 6, 3, ((0, 4), (8, 4))),
+                                (26, 7, 3, ((0, 5), (10, 4))),
+                                (375, 4, 2, ((0, 100), (150, 38))),
+                                (448, 5, 2, ((0, 100), (200, 25))),
                                 (24, 16, 3, ((0, 5), (3, 5), (11, 4))),
                                 (100, 10, 2, ((0, 30), (40, 11))),
                                 (250, 6, 2, ((0, 120), (120, 6))),
@@ -1304,9 +1391,9 @@ def r2c_odd_shapes_phase(device, dtype=torch.float32):
             spec_c2r = dft.device_c2r(nx, scale, rows=win, device=device,
                                       dtype=dtype)
             form = dft_kernel.stage_form(spec_r2c)
-            if form != ("rfft" if nx % 2 == 0 and nx != 14 else "matrix"):
+            if form != ("rfft" if nx % 2 == 0 and nx != 26 else "bluestein"):
                 fail(f"real stage nx={nx}: form {form}")
-            k = spec_r2c[0].shape[1]
+            k = dft.mats_shape(spec_r2c)[1]
             x = rand(pp, ny, nx)
             xr, xi = rand(pp, k, ny), rand(pp, k, ny)
             bins = [(win[0] + j) % xf if win else j for j in range(k)]
@@ -1382,7 +1469,7 @@ def r2c_odd_shapes_phase(device, dtype=torch.float32):
         compare(f"rfft stage cr nx={nx} transposed within {plane_rows} rows",
                 (real,), (dft.pirdft_last(*y, c2r).transpose(1, 2),))
         cases += 2
-    for s, dz in ((37, 12), (21, 13), (9, 384)):
+    for s, dz in ((37, 12), (21, 13), (9, 384), (11, 14)):
         zb = mats(dft.c2c_mats(dz, dft.BACKWARD))
         for kind, zid in (("half", 0), ("empty", s // 2), ("exact0", s - 1),
                           ("absent", -1)):
@@ -3111,7 +3198,8 @@ def long_axes_phase(sp, device, counters):
 #: the odd long lengths: z lengths by form (520 two-pass with a direct
 #: factor; 521, 997 and 1021 Bluestein), R2C x lengths by form (520 and
 #: 1022 Bluestein)
-LONG_Z = (520, 521, 997, 1021, 1024, 1080, 2048, 4097, 8192, 1031)
+LONG_Z = (520, 521, 997, 1021, 1024, 1080, 2016, 2048, 4097, 4480, 8192,
+          1031)
 #: the longest row csrc/fft_long.cu's one-launch kernel holds (WHOLE_N): a
 #: two-pass stage is one launch up to it, pass 1 then pass 2 above it
 LONG_WHOLE_N = 4096
@@ -3150,8 +3238,11 @@ def _want(*mats):
 def long_odd_shapes_phase(sp, device, counters, dtype):
     """Each long form on the card against its plain version at small
     shapes, in ``dtype``: ``pdft_last`` at z lengths ``LONG_Z`` (two-pass
-    with 2^a 3^b 5^c factors and with a direct factor, Bluestein to 1024,
-    ``torch.fft`` above), whole and windowed, both signs; ``pdft2`` /
+    with 2^a 3^b 5^c factors, with a direct factor, and with a 7 in a
+    shared-memory factor: 2016 = 42 x 48, whose 48 takes the float
+    register class 64, and 4480 = 64 x 70, pass 2 over 70 above
+    ``LONG_WHOLE_N``; Bluestein to 1024, ``torch.fft`` above), whole and
+    windowed, both signs; ``pdft2`` /
     ``pdft2_swapped`` with long stages on either axis; the real stages at
     ``LONG_X_R2C`` (the real FFT to 1024, Bluestein, ``torch.fft``),
     whole and windowed, alone and inside ``prdft2`` / ``pdft2_cr``; each
@@ -3536,31 +3627,346 @@ def long_f64_records(device):
     return recs
 
 
-#: a matrix-form length the reference admits (``good_fft_order``: 2^6 x 7)
-#: and the z stage it is timed on (the sticks of a 448^3 sphere)
+#: row 7M: a length the reference admits (``good_fft_order``: 2^6 x 7) and
+#: the z stage it is timed on (the sticks of a 448^3 sphere)
 MATRIX_N = 448
 MATRIX_ROWS = 157696
+#: kernel 1's other ``pdft_last`` lengths: 11 (352 = 4 4 2 11), 2 3 7 11
+#: (462) and 7^3 (343), on ``MATRIX_ROWS`` rows; a plane length that would
+#: fit one cluster (112 = 4 4 7); kernel A's two-pass length with a 7 in
+#: its shared-memory factor (896 = 28 x 32)
+RADIX_LENGTHS = (352, 462, 343)
+RADIX_CLUSTER_N = 112
+RADIX_LONG_N = 896
+#: kernel 2's lengths: complex (13, 26, 52, 257, 416 and 509 have a prime
+#: of 13 or more; 100's M fell from 540 to 200) and real (135, 375 odd;
+#: 510's half 255 = 3 5 17), on about ``STAGE_ELEMS`` elements each
+BLUESTEIN_CC = (13, 26, 52, 100, 257, 416, 509)
+BLUESTEIN_REAL = (135, 375, 510)
+STAGE_ELEMS = 1 << 25
+#: the fused z kernels at a dim_z with a prime of 13 or more: their matrix
+#: form (csrc/fused_compress.cu) beside the two-kernel route (gather +
+#: Bluestein) on the same sticks
+PRIME_Z = 416
+PRIME_Z_STICKS = 65536
 
 
-def matrix_length_record(device):
-    """``pdft_last`` at ``MATRIX_N`` (the matrix form, ``csrc/dft2.cu``:
-    a length with a 7) over ``MATRIX_ROWS`` seeded random rows, against
-    its plain version and one ``torch.fft`` call: measured, not changed.
-    Returns the record."""
+def _rows_of(n):
+    return max(1, STAGE_ELEMS // n)
+
+
+def _stage_pair(mode):
+    """The wrapper and plain version of a single-stage mode."""
     from spfft_tpu_torch.ops import dft, dft_kernel
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    x = tuple(torch.randn((MATRIX_ROWS, MATRIX_N), generator=gen,
-                          device=device) for _ in range(2))
-    m = dft.device_c2c(MATRIX_N, dft.BACKWARD, device=device)
-    if dft_kernel.stage_form(m) != "matrix":
-        fail(f"pdft_last {MATRIX_N}: form {dft_kernel.stage_form(m)}")
-    err = compare(f"matrix{MATRIX_N} pdft_last", dft_kernel.pdft_last(*x, m),
-                  dft.pdft_last(*x, m))
-    rec = long_stage_record(f"matrix{MATRIX_N}", "pdft_last",
-                            dft_kernel.pdft_last, dft.pdft_last, "cc", x, m,
-                            err, DFT2_SRC)
-    print_records([rec])
+    return {"cc": (dft_kernel.pdft_last, dft.pdft_last),
+            "rc": (dft_kernel.prdft_last, dft.prdft_last),
+            "cr": (dft_kernel.pirdft_last, dft.pirdft_last)}[mode]
+
+
+def _counted_call(name, wrapper, want, fn):
+    """``fn()``, one call counted alone: fails on the card unless
+    ``wrapper`` launched ``want`` (a dict by form) in it. Returns the
+    output and the launches."""
+    wrapper.launches = 0
+    wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+    out = fn()
+    on_card = _first_tensor(out).device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    got = {f: k for f, k in wrapper.form_launches.items() if k}
+    if on_card and (got != want or wrapper.launches != sum(want.values())):
+        fail(f"{name}: launched {wrapper.launches} times, by form {got}, "
+             f"expected {want}")
+    return out, wrapper.launches
+
+
+def form_record(path, name, mode, ins, mats, source, matrix=True):
+    """One single-stage wrapper call in the form ``mats`` carries: one
+    call counted alone (one launch in that form, the record's
+    ``launches``) against its plain version, then the record
+    (:func:`long_stage_record`: bound, design bound, plain, one
+    ``torch.fft`` call) with ``matrix_ms``, the matrix form
+    (``csrc/dft2.cu``) on the same inputs where ``matrix``."""
+    from spfft_tpu_torch.ops import dft_kernel
+    wrapper, plain = _stage_pair(mode)
+    form = dft_kernel.stage_form(mats)
+    got, launches = _counted_call(f"{path} {name}", wrapper, {form: 1},
+                                  lambda: wrapper(*ins, mats))
+    want = plain(*ins, mats)
+    err = compare(f"{path} {name} form {form}",
+                  got if isinstance(got, tuple) else (got,),
+                  want if isinstance(want, tuple) else (want,))
+    del got, want
+    rec = long_stage_record(path, name, wrapper, plain, mode, ins, mats, err,
+                            source)
+    if matrix:
+        pair = matrix_pair(mats)
+        rec["matrix_ms"] = timed_ms(lambda: wrapper(*ins, pair),
+                                    ins[0].device)
+    rec["launches"] = launches
     return rec
+
+
+def long_direct_factor(ins, mats):
+    """``pdft_last`` in the two-pass form with pass 1's factor on the
+    direct DFT path (radices 0: ``dft_rows``), as csrc/fft_long.cu ran a
+    factor with a 7 before the tile had radix 7; one launch, not
+    counted."""
+    from spfft_tpu_torch.ops import _build, dft, dft_kernel
+    xr, xi = ins
+    n1, n2 = mats.split
+    dtype = xr.dtype
+    fn = _build.function("fft_long.cu", _build.entry("spfft_fft_long", dtype),
+                         dft_kernel._long_args(_build.REAL_TYPES[dtype]))
+    out = (torch.empty_like(xr), torch.empty_like(xr))
+    paths = int(dft_kernel.reg_plan("fft_long.cu", n1, dtype)) | int(
+        dft_kernel.reg_plan("fft_long.cu", n2, dtype)) << 1
+    _build.launch(fn, "fft_long direct factor", xr.device, 0,
+                  *(t.data_ptr() for t in (xr, xi, *out, mats.twiddles)),
+                  xr.numel() // mats.n, mats.n, n1, n2, 0, mats.sign,
+                  mats.scale, 0, dft.radix_code(dft.fft_factors(n2)), paths)
+    return out
+
+
+def radix_records(device, dtype):
+    """Kernel 1 (radix 7 and 11 in ``csrc/fft_tile.cuh``) on seeded random
+    rows in ``dtype``, each against its plain version, the matrix form on
+    the same inputs and one ``torch.fft`` call: row 7M, ``pdft_last`` at
+    ``MATRIX_N`` over ``MATRIX_ROWS`` rows (the 448^3 sphere's z sticks),
+    and at ``RADIX_LENGTHS``; ``pdft2`` on ``RADIX_CLUSTER_N`` planes of
+    that side (a plane that fits one cluster, in two stage launches: the
+    cluster kernel takes radices 2-5 alone); kernel A (``csrc/fft_long.cu``) at
+    ``RADIX_LONG_N``, whose shared-memory factor 28 = 4 x 7 now runs the
+    tile's FFT, beside the same launch with that factor on the direct DFT
+    path (``direct_ms``). Returns the records."""
+    from spfft_tpu_torch.ops import dft, dft_kernel
+    path = "radix" + ("_f64" if dtype == torch.float64 else "")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    recs = []
+    for n in (MATRIX_N,) + RADIX_LENGTHS:
+        m = dft.device_c2c(n, dft.BACKWARD, device=device, dtype=dtype)
+        if dft_kernel.stage_form(m) != "fft":
+            fail(f"pdft_last {n}: form {dft_kernel.stage_form(m)}")
+        x = (rand(MATRIX_ROWS, n), rand(MATRIX_ROWS, n))
+        recs.append(form_record(path, f"pdft_last {n}", "cc", x, m, FFT_SRC))
+        del x
+    n = RADIX_CLUSTER_N
+    mb = dft.device_c2c(n, dft.BACKWARD, device=device, dtype=dtype)
+    x = (rand(n, n, n), rand(n, n, n))
+    got, launches = _counted_call(
+        f"{path} pdft2 {n}", dft_kernel.pdft2, {"fft": 2},
+        lambda: dft_kernel.pdft2(*x, mb, mb))
+    err = compare(f"{path} pdft2 {n}", got, dft.pdft2_minor(*x, mb, mb))
+    del got
+    recs.append(pdft2_record(path, f"pdft2 {n}", x, mb, mb, err))
+    recs[-1]["launches"] = launches
+    del x
+    n = RADIX_LONG_N
+    m = dft.device_c2c(n, dft.BACKWARD, device=device, dtype=dtype)
+    if dft_kernel.stage_form(m) != "two_pass" or m.split != (28, 32):
+        fail(f"pdft_last {n}: form {dft_kernel.stage_form(m)} {m.split}")
+    x = (rand(_rows_of(n), n), rand(_rows_of(n), n))
+    rec = form_record(path, f"pdft_last {n}", "cc", x, m, LONG_SRC,
+                      matrix=False)
+    if device.type == "cuda":
+        compare(f"{path} pdft_last {n} with its factor 28 direct",
+                long_direct_factor(x, m), dft_kernel.pdft_last(*x, m))
+        rec["direct_ms"] = timed_ms(lambda: long_direct_factor(x, m), device)
+        print(f"kernel {path} pdft_last {n}: factor 28 on the direct DFT "
+              f"path {rec['direct_ms']:.4f} ms against {rec['ms']:.4f} in "
+              f"the FFT (same inputs)", flush=True)
+    recs.append(rec)
+    del x
+    print_records(recs)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs
+
+
+def bluestein_mats(n, sign, device, dtype):
+    """The Bluestein form of a complex length-``n`` DFT, whatever form
+    ``dft.c2c_form`` gives ``n`` (100 has an FFT form: measured here for
+    its M)."""
+    from spfft_tpu_torch.ops import dft
+    return dft.DftMats(None, None, n=n, sign=sign, scale=1.0, rows=(0, n),
+                       cols=(0, n), twiddles=None, form="bluestein",
+                       bluestein=dft.device_bluestein(n, sign, 1.0, device,
+                                                      dtype))
+
+
+def bluestein_small_records(device, dtype):
+    """Kernel 2 (``csrc/bluestein.cu`` below 513) on seeded random rows in
+    ``dtype``, about ``STAGE_ELEMS`` elements a call, each against its
+    plain version, the matrix form on the same inputs and one
+    ``torch.fft`` call: ``pdft_last`` at ``BLUESTEIN_CC``, ``prdft_last``
+    and ``pirdft_last`` at ``BLUESTEIN_REAL``. Returns the records."""
+    from spfft_tpu_torch.ops import dft
+    path = "bluestein" + ("_f64" if dtype == torch.float64 else "")
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    recs = []
+    for n in BLUESTEIN_CC:
+        m = bluestein_mats(n, dft.BACKWARD, device, dtype)
+        x = (rand(_rows_of(n), n), rand(_rows_of(n), n))
+        recs.append(form_record(path, f"pdft_last {n}", "cc", x, m,
+                                BLUESTEIN_SRC))
+        del x
+    for n in BLUESTEIN_REAL:
+        mr = dft.device_r2c(n, device=device, dtype=dtype)
+        mc = dft.device_c2r(n, device=device, dtype=dtype)
+        if {mr.form, mc.form} != {"bluestein"}:
+            fail(f"real {n}: forms {mr.form} / {mc.form}")
+        rows = _rows_of(n)
+        x = rand(rows, n)
+        recs.append(form_record(path, f"prdft_last {n}", "rc", (x,), mr,
+                                BLUESTEIN_SRC))
+        y = (rand(rows, n // 2 + 1), rand(rows, n // 2 + 1))
+        recs.append(form_record(path, f"pirdft_last {n}", "cr", y, mc,
+                                BLUESTEIN_SRC))
+        del x, y
+    print_records(recs)
+    return recs
+
+
+def fused_prime_record(device):
+    """The fused z kernels at dim_z ``PRIME_Z`` (2^5 x 13, whose FFT form
+    is Bluestein's: their matrix form, ``csrc/fused_compress.cu``, as the
+    plan hands it) over ``PRIME_Z_STICKS`` sticks half full, against its
+    plain version, beside the two-kernel route on the same values (the
+    gather, then ``pdft_last`` in the Bluestein form: ``two_kernel_ms``).
+    Returns the record."""
+    from spfft_tpu_torch.indexing import inverse_slot_map
+    from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel as fk
+    from spfft_tpu_torch.ops import gather_kernel
+    dz, s = PRIME_Z, PRIME_Z_STICKS
+    rng = np.random.default_rng(SEED + 13)
+    slots = np.flatnonzero(rng.random(s * dz) < 0.5)
+    nv = len(slots)
+    slot_src = torch.as_tensor(np.concatenate(
+        [inverse_slot_map(slots, s * dz, nv), np.full(dz, nv, np.int32)]),
+        device=device)
+    vals = torch.as_tensor(rng.standard_normal((nv, 2)), dtype=torch.float32,
+                           device=device)
+    zm = dft.device_c2c(dz, dft.BACKWARD, device=device,
+                        form=fk.z_mats_form(dz))
+    zb = dft.device_c2c(dz, dft.BACKWARD, device=device)
+    if (fk.z_form(zm, dz), dft_kernel.stage_form(zb)) != ("matrix",
+                                                          "bluestein"):
+        fail(f"dim_z {dz}: forms {fk.z_form(zm, dz)} / "
+             f"{dft_kernel.stage_form(zb)}")
+    path = f"z{dz}"
+    got, launches = _counted_call(
+        f"{path} decompress_zdft", fk.decompress_zdft, {"matrix": 1},
+        lambda: fk.decompress_zdft(vals, slot_src, zm, dz))
+    want = fk.decompress_zdft_plain(vals, slot_src, zm, dz, False)
+    err = compare(f"{path} decompress_zdft (matrix form)", got, want)
+
+    def two_kernel():
+        sr, si = gather_kernel.decompress(vals, slot_src, dz)
+        return dft_kernel.pdft_last(sr, si, zb)
+
+    compare(f"{path} gather + pdft_last (Bluestein)", two_kernel(), want)
+    del got, want
+    rows = s + 1
+    vpad = torch.cat([torch.view_as_complex(vals),
+                      torch.zeros(1, dtype=torch.complex64, device=device)])
+    slot64 = slot_src.long()
+    e = vals.element_size()
+    rec = kernel_record(
+        path, "decompress_zdft", Z_SRC["matrix"], DEC_REPLACES, err,
+        lambda: fk.decompress_zdft(vals, slot_src, zm, dz),
+        lambda: fk.decompress_zdft_plain(vals, slot_src, zm, dz, False),
+        lambda: torch.fft.ifft(vpad[slot64].view(rows, dz), norm="forward"),
+        nv * 2 * e + rows * dz * 4 + 2 * dz * e + 2 * rows * dz * e,
+        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, "matrix")
+    rec["launches"] = launches
+    rec["two_kernel_ms"] = timed_ms(two_kernel, device)
+    rec["two_kernel_device_ms"] = graph_ms(two_kernel, device)
+    print_records([rec])
+    print(f"kernel {path} decompress_zdft: the two-kernel route (gather + "
+          f"Bluestein) {rec['two_kernel_ms']:.4f} ms "
+          f"({_ms(rec['two_kernel_device_ms'])} on the device) against "
+          f"{rec['ms']:.4f} in the fused matrix form", flush=True)
+    return rec
+
+
+#: the slice's path at full width, 448^3: the C2C pair (fused route: each
+#: z kernel once in the FFT form, pdft2 twice in two FFT stage launches,
+#: 448^2 planes exceed one cluster) and the R2C pair (as 256^3's); and the
+#: local R2C plan at 375^3, whose odd x takes Bluestein's FFT
+C2C448_LAUNCHES = {"decompress_zdft": ZFFT1, "pdft2": (4, 4, {"fft": 4}),
+                   "zdft_compress": ZFFT1, "prdft2": (0, 0),
+                   "pdft2_cr": (0, 0), "gather": (0, 0), "pdft_last": (0, 0),
+                   "pdft2_swapped": (0, 0), **NO_REAL_LAST}
+R2C375_N = 375
+R2C375_LAUNCHES = {"decompress_zdft": ZFFT1,
+                   "prdft2": (2, 2, {"bluestein": 1, "fft": 1}),
+                   "pdft2_cr": (2, 2, {"fft": 1, "bluestein": 1}),
+                   "zdft_compress": ZFFT1, "pdft2": (0, 0), "gather": (0, 0),
+                   "pdft_last": (0, 0), "pdft2_swapped": (0, 0),
+                   **NO_REAL_LAST}
+
+
+def _length_path(sp, path, plan, values, oracle_rel, device, counters,
+                 want, phase, precisions=("single", "double")):
+    """A path of :func:`length_phases`: its kernels at its shapes
+    (``phase``: ``kernel_phase`` or ``r2c_kernel_phase``) and its counted
+    pair, in float32 and then, where ``precisions`` holds ``"double"``, in
+    float64 on the same index plan (``precision="double"``, the values
+    widened, records with paths ``*_f64``). Returns the records."""
+    recs = []
+    for precision in precisions:
+        if precision == "double":
+            plan = sp.TransformPlan(plan.index_plan, precision=precision,
+                                    device=device)
+            values, path = values.double(), path + "_f64"
+        rr = phase(plan, values, device, path=path)
+        set_launches(rr, pair_phase(sp, path, plan, values, oracle_rel,
+                                    device, counters, want))
+        recs += rr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs
+
+
+def length_phases(sp, device, counters):
+    """The slice's path at full width: the C2C path (``main_path_plan``) at
+    ``MATRIX_N``^3 (47,077,534 values in 157,583 sticks), each kernel at
+    its shapes against its plain version with the matrix form's time on
+    the same inputs (``kernel_phase``), and the counted pair against the
+    complex128 oracle (``pair_phase``: every stage and z kernel in an FFT
+    form, no matrix launch), in float32 and float64; the same for the R2C
+    path on the half sphere; then the local R2C plan at ``R2C375_N``^3,
+    whose odd x runs Bluestein's FFT: its kernels at its shapes
+    (``r2c_kernel_phase``) and its counted pair, in float32. Returns the
+    records."""
+    n = MATRIX_N
+    plan, trip, values = main_path_plan(sp, n, device)
+    recs = _length_path(sp, f"c2c{n}", plan, values,
+                        c2c_oracle_rel(plan, trip, values, device), device,
+                        counters, C2C448_LAUNCHES, kernel_phase)
+    del plan, trip, values
+    for n, path, want in ((MATRIX_N, f"r2c{MATRIX_N}", R2C_LAUNCHES),
+                          (R2C375_N, f"r2c{R2C375_N}", R2C375_LAUNCHES)):
+        plan, _, values, oracle = r2c_plan(sp, n, device)
+
+        def oracle_rel(space, oracle=oracle):
+            return float(torch.linalg.norm(space.double() - oracle)
+                         / torch.linalg.norm(oracle))
+
+        recs += _length_path(sp, path, plan, values, oracle_rel, device,
+                             counters, want, r2c_kernel_phase,
+                             ("single", "double") if n == MATRIX_N
+                             else ("single",))
+        del plan, values, oracle
+    return recs
 
 
 def ptxas_spills(log: str) -> dict:
@@ -3587,17 +3993,27 @@ def ptxas_spills(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-#: the redesigned long-axis kernels whose float instances must not spill
-NO_SPILL = {"fft_long.cu": ("fft_long_whole_kernel", "fft_long_col_kernel",
-                            "fft_long_kernel"),
-            "bluestein.cu": ("bluestein_kernel",)}
+#: the kernels whose float instances must not spill, by library, each a
+#: pattern of its mangled name up to the template arguments it fixes: every
+#: instance of the long-axis kernels, and the instances of the kernels over
+#: fft_tile.cuh that hold its radix-7 and 11 stages (template arguments
+#: POW2 false, ODD true: ...ILb0ELb1E...; the cluster kernel takes radices
+#: 2-5 alone)
+NO_SPILL = {"fft_long.cu": ("fft_long_whole_kernelI", "fft_long_col_kernelI",
+                            "fft_long_kernelI"),
+            "bluestein.cu": ("bluestein_kernelI",),
+            "fft.cu": ("fft_stage_kernelILb0ELb1E",),
+            "rfft.cu": ("rfft_stage_kernelILi1ELb0ELb1E",
+                        "rfft_stage_kernelILi2ELb0ELb1E"),
+            "fused_fft.cu": ("decompress_zdft_fft_kernelILb0ELb1E",
+                             "zdft_compress_fft_kernelILb0ELb1E")}
 
 
 def spill_check(build_log: dict) -> None:
     """Print the registers and spill stores of each instance of the
-    redesigned kernels (``NO_SPILL``), read from the build log kept with
-    each library (``_build.build_log``). Fails where a source has no log,
-    a kernel has no float instance, an instance's real type, registers or
+    kernels ``NO_SPILL`` names, read from the build log kept with each
+    library (``_build.build_log``). Fails where a source has no log, a
+    pattern has no float instance, an instance's real type, registers or
     spill stores cannot be read, or a float instance spills."""
     for src, kernels in NO_SPILL.items():
         if not build_log.get(src):
@@ -3608,7 +4024,7 @@ def spill_check(build_log: dict) -> None:
             if kern is None:
                 continue
             # the template arguments: ...kernelILi64EfE... (float) / dE
-            m = re.search(kern + r"I(?:L[a-z]\d+E)*([fd])E", name)
+            m = re.search(kern + r"(?:L[a-z]\d+E)*([fd])E", name)
             if m is None or regs is None or spill is None:
                 fail(f"{src}: {name}: real type, registers or spill stores "
                      f"not read from the log ({regs}, {spill})")
@@ -3622,6 +4038,45 @@ def spill_check(build_log: dict) -> None:
         if floats != set(kernels):
             fail(f"{src}: no float instance of "
                  f"{sorted(set(kernels) - floats)} in the log")
+
+
+#: the sources over fft_tile.cuh whose ptxas reports ``--ptxas-of``
+#: prints
+PTXAS_OF = ("fft.cu", "rfft.cu", "fused_fft.cu", "fft_long.cu")
+
+
+def ptxas_of(tree: str) -> int:
+    """``python3 chip_smoke.py --ptxas-of TREE``: compile ``PTXAS_OF``
+    from ``TREE/spfft_tpu_torch/csrc`` (another checkout, such as a
+    parent commit's ``git archive``) with this checkout's ``nvcc`` flags,
+    one ``nvcc`` a source, all at once, into a temporary directory, and
+    print each entry's registers and spill stores (:func:`ptxas_spills`),
+    so that a tree's report sits beside the one this checkout's build
+    prints. Needs ``nvcc``, not a card."""
+    import tempfile
+    from spfft_tpu_torch.ops import _build
+    csrc = os.path.join(tree, "spfft_tpu_torch", "csrc")
+    with tempfile.TemporaryDirectory() as out:
+        procs = {n: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(out, n + ".so"), os.path.join(csrc, n)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in PTXAS_OF}
+        try:
+            logs = {n: p.communicate(timeout=_build.BUILD_TIMEOUT_S)
+                    for n, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for n, (log, _) in logs.items():
+        if procs[n].returncode != 0:
+            fail(f"nvcc failed on {csrc}/{n}:\n{log[-4000:]}")
+        for name, (regs, spill) in ptxas_spills(log).items():
+            print(f"ptxas-of {tree} {n}: {name}: {regs} registers, {spill} "
+                  f"bytes spill stores", flush=True)
+    return 0
 
 
 def stages_mid(grid, planes, mats_y):
@@ -4300,6 +4755,8 @@ def capi_phase(sp, device, counters, smi, n=N):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
+        return ptxas_of(sys.argv[2])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
@@ -4337,7 +4794,10 @@ def main() -> int:
     spill_check(_build.build_log)
 
     device = torch.device("cuda", torch.cuda.current_device())
+    t_run = time.perf_counter()
     recs, sweep = run(device)
+    print(f"256^3 paths, odd shapes and double: "
+          f"{time.perf_counter() - t_run:.1f} s ({card})", flush=True)
     import spfft_tpu_torch as sp
     t_long = time.perf_counter()
     recs += long_axes_phase(sp, device, launch_counters())
@@ -4345,11 +4805,28 @@ def main() -> int:
         long_odd_shapes_phase(sp, device, launch_counters(), dtype)
     recs += long_plans_phase(sp, device, launch_counters())
     recs += long_f64_records(device)
-    matrix = matrix_length_record(device)
     print(f"long-axis phases: {time.perf_counter() - t_long:.1f} s "
           f"({card})", flush=True)
+    t_len = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        recs += radix_records(device, dtype)
+        recs += bluestein_small_records(device, dtype)
+    recs.append(fused_prime_record(device))
+    print(f"stage records up to 512: {time.perf_counter() - t_len:.1f} s "
+          f"({card})", flush=True)
+    recs += length_phases(sp, device, launch_counters())
+    matrix = next(r for r in recs if (r["path"], r["name"]) == (
+        "radix", f"pdft_last {MATRIX_N}"))
+    print(f"lengths up to 512 (radix 7 and 11, Bluestein, the {MATRIX_N}^3 "
+          f"and {R2C375_N}^3 paths): {time.perf_counter() - t_len:.1f} s "
+          f"({card})", flush=True)
+    t_cli = time.perf_counter()
     bench = benchmark_phase(card)
+    print(f"benchmark CLI: {time.perf_counter() - t_cli:.1f} s ({card})",
+          flush=True)
+    t_cli = time.perf_counter()
     capi = capi_phase(sp, device, launch_counters(), card)
+    print(f"C ABI: {time.perf_counter() - t_cli:.1f} s ({card})", flush=True)
     print(json.dumps({"batched_sweep": sweep}), flush=True)
     print(json.dumps({"benchmark": bench}), flush=True)
     print(json.dumps({"capi": capi}), flush=True)

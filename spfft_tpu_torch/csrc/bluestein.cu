@@ -1,9 +1,10 @@
-// Kernel B of the long axes: a DFT of length n along the minor axis whose
-// length has no FFT form of its own (a complex n in (512, 1024] with no
-// two-pass split, such as 521, 997 or 1021; a real n in (512, 1024] with
-// no real FFT form, such as 520 or 1022, whose halves 260 = 4 x 5 x 13 and
-// 511 = 7 x 73 have other primes), as Bluestein's chirp-z FFT: with w[j]
-// = e^(sign i pi j^2 / n), j k = (j^2 + k^2 - (k - j)^2) / 2 gives
+// Kernel B: a DFT of length n <= 1024 along the minor axis whose length
+// has no FFT form of its own (a complex n with a prime of 13 or more and,
+// above 512, no two-pass split, such as 13, 416 = 2^5 x 13, 509, 521, 997
+// or 1021; a real n that is odd, such as 135 or 375, or whose half has such
+// a prime, such as 510, 520 or 1022, whose halves 255 = 3 x 5 x 17, 260 =
+// 4 x 5 x 13 and 511 = 7 x 73 have them), as Bluestein's chirp-z FFT:
+// with w[j] = e^(sign i pi j^2 / n), j k = (j^2 + k^2 - (k - j)^2) / 2 gives
 //
 //   X[k] = w[k] sum_j (x[j] w[j]) conj(w[k - j]),
 //
@@ -11,14 +12,18 @@
 // x[j] w[j] zero-padded to M, A = FFT_M(a), A times the plan-time
 // spectrum B = FFT_M(conj(w) wrapped) / M (the caller's scale folded in),
 // the inverse FFT_M, times w[k]. M (ops/dft.py: bluestein_length) is the
-// smallest 2^a 3^b 5^c >= 2 n - 1 whose balanced split M = m1 m2 has
-// factors of at most 32 or even ones of at most 64 (1080 = 30 x 36 for
-// 521, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for 1021 and 1022). It is
-// the port's counterpart of the JAX package's direct matmul DFT of such
-// an axis (spfft_tpu/ops/dft.py, an XLA dot, not a Pallas kernel), and it
-// replaces the port's dense n x n product (dft2.cu staged through shared
-// memory), whose n^2 operations put its design bound (1.61 ms at 521 in
-// the distributed C2C xy stage) above one torch.fft call.
+// smallest 2^a 3^b 5^c >= 2 n - 1 whose balanced split M = m1 m2 (m1 the
+// largest divisor up to sqrt(M)) has factors from 2 to 32 or even ones of
+// at most 64 (25 = 5 x 5 for 13, 200 = 10 x 20 for 100, 1080 = 30 x 36 for
+// 521, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for 1021 and 1022). Above
+// 512 it is the port's counterpart of the JAX package's direct matmul DFT
+// of such an axis (spfft_tpu/ops/dft.py, an XLA dot, not a Pallas kernel);
+// up to 512 it stands for the Pallas stage kernels' dense product
+// (spfft_tpu/ops/dft_kernel.py: pdft_last, :165, and _kernel2, :277).
+// Either way it replaces the port's dense n x n product (dft2.cu), whose
+// n^2 operations put its design bound above one torch.fft call (1.61 ms at
+// 521 in the distributed C2C xy stage; 2.83 ms at 448 over a 448^3
+// sphere's z sticks).
 //
 // Modes (dft2.cu's TileMode numbers): 0 cc, complex rows to complex bins;
 // 1 rc, real rows (a zero imaginary part) to the bins of the half-spectrum

@@ -16,14 +16,14 @@
 // spfft_dft_stage_f64), in the matrix form: each DFT a product against plan-time
 // matrices. Since the complex stages moved to fft.cu (the FFT stage and
 // cluster kernels, for every complex stage whose matrices carry their
-// transform and whose length is 2^a 3^b 5^c) and the real stages to
+// transform and whose length is 2^a 3^b 5^c 7^d 11^e), the real stages to
 // rfft.cu (the real FFT stage kernel, for every real stage whose matrices
-// carry their transform and whose length is even with a 2^a 3^b 5^c
-// half), this kernel serves only the rest: real stages of odd length or
-// whose half has another prime factor (14, 22, ...), complex stages whose
-// length has another prime factor (11, 13, ...), and matrix pairs passed
-// without their transform. Each call is one stage kernel launched twice:
-// the first launch stores its result transposed within each plane,
+// carry their transform and whose length is even with such a half) and
+// every other length to bluestein.cu (Bluestein's FFT: primes of 13 or
+// more, odd real lengths), a plan never launches this kernel: it serves
+// only matrix pairs passed without their transform. Each call is one
+// stage kernel launched twice: the first launch stores its result
+// transposed within each plane,
 // (P, B', A'), and the second contracts the new minor axis and stores
 // straight (pdft2_swapped: transposed once more, plane_rows = B'). The
 // mode picks the tile product: "rc" a real-input first stage (RC: no
@@ -31,10 +31,8 @@
 // (CR: 2 FMAs, one output array). The intermediate makes one round trip
 // through device memory.
 //
-// Sides above 512 are not this kernel's: a complex length in (512, 1024]
-// with no two-pass split and a real one with no real FFT form run
-// bluestein.cu (form "bluestein"), whose FFTs need O(n log n) where a
-// product needs n^2. Not cuBLAS: no cuBLAS call runs on the card.
+// Sides above 512 are not this kernel's either. Not cuBLAS: no cuBLAS
+// call runs on the card.
 //
 // Bound on the H100: operations, for the matrix form. A 256^3 "cc" call
 // in this form is 2 x 65,536 rows x 256 x 256 complex multiply-adds,

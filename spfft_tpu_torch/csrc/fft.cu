@@ -2,7 +2,8 @@
 // kernels spfft_tpu/ops/dft_kernel.py:pdft_last (_stage_kernel, launched at
 // :165) and _run2 in mode "cc" (launched at :277; pdft2 and pdft2_swapped),
 // for transforms the plan describes (ops/dft.py: DftMats) with a length
-// n <= 512 of the form 2^a 3^b 5^c. Two kernels, both on fft_tile.cuh:
+// n <= 512 of the form 2^a 3^b 5^c 7^d 11^e. Two kernels, both on
+// fft_tile.cuh:
 //
 //   fft_stage_kernel (spfft_fft_stage): rows (M, K) -> (M, N), one FFT per
 //     row in shared memory: the K inputs scattered into a zeroed length-n
@@ -78,8 +79,8 @@ size_t plane_smem(int A, int Bo, int n1, int n2) {
 // plane_rows == 0: Y[m][j] stored at y[m * N + j].
 // plane_rows == A > 0: row m = p * A + a, Y[m][j] stored at
 //                      y[(p * N + j) * A + a] (transposed within a plane).
-template <bool POW2, class T>
-__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+template <bool POW2, bool ODD, class T>
+__global__ void __launch_bounds__(Bounds<T>::stage_threads(ODD))
     fft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                      T* __restrict__ yr, T* __restrict__ yi,
                      const T* __restrict__ tw, long long M, int K, int N,
@@ -98,7 +99,7 @@ __global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
   load_twiddles(twr, twi, tw, n);
   load_rows(re, im, rows, valid, stride, n, K, sp.in0, xr, xi, m0);
   __syncthreads();
-  fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+  fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
   const T sc = sp.scale;
   if (plane_rows == 0) {
     store_rows(re, im, valid, stride, n, N, sp.out0, sc, yr, yi, m0);
@@ -282,10 +283,11 @@ int launch_stage(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
                  long long M, int K, int N, int plane_rows, int n, int sign,
                  T scale, int in0, int out0, int radices, void* stream) {
   int threads, rows;
-  stage_block<T>(n, &threads, &rows);
+  stage_block<T>(n, &threads, &rows, odd_radices(radices));
   const size_t smem = stage_smem<T>(n, rows);
-  auto kernel =
-      pow2(n) ? fft_stage_kernel<true, T> : fft_stage_kernel<false, T>;
+  auto kernel = tile_instance(n, radices, fft_stage_kernel<true, false, T>,
+                              fft_stage_kernel<false, true, T>,
+                              fft_stage_kernel<false, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -302,6 +304,11 @@ int launch_plane(const T* xr, const T* xi, T* yr, T* yi, const T* tw1,
                  int sign1, int in1, int out1, int rad1, int n2, int sign2,
                  int in2, int out2, int rad2, T scale, int swap_out,
                  void* stream) {
+  // radix 7 and 11 run in two stage launches (ops/dft_kernel.py:
+  // plane_forms): on an H100 they ran faster there than in an instance of
+  // this kernel for them, which held one block an SM and spilled
+  if (odd_radices(rad1) || odd_radices(rad2))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = plane_smem<T>(A, Bo, n1, n2);
   auto kernel = pow2(n1) && pow2(n2) ? fft_plane_kernel<true, T>
                                      : fft_plane_kernel<false, T>;

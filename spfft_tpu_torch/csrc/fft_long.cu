@@ -46,9 +46,10 @@
 // reg_max<T>() (64 in float, 32 in double: fft_reg.cuh); the wrapper says
 // which passes take it (paths: bit 0 pass 1, bit 1 pass 2), by length at
 // plan time. Any other factor keeps the shared-memory path inside the same
-// kernel: fft_tile.cuh's Stockham FFT for a 2^a 3^b 5^c factor above
-// reg_max, a direct DFT of the row (dft_rows, summed in slices of 16) for
-// a factor with another prime (26 in 520 = 20 x 26). Every twiddle comes
+// kernel: fft_tile.cuh's Stockham FFT for a 2^a 3^b 5^c 7^d 11^e factor
+// above reg_max or with a 7 or 11 (28 in 896 = 28 x 32), a direct DFT of
+// the row (dft_rows, summed in slices of 16) for a factor with a prime of
+// 13 or more (26 in 520 = 20 x 26). Every twiddle comes
 // from the plan's table of length n, e^(sign 2 pi i m / n) computed in
 // float64 on the host and rounded once to T: a factor's table is its
 // every (n / L)-th entry, W_n^(i2 k1) is entry i2 k1 (< n). No __sinf.
@@ -75,7 +76,7 @@ using namespace spfft::fft;
 // n1, G = n2, row q = (m, i2); pass 2: L = n2, G = n1, row q = (m, k1)).
 // sp describes the pass's transform of length L (sign, scale, radices); tw
 // is the plan's (2, n) table.
-template <bool POW2, bool DIRECT, class T>
+template <bool POW2, bool DIRECT, bool ODD, class T>
 __global__ void __launch_bounds__(512)
     fft_long_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                     T* __restrict__ yr, T* __restrict__ yi,
@@ -125,7 +126,7 @@ __global__ void __launch_bounds__(512)
   if constexpr (DIRECT)
     dft_rows<EPT>(re, im, valid, stride, L, twr, twi);
   else
-    fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+    fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
 
   if (pass == 1) {  // times W_n^(i2 k1), stored in the input's view
     Walk w(valid);
@@ -223,10 +224,12 @@ struct Whole {
 
 // Blocks an SM of an instance whose register rows are at most MAXL long:
 // float rows of 32 fit two blocks of 256 threads (128 registers a thread),
-// rows of 64 and double rows one.
-template <int MAXL, class T>
+// rows of 64, double rows and an instance whose shared-memory FFT has
+// radix 7 or 11 inline (ODD: at 128 registers it spilled) one.
+template <int MAXL, bool ODD, class T>
 struct Occupancy {
-  static constexpr int BLOCKS = sizeof(T) == 4 && MAXL <= 32 ? 2 : 1;
+  static constexpr int BLOCKS =
+      sizeof(T) == 4 && MAXL <= 32 && !ODD ? 2 : 1;
 };
 
 // The register lengths an instance of class MAXL compiles for each pass:
@@ -254,8 +257,9 @@ constexpr bool class_takes(bool reg1, int n1, bool reg2, int n2) {
 // shared-memory path, the n-table padded as a row is (entry m at pad(m):
 // W_n^(i2 k1) read by neighbouring i2 falls in distinct banks), and the
 // factors' tables.
-template <int MAXL, class T>
-__global__ void __launch_bounds__(WHOLE_THREADS, (Occupancy<MAXL, T>::BLOCKS))
+template <int MAXL, bool ODD, class T>
+__global__ void __launch_bounds__(WHOLE_THREADS,
+                                  (Occupancy<MAXL, ODD, T>::BLOCKS))
     fft_long_whole_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                           T* __restrict__ yr, T* __restrict__ yi,
                           const T* __restrict__ tw, long long M, int n,
@@ -298,8 +302,10 @@ __global__ void __launch_bounds__(WHOLE_THREADS, (Occupancy<MAXL, T>::BLOCKS))
   const T s = (T)s1.sign;
   // the shared-memory paths inline where the register rows are short (a
   // call there made the kernel spill), in functions of their own beside
-  // rows of 64
+  // rows of 64 (whose one instance takes radix 7 and 11 there: ODD is
+  // false for it)
   constexpr bool INL = MAXL <= 32;
+  constexpr bool SMEM_ODD = INL ? ODD : true;
   __syncthreads();
 
   if (reg1) {
@@ -342,7 +348,7 @@ __global__ void __launch_bounds__(WHOLE_THREADS, (Occupancy<MAXL, T>::BLOCKS))
       pi[o] = xi[base + f];
     }
     __syncthreads();
-    smem_rows<INL>(pr, pi, valid * n2, st1, s1, t1r, t1i);
+    smem_rows<INL, SMEM_ODD>(pr, pi, valid * n2, st1, s1, t1r, t1i);
     // element (r, i2, k1), k1 fastest, times W_n^(i2 k1) into Q
     w = Walk3(n2, n1);
     for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
@@ -391,7 +397,7 @@ __global__ void __launch_bounds__(WHOLE_THREADS, (Occupancy<MAXL, T>::BLOCKS))
     });
     if (plane_rows == 0) return;
   } else {
-    smem_rows<INL>(qr, qi, valid * n1, st2, s2, t2r, t2i);
+    smem_rows<INL, SMEM_ODD>(qr, qi, valid * n1, st2, s2, t2r, t2i);
     if (plane_rows == 0) {  // output f = r n + k2 n1 + k1: k1 fastest
       Walk3 w(n2, n1);
       for (int f = threadIdx.x; f < total; f += blockDim.x, w.next()) {
@@ -491,7 +497,11 @@ int launch_whole_class(const T* xr, const T* xi, T* yr, T* yi, const T* tw,
                        long long M, int n, int plane_rows, int rows,
                        int threads, size_t smem, FftSpec<T> s1,
                        FftSpec<T> s2, int paths, void* stream) {
-  auto kernel = fft_long_whole_kernel<MAXL, T>;
+  // radix 7 or 11 on an inline shared-memory path: the ODD instance
+  const bool odd = MAXL <= 32 && (odd_radices(s1.radices) ||
+                                  odd_radices(s2.radices));
+  auto kernel = odd ? fft_long_whole_kernel<MAXL, MAXL <= 32, T>
+                    : fft_long_whole_kernel<MAXL, false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -576,9 +586,12 @@ int launch_long(int pass, const T* xr, const T* xi, T* yr, T* yi,
     threads = 512;
   }
   const size_t smem = stage_smem<T>(L, rows);
-  auto kernel = radices == 0 ? fft_long_kernel<false, true, T>
-                : pow2(L)    ? fft_long_kernel<true, false, T>
-                             : fft_long_kernel<false, false, T>;
+  auto kernel = radices == 0
+                    ? fft_long_kernel<false, true, false, T>
+                    : tile_instance(L, radices,
+                                    fft_long_kernel<true, false, false, T>,
+                                    fft_long_kernel<false, false, true, T>,
+                                    fft_long_kernel<false, false, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -598,7 +611,7 @@ int launch_long(int pass, const T* xr, const T* xi, T* yr, T* yi,
 // input). tw is the (2, n) table e^(sign 2 pi i m / n); plane_rows (the
 // last pass) 0 for straight stores, A > 0 for stores transposed within
 // planes of A rows; the scale is applied at the last pass's store; rad1 /
-// rad2 the factors' stage radices (3 bits each, the first stage lowest), 0
+// rad2 the factors' stage radices (4 bits each, the first stage lowest), 0
 // for a factor's direct DFT; paths bit 0 / bit 1: pass 1 / pass 2 holds
 // its factor's rows in registers (a 2^a 3^b 5^c factor of at most 64 in
 // float, 32 in double; pass 2 of a two-launch row never). _f64: the same

@@ -291,21 +291,26 @@ __device__ __noinline__ void dft_rows(T* re, T* im, int rows, int stride,
 // is given, else its direct DFT) along the first `rows` rows of the
 // buffer, in place, against its table (twr, twi) of sp.n entries: the
 // shared-memory path of a factor with no register plan, INLINE or in
-// functions of their own (fft_rows, dft_rows). Ends after a barrier.
-template <bool INLINE, class T>
+// functions of their own (fft_rows, dft_rows). ODD: the radices may hold
+// 7 or 11 (fft_tile.cuh: fft_rows_inline), inline in the caller's ODD
+// instance, or in fft_rows' ODD instance where odd_radices says so. Ends
+// after a barrier.
+template <bool INLINE, bool ODD = false, class T>
 __device__ __forceinline__ void smem_rows(T* re, T* im, int rows, int stride,
                                           const FftSpec<T>& sp,
                                           const T* twr, const T* twi) {
   if (INLINE) {
     if (sp.radices)
-      fft_rows_inline<false>(re, im, rows, stride, sp, twr, twi);
+      fft_rows_inline<false, ODD>(re, im, rows, stride, sp, twr, twi);
     else
       dft_rows_inline<8>(re, im, rows, stride, sp.n, twr, twi);
   } else {
-    if (sp.radices)
-      fft_rows<false>(re, im, rows, stride, sp, twr, twi);
-    else
+    if (!sp.radices)
       dft_rows<8>(re, im, rows, stride, sp.n, twr, twi);
+    else if (ODD && odd_radices(sp.radices))
+      fft_rows<false, true>(re, im, rows, stride, sp, twr, twi);
+    else
+      fft_rows<false>(re, im, rows, stride, sp, twr, twi);
   }
 }
 

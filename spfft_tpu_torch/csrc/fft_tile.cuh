@@ -1,9 +1,12 @@
 // Shared device code of the package's FFT kernels (fft.cu, fused_fft.cu,
-// rfft.cu): a block runs complex FFTs of length n <= 512 = 2^a 3^b 5^c
-// along the rows of a buffer in shared memory, planar (separate real and
-// imaginary arrays) in the real type T, float or double (real.cuh).
+// rfft.cu): a block runs complex FFTs of length n <= 512 = 2^a 3^b 5^c 7^d
+// 11^e along the rows of a buffer in shared memory, planar (separate real
+// and imaginary arrays) in the real type T, float or double (real.cuh).
 //
-// Algorithm: the Stockham autosort FFT, mixed radix 4, 2, 3 and 5. Stage s
+// Algorithm: the Stockham autosort FFT, mixed radix 4, 2, 3, 5, 7 and 11
+// (radices 3, 5, 7 and 11 in the symmetric form of mirror pairs; 7 and 11
+// in a stage of their own, stage_odd, one butterfly a thread whose mirror
+// inputs fold into their pair as they load). Stage s
 // of radix P, after stages whose radices multiply to Ns, maps butterfly j
 // (0 <= j < n / P) of a row as
 //
@@ -15,7 +18,9 @@
 // reversal. The stage radices and the twiddle table come from the plan
 // (ops/dft.py: fft_factors, fft_twiddles): the table holds e^(sign 2 pi i
 // m / n), m < n, computed in float64 on the host and rounded to T, so
-// w^(t k) is entry t k n / (Ns P). No __sinf / __cosf: an FFT's error then
+// w^(t k) is entry t k n / (Ns P); a radix-7 or 11 stage reads it for t <=
+// P / 2 and w^(P k), and forms w^((P - t) k) = w^(P k) conj(w^(t k)), one
+// complex product (a rounding of T's). No __sinf / __cosf: an FFT's error then
 // grows with log n, where a dense product's grows with sqrt(n). Every
 // constant is a T (Consts<T>): a float constant left in a double instance
 // would cost about 1e-8.
@@ -47,17 +52,24 @@ namespace fft {
 
 constexpr int EPT = 16;  // complex elements of the buffer per thread
 // complex elements per thread in one pass of the FFT: fft_rows works on
-// chunks of blockDim.x * EPT_PASS / n rows, so that a stage holds at most
-// 2 * ceil(EPT_PASS / P) * P reals a thread across its barrier
+// chunks of blockDim.x * EPT_PASS / n rows (EPT_PASS7 where a stage has
+// radix 7), so that a stage of radix P <= 5 holds at most 2 ceil(EPT_PASS
+// / P) P reals a thread across its barrier (16 at radix 2 and 4, 18 at 3,
+// 20 at 5) and one of radix 7 or 11 one butterfly a thread (14 and 22)
 constexpr int EPT_PASS = 8;
+constexpr int EPT_PASS7 = 7;
 
 // The launch bounds of a T instance: the most threads of a stage block
-// (float: 1024 at 64 registers a thread; double: 512 at 128), and the
-// cluster kernel's blocks an SM (512 threads each: float 2, double 1).
+// (float: 1024 at 64 registers a thread; double: 512 at 128; an instance
+// with radix 7 or 11, ODD, 512 at 128 in either), and the cluster kernel's
+// blocks an SM (512 threads each: float 2, double 1).
 template <class T>
 struct Bounds {
   static constexpr int STAGE_THREADS = sizeof(T) == 4 ? 1024 : 512;
   static constexpr int PLANE_BLOCKS = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int stage_threads(bool odd) {
+    return odd ? 512 : STAGE_THREADS;
+  }
 };
 
 __host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
@@ -67,12 +79,12 @@ __host__ __device__ __forceinline__ bool pow2(int n) { return (n & (n - 1)) == 0
 __device__ __forceinline__ int wrap(int q, int n) { return q >= n ? q - n : q; }
 
 // Threads and rows of a block that transforms whole rows of length n: 512
-// threads up to n = 256, Bounds<T>::STAGE_THREADS above, and as many rows
-// as fill EPT elements a thread (32 rows at n = 256; at n = 512, 32 in
-// float and 16 in double).
+// threads up to n = 256, Bounds<T>::stage_threads(odd) above, and as many
+// rows as fill EPT elements a thread (32 rows at n = 256; at n = 512, 32
+// in float and 16 in double or with radix 7 or 11).
 template <class T>
-inline void stage_block(int n, int* threads, int* rows) {
-  *threads = n > 256 ? Bounds<T>::STAGE_THREADS : 512;
+inline void stage_block(int n, int* threads, int* rows, bool odd = false) {
+  *threads = n > 256 ? Bounds<T>::stage_threads(odd) : 512;
   *rows = (*threads * EPT) / n;
 }
 
@@ -87,7 +99,8 @@ inline size_t stage_smem(int n, int rows) {
 // -1 forward), the scale applied at the store, the position of input
 // element 0 (in0: input k sits at (in0 + k) mod n, other positions are 0)
 // and of output element 0 (out0: output j is position (out0 + j) mod n),
-// and the stage radices, 3 bits each, the first stage lowest.
+// and the stage radices, 4 bits each, the first stage lowest (at most 6
+// stages below 513: 24 bits).
 template <class T>
 struct FftSpec {
   int n;
@@ -98,8 +111,9 @@ struct FftSpec {
   int radices;
 };
 
-// sin and cos of 2 pi / 3, 2 pi / 5 and 4 pi / 5, each rounded once from
-// its decimal expansion to T
+// sin and cos of 2 pi / 3, 2 pi k / 5 (k = 1, 2), 2 pi k / 7 (k = 1..3)
+// and 2 pi k / 11 (k = 1..5), each rounded once from its decimal expansion
+// to T
 template <class T>
 struct Consts;
 
@@ -111,6 +125,22 @@ struct Consts<float> {
   static constexpr float C5_2 = -0.80901699437494742410f;
   static constexpr float S5_1 = 0.95105651629515357212f;
   static constexpr float S5_2 = 0.58778525229247312917f;
+  static constexpr float C7_1 = 0.62348980185873353053f;
+  static constexpr float C7_2 = -0.22252093395631440429f;
+  static constexpr float C7_3 = -0.90096886790241912624f;
+  static constexpr float S7_1 = 0.78183148246802980871f;
+  static constexpr float S7_2 = 0.97492791218182360702f;
+  static constexpr float S7_3 = 0.43388373911755812048f;
+  static constexpr float C11_1 = 0.84125353283118116886f;
+  static constexpr float C11_2 = 0.41541501300188642553f;
+  static constexpr float C11_3 = -0.14231483827328514044f;
+  static constexpr float C11_4 = -0.65486073394528506406f;
+  static constexpr float C11_5 = -0.95949297361449738989f;
+  static constexpr float S11_1 = 0.54064081745559758211f;
+  static constexpr float S11_2 = 0.90963199535451837141f;
+  static constexpr float S11_3 = 0.98982144188093273238f;
+  static constexpr float S11_4 = 0.75574957435425828377f;
+  static constexpr float S11_5 = 0.28173255684142969771f;
 };
 
 template <>
@@ -121,6 +151,22 @@ struct Consts<double> {
   static constexpr double C5_2 = -0.80901699437494742410;
   static constexpr double S5_1 = 0.95105651629515357212;
   static constexpr double S5_2 = 0.58778525229247312917;
+  static constexpr double C7_1 = 0.62348980185873353053;
+  static constexpr double C7_2 = -0.22252093395631440429;
+  static constexpr double C7_3 = -0.90096886790241912624;
+  static constexpr double S7_1 = 0.78183148246802980871;
+  static constexpr double S7_2 = 0.97492791218182360702;
+  static constexpr double S7_3 = 0.43388373911755812048;
+  static constexpr double C11_1 = 0.84125353283118116886;
+  static constexpr double C11_2 = 0.41541501300188642553;
+  static constexpr double C11_3 = -0.14231483827328514044;
+  static constexpr double C11_4 = -0.65486073394528506406;
+  static constexpr double C11_5 = -0.95949297361449738989;
+  static constexpr double S11_1 = 0.54064081745559758211;
+  static constexpr double S11_2 = 0.90963199535451837141;
+  static constexpr double S11_3 = 0.98982144188093273238;
+  static constexpr double S11_4 = 0.75574957435425828377;
+  static constexpr double S11_5 = 0.28173255684142969771;
 };
 
 // v <- DFT_P(v) with kernel e^(sign 2 pi i jk / P), P the arrays' length;
@@ -193,6 +239,83 @@ __device__ __forceinline__ void small_dft(T (&r)[5], T (&i)[5], T s) {
   i[2] = m2i + e2i;
   r[3] = m2r - e2r;
   i[3] = m2i - e2i;
+}
+
+// DFT_P of an odd P = 2 H + 1 in the symmetric form of radix 5, from the
+// mirror pairs b_k = v_k + v_(P-k) and d_k = v_k - v_(P-k) (k = 1..H) and
+// v_0: outputs m and P - m (m = 1..H) are a_m +- s i e_m, a_m = v_0 +
+// sum_k cos(2 pi k m / P) b_k, e_m = sum_k sin(2 pi k m / P) d_k, into
+// (yr, yi); c[q] and sn[q] hold cos and sin of 2 pi (q + 1) / P (q < H),
+// the others by symmetry. Every loop unrolls, so every index is a
+// constant. The e_m are formed first, so the d_k die before the outputs
+// grow.
+template <int H, class T>
+__device__ __forceinline__ void odd_dft_pairs(
+    T x0r, T x0i, T (&br)[H], T (&bi)[H], T (&dr)[H], T (&di)[H], T s,
+    const T (&c)[H], const T (&sn)[H], T (&yr)[2 * H + 1],
+    T (&yi)[2 * H + 1]) {
+  constexpr int P = 2 * H + 1;
+  T er[H], ei[H];
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    er[m - 1] = T(0);
+    ei[m - 1] = T(0);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const int q = (k * m) % P;  // the angle 2 pi q / P
+      const T sq = q <= H ? sn[q - 1] : -sn[P - q - 1];
+      er[m - 1] += sq * dr[k - 1];
+      ei[m - 1] += sq * di[k - 1];
+    }
+  }
+  yr[0] = x0r;
+  yi[0] = x0i;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    yr[0] += br[k];
+    yi[0] += bi[k];
+  }
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    T ar = x0r, ai = x0i;
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const int q = (k * m) % P;
+      const T cq = q <= H ? c[q - 1] : c[P - q - 1];
+      ar += cq * br[k - 1];
+      ai += cq * bi[k - 1];
+    }
+    // s i (er + i ei) = -s ei + i s er
+    yr[m] = ar - s * ei[m - 1];
+    yi[m] = ai + s * er[m - 1];
+    yr[P - m] = ar + s * ei[m - 1];
+    yi[P - m] = ai - s * er[m - 1];
+  }
+}
+
+// cos and sin of 2 pi q / P, q = 1..H, as odd_dft_pairs reads them
+template <class T>
+__device__ __forceinline__ void odd_consts(T (&c)[3], T (&sn)[3]) {
+  using C = Consts<T>;
+  const T cs[3] = {C::C7_1, C::C7_2, C::C7_3};
+  const T ss[3] = {C::S7_1, C::S7_2, C::S7_3};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    c[q] = cs[q];
+    sn[q] = ss[q];
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void odd_consts(T (&c)[5], T (&sn)[5]) {
+  using C = Consts<T>;
+  const T cs[5] = {C::C11_1, C::C11_2, C::C11_3, C::C11_4, C::C11_5};
+  const T ss[5] = {C::S11_1, C::S11_2, C::S11_3, C::S11_4, C::S11_5};
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    c[q] = cs[q];
+    sn[q] = ss[q];
+  }
 }
 
 // One Stockham stage of radix P (after stages of product ns) over the
@@ -276,29 +399,124 @@ __device__ __forceinline__ void stage(T* re, T* im, int rows, int n,
   __syncthreads();
 }
 
+
+// One Stockham stage of the odd radix P = 2 H + 1 (7, 11), one butterfly
+// a thread (MaxB<P>: fft_rows' chunks keep rows * n / P <= blockDim.x):
+// inputs t and P - t are loaded together, twisted (w_(P-t) = w^(P k)
+// conj(w_t): H + 1 twiddles a butterfly, not P - 1) and folded into the
+// mirror pair b_t, d_t at once, so the loads die as they come; then the
+// outputs of odd_dft_pairs, stored after the barrier.
+template <int P, class T>
+__device__ __forceinline__ void stage_odd(T* re, T* im, int rows, int n,
+                                          int stride, int ns, const T* twr,
+                                          const T* twi, T s) {
+  constexpr int H = P / 2;
+  const int q = n / P;
+  const int tstep = n / (ns * P);
+  const int row = threadIdx.x / q;
+  const int j = threadIdx.x - row * q;
+  const int k = j % ns;
+  const bool live = row < rows;
+  T yr[P], yi[P];
+  if (live) {
+    const T* xr = re + row * stride;
+    const T* xi = im + row * stride;
+    T c[H], sn[H];
+    odd_consts(c, sn);
+    T br[H], bi[H], dr[H], di[H];
+    T wr = T(1), wi = T(0);
+    if (k > 0) {
+      wr = twr[P * k * tstep];
+      wi = twi[P * k * tstep];
+    }
+#pragma unroll
+    for (int t = 1; t <= H; ++t) {
+      const int a = pad(j + t * q), z = pad(j + (P - t) * q);
+      T ar = xr[a], ai = xi[a], zr = xr[z], zi = xi[z];
+      if (k > 0) {
+        const T cw = twr[t * k * tstep], sw = twi[t * k * tstep];
+        const T ur = wr * cw + wi * sw, ui = wi * cw - wr * sw;
+        T tr = ar * cw - ai * sw;
+        ai = ar * sw + ai * cw;
+        ar = tr;
+        tr = zr * ur - zi * ui;
+        zi = zr * ui + zi * ur;
+        zr = tr;
+      }
+      br[t - 1] = ar + zr;
+      bi[t - 1] = ai + zi;
+      dr[t - 1] = ar - zr;
+      di[t - 1] = ai - zi;
+    }
+    odd_dft_pairs<H>(xr[pad(j)], xi[pad(j)], br, bi, dr, di, s, c, sn, yr,
+                     yi);
+  }
+  __syncthreads();
+  if (live) {
+    const int base = (j - k) * P + k;
+    T* zr = re + row * stride;
+    T* zi = im + row * stride;
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      zr[pad(base + t * ns)] = yr[t];
+      zi[pad(base + t * ns)] = yi[t];
+    }
+  }
+  __syncthreads();
+}
+
+// Does a radix code hold a stage of radix 7 or 11 (4 bits a stage)?
+__host__ __device__ __forceinline__ bool odd_radices(int code) {
+  for (; code != 0; code >>= 4)
+    if ((code & 15) >= 7) return true;
+  return false;
+}
+
+// The instance of a tile kernel K<POW2, ODD> that a transform of length n
+// with stage radices `radices` runs: pow2_k (K<true, false>) for a power
+// of two, odd_k (K<false, true>) where a stage has radix 7 or 11, plain_k
+// (K<false, false>) for the rest.
+template <class F>
+inline F tile_instance(int n, int radices, F pow2_k, F odd_k, F plain_k) {
+  return pow2(n) ? pow2_k : odd_radices(radices) ? odd_k : plain_k;
+}
+
 // The FFT of sp along the first `rows` rows (rows * n <= blockDim.x * EPT),
 // in place, natural order in and out, in chunks of blockDim.x * EPT_PASS / n
 // rows; twr / twi are the plan's table in shared memory. Every thread of
 // the block calls it. POW2: n is a power of two (radices 4 and 2 only) and
-// blockDim.x a multiple of 256. fft_rows is not inlined: its register
-// allocation then does not share the calling kernel's live values (which
-// made the stage kernels spill); fft_rows_inline is the same code for a
-// kernel whose live values around it are few (the call itself made those
-// spill).
-template <bool POW2, class T>
+// blockDim.x a multiple of 256. ODD: sp.radices may hold radix 7 or 11
+// (odd_radices), after the others as fft_factors orders them; the chunks
+// then hold blockDim.x * EPT_PASS7 / n rows where a stage has radix 7, so
+// that stage_odd has one butterfly a thread, and the odd stages run over
+// every chunk after the others (in the same loop they spilled). The ODD
+// instances are the kernels' own, whose launch bounds leave a thread at
+// least 128 registers (at 64 the odd stages spilled); an instance without
+// ODD is the code of radices 2-5 alone. fft_rows is not
+// inlined: its register allocation then does not share the calling
+// kernel's live values (which made the stage kernels spill);
+// fft_rows_inline is the same code for a kernel whose live values around
+// it are few (the call itself made those spill).
+template <bool POW2, bool ODD = false, class T>
 __device__ __forceinline__ void fft_rows_inline(T* re, T* im, int rows,
                                                 int stride,
                                                 const FftSpec<T>& sp,
                                                 const T* twr, const T* twi) {
   const T s = (T)sp.sign;
-  const int chunk = blockDim.x * EPT_PASS / sp.n;
+  int ept = EPT_PASS;
+  if (ODD) {
+    for (int code = sp.radices; code != 0; code >>= 4)
+      if ((code & 15) == 7) ept = EPT_PASS7;
+  }
+  const int chunk = blockDim.x * ept / sp.n;
   for (int r0 = 0; r0 < rows; r0 += chunk) {
     T* cr = re + r0 * stride;
     T* ci = im + r0 * stride;
     const int nr = min(chunk, rows - r0);
     int ns = 1;
-    for (int code = sp.radices; code != 0; code >>= 3) {
-      const int p = code & 7;
+    int code = sp.radices;
+    for (; code != 0 && (!ODD || (code & 15) <= 5); code >>= 4) {
+      const int p = code & 15;
       if (POW2) {
         if (p == 4)
           stage<4, true>(cr, ci, nr, sp.n, stride, ns, twr, twi, s);
@@ -323,13 +541,29 @@ __device__ __forceinline__ void fft_rows_inline(T* re, T* im, int rows,
       ns *= p;
     }
   }
+  if (!ODD) return;
+  int odd = sp.radices, ns_odd = 1;  // the 7s and 11s, after the others
+  while (odd != 0 && (odd & 15) <= 5) {
+    ns_odd *= odd & 15;
+    odd >>= 4;
+  }
+  for (int r0 = 0; odd != 0 && r0 < rows; r0 += chunk) {
+    T* cr = re + r0 * stride;
+    T* ci = im + r0 * stride;
+    const int nr = min(chunk, rows - r0);
+    int ns = ns_odd, code = odd;
+    for (; (code & 15) == 7; code >>= 4, ns *= 7)
+      stage_odd<7>(cr, ci, nr, sp.n, stride, ns, twr, twi, s);
+    for (; code != 0; code >>= 4, ns *= 11)
+      stage_odd<11>(cr, ci, nr, sp.n, stride, ns, twr, twi, s);
+  }
 }
 
-template <bool POW2, class T>
+template <bool POW2, bool ODD = false, class T>
 __device__ __noinline__ void fft_rows(T* re, T* im, int rows, int stride,
                                       const FftSpec<T>& sp, const T* twr,
                                       const T* twi) {
-  fft_rows_inline<POW2>(re, im, rows, stride, sp, twr, twi);
+  fft_rows_inline<POW2, ODD>(re, im, rows, stride, sp, twr, twi);
 }
 
 // Copy the plan's twiddle table ((2, n): cos row, sin row) to shared memory.

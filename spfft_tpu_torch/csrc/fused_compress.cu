@@ -2,9 +2,10 @@
 // the Pallas kernels spfft_tpu/ops/fused_kernel.py:run_decompress_zdft
 // (backward) and run_zdft_compress (forward) for the z transforms the FFT
 // form (fused_fft.cu) does not take: a length dim_z with a prime factor
-// other than 2, 3 and 5, or a plain matrix pair that does not carry its
-// function (ops/fused_kernel.py: z_form). The z-DFT is a product against
-// the plan's matrix pair.
+// of 13 or more (the plan then hands these kernels the z matrices in the
+// matrix form: ops/fused_kernel.py fused_z_form), or a plain matrix pair
+// that does not carry its function (ops/fused_kernel.py: z_form). The
+// z-DFT is a product against the plan's matrix pair.
 //
 // decompress_zdft: each block owns BM consecutive z-sticks (16 in float, 8
 // in double: cdft_tile.cuh). It gathers their BM x dim_z slots from the

@@ -2,8 +2,9 @@
 // the Pallas kernels spfft_tpu/ops/fused_kernel.py:run_decompress_zdft
 // (launched at :587) and run_zdft_compress (:783) for z transforms the
 // plan describes (ops/dft.py: DftMats) with a length dim_z <= 512 of the
-// form 2^a 3^b 5^c. They compute what fused_compress.cu's matrix kernels
-// compute, which stay for any other length; both run the Stockham FFT of
+// form 2^a 3^b 5^c 7^d 11^e. They compute what fused_compress.cu's matrix
+// kernels compute, which stay for any other length (a prime of 13 or
+// more); both run the Stockham FFT of
 // fft_tile.cuh in shared memory, on blocks of stage_block's shape (512
 // threads and 32 sticks at dim_z = 256, 1024 threads above 256).
 //
@@ -65,8 +66,8 @@ constexpr int GATHER = 8;
 
 // values (batch, N, 2) or (batch, 2, N) -> sticks (batch, num_sticks, n);
 // rows sticks a block of stage_block's threads.
-template <bool POW2, class T>
-__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+template <bool POW2, bool ODD, class T>
+__global__ void __launch_bounds__(Bounds<T>::stage_threads(ODD))
     decompress_zdft_fft_kernel(const T* __restrict__ values,
                                const int* __restrict__ slot_src,
                                const T* __restrict__ tw, T* __restrict__ sr,
@@ -133,14 +134,14 @@ __global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
     }
   }
   __syncthreads();
-  fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+  fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
   store_rows(re, im, valid, stride, n, n, sp.out0, sp.scale, sr, si, s0);
 }
 
 // sticks (batch, num_sticks, n) -> values (batch, N, 2) or (batch, 2, N);
 // rows sticks a block of stage_block's threads.
-template <bool POW2, class T>
-__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+template <bool POW2, bool ODD, class T>
+__global__ void __launch_bounds__(Bounds<T>::stage_threads(ODD))
     zdft_compress_fft_kernel(const T* __restrict__ sr,
                              const T* __restrict__ si,
                              const T* __restrict__ tw,
@@ -169,7 +170,7 @@ __global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
     ptr[i] = stick_ptr[s0 + i];
   load_rows(re, im, rows, valid, stride, n, n, sp.in0, sr, si, s0);
   __syncthreads();
-  fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+  fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
 
   const T sc = sp.scale;
   const int hi_e = ptr[valid];
@@ -196,10 +197,11 @@ int launch_decompress(const T* values, const int* slot_src, const T* tw,
                       int sign, T scale, int in0, int out0, int radices,
                       void* stream) {
   int threads, rows;
-  stage_block<T>(n, &threads, &rows);
+  stage_block<T>(n, &threads, &rows, odd_radices(radices));
   const size_t smem = stage_smem<T>(n, rows);
-  auto kernel = pow2(n) ? decompress_zdft_fft_kernel<true, T>
-                        : decompress_zdft_fft_kernel<false, T>;
+  auto kernel = tile_instance(n, radices, decompress_zdft_fft_kernel<true, false, T>,
+                              decompress_zdft_fft_kernel<false, true, T>,
+                              decompress_zdft_fft_kernel<false, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -218,10 +220,11 @@ int launch_compress(const T* sr, const T* si, const T* tw,
                     int num_values, int pair, int batch, int n, int sign,
                     T scale, int in0, int out0, int radices, void* stream) {
   int threads, rows;
-  stage_block<T>(n, &threads, &rows);
+  stage_block<T>(n, &threads, &rows, odd_radices(radices));
   const size_t smem = stage_smem<T>(n, rows) + sizeof(int) * (rows + 1);
-  auto kernel = pow2(n) ? zdft_compress_fft_kernel<true, T>
-                        : zdft_compress_fft_kernel<false, T>;
+  auto kernel = tile_instance(n, radices, zdft_compress_fft_kernel<true, false, T>,
+                              zdft_compress_fft_kernel<false, true, T>,
+                              zdft_compress_fft_kernel<false, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -4,9 +4,10 @@
 // backward tail), launched at :277, and of the distributed R2C plan's x
 // stage, for transforms the plan describes (ops/dft.py: DftMats of kind
 // r2c / c2r) with an even length n <= 1024 whose half h = n / 2 is
-// 2^a 3^b 5^c (the real axes above 512 too: ops/dft.py real_form). Other
-// lengths stay in the matrix form (dft2.cu). At h = 512 a block holds 32
-// rows in float (16 in double) of row_stride(513) = 529 slots: 135,424
+// 2^a 3^b 5^c 7^d 11^e (the real axes above 512 too: ops/dft.py
+// real_form). Other real lengths run Bluestein's FFT (bluestein.cu). At
+// h = 512 a block holds 32 rows in float (16 in double) of
+// row_stride(513) = 529 slots: 135,424
 // bytes of rows either way, within the 227 KB a block may have.
 //
 // A real transform of length n is a complex one of length h plus a pass
@@ -184,8 +185,8 @@ __device__ __forceinline__ void store_planes(T* __restrict__ y, long long m0,
 // carries the scale; tw is the plan's (2, n) table e^(sign 2 pi i m / n).
 // plane_rows == 0: straight stores; plane_rows > 0: transposed within
 // planes, as fft.cu's stage kernel stores.
-template <int MODE, bool POW2, class T>
-__global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
+template <int MODE, bool POW2, bool ODD, class T>
+__global__ void __launch_bounds__(Bounds<T>::stage_threads(ODD))
     rfft_stage_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                       T* __restrict__ yr, T* __restrict__ yi,
                       const T* __restrict__ tw, long long M, int K, int N,
@@ -221,7 +222,7 @@ __global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
       return ((i & 1) ? im : re) + pad(i >> 1);
     });
     __syncthreads();
-    fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+    fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
     __syncthreads();
     Walk w(hp);
     for (int id = threadIdx.x; id < valid * hp; id += blockDim.x) {
@@ -293,7 +294,7 @@ __global__ void __launch_bounds__(Bounds<T>::STAGE_THREADS)
       w.next();
     }
     __syncthreads();
-    fft_rows<POW2>(re, im, valid, stride, sp, twr, twi);
+    fft_rows<POW2, ODD>(re, im, valid, stride, sp, twr, twi);
     __syncthreads();
     // real x[i] is Re (i even) or Im (i odd) of z[i / 2]
     auto sample = [&](int i) { return ((i & 1) ? im : re) + pad(i >> 1); };
@@ -316,16 +317,20 @@ int launch_rfft(int mode, const T* xr, const T* xi, T* yr, T* yi,
                               : mode == CR && N == n && K >= 1 && K <= h + 1);
   if (!ok) return (int)cudaErrorInvalidValue;
   int threads, rows;
-  stage_block<T>(h, &threads, &rows);
+  stage_block<T>(h, &threads, &rows, odd_radices(radices));
   rows = min(rows, MAX_ROWS);
   const size_t smem =
       sizeof(T) * (2 * (size_t)rows * row_stride(h + 1) + 2 * (size_t)h +
                    2 * (size_t)(h / 2 + 1));
-  const bool p2 = pow2(h);
-  auto kernel = mode == RC ? (p2 ? rfft_stage_kernel<RC, true, T>
-                                 : rfft_stage_kernel<RC, false, T>)
-                           : (p2 ? rfft_stage_kernel<CR, true, T>
-                                 : rfft_stage_kernel<CR, false, T>);
+  auto kernel =
+      mode == RC ? tile_instance(h, radices,
+                                 rfft_stage_kernel<RC, true, false, T>,
+                                 rfft_stage_kernel<RC, false, true, T>,
+                                 rfft_stage_kernel<RC, false, false, T>)
+                 : tile_instance(h, radices,
+                                 rfft_stage_kernel<CR, true, false, T>,
+                                 rfft_stage_kernel<CR, false, true, T>,
+                                 rfft_stage_kernel<CR, false, false, T>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -341,9 +346,10 @@ int launch_rfft(int mode, const T* xr, const T* xi, T* yr, T* yi,
 // One launch of the real FFT stage in `mode` (1: RC, 2: CR, the codes of
 // dft2.cu's spfft_dft_stage): rows (M, K) of (xr, xi) -> (M, N) of (yr,
 // yi); xi is null in RC, yi in CR. The transform: even length n with
-// h = n / 2 of the form 2^a 3^b 5^c (radices: h's stage radices, 3 bits
-// each), the scale applied at the store, the half-spectrum window's first
-// bin x0 (RC: output j is bin (x0 + j) mod (h + 1); CR: input k is that
+// h = n / 2 of the form 2^a 3^b 5^c 7^d 11^e (radices: h's stage radices,
+// 4 bits each), the scale applied at the store, the half-spectrum
+// window's first bin x0 (RC: output j is bin (x0 + j) mod (h + 1); CR:
+// input k is that
 // bin), and tw, the (2, n) table e^(sign 2 pi i m / n) with sign -1 in RC
 // and +1 in CR. _f64: the same on double operands.
 extern "C" int spfft_rfft_stage(int mode, const float* xr, const float* xi,

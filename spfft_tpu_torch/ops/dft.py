@@ -26,21 +26,29 @@ real-transform twins :func:`prdft_last`, :func:`pirdft_last`,
 the CUDA kernels of ``ops.dft_kernel`` and ``ops.fused_kernel`` are held
 to, and what those wrappers run on a CPU tensor.
 
-Long axes. Every length the JAX package plans is planned here, routed by
-its length alone at plan time (:func:`c2c_form`, :func:`real_form`): a
-complex axis above :data:`MATMUL_DFT_MAX` with a balanced split n = n1 n2
+Forms by length. Every length the JAX package plans is planned here,
+routed by its length alone at plan time (:func:`c2c_form`,
+:func:`real_form`): a complex axis up to :data:`MATMUL_DFT_MAX` of the
+form 2^a 3^b 5^c 7^d 11^e takes the FFT form (:func:`fft_factors`), an
+even real axis up to :data:`MATMUL_DFT_DIRECT_FALLBACK_MAX` whose half
+has that form the real FFT form (:func:`rfft_factors`); a complex axis
+above :data:`MATMUL_DFT_MAX` with a balanced split n = n1 n2
 (:func:`two_stage_factor`) takes the two-pass form, whose
 :class:`DftMats` holds no dense n x n pair, only the length-n twiddle
 table and the small tables of its plain version (the two-stage product,
-:class:`TwoStageMats`); an unsplittable complex axis up to
-:data:`MATMUL_DFT_DIRECT_FALLBACK_MAX`, and a real axis up to it that has
-no real FFT form, Bluestein's chirp-z FFT (form ``"bluestein"``: no dense
-pair either, only the chirp, the convolution's spectrum and its twiddles,
+:class:`TwoStageMats`); every other complex axis up to
+:data:`MATMUL_DFT_DIRECT_FALLBACK_MAX` (a prime of 13 or more, and no
+split), and every other real axis up to it (odd, or a half with such a
+prime), Bluestein's chirp-z FFT (form ``"bluestein"``: no dense pair
+either, only the chirp, the convolution's spectrum and its twiddles,
 :class:`BluesteinTables`; plain version :func:`bluestein_plain`);
 anything else ``torch.fft`` (form ``"library"``: the counterpart of the
-JAX package's ``jnp.fft`` path, which is XLA, not Pallas). Those two are the one
-routing rule: :func:`mdft_coverable` (the JAX package's structural
-predicate, which the precision model reads) is derived from them.
+JAX package's ``jnp.fft`` path, which is XLA, not Pallas). Those two are
+the one routing rule: :func:`mdft_coverable` (the JAX package's
+structural predicate, which the precision model reads) is derived from
+them. The matrix form (a dense n x n product) runs only for a plain
+matrix pair passed without its function and for the fused z kernels at a
+dim_z the FFT form does not take (``device_c2c(form="matrix")``).
 """
 
 from __future__ import annotations
@@ -240,23 +248,29 @@ def device_mats(mats, device, dtype=torch.float32) -> tuple:
 def fft_factors(n: int):
     """The stage radices of the FFT form of a length-``n`` DFT, in the
     order its stages take them (as many 4s as divide ``n``, then a 2, 3s,
-    5s), or None where ``n`` has another prime factor or exceeds
-    :data:`MATMUL_DFT_MAX`. ``()`` for n = 1."""
+    5s, 7s, 11s), or None where ``n`` has another prime factor (13 or
+    more) or exceeds :data:`MATMUL_DFT_MAX`. ``()`` for n = 1."""
     if not 1 <= n <= MATMUL_DFT_MAX:
         return None
     out, rest = [], n
-    for p in (4, 2, 3, 5):
+    for p in (4, 2, 3, 5, 7, 11):
         while rest % p == 0:
             out.append(p)
             rest //= p
     return tuple(out) if rest == 1 else None
 
 
+#: bits of one stage's radix in :func:`radix_code` (11 needs 4; a factor
+#: list up to 512 has at most 6 stages, 24 bits)
+RADIX_BITS = 4
+
+
 def radix_code(factors) -> int:
-    """``factors`` packed 3 bits each, the first stage lowest: the
-    ``radices`` argument of ``csrc/fft.cu``; 0 for None (the direct DFT
+    """``factors`` packed :data:`RADIX_BITS` bits each, the first stage
+    lowest: the ``radices`` argument of ``csrc/fft.cu`` (decoded in
+    ``csrc/fft_tile.cuh``: fft_rows_inline); 0 for None (the direct DFT
     of a two-pass factor with another prime, ``csrc/fft_long.cu``)."""
-    return sum(p << (3 * i) for i, p in enumerate(factors or ()))
+    return sum(p << (RADIX_BITS * i) for i, p in enumerate(factors or ()))
 
 
 @functools.lru_cache(maxsize=64)
@@ -271,7 +285,8 @@ def fft_twiddles(n: int, sign: int) -> np.ndarray:
 def rfft_factors(n: int):
     """The stage radices of the real FFT form of a length-``n`` real DFT:
     those of the complex FFT of its half ``n // 2`` (:func:`fft_factors`),
-    or None where ``n`` is odd or its half has another prime factor."""
+    or None where ``n`` is odd or its half has a prime factor of 13 or
+    more."""
     return fft_factors(n // 2) if n >= 2 and n % 2 == 0 else None
 
 
@@ -305,13 +320,17 @@ def mdft_coverable(dims, hermitian: bool = False) -> bool:
 
 def c2c_form(n: int) -> str:
     """The form of a complex length-``n`` stage, by length alone:
-    ``"fft"`` (n <= 512 of the form 2^a 3^b 5^c), ``"matrix"`` (other n <=
-    512), ``"two_pass"`` (n > 512 with :func:`two_stage_factor`),
-    ``"bluestein"`` (unsplittable n <= 1024) or ``"library"``."""
+    ``"fft"`` (n <= 512 of the form 2^a 3^b 5^c 7^d 11^e),
+    ``"two_pass"`` (n > 512 with :func:`two_stage_factor`),
+    ``"bluestein"`` (any other n <= 1024: a prime of 13 or more up to
+    512, an unsplittable length above) or ``"library"``. No short length
+    keeps the matrix form: on an H100 (700 W) Bluestein ran 3.2-3.5x
+    faster than it at 13, 26 and 52 (``chip_smoke.py``'s Bluestein
+    records, 2^25 elements a call)."""
     n = int(n)
-    if n <= MATMUL_DFT_MAX:
-        return "fft" if fft_factors(n) is not None else "matrix"
-    if two_stage_factor(n) is not None:
+    if fft_factors(n) is not None:
+        return "fft"
+    if n > MATMUL_DFT_MAX and two_stage_factor(n) is not None:
         return "two_pass"
     return "bluestein" if n <= MATMUL_DFT_DIRECT_FALLBACK_MAX \
         else "library"
@@ -319,14 +338,13 @@ def c2c_form(n: int) -> str:
 
 def real_form(n: int) -> str:
     """The form of a real length-``n`` stage (R2C or C2R): ``"rfft"``
-    (even n <= 1024 whose half is 2^a 3^b 5^c), ``"matrix"`` (other n <=
-    512), ``"bluestein"`` (other n <= 1024) or ``"library"``."""
+    (even n <= 1024 whose half is 2^a 3^b 5^c 7^d 11^e), ``"bluestein"``
+    (any other n <= 1024: odd, or a half with a prime of 13 or more) or
+    ``"library"``."""
     n = int(n)
     if n > MATMUL_DFT_DIRECT_FALLBACK_MAX:
         return "library"
-    if rfft_factors(n) is not None:
-        return "rfft"
-    return "matrix" if n <= MATMUL_DFT_MAX else "bluestein"
+    return "rfft" if rfft_factors(n) is not None else "bluestein"
 
 
 class TwoStageMats(tuple):
@@ -367,30 +385,38 @@ REG_ROW_MAX, REG_PAIR_MAX = 32, 64
 def bluestein_length(n: int) -> int:
     """The length M of the Bluestein form's circular convolution: the
     smallest 2^a 3^b 5^c >= 2 n - 1 whose :func:`bluestein_split` has
-    factors that run in registers in float (each at most
-    :data:`REG_ROW_MAX`, or even and at most :data:`REG_PAIR_MAX`): 1080
-    = 30 x 36 for 521 and 520, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for
+    factors that run in registers in float (each at least 2 and at most
+    :data:`REG_ROW_MAX`, or even and at most :data:`REG_PAIR_MAX`): 25 =
+    5 x 5 for 13, 200 = 10 x 20 for 100, 540 = 20 x 27 for 257, 1080 =
+    30 x 36 for 521 and 520, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for
     1021 and 1022 (1125 = 25 x 45 and 2025 = 45 x 45 give way to 1152 and
-    2048)."""
+    2048; 1 and 5 = 1 x 5 to 4 and 6)."""
     m = max(1, 2 * int(n) - 1)
     while True:
         rest = m
         for p in (2, 3, 5):
             while rest % p == 0:
                 rest //= p
-        if rest == 1 and all(f <= REG_ROW_MAX or (
+        if rest == 1 and all(2 <= f <= REG_ROW_MAX or (
                 f <= REG_PAIR_MAX and f % 2 == 0)
                 for f in bluestein_split(m)):
             return m
         m += 1
 
 
+@functools.lru_cache(maxsize=1024)
 def bluestein_split(m: int) -> tuple:
     """``(m1, m2)``, ``m1 * m2 == m``, the factors of the Bluestein
-    kernel's four-step FFT of length ``m``: :func:`two_stage_factor`
-    (30 x 36 for 1080, 32 x 64 for 2048), or ``(1, m)`` where it has none
-    (a length within :data:`MATMUL_DFT_MAX`)."""
-    return two_stage_factor(m) or (1, m)
+    kernel's four-step FFT of length ``m``: the balanced split, m1 the
+    largest divisor of ``m`` up to sqrt(m) (5 x 5 for 25, 10 x 20 for
+    200, 30 x 36 for 1080, 32 x 64 for 2048: :func:`two_stage_factor`
+    wherever that has a split), so that the larger factor is as small as
+    ``m`` allows: a double M whose factors can both be at most 32 runs
+    both in registers. ``(1, m)`` for m = 1 and a prime m."""
+    for m1 in range(math.isqrt(m), 0, -1):
+        if m % m1 == 0:
+            return m1, m // m1
+    return 1, m
 
 
 class BluesteinTables(tuple):
@@ -527,10 +553,12 @@ def _twiddles(n: int, sign: int, device, dtype):
 
 
 def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
-               device="cpu", dtype=torch.float32) -> DftMats:
+               device="cpu", dtype=torch.float32, form=None) -> DftMats:
     """The length-``n`` complex DFT with ``scale`` folded in, as
     :class:`DftMats` of ``dtype`` (float32 or float64) on ``device``, in
-    the form :func:`c2c_form` gives its length: the matrix forms carry
+    the form :func:`c2c_form` gives its length, or ``form="matrix"`` (the
+    fused z kernels' matrix form, ``ops.fused_kernel.z_mats_form``; n up
+    to :data:`MATMUL_DFT_MAX`): the FFT and matrix forms carry
     :func:`c2c_mats`, or with ``rows = (x0, w)`` the window's rows
     (:func:`sub_rows_mats` of ``(x0 + arange(w)) % n``), with ``cols =
     (y0, w)`` the window's columns (:func:`sub_cols_mats`), bit for bit;
@@ -541,7 +569,12 @@ def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
     rows = _window(rows, n, "device_c2c")
     cols = _window(cols, n, "device_c2c")
     sign = BACKWARD if sign == BACKWARD else FORWARD
-    form = c2c_form(n)
+    if form is None:
+        form = c2c_form(n)
+    elif form != "matrix" or n > MATMUL_DFT_MAX:
+        raise InvalidParameterError(
+            f"device_c2c: form {form!r} at length {n}: a length takes its "
+            f"own form (c2c_form) or the matrix form up to {MATMUL_DFT_MAX}")
     spec = dict(n=n, sign=sign, scale=scale, rows=rows, cols=cols,
                 form=form)
     if form == "library":

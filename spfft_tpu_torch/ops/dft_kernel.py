@@ -31,21 +31,23 @@ column-selected matrices).
 
 Forms. A complex (CC) stage whose matrices carry their function
 (``dft.DftMats`` from ``dft.device_c2c``) with a length of the form
-2^a 3^b 5^c runs as an FFT (``csrc/fft.cu``), bound by bytes: a CC plane
-call whose plane fits one cluster of 8 blocks is ONE launch of the
-cluster kernel (both FFTs and the swap with the intermediate in shared
-memory, form ``"cluster"``), any other such stage one launch of the FFT
-stage kernel (form ``"fft"``; a plane call is then two, the first
-stored transposed within each plane). A real stage (modes rc and cr)
-whose matrices carry their function (``dft.device_r2c`` /
-``dft.device_c2r``) with an even length whose half is 2^a 3^b 5^c runs
-as a real FFT, a half-length complex FFT and a pass over the pairs of
-bins (``csrc/rfft.cu``, form ``"rfft"``, bound by bytes): ``prdft2`` and
-``pdft2_cr`` are then one rfft and one fft launch. A stage with another
-prime in its (half) length, an odd real length and a matrix pair without
-its function run the matrix form (``csrc/dft2.cu``, form ``"matrix"``,
-bound by operations). :func:`stage_form` and :func:`plane_forms`
-are the dispatch, by shape and matrix alone.
+2^a 3^b 5^c 7^d 11^e runs as an FFT (``csrc/fft.cu``), bound by bytes: a
+CC plane call whose lengths have radices 2-5 alone and whose plane fits
+one cluster of 8 blocks is ONE launch of the cluster kernel (both FFTs
+and the swap with the intermediate in shared memory, form ``"cluster"``),
+any other such stage one launch of the FFT stage kernel (form ``"fft"``;
+a plane call is then two, the first stored transposed within each
+plane). A real stage (modes rc and cr) whose matrices carry their
+function (``dft.device_r2c`` / ``dft.device_c2r``) with an even length
+whose half is 2^a 3^b 5^c 7^d 11^e runs as a real FFT, a half-length
+complex FFT and a pass over the pairs of bins (``csrc/rfft.cu``, form
+``"rfft"``, bound by bytes): ``prdft2`` and ``pdft2_cr`` are then one
+rfft and one fft launch. A stage with a prime of 13 or more in its
+(half) length, and an odd real length, runs Bluestein's FFT (below). A
+matrix pair without its function (or a ``DftMats`` of the matrix form)
+runs the matrix form (``csrc/dft2.cu``, form ``"matrix"``, bound by
+operations). :func:`stage_form` and :func:`plane_forms` are the
+dispatch, by shape and matrix alone.
 
 Long axes (above ``dft.MATMUL_DFT_MAX``, routed by length at plan time,
 ``dft.c2c_form`` / ``dft.real_form``). A complex stage with a split n =
@@ -57,12 +59,13 @@ stage where a row fits a block, :func:`long_row_max`, else one a pass),
 held to the two-stage product (``dft.two_pass_plain``); each factor
 with a register plan (:func:`reg_plan`) runs its FFT in registers, any
 other the shared-memory path of the same kernel (the wrapper passes
-which, ``paths``). An unsplittable complex stage up to 1024 and a real
-stage up to 1024 with no real FFT form run Bluestein's chirp-z FFT, one
-launch of ``csrc/bluestein.cu`` (form ``"bluestein"``: two length-M FFTs
-in one block, M = ``dft.bluestein_length(n)``), held to
+which, ``paths``). Every complex stage up to 1024 with no FFT or
+two-pass form (a prime of 13 or more) and every real stage up to 1024
+with no real FFT form run Bluestein's chirp-z FFT, one launch of
+``csrc/bluestein.cu`` (form ``"bluestein"``: two length-M FFTs in one
+block, M = ``dft.bluestein_length(n)``), held to
 ``dft.bluestein_plain``; a real stage up to 1024 whose half is 2^a 3^b
-5^c runs the real FFT form; anything longer ``torch.fft`` (form
+5^c 7^d 11^e runs the real FFT form; anything longer ``torch.fft`` (form
 ``"library"``: a PyTorch call, not a kernel of this package, so it
 counts by form only, never in ``.launches``). The two-pass and
 ``torch.fft`` forms run whole axes: a window is expanded to the whole
@@ -189,12 +192,15 @@ def reg_plan(source: str, n: int, dtype) -> bool:
 def plane_forms(mats1, mats2, a: int) -> tuple:
     """The launches of one complex plane call on ``(P, a, B)`` planes,
     over B against ``mats1`` then over A against ``mats2``:
-    ``("cluster",)`` where both stages take the FFT form and a plane fits
-    one cluster (a block's ceil(a / 8) rows of length ``mats1.n`` and its
-    ceil(B' / 8) columns of length ``mats2.n`` each within the elements it
-    holds), else one launch per stage in its :func:`stage_form`."""
+    ``("cluster",)`` where both stages take the FFT form with radices 2-5
+    alone and a plane fits one cluster (a block's ceil(a / 8) rows of
+    length ``mats1.n`` and its ceil(B' / 8) columns of length ``mats2.n``
+    each within the elements it holds), else one launch per stage in its
+    :func:`stage_form` (on an H100 a length with radix 7 or 11 ran faster
+    in two stage launches than in the cluster kernel)."""
     forms = (stage_form(mats1), stage_form(mats2))
-    if forms == ("fft", "fft"):
+    if forms == ("fft", "fft") and max(mats1.factors + mats2.factors,
+                                       default=1) <= 5:
         b_out = dft.mats_shape(mats1)[1]
         if max(-(-a // CLUSTER_BLOCKS) * mats1.n,
                -(-b_out // CLUSTER_BLOCKS) * mats2.n) <= CLUSTER_BLOCK_ELEMS:

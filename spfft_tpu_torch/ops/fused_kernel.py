@@ -19,9 +19,10 @@ two-kernel route, whose z stage runs the long forms.
 
 Forms, chosen by shape (:func:`z_form`): z matrices that carry their
 function (``dft.DftMats``) with a length dim_z of the form 2^a 3^b 5^c
-run the FFT form (``csrc/fused_fft.cu``: the gather fused with a
-Stockham FFT in shared memory, ``csrc/fft_tile.cuh``; bound by bytes);
-any other length, or a plain matrix pair, runs the matrix form
+7^d 11^e run the FFT form (``csrc/fused_fft.cu``: the gather fused with
+a Stockham FFT in shared memory, ``csrc/fft_tile.cuh``; bound by bytes);
+matrices in the matrix form (a plan's at a dim_z with a prime of 13 or
+more: :func:`z_mats_form`), or a plain matrix pair, run the matrix form
 (``csrc/fused_compress.cu``: the z-DFT as a product against the matrix
 pair, bound by operations). On a CUDA tensor each wrapper launches
 the kernel of its form; on a CPU tensor it runs the plain version beside
@@ -105,9 +106,27 @@ def z_form(mats, dim_z: int) -> str:
     """The form of a fused z kernel against the z pair ``mats``: ``"fft"``
     where the pair carries its function with an FFT factor list
     (:func:`~spfft_tpu_torch.ops.dft_kernel.stage_form`) over the whole
-    stick (length ``dim_z``), else ``"matrix"``."""
-    return "fft" if dft_kernel.stage_form(mats) == "fft" \
-        and mats.n == dim_z else "matrix"
+    stick (length ``dim_z``), else ``"matrix"``. Raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` for tables
+    that hold no matrix pair (the Bluestein form: pass the matrix form,
+    :func:`z_mats_form`)."""
+    if dft_kernel.stage_form(mats) == "fft" and mats.n == dim_z:
+        return "fft"
+    if len(mats) != 2:
+        raise InvalidParameterError(
+            f"the fused z kernels take the FFT or the matrix form, not "
+            f"{dft_kernel.stage_form(mats)!r}: build the z matrices with "
+            f"dft.device_c2c(..., form=fused_kernel.z_mats_form({dim_z}))")
+    return "matrix"
+
+
+def z_mats_form(dim_z: int):
+    """The ``form`` argument of ``dft.device_c2c`` for the z matrices a
+    plan hands the fused z kernels: None (the length's own form, the FFT
+    form) where dim_z is 2^a 3^b 5^c 7^d 11^e, else ``"matrix"``
+    (``csrc/fused_compress.cu``: a dim_z with a prime of 13 or more, whose
+    own form, Bluestein's FFT, has no fused kernel)."""
+    return None if dft.c2c_form(dim_z) == "fft" else "matrix"
 
 
 def _spec(mats) -> tuple:
@@ -196,6 +215,7 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
             f"dim_z={dim_z} slots, got {tuple(slot_src.shape)}")
     _require_eligible(dim_z, "decompress_zdft")
     _build.require_mats(mats, "decompress_zdft", dtype, (dim_z, dim_z), dev)
+    form = z_form(mats, dim_z)
     num_sticks = slot_src.numel() // dim_z
     if not -1 <= zero_stick < num_sticks:
         raise InvalidParameterError(
@@ -209,7 +229,6 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
     si = torch.empty_like(sr)
     if num_sticks == 0 or batch == 0:
         return sr, si
-    form = z_form(mats, dim_z)
     if form == "fft":
         fn = _build.function(_FFT_SRC,
                              _build.entry("spfft_decompress_zdft_fft", dtype),
@@ -282,6 +301,7 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     _build.require(si, "zdft_compress si", dtype, sr.shape, dev)
     _require_eligible(dim_z, "zdft_compress")
     _build.require_mats(mats, "zdft_compress", dtype, (dim_z, dim_z), dev)
+    form = z_form(mats, dim_z)
     _build.require(stick_ptr, "zdft_compress stick_ptr", torch.int32,
                    (num_sticks + 1,), dev)
     _build.require(val_id, "zdft_compress val_id", torch.int32, (n,), dev)
@@ -292,7 +312,6 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     out = torch.empty(lead + _values_shape(n, pair), dtype=dtype, device=dev)
     if num_sticks == 0 or batch == 0:
         return out
-    form = z_form(mats, dim_z)
     if form == "fft":
         fn = _build.function(_FFT_SRC,
                              _build.entry("spfft_zdft_compress_fft", dtype),

@@ -38,7 +38,7 @@ What runs on the card, per pair:
   direction; split-x C2C and R2C ``pdft_last`` for the y-DFT (and the
   split C2C x-DFT), R2C's real x-DFT one ``prdft_last`` /
   ``pirdft_last`` launch (the real FFT form of ``csrc/rfft.cu`` where
-  dim_x is even with a 2^a 3^b 5^c half).
+  dim_x is even with a 2^a 3^b 5^c 7^d 11^e half).
 
 FULL scaling is folded into the forward z matrix, as the local plan does
 (the JAX distributed forward multiplies after the gather; the two agree
@@ -398,10 +398,12 @@ class DistributedTransformPlan:
             return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
+        # the fused z kernels' form of dim_z, as the local plan's
+        zf = fused_kernel.z_mats_form(dp.dim_z) if self._fused else None
         self._mats = {
-            "z_b": c2c(dp.dim_z, dft.BACKWARD),
-            "z_f": c2c(dp.dim_z, dft.FORWARD),
-            "z_fs": c2c(dp.dim_z, dft.FORWARD, scale=gs),
+            "z_b": c2c(dp.dim_z, dft.BACKWARD, form=zf),
+            "z_f": c2c(dp.dim_z, dft.FORWARD, form=zf),
+            "z_fs": c2c(dp.dim_z, dft.FORWARD, scale=gs, form=zf),
             "y_b": c2c(dp.dim_y, dft.BACKWARD),
             "y_f": c2c(dp.dim_y, dft.FORWARD),
         }

@@ -197,10 +197,13 @@ class TransformPlan:
             return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
+        # the fused z kernels' form of dim_z (the matrix form where dim_z
+        # has a prime of 13 or more), else the length's own
+        zf = fused_kernel.z_mats_form(p.dim_z) if self._fused else None
         self._mats = {
-            "z_b": c2c(p.dim_z, dft.BACKWARD),
-            "z_f": c2c(p.dim_z, dft.FORWARD),
-            "z_fs": c2c(p.dim_z, dft.FORWARD, scale=gs),
+            "z_b": c2c(p.dim_z, dft.BACKWARD, form=zf),
+            "z_f": c2c(p.dim_z, dft.FORWARD, form=zf),
+            "z_fs": c2c(p.dim_z, dft.FORWARD, scale=gs, form=zf),
             "y_b": c2c(p.dim_y, dft.BACKWARD),
             "y_f": c2c(p.dim_y, dft.FORWARD),
         }

@@ -1,14 +1,16 @@
 """Double precision in the port, on the CPU.
 
 * Local plans (``precision="double"``): C2C and R2C at an odd size
-  (17^3, a prime length: the matrix forms) and a 2·3·5 one (30^3: the
-  FFT forms), the fused and the two-kernel route, the interleaved and
-  the planar pair value layout. Every result is float64; the backward
-  and the forward (NONE and FULL) lie within ``predicted_rel_error(
-  "double", n)`` of a numpy float64 dense oracle and within twice that
-  of the JAX package's float64 plan (XLA under x64, tests/conftest.py)
-  on the same values; the routes agree bit for bit; a batch of B = 3
-  and the pointwise calls equal the single calls bit for bit.
+  (17^3, a prime length: Bluestein's forms, and the fused z kernels'
+  matrix form) and a 2·3·5 one (30^3: the FFT forms), the fused and the
+  two-kernel route, the interleaved and the planar pair value layout.
+  Every result is float64; the backward and the forward (NONE and FULL)
+  lie within ``predicted_rel_error("double", n)`` of a numpy float64
+  dense oracle and within twice that of the JAX package's float64 plan
+  (XLA under x64, tests/conftest.py) on the same values; the routes
+  agree bit for bit (within twice the envelope at 17, where their z
+  stages take different forms); a batch of B = 3 and the pointwise calls
+  equal the single calls bit for bit.
 * Distributed plans over 3 shards (uneven, one empty), C2C and R2C,
   both routes: within twice the envelope of the JAX package's float64
   distributed plan, the routes bit for bit.
@@ -16,8 +18,8 @@
   entries emulated in numpy through the pointers the wrappers pass (the
   emulations of test_torch_fft, test_torch_rfft, test_torch_zfft and
   test_torch_gather, which read ``_f64`` entries as float64): the FFT
-  stage and cluster kernels, the real FFT stage, the matrix forms, both
-  fused z kernels in both forms, and the gather, whose wide accesses
+  stage and cluster kernels, the real FFT stage, the Bluestein kernel,
+  both fused z kernels in both forms, and the gather, whose wide accesses
   are checked against 16-byte values; and whole double plans through
   that path against their plain versions.
 * The wrappers refuse a mixture of float32 and float64 operands.
@@ -54,6 +56,7 @@ from spfft_tpu_torch.ops import (_build, dft, dft_kernel, fused_kernel,
 
 from test_distributed import split_by_sticks, split_planes
 from test_torch_gather import emulated_gather  # noqa: F401 (a fixture)
+from test_torch_fft import emulated_function
 from test_torch_zfft import _emulate as emulate_z
 from test_util import (dense_backward, dense_cube_from_values,
                        dense_forward, hermitian_triplets,
@@ -96,7 +99,7 @@ def _band_limited(dims, trip, seed):
     return sample_cube(freq, trip, dims), freq
 
 
-#: (kind, dims): one odd size (17: the matrix forms) and one 2·3·5 size
+#: (kind, dims): one odd size (17: Bluestein's forms) and one 2·3·5 size
 #: (30: the FFT forms)
 LOCAL = {"c2c_17": ("c2c", (17, 17, 17)), "c2c_30": ("c2c", (30, 30, 30)),
          "r2c_17": ("r2c", (17, 17, 17)), "r2c_30": ("r2c", (30, 30, 30))}
@@ -179,16 +182,35 @@ def test_local_double_plan(monkeypatch, name, fused, pair):
 
 @pytest.mark.parametrize("name", sorted(LOCAL))
 def test_local_double_routes_batches_and_pointwise_agree(name):
-    """The two routes bit for bit; B = 3 bands and the pointwise calls
-    against the single calls bit for bit."""
-    kind, dims, trip, vals, _ = _local_inputs(name)
+    """The two routes bit for bit where their z stages take one form (an
+    FFT form of dim_z: the fused kernel's and ``pdft_last``'s share the
+    Stockham code), within twice the envelope where they do not (a prime
+    dim_z: the fused kernels' matrix form against ``pdft_last``'s
+    Bluestein FFT), and there each route within the envelope of the
+    dense float64 oracle; B = 3 bands and the pointwise calls against
+    the single calls bit for bit."""
+    kind, dims, trip, vals, freq = _local_inputs(name)
     plans = [sp.make_local_plan(_tt(kind)[0], *dims, trip,
                                 precision="double", device="cpu",
                                 fused=fused) for fused in (True, False)]
     full = sp.Scaling.FULL
     outs = [(p.backward(vals), p.forward(p.backward(vals), full))
             for p in plans]
-    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    if dft.c2c_form(dims[2]) == "fft":
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+    else:
+        assert dft.c2c_form(dims[2]) == "bluestein"
+        assert all(_rel(a.numpy(), b.numpy()) <= 2 * _pred(dims)
+                   for a, b in zip(*outs))
+        space = dense_backward(freq)
+        want_b = space.real if kind == "r2c" else space
+        want_f = sample_cube(dense_forward(want_b), trip, dims) \
+            / np.prod(dims)
+        for p, (tb, tf) in zip(plans, outs):
+            got_b = tb.numpy() if kind == "r2c" else _c(tb.numpy())
+            assert _rel(got_b, want_b) <= _pred(dims)
+            assert _rel(_values_of(tf.numpy(), p.pair_values_io),
+                        want_f) <= _pred(dims)
     tp = plans[0]
     bands = np.stack([vals * (1 + b / 2) for b in range(B)])
     space_b = tp.backward_batched(bands)
@@ -298,8 +320,12 @@ def emulated(monkeypatch):
     yields the list of launched entries."""
     calls = []
     monkeypatch.setattr(_build, "on_cuda", lambda t, what: what != "gather")
-    monkeypatch.setattr(_build, "function",
-                        lambda source, symbol, argtypes: (symbol, argtypes))
+    def function(source, symbol, argtypes):
+        if symbol.endswith("_reg_plan"):
+            return emulated_function(source, symbol, argtypes)
+        return symbol, argtypes
+
+    monkeypatch.setattr(_build, "function", function)
 
     def launch(fn, what, device, *args):
         symbol, argtypes = fn
@@ -334,16 +360,17 @@ def _close(got, want, tol=EMU_TOL):
                                       (256, {}), (384, {"rows": (200, 100)}),
                                       (13, {})])
 def test_f64_stage_entries(emulated, n, window):
-    """``pdft_last`` (the FFT stage, or the matrix form at 13) and the
-    plane wrappers (the cluster kernel) on float64 operands."""
+    """``pdft_last`` (the FFT stage, or Bluestein's at 13) and the plane
+    wrappers (the cluster kernel) on float64 operands."""
     rng = np.random.default_rng(n)
     for sign in (dft.BACKWARD, dft.FORWARD):
         m = dft.device_c2c(n, sign, 0.5, dtype=F64, **window)
-        assert m[0].dtype == F64
+        assert all(t.dtype == F64 for t in m.tensors)
         assert m.twiddles is None or m.twiddles.dtype == F64
-        x = (_t(rng, 7, m[0].shape[0]), _t(rng, 7, m[0].shape[0]))
+        k = dft.mats_shape(m)[0]
+        x = (_t(rng, 7, k), _t(rng, 7, k))
         _close(dft_kernel.pdft_last(*x, m), dft.pdft_last(*x, m))
-    want = "spfft_dft_stage_f64" if n == 13 else "spfft_fft_stage_f64"
+    want = "spfft_bluestein_f64" if n == 13 else "spfft_fft_stage_f64"
     assert emulated == [want] * 2
     m1 = dft.device_c2c(n, dft.BACKWARD, dtype=F64)
     m2 = dft.device_c2c(24, dft.FORWARD, 1 / 24, dtype=F64)
@@ -352,14 +379,17 @@ def test_f64_stage_entries(emulated, n, window):
     _close(dft_kernel.pdft2_swapped(*x, m1, m2), dft.cdft2_xy(*x, m1, m2))
     if n != 13:
         assert emulated[2:] == ["spfft_fft_plane_f64"] * 2
+    else:  # Bluestein over B, then the FFT stage over A
+        assert emulated[2:] == ["spfft_bluestein_f64",
+                                "spfft_fft_stage_f64"] * 2
 
 
 @pytest.mark.parametrize("nx,win", [(24, None), (24, (3, 7)), (250, None),
                                     (256, (50, 79)), (14, None)])
 def test_f64_real_entries(emulated, nx, win):
-    """The real FFT stage (or the matrix form at 14: a 7 in the half) on
-    float64 operands, straight and within ``prdft2`` / ``pdft2_cr``; the
-    imaginary parts at DC and Nyquist never reach the real inverse."""
+    """The real FFT stage (at 14 with a radix-7 half) on float64
+    operands, straight and within ``prdft2`` / ``pdft2_cr``; the imaginary
+    parts at DC and Nyquist never reach the real inverse."""
     rng = np.random.default_rng(nx)
     r2c = dft.device_r2c(nx, cols=win, device="cpu", dtype=F64)
     c2r = dft.device_c2r(nx, rows=win, device="cpu", dtype=F64)
@@ -380,8 +410,7 @@ def test_f64_real_entries(emulated, nx, win):
     _close(dft_kernel.prdft2(x, r2c, y), dft.prdft2_minor(x, r2c, y))
     g = (_t(rng, 3, k, 5), _t(rng, 3, k, 5))
     _close(dft_kernel.pdft2_cr(*g, yb, c2r), dft.pdft2_minor_cr(*g, yb, c2r))
-    real = "spfft_dft_stage_f64" if nx == 14 else "spfft_rfft_stage_f64"
-    assert set(emulated) == {real, "spfft_fft_stage_f64"}
+    assert set(emulated) == {"spfft_rfft_stage_f64", "spfft_fft_stage_f64"}
 
 
 def _slots(s, dz, rng):
@@ -406,8 +435,9 @@ def test_f64_z_entries(emulated, dz, pair):
     rng = np.random.default_rng(dz + pair)
     s = 9
     nv, ss, csr = _slots(s, dz, rng)
-    zb = dft.device_c2c(dz, dft.BACKWARD, dtype=F64)
-    zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, dtype=F64)
+    form = fused_kernel.z_mats_form(dz)
+    zb = dft.device_c2c(dz, dft.BACKWARD, dtype=F64, form=form)
+    zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, dtype=F64, form=form)
     for lead in ((), (B,)):
         vals = _t(rng, *lead, 2, nv) if pair else _t(rng, *lead, nv, 2)
         for zid in (-1, 0):

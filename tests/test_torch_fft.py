@@ -5,22 +5,27 @@
   bit for bit, and unpacks as the plain pair;
 * a numpy Stockham FFT that takes exactly the plan's factor list
   (``dft.fft_factors``) and twiddle table (``dft.fft_twiddles``) and the
-  butterflies of ``csrc/fft_tile.cuh`` agrees with ``np.fft`` in
-  complex128 and within 1e-6 relative l2 in complex64, for every length
-  2^a 3^b 5^c <= 512, windowed and scaled;
-* the dispatch (``dft_kernel.stage_form`` / ``plane_forms``) by shape;
-* every wrapper's launch path, with ``csrc/fft.cu`` and ``csrc/dft2.cu``
-  replaced by numpy emulations of their C entries that read and write
-  the operands through the pointers the wrapper passes: the argument
-  lists, radix codes, windows, scales and stores (straight, transposed,
-  swapped), and the per-form launch counts, against the plain versions
-  within 2e-6;
+  butterflies of ``csrc/fft_tile.cuh`` (radices 2, 3, 4, 5, 7 and 11, in
+  the kernel's own algebra) agrees with ``np.fft`` in complex128 within
+  1e-13 and within 1e-6 relative l2 in complex64, for every one of the 138
+  lengths 2^a 3^b 5^c 7^d 11^e <= 512, windowed and scaled; the 4-bit
+  radix code decodes back to the factor list at every length;
+* the forms by length (``c2c_form``, ``real_form``, ``z_form``) over
+  1..1024 against a direct statement of the rule; the dispatch
+  (``dft_kernel.stage_form`` / ``plane_forms``) by shape;
+* every wrapper's launch path, with ``csrc/fft.cu``, ``csrc/dft2.cu``
+  and ``csrc/bluestein.cu`` replaced by numpy emulations of their C
+  entries that read and write the operands through the pointers the
+  wrapper passes: the argument lists, radix codes, windows, scales and
+  stores (straight, transposed, swapped), and the per-form launch
+  counts, against the plain versions within 2e-6;
 * the local and distributed plans hand a ``DftMats`` to every complex
   stage (and the fused z kernels), and their results against
   ``spfft_tpu`` stay within 2e-6.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -44,6 +49,26 @@ TOL = 2e-6
 SMOOTH = [n for n in range(1, 513) if dft.fft_factors(n) is not None]
 
 
+def decode_radices(code):
+    """The stage radices of a radix code as csrc/fft_tile.cuh decodes it:
+    4 bits a stage, the first stage lowest."""
+    out = []
+    while code:
+        out.append(code & 15)
+        code >>= 4
+    return out
+
+
+def prime_factors(n):
+    out, p = [], 2
+    while n > 1:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1
+    return out
+
+
 def _rel(got, want):
     got, want = np.asarray(got), np.asarray(want)
     den = np.linalg.norm(want)
@@ -60,9 +85,16 @@ def _window(n, x0, w):
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 11, 12, 13, 60, 100, 256, 512])
 @pytest.mark.parametrize("sign", [dft.BACKWARD, dft.FORWARD])
 def test_device_c2c_equals_the_matrix_builders(n, sign):
+    # a length with a prime of 13 or more takes Bluestein's form, which
+    # holds no pair: its matrix form (the fused z kernels') does
+    form = None if dft.c2c_form(n) == "fft" else "matrix"
+    if form:
+        assert dft.c2c_form(n) == "bluestein"
+        assert len(dft.device_c2c(n, sign)) == 0
     for scale in (1.0, 1.0 / n):
-        m = dft.device_c2c(n, sign, scale)
+        m = dft.device_c2c(n, sign, scale, form=form)
         assert isinstance(m, dft.DftMats) and isinstance(m, tuple)
+        assert m.form == dft.c2c_form(n) if form is None else "matrix"
         cr, ci = m
         for got, want in zip((cr, ci), dft.c2c_mats(n, sign, scale)):
             np.testing.assert_array_equal(got.numpy(), want)
@@ -70,12 +102,12 @@ def test_device_c2c_equals_the_matrix_builders(n, sign):
         assert m.rows == (0, n) and m.cols == (0, n)
         for x0, w in ((0, n), (n - 1, n), (n // 2, max(1, n // 3)),
                       (n - 1, max(1, n // 2))):
-            rows = dft.device_c2c(n, sign, scale, rows=(x0, w))
+            rows = dft.device_c2c(n, sign, scale, rows=(x0, w), form=form)
             want = dft.sub_rows_mats(n, sign, _window(n, x0, w), scale)
             for got, wm in zip(rows, want):
                 np.testing.assert_array_equal(got.numpy(), wm)
             assert rows.rows == (x0 % n, w) and rows.cols == (0, n)
-            cols = dft.device_c2c(n, sign, scale, cols=(x0, w))
+            cols = dft.device_c2c(n, sign, scale, cols=(x0, w), form=form)
             want = dft.sub_cols_mats(n, sign, _window(n, x0, w), scale)
             for got, wm in zip(cols, want):
                 np.testing.assert_array_equal(got.numpy(), wm)
@@ -86,18 +118,18 @@ def test_device_c2c_equals_the_matrix_builders(n, sign):
 def test_device_c2c_twiddles_and_factors(n):
     m = dft.device_c2c(n, dft.FORWARD)
     f = dft.fft_factors(n)
-    if n in (11, 13):
-        assert f is None and m.twiddles is None
+    if n == 13:
+        assert f is None and m.twiddles is None and m.form == "bluestein"
         return
     assert int(np.prod(f, dtype=np.int64)) == n and m.factors == f
-    assert set(f) <= {2, 3, 4, 5} and f.count(2) <= 1
-    assert list(f) == sorted(f, key=(4, 2, 3, 5).index)
+    assert set(f) <= {2, 3, 4, 5, 7, 11} and f.count(2) <= 1
+    assert list(f) == sorted(f, key=(4, 2, 3, 5, 7, 11).index)
     t = dft.fft_twiddles(n, dft.FORWARD)
     np.testing.assert_array_equal(
         m.twiddles.numpy(), np.stack([t.real, t.imag]).astype(np.float32))
     code = dft.radix_code(f)
-    assert [(code >> (3 * i)) & 7 for i in range(len(f))] == list(f)
-    assert code >> (3 * len(f)) == 0
+    assert [(code >> (4 * i)) & 15 for i in range(len(f))] == list(f)
+    assert code >> (4 * len(f)) == 0
 
 
 def test_device_c2c_rejects_windows_past_the_length():
@@ -110,8 +142,28 @@ def test_fft_factors_cover_the_smooth_lengths():
     assert dft.fft_factors(256) == (4, 4, 4, 4)
     assert dft.fft_factors(512) == (4, 4, 4, 4, 2)
     assert dft.fft_factors(360) == (4, 2, 3, 3, 5)
-    assert dft.fft_factors(513) is None and dft.fft_factors(7) is None
-    assert len(SMOOTH) == 68
+    assert dft.fft_factors(448) == (4, 4, 4, 7)
+    assert dft.fft_factors(462) == (2, 3, 7, 11)
+    assert dft.fft_factors(352) == (4, 4, 2, 11)
+    assert dft.fft_factors(343) == (7, 7, 7)
+    assert dft.fft_factors(7) == (7,) and dft.fft_factors(11) == (11,)
+    assert dft.fft_factors(513) is None and dft.fft_factors(13) is None
+    assert dft.fft_factors(416) is None and dft.fft_factors(509) is None
+    # exactly the lengths 2^a 3^b 5^c 7^d 11^e <= 512
+    assert SMOOTH == [n for n in range(1, 513)
+                      if set(prime_factors(n)) <= {2, 3, 5, 7, 11}]
+    assert len(SMOOTH) == 138
+    assert max(len(dft.fft_factors(n)) for n in SMOOTH) == 6
+
+
+def test_radix_code_decodes_to_the_factors_at_every_length():
+    """The 4-bit code of every factor list (at most 6 stages: 24 bits)
+    decodes back to it as the kernel's decoder reads it."""
+    for n in SMOOTH:
+        code = dft.radix_code(dft.fft_factors(n))
+        assert code < 1 << 24
+        assert tuple(decode_radices(code)) == dft.fft_factors(n), n
+    assert dft.radix_code(None) == 0 and dft.radix_code(()) == 0
 
 
 # -- the numpy mirror of csrc/fft_tile.cuh -----------------------------------
@@ -119,6 +171,33 @@ def test_fft_factors_cover_the_smooth_lengths():
 _S3 = np.sqrt(3.0) / 2
 _C5 = (np.cos(2 * np.pi / 5), np.cos(4 * np.pi / 5))
 _S5 = (np.sin(2 * np.pi / 5), np.sin(4 * np.pi / 5))
+
+
+def _odd_dft(v, p, s, real):
+    """``odd_dft_pairs<H>`` of fft_tile.cuh (radix 7 and 11): the mirror
+    pairs b_k, d_k, then a_m + s i e_m and a_m - s i e_m, each sum in the
+    kernel's order, on the constants cos and sin of 2 pi q / P rounded
+    once to ``real``."""
+    h = (p - 1) // 2
+    c = [real(np.cos(2 * np.pi * q / p)) for q in range(1, h + 1)]
+    sn = [real(np.sin(2 * np.pi * q / p)) for q in range(1, h + 1)]
+    b = [v[k] + v[p - k] for k in range(1, h + 1)]
+    d = [v[k] - v[p - k] for k in range(1, h + 1)]
+    y = [None] * p
+    y[0] = v[0]
+    for k in range(h):
+        y[0] = y[0] + b[k]
+    for m in range(1, h + 1):
+        a, e = v[0], 0
+        for k in range(1, h + 1):
+            q = k * m % p
+            cq = c[q - 1] if q <= h else c[p - q - 1]
+            sq = sn[q - 1] if q <= h else -sn[p - q - 1]
+            a = a + cq * b[k - 1]
+            e = e + sq * d[k - 1]
+        y[m] = a + e * (1j * s)
+        y[p - m] = a - e * (1j * s)
+    return y
 
 
 def _small_dft(v, p, s, real):
@@ -135,6 +214,8 @@ def _small_dft(v, p, s, real):
         m = v[0] - real(0.5) * t
         e = d * (j * real(_S3))
         return [v[0] + t, m + e, m - e]
+    if p in (7, 11):
+        return _odd_dft(v, p, s, real)
     c1, c2 = real(_C5[0]), real(_C5[1])
     s1, s2 = real(_S5[0]), real(_S5[1])
     b1, b2 = v[1] + v[4], v[2] + v[3]
@@ -148,7 +229,10 @@ def _small_dft(v, p, s, real):
 
 def stockham(x, sign, factors, tw):
     """The Stockham FFT of fft_tile.cuh along the rows of ``x`` (..., n),
-    with ``factors`` and the table ``tw`` (n,) in ``x``'s dtype."""
+    with ``factors`` and the table ``tw`` (n,) in ``x``'s dtype. A radix-7
+    or 11 stage (``stage_odd``) reads the table for t <= P / 2 and at P k,
+    and forms the twiddle of P - t as w^(P k) conj(w^(t k)) in the table's
+    type."""
     x = np.array(x)
     n = x.shape[-1]
     real = np.float32 if x.dtype == np.complex64 else np.float64
@@ -157,8 +241,13 @@ def stockham(x, sign, factors, tw):
         q = n // p
         j = np.arange(q)
         k = j % ns
-        v = [x[..., j + t * q] * (tw[t * k * (n // (ns * p))] if t else 1)
-             for t in range(p)]
+        tstep = n // (ns * p)
+        w = [tw[t * k * tstep] if t else 1 for t in range(p)]
+        if p in (7, 11):
+            wp = tw[p * k * tstep]
+            for t in range(1, p // 2 + 1):
+                w[p - t] = wp * np.conj(w[t])
+        v = [x[..., j + t * q] * w[t] for t in range(p)]
         v = _small_dft(v, p, sign, real)
         y = np.empty_like(x)
         base = (j - k) * p + k
@@ -216,7 +305,9 @@ def test_windowed_stockham_matches_the_matrices(n, rows, cols, scale):
 def test_dispatch_by_shape():
     c = dft.device_c2c
     assert dft_kernel.stage_form(c(256, 1)) == "fft"
-    assert dft_kernel.stage_form(c(11, 1)) == "matrix"
+    assert dft_kernel.stage_form(c(11, 1)) == "fft"
+    assert dft_kernel.stage_form(c(13, 1)) == "bluestein"
+    assert dft_kernel.stage_form(c(13, 1, form="matrix")) == "matrix"
     assert dft_kernel.stage_form(dft.device_mats(dft.c2c_mats(256, 1),
                                                  "cpu")) == "matrix"
     assert dft_kernel.stage_form(dft.device_mats(dft.r2c_mats(256),
@@ -229,8 +320,16 @@ def test_dispatch_by_shape():
     assert f(c(24, 1), c(20, -1), 20) == ("cluster",)
     assert f(c(512, 1, cols=(0, 9)), c(40, 1), 40) == ("cluster",)
     assert f(c(512, 1), c(512, 1), 512) == ("fft", "fft")
-    assert f(c(13, 1), c(11, 1), 11) == ("matrix", "matrix")
-    assert f(c(300, -1), c(7, -1), 7) == ("fft", "matrix")
+    assert f(c(13, 1), c(11, 1), 11) == ("bluestein", "fft")
+    # radix 7 or 11: two stage launches, never the cluster kernel
+    assert f(c(300, -1), c(7, -1), 7) == ("fft", "fft")
+    assert f(c(448, 1), c(448, 1), 448) == ("fft", "fft")
+    for n in (56, 112, 224, 22):
+        assert f(c(n, 1), c(n, 1), n) == ("fft", "fft")
+    assert f(c(60, 1), c(56, 1), 56) == ("fft", "fft")
+    # the matrix form: a plain pair without its function
+    pair = dft.device_mats(dft.c2c_mats(13, 1), "cpu")
+    assert f(pair, c(11, 1), 11) == ("matrix", "fft")
 
 
 # -- the launch path, with the C entries emulated -----------------------------
@@ -291,6 +390,9 @@ def _emulate(symbol, args):
     elif symbol == "spfft_rfft_stage":  # csrc/rfft.cu
         from test_torch_rfft import emulate_rfft
         emulate_rfft(args, real)
+    elif symbol == "spfft_bluestein":  # csrc/bluestein.cu
+        from test_torch_long_axes import emulate_bluestein
+        emulate_bluestein(args, real)
     else:
         assert symbol == "spfft_dft_stage"
         mode, xr, xi, cr, ci, yr, yi, m, k, n_out, plane_rows = args
@@ -310,10 +412,7 @@ def _emulate(symbol, args):
 
 
 def _fft(x, n, sign, scale, rows, cols, code, tw_ptr, real=np.float32):
-    factors = []
-    while code:
-        factors.append(code & 7)
-        code >>= 3
+    factors = decode_radices(code)
     assert tuple(factors) == dft.fft_factors(n)
     t = _view(tw_ptr, 2 * n, real).astype(np.float64)
     want_t = dft.fft_twiddles(n, sign)
@@ -331,8 +430,7 @@ def emulated(monkeypatch):
     run by :func:`_emulate`; yields the list of launched symbols."""
     calls = []
     monkeypatch.setattr(_build, "on_cuda", lambda t, what: True)
-    monkeypatch.setattr(_build, "function",
-                        lambda source, symbol, argtypes: (source, symbol))
+    monkeypatch.setattr(_build, "function", emulated_function)
     assert dft_kernel._build is _build
 
     def launch(fn, what, device, *args):
@@ -347,6 +445,17 @@ def emulated(monkeypatch):
         monkeypatch.setattr(w, "form_launches",
                             dict.fromkeys(dft_kernel.FORMS, 0))
     yield calls
+
+
+def emulated_function(source, symbol, argtypes):
+    """``_build.function`` with no library: a C entry is ``(source,
+    symbol)`` for the emulated launch; the Bluestein library's register
+    rule (``spfft_bluestein_reg_plan``) is answered by the source's rule
+    (test_torch_long_axes)."""
+    if symbol == "spfft_bluestein_reg_plan":
+        from test_torch_long_axes import _bl_reg
+        return lambda L, f64: int(_bl_reg(L, (np.float32, np.float64)[f64]))
+    return source, symbol
 
 
 def _t(rng, *shape):
@@ -364,11 +473,12 @@ def test_pdft_last_launch_path(emulated, lead, n, window, plain):
         m = dft.device_c2c(n, sign, 0.5, **window)
         if plain:
             m = dft.device_mats(tuple(t.numpy() for t in m), "cpu")
-        x = (_t(rng, *lead, m[0].shape[0]), _t(rng, *lead, m[0].shape[0]))
+        k = dft.mats_shape(m)[0]
+        x = (_t(rng, *lead, k), _t(rng, *lead, k))
         got = dft_kernel.pdft_last(*x, m)
         want = dft.pdft_last(*x, m)
         assert _rel(torch.stack(got), torch.stack(want)) < TOL
-    form = "matrix" if plain or n == 13 else "fft"
+    form = "matrix" if plain else "bluestein" if n == 13 else "fft"
     runs = 0 if lead == (0,) else 2
     assert dft_kernel.pdft_last.form_launches == dict(
         dict.fromkeys(dft_kernel.FORMS, 0), **{form: runs})
@@ -379,11 +489,11 @@ PLANES = [  # (P, A, B), mats1 over B, mats2 over A, forms
     ((3, 20, 24), (24, 1, {}), (20, -1, {}), ("cluster",)),
     ((5, 9, 16), (16, -1, {}), (24, 1, {"rows": (20, 9)}), ("cluster",)),
     ((4, 24, 20), (20, -1, {"cols": (17, 6)}), (24, -1, {}), ("cluster",)),
-    ((2, 7, 300), (300, -1, {}), (7, -1, {}), ("fft", "matrix")),
+    ((2, 7, 300), (300, -1, {}), (7, -1, {}), ("fft", "fft")),
     ((2, 512, 9), (9, 1, {}), (512, 1, {}), ("cluster",)),
     ((1, 48, 512), (512, 1, {}), (48, 1, {}), ("cluster",)),
     ((1, 512, 512), (512, 1, {}), (512, -1, {}), ("fft", "fft")),
-    ((2, 11, 13), (13, 1, {}), (11, 1, {}), ("matrix", "matrix")),
+    ((2, 11, 13), (13, 1, {}), (11, 1, {}), ("bluestein", "fft")),
     ((1, 3, 5), (5, 1, {}), (3, 1, {}), ("cluster",))]
 
 
@@ -402,7 +512,7 @@ def test_plane_wrappers_launch_path(emulated, case):
         assert _rel(torch.stack(got), torch.stack(want)) < TOL
         counts = dict.fromkeys(dft_kernel.FORMS, 0)
         for f in forms:
-            counts[f] += 1
+            counts[f] = counts.get(f, 0) + 1
         assert wrapper.form_launches == counts
         assert wrapper.launches == len(forms)
 
@@ -542,3 +652,185 @@ def test_distributed_plans_hand_a_spec_to_every_complex_stage(monkeypatch,
         assert seen and all(all(flags) for _, flags in seen), seen
         assert _rel(got_b, want_b) < TOL and _rel(got_f, want_f) < TOL
         monkeypatch.undo()
+
+
+# -- plans at lengths with 7, 11, 13 and an odd real x ------------------------
+
+#: (transform, dims): every axis of each takes a new form: radix 7 and 11
+#: FFTs (14, 21, 28; 22, 44, 33), Bluestein's FFT at 13, 26 and 39 (and in
+#: the fused z kernels' matrix form at 39), and an odd real x (45)
+NEW_FORM_DIMS = [("C2C", (14, 21, 28)), ("C2C", (22, 44, 33)),
+                 ("C2C", (26, 13, 39)), ("R2C", (45, 14, 22))]
+
+
+@functools.lru_cache(maxsize=None)
+def _new_form_case(case, precision):
+    """Triplets, values and the JAX package's local backward and
+    forward(FULL) of a :data:`NEW_FORM_DIMS` case, from a numpy seed."""
+    tt, dims = NEW_FORM_DIMS[case]
+    rng = np.random.default_rng(30 + case)
+    if tt == "R2C":
+        trip = hermitian_triplets(rng, dims)
+    else:
+        trip = random_sparse_triplets(rng, dims)
+    cube = dense_cube_from_values(trip, random_values(rng, len(trip)), dims)
+    if tt == "R2C":
+        cube = np.fft.fftn(np.fft.ifftn(cube).real)
+    cdt = np.complex64 if precision == "single" else np.complex128
+    vals = sample_cube(cube, trip, dims).astype(cdt)
+    jp = spfft_tpu.make_local_plan(spfft_tpu.TransformType[tt], *dims, trip,
+                                   precision=precision, use_pallas=False)
+    want_b = np.asarray(jp.backward(vals))
+    want_f = np.asarray(jp.forward(want_b, spfft_tpu.Scaling.FULL))
+    return trip, vals, want_b, want_f
+
+
+def _new_form_tol(precision, dims):
+    return TOL if precision == "single" else \
+        sp.predicted_rel_error("double", max(dims))
+
+
+def _new_form_launches(tt, dims, fused):
+    """The forms a pair launches at these dims, by the rule: the z stage
+    (fused: FFT or matrix form; else ``pdft_last``'s own), the y and x
+    stages by their lengths."""
+    return {"z": (("fft" if dft.c2c_form(dims[2]) == "fft" else "matrix")
+                  if fused else dft.c2c_form(dims[2])),
+            "y": dft.c2c_form(dims[1]),
+            "x": dft.real_form(dims[0]) if tt == "R2C"
+            else dft.c2c_form(dims[0])}
+
+
+@pytest.fixture
+def plan_emulated(monkeypatch):
+    """A plan's DFT wrappers and fused z kernels take their launch path on
+    CPU tensors, each launch run by its numpy emulation (test_torch_zfft's,
+    which hands the DFT entries to :func:`_emulate`); the gather keeps its
+    plain version. Yields the wrappers whose launches count."""
+    from test_torch_zfft import _emulate as emulate_z
+    monkeypatch.setattr(_build, "on_cuda", lambda t, what: what != "gather")
+    monkeypatch.setattr(_build, "function", emulated_function)
+    monkeypatch.setattr(_build, "launch",
+                        lambda fn, what, device, *args: emulate_z(fn[1], args))
+    wrappers = (dft_kernel.pdft_last, dft_kernel.pdft2,
+                dft_kernel.pdft2_swapped, dft_kernel.prdft2,
+                dft_kernel.pdft2_cr, fused_kernel.decompress_zdft,
+                fused_kernel.zdft_compress)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+        monkeypatch.setattr(w, "form_launches",
+                            dict.fromkeys(dft_kernel.ALL_FORMS, 0))
+    yield wrappers
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("precision", ["single", "double"])
+@pytest.mark.parametrize("case", range(len(NEW_FORM_DIMS)))
+def test_local_plans_at_new_form_lengths_match_jax(plan_emulated, case,
+                                                   precision, fused):
+    """A local plan whose axes take the radix-7 / radix-11 FFTs and
+    Bluestein's FFT below 513, through the wrappers' launch path (the C
+    entries emulated in numpy), against ``spfft_tpu`` on the CPU: within
+    2e-6 in single precision, ``predicted_rel_error("double", n)`` in
+    double; the launches by form follow the rule, and no stage but the
+    fused z at a prime of 13 or more takes the matrix form."""
+    tt, dims = NEW_FORM_DIMS[case]
+    trip, vals, want_b, want_f = _new_form_case(case, precision)
+    tp = sp.make_local_plan(sp.TransformType[tt], *dims, trip, device="cpu",
+                            precision=precision, fused=fused)
+    got_b = tp.backward(vals).numpy()
+    got_f = tp.forward(torch.from_numpy(want_b.copy()),
+                       sp.Scaling.FULL).numpy()
+    tol = _new_form_tol(precision, dims)
+    assert _rel(got_b, want_b) < tol and _rel(got_f, want_f) < tol
+    forms = _new_form_launches(tt, dims, fused)
+    z = fused_kernel.z_form(tp._mats["z_b"], dims[2]) if fused \
+        else dft_kernel.stage_form(tp._mats["z_b"])
+    assert z == forms["z"]
+    assert dft_kernel.stage_form(tp._mats["y_b"]) == forms["y"]
+    assert dft_kernel.stage_form(tp._mats["x_b"]) == forms["x"]
+    launched = {w.__name__: {f: k for f, k in w.form_launches.items() if k}
+                for w in plan_emulated}
+    z = launched.pop("decompress_zdft", {}), launched.pop("zdft_compress",
+                                                          {})
+    if fused:
+        assert z == ({forms["z"]: 1},) * 2
+    else:
+        assert z == ({}, {})
+    # every DFT stage in the form its length gives, none in the matrix form
+    stages = {}
+    for f in launched.values():
+        for form, k in f.items():
+            stages[form] = stages.get(form, 0) + k
+    assert "matrix" not in stages and stages
+    assert set(stages) <= {forms["y"], forms["x"], "cluster"} | (
+        set() if fused else {forms["z"]})
+
+
+@pytest.mark.parametrize("precision", ["single", "double"])
+@pytest.mark.parametrize("case", range(len(NEW_FORM_DIMS)))
+def test_distributed_plans_at_new_form_lengths_match_jax(case, precision):
+    """The same dims over 3 uneven shards, both routes, against
+    ``spfft_tpu.parallel`` on conftest's virtual CPU devices, within the
+    local test's tolerance."""
+    tt, dims = NEW_FORM_DIMS[case]
+    trip, _, _, _ = _new_form_case(case, precision)
+    rng = np.random.default_rng(40 + case)
+    cube = dense_cube_from_values(trip, random_values(rng, len(trip)), dims)
+    if tt == "R2C":
+        cube = np.fft.fftn(np.fft.ifftn(cube).real)
+    st = np.where(trip < 0, trip + np.array(dims), trip)
+    owner = (st[:, 0] * 7 + st[:, 1]) % 3
+    parts = [trip[owner == r] for r in range(3)]
+    planes = [dims[2] - 2 * (dims[2] // 3), dims[2] // 3, dims[2] // 3]
+    cdt = np.complex64 if precision == "single" else np.complex128
+    vals = [sample_cube(cube, p, dims).astype(cdt) for p in parts]
+    jp = jpar.make_distributed_plan(spfft_tpu.TransformType[tt], *dims,
+                                    parts, planes, mesh=jpar.make_mesh(3),
+                                    precision=precision)
+    want_b = np.array(jp.backward(vals))
+    want_f = np.asarray(jp.forward(jax.device_put(want_b, jp._sharded),
+                                   spfft_tpu.Scaling.FULL))
+    tol = _new_form_tol(precision, dims)
+    for fused in (True, False):
+        tp = sp.make_distributed_plan(sp.TransformType[tt], *dims, parts,
+                                      planes, device="cpu",
+                                      precision=precision, fused=fused)
+        got_b = tp.backward(vals).numpy()
+        got_f = tp.forward(torch.from_numpy(want_b.copy()),
+                           sp.Scaling.FULL).numpy()
+        assert _rel(got_b, want_b) < tol and _rel(got_f, want_f) < tol
+
+
+def test_forms_by_length_follow_the_rule():
+    """``c2c_form`` / ``real_form`` / the fused z kernels' form over
+    1..1024 against a direct statement of the rule: a complex length up
+    to 512 with no prime above 11 takes the FFT form, a longer one with a
+    balanced split the two-pass form, any other up to 1024 Bluestein's;
+    a real length up to 1024 whose half has no prime above 11 the real
+    FFT form, any other up to 1024 Bluestein's; the fused z kernels the
+    FFT form where the length has it, else the matrix form; nothing
+    above 1024 but ``torch.fft`` or the two-pass form."""
+    for n in range(1, 1025):
+        p = set(prime_factors(n))
+        small = p <= {2, 3, 5, 7, 11}
+        if n <= 512 and small:
+            want = "fft"
+        elif n > 512 and dft.two_stage_factor(n) is not None:
+            want = "two_pass"
+        else:
+            want = "bluestein"
+        assert dft.c2c_form(n) == want, n
+        half_small = n % 2 == 0 and set(prime_factors(n // 2)) <= {
+            2, 3, 5, 7, 11}
+        assert dft.real_form(n) == ("rfft" if half_small else "bluestein"), n
+        if n <= 512:
+            zform = "fft" if small else "matrix"
+            mats = dft.device_c2c(n, dft.BACKWARD,
+                                  form=fused_kernel.z_mats_form(n))
+            assert fused_kernel.z_form(mats, n) == zform, n
+    for n in (1031, 2048, 4096, 1033):
+        assert dft.c2c_form(n) in ("two_pass", "library")
+        assert dft.real_form(n) == "library"
+    assert (dft.c2c_form(448), dft.real_form(448)) == ("fft", "rfft")
+    assert fused_kernel.z_form(dft.device_c2c(448, dft.FORWARD), 448) == "fft"

@@ -48,7 +48,8 @@ from spfft_tpu.ops import dft as jdft
 import spfft_tpu_torch as sp
 from spfft_tpu_torch.ops import _build, dft, dft_kernel, fused_kernel
 
-from test_torch_fft import _emulate, _view, entry_real, stockham
+from test_torch_fft import (_emulate, _view, decode_radices, entry_real,
+                            stockham)
 
 torch.set_num_threads(2)
 
@@ -94,11 +95,11 @@ def test_two_stage_factor_and_predicate_match_jax(monkeypatch):
 def test_forms_by_length():
     assert [dft.c2c_form(n) for n in (512, 11, 520, 521, 768, 1024, 1031,
                                       2048, 1033)] == \
-        ["fft", "matrix", "two_pass", "bluestein", "two_pass", "two_pass",
+        ["fft", "fft", "two_pass", "bluestein", "two_pass", "two_pass",
          "library", "two_pass", "library"]
     assert [dft.real_form(n) for n in (512, 11, 768, 1000, 1022, 1024,
                                        1031, 2048)] == \
-        ["rfft", "matrix", "rfft", "rfft", "bluestein", "rfft", "library",
+        ["rfft", "bluestein", "rfft", "rfft", "bluestein", "rfft", "library",
          "library"]
     m = dft.device_c2c(768, dft.BACKWARD)
     assert len(m) == 0 and m.split == (24, 32) and m.shape == (768, 768)
@@ -361,10 +362,19 @@ WHOLE_ELEMS = _src_float_double(r"ELEMS =", "fft_long.cu")
 REG_MAX = _src_float_double(r"reg_max\(\) \{\s*return", "fft_reg.cuh")
 
 
+def _smooth(L):
+    """fft_reg.cuh's smooth: L is 2^a 3^b 5^c (the register plans take no
+    7 or 11, which the shared-memory FFT does)."""
+    for p in (2, 3, 5):
+        while L % p == 0:
+            L //= p
+    return L == 1
+
+
 def _reg(L, real):
     """Has a factor of length L a register plan (fft_reg.cuh's reg_len up
     to reg_max)?"""
-    return 2 <= L <= REG_MAX[real] and dft.fft_factors(L) is not None
+    return 2 <= L <= REG_MAX[real] and _smooth(L)
 
 
 _REG_SRC = (_build.CSRC / "fft_reg.cuh").read_text()
@@ -381,7 +391,7 @@ PAIR_LO, PAIR_MAX = map(int, re.search(
 def _bl_reg(L, real):
     """Has a factor of length L a register plan in the Bluestein kernel
     (fft_reg.cuh's has_plan)?"""
-    if L < 2 or dft.fft_factors(L) is None:
+    if L < 2 or not _smooth(L):
         return False
     return L <= BL_ROW_MAX or (real == np.float32 and PAIR_LO < L <= PAIR_MAX
                                and L % 2 == 0)
@@ -399,16 +409,12 @@ def _class_lens(maxl):
 
 def _pass_dft(buf, L, n, sign, code, tw):
     """One pass's transform of the buffer rows ``buf`` (R, L): the
-    Stockham FFT of fft_tile.cuh for a 2^a 3^b 5^c factor (``code`` its
-    radices), else the direct DFT in slices of 16 terms (``dft_rows``),
-    both on the sub-table ``tw[m n / L]``."""
+    Stockham FFT of fft_tile.cuh for a 2^a 3^b 5^c 7^d 11^e factor
+    (``code`` its radices), else the direct DFT in slices of 16 terms
+    (``dft_rows``), both on the sub-table ``tw[m n / L]``."""
     sub = tw[np.arange(L) * (n // L)]
     if code:
-        factors = []
-        while code:
-            factors.append(code & 7)
-            code >>= 3
-        return stockham(buf, sign, factors, sub)
+        return stockham(buf, sign, decode_radices(code), sub)
     k = np.arange(L)
     w = sub[np.outer(k, k) % L]
     out = np.zeros_like(buf)
@@ -691,7 +697,10 @@ def _t(rng, *shape, dtype=torch.float32):
     (1024, (3,), {"cols": (1000, 50)}), (521, (3,), {}), (9216, (2,), {}),
     (4096, (2,), {}),
     (521, (2,), {"rows": (500, 30), "cols": (7, 9)}), (1031, (3,), {}),
-    (1031, (2,), {"rows": (1020, 20)})])
+    (1031, (2,), {"rows": (1020, 20)}),
+    # a radix-7 factor on the shared-memory path: beside a register
+    # factor above 32 (2016 = 42 x 48), in pass 2 (4480 = 64 x 70)
+    (2016, (3,), {}), (4480, (2,), {"cols": (4400, 50)})])
 def test_pdft_last_long_launch_path(emulated, n, lead, window, dtype):
     rng = np.random.default_rng(n)
     tol = 2e-6 if dtype == torch.float32 else 1e-12
@@ -835,8 +844,96 @@ def test_bluestein_plain_matches_numpy(n, precision):
     assert _rel(got.numpy(), n * r) <= bound
 
 
+#: lengths up to 512 with no FFT form (complex: a prime of 13 or more;
+#: real: odd, or a half with such a prime), and 100, whose M fell from 540
+#: to 200
+BLUESTEIN_SMALL = (13, 26, 52, 100, 135, 257, 375, 416, 509, 510)
+
+
+def _jax_pair(mats):
+    """The first two of the JAX package's matrices as one complex128
+    matrix."""
+    return np.asarray(mats[0], np.float64) + 1j * np.asarray(mats[1],
+                                                              np.float64)
+
+
+@pytest.mark.parametrize("precision", ["single", "double"])
+@pytest.mark.parametrize("n", BLUESTEIN_SMALL)
+def test_bluestein_plain_below_513_matches_jax_matrices(n, precision):
+    """``dft.bluestein_plain`` at the lengths up to 512 that now take the
+    Bluestein form, against the JAX package's matrix DFT (its float32
+    ``c2c_mats`` / ``r2c_mats`` / ``c2r_mats``, contracted in float64) in
+    all three modes with windows: within 2e-6 in single precision and,
+    in double, within 2e-6 of those matrices (their own rounding) and
+    within ``predicted_rel_error("double", n)`` of float64 ``np.fft``."""
+    dtype = torch.float32 if precision == "single" else torch.float64
+    real = np.float32 if precision == "single" else np.float64
+    rng = np.random.default_rng(n + 2)
+    tight = sp.predicted_rel_error("double", n)
+    xf = n // 2 + 1
+
+    def planes(z):
+        return (torch.from_numpy(z.real.astype(real)),
+                torch.from_numpy(z.imag.astype(real)))
+
+    def check(got, want, exact):
+        assert _rel(got, want) <= 2e-6
+        if precision == "double":
+            assert _rel(got, exact) <= tight
+
+    if dft.c2c_form(n) == "bluestein":
+        rows, cols = ((n - 5) % n, max(1, n // 2)), (n // 3, max(1, n - 4))
+        ri = (rows[0] + np.arange(rows[1])) % n
+        ci = (cols[0] + np.arange(cols[1])) % n
+        for sign in (dft.BACKWARD, dft.FORWARD):
+            m = dft.device_c2c(n, sign, 0.5, rows=rows, cols=cols,
+                               dtype=dtype)
+            assert m.form == "bluestein" and len(m) == 0
+            x = rng.standard_normal((4, rows[1])) \
+                + 1j * rng.standard_normal((4, rows[1]))
+            x = x.real.astype(real) + 1j * x.imag.astype(real)
+            want = x @ _jax_pair(jdft.c2c_mats(n, sign, 0.5))[np.ix_(ri, ci)]
+            full = np.zeros((4, n), np.complex128)
+            full[:, ri] = x
+            exact = 0.5 * (np.fft.ifft(full) * n if sign == dft.BACKWARD
+                           else np.fft.fft(full))[:, ci]
+            got = dft.bluestein_plain("cc", planes(x), m)
+            check(got[0].numpy() + 1j * got[1].numpy(), want, exact)
+    else:
+        assert dft.c2c_form(n) == "fft"
+    if dft.real_form(n) != "bluestein":
+        assert dft.real_form(n) == "rfft"
+        return
+    cols = (1, xf - 2)
+    bins = 1 + np.arange(xf - 2)
+    r = rng.standard_normal((3, n)).astype(real)
+    mr = dft.device_r2c(n, 0.5, cols=cols, dtype=dtype)
+    assert mr.form == "bluestein"
+    got = dft.bluestein_plain("rc", (torch.from_numpy(r),), mr)
+    check(got[0].numpy() + 1j * got[1].numpy(),
+          r @ _jax_pair(jdft.r2c_mats(n, 0.5))[:, bins],
+          0.5 * np.fft.rfft(r)[:, bins])
+    spec = rng.standard_normal((3, xf - 2)) \
+        + 1j * rng.standard_normal((3, xf - 2))
+    spec = spec.real.astype(real) + 1j * spec.imag.astype(real)
+    mc = dft.device_c2r(n, 2.0, rows=cols, dtype=dtype)
+    assert mc.form == "bluestein"
+    got = dft.bluestein_plain("cr", planes(spec), mc)
+    ja = jdft.c2r_mats(n, 2.0)
+    want = spec.real @ np.asarray(ja[0], np.float64)[bins] \
+        + spec.imag @ np.asarray(ja[1], np.float64)[bins]
+    half = np.zeros((3, xf), np.complex128)
+    half[:, bins] = spec
+    check(got.numpy(), want, 2.0 * n * np.fft.irfft(half, n))
+
+
 #: (n, mode, leading shape, window): the Bluestein kernel's launch cases
 BLUESTEIN_CASES = [
+    (13, "cc", (5,), {}), (416, "cc", (3,), {"rows": (400, 30)}),
+    (257, "cc", (2,), {"cols": (250, 20)}), (135, "rc", (4,), {}),
+    (375, "cr", (2,), {"rows": (3, 100)}),
+    (510, "rc", (2,), {"cols": (7, 90)}),
+    (26, "cr", (3,), {}),
     (521, "cc", (4,), {}), (521, "cc", (2, 3), {"rows": (500, 30)}),
     (997, "cc", (3,), {"cols": (990, 20)}),
     (1021, "cc", (3,), {"rows": (1000, 40), "cols": (5, 700)}),
@@ -916,13 +1013,29 @@ def test_bluestein_lengths_have_register_plans():
     """The plan time's copy of the Bluestein kernel's register rule
     (``dft.REG_ROW_MAX``, ``REG_PAIR_MAX``) is the source's (fft_reg.cuh:
     has_plan, pair_len), and every M that ``dft.bluestein_length`` gives
-    for a length in (512, 1024] splits into factors with a float register
-    plan there (the launch refuses a float M without)."""
+    for a length in 2..1024 splits into factors with a float register
+    plan there (the launch refuses a float M without), within the
+    launch's bounds (m1 <= m2 <= 256); the split is balanced, so that a
+    double M with a split into factors of at most 32 takes one (the
+    double register path); and M is the first 2^a 3^b 5^c from 2 n - 1
+    with such a split."""
     assert (dft.REG_ROW_MAX, dft.REG_PAIR_MAX) == (BL_ROW_MAX, PAIR_MAX)
     assert PAIR_LO == BL_ROW_MAX
-    for n in range(dft.MATMUL_DFT_MAX + 1, 1025):
+    for n in range(2, 1025):
         mm = dft.bluestein_length(n)
-        assert all(_bl_reg(f, np.float32) for f in dft.bluestein_split(mm))
+        m1, m2 = dft.bluestein_split(mm)
+        assert m1 * m2 == mm >= 2 * n - 1 and 2 <= m1 <= m2 <= 256, n
+        assert all(_bl_reg(f, np.float32) for f in (m1, m2)), n
+        splits = [(d, mm // d) for d in range(2, mm) if mm % d == 0]
+        assert max(m1, m2) == min(max(s) for s in splits), n
+        if any(max(s) <= BL_ROW_MAX for s in splits):
+            assert _bl_reg(m1, np.float64) and _bl_reg(m2, np.float64), n
+        for m in range(2 * n - 1, mm):  # no shorter M serves
+            assert not _smooth(m) or not all(
+                _bl_reg(f, np.float32) for f in dft.bluestein_split(m)), n
+    # n = 100 takes 200 = 10 x 20, not 540
+    assert (dft.bluestein_length(100), dft.bluestein_split(200)) == \
+        (200, (10, 20))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -13,7 +13,7 @@ emulation. On those paths:
 
 * the emulated real FFT form against the matrices (``r2c_mats`` /
   ``c2r_mats``, exact products in float64) for every even n <= 512 whose
-  half is 2^a 3^b 5^c, scaled, in windows of the half spectrum that
+  half is 2^a 3^b 5^c 7^d 11^e, scaled, in windows of the half spectrum that
   start at 0, start past 0 and wrap, with nonzero imaginary parts at DC
   and Nyquist (which the inverse must drop);
 * ``prdft2`` / ``pdft2_cr`` / ``prdft_last`` / ``pirdft_last`` through
@@ -48,7 +48,8 @@ from spfft_tpu.ops import dft_kernel as jdk
 import spfft_tpu_torch as sp
 from spfft_tpu_torch.ops import _build, dft, dft_kernel, fused_kernel
 
-from test_torch_fft import _store, _view, stockham
+from test_torch_fft import (_store, _view, decode_radices,
+                            emulated_function, stockham)
 from test_torch_zfft import _emulate
 from test_util import (dense_cube_from_values, hermitian_triplets,
                        random_values, sample_cube)
@@ -123,10 +124,7 @@ def emulate_rfft(args, real=np.float32):
     test_torch_fft and test_torch_zfft hand it theirs)."""
     (mode, xr, xi, yr, yi, tw, m, k, n_out, plane_rows, n, scale, x0,
      code) = args
-    factors = []
-    while code:
-        factors.append(code & 7)
-        code >>= 3
+    factors = decode_radices(code)
     assert tuple(factors) == dft.rfft_factors(n)
 
     def view(ptr, count):
@@ -162,8 +160,7 @@ def emulated(monkeypatch):
     on its plain version. Yields the list of launched symbols."""
     calls = []
     monkeypatch.setattr(_build, "on_cuda", lambda t, what: what != "gather")
-    monkeypatch.setattr(_build, "function",
-                        lambda source, symbol, argtypes: (source, symbol))
+    monkeypatch.setattr(_build, "function", emulated_function)
     assert dft_kernel._build is _build and fused_kernel._build is _build
 
     def launch(fn, what, device, *args):
@@ -243,10 +240,12 @@ def test_rfft_form_matches_the_matrices(n):
 
 def test_even_smooth_lengths():
     assert EVEN_SMOOTH[:6] == [2, 4, 6, 8, 10, 12]
-    assert {24, 100, 250, 256, 512} <= set(EVEN_SMOOTH)
-    assert len(EVEN_SMOOTH) == 52
+    assert {14, 22, 24, 100, 250, 256, 448, 512} <= set(EVEN_SMOOTH)
+    assert len(EVEN_SMOOTH) == 96
     assert dft.rfft_factors(2) == () and dft.rfft_factors(256) == (4, 4, 4, 2)
-    for n in (1, 7, 14, 22, 26, 255, 514):
+    assert dft.rfft_factors(14) == (7,) and dft.rfft_factors(22) == (11,)
+    assert dft.rfft_factors(448) == (4, 4, 2, 7)
+    for n in (1, 7, 26, 255, 510, 514):
         assert dft.rfft_factors(n) is None
 
 
@@ -262,13 +261,19 @@ def test_device_real_mats_equal_the_matrix_builders(n):
             x0, w = (0, xf) if win is None else win
             r2c = dft.device_r2c(n, scale, cols=win)
             c2r = dft.device_c2r(n, scale, rows=win)
+            # the Bluestein form (odd n, a prime of 13 or more in the
+            # half) holds its tables, not the pair
+            pair = dft.real_form(n) == "rfft"
             for m, want in ((r2c, dft.sub_cols_r2c_mats(n, idx, scale)),
                             (c2r, dft.sub_rows_c2r_mats(n, idx, scale))):
-                assert isinstance(m, dft.DftMats) and len(m) == 2
+                assert isinstance(m, dft.DftMats)
+                assert m.form == dft.real_form(n)
+                assert len(m) == (2 if pair else 0)
+                assert (m.bluestein is None) == pair
                 for got, wm in zip(m, want):
                     np.testing.assert_array_equal(got.numpy(), wm)
                 assert (m.n, m.scale) == (n, scale)
-            if win is None:
+            if win is None and pair:
                 for got, wm in zip(r2c, dft.r2c_mats(n, scale)):
                     np.testing.assert_array_equal(got.numpy(), wm)
                 for got, wm in zip(c2r, dft.c2r_mats(n, scale)):
@@ -302,11 +307,15 @@ def test_stage_form_by_shape():
     f = dft_kernel.stage_form
     for n in (2, 4, 6, 10, 24, 100, 250, 256, 512):
         assert f(dft.device_r2c(n)) == "rfft" == f(dft.device_c2r(n))
+    for n in (14, 22, 98, 448):  # a 7 or 11 in the half
+        assert f(dft.device_r2c(n)) == "rfft" == f(dft.device_c2r(n))
     for n in (7, 13, 15, 255):  # odd
-        assert f(dft.device_r2c(n)) == "matrix" == f(dft.device_c2r(n))
-    for n in (14, 22, 26, 98, 286):  # a prime >= 7 in the half
-        assert f(dft.device_r2c(n)) == "matrix" == f(dft.device_c2r(n))
+        assert f(dft.device_r2c(n)) == "bluestein" == f(dft.device_c2r(n))
+    for n in (26, 286, 510):  # a prime >= 13 in the half
+        assert f(dft.device_r2c(n)) == "bluestein" == f(dft.device_c2r(n))
+    # the matrix form: a plain pair without its function
     assert f(dft.device_mats(dft.r2c_mats(256), "cpu")) == "matrix"
+    assert f(dft.device_mats(dft.r2c_mats(15), "cpu")) == "matrix"
     assert f(dft.device_c2c(256, dft.FORWARD)) == "fft"
     assert "rfft" in dft_kernel.ALL_FORMS
 
@@ -343,6 +352,11 @@ PLANE_CASES = [  # (P, A, nx, window of the half spectrum)
     (2, 4, 250, (120, 6))]
 
 
+#: the C entry of each form of a real stage
+_SYMBOL = {"rfft": "spfft_rfft_stage", "bluestein": "spfft_bluestein",
+           "matrix": "spfft_dft_stage"}
+
+
 @pytest.mark.parametrize("case", range(len(PLANE_CASES)))
 def test_prdft2_launch_path_matches_jax(emulated, case):
     p, a, nx, win = PLANE_CASES[case]
@@ -360,11 +374,12 @@ def test_prdft2_launch_path_matches_jax(emulated, case):
         assert _rel(got[0].numpy() + 1j * got[1].numpy(),
                     np.asarray(w[0]) + 1j * np.asarray(w[1])) < TOL
     form = dft_kernel.stage_form(m1)
-    assert form == ("rfft" if dft.rfft_factors(nx) is not None else "matrix")
+    assert form == dft.real_form(nx)
+    assert form == ("rfft" if dft.rfft_factors(nx) is not None
+                    else "bluestein")
     assert dft_kernel.prdft2.form_launches == _counts(
         form, dft_kernel.stage_form(m2))
-    assert emulated[0] == ("spfft_rfft_stage" if form == "rfft"
-                           else "spfft_dft_stage")
+    assert emulated[0] == _SYMBOL[form]
 
 
 @pytest.mark.parametrize("case", range(len(PLANE_CASES)))
@@ -385,10 +400,10 @@ def test_pdft2_cr_launch_path_matches_jax(emulated, case):
     for w in (want, comp):
         assert _rel(got.numpy(), np.asarray(w)) < TOL
     form = dft_kernel.stage_form(m2)
+    assert form == dft.real_form(nx)
     assert dft_kernel.pdft2_cr.form_launches == _counts(
         dft_kernel.stage_form(m1), form)
-    assert emulated[-1] == ("spfft_rfft_stage" if form == "rfft"
-                            else "spfft_dft_stage")
+    assert emulated[-1] == _SYMBOL[form]
 
 
 LAST_CASES = [  # (leading rows, nx, window, scale)
@@ -423,8 +438,8 @@ def test_real_last_launch_path_matches_jax(emulated, case):
     for w in (dft_kernel.prdft_last, dft_kernel.pirdft_last):
         assert w.form_launches == _counts(*[form] * runs)
         assert w.launches == runs
-    assert emulated == ["spfft_rfft_stage" if form == "rfft"
-                        else "spfft_dft_stage"] * (2 * runs)
+    assert form == dft.real_form(nx)
+    assert emulated == [_SYMBOL[form]] * (2 * runs)
 
 
 def test_real_last_transposed_store(emulated):
@@ -517,8 +532,7 @@ def test_local_r2c_plan_hands_a_real_spec(monkeypatch, emulated, dims,
     got_b = tp.backward(vals).numpy()
     got_f = tp.forward(torch.from_numpy(want_b), sp.Scaling.FULL).numpy()
     assert sorted(seen) == [("pdft2_cr", True), ("prdft2", True)]
-    form = "rfft" if dft.rfft_factors(dims[0]) is not None else "matrix"
-    cc = "fft" if dft.fft_factors(dims[1]) is not None else "matrix"
+    form, cc = dft.real_form(dims[0]), dft.c2c_form(dims[1])
     for w in (dft_kernel.prdft2, dft_kernel.pdft2_cr):
         assert w.form_launches == _counts(form, cc)
     assert _rel(got_b, want_b) < TOL and _rel(got_f, want_f) < TOL
@@ -545,8 +559,7 @@ def test_distributed_r2c_plan_hands_a_real_spec(monkeypatch, emulated,
     got_b = tp.backward(vals).numpy()
     got_f = tp.forward(torch.from_numpy(want_b), sp.Scaling.FULL).numpy()
     assert sorted(seen) == [("pirdft_last", True), ("prdft_last", True)]
-    form = "rfft" if dft.rfft_factors(dims[0]) is not None else "matrix"
-    cc = "fft" if dft.fft_factors(dims[1]) is not None else "matrix"
+    form, cc = dft.real_form(dims[0]), dft.c2c_form(dims[1])
     for w in (dft_kernel.prdft_last, dft_kernel.pirdft_last):
         assert w.form_launches == _counts(form)
     assert dft_kernel.pdft_last.form_launches == _counts(cc, cc)

@@ -46,8 +46,8 @@ import spfft_tpu_torch as sp
 from spfft_tpu_torch.indexing import inverse_slot_map
 from spfft_tpu_torch.ops import _build, dft, dft_kernel, fused_kernel
 
-from test_torch_fft import (_emulate as _emulate_dft, _view, entry_real,
-                            stockham)
+from test_torch_fft import (_emulate as _emulate_dft, _view, decode_radices,
+                            emulated_function, entry_real, stockham)
 from test_util import (dense_cube_from_values, hermitian_triplets,
                        random_sparse_triplets, random_values, sample_cube)
 
@@ -78,11 +78,7 @@ def _put_values(view, pair, y):
 
 
 def _factors(code):
-    out = []
-    while code:
-        out.append(code & 7)
-        code >>= 3
-    return out
+    return decode_radices(code)
 
 
 def _fft_form(x, n, sign, scale, in0, out0, code, tw_ptr, real=np.float32):
@@ -183,8 +179,7 @@ def emulated(monkeypatch):
     by :func:`_emulate`; yields the list of launched symbols."""
     calls = []
     monkeypatch.setattr(_build, "on_cuda", lambda t, what: True)
-    monkeypatch.setattr(_build, "function",
-                        lambda source, symbol, argtypes: (source, symbol))
+    monkeypatch.setattr(_build, "function", emulated_function)
     assert fused_kernel._build is _build and dft_kernel._build is _build
 
     def launch(fn, what, device, *args):
@@ -295,7 +290,15 @@ def _slot_set(s, dz, fill, seed, dup=0):
     return slots[rng.permutation(len(slots))]
 
 
-DIMS = [1, 2, 3, 5, 12, 60, 256, 384, 512, 13]
+DIMS = [1, 2, 3, 5, 12, 60, 256, 384, 512, 13, 7, 11, 448]
+
+
+def _z_mats(dz, sign, scale=1.0, **window):
+    """The z matrices a plan hands the fused kernels at ``dz``
+    (``fused_kernel.z_mats_form``: the matrix form at a prime of 13 or
+    more)."""
+    return dft.device_c2c(dz, sign, scale, form=fused_kernel.z_mats_form(dz),
+                          **window)
 
 
 @pytest.mark.parametrize("dz", DIMS)
@@ -317,7 +320,7 @@ def test_decompress_zdft_matches_jax_composition(emulated, dz):
     flat = jstages.gather_rows_with_sentinel(jnp.asarray(vals),
                                              jnp.asarray(ss))
     sticks = np.asarray(flat[:, 0] + 1j * flat[:, 1]).reshape(s + 1, dz)
-    mats = dft.device_c2c(dz, dft.BACKWARD)
+    mats = _z_mats(dz, dft.BACKWARD)
     form = fused_kernel.z_form(mats, dz)
     assert form == ("matrix" if dz == 13 else "fft")
     for zid in (-1, zs):
@@ -348,7 +351,7 @@ def test_zdft_compress_matches_jax_composition(emulated, dz):
     tr, ti = jdft.pdft_last(jnp.asarray(sr), jnp.asarray(si), jm)
     want = np.asarray(jstages.compress(tr + 1j * ti, jnp.asarray(slots)))
     csr = tuple(_t(a) for a in fused_kernel.compress_csr(slots, s, dz))
-    mats = dft.device_c2c(dz, dft.FORWARD, 0.25)
+    mats = _z_mats(dz, dft.FORWARD, 0.25)
     for pair in (False, True):
         got = fused_kernel.zdft_compress(_t(sr), _t(si), mats, csr, pair)
         _close(got.t() if pair else got, want)
@@ -388,8 +391,16 @@ def test_z_form_by_shape():
     c = dft.device_c2c
     for n in (256, 12, 1, 512, 384, 2, 3, 5, 60):
         assert fused_kernel.z_form(c(n, dft.BACKWARD), n) == "fft", n
-    assert fused_kernel.z_form(c(13, dft.BACKWARD), 13) == "matrix"
-    assert fused_kernel.z_form(c(11, dft.FORWARD, 0.5), 11) == "matrix"
+    for n in (7, 11, 448, 462, 343):  # radix 7 and 11
+        assert fused_kernel.z_form(c(n, dft.FORWARD, 0.5), n) == "fft", n
+    # a prime of 13 or more: the plan's z matrices are the matrix form;
+    # its own form, Bluestein's, has no fused kernel
+    assert fused_kernel.z_mats_form(13) == "matrix"
+    assert fused_kernel.z_mats_form(448) is None
+    assert fused_kernel.z_form(c(13, dft.BACKWARD, form="matrix"), 13) == \
+        "matrix"
+    with pytest.raises(sp.InvalidParameterError, match="z_mats_form"):
+        fused_kernel.z_form(c(13, dft.BACKWARD), 13)
     plain = dft.device_mats(dft.c2c_mats(256, dft.BACKWARD), "cpu")
     assert fused_kernel.z_form(plain, 256) == "matrix"
     # a window of a longer transform is not one stick's FFT
@@ -407,8 +418,8 @@ def test_batched_launch_equals_single_launches(emulated, dz, pair):
     ss = _t(np.concatenate([inverse_slot_map(slots, s * dz, nv),
                             np.full(dz, nv, np.int32)]))
     csr = tuple(_t(a) for a in fused_kernel.compress_csr(slots, s, dz))
-    zb = dft.device_c2c(dz, dft.BACKWARD)
-    zf = dft.device_c2c(dz, dft.FORWARD, 0.5)
+    zb = _z_mats(dz, dft.BACKWARD)
+    zf = _z_mats(dz, dft.FORWARD, 0.5)
     vals = _t(rng.standard_normal((b, 2, nv) if pair else (b, nv, 2))
               .astype(np.float32))
     got = fused_kernel.decompress_zdft(vals, ss, zb, dz, pair, 1)
