@@ -98,6 +98,32 @@ Phases, each of which exits non-zero when it fails:
    gather 2, ``pdft_last`` 4 with the y stage's), bit for bit against the
    fused route; the plans with uneven and empty shards hold the
    two-kernel gathers exact on their own stacked tables;
+11b. the exchanges of the distributed plan on the same 256^3 index plans
+   over 4 shards (``exchange_phases``, each kind a plan of its own): the
+   lossless kinds (``BUFFERED``, ``UNBUFFERED``, ``COMPACT_BUFFERED`` ragged
+   and with ``SPFFT_TPU_COMPACT_PPERMUTE=1`` the op schedule, and
+   ``overlap_chunks`` 2 and 4 of the block, ragged and op kinds), C2C and
+   R2C, fused and two-kernel: each counted pair with its gather launches
+   (``EXCHANGE_GATHERS``), backward and forward(FULL) bit for bit the
+   ``BUFFERED`` plan's, its ms per call and on the device, its staged
+   exchange steps and wire bytes; the wire cases (``WIRE_CASES``:
+   ``BUFFERED_FLOAT``, ``COMPACT_BUFFERED_FLOAT``, ``wire_precision`` 1, 2,
+   3, int8 at K = 2 and on the ring, int8 declined on the ragged layout)
+   with their rung and declines, the backward within ``max(4 *
+   wire_probe_error, predicted_rel_error)`` of the complex128 oracle, the
+   int8 kernels K launches a direction, K = 2 int8 bit for bit K = 1;
+   ``csrc/wire.cu`` at the path's blocks both directions against its plain
+   version (payloads, scales and dequantized values identical; records
+   ``wire_quantize`` / ``wire_dequantize``), the ragged exchange's three
+   gathers (records ``gather_ragged_*``); the distributed batched sweep
+   (``{"dist_batched_sweep": [...]}``, which
+   ``multi.FUSED_BATCH_MAX_DIST_TOTAL`` rests on: 128^3 and 256^3, B in
+   {2, 4, 8}); in double the lossless kinds on the fused C2C route and
+   ``wire.cu``'s float64 records; then a skewed split of the C2C sphere
+   (sticks 40 / 30 / 20 / 10 %, contiguous stick-major; planes 112 / 80 /
+   40 / 24: ``exchange_skew_phase``), the ragged wire bytes against the
+   padded ones (below half) and each kind's pair and exchange ms. Rows
+   in ``{"exchange": [...]}``, each with the card's name and power limit;
 12. double precision (``double_phases``): phases 3–9 and 11 again with
    ``precision="double"`` plans on the kernels' float64 instances (paths
    ending in ``_f64``): each kernel at the 256^3 shapes against its
@@ -121,7 +147,9 @@ Phases, each of which exits non-zero when it fails:
    arrays, the backward within ``predicted_rel_error`` of the complex128
    oracle, the launches by form of the C pair and of ``execute_pair``
    each equal to ``C2C_LAUNCHES`` (counts set to 0 before each, read
-   after); the error surface on the card (``COMPACT_BUFFERED`` -> 5, an
+   after); every distributed exchange code 1-5 creating and running a
+   plan (the lossless ones bit for bit BUFFERED's backward); the error
+   surface on the card (exchange code 42 -> 5, an
    invalid handle -> 2, an out-of-bounds index -> 7); then
    ``capi_drive`` in a process of its own per case (its own embedded
    interpreter): C2C single on ``PALLAS_AUTO`` and ``PALLAS_OFF`` (the
@@ -193,8 +221,12 @@ Phases, each of which exits non-zero when it fails:
    3.524e-7;
 16. the benchmark CLI (``benchmark_phase``): ``spfft_tpu_torch.benchmark
    .main`` in this process at ``-d 256 -r 10`` (C2C), ``-t r2c``,
-   ``--shards 4`` and ``-d 768 -s 0.25 -r 5``, each JSON printed;
-17. one JSON line ``{"batched_sweep": [...]}``, one ``{"benchmark":
+   ``--shards 4``, ``--shards 4 -e compact --overlap-chunks 2``, ``--shards
+   4 -e all`` (its five ``exchange_sweep`` rows) and ``-d 768 -s 0.25 -r
+   5``, each JSON printed;
+17. one JSON line ``{"batched_sweep": [...]}``, one
+   ``{"dist_batched_sweep": [...]}``, one ``{"exchange": [...]}``, one
+   ``{"benchmark":
    [...]}`` (phase 16's parameters), one ``{"capi": {...}}``
    (phase 13's numbers), one ``{"design_bound_ms": {...}}``, the
    script's wall time, one ``{"kernels": [...]}`` (every kernel record
@@ -1096,6 +1128,12 @@ R2C_BATCHED_LAUNCHES = {"decompress_zdft": ZFFT1, "zdft_compress": ZFFT1,
 #: record name -> the launch counter it reads
 COUNTER_OF = {"gather_dec": "gather", "gather_cmp": "gather",
               "gather_dec_batched": "gather", "gather_cmp_batched": "gather",
+              "gather_ragged_pack": "gather", "gather_ragged_emu": "gather",
+              "gather_ragged_unpack": "gather",
+              "wire_quantize backward": "wire_quantize",
+              "wire_quantize forward": "wire_quantize",
+              "wire_dequantize backward": "wire_dequantize",
+              "wire_dequantize forward": "wire_dequantize",
               "decompress_zdft_batched": "decompress_zdft",
               "zdft_compress_batched": "zdft_compress"}
 
@@ -1522,7 +1560,7 @@ def compare_exact(name, got, want):
                 if g.shape == w.shape else float("nan")
             fail(f"{name}: kernel differs from its plain version "
                  f"(shapes {tuple(g.shape)} {tuple(w.shape)}, max_abs "
-                 f"{diff:.3e}); the gather must be exact")
+                 f"{diff:.3e}); a move of values must be exact")
     return 0.0, 0.0, 0.0
 
 
@@ -2560,36 +2598,26 @@ def dist_x_kernel_records(path, plan, stacked, device):
     return recs
 
 
-#: the stages of the distributed pair, in the order they run
-DIST_STAGES = ("z backward",) + tuple(
-    f"exchange {s} backward" for s in ("pack", "transpose", "unpack")) + (
-    "xy backward", "xy forward") + tuple(
-    f"exchange {s} forward" for s in ("pack", "transpose", "unpack")) + (
-    "z forward",)
-
-
-def dist_breakdown_phase(sp, path, plan, stacked, device):
+def dist_breakdown_phase(sp, path, plan, stacked, device, quiet=False):
     """Where the distributed pair's time goes: the pair run through the
     plan's own stage methods one after another (``_z_backward``, the
-    exchange's steps ``_exchange_steps`` on the real then the imaginary
-    plane, ``_xy_backward``, ``_xy_forward``, the exchange back,
-    ``_z_forward``), a CUDA event after each, with no wait in between,
-    so that the stage times add up to the staged run. Its values must
-    equal the public pair's bit for bit. The public pair minus the staged
-    run is the public layout's copies (stacking, interleaving). Medians
-    of ``REPS`` runs after a warm-up; returns the medians by stage."""
+    exchange's steps ``_exchange_steps`` on the planar pair,
+    ``_xy_backward``, ``_xy_forward``, the exchange back, ``_z_forward``),
+    a CUDA event after each, with no wait in between, so that the stage
+    times add up to the staged run. Its values must equal the public
+    pair's bit for bit. The public pair minus the staged run is the
+    public layout's copies (stacking, interleaving). Medians of ``REPS``
+    runs after a warm-up; returns the medians by stage, in the order the
+    stages run (``quiet``: printed on one line)."""
     full = sp.Scaling.FULL
     v = stacked[:, None]
 
     def exchange(planes, forward, mark):
         d = "forward" if forward else "backward"
-        out = []
-        for t in planes:
-            for name, step in plan._exchange_steps(forward):
-                t = step(t)
-                mark(f"exchange {name} {d}")
-            out.append(t)
-        return tuple(out)
+        for name, step in plan._exchange_steps(forward):
+            planes = step(planes)
+            mark(f"exchange {name} {d}")
+        return planes
 
     def staged(mark):
         t = plan._z_backward(v)
@@ -2620,25 +2648,28 @@ def dist_breakdown_phase(sp, path, plan, stacked, device):
                   zip(marks, marks[1:])]
         else:
             ms = [(a - b) * 1e3 for (_, b), (_, a) in zip(marks, marks[1:])]
-        per = dict.fromkeys(DIST_STAGES, 0.0)
+        per = {}
         for (name, _), t in zip(marks[1:], ms):
-            per[name] += t
+            per[name] = per.get(name, 0.0) + t
         return out, per
 
     want = plan.forward(plan.backward(stacked), full)
-    out, _ = run()
+    out, names = run()
     if not torch.equal(out[:, 0], want):
         fail(f"{path}: the plan's stage methods run one after another "
              f"differ from the public pair")
     del out, want
-    run()
     reps = [run()[1] for _ in range(REPS)]
-    med = {k: float(np.median([r[k] for r in reps])) for k in DIST_STAGES}
+    med = {k: float(np.median([r[k] for r in reps])) for k in names}
     total = float(np.median([sum(r.values()) for r in reps]))
     pair = timed_ms(lambda: plan.forward(plan.backward(stacked), full),
                     device)
-    for k in DIST_STAGES:
-        print(f"{path} stage {k}: {med[k]:.4f} ms", flush=True)
+    if quiet:
+        print(f"{path} stages: " + ", ".join(
+            f"{k} {t:.4f}" for k, t in med.items()) + " ms", flush=True)
+    else:
+        for k, t in med.items():
+            print(f"{path} stage {k}: {t:.4f} ms", flush=True)
     print(f"{path} stages: staged run {total:.4f} ms (sum of the stage "
           f"medians {sum(med.values()):.4f}); public pair {pair:.4f} ms, "
           f"so the public layout's copies {pair - total:.4f} ms; the staged "
@@ -2801,7 +2832,53 @@ def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters,
         device, counters, DIST_C2C_2K_LAUNCHES))
     dist_breakdown_phase(sp, f"{name} two-kernel", plan2, stacked, device)
     route_phase(sp, name, plan, plan2, stacked)
-    return recs + recs2
+    del plan2
+    return recs + recs2 + exchange_phases(sp, name, "dist_c2c" + tag, plan,
+                                          stacked, oracle, device, counters,
+                                          DIST_C2C_LAUNCHES,
+                                          DIST_C2C_2K_LAUNCHES, tag)
+
+
+def exchange_phases(sp, name, path, plan, stacked, oracle_rel, device,
+                    counters, base, base_2k, tag):
+    """The exchange slice on a path's plan (single: every lossless kind
+    on both routes, the wire cases, ``wire.cu``'s and the ragged
+    gathers' records, the distributed sweep; double: the lossless kinds
+    on the fused route and ``wire.cu``'s records). Returns the records."""
+    t0 = time.perf_counter()
+    dp, mesh = plan.dist_plan, plan.mesh
+    rows = exchange_kinds_phase(sp, name, dp, mesh, stacked, device,
+                                counters, base)
+    EXCHANGE_ROWS.extend(rows)
+    recs = wire_kernel_records(path, plan, stacked, device)
+    if not tag:
+        EXCHANGE_ROWS.extend(exchange_kinds_phase(
+            sp, f"{name} two-kernel", dp, mesh, stacked, device, counters,
+            base_2k, fused=False))
+        wire = exchange_wire_phase(sp, name, dp, mesh, stacked, oracle_rel,
+                                   device, counters, base,
+                                   plan.backward(stacked))
+        EXCHANGE_ROWS.extend(wire)
+        set_launches(recs, next(r["launches"] for r in wire
+                                if r["kind"] == "wire_int8"))
+        more = ragged_gather_records(sp, path, dp, mesh, stacked, device)
+        set_launches(more, next(r["launches"] for r in rows
+                                if r["kind"] == "ragged"))
+        recs += more
+        dist_sweep_phase(sp, path, plan, stacked, device, DIST_SWEEP)
+    else:  # the int8 wire of a double plan: its kernels' own counts
+        int8 = exchange_plan(sp, dp, mesh, "buffered",
+                             precision=plan.precision, wire_precision=3,
+                             wire_error_budget=1.0)
+        reset_launches(counters)
+        int8.forward(int8.backward(stacked), sp.Scaling.FULL)
+        _sync(device)
+        set_launches(recs, read_launches(f"{name} int8", counters,
+                                         exchange_want(base, 0, 1)))
+        del int8
+    print(f"{name} exchange phases: {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
+    return recs
 
 
 def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
@@ -2833,7 +2910,447 @@ def dist_r2c_phases(sp, n, local, trip, values, oracle_rel, device,
         device, counters, DIST_R2C_2K_LAUNCHES))
     dist_breakdown_phase(sp, f"{name} two-kernel", plan2, stacked, device)
     route_phase(sp, name, plan, plan2, stacked)
-    return recs + recs2
+    del plan2
+    if tag:  # the double lossless kinds run on the C2C path alone
+        return recs + recs2
+    return recs + recs2 + exchange_phases(sp, name, path, plan, stacked,
+                                          oracle_rel, device, counters,
+                                          DIST_R2C_LAUNCHES,
+                                          DIST_R2C_2K_LAUNCHES, tag)
+
+
+# -- the exchanges of the distributed plan: ring, exact counts, chunks, wire -
+
+#: every exchange phase's rows (``{"exchange": [...]}``) and the
+#: distributed batched sweep's (``{"dist_batched_sweep": [...]}``)
+EXCHANGE_ROWS = []
+DIST_SWEEP = []
+
+#: the card's ``nvidia-smi`` name and power limit (set by :func:`main`),
+#: carried by the exchange slice's records
+CARD = None
+WIRE_SRC = "spfft_tpu_torch/csrc/wire.cu"
+QUANT_REPLACES = "spfft_tpu/parallel/exchange.py:124"
+DEQUANT_REPLACES = "spfft_tpu/parallel/exchange.py:156"
+#: the ragged exchange's table gathers (``jnp.take``, mode fill) in the JAX
+#: package: its pack (dist.py:1160), the emulated collective
+#: (exchange.py:663) and its unpack (dist.py:1166)
+RAGGED_PACK_REPLACES = "spfft_tpu/parallel/dist.py:1160"
+RAGGED_EMU_REPLACES = "spfft_tpu/parallel/exchange.py:663"
+RAGGED_UNPACK_REPLACES = "spfft_tpu/parallel/dist.py:1166"
+#: the lossless kinds: label -> (ExchangeType name, the op schedule through
+#: SPFFT_TPU_COMPACT_PPERMUTE=1, overlap_chunks, the plan's exchange_kind)
+EXCHANGE_KINDS = {
+    "buffered": ("BUFFERED", False, 1, "block"),
+    "ring": ("UNBUFFERED", False, 1, "ring"),
+    "ragged": ("COMPACT_BUFFERED", False, 1, "ragged"),
+    "compact": ("COMPACT_BUFFERED", True, 1, "compact"),
+    "block_k2": ("BUFFERED", False, 2, "blockx2"),
+    "block_k4": ("BUFFERED", False, 4, "blockx4"),
+    "ragged_k2": ("COMPACT_BUFFERED", False, 2, "raggedx2"),
+    "ragged_k4": ("COMPACT_BUFFERED", False, 4, "raggedx4"),
+    "compact_k2": ("COMPACT_BUFFERED", True, 2, "compactx2"),
+    "compact_k4": ("COMPACT_BUFFERED", True, 4, "compactx4"),
+}
+#: gather launches each kind's exchange adds to a backward + forward pair,
+#: literal for the 256^3 paths over 4 round-robin shards: ragged 3 a
+#: direction (pack, emulation, unpack), 2K + 1 with K chunks; the op
+#: schedule one a pack of each op and the unpack: 8 ops (a hop's shards
+#: differ by one stick, two size classes a hop), its chunks 4 ops
+#: backward (8 in the last) and 8 forward
+EXCHANGE_GATHERS = {"buffered": 0, "ring": 0, "ragged": 6, "compact": 18,
+                    "block_k2": 0, "block_k4": 0, "ragged_k2": 10,
+                    "ragged_k4": 18, "compact_k2": 30, "compact_k4": 54}
+#: the wire cases: label -> (ExchangeType name, wire_precision, K, the rung
+#: it resolves to, its declines); every one under wire_error_budget 1.0
+WIRE_CASES = {
+    "buffered_float": ("BUFFERED_FLOAT", 0, 1, "bf16", ()),
+    "compact_float": ("COMPACT_BUFFERED_FLOAT", 0, 1, "bf16", ()),
+    "wire_f32": ("BUFFERED", 1, 1, "f32", ()),
+    "wire_bf16": ("BUFFERED", 2, 1, "bf16", ()),
+    "wire_int8": ("BUFFERED", 3, 1, "int8", ()),
+    "wire_int8_k2": ("BUFFERED", 3, 2, "int8", ()),
+    "ring_int8": ("UNBUFFERED", 3, 1, "int8", ()),
+    "compact_int8": ("COMPACT_BUFFERED", 3, 1, "bf16",
+                     (("int8", "exact_count_layout"),)),
+}
+#: the skewed split of the 256^3 sphere: stick shares (contiguous
+#: stick-major ranges) and planes per shard (at another n, in proportion)
+SKEW_STICKS = (0.4, 0.3, 0.2, 0.1)
+SKEW_PLANES = (112, 80, 40, 24)
+
+
+def exchange_plan(sp, dp, mesh, label, fused=True, precision="single",
+                  **kw):
+    """The plan of ``dp`` under the kind ``label`` of
+    :data:`EXCHANGE_KINDS` (``exchange`` in ``kw`` overrides its
+    exchange), the op schedule selected through the environment for its
+    construction only."""
+    from spfft_tpu_torch.parallel import dist
+    name, ppermute, k, _ = EXCHANGE_KINDS[label]
+    exchange = kw.pop("exchange", name)
+    old = os.environ.pop(dist.COMPACT_PPERMUTE_ENV, None)
+    if ppermute:
+        os.environ[dist.COMPACT_PPERMUTE_ENV] = "1"
+    try:
+        return sp.DistributedTransformPlan(
+            dp, mesh=mesh, precision=precision, fused=fused,
+            exchange=sp.ExchangeType[exchange],
+            overlap_chunks=kw.pop("overlap_chunks", k), **kw)
+    finally:
+        os.environ.pop(dist.COMPACT_PPERMUTE_ENV, None)
+        if old is not None:
+            os.environ[dist.COMPACT_PPERMUTE_ENV] = old
+
+
+def exchange_want(base, gathers, int8_per_direction=0):
+    """A pair's launch table: ``base`` with the exchange's gathers added
+    and the int8 wire kernels' launches (K a direction each)."""
+    g = base["gather"][0] + gathers
+    q = 2 * int8_per_direction
+    return {**base, "gather": (g, g), "wire_quantize": (q, q),
+            "wire_dequantize": (q, q)}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def exchange_kinds_phase(sp, path, dp, mesh, stacked, device, counters,
+                         base, fused=True, labels=tuple(EXCHANGE_KINDS),
+                         skewed=False):
+    """Every lossless kind of ``labels`` on ``dp``: its counted backward
+    + forward(FULL) pair (the launches of ``base`` with the exchange's
+    gathers), both outputs bit for bit the BUFFERED plan's (the first
+    label), the pair's ms per call and on the device alone, the staged
+    run's exchange steps and wire bytes. Returns one row per kind."""
+    precision = "double" if stacked.dtype == torch.float64 else "single"
+    full = sp.Scaling.FULL
+    ref = None
+    rows = []
+    for label in labels:
+        t0 = time.perf_counter()
+        plan = exchange_plan(sp, dp, mesh, label, fused, precision)
+        build_s = time.perf_counter() - t0
+        if plan.exchange_kind != EXCHANGE_KINDS[label][3]:
+            fail(f"{path} {label}: the plan runs {plan.exchange_kind}")
+        reset_launches(counters)
+        space = plan.backward(stacked)
+        out = plan.forward(space, full)
+        _sync(device)
+        if skewed and EXCHANGE_KINDS[label][1]:
+            # the op schedule's op counts are the split's own: the pack
+            # gathers of its ops and the unpack, a direction
+            ops = len(plan._compact.ops)
+            launches = read_launches(f"{path} {label}", counters,
+                                     exchange_want(base, 2 * (ops + 1)))
+        else:
+            launches = read_launches(f"{path} {label}", counters,
+                                     exchange_want(base,
+                                                   EXCHANGE_GATHERS[label]))
+        if ref is None:
+            ref = (space, out)
+        elif not (torch.equal(space, ref[0]) and torch.equal(out, ref[1])):
+            fail(f"{path} {label}: backward or forward differs from the "
+                 f"BUFFERED plan's (a lossless exchange only moves values)")
+        pair = timed_ms(lambda: plan.forward(plan.backward(stacked), full),
+                        device)
+        dev = graph_ms(lambda: plan.forward(plan.backward(stacked), full),
+                       device, PAIR_GRAPH_CALLS)
+        stages = dist_breakdown_phase(sp, f"{path} {label}", plan, stacked,
+                                      device, quiet=True)
+        exch = {k: v for k, v in stages.items() if k.startswith("exchange")}
+        row = {"path": path, "kind": label, "fused": fused,
+               "precision": precision, "exchange_kind": plan.exchange_kind,
+               "overlap_chunks": plan.overlap_chunks, "pair_ms": pair,
+               "pair_device_ms": dev, "exchange_ms": sum(exch.values()),
+               "exchange_steps_ms": exch,
+               "wire_bytes": plan.exchange_wire_bytes(),
+               "wire_bytes_forward": plan.exchange_wire_bytes(True),
+               "busiest_link_bytes": plan.exchange_busiest_link_bytes(),
+               "gather_launches": launches["gather"],
+               "device_table_bytes": plan.estimated_device_bytes(),
+               "plan_s": build_s, "launches": launches, "card": CARD}
+        rows.append(row)
+        print(f"{path} {label} ({plan.exchange_kind}): pair {pair:.4f} ms, "
+              f"on the device alone {_ms(dev)} ms, exchange "
+              f"{row['exchange_ms']:.4f} ms a pair (both directions, "
+              f"staged), wire {row['wire_bytes']} B a direction, gather "
+              f"launches {launches['gather']}, plan {build_s:.2f} s; equal "
+              f"to BUFFERED bit for bit ({CARD})", flush=True)
+        del plan, space, out
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def exchange_wire_phase(sp, path, dp, mesh, stacked, oracle_rel, device,
+                        counters, base, ref_space):
+    """The wire ladder at the path's shapes, fused route, single: each
+    case of :data:`WIRE_CASES` resolves its rung and declines as listed;
+    its backward within ``max(4 * wire_probe_error,
+    predicted_rel_error)`` of the complex128 oracle (the bound
+    tests/test_torch_wire.py holds on the CPU); the f32 rung (a no-op
+    in single) and the K = 2 int8 wire bit for bit their twins; the
+    counted pair launches the int8 kernels K times a direction. Returns
+    one row per case."""
+    full = sp.Scaling.FULL
+    rows = []
+    int8_space = None
+    for label, (name, wp, k, rung, declines) in WIRE_CASES.items():
+        kind = "ragged" if name.startswith("COMPACT") else "buffered"
+        plan = exchange_plan(sp, dp, mesh, kind, exchange=name,
+                             wire_precision=wp, wire_error_budget=1.0,
+                             overlap_chunks=k)
+        if (plan.wire_rung_name, plan.wire_declines) != (rung, declines):
+            fail(f"{path} {label}: wire rung {plan.wire_rung_name} "
+                 f"declines {plan.wire_declines}, expected {rung} "
+                 f"{declines}")
+        gathers = EXCHANGE_GATHERS["ragged" if kind == "ragged" else
+                                   "buffered"]
+        reset_launches(counters)
+        space = plan.backward(stacked)
+        out = plan.forward(space, full)
+        _sync(device)
+        launches = read_launches(f"{path} {label}", counters, exchange_want(
+            base, gathers, k if rung == "int8" else 0))
+        dp_ = plan.dist_plan  # even slabs: the stacked slabs are the cube
+        rel = oracle_rel(space.reshape((dp_.dim_z,)
+                                       + tuple(space.shape[2:])))
+        bound_ = max(4 * plan.wire_probe_error,
+                     sp.predicted_rel_error("single", dp_.dim_z, True))
+        rt = float(torch.linalg.norm(out.double() - stacked.double())
+                   / torch.linalg.norm(stacked.double()))
+        if not rel <= bound_ or not torch.isfinite(out).all():
+            fail(f"{path} {label}: backward rel_l2 {rel:.3e} against the "
+                 f"oracle above {bound_:.3e}")
+        if rung == "f32" and not torch.equal(space, ref_space):
+            fail(f"{path} {label}: the f32 rung of a single plan differs "
+                 f"from the full wire")
+        if label == "wire_int8":
+            int8_space = space
+        if label == "wire_int8_k2" and not torch.equal(space, int8_space):
+            fail(f"{path} {label}: the int8 wire at K = 2 differs from "
+                 f"K = 1")
+        pair = timed_ms(lambda: plan.forward(plan.backward(stacked), full),
+                        device)
+        stages = dist_breakdown_phase(sp, f"{path} {label}", plan, stacked,
+                                      device, quiet=True)
+        rows.append({"path": path, "kind": label,
+                     "wire_rung": plan.wire_rung_name,
+                     "wire_declines": [list(d) for d in plan.wire_declines],
+                     "probe_error": plan.wire_probe_error,
+                     "oracle_rel_l2": rel, "bound": bound_,
+                     "roundtrip_rel_l2": rt, "pair_ms": pair,
+                     "exchange_ms": sum(v for n, v in stages.items()
+                                        if n.startswith("exchange")),
+                     "wire_bytes": plan.exchange_wire_bytes(),
+                     "wire_bytes_forward": plan.exchange_wire_bytes(True),
+                     "launches": launches, "card": CARD})
+        print(f"{path} {label}: rung {plan.wire_rung_name} (declines "
+              f"{plan.wire_declines}), probe error "
+              f"{plan.wire_probe_error:.3e}; backward vs complex128 oracle "
+              f"rel_l2={rel:.3e} (at most {bound_:.3e}); round trip "
+              f"{rt:.3e}; pair {pair:.4f} ms, wire {rows[-1]['wire_bytes']} "
+              f"B backward / {rows[-1]['wire_bytes_forward']} B forward "
+              f"({CARD})", flush=True)
+        del plan, space, out
+    return rows
+
+
+def _wire_bytes(g, s, ms, mp, esize, quant):
+    """Bytes each wire kernel must move: quantize reads the planes and
+    writes the int8 payloads and the scales; dequantize the reverse."""
+    rows = ms if quant == 1 else mp
+    return 2 * g * s * ms * mp * (esize + 1) + 4 * g * s * rows
+
+
+def wire_kernel_records(path, plan, stacked, device):
+    """``csrc/wire.cu`` at the path's blocks against its plain version:
+    quantize on the backward's packed blocks (quant axis 1, per stick) and
+    the forward's (quant axis 2, per plane), payloads and scales
+    identical; dequantize of them identical too (the same product).
+    Records ``wire_quantize`` / ``wire_dequantize`` per direction (no
+    library call computes the quantization: ``library_ms`` null)."""
+    from spfft_tpu_torch.ops import wire_kernel as wk
+    recs = []
+    sticks = plan._z_backward(stacked[:, None])
+    grid = plan._xy_forward(plan._xy_backward(plan._exchange(sticks)))
+    dtype = stacked.dtype
+    e = stacked.element_size()
+    for quant, planes in ((1, plan._pack_blocks(sticks, False)),
+                          (2, plan._pack_blocks(grid, True))):
+        blocks = tuple(t.reshape((-1,) + tuple(t.shape[-3:]))
+                       for t in planes)
+        g, s, ms, mp = blocks[0].shape
+        got = wk.quantize(blocks, quant)
+        want = wk.quantize_plain(blocks, quant)
+        err = compare_exact(f"{path} wire quantize axis {quant}", got, want)
+        back = wk.dequantize(got[:2], got[2], quant, dtype)
+        err_d = compare_exact(f"{path} wire dequantize axis {quant}", back,
+                              wk.dequantize_plain(want[:2], want[2], quant,
+                                                  dtype))
+        nb = _wire_bytes(g, s, ms, mp, e, quant)
+        d = "backward" if quant == 1 else "forward"
+        for name, src, rep, er, fn, plain in (
+                (f"wire_quantize {d}", WIRE_SRC, QUANT_REPLACES, err,
+                 lambda: wk.quantize(blocks, quant),
+                 lambda: wk.quantize_plain(blocks, quant)),
+                (f"wire_dequantize {d}", WIRE_SRC, DEQUANT_REPLACES, err_d,
+                 lambda: wk.dequantize(got[:2], got[2], quant, dtype),
+                 lambda: wk.dequantize_plain(got[:2], got[2], quant,
+                                             dtype))):
+            rec = kernel_record(path, name, src, rep, er, fn, plain, None,
+                                nb, 0.0, 0.0)
+            rec["dtype"] = str(dtype).split(".")[-1]
+            rec["card"] = CARD
+            recs.append(rec)
+    del sticks, grid
+    print_records(recs)
+    return recs
+
+
+def ragged_gather_records(sp, path, dp, mesh, stacked, device):
+    """The ragged exchange's three table gathers of the backward
+    (``csrc/gather.cu``, one launch each over every shard) at the path's
+    shapes against the plain version (exact), each beside one
+    ``torch.gather`` of the same slots (the library yardstick)."""
+    from spfft_tpu_torch.ops import gather_kernel as gk
+    from spfft_tpu_torch.parallel.exchange import gather_planes
+    plan = exchange_plan(sp, dp, mesh, "ragged")
+    t = plan._t_x
+    sticks = plan._z_backward(stacked[:, None])
+    flat = plan._flat(sticks)
+    send = gather_planes(flat, t["bwd_pack"])
+    b, s, cap = send[0].shape
+    every = tuple(x.reshape(b, 1, s * cap).expand(b, s, s * cap)
+                  for x in send)
+    recv = gather_planes(every, t["emu_bwd"])
+    e = stacked.element_size()
+    recs = []
+
+    def plain(src, idx):
+        out = tuple(torch.empty((src[0].shape[0], src[0].shape[1],
+                                 idx.shape[1]), dtype=src[0].dtype,
+                                device=device) for _ in range(2))
+        gk.gather_plain(tuple(x.transpose(0, 1) for x in src), idx,
+                        tuple(x.transpose(0, 1) for x in out))
+        return out
+
+    def library(src, idx):
+        n = src[0].shape[-1]
+        c = torch.complex(src[0][0], src[1][0])
+        c = torch.cat([c, c.new_zeros(c.shape[:-1] + (1,))], -1)
+        i = torch.where(idx >= n, n, idx.long())
+        return lambda: torch.gather(c, -1, i)
+
+    for name, rep, src, idx in (
+            ("gather_ragged_pack", RAGGED_PACK_REPLACES, flat, t["bwd_pack"]),
+            ("gather_ragged_emu", RAGGED_EMU_REPLACES, every, t["emu_bwd"]),
+            ("gather_ragged_unpack", RAGGED_UNPACK_REPLACES, recv,
+             t["bwd_unpack"])):
+        err = compare_exact(f"{path} {name}", gather_planes(src, idx),
+                            plain(src, idx))
+        valid = int((idx < src[0].shape[-1]).sum())
+        nb = idx.numel() * (4 + 2 * e) + valid * 2 * e
+        rec = gather_record(path, name, err,
+                            lambda s_=src, i_=idx: gather_planes(s_, i_),
+                            lambda s_=src, i_=idx: plain(s_, i_),
+                            library(src, idx), nb)
+        rec["replaces"] = rep
+        rec["card"] = CARD
+        recs.append(rec)
+    del plan, sticks, flat, send, recv, every
+    print_records(recs)
+    return recs
+
+
+def skewed_dist_plan(sp, n, trip, values, device):
+    """The path's sphere split 40 / 30 / 20 / 10 % of its sticks over 4
+    shards (contiguous stick-major ranges) with slabs of 112 / 80 / 40 / 24
+    planes, and the path's values stacked on it."""
+    keys = trip[:, 0].astype(np.int64) * (2 * n + 1) + trip[:, 1]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    cuts = [int(round(c * len(starts))) for c in np.cumsum(SKEW_STICKS)[:-1]]
+    bounds = [0] + [int(starts[c]) for c in cuts] + [len(trip)]
+    parts = [trip[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    planes = [p * n // sum(SKEW_PLANES) for p in SKEW_PLANES[:-1]]
+    dp = sp.parallel.build_distributed_plan(
+        sp.TransformType.C2C, n, n, n, parts, planes + [n - sum(planes)])
+    stacked = torch.zeros((_S, dp.max_values, 2), dtype=values.dtype,
+                          device=device)
+    for r, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        stacked[r, :b - a] = values[a:b]
+    return dp, stacked
+
+
+def exchange_skew_phase(sp, n, trip, values, oracle, device, counters):
+    """The exact-count layouts where they pay: the skewed split of
+    :func:`skewed_dist_plan`; each kind's counted pair bit for bit
+    BUFFERED's and its backward (the slabs in z order) within
+    ``predicted_rel_error`` of the oracle; the ragged schedule's wire
+    bytes against the padded layout's (expected about a third), and each
+    kind's exchange and pair ms."""
+    dp, stacked = skewed_dist_plan(sp, n, trip, values, device)
+    mesh = sp.make_mesh(_S, device)
+    print(f"dist c2c skewed: sticks per shard "
+          f"{[p.num_sticks for p in dp.shard_plans]}, planes "
+          f"{list(dp.num_planes)}, max_values {dp.max_values}", flush=True)
+    plan = exchange_plan(sp, dp, mesh, "buffered")
+    space = plan.backward(stacked)
+    full = torch.cat([space[r, :k] for r, k in enumerate(dp.num_planes)])
+    rel = oracle(full)
+    pred = sp.predicted_rel_error("single", n, True)
+    if not rel <= pred:
+        fail(f"dist c2c skewed backward rel_l2 {rel:.3e} above {pred:.3e}")
+    print(f"dist c2c skewed backward vs complex128 oracle: rel_l2={rel:.3e} "
+          f"(predicted_rel_error={pred:.3e})", flush=True)
+    del plan, space, full
+    rows = exchange_kinds_phase(
+        sp, "dist c2c skewed", dp, mesh, stacked, device, counters,
+        DIST_C2C_LAUNCHES, labels=("buffered", "ring", "ragged", "compact",
+                                   "ragged_k2"), skewed=True)
+    padded = rows[0]["wire_bytes"]
+    ragged = next(r for r in rows if r["kind"] == "ragged")["wire_bytes"]
+    print(f"dist c2c skewed wire bytes a direction: ragged {ragged} against "
+          f"padded {padded}, ratio {ragged / padded:.4f} ({CARD})",
+          flush=True)
+    if not ragged < 0.5 * padded:
+        fail(f"dist c2c skewed: ragged wire {ragged} B not below half the "
+             f"padded {padded} B")
+    return rows
+
+
+def dist_sweep_phase(sp, path, plan, stacked, device, out):
+    """The distributed batched-versus-looped sweep that
+    ``multi.FUSED_BATCH_MAX_DIST_TOTAL`` rests on: per band ms of a
+    batched pair against B single pairs, B in ``SWEEP_BATCHES``, timed in
+    turns (looped, batched, batched, looped); one row per B."""
+    full = sp.Scaling.FULL
+    dp = plan.dist_plan
+    for batch in SWEEP_BATCHES:
+        bands = torch.stack([stacked * (1 + b / 2) for b in range(batch)], 1)
+
+        def looped():
+            for b in range(batch):
+                plan.forward(plan.backward(bands[:, b]), full)
+
+        def batched():
+            plan.forward_batched(plan.backward_batched(bands), full)
+
+        t = [timed_ms(f, device) for f in (looped, batched, batched, looped)]
+        row = {"path": path, "n": plan.dim_x, "shards": dp.num_shards,
+               "B": batch,
+               "slab_batch": batch * dp.dim_x * dp.dim_y * dp.max_planes,
+               "looped_ms_per_band": (t[0] + t[3]) / 2 / batch,
+               "batched_ms_per_band": (t[1] + t[2]) / 2 / batch,
+               "card": CARD}
+        out.append(row)
+        print(f"dist sweep {path} n={plan.dim_x} B={batch}: looped "
+              f"{row['looped_ms_per_band']:.4f} ms per band, batched "
+              f"{row['batched_ms_per_band']:.4f} ms per band", flush=True)
+        del bands
 
 
 # -- the long axes (above 512): the two-pass FFT, Bluestein's FFT, the real
@@ -4091,6 +4608,9 @@ def stages_mid(grid, planes, mats_y):
 BENCH_RUNS = (["-d", "256", "-r", "10"],
               ["-d", "256", "-r", "10", "-t", "r2c"],
               ["-d", "256", "-r", "10", "--shards", "4"],
+              ["-d", "256", "-r", "10", "--shards", "4", "-e", "compact",
+               "--overlap-chunks", "2"],
+              ["-d", "256", "-r", "5", "--shards", "4", "-e", "all"],
               ["-d", "768", "-s", "0.25", "-r", "5"])
 
 
@@ -4111,8 +4631,18 @@ def benchmark_phase(card: str) -> list:
         text = buf.getvalue()
         if rc != 0:
             fail(f"benchmark {' '.join(argv)} exited {rc}:\n{text[-2000:]}")
-        params = json.loads(text[:text.index("\n}\n") + 2])
-        if params["backend"] != "cuda" or not params["pallas"] \
+        if "all" in argv:  # the exchange sweep: its JSON on one line
+            sweep = json.loads(next(line for line in text.splitlines()
+                                    if line.startswith('{"parameters"')))
+            params = dict(sweep["parameters"],
+                          exchange_sweep=sweep["exchange_sweep"])
+            if len(sweep["exchange_sweep"]) != 5:
+                fail(f"benchmark {' '.join(argv)}: {sweep}")
+        else:
+            params = json.loads(text[:text.index("\n}\n") + 2])
+        # (the exchange sweep's parameters have no "pallas", as the JAX
+        # CLI's)
+        if params["backend"] != "cuda" or not params.get("pallas", True) \
                 or not params["device_kind"] or not params["power_limit"]:
             fail(f"benchmark {' '.join(argv)}: {params}")
         print(f"benchmark {' '.join(argv)} ({card}; "
@@ -4126,8 +4656,11 @@ def benchmark_phase(card: str) -> list:
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the launch tables use; each
     counts its launches (``.launches``, and by form ``.form_launches``)."""
-    from spfft_tpu_torch.ops import dft_kernel, fused_kernel, gather_kernel
-    return {"decompress_zdft": fused_kernel.decompress_zdft,
+    from spfft_tpu_torch.ops import (dft_kernel, fused_kernel, gather_kernel,
+                                     wire_kernel)
+    return {"wire_quantize": wire_kernel.quantize,
+            "wire_dequantize": wire_kernel.dequantize,
+            "decompress_zdft": fused_kernel.decompress_zdft,
             "pdft2": dft_kernel.pdft2,
             "pdft2_swapped": dft_kernel.pdft2_swapped,
             "prdft2": dft_kernel.prdft2,
@@ -4173,6 +4706,11 @@ def run(device, n=N):
     sweep_phase(sp, "c2c", plan, values, device, sweep)
     dist = dist_c2c_phases(sp, n, plan, trip, values, oracle, device,
                            counters)
+    t0 = time.perf_counter()
+    EXCHANGE_ROWS.extend(exchange_skew_phase(sp, n, trip, values, oracle,
+                                             device, counters))
+    print(f"dist c2c skewed exchange phase: {time.perf_counter() - t0:.1f} s "
+          f"({CARD})", flush=True)
     del plan, trip, values, oracle
 
     plan, trip, values, oracle = r2c_plan(sp, n, device)
@@ -4209,11 +4747,15 @@ def run(device, n=N):
     del plan, trip, values, oracle
 
     new_odd_shapes_phase(device)
-    plan, _, values = main_path_plan(sp, n // 2, device)
+    plan, trip, values = main_path_plan(sp, n // 2, device)
     sweep_phase(sp, "c2c", plan, values, device, sweep)
-    plan, _, values, _ = r2c_plan(sp, n // 2, device)
+    dplan, stacked = dist_plan(sp, n // 2, trip, values, device)
+    dist_sweep_phase(sp, "dist_c2c", dplan, stacked, device, DIST_SWEEP)
+    plan, trip, values, _ = r2c_plan(sp, n // 2, device)
     sweep_phase(sp, "r2c", plan, values, device, sweep)
-    del plan, values
+    dplan, stacked = dist_plan(sp, n // 2, trip, values, device, r2c=True)
+    dist_sweep_phase(sp, "dist_r2c", dplan, stacked, device, DIST_SWEEP)
+    del plan, values, dplan, stacked
     return c2c + r2c + dist + double_phases(sp, device, counters, n), sweep
 
 
@@ -4491,10 +5033,34 @@ def capi_in_process(sp, lib, device, n, counters):
     vps = np.array([len(p) for p in parts], np.int64)
     pps = np.array(even_plane_split(n, _S), np.int32)
     d = ctypes.c_void_p()
-    capi_check(lib, "plan_create_distributed(COMPACT_BUFFERED)",
+    capi_check(lib, "plan_create_distributed(exchange 42)",
                lib.spfft_tpu_plan_create_distributed(
                    ctypes.addressof(d), 0, n, n, n, _S, vps.ctypes.data,
-                   dtrip.ctypes.data, pps.ctypes.data, 0, 3, PALLAS_AUTO), 5)
+                   dtrip.ctypes.data, pps.ctypes.data, 0, 42, PALLAS_AUTO), 5)
+    # every exchange code creates and runs; the lossless ones (BUFFERED 1,
+    # COMPACT_BUFFERED 3, UNBUFFERED 5) give the same space bit for bit
+    dvals = np.random.default_rng(SEED).standard_normal(
+        (len(dtrip), 2)).astype(np.float32)
+    dspace = {}
+    for code in (1, 2, 3, 4, 5):
+        capi_check(lib, f"plan_create_distributed(exchange {code})",
+                   lib.spfft_tpu_plan_create_distributed(
+                       ctypes.addressof(d), 0, n, n, n, _S, vps.ctypes.data,
+                       dtrip.ctypes.data, pps.ctypes.data, 0, code,
+                       PALLAS_AUTO))
+        out = np.empty((n, n, n, 2), np.float32)
+        capi_check(lib, f"backward(exchange {code})", lib.spfft_tpu_backward(
+            d.value, dvals.ctypes.data, out.ctypes.data))
+        capi_check(lib, "plan_destroy", lib.spfft_tpu_plan_destroy(d.value))
+        if not np.isfinite(out).all():
+            fail(f"capi exchange {code}: backward not finite")
+        dspace[code] = out
+    for code in (3, 5):
+        if not np.array_equal(dspace[code], dspace[1]):
+            fail(f"capi exchange {code}: backward differs from BUFFERED's")
+    print("capi distributed exchange codes 1-5 on the card: each created "
+          "and ran (code 0); COMPACT_BUFFERED and UNBUFFERED bit for bit "
+          "BUFFERED's backward", flush=True)
     capi_check(lib, "backward(invalid handle)", lib.spfft_tpu_backward(
         12345, values.ctypes.data, space.ctypes.data), 2)
     bad = np.array([[n, 0, 0]], np.int32)
@@ -4502,7 +5068,7 @@ def capi_in_process(sp, lib, device, n, counters):
         ctypes.addressof(d), 0, n, n, n, 1, bad.ctypes.data, 0,
         PALLAS_AUTO), 7)
     capi_check(lib, "plan_destroy", lib.spfft_tpu_plan_destroy(h))
-    print("capi error surface on the card: COMPACT_BUFFERED -> 5, invalid "
+    print("capi error surface on the card: exchange code 42 -> 5, invalid "
           "handle -> 2, out-of-bounds index -> 7", flush=True)
     return create_s, launches
 
@@ -4774,6 +5340,8 @@ def main() -> int:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4828,6 +5396,8 @@ def main() -> int:
     capi = capi_phase(sp, device, launch_counters(), card)
     print(f"C ABI: {time.perf_counter() - t_cli:.1f} s ({card})", flush=True)
     print(json.dumps({"batched_sweep": sweep}), flush=True)
+    print(json.dumps({"dist_batched_sweep": DIST_SWEEP}), flush=True)
+    print(json.dumps({"exchange": EXCHANGE_ROWS}), flush=True)
     print(json.dumps({"benchmark": bench}), flush=True)
     print(json.dumps({"capi": capi}), flush=True)
     print(json.dumps({"matrix_length": matrix}), flush=True)

@@ -11,7 +11,9 @@ precision at every dims the JAX package plans (axes above 512 through
 the two-pass FFT, Bluestein's FFT or ``torch.fft``), their batched
 and pointwise execution, the two-kernel route (``fused=False``), the
 ``Grid`` / ``Transform`` / multi-transform API, the distributed plan
-over S shards held on one device with the block exchange, and the
+over S shards held on one device with every exchange of the JAX package
+(the padded blocks, the ring, the exact-count ragged and op schedules,
+``overlap_chunks`` and the f32 / bf16 / int8 wire ladder), and the
 benchmark CLI ``python -m spfft_tpu_torch.benchmark``::
 
     import spfft_tpu_torch as sp

@@ -29,9 +29,14 @@ output, --fused-pair, --fused/--no-fused, --shards, --precision,
 * ``--shards S`` runs the distributed plan's S shards on one device (the
   JAX CLI refuses more shards than devices);
 * ``--profile-dir`` writes a ``torch.profiler`` trace of the timed loop;
-* ``--serve``, ``--store-dir``, ``--overlap-chunks K > 1`` and ``-e``
-  bufferedFloat, compact, compactFloat, unbuffered and all exit 2 with
-  the port's typed not-in-slice error: their modules come later.
+* ``-e`` takes every exchange of the JAX CLI and ``--overlap-chunks K``
+  any K; ``-e all`` (with ``--shards`` > 1) runs the JAX CLI's exchange
+  sweep: one workload under buffered, bufferedFloat, compact,
+  compactFloat and unbuffered, a row each (``exchange_sweep``: the pair's
+  seconds through ``apply_pointwise``, the aggregate and busiest-link
+  wire bytes, the stick set's trimming);
+* ``--serve`` and ``--store-dir`` exit 2 with the port's typed
+  not-in-slice error: their modules come later.
 
 The JSON ``parameters`` has every key of the JAX CLI's, meaning on the
 port: ``backend`` ``"cuda"`` or ``"cpu"``; ``devices`` the visible
@@ -81,8 +86,8 @@ def _parse_args(argv):
                    choices=["default", "buffered", "bufferedFloat",
                             "compact", "compactFloat", "unbuffered", "all"],
                    default="default",
-                   help="exchange of a distributed plan; the port runs "
-                        "default and buffered (the block exchange)")
+                   help="exchange of a distributed plan; all: one row per "
+                        "exchange (needs --shards > 1)")
     p.add_argument("-p", "--proc", choices=["host", "device"],
                    default="device",
                    help="host: numpy I/O every repeat; device: tensors stay "
@@ -105,8 +110,9 @@ def _parse_args(argv):
                         "one device (default local)")
     p.add_argument("--overlap-chunks", type=int, default=None,
                    metavar="K",
-                   help="chunks of the distributed exchange (only 1 in "
-                        "this slice)")
+                   help="split the distributed exchange into K "
+                        "destination-balanced chunks (default 1, or "
+                        "SPFFT_TPU_OVERLAP_CHUNKS)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the host: device='cpu', the kernels' plain "
                         "PyTorch versions")
@@ -145,14 +151,94 @@ def _out_of_slice(args):
     if args.store_dir:
         return _not_in_slice("--store-dir (the plan-artifact store)",
                              "serving")
-    if args.overlap_chunks is not None and args.overlap_chunks > 1:
-        return _not_in_slice(f"--overlap-chunks {args.overlap_chunks}",
-                             "compact, ring and overlap exchange")
-    if args.exchange not in ("default", "buffered"):
-        later = "wire-ladder" if args.exchange == "bufferedFloat" \
-            else "compact, ring and overlap exchange"
-        return _not_in_slice(f"-e {args.exchange}", later)
     return None
+
+
+def _exchange_sweep(args, dims, ttype, triplets, rng, cdt, device) -> int:
+    """-e all: one workload, every exchange (reference:
+    benchmark.cpp:138-156 runs the benchmark once per exchange for
+    'all'), as the JAX CLI's ``_exchange_sweep``: a table of the pair's
+    seconds (``apply_pointwise``, synchronized) and the aggregate and
+    busiest-link wire bytes, and the same rows in the -o JSON."""
+    import torch
+    from .parallel import make_distributed_plan, make_mesh
+    from .types import ExchangeType
+    from .utils.platform import platform_summary
+    from .utils.workloads import (even_plane_split,
+                                  round_robin_stick_partition)
+
+    nx, ny, nz = dims
+    parts = round_robin_stick_partition(triplets, dims, args.shards)
+    planes = even_plane_split(nz, args.shards)
+    values_np = [
+        (rng.uniform(-1, 1, len(p)) + 1j * rng.uniform(-1, 1, len(p)))
+        .astype(cdt) for p in parts]
+    fused = True if args.fused is None else args.fused
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rows = []
+    for name in ("buffered", "bufferedFloat", "compact", "compactFloat",
+                 "unbuffered"):
+        plan = make_distributed_plan(
+            ttype, nx, ny, nz, parts, planes,
+            mesh=make_mesh(args.shards, device), precision=args.precision,
+            exchange=ExchangeType(_EXCHANGE[name]),
+            overlap_chunks=args.overlap_chunks, fused=fused)
+        values = plan.shard_values(values_np)
+        for _ in range(max(args.warmups, 1)):
+            plan.apply_pointwise(values)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(args.repeats):
+            plan.apply_pointwise(values)
+        sync()
+        pair_s = (time.perf_counter() - t0) / args.repeats
+        # an R2C plan's exchange ships the non-redundant stick set only,
+        # so its wire bytes do not compare with a C2C sweep's
+        folded = sum(int(p.value_conj.sum())
+                     for p in plan.dist_plan.shard_plans
+                     if p.value_conj is not None)
+        rows.append({
+            "exchange": name,
+            "overlap_chunks": plan.overlap_chunks,
+            "pair_seconds": round(pair_s, 6),
+            "wire_total_bytes": int(plan.exchange_wire_bytes()),
+            "busiest_link_bytes": int(plan.exchange_busiest_link_bytes()),
+            "hermitian_trimmed": bool(plan.dist_plan.hermitian),
+            "folded_mirror_values": folded,
+        })
+    print(f"{'exchange':>14s} {'pair ms':>10s} {'wire total MB':>14s} "
+          f"{'busiest link MB':>16s} {'stick set':>18s}")
+    for r in rows:
+        trim = ("r2c-trimmed" + (f"(+{r['folded_mirror_values']}f)"
+                                 if r["folded_mirror_values"] else "")
+                if r["hermitian_trimmed"] else "untrimmed")
+        print(f"{r['exchange']:>14s} {r['pair_seconds'] * 1e3:10.3f} "
+              f"{r['wire_total_bytes'] / 1e6:14.3f} "
+              f"{r['busiest_link_bytes'] / 1e6:16.3f} {trim:>18s}")
+    summary = platform_summary(device)
+    payload = {
+        "parameters": {
+            "dim_x": nx, "dim_y": ny, "dim_z": nz,
+            "shards": args.shards, "sparsity": args.sparsity,
+            "transform_type": args.transform,
+            "precision": args.precision, "repeats": args.repeats,
+            "backend": summary["backend"],
+            "num_values": int(len(triplets)),
+            "device_kind": summary["device_kind"],
+            "power_limit": summary["power_limit"],
+        },
+        "exchange_sweep": rows,
+    }
+    print(json.dumps(payload))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"wrote {args.output}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -203,6 +289,13 @@ def _run(args) -> int:
     triplets = cutoff_stick_triplets(nx, ny, nz, args.sparsity, hermitian)
     rng = np.random.default_rng(42)
     cdt = np.complex64 if args.precision == "single" else np.complex128
+    if args.exchange == "all":
+        if args.shards < 2:
+            print("error: -e all compares exchange mechanisms and needs "
+                  "--shards > 1", file=sys.stderr)
+            return 2
+        return _exchange_sweep(args, dims, ttype, triplets, rng, cdt,
+                               device)
     exchange = ExchangeType(_EXCHANGE[args.exchange])
     fused = True if args.fused is None else args.fused
 

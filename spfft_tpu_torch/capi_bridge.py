@@ -28,15 +28,16 @@ kernels' plain PyTorch versions on the host; anything else
 Here ``AUTO`` and ``ON`` take the fused route (the fused compression +
 z-FFT CUDA kernels; a z axis above 512, which they decline, the
 two-kernel route, and ``plan_info`` item 13 reads 0) and ``OFF`` the
-two-kernel route (``fused=False``: the gather kernel and ``pdft_last``). A distributed plan refuses what it does
-not run (the compact, float-wire and ring exchanges) with
-``InvalidParameterError``, which goes back to the caller as code 5.
+two-kernel route (``fused=False``: the gather kernel and ``pdft_last``).
+A distributed plan takes every exchange type (codes 0-5); its
+``overlap_chunks`` and wire rung come from the environment variables the
+JAX package reads (``SPFFT_TPU_OVERLAP_CHUNKS``,
+``SPFFT_TPU_WIRE_PRECISION``, ``SPFFT_TPU_WIRE_ERROR_BUDGET``).
 
-Batches (``multi_*``): the same local handle for every transform runs as
-one batched execution where ``multi.fusion_eligible`` admits it. That gate
-admits local plans only, so a distributed handle runs one transform at a
-time. Every transform of a batch is queued on the device before the first
-result is copied back.
+Batches (``multi_*``): the same handle for every transform runs as one
+batched execution where ``multi.fusion_eligible`` admits it (local and
+distributed plans, each by its own limit). Every transform of a batch is
+queued on the device before the first result is copied back.
 
 The handle table is module state: the C ABI's handles are process-wide.
 Calls may come from any thread and run one at a time (``_call_lock``):
@@ -365,7 +366,11 @@ def multi_backward(n: int, plans_addr: int, values_addr: int,
     plans, shared = _batch(n, plans_addr)
     vaddrs = _read_addr_array(values_addr, n)
     saddrs = _read_addr_array(spaces_addr, n)
-    if shared is not None:
+    if shared is not None and _is_dist(shared):
+        v = torch.stack([_values_in(shared, a) for a in vaddrs], dim=1)
+        outs = [_space_out(shared, o)
+                for o in shared.backward_batched(v).unbind(1)]
+    elif shared is not None:
         v = _stack_in(shared, vaddrs, (shared.num_global_elements, 2))
         if shared.pair_values_io:
             v = v.transpose(1, 2)
@@ -385,7 +390,11 @@ def multi_forward(n: int, plans_addr: int, spaces_addr: int, scaling: int,
     plans, shared = _batch(n, plans_addr)
     saddrs = _read_addr_array(spaces_addr, n)
     vaddrs = _read_addr_array(values_addr, n)
-    if shared is not None:
+    if shared is not None and _is_dist(shared):
+        sp_ = torch.stack([_space_in(shared, a) for a in saddrs], dim=1)
+        outs = [_values_out(shared, o)
+                for o in shared.forward_batched(sp_, sc).unbind(1)]
+    elif shared is not None:
         out = shared.forward_batched(
             _stack_in(shared, saddrs, _space_shape(shared)), sc)
         if shared.pair_values_io:

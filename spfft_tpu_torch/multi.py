@@ -51,6 +51,18 @@ def _check(transforms: Sequence[Transform], args: Sequence, what: str):
 #: above it for any B >= 1, so its batches run one transform at a time.
 FUSED_BATCH_MAX_GRID = 134_217_728
 
+#: Batching gate of a distributed plan on the TOTAL per-shard slab work,
+#: B * dim_x * dim_y * max_planes (the form of the JAX package's
+#: ``FUSED_BATCH_MAX_DIST_TOTAL``; its value there was measured on one
+#: TPU chip and is not used here). Set from chip_smoke.py's distributed
+#: batched-versus-looped sweep on an NVIDIA H100 80GB HBM3 (power limit
+#: 700.00 W; PERF.md gives the times): 4 shards at 128^3 and 256^3, B in
+#: {2, 4, 8}, C2C and R2C, the batched pair took less time per band than
+#: B single pairs in all 12 cells, up to the largest measured, 256^3 B =
+#: 8 (8 x 256 x 256 x 64 = 33,554,432). Past it nothing was measured, so
+#: larger batches run one transform at a time.
+FUSED_BATCH_MAX_DIST_TOTAL = 33_554_432
+
 
 def planned_batch_size(batch_size: int, cap: int) -> int:
     """The planned-batch power-of-two ladder (the cuFFT idiom): the
@@ -64,12 +76,27 @@ def planned_batch_size(batch_size: int, cap: int) -> int:
 
 def fusion_eligible(plan, batch_size: int) -> bool:
     """The shared batching gate: does a batch of ``batch_size``
-    transforms over ``plan`` run as one batched execution? True for a
-    local plan with ``batch_size >= 2`` and ``batch_size *
-    plan.global_size <= FUSED_BATCH_MAX_GRID``."""
-    if batch_size < 2 or not isinstance(plan, TransformPlan):
+    transforms over ``plan`` run as one batched execution? For
+    ``batch_size >= 2``: a local plan while ``batch_size *
+    plan.global_size <= FUSED_BATCH_MAX_GRID``, a distributed plan while
+    ``batch_size`` times its per-shard slab is at most
+    ``FUSED_BATCH_MAX_DIST_TOTAL``."""
+    if batch_size < 2:
         return False
-    return batch_size * plan.global_size <= FUSED_BATCH_MAX_GRID
+    if isinstance(plan, TransformPlan):
+        return batch_size * plan.global_size <= FUSED_BATCH_MAX_GRID
+    dp = getattr(plan, "dist_plan", None)
+    if dp is None:
+        return False
+    slab = dp.dim_x * dp.dim_y * dp.max_planes
+    return batch_size * slab <= FUSED_BATCH_MAX_DIST_TOTAL
+
+
+def _bands(plan, stacked) -> list:
+    """A batched result's B bands: ``(B, ...)`` of a local plan, ``(S,
+    B, ...)`` of a distributed one."""
+    return list(stacked.unbind(0 if isinstance(plan, TransformPlan)
+                               else 1))
 
 
 def _shared_plan(transforms: Sequence[Transform]):
@@ -96,8 +123,8 @@ def multi_transform_backward(transforms: Sequence[Transform],
         with suppressed():
             plan = _shared_plan(transforms)
             if plan is not None:
-                stacked = plan.backward_batched(values_batch)
-                box.value = list(stacked.unbind(0))
+                box.value = _bands(plan,
+                                   plan.backward_batched(values_batch))
                 for t, s in zip(transforms, box.value):
                     t.set_space_domain_data(s)
             else:
@@ -126,9 +153,8 @@ def multi_transform_forward(transforms: Sequence[Transform],
                 and all(s is not None for s in space_batch) \
                 and len(set(Scaling(s) for s in scalings)) == 1
             if fused:
-                stacked = plan.forward_batched(space_batch,
-                                               Scaling(scalings[0]))
-                box.value = list(stacked.unbind(0))
+                box.value = _bands(plan, plan.forward_batched(
+                    space_batch, Scaling(scalings[0])))
                 for t, s in zip(transforms, space_batch):
                     t.set_space_domain_data(s)
             else:

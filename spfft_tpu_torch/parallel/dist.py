@@ -31,8 +31,15 @@ What runs on the card, per pair:
   with ``fused=False``, the gather kernel once in each direction over
   every shard's stacked tables and one ``pdft_last`` over every shard's
   sticks;
-* the block exchange (:mod:`.exchange`) as tensor gathers and one
-  transposing copy;
+* the exchange (:mod:`.exchange`), selected as the JAX package selects
+  it: the padded block exchange (tensor gathers and one transposing copy;
+  ``UNBUFFERED`` S − 1 hop copies of the ring), the one-collective ragged
+  schedule of ``COMPACT_BUFFERED`` (at S > 1; three gather-kernel
+  launches a direction: pack, the emulated collective, unpack) or the
+  exact-size op schedule (``SPFFT_TPU_COMPACT_PPERMUTE=1``, and at S =
+  1); ``overlap_chunks`` K > 1 splits it into K chunks, each packed and
+  moved early, unpacked once, late; the wire ladder's rung (float32,
+  bfloat16 casts, or int8 through ``csrc/wire.cu``) wraps each move;
 * the xy stage once over all ``S * max_planes`` planes (the planes are
   independent): C2C one ``pdft2_swapped`` call (two launches) per
   direction; split-x C2C and R2C ``pdft_last`` for the y-DFT (and the
@@ -57,14 +64,19 @@ stage and the split or R2C x stages.
 A plan of one shard below ``PAIR_IO_THRESHOLD`` values runs through the
 local :class:`~spfft_tpu_torch.plan.TransformPlan` (the reference treats
 a size-1 communicator as local, grid_internal.cpp:182), keeping the
-stacked API. Not in this slice, each raising a typed error that names
-its slice: the compact, ring and float-wire exchanges, ``overlap_chunks
-> 1``, the wire ladder and a mesh over several devices.
+stacked API. A mesh over several devices raises a typed error that names
+its slice (multi-GPU).
+
+The knobs' defaults are the JAX package's control-plane defaults
+(``overlap_chunks`` 1, ``wire_precision`` 0, ``wire_error_budget`` 0.01),
+read from the environment variables of the same names as the JAX
+package's where set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -74,15 +86,42 @@ from ..errors import InvalidParameterError, ParameterMismatchError
 from ..indexing import (build_index_plan, check_stick_duplicates,
                         occupied_x_window, window_sub_cols)
 from ..ops import dft, dft_kernel, fused_kernel, gather_kernel, stages
-from ..plan import (PAIR_IO_THRESHOLD, TransformPlan, _not_in_slice,
-                    resolve_device)
+from ..plan import PAIR_IO_THRESHOLD, TransformPlan, resolve_device
 from ..timing import timed_transform
 from ..types import ExchangeType, Scaling, TransformType
 from ..utils.dtypes import as_interleaved, real_dtype, torch_real_dtype
-from .exchange import (all_to_all_blocks, pack_freq_to_blocks,
-                       pack_space_to_blocks, unpack_blocks_to_grid,
+from .exchange import (build_compact_schedule, build_ragged_schedule,
+                       compact_exchange, gather_planes, move_blocks,
+                       pack_freq_to_blocks, pack_space_to_blocks,
+                       ragged_exchange, unpack_blocks_to_grid,
                        unpack_blocks_to_sticks)
 from .mesh import Mesh, make_mesh
+from .overlap import build_overlap_schedule
+
+#: Environment default for the plan's ``overlap_chunks`` knob: split the
+#: exchange into K destination-balanced chunks (:mod:`.overlap`); 1 is
+#: the monolithic exchange.
+OVERLAP_CHUNKS_ENV = "SPFFT_TPU_OVERLAP_CHUNKS"
+#: The wire ladder: rung index == the ``wire_precision`` knob. Rung 0
+#: ships the payload at transform precision; 1 / 2 cast it to float32 /
+#: bfloat16 (the ``*_FLOAT`` exchanges take one rung down); 3 quantizes
+#: it to int8 with a float32 absmax scale per (slot, quant row).
+WIRE_RUNGS = ("full", "f32", "bf16", "int8")
+WIRE_PRECISION_ENV = "SPFFT_TPU_WIRE_PRECISION"
+WIRE_ERROR_BUDGET_ENV = "SPFFT_TPU_WIRE_ERROR_BUDGET"
+#: ``"1"`` selects the exact-size op schedule for ``COMPACT_BUFFERED``
+#: at S > 1 instead of the one-collective ragged schedule
+COMPACT_PPERMUTE_ENV = "SPFFT_TPU_COMPACT_PPERMUTE"
+#: the knobs' defaults where neither the caller nor the environment sets
+#: them: the JAX package's (``spfft_tpu/control/config.py``: the
+#: ``overlap_chunks``, ``wire_precision`` and ``wire_error_budget``
+#: knobs); its control plane is the serving slice's
+DEFAULT_OVERLAP_CHUNKS = 1
+DEFAULT_WIRE_PRECISION = 0
+DEFAULT_WIRE_ERROR_BUDGET = 0.01
+#: the torch dtype each rung casts the planes to on the wire
+_WIRE_DTYPES = {0: None, 1: torch.float32, 2: torch.bfloat16,
+                3: torch.int8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,33 +235,6 @@ def build_distributed_plan(transform_type: TransformType,
          for t in triplets_per_shard], planes_per_shard)
 
 
-def _check_out_of_slice(precision, exchange, overlap_chunks,
-                        wire_precision, wire_error_budget) -> None:
-    """The typed refusals of what this slice does not run."""
-    real_dtype(precision)
-    if exchange.compact or exchange == ExchangeType.UNBUFFERED:
-        raise _not_in_slice(f"the {exchange.value} exchange",
-                            "compact, ring and overlap exchange")
-    if exchange.float_wire:
-        raise _not_in_slice(f"the {exchange.value} exchange", "wire-ladder")
-    if overlap_chunks is not None:
-        if int(overlap_chunks) < 1:
-            raise InvalidParameterError(
-                f"overlap_chunks must be >= 1, got {overlap_chunks}")
-        if int(overlap_chunks) > 1:
-            raise _not_in_slice(f"overlap_chunks={overlap_chunks}",
-                                "compact, ring and overlap exchange")
-    if wire_precision is not None:
-        if not 0 <= int(wire_precision) <= 3:
-            raise InvalidParameterError(
-                f"wire_precision must be in [0, 3], got {wire_precision}")
-        if int(wire_precision) > 0:
-            raise _not_in_slice(f"wire_precision={wire_precision}",
-                                "wire-ladder")
-    if wire_error_budget is not None:
-        raise _not_in_slice("wire_error_budget", "wire-ladder")
-
-
 def _shard_rows(sticks: torch.Tensor) -> torch.Tensor:
     """Contiguous sticks ``(B, S, max_sticks, dim_z)`` as the gather's
     ``(S, B, max_sticks * dim_z)`` view."""
@@ -244,8 +256,7 @@ class DistributedTransformPlan:
                  device=None, fused: bool = True):
         dp = dist_plan
         self.exchange = ExchangeType(exchange)
-        _check_out_of_slice(precision, self.exchange, overlap_chunks,
-                            wire_precision, wire_error_budget)
+        real_dtype(precision)
         if mesh is None:
             mesh = make_mesh(dp.num_shards, device)
         elif not isinstance(mesh, Mesh):
@@ -272,8 +283,11 @@ class DistributedTransformPlan:
         self._fused = bool(fused) and self._fused_reason is None
         self._r2c = dp.hermitian
         self._init_split_x()
+        self._select_exchange(overlap_chunks)
+        self._resolve_wire_rung(wire_precision, wire_error_budget)
         self._build_tables()
         self._init_device_tables()
+        self._init_exchange_tables()
         # comm-size-1 collapse (reference grid_internal.cpp:182)
         self._local1 = None
         if dp.num_shards == 1 \
@@ -308,6 +322,201 @@ class DistributedTransformPlan:
             return cols
         x0, w = self._split_x
         return window_sub_cols(cols, self.dist_plan.dim_x_freq, x0, w)
+
+    # -- the exchange mechanism and the wire ladder --------------------------
+    def _select_exchange(self, overlap_chunks) -> None:
+        """The JAX package's selection (``dist.py:221-320``):
+        ``overlap_chunks`` clamped to ``[1, min(max_sticks,
+        max_planes)]`` (1 on one shard); ``COMPACT_BUFFERED`` at S > 1
+        the ragged schedule (K chunks of it where K > 1), or with
+        ``SPFFT_TPU_COMPACT_PPERMUTE=1`` the op schedule (K chunks of
+        it), at S = 1 always the op schedule; every other exchange the
+        padded blocks, K > 1 chunked by rows; ``UNBUFFERED`` moves them
+        by the ring. R2C plans build every schedule over the trimmed
+        stick half; split-x plans over the occupied window."""
+        dp = self.dist_plan
+        if overlap_chunks is None:
+            env = os.environ.get(OVERLAP_CHUNKS_ENV)
+            overlap_chunks = int(env) if env else DEFAULT_OVERLAP_CHUNKS
+        if int(overlap_chunks) < 1:
+            raise InvalidParameterError(
+                f"overlap_chunks must be >= 1, got {overlap_chunks}")
+        k = min(int(overlap_chunks), dp.max_sticks, dp.max_planes)
+        if dp.num_shards == 1:
+            k = 1  # one shard: no collective to chunk
+        #: the exchange's chunks after clamping
+        self.overlap_chunks = k
+        self._compact = self._ragged = self._overlap = None
+        ppermute = os.environ.get(COMPACT_PPERMUTE_ENV) == "1"
+        xw = self._split_x
+        if self.exchange.compact:
+            if dp.num_shards > 1 and not ppermute:
+                if k > 1:
+                    self._overlap = build_overlap_schedule(
+                        dp, k, "ragged", x_window=xw)
+                else:
+                    self._ragged = build_ragged_schedule(dp, x_window=xw)
+            elif k > 1 and dp.num_shards > 1:
+                self._overlap = build_overlap_schedule(dp, k, "compact",
+                                                       x_window=xw)
+            else:
+                self._compact = build_compact_schedule(dp, x_window=xw)
+        elif k > 1:
+            self._overlap = build_overlap_schedule(dp, k, "block")
+        self._ring = self.exchange == ExchangeType.UNBUFFERED
+
+    @property
+    def exchange_kind(self) -> str:
+        """The mechanism the plan runs: ``"block"`` (the transposing
+        copy), ``"ring"``, ``"ragged"`` or ``"compact"``; with
+        ``overlap_chunks`` K > 1 its name and ``"xK"``."""
+        if self._ragged is not None:
+            kind = "ragged"
+        elif self._compact is not None:
+            kind = "compact"
+        elif self._overlap is not None and self._overlap.kind != "block":
+            kind = self._overlap.kind
+        else:
+            kind = "ring" if self._ring else "block"
+        return kind if self.overlap_chunks <= 1 \
+            else f"{kind}x{self.overlap_chunks}"
+
+    def _resolve_wire_rung(self, wire_precision, wire_error_budget) -> None:
+        """The JAX package's rung resolution (``dist.py:460-542``): walk
+        DOWN from the requested rung, declining int8 on the exact-count
+        layouts (``"exact_count_layout"``: no room for its scales) and any
+        rung whose measured probe error (:meth:`_probe_wire_error`)
+        exceeds the budget (``"over_budget"``), until one fits; rung 0
+        always does. The ``*_FLOAT`` exchanges request rung 1 (double) or
+        2 (single). Sets ``wire_rung``, ``wire_rung_name``,
+        ``wire_rung_requested``, ``wire_error_budget``,
+        ``wire_probe_error`` and ``wire_declines`` (``(rung name,
+        reason)`` pairs, the record of every decline)."""
+        if wire_precision is None:
+            env = os.environ.get(WIRE_PRECISION_ENV)
+            wire_precision = int(env) if env else DEFAULT_WIRE_PRECISION
+        if wire_error_budget is None:
+            env = os.environ.get(WIRE_ERROR_BUDGET_ENV)
+            wire_error_budget = float(env) if env \
+                else DEFAULT_WIRE_ERROR_BUDGET
+        requested = int(wire_precision)
+        if not 0 <= requested < len(WIRE_RUNGS):
+            raise InvalidParameterError(
+                f"wire_precision must be in [0, {len(WIRE_RUNGS) - 1}], "
+                f"got {requested}")
+        if float(wire_error_budget) <= 0:
+            raise InvalidParameterError(
+                f"wire_error_budget must be > 0, got {wire_error_budget}")
+        if requested == 0 and self.exchange.float_wire:
+            requested = 1 if self.precision == "double" else 2
+        int8_ok = (self._compact is None and self._ragged is None
+                   and (self._overlap is None
+                        or self._overlap.kind == "block"))
+        self.wire_rung_requested = requested
+        self.wire_error_budget = float(wire_error_budget)
+        declines = []
+        rung = requested
+        probe_err = 0.0
+        while rung > 0:
+            if rung == 3 and not int8_ok:
+                reason = "exact_count_layout"
+            else:
+                probe_err = self._probe_wire_error(rung)
+                if probe_err <= self.wire_error_budget:
+                    break
+                reason = "over_budget"
+            declines.append((WIRE_RUNGS[rung], reason))
+            rung -= 1
+        if rung == 0:
+            probe_err = 0.0
+        self.wire_rung = rung
+        self.wire_rung_name = WIRE_RUNGS[rung]
+        self.wire_probe_error = float(probe_err)
+        self.wire_declines = tuple(declines)
+        self._wire = _WIRE_DTYPES[rung]
+
+    def _probe_wire_error(self, rung: int) -> float:
+        """The JAX package's probe (``dist.py:544-572``): the rel-l2
+        round-trip error of ``rung`` on seeded gaussian stick rows with
+        10^±6 magnitudes per row, against the payload at the plan's real
+        type. The int8 twin is the JAX package's numpy one; bfloat16 is
+        torch's conversion, which rounds float64 through float32 as the
+        JAX package's does (a test holds the two equal)."""
+        rng = np.random.default_rng(0x51F8)
+        dp = self.dist_plan
+        rows = int(min(max(dp.max_sticks, 1), 64))
+        cols = int(min(max(dp.dim_z, 1), 64))
+        mags = 10.0 ** rng.uniform(-6.0, 6.0, size=(rows, 1, 1))
+        il = rng.standard_normal((rows, cols, 2)) * mags
+        ref = il.astype(self._np_real).astype(np.float64)
+        if rung == 3:
+            absmax = np.max(np.abs(ref), axis=(1, 2), keepdims=True)
+            scale = np.where(absmax > 0, absmax / 127.0, 1.0)
+            q = np.clip(np.rint(ref / scale), -127, 127).astype(np.int8)
+            back = q.astype(np.float64) * scale
+        else:
+            wdt = torch.float32 if rung == 1 else torch.bfloat16
+            back = torch.from_numpy(ref).to(wdt).to(torch.float64).numpy()
+        denom = float(np.linalg.norm(ref))
+        return float(np.linalg.norm(back - ref) / denom) if denom else 0.0
+
+    def _init_exchange_tables(self) -> None:
+        """The exact-count schedules' tables on the plan's device (int32,
+        stacked ``(S, n)``, the JAX package's sentinels) and each op's
+        shard pairs as index tensors; every tensor also in
+        ``self._xtables`` (:meth:`estimated_device_bytes`)."""
+        dev = self.device
+        self._xtables = []
+
+        def i32(a):
+            t = torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                device=dev)
+            self._xtables.append(t)
+            return t
+
+        def perms(ops, reverse):
+            out = []
+            for k, _, pairs in ops:
+                if k == 0 or not pairs:
+                    out.append(None)
+                    continue
+                src, dst = zip(*((d, j) if reverse else (j, d)
+                                 for j, d in pairs))
+                out.append(tuple(torch.tensor(x, device=dev)
+                                 for x in (src, dst)))
+            return out
+
+        self._t_x = None
+        if self._ragged is not None:
+            r = self._ragged
+            self._t_x = {n: i32(getattr(r, n)) for n in (
+                "bwd_pack", "fwd_pack", "emu_bwd", "emu_fwd", "bwd_unpack",
+                "fwd_unpack")}
+        elif self._compact is not None:
+            c = self._compact
+            self._t_x = {
+                "bwd_pack": [i32(t) for t in c.bwd_pack],
+                "fwd_pack": [i32(t) for t in c.fwd_pack],
+                "bwd_unpack": i32(c.bwd_unpack),
+                "fwd_unpack": i32(c.fwd_unpack),
+                "bwd_perms": perms(c.ops, False),
+                "fwd_perms": perms(c.ops, True)}
+        elif self._overlap is not None and self._overlap.kind != "block":
+            ov = self._overlap
+            chunks = []
+            for ch in ov.chunks:
+                if ov.kind == "ragged":
+                    chunks.append({n: i32(getattr(ch, n)) for n in (
+                        "bwd_pack", "fwd_pack", "emu_bwd", "emu_fwd")})
+                else:
+                    chunks.append({
+                        "bwd_pack": [i32(t) for t in ch.bwd_pack],
+                        "fwd_pack": [i32(t) for t in ch.fwd_pack],
+                        "bwd_perms": perms(ch.bwd_ops, False),
+                        "fwd_perms": perms(ch.fwd_ops, False)})
+            self._t_x = {"chunks": chunks,
+                         "bwd_unpack": i32(ov.bwd_unpack),
+                         "fwd_unpack": i32(ov.fwd_unpack)}
 
     def _build_tables(self) -> None:
         """Per-shard value, slot, column, plane and symmetry tables, as
@@ -456,34 +665,134 @@ class DistributedTransformPlan:
                                                     si[:, r, zid])
         return dft_kernel.pdft_last(sr, si, z)
 
-    def _exchange_steps(self, forward: bool = False) -> tuple:
-        """The block exchange of one direction as its three steps, ``(name,
-        function)`` pairs, each function taking the previous one's output
-        (:meth:`_exchange` runs them on the real and imaginary planes):
-        backward, sticks ``(B, S, max_sticks, dim_z)`` -> plane grid ``(B,
-        S, max_planes, dim_y, x)``; forward, the reverse."""
+    def _flat(self, planes: tuple) -> tuple:
+        """A planar pair ``(B, S, ...)`` as ``(B, S, n)`` views (the
+        gather kernel's source: sticks or a plane grid, flattened)."""
+        return tuple(t.reshape(t.shape[0], t.shape[1], -1) for t in planes)
+
+    def _shaped(self, planes: tuple, forward: bool) -> tuple:
+        """The unpacked ``(B, S, n)`` pair as sticks ``(B, S,
+        max_sticks, dim_z)`` (``forward``) or the plane grid ``(B, S,
+        max_planes, dim_y, x)``."""
+        dp = self.dist_plan
+        tail = (dp.max_sticks, dp.dim_z) if forward \
+            else (dp.max_planes, dp.dim_y, self._xf_eff)
+        return tuple(t.view(tuple(t.shape[:2]) + tail) for t in planes)
+
+    def _pack_blocks(self, planes: tuple, forward: bool) -> tuple:
         dp = self.dist_plan
         if forward:
-            return (("pack", lambda t: pack_space_to_blocks(
-                        t, self._t_cols, dp.num_shards, dp.max_sticks)),
-                    ("transpose", all_to_all_blocks),
-                    ("unpack", lambda t: unpack_blocks_to_sticks(
-                        t, self._t_z_src)))
-        return (("pack", lambda t: pack_freq_to_blocks(t, self._t_zmap)),
-                ("transpose", all_to_all_blocks),
-                ("unpack", lambda t: unpack_blocks_to_grid(
-                    t, self._t_col_inv, dp.dim_y, self._xf_eff)))
+            return tuple(pack_space_to_blocks(t, self._t_cols,
+                                              dp.num_shards, dp.max_sticks)
+                         for t in planes)
+        return tuple(pack_freq_to_blocks(t, self._t_zmap) for t in planes)
+
+    def _unpack_blocks(self, planes: tuple, forward: bool) -> tuple:
+        dp = self.dist_plan
+        if forward:
+            return tuple(unpack_blocks_to_sticks(t, self._t_z_src)
+                         for t in planes)
+        return tuple(unpack_blocks_to_grid(t, self._t_col_inv, dp.dim_y,
+                                           self._xf_eff) for t in planes)
+
+    def _move_blocks(self, planes: tuple, forward: bool) -> tuple:
+        """The padded blocks' exchange on the plan's wire: int8 rows are
+        sticks backward (quant axis 1), planes forward (2). On one shard
+        there is no collective, and no wire (as in the JAX package)."""
+        if self.dist_plan.num_shards == 1:
+            return planes
+        return move_blocks(planes, self._wire, 2 if forward else 1,
+                           self.real_dtype, ring=self._ring)
+
+    def _exact_move(self, packed, tables: dict, forward: bool) -> tuple:
+        """One exact-count move: the ragged emulation gather, or the op
+        schedule's moves."""
+        d = "fwd" if forward else "bwd"
+        if "emu_" + d in tables:
+            return ragged_exchange(packed, tables["emu_" + d], self._wire,
+                                   self.real_dtype)
+        return compact_exchange(packed, tables[d + "_perms"], self._wire,
+                                self.real_dtype)
+
+    def _exact_pack(self, planes: tuple, tables: dict, forward: bool):
+        """The pack gathers of an exact-count schedule: one table (the
+        ragged send buffer) or one per op."""
+        pack = tables[("fwd" if forward else "bwd") + "_pack"]
+        flat = self._flat(planes)
+        if isinstance(pack, list):
+            return [gather_planes(flat, t) for t in pack]
+        return gather_planes(flat, pack)
+
+    def _exchange_steps(self, forward: bool = False) -> tuple:
+        """The exchange of one direction as named steps, ``(name,
+        function)`` pairs, each function taking the previous one's output
+        (the first the planar pair, the last returning it): backward,
+        sticks ``(B, S, max_sticks, dim_z)`` -> plane grid ``(B, S,
+        max_planes, dim_y, x)``; forward, the reverse. The padded blocks:
+        ``pack``, ``transpose`` (``ring`` for ``UNBUFFERED``; the wire's
+        casts or int8 kernels inside), ``unpack``; the exact-count
+        schedules: ``pack`` (gather kernel), ``ragged`` (the emulated
+        collective, a gather kernel launch) or ``ppermute`` (the op
+        moves), ``unpack`` (gather kernel); K > 1 chunks: ``chunks``
+        (each chunk's pack and move, issued in chunk order) and
+        ``unpack`` (one, late)."""
+        if self._overlap is not None:
+            return self._chunk_steps(forward)
+        if self._t_x is not None:
+            t = self._t_x
+            unpack = t["fwd_unpack" if forward else "bwd_unpack"]
+            return (("pack", lambda p: self._exact_pack(p, t, forward)),
+                    ("ragged" if self._ragged is not None else "ppermute",
+                     lambda b: self._exact_move(b, t, forward)),
+                    ("unpack", lambda p: self._shaped(
+                        gather_planes(p, unpack), forward)))
+        return (("pack", lambda p: self._pack_blocks(p, forward)),
+                ("ring" if self._ring else "transpose",
+                 lambda b: self._move_blocks(b, forward)),
+                ("unpack", lambda b: self._unpack_blocks(b, forward)))
+
+    def _chunk_steps(self, forward: bool) -> tuple:
+        """The K-chunk exchange (:mod:`.overlap`): each chunk's rows
+        (sticks backward, planes forward) packed and moved, in chunk
+        order; then the received chunks joined and unpacked once."""
+        ov = self._overlap
+        bounds = ov.plane_bounds() if forward else ov.stick_bounds()
+
+        def chunks(planes):
+            recvs = []
+            for c, (lo, hi) in enumerate(bounds):
+                part = tuple(t[:, :, lo:hi] for t in planes)
+                if ov.kind == "block":
+                    recvs.append(self._move_blocks(
+                        self._pack_blocks(part, forward), forward))
+                else:
+                    tables = self._t_x["chunks"][c]
+                    recvs.append(self._exact_move(
+                        self._exact_pack(part, tables, forward), tables,
+                        forward))
+            return recvs
+
+        def unpack(recvs):
+            if ov.kind == "block":
+                # chunk blocks are stick rows (backward) / plane columns
+                # (forward) of the monolithic (S, max_sticks, max_planes)
+                axis = -1 if forward else -2
+                return self._unpack_blocks(tuple(
+                    torch.cat([r[i] for r in recvs], dim=axis)
+                    for i in range(2)), forward)
+            recv = tuple(torch.cat([r[i] for r in recvs], dim=-1)
+                         for i in range(2))
+            t = self._t_x["fwd_unpack" if forward else "bwd_unpack"]
+            return self._shaped(gather_planes(recv, t), forward)
+
+        return (("chunks", chunks), ("unpack", unpack))
 
     def _exchange(self, planes: tuple, forward: bool = False) -> tuple:
         """Sticks -> plane grid (backward) or plane grid -> sticks
-        (``forward``), each of the planar pair through
-        :meth:`_exchange_steps`."""
-        out = []
-        for t in planes:
-            for _, step in self._exchange_steps(forward):
-                t = step(t)
-            out.append(t)
-        return tuple(out)
+        (``forward``), the planar pair through :meth:`_exchange_steps`."""
+        for _, step in self._exchange_steps(forward):
+            planes = step(planes)
+        return tuple(planes)
 
     def _xy_backward(self, grid: tuple):
         """Plane grid ``(B, S, max_planes, dim_y, x)`` -> planar space
@@ -655,33 +964,64 @@ class DistributedTransformPlan:
     def fused_dist_fwd_fallback_reason(self) -> Optional[str]:
         return self._fused_reason
 
-    @property
     def _wire_elem_bytes(self) -> int:
-        """Bytes of one complex element on the wire: 8 (complex64) for a
-        single plan, 16 (complex128) for a double one."""
+        """Bytes of one complex element on the wire: the plan's (8 single,
+        16 double), or two of the wire rung's type (float32 8, bfloat16 4,
+        int8 2; the int8 scales are :meth:`_wire_scale_bytes`)."""
+        if self._wire is not None:
+            return 2 * self._wire.itemsize
         return 2 * self.real_dtype.itemsize
 
-    def exchange_wire_bytes(self, forward: bool = False) -> int:
-        """Total off-shard bytes of ONE exchange, summed over shards: the
-        padded block layout ships ``S * (S - 1) * max_sticks *
-        max_planes`` complex elements of the plan's precision whatever
-        the distribution, in both directions."""
+    def _wire_scale_bytes(self, forward: bool, busiest: bool = False) -> int:
+        """The int8 rung's scale bytes for ONE exchange: one float32 per
+        (destination slot, quant row), rows sticks backward and planes
+        forward, so the total is the same at every K; 0 on every other
+        rung."""
+        if self._wire != torch.int8:
+            return 0
         dp = self.dist_plan
+        rows = dp.max_planes if forward else dp.max_sticks
+        links = ((dp.num_shards - 1) if busiest
+                 else dp.num_shards * (dp.num_shards - 1))
+        return links * rows * 4
+
+    def exchange_wire_bytes(self, forward: bool = False) -> int:
+        """Total off-shard bytes of ONE exchange, summed over shards, as
+        the JAX package counts them: the padded layouts ship ``S * (S -
+        1) * max_sticks * max_planes`` elements (plus the int8 scales)
+        whatever the distribution; the exact-count schedules their
+        per-pair counts (the op schedule its bucket sizes; K chunks
+        conserve the total)."""
+        dp = self.dist_plan
+        elem = self._wire_elem_bytes()
+        if self._overlap is not None and self._overlap.kind != "block":
+            return self._overlap.wire_elements() * elem
+        if self._ragged is not None:
+            return self._ragged.wire_elements() * elem
+        if self._compact is not None:
+            return self._compact.wire_elements() * elem
         return (dp.num_shards * (dp.num_shards - 1) * dp.max_sticks
-                * dp.max_planes * self._wire_elem_bytes)
+                * dp.max_planes * elem + self._wire_scale_bytes(forward))
 
     def exchange_busiest_link_bytes(self, forward: bool = False) -> int:
-        """Max over shards of the off-shard bytes one shard sends (or
-        receives) in ONE exchange of the padded block layout."""
+        """Max over shards of max(sent, received) off-shard bytes of ONE
+        exchange, as the JAX package counts them."""
         dp = self.dist_plan
-        return ((dp.num_shards - 1) * dp.max_sticks * dp.max_planes
-                * self._wire_elem_bytes)
+        elem = self._wire_elem_bytes()
+        if self._overlap is not None and self._overlap.kind != "block":
+            return self._overlap.busiest_link_elements() * elem
+        if self._ragged is not None:
+            return self._ragged.busiest_link_elements() * elem
+        if self._compact is not None:
+            return self._compact.busiest_link_elements() * elem
+        return ((dp.num_shards - 1) * dp.max_sticks * dp.max_planes * elem
+                + self._wire_scale_bytes(forward, busiest=True))
 
     def estimated_device_bytes(self) -> int:
         """Bytes of the tables and matrices the plan keeps on its device
-        for its lifetime."""
+        for its lifetime, the exchange schedules' tables included."""
         return sum(t.numel() * t.element_size()
-                   for t in self._device_tables())
+                   for t in self._device_tables() + self._xtables)
 
     # -- data movement helpers -----------------------------------------------
     def shard_values(self, values_per_shard: Sequence) -> torch.Tensor:

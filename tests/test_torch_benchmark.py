@@ -9,7 +9,9 @@ virtual CPU devices of tests/conftest.py.
   axis (``-d 8 8 520``) and ``--profile-dir``, writing its JSON;
 * its ``parameters`` keys are the JAX CLI's at the same flags, plus
   exactly ``device_kind`` and ``power_limit``;
-* the flags outside this slice exit 2 with the typed not-in-slice
+* every ``-e`` exchange and ``--overlap-chunks K`` run, with the JAX
+  CLI's keys (``-e all``: its ``exchange_sweep`` rows, key for key);
+* ``--serve`` and ``--store-dir`` exit 2 with the typed not-in-slice
   message; without a card and without ``--cpu`` it exits 1 with the
   port's ``DeviceError``.
 """
@@ -95,15 +97,46 @@ def test_parameters_keys_are_the_jax_clis(flags, tmp_path):
         assert got[key] == want[key], key
 
 
+@pytest.mark.parametrize("flags", [
+    ["--overlap-chunks", "2", "--shards", "2"],
+    ["-e", "bufferedFloat", "--shards", "2"],
+    ["-e", "compact", "--shards", "2"],
+    ["-e", "compactFloat", "--shards", "2"],
+    ["-e", "unbuffered", "--shards", "2"],
+    ["-e", "all", "--shards", "2"],
+], ids=["overlap_chunks", "bufferedFloat", "compact", "compactFloat",
+        "unbuffered", "all"])
+def test_exchange_flags_run_with_the_jax_clis_keys(flags, tmp_path):
+    """Every exchange flag exits 0; its JSON has the JAX CLI's keys at the
+    same flags (plus ``device_kind`` and ``power_limit``) and the same
+    values of the workload's keys; ``-e all`` its ``exchange_sweep``
+    rows, one per exchange, key for key and with the JAX CLI's wire
+    bytes."""
+    argv = ["-d", "8", "-r", "1"] + flags
+    jout = tmp_path / "jax.json"
+    assert jbench.main(argv + ["-o", str(jout)]) == 0
+    want = json.loads(jout.read_text())
+    got = _run(argv, tmp_path)
+    if "all" in flags:
+        assert set(got["parameters"]) == set(want["parameters"]) | ADDED
+        rows, jrows = got["exchange_sweep"], want["exchange_sweep"]
+        assert [r["exchange"] for r in rows] == \
+            [r["exchange"] for r in jrows]
+        for r, j in zip(rows, jrows):
+            assert set(r) == set(j)
+            for key in ("overlap_chunks", "wire_total_bytes",
+                        "busiest_link_bytes", "hermitian_trimmed",
+                        "folded_mirror_values"):
+                assert r[key] == j[key], (r["exchange"], key)
+        return
+    assert set(got["parameters"]) == set(want["parameters"]) | ADDED
+    for key in ("shards", "exchange", "overlap_chunks", "num_values"):
+        assert got["parameters"][key] == want["parameters"][key], key
+
+
 @pytest.mark.parametrize("flags,what", [
     (["--serve"], "--serve"),
     (["--store-dir", "x"], "--store-dir"),
-    (["--overlap-chunks", "2", "--shards", "2"], "--overlap-chunks 2"),
-    (["-e", "bufferedFloat", "--shards", "2"], "-e bufferedFloat"),
-    (["-e", "compact", "--shards", "2"], "-e compact"),
-    (["-e", "compactFloat", "--shards", "2"], "-e compactFloat"),
-    (["-e", "unbuffered", "--shards", "2"], "-e unbuffered"),
-    (["-e", "all", "--shards", "2"], "-e all"),
 ])
 def test_out_of_slice_flags_exit_2(flags, what, capsys):
     assert benchmark.main(["--cpu", "-d", "8"] + flags) == 2

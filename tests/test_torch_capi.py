@@ -182,11 +182,12 @@ def jax_create(kind, trip, prec=SINGLE, pallas=AUTO, n=N):
     return pid
 
 
-def jax_create_dist(kind, parts, prec=SINGLE, pallas=AUTO, n=N):
+def jax_create_dist(kind, parts, prec=SINGLE, pallas=AUTO, n=N,
+                    exchange=0):
     trip, vps, pps = dist_inputs(parts, n)
     code, pid = jax_bridge.plan_create_distributed(
-        kind, n, n, n, len(parts), addr(vps), addr(trip), addr(pps), prec, 0,
-        pallas)
+        kind, n, n, n, len(parts), addr(vps), addr(trip), addr(pps), prec,
+        exchange, pallas)
     assert code == 0
     return pid
 
@@ -882,16 +883,86 @@ def test_shard_counts(lib):
         assert lib.spfft_tpu_plan_destroy(x) == 0
 
 
-@pytest.mark.parametrize("exchange", [2, 3, 4, 5])
-def test_refused_exchange_is_invalid_parameter(lib, exchange, capfd):
-    """The exchanges the port does not run come back as code 5, with the
-    port's message on stderr."""
+#: exchange code -> the ExchangeType the port's plan gets
+EXCHANGE_CODES = {2: sp.ExchangeType.BUFFERED_FLOAT,
+                  3: sp.ExchangeType.COMPACT_BUFFERED,
+                  4: sp.ExchangeType.COMPACT_BUFFERED_FLOAT,
+                  5: sp.ExchangeType.UNBUFFERED}
+
+
+@pytest.mark.parametrize("exchange", sorted(EXCHANGE_CODES))
+def test_every_exchange_code_runs(lib, exchange):
+    """Exchange codes 2-5 create a distributed plan (code 0) whose calls
+    equal bit for bit the port's Python API with that exchange; the
+    lossless ones (3, 5) within 2e-6 of the JAX bridge's plan of the same
+    code, the bfloat16 wire ones (2, 4) within 1.25 times the JAX plan's
+    own error against the full-precision transform."""
+    trip, values = inputs(C2C, SINGLE)
+    parts = round_robin_stick_partition(trip, (N, N, N), SHARDS)
+    dtrip, vps, pps = dist_inputs(parts)
+    values = c2c_values(dtrip, SINGLE)
+    h = create_dist(lib, C2C, parts, exchange=exchange)
+    got = capi_calls(lib, h, C2C, SINGLE, values)
+    pid = jax_create_dist(C2C, parts, exchange=exchange)
+    want = jax_calls(pid, C2C, SINGLE, values)
+    plan = sp.make_distributed_plan(
+        sp.TransformType.C2C, N, N, N, parts, list(pps),
+        mesh=sp.make_mesh(SHARDS, "cpu"), exchange=EXCHANGE_CODES[exchange])
+    per = np.split(values, np.cumsum(vps)[:-1])
+    space = plan.backward(per)
+    assert np.array_equal(got[0], np.concatenate(
+        [space[r, :n].numpy() for r, n in enumerate(pps)]))
+    out = plan.forward(space, sp.Scaling.FULL).numpy()
+    assert np.array_equal(got[1], np.concatenate(
+        [out[r, :c] for r, c in enumerate(vps)]))
+    if not EXCHANGE_CODES[exchange].float_wire:
+        for g, w in zip(got, want):
+            assert rel(g, w) <= TOL
+    else:
+        assert plan.wire_rung_name == "bf16"
+        h0 = create_dist(lib, C2C, parts)
+        p0 = jax_create_dist(C2C, parts)
+        exact = capi_calls(lib, h0, C2C, SINGLE, values)
+        jexact = jax_calls(p0, C2C, SINGLE, values)
+        for g, w, e, je in zip(got, want, exact, jexact):
+            assert rel(g, e) <= 1.25 * rel(w, je) + TOL
+        assert lib.spfft_tpu_plan_destroy(h0) == 0
+        assert jax_bridge.plan_destroy(p0)[0] == 0
+    assert lib.spfft_tpu_plan_destroy(h) == 0
+    assert jax_bridge.plan_destroy(pid)[0] == 0
+
+
+def test_shared_distributed_handle_batches(lib, monkeypatch):
+    """A batch of one distributed handle runs as one batched execution
+    (``multi.fusion_eligible`` admits it): its launches are those of
+    one transform, and each entry equals its single calls bit for
+    bit."""
     trip, _ = inputs(C2C, SINGLE)
     parts = round_robin_stick_partition(trip, (N, N, N), SHARDS)
-    create_dist(lib, C2C, parts, exchange=exchange, expect=5)
-    err = capfd.readouterr().err
-    assert "InvalidParameterError" in err
-    assert "is not in this slice of spfft_tpu_torch" in err
+    dtrip, _, _ = dist_inputs(parts)
+    h = create_dist(lib, C2C, parts)
+    vals = [c2c_values(dtrip, SINGLE, 20 + i) for i in range(3)]
+    spaces = [space_like(C2C, SINGLE) for _ in range(3)]
+    calls = []
+    cls = sp.DistributedTransformPlan
+    real = cls.backward_batched
+    monkeypatch.setattr(cls, "backward_batched",
+                        lambda self, v: calls.append(v.shape)
+                        or real(self, v))
+    assert lib.spfft_tpu_multi_backward(3, ptrs([h] * 3), ptrs(vals),
+                                        ptrs(spaces)) == 0
+    assert len(calls) == 1 and calls[0][1] == 3
+    outs = [np.empty_like(v) for v in vals]
+    assert lib.spfft_tpu_multi_forward(3, ptrs([h] * 3), ptrs(spaces), FULL,
+                                       ptrs(outs)) == 0
+    for v, s, o in zip(vals, spaces, outs):
+        one = space_like(C2C, SINGLE)
+        assert lib.spfft_tpu_backward(h, addr(v), addr(one)) == 0
+        assert np.array_equal(one, s)
+        back = np.empty_like(v)
+        assert lib.spfft_tpu_forward(h, addr(one), FULL, addr(back)) == 0
+        assert np.array_equal(back, o)
+    assert lib.spfft_tpu_plan_destroy(h) == 0
 
 
 def test_unknown_device_is_invalid_parameter(lib, monkeypatch, capfd):

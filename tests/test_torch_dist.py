@@ -16,7 +16,9 @@ shards in one process on the CPU.
   coalesced and pointwise calls, the helpers, ``Grid`` / ``Transform``
   and ``convert.distributed_plan_from_arrays``;
 * validation errors with the same classes and ``ErrorCode``; the modes
-  outside this slice raise typed errors that name their slice.
+  of the exchange slice (compact, ring, float wire, overlap chunks, the
+  wire knobs) run, against the JAX plan of the same mode (the full
+  matrix of them is tests/test_torch_exchange.py's).
 
 Tolerance: 2e-6 relative l2 against the JAX package (both sides sum f32
 products, in different orders); index tables and the exchange are
@@ -787,27 +789,53 @@ def test_plan_validation_matches_jax():
                                          mesh=sp.make_mesh(3, "cpu")))
 
 
-OUT_OF_SLICE = {
-    "compact": ({"exchange": sp.ExchangeType.COMPACT_BUFFERED}, "ring"),
-    "compact_float": ({"exchange": sp.ExchangeType.COMPACT_BUFFERED_FLOAT},
-                      "ring"),
-    "ring": ({"exchange": sp.ExchangeType.UNBUFFERED}, "ring"),
-    "buffered_float": ({"exchange": sp.ExchangeType.BUFFERED_FLOAT},
-                       "wire"),
-    "overlap": ({"overlap_chunks": 2}, "overlap"),
-    "wire_precision": ({"wire_precision": 3}, "wire"),
-    "wire_budget": ({"wire_error_budget": 1e-3}, "wire"),
+#: the modes the port refused before the exchange slice, each now run
+EXCHANGE_MODES = {
+    "compact": {"exchange": "COMPACT_BUFFERED"},
+    "compact_float": {"exchange": "COMPACT_BUFFERED_FLOAT"},
+    "ring": {"exchange": "UNBUFFERED"},
+    "buffered_float": {"exchange": "BUFFERED_FLOAT"},
+    "overlap": {"overlap_chunks": 2},
+    "wire_precision": {"wire_precision": 3, "wire_error_budget": 1.0},
+    "wire_budget": {"wire_error_budget": 1e-3},
 }
 
 
-@pytest.mark.parametrize("mode", sorted(OUT_OF_SLICE))
-def test_modes_outside_the_slice_raise_typed_errors(mode):
-    kw, later = OUT_OF_SLICE[mode]
-    t0 = np.array([[0, 0, 0]])
-    with pytest.raises(sp.InvalidParameterError,
-                       match=f"not in this slice.*{later}"):
-        sp.make_distributed_plan(sp.TransformType.C2C, 8, 8, 8,
-                                 [t0, t0 + 1], [4, 4], device="cpu", **kw)
+@pytest.mark.parametrize("mode", sorted(EXCHANGE_MODES))
+def test_exchange_modes_run_and_match_jax(mode):
+    """Each mode builds and runs through the Python API: the same wire
+    rung as the JAX plan of the same mode, its backward and forward(FULL)
+    within 2e-6 of the JAX plan's (a lossy rung: within 1.25 times the
+    JAX plan's error against the full-precision plan, plus 2e-6)."""
+    kw = dict(EXCHANGE_MODES[mode])
+    jkw = dict(kw)
+    if "exchange" in kw:
+        kw["exchange"] = sp.ExchangeType[kw["exchange"]]
+        jkw["exchange"] = spfft_tpu.ExchangeType[jkw["exchange"]]
+    c = _case("c2c_uniform_11x12x13")
+    tp = sp.make_distributed_plan(sp.TransformType.C2C, *c["dims"],
+                                  c["parts"], c["planes"], device="cpu",
+                                  **kw)
+    jp = jpar.make_distributed_plan(
+        spfft_tpu.TransformType.C2C, *c["dims"], c["parts"], c["planes"],
+        mesh=jpar.make_mesh(len(c["parts"])), precision="single", **jkw)
+    assert tp.wire_rung_name == jp.wire_rung_name
+    assert tp.wire_declines == jp.wire_declines
+    assert tp.overlap_chunks == jp.overlap_chunks
+    tb = tp.backward(c["vals"]).numpy()
+    jb = np.asarray(jp.backward(c["vals"]))
+    tf = tp.forward(torch.from_numpy(jb), sp.Scaling.FULL).numpy()
+    jf = np.asarray(jp.forward(jax.device_put(jb, jp._sharded),
+                               spfft_tpu.Scaling.FULL))
+    if tp.wire_rung in (0, 1):
+        assert _rel(_c(tb), _c(jb)) <= TOL
+        assert _rel(_c(tf), _c(jf)) <= TOL
+    else:
+        ref = c["tp"].forward(torch.from_numpy(jb), sp.Scaling.FULL).numpy()
+        assert _rel(_c(tb), _c(c["tb"])) <= \
+            1.25 * _rel(_c(jb), _c(c["jb"])) + TOL
+        assert _rel(_c(tf), _c(ref)) <= \
+            1.25 * _rel(_c(jf), _c(c["jf_full"])) + TOL
 
 
 def test_mesh_and_valid_modes(monkeypatch):
