@@ -619,23 +619,41 @@ def main_path_plan(sp, n, device, precision="single"):
     """The C2C path's plan at ``precision`` on the n^3 sphere, sorted
     stick-major, and its values (N, 2) from numpy seed ``SEED`` (complex64
     for a single plan, complex128 for a double one)."""
-    from spfft_tpu_torch.utils.workloads import \
-        spherical_cutoff_triplets_stick_major
     t0 = time.perf_counter()
-    trip = spherical_cutoff_triplets_stick_major(n)
+    trip, values = c2c_inputs(n, device, precision)
     plan = sp.make_local_plan(sp.TransformType.C2C, n, n, n, trip,
                               precision=precision, device=device)
-    rng = np.random.default_rng(SEED)
-    m = len(trip)
-    vals = (rng.standard_normal(m) + 1j * rng.standard_normal(m)) \
-        .astype(np.complex64 if precision == "single" else np.complex128)
-    values = torch.view_as_real(torch.from_numpy(vals)).to(device)
+    check_native(f"c2c {n}^3 plan", [plan.index_plan])
     print(f"plan: C2C {n}^3 sphere, {precision}, "
           f"{plan.num_local_elements} values in "
           f"{plan.index_plan.num_sticks} sticks, split_x={plan.split_x}, "
           f"pair_io={plan.pair_values_io}, built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return plan, trip, values
+
+
+def c2c_inputs(n, device, precision="single"):
+    """The C2C path's set (the n^3 sphere, stick-major) and its values
+    ``(N, 2)`` from numpy seed ``SEED`` on ``device``, as
+    :func:`main_path_plan` describes them."""
+    from spfft_tpu_torch.utils.workloads import \
+        spherical_cutoff_triplets_stick_major
+    trip = spherical_cutoff_triplets_stick_major(n)
+    rng = np.random.default_rng(SEED)
+    m = len(trip)
+    vals = (rng.standard_normal(m) + 1j * rng.standard_normal(m)) \
+        .astype(np.complex64 if precision == "single" else np.complex128)
+    return trip, torch.view_as_real(torch.from_numpy(vals)).to(device)
+
+
+def check_native(what, index_plans):
+    """Fail where an index plan that could take the native planner was
+    built by another (the numpy planner runs only where asked for, or
+    for a hermitian set with its x < 0 half)."""
+    for p in index_plans:
+        if p.planner != "native":
+            fail(f"{what}: planned by {p.planner} ({p.planner_reason}), "
+                 f"not the native planner")
 
 
 def decompress_record(path, plan, values, device):
@@ -1257,15 +1275,31 @@ def r2c_plan(sp, n, device, precision="single"):
     rounded to complex64 before both are taken, so the oracle is exact
     for the values the plan is given. Returns the plan, its triplets, the
     values and the oracle."""
+    t0 = time.perf_counter()
+    trip, values, oracle = r2c_inputs(n, device, precision)
+    plan = sp.make_local_plan(sp.TransformType.R2C, n, n, n, trip,
+                              precision=precision, device=device)
+    check_native(f"r2c {n}^3 plan", [plan.index_plan])
+    p = plan.index_plan
+    print(f"plan: R2C {n}^3 half sphere, {precision}, "
+          f"{plan.num_local_elements} values "
+          f"in {p.num_sticks} sticks, dim_x_freq={p.dim_x_freq}, "
+          f"zero_stick={p.zero_stick_id}, split_x={plan.split_x}, "
+          f"pair_io={plan.pair_values_io}, built with its values in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return plan, trip, values, oracle
+
+
+def r2c_inputs(n, device, precision="single"):
+    """The R2C path's set (the non-redundant half of the n^3 sphere,
+    stick-major), its values ``(N, 2)`` in the precision's real type and
+    the backward's oracle, as :func:`r2c_plan` describes them."""
     from spfft_tpu_torch.utils.workloads import \
         spherical_cutoff_triplets_stick_major
-    t0 = time.perf_counter()
     full = spherical_cutoff_triplets_stick_major(n)
     x, y, z = full[:, 0], full[:, 1], full[:, 2]
     # a subset of a stick-major set keeps its order
     trip = full[(x > 0) | ((x == 0) & ((y > 0) | ((y == 0) & (z >= 0))))]
-    plan = sp.make_local_plan(sp.TransformType.R2C, n, n, n, trip,
-                              precision=precision, device=device)
     cdt = torch.complex64 if precision == "single" else torch.complex128
 
     def storage(t):
@@ -1286,14 +1320,7 @@ def r2c_plan(sp, n, device, precision="single"):
                                 .to(cdt)).contiguous()
     oracle = torch.fft.ifftn(spec, norm="forward").real.contiguous()
     del spec
-    p = plan.index_plan
-    print(f"plan: R2C {n}^3 half sphere, {precision}, "
-          f"{plan.num_local_elements} values "
-          f"in {p.num_sticks} sticks, dim_x_freq={p.dim_x_freq}, "
-          f"zero_stick={p.zero_stick_id}, split_x={plan.split_x}, "
-          f"pair_io={plan.pair_values_io}, built with its values in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return plan, trip, values, oracle
+    return trip, values, oracle
 
 
 def r2c_kernel_phase(plan, values, device, path="r2c"):
@@ -2132,23 +2159,9 @@ def dist_plan(sp, n, trip, values, device, r2c=False):
                                     even_plane_split(n, _S),
                                     mesh=sp.make_mesh(_S, device),
                                     precision=precision)
-
-    def storage(t):
-        return torch.as_tensor(np.where(t < 0, t + n, t).astype(np.int64),
-                               device=device)
-
-    cube = torch.zeros((n, n, n), dtype=complex_of(values), device=device)
-    st = storage(trip)
-    cube[st[:, 2], st[:, 1], st[:, 0]] = torch.view_as_complex(
-        values.contiguous())
+    check_native(f"distributed {n}^3 plan", plan.dist_plan.shard_plans)
     dp = plan.dist_plan
-    stacked = torch.zeros((_S, dp.max_values, 2), dtype=values.dtype,
-                          device=device)
-    for r, part in enumerate(parts):
-        sr = storage(part)
-        stacked[r, :len(part)] = torch.view_as_real(
-            cube[sr[:, 2], sr[:, 1], sr[:, 0]])
-    del cube
+    stacked = stacked_values(n, trip, values, parts, dp.max_values, device)
     print(f"plan: distributed {'R2C' if r2c else 'C2C'} {n}^3, {precision}, "
           f"{_S} shards "
           f"on one card: sticks per shard "
@@ -2157,6 +2170,28 @@ def dist_plan(sp, n, trip, values, device, r2c=False):
           f"{plan.split_x}, built with its values in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return plan, stacked
+
+
+def stacked_values(n, trip, values, parts, max_values, device):
+    """The values ``(N, 2)`` of the set ``trip`` at each of ``parts``'s
+    triplets, read off a dense cube of them (so that they are the values
+    the local plan is given), stacked ``(len(parts), max_values, 2)``,
+    zero-padded."""
+    def storage(t):
+        return torch.as_tensor(np.where(t < 0, t + n, t).astype(np.int64),
+                               device=device)
+
+    cube = torch.zeros((n, n, n), dtype=complex_of(values), device=device)
+    st = storage(trip)
+    cube[st[:, 2], st[:, 1], st[:, 0]] = torch.view_as_complex(
+        values.contiguous())
+    stacked = torch.zeros((len(parts), max_values, 2), dtype=values.dtype,
+                          device=device)
+    for r, part in enumerate(parts):
+        sr = storage(part)
+        stacked[r, :len(part)] = torch.view_as_real(
+            cube[sr[:, 2], sr[:, 1], sr[:, 0]])
+    return stacked
 
 
 def dist_kernel_phase(plan, stacked, device, path="dist_c2c"):
@@ -3671,6 +3706,14 @@ def long_axes_phase(sp, device, counters):
           flush=True)
     if rss <= 0:
         fail(f"long{n}: the planner's host memory read {rss} bytes")
+    check_native(f"long{n} plan", [p])
+    print(f"long{n} plan on the native planner: {plan_s:.2f} s, "
+          f"{rss / 2**30:.2f} GiB, beside the numpy planner's "
+          f"{NUMPY_768_PLAN[0]:.2f} s, {NUMPY_768_PLAN[1]:.2f} GiB "
+          f"({NUMPY_768_PLAN[2]}; this run {CARD})", flush=True)
+    PLANNER_ROWS.append({"n": n, "planner": "native", "plan_s": plan_s,
+                         "rss_gib": rss / 2**30, "what": "make_local_plan",
+                         "card": CARD})
     if not plan.pair_values_io or plan.fused_active \
             or plan.fused_fallback_reasons != {"dec": "dimz_over_cap",
                                                "cmp": "dimz_over_cap"}:
@@ -4653,6 +4696,536 @@ def benchmark_phase(card: str) -> list:
     return out
 
 
+# -- the native planner and one process per GPU -------------------------------
+
+#: the 768^3 C2C plan build (``make_local_plan``) on the numpy planner, as
+#: this script measured it before the plans took the native planner:
+#: seconds, GiB of host memory the build took, and the card it ran beside
+NUMPY_768_PLAN = (26.63, 21.40, "NVIDIA H100 80GB HBM3, 700.00 W")
+#: the sides at which the native and numpy index plans are held equal
+PLANNER_NS = (256, 448)
+PLANNER_ROWS = []
+
+
+def _index_tables(indexing, n, trip, native):
+    """The index plan of the C2C n^3 set ``trip`` and its inverse maps
+    (the slot map and the stick-key column map), each on the planner
+    ``native`` asks for."""
+    p = indexing.build_index_plan("c2c", n, n, n, trip, native=native)
+    slot = indexing.inverse_slot_map(p.value_indices, p.num_sticks * n,
+                                     p.num_values, native=native)
+    cols = indexing.inverse_col_map(p.stick_keys, n * n, p.num_sticks,
+                                    native=native)
+    return p, slot, cols
+
+
+def planner_phase(sp):
+    """The native and the numpy index planners on the C2C sphere at each
+    side of ``PLANNER_NS`` (256^3, the main path, and 448^3): the plans
+    equal table for table (value slots, stick keys, the inverse slot and
+    column maps, ``centered``), each with its seconds and the host memory
+    it took; the native plan says it is native."""
+    import gc
+    from spfft_tpu_torch import indexing
+    from spfft_tpu_torch.native import planner
+    from spfft_tpu_torch.utils.workloads import \
+        spherical_cutoff_triplets_stick_major
+    # the library's build (g++, once per checkout) apart from the timings
+    t0 = time.perf_counter()
+    reason = planner.unavailable_reason()
+    if reason is not None:
+        fail(f"planner: {reason}")
+    print(f"planner: native library {planner.LIBRARY.name} built and loaded "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    for n in PLANNER_NS:
+        trip = spherical_cutoff_triplets_stick_major(n)
+        got = {}
+        for native in (False, True):
+            gc.collect()
+            t0 = time.perf_counter()
+            tables, rss = peak_rss_over(
+                lambda: _index_tables(indexing, n, trip, native))
+            got[native] = (tables, time.perf_counter() - t0, rss)
+        (nat, nslot, ncols), nat_s, nat_rss = got[True]
+        (ref, rslot, rcols), ref_s, ref_rss = got[False]
+        check_native(f"planner {n}^3", [nat])
+        if ref.planner != "numpy":
+            fail(f"planner {n}^3: native=False planned by {ref.planner}")
+        for what, a, b in (("value_indices", nat.value_indices,
+                            ref.value_indices),
+                           ("stick_keys", nat.stick_keys, ref.stick_keys),
+                           ("slot map", nslot, rslot),
+                           ("column map", ncols, rcols)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"planner {n}^3: the native {what} differs from the "
+                     f"numpy planner's")
+        if nat.centered != ref.centered:
+            fail(f"planner {n}^3: centered differs")
+        for planner, secs, rss in (("native", nat_s, nat_rss),
+                                   ("numpy", ref_s, ref_rss)):
+            PLANNER_ROWS.append({"n": n, "planner": planner, "plan_s": secs,
+                                 "rss_gib": rss / 2**30,
+                                 "what": "index plan and inverse maps",
+                                 "card": CARD})
+        print(f"planner {n}^3 C2C sphere ({nat.num_values} values, "
+              f"{nat.num_sticks} sticks): native {nat_s:.3f} s, "
+              f"{nat_rss / 2**30:.3f} GiB; numpy {ref_s:.3f} s, "
+              f"{ref_rss / 2**30:.3f} GiB; every table equal (the card's "
+              f"host, {CARD})", flush=True)
+        del got, nat, ref, nslot, rslot, ncols, rcols, trip
+
+
+#: the ranks phase: 4 shards of the 256^3 paths, round-robin sticks,
+#: 64-plane slabs, over two gloo ranks on the one card (two shards each)
+#: and over one NCCL rank (all four). label -> (transform, precision,
+#: exchange, the op schedule, K, wire_precision, fused)
+RANK_CASES = {
+    "buffered": ("c2c", "single", "BUFFERED", False, 1, 0, True),
+    "ragged": ("c2c", "single", "COMPACT_BUFFERED", False, 1, 0, True),
+    "wire_f32": ("c2c", "single", "BUFFERED", False, 1, 1, True),
+    "wire_bf16": ("c2c", "single", "BUFFERED", False, 1, 2, True),
+    "wire_int8": ("c2c", "single", "BUFFERED", False, 1, 3, True),
+    "block_k2": ("c2c", "single", "BUFFERED", False, 2, 0, True),
+    "ragged_k2": ("c2c", "single", "COMPACT_BUFFERED", False, 2, 0, True),
+    "buffered_2k": ("c2c", "single", "BUFFERED", False, 1, 0, False),
+    "ragged_2k": ("c2c", "single", "COMPACT_BUFFERED", False, 1, 0, False),
+    "r2c_buffered": ("r2c", "single", "BUFFERED", False, 1, 0, True),
+    "r2c_ragged": ("r2c", "single", "COMPACT_BUFFERED", False, 1, 0, True),
+    "r2c_buffered_2k": ("r2c", "single", "BUFFERED", False, 1, 0, False),
+    "f64_buffered": ("c2c", "double", "BUFFERED", False, 1, 0, True),
+    "f64_ragged": ("c2c", "double", "COMPACT_BUFFERED", False, 1, 0, True),
+}
+#: the point-to-point kinds: run over NCCL; over gloo on the card a plan
+#: of them must be refused with DistributedError
+RANK_P2P_CASES = {
+    "ring": ("c2c", "single", "UNBUFFERED", False, 1, 0, True),
+    "compact": ("c2c", "single", "COMPACT_BUFFERED", True, 1, 0, True),
+}
+#: the kinds each mechanism takes over ranks
+RANK_KINDS = {"block": "all_to_all", "ring": "p2p_ring",
+              "ragged": "all_to_all_v", "compact": "p2p_ops"}
+#: the lossy rungs, held to the oracle (the others bit for bit)
+RANK_LOSSY = ("wire_bf16", "wire_int8")
+#: seconds a world of ranks may take (its plans and pairs included)
+RANK_TIMEOUT_S = 420
+#: the mismatched-dims check's side
+RANK_MISMATCH_N = 16
+
+
+def rank_inputs(transform, precision, n, device, shards):
+    """The ranks phase's inputs: the path's set split round-robin over
+    ``DIST_SHARDS`` shards, the even slab heights, and the values of the
+    shards ``shards`` stacked ``(len(shards), max_values, 2)`` (the
+    values the one-process plan is given, ``max_values`` over all
+    shards); for C2C single also the complex128 oracle of the backward."""
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    oracle = None
+    if transform == "r2c":
+        trip, values, _ = r2c_inputs(n, device, precision)
+    else:
+        trip, values = c2c_inputs(n, device, precision)
+        if precision == "single":
+            st = torch.as_tensor(np.where(trip < 0, trip + n, trip)
+                                 .astype(np.int64), device=device)
+            grid = torch.zeros((n, n, n), dtype=torch.complex128,
+                               device=device)
+            grid[st[:, 2], st[:, 1], st[:, 0]] = torch.view_as_complex(
+                values.double().contiguous())
+            oracle = torch.fft.ifftn(grid, norm="forward")
+            del grid, st
+    parts = round_robin_stick_partition(trip, (n, n, n), _S)
+    max_values = max(len(p) for p in parts)
+    stacked = stacked_values(n, trip, values, [parts[r] for r in shards],
+                             max_values, device)
+    return parts, even_plane_split(n, _S), stacked, oracle
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def device_busy_ms(fn, reps=3):
+    """The card's busy time of one call of ``fn`` in ms: the kernels' and
+    copies' durations CUPTI records (``torch.profiler``), summed, per
+    call; None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def _rank_plan(sp, dp, mesh, case):
+    from spfft_tpu_torch.parallel import dist
+    _, precision, exchange, ppermute, k, wire, fused = case
+    old = os.environ.pop(dist.COMPACT_PPERMUTE_ENV, None)
+    if ppermute:
+        os.environ[dist.COMPACT_PPERMUTE_ENV] = "1"
+    try:
+        return sp.DistributedTransformPlan(
+            dp, mesh=mesh, precision=precision, fused=fused,
+            exchange=sp.ExchangeType[exchange], overlap_chunks=k,
+            wire_precision=wire, wire_error_budget=1.0)
+    finally:
+        os.environ.pop(dist.COMPACT_PPERMUTE_ENV, None)
+        if old is not None:
+            os.environ[dist.COMPACT_PPERMUTE_ENV] = old
+
+
+def _rank_want(transform, fused, local, gathers, int8_k):
+    """The launches of one pair on a rank holding ``local`` shards: the
+    z kernels once per local shard (fused), or the gather a direction
+    over them; the xy stage once; the exchange's ``gathers`` and the
+    int8 kernels ``int8_k`` a direction each."""
+    z = (local, local, {"fft": local})
+    if transform == "c2c":
+        base = dict(DIST_C2C_LAUNCHES if fused else DIST_C2C_2K_LAUNCHES)
+    else:
+        base = dict(DIST_R2C_LAUNCHES if fused else DIST_R2C_2K_LAUNCHES)
+    if fused:
+        base["decompress_zdft"] = base["zdft_compress"] = z
+    return exchange_want(base, gathers, int8_k)
+
+
+def rank_worker(spec_path: str, rank: int) -> int:
+    """One rank of the ranks phase (``chip_smoke.py --rank-worker SPEC
+    RANK``): brings up the group, and per path builds the plan from its
+    own shards' triplets (``build_distributed_plan_multihost``) on a mesh
+    over the group, then per case of :data:`RANK_CASES` (and, over NCCL,
+    :data:`RANK_P2P_CASES`) its counted backward + forward(FULL) pair on
+    its own shards: the launches, each shard's output digests, the
+    oracle's partial sums for the lossy rungs, the pair's ms per call and
+    the card's busy time, the wire bytes. Over gloo, the point-to-point
+    kinds' refusal; then a mismatched-dims build. Writes its results as
+    JSON beside the spec."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    global CARD
+    CARD = spec["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    import spfft_tpu_torch as sp
+    t0 = time.perf_counter()
+    sp.initialize_multihost(f"localhost:{spec['port']}", spec["world"], rank,
+                            backend=spec["backend"], timeout_s=RANK_TIMEOUT_S)
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    # over gloo on the card the point-to-point kinds are refused (checked
+    # below); NCCL, and gloo on the host, run them
+    p2p_runs = spec["backend"] == "nccl" or device.type == "cpu"
+    group = dist.group.WORLD
+    mesh = sp.make_mesh(_S, device, process_group=group)
+    mine = list(mesh.shard_range)
+    n = spec["n"]
+    counters = launch_counters()
+    out = {"rank": rank, "shards": mine, "up_s": time.perf_counter() - t0,
+           "cases": {}, "refused": {}, "plans": {}}
+    cases = dict(RANK_CASES)
+    if p2p_runs:
+        cases.update(RANK_P2P_CASES)
+    for path in dict.fromkeys((c[0], c[1]) for c in cases.values()):
+        transform, precision = path
+        parts, planes, stacked, oracle = rank_inputs(transform, precision, n,
+                                                     device, mine)
+        t0 = time.perf_counter()
+        dp = sp.build_distributed_plan_multihost(
+            sp.TransformType[transform.upper()], n, n, n,
+            [parts[r] for r in mine], [planes[r] for r in mine],
+            process_group=group)
+        check_native(f"rank {rank} {transform} plan", dp.shard_plans)
+        out["plans"]["_".join(path)] = time.perf_counter() - t0
+        for label, case in cases.items():
+            if case[:2] != path:
+                continue
+            t0 = time.perf_counter()
+            plan = _rank_plan(sp, dp, mesh, case)
+            build_s = time.perf_counter() - t0
+            base, _, k = plan.exchange_kind.partition("x")
+            if base not in RANK_KINDS.values():
+                fail(f"rank {rank} {label}: exchange kind "
+                     f"{plan.exchange_kind} is not a collective of ranks")
+            gathers = {"all_to_all": 0, "p2p_ring": 0,
+                       "all_to_all_v": 2 * (plan.overlap_chunks + 1),
+                       "p2p_ops": 0}[base]
+            if base == "p2p_ops":
+                gathers = 2 * (len(plan._compact.ops) + 1)
+            int8_k = plan.overlap_chunks if plan.wire_rung_name == "int8" \
+                else 0
+            reset_launches(counters)
+            space = plan.backward(stacked)
+            res = plan.forward(space, sp.Scaling.FULL)
+            _sync(device)
+            # only a CUDA tensor launches a kernel: a rehearsal on the host
+            # counts none
+            launches = read_launches(
+                f"rank {rank} {label}", counters,
+                _rank_want(transform, case[6], len(mine), gathers, int8_k)
+                if device.type == "cuda" else {})
+            rec = {"kind": plan.exchange_kind, "rung": plan.wire_rung_name,
+                   "probe": plan.wire_probe_error, "plan_s": build_s,
+                   "launches": launches,
+                   "backward": [_digest(space[i]) for i in range(len(mine))],
+                   "forward": [_digest(res[i]) for i in range(len(mine))],
+                   "wire_bytes": plan.exchange_wire_bytes(),
+                   "wire_bytes_forward": plan.exchange_wire_bytes(True)}
+            if oracle is not None:
+                num = den = 0.0
+                for i, r in enumerate(mine):
+                    lo = plan.local_z_offset(r)
+                    ref = oracle[lo:lo + plan.local_z_length(r)]
+                    got = torch.view_as_complex(
+                        space[i, :ref.shape[0]].double().contiguous())
+                    num += float(torch.linalg.norm(got - ref)) ** 2
+                    den += float(torch.linalg.norm(ref)) ** 2
+                rec["oracle_sums"] = (num, den)
+            del space, res
+            rec["pair_ms"] = timed_ms(
+                lambda: plan.forward(plan.backward(stacked),
+                                     sp.Scaling.FULL), device)
+            rec["busy_ms"] = device_busy_ms(
+                lambda: plan.forward(plan.backward(stacked),
+                                     sp.Scaling.FULL)) \
+                if device.type == "cuda" else None
+            out["cases"][label] = rec
+            del plan
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if path == ("c2c", "single") and not p2p_runs:
+            for label, case in RANK_P2P_CASES.items():
+                try:
+                    _rank_plan(sp, dp, mesh, case)
+                    out["refused"][label] = None
+                except sp.DistributedError as exc:
+                    out["refused"][label] = str(exc)
+        del dp, stacked, oracle
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["mismatch"] = None
+    if spec["world"] > 1:
+        out["mismatch"] = _rank_mismatch(sp, rank, spec["world"], mine,
+                                         device, group)
+    dist.destroy_process_group()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rank_mismatch(sp, rank, world, mine, device, group):
+    """The last rank passes another dim_z (and one more plane) to
+    ``build_distributed_plan_multihost``: the class of what this rank
+    raised, or None."""
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    m = RANK_MISMATCH_N
+    trip, _ = c2c_inputs(m, device)
+    parts = round_robin_stick_partition(trip, (m, m, m), _S)
+    planes = even_plane_split(m, _S)
+    dims = (m, m, m)
+    if rank == world - 1:
+        dims = (m, m, m + 1)
+        planes = planes[:-1] + [planes[-1] + 1]
+    try:
+        sp.build_distributed_plan_multihost(
+            sp.TransformType.C2C, *dims, [parts[r] for r in mine],
+            [planes[r] for r in mine], process_group=group)
+    except Exception as exc:  # noqa: BLE001 - its class is the check
+        return type(exc).__name__
+    return None
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_world(backend: str, world: int, n: int, device,
+              card_each: bool = False) -> list:
+    """Spawn ``world`` ranks of :func:`rank_worker` over ``backend``, on
+    ``device`` (with ``card_each``, rank r on card r alone, through its
+    ``CUDA_VISIBLE_DEVICES``); their results, once every rank exited 0
+    within ``RANK_TIMEOUT_S`` (the phase fails otherwise, and no rank is
+    left running). Each rank's output goes to ``rank<r>.log`` beside its
+    results."""
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "ranks", f"{backend}{world}")
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"port": _free_port(), "world": world, "backend": backend,
+                   "n": n, "out": out, "card": CARD, "device": str(device)},
+                  f)
+    t0 = time.perf_counter()
+    procs, rcs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ)
+            if card_each:
+                env["CUDA_VISIBLE_DEVICES"] = str(r)
+            with open(os.path.join(out, f"rank{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--rank-worker", spec, str(r)], stdout=log,
+                    stderr=subprocess.STDOUT, env=env))
+        for p in procs:
+            try:
+                p.wait(timeout=max(
+                    1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+            rcs.append(p.returncode)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.log")) as log:
+            tail = [ln for ln in log.read().splitlines()
+                    if "socket.cpp" not in ln]
+        print(f"{backend} rank {r} of {world}: exit {rcs[r]}; last lines:\n"
+              + "\n".join(tail[-8:]), flush=True)
+    if rcs != [0] * world:
+        fail(f"ranks phase ({backend}, {world} ranks): exit codes {rcs} "
+             f"after {time.perf_counter() - t0:.1f} s")
+    res = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    print(f"ranks phase ({backend}, {world} ranks): {time.perf_counter() - t0:.1f}"
+          f" s wall", flush=True)
+    return res
+
+
+def _reference_digests(sp, n, device) -> dict:
+    """The one-process 4-shard plan's digests (BUFFERED, fused) per path:
+    each shard's backward and forward(FULL), on the same values."""
+    from spfft_tpu_torch.utils.workloads import even_plane_split
+    refs = {}
+    for path in dict.fromkeys((c[0], c[1]) for c in RANK_CASES.values()):
+        transform, precision = path
+        parts, planes, stacked, _ = rank_inputs(transform, precision, n,
+                                                device, range(_S))
+        plan = sp.make_distributed_plan(
+            sp.TransformType[transform.upper()], n, n, n, parts,
+            even_plane_split(n, _S), mesh=sp.make_mesh(_S, device),
+            precision=precision)
+        space = plan.backward(stacked)
+        res = plan.forward(space, sp.Scaling.FULL)
+        refs[path] = ([_digest(space[r]) for r in range(_S)],
+                      [_digest(res[r]) for r in range(_S)])
+        del plan, space, res, stacked
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return refs
+
+
+#: the worlds of the ranks phase: (backend, ranks, what its figures are)
+RANK_WORLDS = (("gloo", 2, "gloo, two ranks on one card, host-staged"),
+               ("nccl", 1, "NCCL, one rank"))
+
+
+def ranks_phase(sp, device, n=N, worlds=RANK_WORLDS, card_each=False):
+    """The distributed plan over the ranks of a process group on the card
+    (4 shards of the 256^3 C2C sphere and R2C half sphere, round-robin
+    sticks, 64-plane slabs): (a) two gloo ranks on the one card, two
+    shards each (gloo stages the all-to-all through the host); (b) one
+    NCCL rank owning all four. Every case of :data:`RANK_CASES` on every
+    rank: the counted pair (z kernels once per local shard, the xy stage
+    once, the exchange's gathers and int8 kernels), each shard's
+    backward and forward(FULL) bit for bit the one-process 4-shard
+    plan's (the lossless kinds and f32; bf16 and int8 within ``max(4 *
+    wire_probe_error, predicted_rel_error)`` of the complex128 oracle),
+    its ms per call and the card's busy time, its wire bytes. Over NCCL
+    also the ring and the op schedule; over gloo their plans must be
+    refused with DistributedError (gloo's point-to-point cannot read
+    device memory). A rank passing other dims raises
+    ParameterMismatchError on every rank. ``worlds`` and ``card_each``
+    as in :func:`run_world` (``chip_smoke.py --ranks nccl 4`` on four
+    cards). Returns the rows."""
+    t0 = time.perf_counter()
+    refs = _reference_digests(sp, n, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"ranks phase: one-process references in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tol = sp.predicted_rel_error("single", n)
+    rows = []
+    for backend, world, label in worlds:
+        if device.type == "cpu" and backend == "nccl":
+            continue  # a rehearsal on the host: gloo only
+        res = run_world(backend, world, n, device, card_each)
+        for r in res:
+            if world > 1 and r["mismatch"] != "ParameterMismatchError":
+                fail(f"{backend} rank {r['rank']}: a rank with other dims "
+                     f"raised {r['mismatch']}, not ParameterMismatchError")
+            if backend == "gloo" and device.type == "cuda":
+                for kind, msg in r["refused"].items():
+                    if not msg or "gloo" not in msg \
+                            or "batch_isend_irecv" not in msg:
+                        fail(f"gloo rank {r['rank']}: the {kind} plan on "
+                             f"the card was not refused with "
+                             f"DistributedError ({msg})")
+        cases = dict(RANK_CASES)
+        if backend == "nccl" or device.type == "cpu":
+            cases.update(RANK_P2P_CASES)
+        for case_label, case in cases.items():
+            recs = [r["cases"][case_label] for r in res]
+            ref_b, ref_f = refs[case[:2]]
+            same = all(rec["backward"][i] == ref_b[s]
+                       and rec["forward"][i] == ref_f[s]
+                       for r, rec in zip(res, recs)
+                       for i, s in enumerate(r["shards"]))
+            err = None
+            if case_label in RANK_LOSSY:
+                num = sum(rec["oracle_sums"][0] for rec in recs)
+                den = sum(rec["oracle_sums"][1] for rec in recs)
+                err = math.sqrt(num / den)
+                bound = max(4 * recs[0]["probe"], tol)
+                if err > bound:
+                    fail(f"{backend} {case_label}: backward {err:.3e} from "
+                         f"the oracle, above {bound:.3e}")
+            elif not same:
+                fail(f"{backend} {case_label}: a rank's backward or "
+                     f"forward differs from the one-process plan's")
+            rec = recs[0]
+            row = {"backend": backend, "ranks": world, "case": case_label,
+                   "kind": rec["kind"], "rung": rec["rung"],
+                   "pair_ms": rec["pair_ms"], "busy_ms": rec["busy_ms"],
+                   "pair_ms_ranks": [x["pair_ms"] for x in recs],
+                   "wire_bytes": rec["wire_bytes"],
+                   "wire_bytes_forward": rec["wire_bytes_forward"],
+                   "plan_s": rec["plan_s"], "bit_equal": same,
+                   "oracle_rel": err, "launches": rec["launches"],
+                   "label": label, "card": CARD}
+            rows.append(row)
+            print(f"ranks {case_label} ({label}; {rec['kind']}, rung "
+                  f"{rec['rung']}): pair {rec['pair_ms']:.4f} ms per call "
+                  f"(rank 0; every rank {row['pair_ms_ranks']}), card busy "
+                  f"{_ms(rec['busy_ms'])} ms, wire {rec['wire_bytes']} B a "
+                  f"direction, plan {rec['plan_s']:.2f} s; "
+                  + ("bit for bit the one-process plan" if same else
+                     f"{err:.3e} from the oracle") + f" ({CARD})",
+                  flush=True)
+        print(f"ranks {backend}: plan builds "
+              f"{[r['plans'] for r in res]} s, up in "
+              f"{[round(r['up_s'], 2) for r in res]} s ({CARD})", flush=True)
+    return rows
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the launch tables use; each
     counts its launches (``.launches``, and by form ``.form_launches``)."""
@@ -5320,9 +5893,38 @@ def capi_phase(sp, device, counters, smi, n=N):
             "copy_rates": rates, "card": smi}
 
 
+def ranks_only(backend: str, world: int) -> int:
+    """``chip_smoke.py --ranks BACKEND WORLD``: the ranks phase alone
+    with one world of ``world`` ranks, each on a card of its own (a
+    machine with that many cards), after the kernels' build."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(smi.stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from spfft_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    import spfft_tpu_torch as sp
+    rows = ranks_phase(sp, torch.device("cuda", 0), worlds=(
+        (backend, world, f"{backend}, {world} ranks, one card each"),),
+        card_each=True)
+    print(json.dumps({"ranks": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
+    if sys.argv[1:2] == ["--rank-worker"] and len(sys.argv) == 4:
+        return rank_worker(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--ranks"] and len(sys.argv) == 4:
+        return ranks_only(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
@@ -5360,13 +5962,22 @@ def main() -> int:
                                        "spill", "smem")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     spill_check(_build.build_log)
+    import spfft_tpu_torch as sp
+    t_plan = time.perf_counter()
+    planner_phase(sp)
+    print(f"planner phase: {time.perf_counter() - t_plan:.1f} s ({card})",
+          flush=True)
 
     device = torch.device("cuda", torch.cuda.current_device())
     t_run = time.perf_counter()
     recs, sweep = run(device)
     print(f"256^3 paths, odd shapes and double: "
           f"{time.perf_counter() - t_run:.1f} s ({card})", flush=True)
-    import spfft_tpu_torch as sp
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = ranks_phase(sp, device)
+    print(f"ranks phase: {time.perf_counter() - t_ranks:.1f} s ({card})",
+          flush=True)
     t_long = time.perf_counter()
     recs += long_axes_phase(sp, device, launch_counters())
     for dtype in (torch.float32, torch.float64):
@@ -5400,6 +6011,8 @@ def main() -> int:
     print(json.dumps({"exchange": EXCHANGE_ROWS}), flush=True)
     print(json.dumps({"benchmark": bench}), flush=True)
     print(json.dumps({"capi": capi}), flush=True)
+    print(json.dumps({"planner": PLANNER_ROWS}), flush=True)
+    print(json.dumps({"ranks": ranks}), flush=True)
     print(json.dumps({"matrix_length": matrix}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "

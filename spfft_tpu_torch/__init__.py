@@ -11,10 +11,14 @@ precision at every dims the JAX package plans (axes above 512 through
 the two-pass FFT, Bluestein's FFT or ``torch.fft``), their batched
 and pointwise execution, the two-kernel route (``fused=False``), the
 ``Grid`` / ``Transform`` / multi-transform API, the distributed plan
-over S shards held on one device with every exchange of the JAX package
-(the padded blocks, the ring, the exact-count ragged and op schedules,
-``overlap_chunks`` and the f32 / bf16 / int8 wire ladder), and the
-benchmark CLI ``python -m spfft_tpu_torch.benchmark``::
+over S shards with every exchange of the JAX package (the padded blocks,
+the ring, the exact-count ragged and op schedules, ``overlap_chunks`` and
+the f32 / bf16 / int8 wire ladder), held on one device or spread over the
+ranks of a ``torch.distributed`` process group (one process per GPU:
+``initialize_multihost``, ``build_distributed_plan_multihost``,
+``make_mesh(S, process_group=...)``), the native index planner
+(``native/planner.cpp``), and the benchmark CLI
+``python -m spfft_tpu_torch.benchmark``::
 
     import spfft_tpu_torch as sp
     plan = sp.make_local_plan(sp.TransformType.C2C, 64, 64, 64, triplets)
@@ -38,26 +42,31 @@ the JAX package's ``include/spfft_tpu.h``), built by
 ``spfft_tpu_torch.capi_bridge``.
 """
 
-from .errors import (DeviceError, DuplicateIndicesError, ErrorCode,
-                     GenericError, InvalidIndicesError,
+from .errors import (DeviceError, DistributedError, DuplicateIndicesError,
+                     ErrorCode, GenericError, InvalidIndicesError,
                      InvalidParameterError, OverflowError_,
-                     PrecisionContractError)
+                     ParameterMismatchError, PrecisionContractError)
 from .grid import Grid, Transform
 from .indexing import IndexPlan, build_index_plan
 from .multi import multi_transform_backward, multi_transform_forward
-from .parallel import (DistributedTransformPlan, make_distributed_plan,
-                       make_mesh)
+from .parallel import (DistributedTransformPlan,
+                       build_distributed_plan_multihost,
+                       initialize_multihost, make_distributed_plan,
+                       make_mesh, plan_fingerprint, validate_consistent)
 from .plan import TransformPlan, make_local_plan, predicted_rel_error
 from .types import (ExchangeType, IndexFormat, ProcessingUnit, Scaling,
                     TransformType)
 
 __all__ = [
-    "DeviceError", "DistributedTransformPlan", "DuplicateIndicesError",
+    "DeviceError", "DistributedError", "DistributedTransformPlan",
+    "DuplicateIndicesError",
     "ErrorCode", "ExchangeType", "GenericError", "Grid", "IndexFormat",
     "IndexPlan", "InvalidIndicesError", "InvalidParameterError",
-    "OverflowError_", "PrecisionContractError", "ProcessingUnit", "Scaling",
-    "Transform", "TransformPlan", "TransformType", "build_index_plan",
-    "make_distributed_plan", "make_local_plan", "make_mesh",
-    "multi_transform_backward", "multi_transform_forward",
-    "predicted_rel_error",
+    "OverflowError_", "ParameterMismatchError", "PrecisionContractError",
+    "ProcessingUnit", "Scaling",
+    "Transform", "TransformPlan", "TransformType",
+    "build_distributed_plan_multihost", "build_index_plan",
+    "initialize_multihost", "make_distributed_plan", "make_local_plan",
+    "make_mesh", "multi_transform_backward", "multi_transform_forward",
+    "plan_fingerprint", "predicted_rel_error", "validate_consistent",
 ]

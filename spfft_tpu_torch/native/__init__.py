@@ -1,5 +1,6 @@
-"""Build of the port's C ABI: ``libspfft_tpu_torch.so`` and the C
-programs that link it.
+"""Build of the port's native host code: the C ABI
+``libspfft_tpu_torch.so`` and the C programs that link it, and the index
+planner (:mod:`.planner`).
 
 :func:`build_capi` compiles ``capi.cpp`` (an embedded CPython that imports
 :mod:`spfft_tpu_torch.capi_bridge`) with ``g++`` into
@@ -77,7 +78,7 @@ def _build(cmd: list, out: Path, *deps: Path) -> None:
     if out.exists() and stamp.exists() and stamp.read_text() == line \
             and out.stat().st_mtime >= max(d.stat().st_mtime for d in deps):
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
         proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,

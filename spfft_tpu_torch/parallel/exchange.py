@@ -632,3 +632,361 @@ def compact_exchange(bufs: list, perms: list, wire, real_dtype) -> tuple:
     if len(out) == 1:
         return out[0]
     return tuple(torch.cat([o[i] for o in out], dim=-1) for i in range(2))
+
+
+# -- the moves over the ranks of a process group ------------------------------
+#
+# Over a ``torch.distributed`` group of P ranks (:mod:`.mesh`), rank r holds
+# the L = S / P shards ``[r * L, (r + 1) * L)`` and each move above becomes
+# a collective of the group with the same result on the rank's own shards:
+# the padded blocks one ``all_to_all_single`` (or, for the ring, P - 1 hops
+# of ``batch_isend_irecv``), the ragged schedule one ``all_to_all_single``
+# with the schedule's exact per-rank counts as split sizes, the op schedule
+# each op a ``batch_isend_irecv`` of its pairs. The payload moves in the
+# wire's dtype. Every move is issued asynchronously and returns a
+# :class:`Pending` whose :meth:`~Pending.wait` waits for it (on NCCL the
+# plan's stream then waits for the collective's) and assembles the result.
+
+#: the primitive each exchange kind runs over ranks
+RANK_PRIMITIVES = {"all_to_all": "all_to_all_single",
+                   "all_to_all_v": "all_to_all_single",
+                   "p2p_ring": "batch_isend_irecv",
+                   "p2p_ops": "batch_isend_irecv"}
+
+
+@dataclasses.dataclass(frozen=True)
+class RankComm:
+    """This rank's view of a plan's process group: the group, its size P,
+    this rank and the L shards each rank holds."""
+
+    group: object
+    size: int
+    rank: int
+    local: int
+
+    def peer(self, r: int) -> int:
+        """The global rank of the group's rank ``r`` (what ``P2POp``
+        takes)."""
+        import torch.distributed as dist
+        return dist.get_global_rank(self.group, r) \
+            if self.group is not None else r
+
+
+class Pending:
+    """A move in flight: ``works`` (collective handles) and ``finish``,
+    the function that assembles the result once they are done."""
+
+    def __init__(self, works: list, finish):
+        self._works = works
+        self._finish = finish
+
+    def wait(self):
+        for w in self._works:
+            w.wait()
+        return self._finish()
+
+
+def _rank_major(t: torch.Tensor, tail: int, size: int) -> torch.Tensor:
+    """``(..., L_src, S_dst, *tail)`` as ``(P, ..., L_src, S_dst / P,
+    *tail)``: the blocks for each destination rank first (a view)."""
+    nl = t.dim() - tail - 2
+    s = t.shape[nl + 1]
+    v = t.reshape(tuple(t.shape[:nl + 1]) + (size, s // size)
+                  + tuple(t.shape[nl + 2:]))
+    return v.movedim(nl + 1, 0)
+
+
+def _blocks_send(tensors: tuple, tail: int, comm: RankComm, wire):
+    """The send buffer of a block move: the tensors (one dtype after the
+    cast to ``wire`` where it is not None) rank-major and stacked, ``(P,
+    n, ..., L_src, L_dst, *tail)``, contiguous."""
+    return torch.stack([_rank_major(t if wire is None else t.to(wire), tail,
+                                    comm.size) for t in tensors], dim=1)
+
+
+def _blocks_finish(recv: torch.Tensor, n: int, tail: int, real_dtype):
+    """The received ``(P_src, n, ..., L_src, L_dst, *tail)`` buffer as n
+    tensors ``(..., L_dst, S_src, *tail)``, contiguous, of ``real_dtype``
+    where it is not None."""
+    out = []
+    for i in range(n):
+        r = recv[:, i]
+        nl = r.dim() - tail - 3
+        lead, lsrc, ldst = (tuple(r.shape[1:nl + 1]), r.shape[nl + 1],
+                            r.shape[nl + 2])
+        tl = tuple(r.shape[nl + 3:])
+        r = r.movedim(0, nl).movedim(nl + 2, nl)  # (lead, Ld, P, Ls, tail)
+        r = r.reshape(lead + (ldst, r.shape[nl + 1] * lsrc) + tl)
+        out.append(r.contiguous() if real_dtype is None
+                   else r.to(real_dtype).contiguous())
+    return out
+
+
+def rank_move_tensors(tensors: tuple, tail: int, comm: RankComm,
+                      wire=None, real_dtype=None, ring: bool = False
+                      ) -> Pending:
+    """The block exchange of :func:`all_to_all_blocks` over ranks: each
+    tensor ``(..., L_src, S_dst, *tail)`` on this rank -> ``(..., L_dst,
+    S_src, *tail)``, contiguous; the tensors (one dtype) move together,
+    cast to ``wire`` before the move and to ``real_dtype`` after it
+    where those are not None. One ``all_to_all_single``, or with ``ring``
+    the P - 1 hops of ``batch_isend_irecv`` (hop k: to rank ``r + k``,
+    from ``r - k``) and the local block copied."""
+    import torch.distributed as dist
+    send = _blocks_send(tensors, tail, comm, wire)
+    recv = torch.empty_like(send)
+    works = []
+    if not ring:
+        works.append(dist.all_to_all_single(recv, send, group=comm.group,
+                                            async_op=True))
+    else:
+        recv[comm.rank] = send[comm.rank]
+        for k in range(1, comm.size):
+            dst, src = (comm.rank + k) % comm.size, (comm.rank - k) % comm.size
+            works += dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send[dst], comm.peer(dst),
+                           comm.group),
+                dist.P2POp(dist.irecv, recv[src], comm.peer(src),
+                           comm.group)])
+    n = len(tensors)
+    return Pending(works, lambda: _blocks_finish(recv, n, tail, real_dtype))
+
+
+def rank_move_blocks(planes: tuple, wire, quant_axis: int, real_dtype,
+                     comm: RankComm, ring: bool = False) -> Pending:
+    """:func:`move_blocks` over ranks: the block pair ``(re, im)``, each
+    ``(..., L_src, S_dst, max_sticks, max_planes)``, -> ``(..., L_dst,
+    S_src, max_sticks, max_planes)`` of ``real_dtype``, on the wire
+    ``wire``; the int8 rung quantizes this rank's blocks, moves the
+    payload pair and the scales (two collectives) and dequantizes the
+    received ones."""
+    if wire != torch.int8:
+        return rank_move_tensors(planes, 2, comm, wire, real_dtype, ring)
+    lead = tuple(planes[0].shape[:-3])  # the batch and L_src
+    g = tuple(t.reshape((-1,) + tuple(t.shape[-3:])) for t in planes)
+    q_re, q_im, scales = wire_kernel.quantize(g, quant_axis)
+    q = rank_move_tensors(tuple(x.view(lead + tuple(x.shape[1:]))
+                                for x in (q_re, q_im)), 2, comm, ring=ring)
+    sc = rank_move_tensors((scales.view(lead + tuple(scales.shape[1:])),),
+                           1, comm, ring=ring)
+
+    def finish():
+        (q_re, q_im), (scales,) = q.wait(), sc.wait()
+        out = wire_kernel.dequantize(
+            tuple(x.view((-1,) + tuple(x.shape[-3:])) for x in (q_re, q_im)),
+            scales.view((-1,) + tuple(scales.shape[-2:])), quant_axis,
+            real_dtype)
+        return tuple(o.view(tuple(q_re.shape[:-3]) + tuple(o.shape[1:]))
+                     for o in out)
+
+    return Pending([], finish)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankRagged:
+    """One direction of a ragged schedule (or of one of its chunks) on
+    this rank: the JAX package's pack table composed with the order in
+    which the rank's send buffer goes to the ranks, and the unpack table
+    composed with where each slot lands in the received buffer.
+
+    ``send`` int32 ``(1, total_send)`` indexes the rank's L shards' flat
+    sources concatenated (shard ``j - r * L`` at ``(j - r * L) * n``):
+    for each destination rank q, for each of this rank's shards j, for
+    each of q's shards d, the ``counts[j, d]`` elements of shard j's send
+    buffer for d. ``in_splits`` / ``out_splits`` are the per-rank element
+    counts of ``all_to_all_single``; the received buffer holds, for each
+    source rank p, for each of p's shards j, for each of this rank's
+    shards d, those elements. ``place`` ``(L, recv_cap + 1)`` maps shard
+    d's receive slot (the JAX layout, and the sentinel ``recv_cap``) to
+    its position in the received buffer (sentinel ``total_recv``)."""
+
+    send: np.ndarray
+    in_splits: tuple
+    out_splits: tuple
+    place: np.ndarray
+
+    @property
+    def total_recv(self) -> int:
+        return int(sum(self.out_splits))
+
+
+def rank_ragged_direction(counts, input_offsets, output_offsets, pack,
+                          recv_cap: int, n_flat: int, size: int, rank: int
+                          ) -> RankRagged:
+    """:class:`RankRagged` of one direction from the JAX package's
+    tables: ``counts[j, d]`` the elements shard j sends shard d,
+    ``input_offsets[j, d]`` where they start in j's send buffer,
+    ``output_offsets[j, d]`` where they land in d's receive buffer, and
+    ``pack`` ``(S, send_cap)`` into each shard's flat source of ``n_flat``
+    elements; ``size`` ranks, this one ``rank``."""
+    counts = np.asarray(counts, np.int64)
+    io = np.asarray(input_offsets, np.int64)
+    oo = np.asarray(output_offsets, np.int64)
+    s = counts.shape[0]
+    loc = s // size
+    mine = range(rank * loc, (rank + 1) * loc)
+    send, in_splits = [], []
+    for q in range(size):
+        n = 0
+        for j in mine:
+            for d in range(q * loc, (q + 1) * loc):
+                c = int(counts[j, d])
+                if c:
+                    send.append((j - rank * loc) * n_flat
+                                + pack[j, io[j, d]:io[j, d] + c]
+                                .astype(np.int64))
+                    n += c
+        in_splits.append(n)
+    pos, out_splits, slots = 0, [], []
+    for p in range(size):
+        n = 0
+        for j in range(p * loc, (p + 1) * loc):
+            for d in mine:
+                c = int(counts[j, d])
+                if c:
+                    slots.append((d - rank * loc, oo[j, d], pos + n, c))
+                    n += c
+        out_splits.append(n)
+        pos += n
+    place = np.full((loc, recv_cap + 1), pos, np.int64)
+    for dl, o, start, c in slots:
+        place[dl, o:o + c] = start + np.arange(c)
+    send = np.concatenate(send) if send else np.zeros(0, np.int64)
+    return RankRagged(send=send.astype(np.int32)[None],
+                      in_splits=tuple(in_splits),
+                      out_splits=tuple(out_splits),
+                      place=place.astype(np.int32))
+
+
+def compose_unpack(unpack: np.ndarray, chunks: list, recv_caps: list
+                   ) -> np.ndarray:
+    """This rank's unpack table ``(L, m)`` (the JAX layout: positions in
+    the receive buffers of the chunks concatenated, sentinel their total)
+    as positions in the received buffers of the chunks concatenated
+    (sentinel their total): ``chunks`` the chunks' :class:`RankRagged`
+    of the direction, ``recv_caps`` their receive capacities."""
+    loc = unpack.shape[0]
+    total = sum(rr.total_recv for rr in chunks)
+    cat = np.full((loc, sum(recv_caps) + 1), total, np.int64)
+    at, base = 0, 0
+    for rr, cap in zip(chunks, recv_caps):
+        body = rr.place[:, :cap].astype(np.int64)
+        cat[:, at:at + cap] = np.where(body == rr.total_recv, total,
+                                       body + base)
+        at += cap
+        base += rr.total_recv
+    return np.take_along_axis(cat, np.asarray(unpack, np.int64), axis=1) \
+        .astype(np.int32)
+
+
+def _pair_views(buf: torch.Tensor) -> tuple:
+    """The ``(re, im)`` views ``(1, B, m)`` of an interleaved ``(m, B, 2)``
+    buffer, the gather kernel's sharded operand form."""
+    return tuple(buf[..., c].t().unsqueeze(0) for c in range(2))
+
+
+def rank_ragged_pack(src: tuple, send_table: torch.Tensor) -> torch.Tensor:
+    """This rank's send buffer of the ragged schedule: the gather kernel
+    reads it straight from the L shards' flat sources ``src`` (``(re,
+    im)``, each ``(B, L, n)``) in rank order (``send_table``,
+    :attr:`RankRagged.send` on the device) into one interleaved
+    ``(total_send, B, 2)`` buffer."""
+    b = src[0].shape[0]
+    flat = tuple(t.reshape(b, 1, -1).transpose(0, 1) for t in src)
+    m = send_table.shape[1]
+    buf = torch.empty((m, b, 2), dtype=src[0].dtype, device=src[0].device)
+    if m:
+        gather_kernel.gather(flat, send_table, _pair_views(buf))
+    return buf
+
+
+def rank_ragged_move(buf: torch.Tensor, rr: RankRagged, wire, real_dtype,
+                     comm: RankComm) -> Pending:
+    """One direction of the ragged schedule over ranks: the send buffer
+    of :func:`rank_ragged_pack` (cast to ``wire`` where it is not None)
+    moves with one ``all_to_all_single`` of the exact split sizes; the
+    result is the received ``(total_recv, B, 2)`` buffer of
+    ``real_dtype`` (:func:`rank_ragged_unpack` reads it)."""
+    import torch.distributed as dist
+    if wire is not None:
+        buf = buf.to(wire)
+    recv = buf.new_empty((rr.total_recv,) + tuple(buf.shape[1:]))
+    work = dist.all_to_all_single(recv, buf, list(rr.out_splits),
+                                  list(rr.in_splits), group=comm.group,
+                                  async_op=True)
+    return Pending([work], lambda: recv if wire is None
+                   else recv.to(real_dtype))
+
+
+def rank_ragged_unpack(recv: torch.Tensor, table: torch.Tensor) -> tuple:
+    """The unpack gather over the received buffer ``(total_recv, B, 2)``
+    (every local shard reads the same buffer, a shard stride of 0) through
+    this rank's composed table ``(L, m)`` -> ``(re, im)``, each ``(B, L,
+    m)`` contiguous."""
+    loc, m = table.shape
+    b = recv.shape[1]
+    out = tuple(torch.zeros((b, loc, m), dtype=recv.dtype,
+                            device=recv.device) for _ in range(2))
+    if recv.shape[0] and m:
+        src = tuple(v.expand(loc, b, recv.shape[0])
+                    for v in _pair_views(recv))
+        gather_kernel.gather(src, table, tuple(t.transpose(0, 1)
+                                               for t in out))
+    return out
+
+
+def rank_compact_move(bufs: list, pairs: list, wire, real_dtype,
+                      comm: RankComm, tag0: int = 0) -> Pending:
+    """:func:`compact_exchange` over ranks: ``bufs`` one ``(re, im)``
+    pair ``(B, L, Lo)`` per op (this rank's shards), ``pairs`` per op
+    None (a hop-0 op, or one without pairs) or its ``(src, dst)`` global
+    shard pairs in the direction of the move. A pair within this rank is
+    a copy; across ranks, each op is one ``batch_isend_irecv`` of its
+    pairs (the payload ``(2, B, Lo)`` in the wire's dtype), each pair its
+    own tag (a count over the ops' pairs, from ``tag0``, the same on every
+    rank). The result, once waited for, is the op buffers concatenated,
+    ``(B, L, sum Lo)`` each, as :func:`compact_exchange` returns them
+    (zeros where this rank's shard receives nothing)."""
+    import torch.distributed as dist
+    lo = comm.rank * comm.local
+    works, outs, recvs = [], [], []
+    tag = tag0
+    for pair, prs in zip(bufs, pairs):
+        if prs is None:
+            outs.append((pair, False))
+            continue
+        w = tuple(t if wire is None else t.to(wire) for t in pair)
+        o = tuple(torch.zeros_like(t) for t in w)
+        ops = []
+        for s, d in prs:
+            so, do = s // comm.local, d // comm.local
+            tag += 1
+            if so == comm.rank and do == comm.rank:
+                for a, b in zip(o, w):
+                    a[:, d - lo] = b[:, s - lo]
+            elif so == comm.rank:
+                ops.append(dist.P2POp(
+                    dist.isend, torch.stack([t[:, s - lo] for t in w]),
+                    comm.peer(do), comm.group, tag))
+            elif do == comm.rank:
+                r = torch.empty((2,) + tuple(w[0][:, 0].shape),
+                                dtype=w[0].dtype, device=w[0].device)
+                ops.append(dist.P2POp(dist.irecv, r, comm.peer(so),
+                                      comm.group, tag))
+                recvs.append((o, d - lo, r))
+        if ops:
+            works += dist.batch_isend_irecv(ops)
+        outs.append((o, wire is not None))
+
+    def finish():
+        for o, dl, r in recvs:
+            o[0][:, dl] = r[0]
+            o[1][:, dl] = r[1]
+        done = [tuple(t.to(real_dtype) for t in p) if cast else p
+                for p, cast in outs]
+        if len(done) == 1:
+            return done[0]
+        return tuple(torch.cat([p[i] for p in done], dim=-1)
+                     for i in range(2))
+
+    return Pending(works, finish)

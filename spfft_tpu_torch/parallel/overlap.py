@@ -10,7 +10,9 @@ transformed and unpacks once, late. The port runs its z and xy stages
 over all rows once (each stick's and plane's transform is independent of
 the chunking) and chunks the exchange only, in the same order: each
 chunk's pack and move issued early, one unpack late, on the plan's
-stream.
+stream. Over the ranks of a process group each chunk's collective is
+issued asynchronously in chunk order and waited on just before the
+unpack, so on NCCL chunk c moves while chunk c + 1 packs.
 
 Chunking axes (static slices of the padded per-shard layouts):
 
