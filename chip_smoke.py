@@ -5918,6 +5918,319 @@ def ranks_only(backend: str, world: int) -> int:
     return 0
 
 
+# -- faults, the control config, observability and the plan surface -----------
+
+#: one backward: the fused route's launches, and the two-kernel route's (a
+#: demoted backward), exactly
+_BWD_ZERO = {"zdft_compress": (0, 0), "prdft2": (0, 0), "pdft2_cr": (0, 0),
+             "pdft2_swapped": (0, 0), **NO_REAL_LAST}
+FUSED_BWD_LAUNCHES = {"decompress_zdft": ZFFT1,
+                      "pdft2": (1, 1, {"cluster": 1}), "gather": (0, 0),
+                      "pdft_last": (0, 0), **_BWD_ZERO}
+DEMOTED_BWD_LAUNCHES = {"decompress_zdft": (0, 0),
+                        "pdft2": (1, 1, {"cluster": 1}), "gather": (1, 1),
+                        "pdft_last": (1, 1, {"fft": 1}), **_BWD_ZERO}
+#: the build of ``estimated_device_bytes``'s bound: the growth of
+#: ``torch.cuda.memory_allocated()`` over a plan's construction lies
+#: within 1 % + 1 MiB of it (the allocator rounds each block up to 512
+#: bytes; a DFT table another plan made may be shared)
+EST_BYTES_REL, EST_BYTES_ABS = 0.01, 1 << 20
+#: the obs phases' records, printed as ``{"obs": ...}``
+OBS_ROWS = {}
+
+
+def demotions_total() -> float:
+    """``spfft_fused_demotions_total`` summed over its labels."""
+    from spfft_tpu_torch import obs
+    fam = obs.GLOBAL_COUNTERS.snapshot().get("spfft_fused_demotions_total")
+    return sum(fam["samples"].values()) if fam else 0.0
+
+
+def no_demotions(phase: str) -> None:
+    """Fail unless no fused kernel was demoted by ``phase``: a real
+    kernel failure must never hide behind the demotion ladder."""
+    k = demotions_total()
+    if k:
+        fail(f"{phase}: spfft_fused_demotions_total is {k}, expected 0 (a "
+             f"fused kernel failed and was demoted)")
+
+
+def obs_phase(sp, device, counters, n=N):
+    """Tracing (sample rate 1.0) and the recorder on; the 256^3 C2C plan
+    built and its counted pair run under them; the plan-build counter and
+    span, the Prometheus text (parsed) against a scrape of
+    ``MetricsServer`` on 127.0.0.1 port 0, a trace export, an incident
+    bundle that validates, and the 4-shard plan's ``exchange.plan_build``
+    span carrying its wire bytes. Then the pair's ms per call with obs
+    off and on, and ``overhead_probe``'s disabled path. Returns the
+    plan, its set and values for the next phases."""
+    import urllib.request
+    from pathlib import Path
+
+    from spfft_tpu_torch import obs
+    out = Path(__file__).resolve().parent / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    obs.GLOBAL_COUNTERS.reset()
+    obs.GLOBAL_TRACER.reset()
+    obs.reset_recorder()
+    obs.enable()
+    obs.GLOBAL_TRACER.set_sample_rate(1.0)
+    obs.enable_recorder(incident_dir=str(out / "incidents"), auto=False)
+    plan, trip, values = main_path_plan(sp, n, device)
+    if obs.GLOBAL_COUNTERS.get("spfft_plan_builds_total", kind="local") != 1:
+        fail("obs: the plan's build was not counted once")
+    spans = [e for e in obs.GLOBAL_TRACER.events()
+             if getattr(e, "name", "") == "compile.plan_build"]
+    if len(spans) != 1 or spans[0].args.get("dims") != f"{n}x{n}x{n}":
+        fail(f"obs: expected one compile.plan_build span of {n}^3, got "
+             f"{[s.args for s in spans]}")
+    full = sp.Scaling.FULL
+    pair_phase(sp, "c2c obs", plan, values,
+               c2c_oracle_rel(plan, trip, values, device), device, counters,
+               C2C_LAUNCHES)
+    text = obs.prometheus_text()
+    parsed = obs.parse_prometheus_text(text)
+    with obs.MetricsServer(port=0) as srv:
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+            scraped = obs.parse_prometheus_text(r.read().decode())
+    if scraped != parsed:
+        fail("obs: the /metrics scrape differs from prometheus_text()")
+    payload = obs.export_trace(str(out / "trace.json"))
+    with open(out / "trace.json") as f:
+        back = json.load(f)
+    names = {e.get("name") for e in back["traceEvents"]}
+    if back != json.loads(json.dumps(payload)) \
+            or "compile.plan_build" not in names:
+        fail("obs: the exported trace is not the tracer's")
+    bundle = obs.build_incident_bundle("manual:chip_smoke")
+    bad = obs.validate_bundle(bundle)
+    if bad:
+        fail(f"obs: the incident bundle does not validate: {bad}")
+    dplan, _ = dist_plan(sp, n, trip, values, device)
+    ex = [e for e in obs.GLOBAL_TRACER.events()
+          if getattr(e, "name", "") == "exchange.plan_build"]
+    if not ex or ex[-1].args["wire_bytes"] != dplan.exchange_wire_bytes():
+        fail(f"obs: exchange.plan_build does not carry the 4-shard plan's "
+             f"exchange_wire_bytes {dplan.exchange_wire_bytes()}")
+    del dplan
+    on_ms = timed_ms(lambda: plan.forward(plan.backward(values), full),
+                     device)
+    obs.disable_recorder()
+    obs.disable()
+    off_ms = timed_ms(lambda: plan.forward(plan.backward(values), full),
+                      device)
+    obs.enable()
+    obs.enable_recorder(incident_dir=str(out / "incidents"), auto=False)
+    on_ms2 = timed_ms(lambda: plan.forward(plan.backward(values), full),
+                      device)
+    obs.disable_recorder()
+    obs.disable()
+    probe = obs.overhead_probe()
+    OBS_ROWS.update({
+        "card": CARD, "pair_ms_obs_off": off_ms,
+        "pair_ms_obs_on": [on_ms, on_ms2],
+        "overhead_probe_off_us": probe["off_us"],
+        "overhead_probe_on_us": probe["on_us"],
+        "prometheus_series": len(parsed),
+        "trace_events": len(back["traceEvents"]),
+        "bundle_events": len(bundle["events"])})
+    print(f"obs phase: {n}^3 C2C pair {off_ms:.4f} ms/call obs off, "
+          f"{on_ms:.4f} / {on_ms2:.4f} ms/call tracing + recorder on; "
+          f"overhead_probe {probe['off_us']:.4f} us/request off, "
+          f"{probe['on_us']:.4f} on; {len(parsed)} Prometheus series, the "
+          f"scrape equal; trace and bundle valid ({CARD})", flush=True)
+    return plan, trip, values
+
+
+def faults_phase(sp, plan, trip, values, device, counters, n=N):
+    """The demotion ladder on the card: ``kernel.launch@1`` demotes the
+    backward (``dec``) to the two-kernel route's kernels (a gather and a
+    ``pdft_last``, no fused z kernel), bit for bit a ``fused=False``
+    plan's backward; after ``FUSED_REPROBE_AFTER`` calls the re-probe
+    launches the fused kernel and readmits; ``kernel.launch@*`` ends
+    permanent; ``exchange.quantize@1`` declines the 4-shard plan's int8
+    rung. The counters are reset after: every other phase must leave
+    ``spfft_fused_demotions_total`` at 0."""
+    from spfft_tpu_torch import faults, obs
+    no_demotions("the phases before the fault phase")
+    after = plan.FUSED_REPROBE_AFTER
+    plan = sp.TransformPlan(plan.index_plan, device=device)
+    ref = sp.TransformPlan(plan.index_plan, device=device, fused=False)
+    want = ref.backward(values)
+    fused_want = plan.backward(values)
+    reset_launches(counters)
+    faults.arm(faults.FaultPlan(script="kernel.launch@1"))
+    try:
+        got = plan.backward(values)
+    finally:
+        faults.disarm()
+    read_launches("fault kernel.launch@1 backward", counters,
+                  DEMOTED_BWD_LAUNCHES)
+    if not torch.equal(got, want):
+        fail("faults: the demoted backward differs from the two-kernel "
+             "plan's")
+    dem = plan.fused_demotions()
+    if set(dem) != {"dec"} or "InjectedFault" not in dem["dec"]["reason"]:
+        fail(f"faults: expected dec demoted, got {dem}")
+    for _ in range(after - 1):
+        plan.backward(values)
+    rec = plan.fused_demotions()["dec"]
+    if rec["unfused_ok"] != after - 1 or rec["probing"]:
+        fail(f"faults: after {after - 1} demoted calls: {rec}")
+    plan.backward(values)
+    if not plan.fused_demotions()["dec"]["probing"]:
+        fail("faults: the re-probe is not armed after "
+             f"{after} demoted calls")
+    reset_launches(counters)
+    got = plan.backward(values)
+    read_launches("fault re-probe backward", counters, FUSED_BWD_LAUNCHES)
+    if plan.fused_demotions() != {} or not torch.equal(got, fused_want):
+        fail("faults: the re-probe did not readmit the fused kernel")
+    c = obs.GLOBAL_COUNTERS
+    seq = (c.get("spfft_fused_demotions_total", which="dec"),
+           c.get("spfft_fused_reprobes_total", which="dec",
+                 outcome="readmitted"))
+    if seq != (1, 1):
+        fail(f"faults: demotions / readmissions {seq}, expected (1, 1)")
+    faults.arm(faults.FaultPlan(script="kernel.launch@*"))
+    try:
+        for _ in range(1 + plan.FUSED_REPROBE_MAX * (after + 1)):
+            if not torch.equal(plan.backward(values), want):
+                fail("faults: a demoted backward differs from the "
+                     "two-kernel plan's")
+    finally:
+        faults.disarm()
+    rec = plan.fused_demotions()["dec"]
+    if not rec["permanent"] or rec["probes"] != plan.FUSED_REPROBE_MAX:
+        fail(f"faults: kernel.launch@* did not end permanent: {rec}")
+    demoted = demotions_total()
+    from spfft_tpu_torch.utils.workloads import (even_plane_split,
+                                                 round_robin_stick_partition)
+    parts = round_robin_stick_partition(trip, (n, n, n), _S)
+    faults.arm(faults.FaultPlan(script="exchange.quantize@1"))
+    try:
+        dplan = sp.make_distributed_plan(
+            sp.TransformType.C2C, n, n, n, parts, even_plane_split(n, _S),
+            mesh=sp.make_mesh(_S, device), wire_precision=3,
+            exchange=sp.ExchangeType.BUFFERED)
+    finally:
+        faults.disarm()
+    if dplan.wire_declines[:1] != (("int8", "fault_injected"),) \
+            or dplan.wire_rung_name != "bf16":
+        fail(f"faults: exchange.quantize@1 resolved {dplan.wire_rung_name} "
+             f"with declines {dplan.wire_declines}, expected int8 "
+             f"fault_injected then bf16")
+    if c.get("spfft_wire_rung_declined_total", reason="fault_injected") != 1:
+        fail("faults: the int8 decline was not counted")
+    OBS_ROWS["faults"] = {"demotions": demoted,
+                          "wire_declines": [list(d) for d in
+                                            dplan.wire_declines],
+                          "wire_rung": dplan.wire_rung_name}
+    print(f"faults phase: kernel.launch@1 demoted dec to the two-kernel "
+          f"route (bit for bit), re-probe after {after} calls readmitted, "
+          f"kernel.launch@* permanent after {plan.FUSED_REPROBE_MAX} probes "
+          f"({demoted:.0f} demotions); exchange.quantize@1 declined int8 "
+          f"(fault_injected) to {dplan.wire_rung_name}", flush=True)
+    del dplan, plan, ref
+    c.reset()
+
+
+def surface_phase(sp, plan, values, device, n=N):
+    """The local plan surface on the card: ``export_tables`` ->
+    ``restore_plan`` bit for bit, with the construction's host seconds
+    built and restored; ``estimated_device_bytes()`` beside the growth of
+    ``torch.cuda.memory_allocated()`` over a construction (within
+    ``EST_BYTES_REL`` + ``EST_BYTES_ABS``); ``donate_inputs=True`` round
+    trips bit for bit the non-donating plan's, written into the values
+    tensor, with each one's peak memory; ``device=cuda:0`` on the four
+    entries bit for bit the default; ``max_rel_error`` below the
+    prediction raising ``PrecisionContractError`` in single and double."""
+    full = sp.Scaling.FULL
+    ip = plan.index_plan
+    card = device.type == "cuda"  # memory statistics: the card's only
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def allocated():
+        return torch.cuda.memory_allocated(device) if card else 0
+
+    sync()
+    m0 = allocated()
+    t0 = time.perf_counter()
+    built = sp.TransformPlan(ip, device=device)
+    sync()
+    built_s = time.perf_counter() - t0
+    grown = allocated() - m0
+    est = built.estimated_device_bytes()
+    if card and abs(grown - est) > EST_BYTES_REL * est + EST_BYTES_ABS:
+        fail(f"surface: estimated_device_bytes {est} vs memory growth "
+             f"{grown} over the construction")
+    tables = built.export_tables()
+    t0 = time.perf_counter()
+    back = sp.restore_plan(ip, tables, device=device)
+    sync()
+    restored_s = time.perf_counter() - t0
+    a, b = built.backward(values), back.backward(values)
+    if not (torch.equal(a, b) and torch.equal(built.forward(a, full),
+                                              back.forward(b, full))):
+        fail("surface: the restored plan's pair differs from the original's")
+    dev0 = torch.device("cuda:0") if card else device
+    batch = torch.stack([values, values])
+    if not (torch.equal(built.backward(values, device=dev0), a)
+            and torch.equal(built.forward(a, full, device=dev0),
+                            built.forward(a, full))
+            and torch.equal(built.backward_batched(batch, device=dev0),
+                            built.backward_batched(batch))
+            and torch.equal(built.forward_batched(
+                torch.stack([a, a]), full, device=dev0),
+                built.forward_batched(torch.stack([a, a]), full))):
+        fail("surface: device=cuda:0 differs from the default placement")
+    give = sp.TransformPlan(ip, device=device, donate_inputs=True)
+    peaks = {}
+    for name, p in (("keep", built), ("donate", give)):
+        v = values.clone()
+        sync()
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        base = allocated()
+        out = p.apply_pointwise(v, scaling=full)
+        sync()
+        peaks[name] = (torch.cuda.max_memory_allocated(device) if card
+                       else 0) - base
+        if name == "donate" and out.data_ptr() != v.data_ptr():
+            fail("surface: the donating round trip did not write into the "
+                 "values tensor")
+        peaks[name + "_out"] = out
+        it = p.iterate_pointwise(values.clone(), None, steps=3)
+        peaks[name + "_it"] = it
+    if not (torch.equal(peaks.pop("keep_out"), peaks.pop("donate_out"))
+            and torch.equal(peaks.pop("keep_it"), peaks.pop("donate_it"))):
+        fail("surface: donate_inputs changed a round trip's result")
+    for precision in ("single", "double"):
+        pred = sp.predicted_rel_error(precision, n)
+        try:
+            sp.TransformPlan(ip, precision=precision, device=device,
+                             max_rel_error=pred / 2)
+        except sp.PrecisionContractError:
+            pass
+        else:
+            fail(f"surface: max_rel_error below the {precision} prediction "
+                 f"{pred:.3g} did not raise")
+    OBS_ROWS["surface"] = {"card": CARD, "built_s": built_s,
+                           "restored_s": restored_s,
+                           "estimated_device_bytes": est,
+                           "memory_growth_bytes": grown,
+                           "pointwise_peak_bytes": peaks}
+    print(f"surface phase: export_tables -> restore_plan bit for bit; "
+          f"construction {built_s:.4f} s built, {restored_s:.4f} s restored "
+          f"(host); estimated_device_bytes {est} vs memory growth {grown}; "
+          f"apply_pointwise peak {peaks['keep']} bytes, {peaks['donate']} "
+          f"donating (bit for bit); device=cuda:0 equal on four entries; "
+          f"max_rel_error raises in single and double ({CARD})", flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
@@ -5973,11 +6286,21 @@ def main() -> int:
     recs, sweep = run(device)
     print(f"256^3 paths, odd shapes and double: "
           f"{time.perf_counter() - t_run:.1f} s ({card})", flush=True)
+    no_demotions("the 256^3 paths")
+    t_obs = time.perf_counter()
+    plan, trip, values = obs_phase(sp, device, launch_counters())
+    faults_phase(sp, plan, trip, values, device, launch_counters())
+    surface_phase(sp, plan, values, device)
+    del plan, trip, values
+    no_demotions("the obs and surface phases")
+    print(f"obs, faults and plan surface: {time.perf_counter() - t_obs:.1f} "
+          f"s ({card})", flush=True)
     torch.cuda.empty_cache()
     t_ranks = time.perf_counter()
     ranks = ranks_phase(sp, device)
     print(f"ranks phase: {time.perf_counter() - t_ranks:.1f} s ({card})",
           flush=True)
+    no_demotions("the ranks phase")
     t_long = time.perf_counter()
     recs += long_axes_phase(sp, device, launch_counters())
     for dtype in (torch.float32, torch.float64):
@@ -5986,6 +6309,7 @@ def main() -> int:
     recs += long_f64_records(device)
     print(f"long-axis phases: {time.perf_counter() - t_long:.1f} s "
           f"({card})", flush=True)
+    no_demotions("the long-axis phases")
     t_len = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         recs += radix_records(device, dtype)
@@ -5999,13 +6323,16 @@ def main() -> int:
     print(f"lengths up to 512 (radix 7 and 11, Bluestein, the {MATRIX_N}^3 "
           f"and {R2C375_N}^3 paths): {time.perf_counter() - t_len:.1f} s "
           f"({card})", flush=True)
+    no_demotions("the lengths up to 512")
     t_cli = time.perf_counter()
     bench = benchmark_phase(card)
     print(f"benchmark CLI: {time.perf_counter() - t_cli:.1f} s ({card})",
           flush=True)
+    no_demotions("the benchmark CLI")
     t_cli = time.perf_counter()
     capi = capi_phase(sp, device, launch_counters(), card)
     print(f"C ABI: {time.perf_counter() - t_cli:.1f} s ({card})", flush=True)
+    no_demotions("the C ABI")
     print(json.dumps({"batched_sweep": sweep}), flush=True)
     print(json.dumps({"dist_batched_sweep": DIST_SWEEP}), flush=True)
     print(json.dumps({"exchange": EXCHANGE_ROWS}), flush=True)
@@ -6015,6 +6342,7 @@ def main() -> int:
     print(json.dumps({"ranks": ranks}), flush=True)
     print(json.dumps({"matrix_length": matrix}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
+    print(json.dumps({"obs": OBS_ROWS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

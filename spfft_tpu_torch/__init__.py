@@ -35,6 +35,15 @@ ranks of a ``torch.distributed`` process group (one process per GPU:
 Pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
 on the host.
 
+The plans are observed and fault-injectable as the JAX package's are:
+``spfft_tpu_torch.obs`` (counters, spans, the Prometheus text, the
+``MetricsServer`` scrape endpoint, the flight recorder's journal and
+incident bundles), ``spfft_tpu_torch.faults`` (``FaultPlan`` scripts at
+the JAX package's seams, the fused kernels' runtime demotion ladder) and
+``spfft_tpu_torch.control.config`` (``ServeConfig``, the knobs the
+distributed plan reads its defaults from). A local plan's tables export
+as ``PlanTables`` and restore with ``restore_plan``.
+
 C and Fortran programs reach the same plans through the drop-in C ABI
 ``libspfft_tpu_torch.so`` (``include/spfft_tpu_torch.h``, the symbols of
 the JAX package's ``include/spfft_tpu.h``), built by
@@ -42,31 +51,47 @@ the JAX package's ``include/spfft_tpu.h``), built by
 ``spfft_tpu_torch.capi_bridge``.
 """
 
-from .errors import (DeviceError, DistributedError, DuplicateIndicesError,
-                     ErrorCode, GenericError, InvalidIndicesError,
+from . import obs, timing
+from .errors import (AllocationError, DeadlineExpiredError, DeviceAllocationError,
+                     DeviceError, DeviceFFTError, DeviceSupportError,
+                     DistributedError, DistributedSupportError,
+                     DuplicateIndicesError, ErrorCode, FFTError, GenericError,
+                     HostExecutionError, InternalError, InvalidIndicesError,
                      InvalidParameterError, OverflowError_,
-                     ParameterMismatchError, PrecisionContractError)
+                     ParameterMismatchError, PrecisionContractError,
+                     QueueFullError, ServeError)
 from .grid import Grid, Transform
-from .indexing import IndexPlan, build_index_plan
+from .indexing import IndexPlan, build_index_plan, check_stick_duplicates
 from .multi import multi_transform_backward, multi_transform_forward
-from .parallel import (DistributedTransformPlan,
+from .parallel import (DistributedIndexPlan, DistributedTransformPlan,
+                       build_distributed_plan,
                        build_distributed_plan_multihost,
                        initialize_multihost, make_distributed_plan,
                        make_mesh, plan_fingerprint, validate_consistent)
-from .plan import TransformPlan, make_local_plan, predicted_rel_error
+from .plan import (PlanTables, TransformPlan, make_local_plan,
+                   predicted_rel_error, restore_plan)
 from .types import (ExchangeType, IndexFormat, ProcessingUnit, Scaling,
                     TransformType)
 
 __all__ = [
-    "DeviceError", "DistributedError", "DistributedTransformPlan",
-    "DuplicateIndicesError",
-    "ErrorCode", "ExchangeType", "GenericError", "Grid", "IndexFormat",
-    "IndexPlan", "InvalidIndicesError", "InvalidParameterError",
-    "OverflowError_", "ParameterMismatchError", "PrecisionContractError",
-    "ProcessingUnit", "Scaling",
-    "Transform", "TransformPlan", "TransformType",
-    "build_distributed_plan_multihost", "build_index_plan",
-    "initialize_multihost", "make_distributed_plan", "make_local_plan",
-    "make_mesh", "multi_transform_backward", "multi_transform_forward",
-    "plan_fingerprint", "predicted_rel_error", "validate_consistent",
+    "ErrorCode", "GenericError", "AllocationError", "OverflowError_",
+    "InvalidParameterError",
+    "DuplicateIndicesError", "InvalidIndicesError", "DistributedSupportError",
+    "DistributedError", "ParameterMismatchError", "HostExecutionError",
+    "FFTError", "InternalError", "DeviceError", "DeviceSupportError",
+    "DeviceAllocationError", "DeviceFFTError",
+    "ServeError", "QueueFullError", "DeadlineExpiredError",
+    "ExchangeType", "ProcessingUnit", "IndexFormat", "TransformType",
+    "Scaling",
+    "IndexPlan", "build_index_plan", "check_stick_duplicates",
+    "TransformPlan", "make_local_plan", "predicted_rel_error",
+    "PlanTables", "restore_plan",
+    "PrecisionContractError",
+    "DistributedIndexPlan", "DistributedTransformPlan",
+    "build_distributed_plan", "build_distributed_plan_multihost",
+    "initialize_multihost", "make_distributed_plan", "make_mesh",
+    "plan_fingerprint", "validate_consistent",
+    "Grid", "Transform",
+    "multi_transform_backward", "multi_transform_forward",
+    "timing", "obs",
 ]

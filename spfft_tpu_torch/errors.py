@@ -251,6 +251,18 @@ class DeviceError(GenericError):
     code = ErrorCode.DEVICE
 
 
+class KernelBuildError(DeviceError):
+    """A CUDA kernel that does not build or load (``nvcc`` missing,
+    failing or running past its time limit, a library that does not load
+    or lacks an entry).
+    The code is at fault, not the card: ``device_attributed = False``,
+    so the fused kernels' runtime demotion ladder re-raises it instead of
+    demoting, and it is permanent."""
+
+    transient = False
+    device_attributed = False
+
+
 class DeviceSupportError(DeviceError):
     """Device execution requested but no accelerator is available
     (reference: exceptions.hpp:193-204)."""

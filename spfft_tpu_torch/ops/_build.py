@@ -6,7 +6,14 @@ shared library with a plain C interface, which is loaded with
 to ``build/torch_kernels/`` beside the package, named by a digest of
 the sources and flags, so an edited source never loads a stale library.
 A build happens at the first use of a kernel in a process, or all at
-once through :func:`build`.
+once through :func:`build`. Each ``nvcc`` run is the package's one
+compile: it is recorded as ``obs.record_compile("kernel_build", ...)``
+(``spfft_compile_events_total{kind="kernel_build"}`` and its seconds,
+and a ``compile.kernel_build`` span when tracing is on). A build that
+fails in any way (``nvcc`` missing, failing or running past
+:data:`BUILD_TIMEOUT_S`, a library that does not load, an entry it lacks)
+raises :class:`~spfft_tpu_torch.errors.KernelBuildError` with the cause
+chained, which is not charged to the device.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises :class:`~spfft_tpu_torch.errors.DeviceError` when
@@ -33,7 +40,8 @@ from pathlib import Path
 
 import torch
 
-from ..errors import DeviceError, InvalidParameterError
+from .. import obs
+from ..errors import DeviceError, InvalidParameterError, KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -58,7 +66,7 @@ build_log = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise DeviceError(
+        raise KernelBuildError(
             "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
             "kernels of spfft_tpu_torch build from source at first use")
     return path
@@ -80,7 +88,19 @@ def build(names=SOURCES) -> dict:
     """Compile the named sources that have no up-to-date library yet,
     all ``nvcc`` processes at once, and load every named library with its
     build's log (:data:`build_log`). Returns ``{name: seconds}`` for the
-    sources compiled by this call."""
+    sources compiled by this call. Any failure raises
+    :class:`~spfft_tpu_torch.errors.KernelBuildError`."""
+    try:
+        return _build_locked(tuple(names))
+    except KernelBuildError:
+        raise
+    except Exception as exc:
+        raise KernelBuildError(
+            f"building or loading the kernels of {', '.join(names)} "
+            f"failed: {type(exc).__name__}: {exc}") from exc
+
+
+def _build_locked(names) -> dict:
     with _lock:
         todo = [n for n in names if n not in _libs]
         out = {n: _library_path(n) for n in todo}
@@ -97,10 +117,20 @@ def build(names=SOURCES) -> dict:
                     text=True), tmp, time.perf_counter())
             seconds = {}
             for n, (proc, tmp, t0) in procs.items():
-                log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+                try:
+                    log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+                except subprocess.TimeoutExpired as exc:
+                    obs.record_compile("kernel_build",
+                                       time.perf_counter() - t0, t0,
+                                       source=n, failed=True)
+                    raise KernelBuildError(
+                        f"nvcc on csrc/{n} ran past {BUILD_TIMEOUT_S} s"
+                    ) from exc
                 seconds[n] = time.perf_counter() - t0
+                obs.record_compile("kernel_build", seconds[n], t0, source=n,
+                                   failed=proc.returncode != 0)
                 if proc.returncode != 0:
-                    raise DeviceError(
+                    raise KernelBuildError(
                         f"nvcc failed on csrc/{n} (exit {proc.returncode}):"
                         f"\n{log[-4000:]}")
                 # the log first: a library on disk always has its log
@@ -123,9 +153,15 @@ def build(names=SOURCES) -> dict:
 
 def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of ``source``'s library (built on first
-    use), typed with ``argtypes`` and returning the CUDA error code."""
+    use), typed with ``argtypes`` and returning the CUDA error code;
+    raises :class:`~spfft_tpu_torch.errors.KernelBuildError` when the
+    library does not build or load or lacks the entry."""
     build((source,))
-    fn = getattr(_libs[source], symbol)
+    try:
+        fn = getattr(_libs[source], symbol)
+    except AttributeError as exc:
+        raise KernelBuildError(
+            f"the library of csrc/{source} has no entry {symbol}") from exc
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -43,10 +43,12 @@ by form.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..errors import InvalidParameterError
 from . import _build, dft, dft_kernel, stages
 
@@ -100,6 +102,57 @@ def _require_eligible(dim_z: int, name: str) -> None:
         raise InvalidParameterError(
             f"{name}: the fused kernels decline dim_z={dim_z} ({why}: above "
             f"{MAX_DIM_Z}); a plan takes the two-kernel route there")
+
+
+class SeamKeys:
+    """The executables whose trace-time seams have passed: a set of keys
+    (:func:`trace_seam`). A callable in a key (a round trip's ``fn``) is
+    held weakly where it can be, so a key of a dropped callable leaves the
+    set and pins nothing the callable captured. The JAX package's jit
+    cache holds its ``fn`` for the plan's lifetime; here a fresh callable
+    per call still consults the seams afresh, as a fresh one recompiles
+    there, but the set does not grow."""
+
+    def __init__(self):
+        self._keys = set()
+
+    @staticmethod
+    def _held(part, callback=None):
+        if callable(part):
+            try:
+                return weakref.ref(part, callback)
+            except TypeError:  # a builtin: no weak reference, lives on
+                pass
+        return part
+
+    def __contains__(self, key) -> bool:
+        return tuple(self._held(p) for p in key) in self._keys
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def add(self, key) -> None:
+        self._keys.add(tuple(self._held(p, self._drop) for p in key))
+
+    def _drop(self, ref) -> None:
+        self._keys = {k for k in self._keys if not any(p is ref for p in k)}
+
+    def keep(self, pred) -> None:
+        """Keep only the keys ``pred`` accepts."""
+        self._keys = {k for k in self._keys if pred(k)}
+
+
+def trace_seam(seen: SeamKeys, key) -> None:
+    """The ``kernel.launch`` fault seam of the JAX package's fused kernels
+    (``spfft_tpu/ops/fused_kernel.py:520``, ``:719``), which fires at
+    trace time, once per compiled executable: here, on the first call of
+    ``key`` (a plan's name for the executable the JAX package's jit
+    caches would compile: entry, direction, scaling, batch), recorded in
+    ``seen`` once the check has passed (a firing check leaves the key
+    unseen, as a failed trace leaves no executable)."""
+    if key not in seen:
+        faults.check_site("kernel.launch")
+        seen.add(key)
 
 
 def z_form(mats, dim_z: int) -> str:
@@ -276,7 +329,7 @@ def zdft_compress_plain(sr, si, mats, csr, pair: bool):
 
 
 def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
-                  pair: bool = False):
+                  pair: bool = False, out: torch.Tensor = None):
     """Raw planar sticks ``(B?, num_sticks, dim_z)`` -> z-DFT -> the
     sparse values, ``(B?, N, 2)`` (``(B?, 2, N)`` with ``pair``) of the
     sticks' real type (float32 or float64, the matrices' too).
@@ -284,7 +337,9 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     ``mats`` is the forward z pair, any FULL scale folded into its
     matrices and carried as its ``scale``; ``csr`` is
     :func:`compress_csr`'s ``(stick_ptr, val_id, val_z)`` as int32
-    tensors. Each value is written exactly once. Each kernel launch (one
+    tensors. Each value is written exactly once, into ``out`` where it
+    is given (a contiguous tensor of the result's shape and type, which
+    is returned: a plan's donated values). Each kernel launch (one
     per call, whatever B is) adds one to ``zdft_compress.launches`` and to
     its :func:`z_form`'s count in ``zdft_compress.form_launches``."""
     if sr.dim() not in (2, 3):
@@ -307,9 +362,14 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
     _build.require(val_id, "zdft_compress val_id", torch.int32, (n,), dev)
     _build.require(val_z, "zdft_compress val_z", torch.int32, (n,), dev)
     batch = _batch(lead, "zdft_compress")
+    shape = lead + _values_shape(n, pair)
+    if out is not None:
+        _build.require(out, "zdft_compress out", dtype, shape, dev)
     if not _build.on_cuda(sr, "zdft_compress"):
-        return zdft_compress_plain(sr, si, mats, csr, pair)
-    out = torch.empty(lead + _values_shape(n, pair), dtype=dtype, device=dev)
+        res = zdft_compress_plain(sr, si, mats, csr, pair)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=dev)
     if num_sticks == 0 or batch == 0:
         return out
     if form == "fft":

@@ -289,10 +289,11 @@ def compress_plain(sr: torch.Tensor, si: torch.Tensor,
 
 
 def compress(sr: torch.Tensor, si: torch.Tensor, value_indices: torch.Tensor,
-             pair: bool = False) -> torch.Tensor:
+             pair: bool = False, out: torch.Tensor = None) -> torch.Tensor:
     """Planar sticks ``(B?, S, dim_z)`` -> the sparse values at the flat
     slots ``value_indices`` (int32), ``(B?, N, 2)`` (``(B?, 2, N)`` with
-    ``pair``) of the sticks' real type."""
+    ``pair``) of the sticks' real type, written into ``out`` where given
+    (a contiguous tensor of that shape and type, which is returned)."""
     if sr.dim() not in (2, 3):
         raise InvalidParameterError(
             f"compress: expected (B?, S, dim_z) sticks, got "
@@ -302,8 +303,11 @@ def compress(sr: torch.Tensor, si: torch.Tensor, value_indices: torch.Tensor,
         _build.require(t, "compress sticks", dtype, sr.shape)
     batch = sr.shape[0] if sr.dim() == 3 else None
     flat = (1 if batch is None else batch, sr.shape[-2] * sr.shape[-1])
-    out = torch.empty(values_shape(batch, value_indices.numel(), pair),
-                      dtype=dtype, device=sr.device)
+    shape = values_shape(batch, value_indices.numel(), pair)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=sr.device)
+    else:
+        _build.require(out, "compress out", dtype, shape, sr.device)
     gather((sr.view(flat), si.view(flat)), value_indices,
            value_planes(out, pair))
     return out

@@ -76,21 +76,38 @@ runs through the local :class:`~spfft_tpu_torch.plan.TransformPlan` (the
 reference treats a size-1 communicator as local, grid_internal.cpp:182),
 keeping the stacked API.
 
-The knobs' defaults are the JAX package's control-plane defaults
-(``overlap_chunks`` 1, ``wire_precision`` 0, ``wire_error_budget`` 0.01),
-read from the environment variables of the same names as the JAX
-package's where set.
+The knobs ``overlap_chunks``, ``wire_precision`` and
+``wire_error_budget``: the caller's argument, else the environment
+variable of the JAX package's name, else the process-global config's
+knob (``control.config.global_config()``, whose defaults are 1, 0 and
+0.01), as the JAX package resolves them (``dist.py:252``, ``:473-482``).
+
+Faults and observability, at the JAX package's places: the int8 rung's
+probe consults the ``exchange.quantize`` seam (a firing check declines
+the rung, reason ``fault_injected``); the first call of each executable
+the JAX package would compile consults ``exchange.pack``,
+``exchange.collective`` and ``exchange.unpack`` (``exchange.chunk`` and
+``exchange.pack`` per chunk with ``overlap_chunks`` K > 1) in the order
+its traced body reaches them, on one device and over ranks alike;
+construction records ``record_plan_build``, ``record_exchange_plan``
+(wire and per-chunk bytes, the ``exchange.plan_build`` span, the
+``spfft_wire_rung`` gauge), the ``wire.decline`` / ``wire.resolve``
+events and each fused decline (``dist_fused_*`` stages).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import faults, obs
+from ..control.config import global_config
 from ..errors import (DistributedError, InvalidParameterError,
                       ParameterMismatchError)
 from ..indexing import (build_index_plan, check_stick_duplicates,
@@ -102,7 +119,7 @@ from ..types import ExchangeType, Scaling, TransformType
 from ..utils.dtypes import as_interleaved, real_dtype, torch_real_dtype
 from .exchange import (RANK_PRIMITIVES, RankComm, build_compact_schedule,
                        build_ragged_schedule, compact_exchange,
-                       compose_unpack, gather_planes, move_blocks,
+                       compose_unpack, dense, gather_planes, move_blocks,
                        pack_freq_to_blocks, pack_space_to_blocks,
                        ragged_exchange, rank_compact_move, rank_move_blocks,
                        rank_ragged_direction, rank_ragged_move,
@@ -125,13 +142,6 @@ WIRE_ERROR_BUDGET_ENV = "SPFFT_TPU_WIRE_ERROR_BUDGET"
 #: ``"1"`` selects the exact-size op schedule for ``COMPACT_BUFFERED``
 #: at S > 1 instead of the one-collective ragged schedule
 COMPACT_PPERMUTE_ENV = "SPFFT_TPU_COMPACT_PPERMUTE"
-#: the knobs' defaults where neither the caller nor the environment sets
-#: them: the JAX package's (``spfft_tpu/control/config.py``: the
-#: ``overlap_chunks``, ``wire_precision`` and ``wire_error_budget``
-#: knobs); its control plane is the serving slice's
-DEFAULT_OVERLAP_CHUNKS = 1
-DEFAULT_WIRE_PRECISION = 0
-DEFAULT_WIRE_ERROR_BUDGET = 0.01
 #: the torch dtype each rung casts the planes to on the wire
 _WIRE_DTYPES = {0: None, 1: torch.float32, 2: torch.bfloat16,
                 3: torch.int8}
@@ -267,6 +277,7 @@ class DistributedTransformPlan:
                  wire_precision: Optional[int] = None,
                  wire_error_budget: Optional[float] = None,
                  device=None, fused: bool = True):
+        t0 = time.perf_counter()
         dp = dist_plan
         self.exchange = ExchangeType(exchange)
         real_dtype(precision)
@@ -300,6 +311,12 @@ class DistributedTransformPlan:
         self._fused_reason = fused_kernel.eligible_dim(dp.dim_z) \
             if fused else None
         self._fused = bool(fused) and self._fused_reason is None
+        if self._fused_reason is not None:
+            for stage in ("dist_fused_decompress_zdft",
+                          "dist_fused_zdft_compress"):
+                obs.record_plan_fallback(stage, self._fused_reason)
+        #: the executables (JAX's jit cache keys) whose seams have passed
+        self._seam_keys = fused_kernel.SeamKeys()
         self._r2c = dp.hermitian
         self._init_split_x()
         self._select_exchange(overlap_chunks)
@@ -311,12 +328,19 @@ class DistributedTransformPlan:
         # comm-size-1 collapse (reference grid_internal.cpp:182): one
         # shard in one process
         self._local1 = None
+        #: ``fn`` -> its wrapper for the delegate, held weakly where ``fn``
+        #: can be, and strongly where not (a builtin)
+        self._local1_fns = weakref.WeakKeyDictionary()
+        self._local1_builtin_fns = {}
         if dp.num_shards == 1 and mesh.num_processes == 1 \
                 and dp.shard_plans[0].num_values < PAIR_IO_THRESHOLD:
             self._local1 = TransformPlan(dp.shard_plans[0],
                                          precision=precision,
                                          device=self.device,
                                          fused=self._fused)
+        dt = time.perf_counter() - t0
+        obs.record_plan_build(self, dt, t0)
+        obs.record_exchange_plan(self, dt, t0)
 
     # -- static tables (the JAX package's, entry for entry) ------------------
     def _init_split_x(self) -> None:
@@ -358,7 +382,8 @@ class DistributedTransformPlan:
         dp = self.dist_plan
         if overlap_chunks is None:
             env = os.environ.get(OVERLAP_CHUNKS_ENV)
-            overlap_chunks = int(env) if env else DEFAULT_OVERLAP_CHUNKS
+            overlap_chunks = int(env) if env \
+                else int(global_config().overlap_chunks)
         if int(overlap_chunks) < 1:
             raise InvalidParameterError(
                 f"overlap_chunks must be >= 1, got {overlap_chunks}")
@@ -447,14 +472,19 @@ class DistributedTransformPlan:
         2 (single). Sets ``wire_rung``, ``wire_rung_name``,
         ``wire_rung_requested``, ``wire_error_budget``,
         ``wire_probe_error`` and ``wire_declines`` (``(rung name,
-        reason)`` pairs, the record of every decline)."""
+        reason)`` pairs, the record of every decline). A firing
+        ``exchange.quantize`` seam declines int8 with
+        ``"fault_injected"``; each decline counts in
+        ``spfft_wire_rung_declined_total{reason}`` with a ``wire.decline``
+        event, and the outcome is a ``wire.resolve`` event."""
         if wire_precision is None:
             env = os.environ.get(WIRE_PRECISION_ENV)
-            wire_precision = int(env) if env else DEFAULT_WIRE_PRECISION
+            wire_precision = int(env) if env \
+                else int(global_config().wire_precision)
         if wire_error_budget is None:
             env = os.environ.get(WIRE_ERROR_BUDGET_ENV)
             wire_error_budget = float(env) if env \
-                else DEFAULT_WIRE_ERROR_BUDGET
+                else float(global_config().wire_error_budget)
         requested = int(wire_precision)
         if not 0 <= requested < len(WIRE_RUNGS):
             raise InvalidParameterError(
@@ -477,14 +507,25 @@ class DistributedTransformPlan:
             if rung == 3 and not int8_ok:
                 reason = "exact_count_layout"
             else:
-                probe_err = self._probe_wire_error(rung)
-                if probe_err <= self.wire_error_budget:
-                    break
-                reason = "over_budget"
+                try:
+                    probe_err = self._probe_wire_error(rung)
+                except faults.InjectedFault:
+                    reason = "fault_injected"
+                else:
+                    if probe_err <= self.wire_error_budget:
+                        break
+                    reason = "over_budget"
             declines.append((WIRE_RUNGS[rung], reason))
+            obs.GLOBAL_COUNTERS.inc("spfft_wire_rung_declined_total",
+                                    reason=reason)
+            obs.record_event("wire.decline", rung=WIRE_RUNGS[rung],
+                             reason=reason)
             rung -= 1
         if rung == 0:
             probe_err = 0.0
+        obs.record_event("wire.resolve", requested=WIRE_RUNGS[requested],
+                         resolved=WIRE_RUNGS[rung],
+                         probe_error=float(probe_err))
         self.wire_rung = rung
         self.wire_rung_name = WIRE_RUNGS[rung]
         self.wire_probe_error = float(probe_err)
@@ -495,7 +536,8 @@ class DistributedTransformPlan:
         """The JAX package's probe (``dist.py:544-572``): the rel-l2
         round-trip error of ``rung`` on seeded gaussian stick rows with
         10^±6 magnitudes per row, against the payload at the plan's real
-        type. The int8 twin is the JAX package's numpy one; bfloat16 is
+        type; the int8 rung's scale computation consults the
+        ``exchange.quantize`` fault seam. The int8 twin is the JAX package's numpy one; bfloat16 is
         torch's conversion, which rounds float64 through float32 as the
         JAX package's does (a test holds the two equal)."""
         rng = np.random.default_rng(0x51F8)
@@ -506,6 +548,7 @@ class DistributedTransformPlan:
         il = rng.standard_normal((rows, cols, 2)) * mags
         ref = il.astype(self._np_real).astype(np.float64)
         if rung == 3:
+            faults.check_site("exchange.quantize")
             absmax = np.max(np.abs(ref), axis=(1, 2), keepdims=True)
             scale = np.where(absmax > 0, absmax / 127.0, 1.0)
             q = np.clip(np.rint(ref / scale), -127, 127).astype(np.int8)
@@ -1040,7 +1083,7 @@ class DistributedTransformPlan:
                               device=self.device)
             for r, p in enumerate(self._local_plans):
                 out[r, :, :p.num_values] = fused_kernel.zdft_compress(
-                    sr[:, r].contiguous(), si[:, r].contiguous(), z,
+                    dense(sr[:, r]), dense(si[:, r]), z,
                     self._t_csr[r])
         else:
             sr, si = dft_kernel.pdft_last(sr, si, z)
@@ -1065,7 +1108,7 @@ class DistributedTransformPlan:
         """Planar ``(B, S, ...)`` -> the public ``(S, B, max_planes,
         dim_y, dim_x)`` layout, interleaved ``(..., 2)`` for C2C."""
         if self._r2c:
-            return space.transpose(0, 1).contiguous()
+            return dense(space.transpose(0, 1))
         xr, xi = space
         out = torch.empty((xr.shape[1], xr.shape[0]) + tuple(xr.shape[2:])
                           + (2,), dtype=self.real_dtype, device=self.device)
@@ -1078,8 +1121,8 @@ class DistributedTransformPlan:
         of :meth:`_fwd_values`."""
         t = space.transpose(0, 1)
         if self._r2c:
-            return t.contiguous()
-        return t[..., 0].contiguous(), t[..., 1].contiguous()
+            return dense(t)
+        return dense(t[..., 0]), dense(t[..., 1])
 
     # -- getters (reference transform.hpp:91-171) ----------------------------
     @property
@@ -1318,6 +1361,31 @@ class DistributedTransformPlan:
                                 "stacked space")
         return self.shard_space(space)
 
+    # -- the exchange's fault seams ---------------------------------------------
+    def _seam_sites(self, forward: bool) -> list:
+        """The ``exchange.*`` sites one direction's traced body reaches in
+        the JAX package, in its order: the pack, the collective and (for
+        the backward) the unpack; with K > 1 chunks, each chunk's chunk
+        and pack checks, then the backward's unpack."""
+        if self._overlap is not None:
+            sites = ["exchange.chunk", "exchange.pack"] \
+                * self._overlap.num_chunks
+        else:
+            sites = ["exchange.pack", "exchange.collective"]
+        return sites if forward else sites + ["exchange.unpack"]
+
+    def _seams(self, key, directions) -> None:
+        """Consult the exchange's seams on the first call of the executable
+        ``key`` (per compile in the JAX package, where they fire at trace
+        time): each direction's sites in order, ``key`` recorded once
+        they all passed."""
+        if key in self._seam_keys:
+            return
+        for forward in directions:
+            for site in self._seam_sites(forward):
+                faults.check_site(site)
+        self._seam_keys.add(key)
+
     # -- execution ------------------------------------------------------------
     def backward(self, values) -> torch.Tensor:
         """Frequency -> space over the shards. ``values``: a per-shard
@@ -1329,6 +1397,7 @@ class DistributedTransformPlan:
             if self._local1 is not None:
                 box.value = self._local1.backward(v[0])[None]
             else:
+                self._seams(("backward",), (False,))
                 box.value = self._public_space(
                     self._bwd_space(v[:, None]))[:, 0]
         return box.value
@@ -1344,6 +1413,7 @@ class DistributedTransformPlan:
             if self._local1 is not None:
                 box.value = self._local1.forward(sp[0], scaling)[None]
             else:
+                self._seams(("forward", scaling), (True,))
                 box.value = self._fwd_values(
                     self._planar_space(sp[:, None]),
                     scaling is Scaling.FULL)[:, 0]
@@ -1381,6 +1451,7 @@ class DistributedTransformPlan:
             if self._local1 is not None:
                 box.value = self._local1.backward_batched(v[0])[None]
             else:
+                self._seams(("backward_batched", v.shape[1]), (False,))
                 box.value = self._public_space(self._bwd_space(v))
         return box.value
 
@@ -1402,6 +1473,8 @@ class DistributedTransformPlan:
             if self._local1 is not None:
                 box.value = self._local1.forward_batched(sp[0], scaling)[None]
             else:
+                self._seams(("forward_batched", scaling, sp.shape[1]),
+                            (True,))
                 box.value = self._fwd_values(self._planar_space(sp),
                                              scaling is Scaling.FULL)
         return box.value
@@ -1424,10 +1497,22 @@ class DistributedTransformPlan:
     # -- the round trip -------------------------------------------------------
     def _local1_fn(self, fn):
         """The stacked pointwise contract on the local delegate: ``fn``
-        sees ``(1, ...)``, the delegate hands it the bare slab."""
+        sees ``(1, ...)``, the delegate hands it the bare slab. Cached per
+        ``fn``, as the JAX package's, so the delegate's executable keys
+        stay stable; the wrapper reaches ``fn`` through a weak reference,
+        so the cache does not keep a dropped ``fn`` alive."""
         if fn is None:
             return None
-        return lambda s, *a: fn(s[None], *a)[0]
+        try:
+            cache, ref = self._local1_fns, weakref.ref(fn)
+        except TypeError:  # a builtin: no weak reference, lives on
+            cache, ref = self._local1_builtin_fns, lambda: fn
+        w = cache.get(fn)
+        if w is None:
+            def w(s, *a):
+                return ref()(s[None], *a)[0]
+            cache[fn] = w
+        return w
 
     def _pair(self, v: torch.Tensor, fn, fn_args, scaled: bool):
         space = self._bwd_space(v[:, None])
@@ -1454,6 +1539,7 @@ class DistributedTransformPlan:
                     v[0], self._local1_fn(fn), *fn_args,
                     scaling=scaling)[None]
             else:
+                self._seams(("pair", fn, scaling), (False, True))
                 box.value = self._pair(v, fn, fn_args,
                                        scaling is Scaling.FULL)
         return box.value
@@ -1473,6 +1559,8 @@ class DistributedTransformPlan:
                     v[0], self._local1_fn(fn), *fn_args, steps=steps,
                     scaling=scaling)[None]
             else:
+                self._seams(("iterate", fn, scaling, int(steps)),
+                            (False, True))
                 for _ in range(int(steps)):
                     v = self._pair(v, fn, fn_args, scaling is Scaling.FULL)
                 box.value = v

@@ -42,6 +42,26 @@ from ..indexing import window_sub_cols
 from ..ops import gather_kernel, stages, wire_kernel
 
 
+def dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with the strides of a fresh tensor of its shape: a view of
+    the same memory where ``t`` is contiguous, a copy where it is not.
+    ``.contiguous()`` alone keeps a view whose size-1 axis has another
+    stride (a shard's slice of a batch of one), and the CPU's plain
+    matrix products round such a view differently from a fresh tensor;
+    the kernels read from the data pointer and see no difference, and
+    no copy is added for them."""
+    want, acc = [], 1
+    for n in reversed(t.shape):
+        want.append(acc)
+        acc *= n
+    want = tuple(reversed(want))
+    if want == t.stride():
+        return t
+    if t.is_contiguous():
+        return t.as_strided(t.shape, want)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[..., idx]`` where an index ``x.shape[-1]`` (the sentinel; the
     axis is never empty) selects zero; the result has ``idx``'s shape as
@@ -67,7 +87,7 @@ def all_to_all_blocks(blocks: torch.Tensor, tail: int = 2) -> torch.Tensor:
     S_dst, *tail)`` (``tail`` trailing axes: a block's two, or one for the
     int8 wire's scales); block (r -> s) lands at (s, slot r). Returns
     ``(..., S_dst, S_src, *tail)``, contiguous."""
-    return blocks.transpose(-tail - 2, -tail - 1).contiguous()
+    return dense(blocks.transpose(-tail - 2, -tail - 1))
 
 
 def unpack_blocks_to_grid(blocks: torch.Tensor, global_col_inv: torch.Tensor,
@@ -85,7 +105,7 @@ def unpack_blocks_to_grid(blocks: torch.Tensor, global_col_inv: torch.Tensor,
     s, ms, mp = blocks.shape[-3:]
     rows = blocks.reshape(lead + (s * ms, mp))
     grid_t = stages.gather_rows_with_sentinel(rows, global_col_inv)
-    return grid_t.transpose(-1, -2).contiguous().reshape(
+    return dense(grid_t.transpose(-1, -2)).reshape(
         lead + (mp, dim_y, dim_x_freq))
 
 
@@ -717,8 +737,7 @@ def _blocks_finish(recv: torch.Tensor, n: int, tail: int, real_dtype):
         tl = tuple(r.shape[nl + 3:])
         r = r.movedim(0, nl).movedim(nl + 2, nl)  # (lead, Ld, P, Ls, tail)
         r = r.reshape(lead + (ldst, r.shape[nl + 1] * lsrc) + tl)
-        out.append(r.contiguous() if real_dtype is None
-                   else r.to(real_dtype).contiguous())
+        out.append(dense(r if real_dtype is None else r.to(real_dtype)))
     return out
 
 

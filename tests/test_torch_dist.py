@@ -946,3 +946,60 @@ def test_reduced_fp32_matmul_reads_the_cuda_setting():
     finally:
         torch.backends.cuda.matmul.fp32_precision = prev
     assert dft.reduced_fp32_matmul(cuda) is None
+
+
+# -- batch bands bit for bit, whatever the batch's strides ---------------------
+
+def _stride_case(seed):
+    """A seeded fused-route distributed plan: dims, shard count, slab
+    heights, precision and batch drawn from ``seed``."""
+    rng = np.random.default_rng(1000 + seed)
+    dims = tuple(int(d) for d in rng.integers(2, 14, size=3))
+    s = int(rng.integers(1, min(4, dims[2]) + 1))
+    trip = random_sparse_triplets(rng, dims)
+    stick_w = [int(w) for w in rng.integers(1, 4, size=s)]
+    plane_w = [int(w) for w in rng.integers(1, 3, size=s)]
+    precision = ("single", "double")[seed % 2]
+    b = int(rng.integers(1, 4))
+    return (dims, split_by_sticks(trip, dims, stick_w),
+            split_planes(dims[2], plane_w), precision, b)
+
+
+STRIDE_CASES = {
+    # (dims, sticks split, planes split, precision, B)
+    "c2c_double_4x13x3_b1": ((4, 13, 3), [1, 1], [2, 1], "double", 1),
+    "c2c_2x11x7_2shards_b3": ((2, 11, 7), [2, 1], [1, 1], "single", 3),
+}
+
+
+def _stride_inputs(name):
+    if name in STRIDE_CASES:
+        dims, sw, pw, precision, b = STRIDE_CASES[name]
+        trip = random_sparse_triplets(np.random.default_rng(7), dims)
+        return (dims, split_by_sticks(trip, dims, sw),
+                split_planes(dims[2], pw), precision, b)
+    return _stride_case(int(name.split("_")[1]))
+
+
+@pytest.mark.parametrize("name", sorted(STRIDE_CASES)
+                         + [f"seed_{i}" for i in range(40)])
+def test_batched_bands_bit_for_bit_at_any_batch(name):
+    """``forward_batched`` band b equals ``forward`` of that band, and
+    ``backward_batched`` band b ``backward`` of its values, bit for bit,
+    on the fused route at B = 1 too: a per-shard slice of a size-1 batch
+    must reach the plain versions with the strides of a fresh tensor."""
+    dims, parts, planes, precision, b = _stride_inputs(name)
+    tp = sp.make_distributed_plan(sp.TransformType.C2C, *dims, parts,
+                                  planes, device="cpu", precision=precision)
+    assert tp.fused_dist_active
+    rng = np.random.default_rng(3)
+    bands = [[random_values(rng, len(p)) for p in parts] for _ in range(b)]
+    spaces = tp.backward_batched(bands)
+    for i in range(b):
+        assert torch.equal(spaces[:, i], tp.backward(bands[i]))
+    for sc in (sp.Scaling.NONE, sp.Scaling.FULL):
+        out = tp.forward_batched(spaces, sc)
+        for i in range(b):
+            assert torch.equal(out[:, i], tp.forward(spaces[:, i], sc))
+            assert torch.equal(out[:, i],
+                               tp.forward(spaces[:, i].clone(), sc))

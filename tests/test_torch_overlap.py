@@ -249,7 +249,10 @@ def test_overlap_knob_env_clamp_and_refusals(monkeypatch):
         assert tp.overlap_chunks == jp.overlap_chunks
         return tp
 
-    assert tdist.DEFAULT_OVERLAP_CHUNKS == 1
+    # the default is the process-global config's knob, the JAX package's
+    from spfft_tpu_torch.control import KNOB_SPECS, global_config
+    assert global_config().overlap_chunks == KNOB_SPECS[
+        "overlap_chunks"].default == 1
     assert both().overlap_chunks == 1
     monkeypatch.setenv(tdist.OVERLAP_CHUNKS_ENV, "3")
     assert both().overlap_chunks == 3

@@ -209,13 +209,17 @@ def test_unsupported_modes_raise_typed_errors():
         assert sp.make_local_plan(tt, 600, 2, 2, trip,
                                   device="cpu").dim_x == 600
     plan = _case("dense2")["tp"]
-    for call in (lambda: sp.make_local_plan(sp.TransformType.C2C, 4, 4, 4,
-                                            trip, device="cpu",
-                                            donate_inputs=True),
-                 lambda: sp.TransformPlan(plan.index_plan, device="cpu",
-                                          donate_inputs=True),
-                 lambda: tplan_mod.restore_plan(plan.index_plan, None)):
-        with pytest.raises(sp.InvalidParameterError, match="slice"):
+    # donate_inputs and the artifact restore are ported; what the port has
+    # not (serialised executables, a restore without tables) raises typed
+    assert sp.make_local_plan(sp.TransformType.C2C, 4, 4, 4, trip,
+                              device="cpu", donate_inputs=True).donate_inputs
+    assert sp.TransformPlan(plan.index_plan, device="cpu",
+                            donate_inputs=True).donate_inputs
+    for call, what in ((lambda: tplan_mod.restore_plan(plan.index_plan,
+                                                       None), "PlanTables"),
+                       (lambda: plan.install_aot({"backward": object()}),
+                        "no serialised executables")):
+        with pytest.raises(sp.InvalidParameterError, match=what):
             call()
 
 
@@ -257,25 +261,15 @@ def test_no_device_without_cuda_raises():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port (and chip_smoke.py) leaves JAX
-    and the JAX package out of sys.modules."""
-    mods = ["spfft_tpu_torch", "spfft_tpu_torch.convert",
-            "spfft_tpu_torch.plan", "spfft_tpu_torch.grid",
-            "spfft_tpu_torch.multi", "spfft_tpu_torch.timing",
-            "spfft_tpu_torch.ops.dft", "spfft_tpu_torch.ops.stages",
-            "spfft_tpu_torch.ops.gather_kernel",
-            "spfft_tpu_torch.ops.dft_kernel",
-            "spfft_tpu_torch.ops.fused_kernel", "spfft_tpu_torch.ops._build",
-            "spfft_tpu_torch.parallel", "spfft_tpu_torch.parallel.dist",
-            "spfft_tpu_torch.parallel.exchange",
-            "spfft_tpu_torch.parallel.mesh",
-            "spfft_tpu_torch.utils.dtypes",
-            "spfft_tpu_torch.utils.workloads",
-            "spfft_tpu_torch.capi_bridge", "spfft_tpu_torch.native",
-            "spfft_tpu_torch.benchmark", "spfft_tpu_torch.utils.platform",
-            "chip_smoke"]
-    code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
+    """Importing every module of the port — each one
+    ``pkgutil.walk_packages`` finds under ``spfft_tpu_torch`` — and
+    chip_smoke.py leaves JAX and the JAX package out of sys.modules."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import spfft_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, 'spfft_tpu_torch.')] + ['chip_smoke']\n"
+            "assert len(mods) > 30, mods\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'spfft_tpu' or "
             "m.startswith('spfft_tpu.'))\n"

@@ -299,8 +299,10 @@ def test_rung_resolution_matches_jax(exchange_name, precision):
 
 def test_wire_knobs_from_the_environment_and_refusals(monkeypatch):
     parts, planes, _ = _sphere()
-    assert (tdist.DEFAULT_WIRE_PRECISION,
-            tdist.DEFAULT_WIRE_ERROR_BUDGET) == (0, 0.01)
+    # the defaults are the process-global config's knobs, the JAX package's
+    from spfft_tpu_torch.control import global_config
+    assert (global_config().wire_precision,
+            global_config().wire_error_budget) == (0, 0.01)
     jp, tp = _both(parts, planes)
     _same_rung(jp, tp)
     assert tp.wire_rung_name == "full" and tp.wire_error_budget == 0.01
