@@ -6231,6 +6231,454 @@ def surface_phase(sp, plan, values, device, n=N):
           f"max_rel_error raises in single and double ({CARD})", flush=True)
 
 
+# -- the serving layer ----------------------------------------------------------
+
+#: the serve phase's load: submitting threads, the requests each
+#: direction carries on the C2C signature and on the two-kernel R2C one,
+#: and the C2C bursts timed (their spread beside each figure); the R2C
+#: bursts are too short to time and check launches and bits only
+SERVE_THREADS = 4
+SERVE_REQUESTS = 32
+SERVE_2K_REQUESTS = 8
+SERVE_BURSTS = 3
+#: the CLI run of the serve phase: --serve and --store-dir in one call
+SERVE_CLI = ["-d", "256", "-r", "3", "-m", "4", "--serve"]
+#: the serve phase's numbers, printed as ``{"serve": ...}``
+SERVE_ROWS = {}
+
+
+def _submit_all(ex, sig, payloads, kind, scaling):
+    """Submit ``payloads`` from ``SERVE_THREADS`` threads (request i from
+    thread i mod SERVE_THREADS); returns the futures in request order."""
+    import threading
+    futs = [None] * len(payloads)
+    errors = []
+
+    def worker(k):
+        for i in range(k, len(payloads), SERVE_THREADS):
+            try:
+                futs[i] = ex.submit(sig, payloads[i], kind, scaling=scaling)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(SERVE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        fail(f"serve: submit raised {errors[0]!r}")
+    return futs
+
+
+def _bucket_rows(before, after):
+    """(batched buckets, rows served serially, pin prewarms) between two
+    metrics snapshots."""
+    def serial_rows(s):
+        return sum(int(k) * v for k, v in s["serial_batch_histogram"].items())
+    return (after["fused_batches"] - before["fused_batches"],
+            serial_rows(after) - serial_rows(before),
+            after["health"]["pin_prewarms"] - before["health"]["pin_prewarms"])
+
+
+def serve_direction(path, ex, sig, payloads, kind, scaling, counters,
+                    per_bucket, zero):
+    """One direction of the served path, counted: every launch counter set
+    to 0 just before the submits, read after every result and every
+    prewarm-on-pin run; each wrapper of ``per_bucket`` (name -> its
+    launches per call) must have launched that many times per batched
+    bucket, per request served serially and per pin prewarm (and no
+    other time), each of ``zero`` never. Returns the results, the seconds
+    from the first submit to the last result, and the launches."""
+    from spfft_tpu_torch.timing import wait_ready
+    before = ex.metrics.snapshot()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    futs = _submit_all(ex, sig, payloads, kind, scaling)
+    out = [f.result(timeout=300) for f in futs]
+    wait_ready(out)
+    secs = time.perf_counter() - t0
+    for th in list(ex._prewarm_threads.values()):
+        th.join()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    buckets, serial, pins = _bucket_rows(before, ex.metrics.snapshot())
+    want = buckets + serial + pins
+    print(f"serve {path} {kind}: {len(payloads)} requests, {buckets} batched "
+          f"buckets, {serial} served serially, {pins} pin prewarms; "
+          f"launches {launches} ({CARD})", flush=True)
+    if buckets < 1:
+        fail(f"serve {path} {kind}: no batched bucket formed")
+    for name, per_call in per_bucket.items():
+        if launches[name] != per_call * want:
+            fail(f"serve {path} {kind}: {name} launched {launches[name]} "
+                 f"times, expected {per_call} per bucket: {per_call * want}")
+    if "decompress_zdft" in per_bucket or "zdft_compress" in per_bucket:
+        z = "decompress_zdft" if kind == "backward" else "zdft_compress"
+        forms = {f: k for f, k in counters[z].form_launches.items() if k}
+        if forms != {"fft": want}:
+            fail(f"serve {path} {kind}: {z} by form {forms}, expected "
+                 f"{{'fft': {want}}}")
+    for name in zero:
+        if launches[name]:
+            fail(f"serve {path} {kind}: {name} launched {launches[name]} "
+                 f"times, expected 0")
+    return out, secs, launches
+
+
+def serve_path(sp, path, ex, sig, plan, payloads, counters, bwd, fwd,
+               bursts=1, timed=True):
+    """The served pair of ``path`` (``bwd`` / ``fwd``: (launched once per
+    bucket, never launched)), ``bursts`` times: the backward requests of
+    host numpy payloads, then forward(FULL) requests of the device slabs
+    they returned; each result bit for bit against the plan's serial
+    call (a serial loop over the same requests, timed: req/s beside the
+    executor's, each burst's). Returns the row: with ``timed``, the
+    rates of every burst and the latency percentiles over all of them;
+    without, the buckets and launches alone."""
+    from spfft_tpu_torch.timing import wait_ready
+    full = sp.Scaling.FULL
+    ex.metrics.reset()
+    served, serial = [], []
+    for burst in range(bursts):
+        spaces, t_b, lb = serve_direction(path, ex, sig, payloads,
+                                          "backward", sp.Scaling.NONE,
+                                          counters, *bwd)
+        outs, t_f, lf = serve_direction(path, ex, sig, spaces, "forward",
+                                        full, counters, *fwd)
+        t0 = time.perf_counter()
+        want_b = [plan.backward(v) for v in payloads]
+        wait_ready(want_b)
+        t_sb = time.perf_counter() - t0
+        want_f = [plan.forward(s, full) for s in want_b]
+        wait_ready(want_f)
+        t_serial = time.perf_counter() - t0
+        for i in range(len(payloads)):
+            if not torch.equal(spaces[i], want_b[i]):
+                fail(f"serve {path}: backward request {i} of burst {burst} "
+                     f"differs from the plan's serial call")
+            if not torch.equal(outs[i], want_f[i]):
+                fail(f"serve {path}: forward request {i} of burst {burst} "
+                     f"differs from the plan's serial call")
+        del spaces, outs, want_b, want_f
+        served.append({"backward_s": t_b, "forward_s": t_f})
+        serial.append({"backward_s": t_sb, "forward_s": t_serial - t_sb})
+    snap = ex.metrics.snapshot()
+    h = snap["health"]
+    if snap["failed"] or h["bucket_fallbacks"] or h["retries"]:
+        fail(f"serve {path}: failures or fallbacks outside the fault case: "
+             f"{h}")
+    n = 2 * len(payloads)
+    row = {"card": CARD, "requests": n, "bursts": bursts,
+           "threads": SERVE_THREADS,
+           "fused_batches": snap["fused_batches"],
+           "batch_histogram": snap["fused_batch_histogram"],
+           "serial_batches": snap["serial_batches"],
+           "pinned_batches": snap["pinned_batches"],
+           "padded_rows": snap["padded_rows"],
+           "launches_backward": lb, "launches_forward": lf}
+    done = (f"serve {path}: {bursts} x {n} requests from {SERVE_THREADS} "
+            f"threads, all bit for bit the serial calls; "
+            f"{row['fused_batches']} batched buckets "
+            f"{row['batch_histogram']}, {row['pinned_batches']} pinned, "
+            f"{row['padded_rows']} pad rows")
+    if not timed:
+        print(f"{done} (launches and bits only; {CARD})", flush=True)
+        return row
+    lat = snap["latency_seconds"]
+    rates = [n / (a["backward_s"] + a["forward_s"]) for a in served]
+    base = [n / (a["backward_s"] + a["forward_s"]) for a in serial]
+    row.update({
+        "batch_window_s": ex.config.batch_window,
+        "latency_samples": snap["completed"],
+        "p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3,
+        "served_req_per_s": float(np.median(rates)),
+        "serial_req_per_s": float(np.median(base)),
+        "served_req_per_s_bursts": rates, "serial_req_per_s_bursts": base,
+        "served_s_bursts": served, "serial_s_bursts": serial,
+        "stage_s": snap["overhead_seconds"]["stage_total"],
+        "dispatch_s": snap["overhead_seconds"]["dispatch_total"]})
+
+    def spread(xs):
+        return f"{np.median(xs):.1f} ({min(xs):.1f}-{max(xs):.1f})"
+
+    print(f"{done}; p50 {row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms "
+          f"over {row['latency_samples']} requests (batch window "
+          f"{row['batch_window_s'] * 1e3:g} ms); req/s, median (range) of "
+          f"the bursts: {spread(rates)} served against {spread(base)} in a "
+          f"serial loop; staging {row['stage_s']:.3f} s in all ({CARD})",
+          flush=True)
+    return row
+
+
+def staging_rates(plan, rows, device, reps=5):
+    """GB/s of one bucket's host -> card copy (``rows`` rows of the
+    plan's values): from a pinned buffer (``non_blocking``, what the
+    executor stages through) and from pageable memory, each the median
+    of ``reps`` copies timed with CUDA events."""
+    shape, dtype = plan.batch_row_template("values")
+    host = np.random.default_rng(SEED).standard_normal(
+        (rows,) + shape).astype(dtype)
+    pinned = torch.from_numpy(host).pin_memory()
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device=device)
+
+    def time_copy(src, non_blocking):
+        ts = []
+        for _ in range(reps + 1):
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            dev.copy_(src, non_blocking=non_blocking)
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts[1:]))
+
+    nbytes = host.nbytes
+    pin_ms = time_copy(pinned, True)
+    page_ms = time_copy(torch.from_numpy(host), False)
+    return {"bucket_bytes": nbytes, "pinned_ms": pin_ms,
+            "pageable_ms": page_ms,
+            "pinned_gb_s": nbytes / pin_ms / 1e6,
+            "pageable_gb_s": nbytes / page_ms / 1e6}
+
+
+def serve_fault_case(sp, reg, sig, plan, payloads):
+    """``dispatch@1`` on a staged bucket of four: the batched dispatch
+    fails, the bucket falls back to serial calls and every request is
+    bit for bit its serial call; then a bucket of three healthy requests
+    and one poisoned (a payload of the wrong length): only the poisoned
+    one fails, typed."""
+    from spfft_tpu_torch.serve import FaultPlan, ServeExecutor
+    ex = ServeExecutor(reg, autostart=False, batch_window=0.0,
+                       fault_plan=FaultPlan(script="dispatch@1"))
+    futs = [ex.submit(sig, v) for v in payloads[:4]]
+    ex._drain_once()
+    for f, v in zip(futs, payloads[:4]):
+        if not torch.equal(f.result(timeout=120), plan.backward(v)):
+            fail("serve fault case: a recovered request differs from its "
+                 "serial call")
+    good = payloads[4:7]
+    futs = [ex.submit(sig, v) for v in good[:2]]
+    poisoned = ex.submit(sig, np.zeros(3, np.float32))
+    futs.append(ex.submit(sig, good[2]))
+    ex._drain_once()
+    for f, v in zip(futs, good):
+        if not torch.equal(f.result(timeout=120), plan.backward(v)):
+            fail("serve fault case: a healthy co-batched request differs "
+                 "from its serial call")
+    try:
+        poisoned.result(timeout=120)
+    except sp.InvalidParameterError:
+        pass
+    else:
+        fail("serve fault case: the poisoned request did not fail")
+    h = ex.health()
+    ex.close()
+    if h["bucket_fallbacks"] != 2 or h["retries"] != 8 \
+            or h["retries_exhausted"] or ex.metrics.snapshot()["failed"] != 1:
+        fail(f"serve fault case: health {h}")
+    print(f"serve fault case (dispatch@1, then one poisoned request): 2 "
+          f"bucket fallbacks, {h['retries']} serial re-executions, only the "
+          f"poisoned request failed; healthy results bit for bit ({CARD})",
+          flush=True)
+    return {"bucket_fallbacks": h["bucket_fallbacks"],
+            "retries": h["retries"], "failed": 1}
+
+
+def serve_store_case(trip, device, n=N):
+    """The store's cold and warm boot, each in a fresh process, so that
+    both pay the CUDA context's start and the kernel libraries' loading
+    alike. Cold: ``python -m spfft_tpu_torch.serve.store seed DIR --dim n
+    --sparsity 1.0 --reference`` resolves the n^3 sphere (``trip``'s set)
+    over an empty store (build, spill) and runs its first backward
+    (``cold_resolve_ms`` + ``first_backward_ms``). Warm: ``prewarm DIR
+    --compile --check-reference --strict`` loads the artifact and runs it
+    once (``warm_resolve_ms``, of it ``store_load_ms``), then resolves
+    the seeded request with no build, its backward bit for bit the
+    seeding process's."""
+    import shutil
+    from pathlib import Path
+
+    from spfft_tpu_torch.serve import store as st
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "serve_store"
+    shutil.rmtree(root, ignore_errors=True)
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "spfft_tpu_torch.serve.store", *args,
+             str(root), "--json"] + cpu,
+            capture_output=True, text=True, timeout=600, cwd=str(here))
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"serve store case: {args[0]} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+    cold, cold_s = cli("seed", "--dim", str(n), "--sparsity", "1.0",
+                       "--reference")
+    if cold["builds"] != 1 or cold["store"]["spills"] != 1 \
+            or cold["num_values"] != len(trip):
+        fail(f"serve store case: cold seed {cold}")
+    key = json.loads((root / st.LOCAL_DIR / "reference.json")
+                     .read_text())["artifact"]
+    art_bytes = os.path.getsize(st.PlanArtifactStore(str(root))
+                                .artifact_path(key))
+    warm, warm_s = cli("prewarm", "--compile", "--check-reference",
+                       "--strict")
+    if warm["builds"] != 0 or not warm["reference_bit_exact"]:
+        fail(f"serve store case: warm boot {warm}")
+    cold_ms = cold["cold_resolve_ms"] + cold["first_backward_ms"]
+    row = {"card": CARD, "cold_ms": cold_ms,
+           "cold_resolve_ms": cold["cold_resolve_ms"],
+           "cold_first_backward_ms": cold["first_backward_ms"],
+           "warm_ms": warm["warm_resolve_ms"],
+           "warm_store_load_ms": warm["store_load_ms"],
+           "warm_reference_resolve_ms": warm["reference_resolve_ms"],
+           "cold_process_s": cold_s, "warm_process_s": warm_s,
+           "artifact_bytes": art_bytes, "warm_builds": warm["builds"],
+           "warm_compile_events": warm["compile_events"]}
+    print(f"serve store case, each boot in a fresh process: cold "
+          f"{cold_ms:.1f} ms (resolve {cold['cold_resolve_ms']:.1f}: build, "
+          f"spill of a {art_bytes} byte artifact; first backward "
+          f"{cold['first_backward_ms']:.1f}); warm {row['warm_ms']:.1f} ms "
+          f"(of it the artifact's load {warm['store_load_ms']:.1f}: read, "
+          f"hash, range checks, upload; then the first backward), builds 0, "
+          f"bit for bit the cold process's; the processes {cold_s:.1f} s "
+          f"and {warm_s:.1f} s with their start ({CARD})", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
+def serve_cli_case(card: str, device, n=N) -> dict:
+    """``python -m spfft_tpu_torch.benchmark`` with ``--serve`` and
+    ``--store-dir`` in one call, in this process: exit 0, the serving
+    snapshot with batched buckets and no failure or fallback, and a warm
+    boot with no build."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from spfft_tpu_torch import benchmark
+    root = Path(__file__).resolve().parent / "build" / "serve_cli_store"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = SERVE_CLI + ["--store-dir", str(root)]
+    if device.type == "cpu":  # a CPU rehearsal
+        argv = ["--cpu", "-d", str(n)] + argv[2:]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = benchmark.main(argv)
+    text = buf.getvalue()
+    if rc != 0:
+        fail(f"benchmark {' '.join(argv)} exited {rc}:\n{text[-2000:]}")
+    params = json.loads(text[:text.index("\n}\n") + 2])
+    serve = params.get("serve", {})
+    if params["backend"] != device.type or not serve.get("fused_batches") \
+            or serve.get("failed") or serve["health"]["bucket_fallbacks"] \
+            or params.get("warm_builds") != 0 \
+            or not params.get("store_was_cold"):
+        fail(f"benchmark {' '.join(argv)}: {params}")
+    lat = serve["latency_seconds"]
+    print(f"benchmark {' '.join(SERVE_CLI)} --store-dir ({card}; "
+          f"{time.perf_counter() - t0:.1f} s): pair_seconds "
+          f"{params['pair_seconds']}, served p50 {lat['p50'] * 1e3:.3f} ms "
+          f"p99 {lat['p99'] * 1e3:.3f} ms, {serve['fused_batches']} batched "
+          f"buckets; cold_start_ms {params['cold_start_ms']['value']}, "
+          f"warm_start_ms {params['warm_start_ms']['value']}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"pair_seconds": params["pair_seconds"],
+            "p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3,
+            "fused_batches": serve["fused_batches"],
+            "cold_start_ms": params["cold_start_ms"]["value"],
+            "warm_start_ms": params["warm_start_ms"]["value"]}
+
+
+def serve_phase(sp, device, counters, n=N):
+    """The single-host serving layer on the card (``spfft_tpu_torch.serve``)
+    at full width: the 256^3 C2C sphere (numpy seed 0, float32) resolved
+    through a ``PlanRegistry`` and served by a ``ServeExecutor``
+    (prewarmed), ``SERVE_REQUESTS`` backward requests of host numpy values
+    (distinct: seed 0's values times 1 + i/64) from ``SERVE_THREADS``
+    threads, then forward(FULL) requests of the device slabs they
+    returned — every result bit for bit the plan's serial call, each
+    fused z kernel and ``pdft2`` launched once per batched bucket; then a
+    ``fused=False`` signature on the R2C half sphere, its buckets launching
+    ``gather.cu``, ``pdft_last`` and the real xy stages once each and no
+    fused z kernel; the staging copy's rate pinned against pageable; the
+    fault case; the store's cold and warm boot; the CLI's ``--serve`` and
+    ``--store-dir``."""
+    from spfft_tpu_torch.serve import PlanRegistry, ServeExecutor
+    trip, values = c2c_inputs(n, device)
+    base = values.cpu().numpy()
+    payloads = [base * np.float32(1 + i / 64) for i in range(SERVE_REQUESTS)]
+    del values
+    reg = PlanRegistry(store=False)
+    t0 = time.perf_counter()
+    sig, plan = reg.get_or_build(sp.TransformType.C2C, n, n, n, trip,
+                                 device=device)
+    resolve_s = time.perf_counter() - t0
+    ex = ServeExecutor(reg)
+    t0 = time.perf_counter()
+    ex.prewarm(sig, scaling=sp.Scaling.FULL)
+    prewarm_s = time.perf_counter() - t0
+    print(f"serve: the 256^3 C2C request resolved in {resolve_s:.2f} s "
+          f"(index plan and tables), the executor prewarmed in "
+          f"{prewarm_s:.2f} s (ladder {sorted({ex._padded_size(b) for b in range(2, ex.config.max_batch + 1)})}) "
+          f"({CARD})", flush=True)
+    z0 = ("gather", "pdft_last", "prdft2", "pdft2_cr", "pdft2_swapped")
+    row = serve_path(sp, "c2c", ex, sig, plan, payloads, counters,
+                     ({"decompress_zdft": 1, "pdft2": 1},
+                      ("zdft_compress",) + z0),
+                     ({"zdft_compress": 1, "pdft2": 1},
+                      ("decompress_zdft",) + z0), bursts=SERVE_BURSTS)
+    ex.close()
+    SERVE_ROWS["c2c"] = row
+    if device.type == "cuda":  # (a CPU rehearsal copies to no card)
+        fill = SERVE_BURSTS * sum(p.nbytes for p in payloads) \
+            / row["stage_s"] / 1e9 if row["stage_s"] else None
+        st = SERVE_ROWS["staging"] = dict(staging_rates(plan, 8, device),
+                                          card=CARD, host_fill_gb_s=fill)
+        print(f"serve staging: one bucket of 8 rows ({st['bucket_bytes']} "
+              f"bytes) to the card at {st['pinned_gb_s']:.2f} GB/s from "
+              f"pinned memory, {st['pageable_gb_s']:.2f} GB/s from "
+              f"pageable; the executor's host fill of its staging buffers "
+              f"{fill} GB/s ({CARD})", flush=True)
+    SERVE_ROWS["fault_case"] = serve_fault_case(sp, reg, sig, plan, payloads)
+    SERVE_ROWS["store"] = serve_store_case(trip, device, n)
+    del plan, reg, payloads, base
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    rtrip, rvalues, _ = r2c_inputs(n, device)
+    rbase = rvalues.cpu().numpy()
+    rpay = [rbase * np.float32(1 + i / 64) for i in range(SERVE_2K_REQUESTS)]
+    del rvalues
+    reg = PlanRegistry(store=False)
+    rsig, rplan = reg.get_or_build(sp.TransformType.R2C, n, n, n, rtrip,
+                                   device=device, fused=False)
+    ex = ServeExecutor(reg)
+    ex.prewarm(rsig, scaling=sp.Scaling.FULL)
+    zf = ("decompress_zdft", "zdft_compress", "pdft2", "pdft2_swapped")
+    # the real xy stages launch twice a call: the real half and the
+    # complex half
+    SERVE_ROWS["r2c_two_kernel"] = serve_path(
+        sp, "r2c two-kernel", ex, rsig, rplan, rpay, counters,
+        ({"gather": 1, "pdft_last": 1, "pdft2_cr": 2}, ("prdft2",) + zf),
+        ({"gather": 1, "pdft_last": 1, "prdft2": 2}, ("pdft2_cr",) + zf),
+        timed=False)
+    ex.close()
+    del rplan, reg, rpay, rbase
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    SERVE_ROWS["cli"] = serve_cli_case(CARD, device, n)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
@@ -6295,6 +6743,11 @@ def main() -> int:
     no_demotions("the obs and surface phases")
     print(f"obs, faults and plan surface: {time.perf_counter() - t_obs:.1f} "
           f"s ({card})", flush=True)
+    t_serve = time.perf_counter()
+    serve_phase(sp, device, launch_counters())
+    print(f"serving phase: {time.perf_counter() - t_serve:.1f} s ({card})",
+          flush=True)
+    no_demotions("the serving phase")
     torch.cuda.empty_cache()
     t_ranks = time.perf_counter()
     ranks = ranks_phase(sp, device)
@@ -6343,6 +6796,7 @@ def main() -> int:
     print(json.dumps({"matrix_length": matrix}), flush=True)
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(json.dumps({"obs": OBS_ROWS}), flush=True)
+    print(json.dumps({"serve": SERVE_ROWS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -35,8 +35,17 @@ output, --fused-pair, --fused/--no-fused, --shards, --precision,
   compactFloat and unbuffered, a row each (``exchange_sweep``: the pair's
   seconds through ``apply_pointwise``, the aggregate and busiest-link
   wire bytes, the stick set's trimming);
-* ``--serve`` and ``--store-dir`` exit 2 with the port's typed
-  not-in-slice error: their modules come later.
+* ``--serve`` runs each repeat's ``-m`` backward and ``-m`` forward
+  requests through the serving layer (``spfft_tpu_torch.serve``: a
+  registry seeded with the plan, a ``ServeExecutor`` prewarmed for its
+  signature, same-signature requests bucketed into the batched route)
+  and reports the executor's metrics snapshot as ``params["serve"]``;
+* ``--store-dir DIR`` adds the plan-artifact store's cold / warm pair:
+  ``cold_start_ms``, this process resolving the plan through a registry
+  over the store in DIR and running one backward (a build and a spill
+  where DIR starts empty), and ``warm_start_ms``, a fresh ``python -m
+  spfft_tpu_torch.serve.store prewarm DIR --compile --strict --json``
+  process loading the artifact and running it (``warm_builds`` 0).
 
 The JSON ``parameters`` has every key of the JAX CLI's, meaning on the
 port: ``backend`` ``"cuda"`` or ``"cpu"``; ``devices`` the visible
@@ -104,7 +113,9 @@ def _parse_args(argv):
     p.add_argument("--no-fused", dest="fused", action="store_false",
                    help="the two-kernel route (the plan's fused=False)")
     p.add_argument("--serve", action="store_true",
-                   help="the serving layer (not in this slice)")
+                   help="run each repeat's transforms as requests through "
+                        "the serving layer (registry + batching "
+                        "executor)")
     p.add_argument("--shards", type=int, default=1,
                    help="run the distributed plan over N shards held on "
                         "one device (default local)")
@@ -119,7 +130,9 @@ def _parse_args(argv):
     p.add_argument("--precision", choices=["single", "double"],
                    default="single")
     p.add_argument("--store-dir", default=None, metavar="DIR",
-                   help="the plan-artifact store A/B (not in this slice)")
+                   help="measure the plan-artifact store's cold start "
+                        "(this process, empty DIR) against a warm boot "
+                        "(a fresh prewarm process over DIR)")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed loop "
                         "into DIR (trace.json, for chrome://tracing or "
@@ -142,16 +155,68 @@ _EXCHANGE = {
 }
 
 
-def _out_of_slice(args):
-    """The typed not-in-slice error of the first flag this slice does
-    not run, or None."""
-    from .plan import _not_in_slice
-    if args.serve:
-        return _not_in_slice("--serve (the serving layer)", "serving")
-    if args.store_dir:
-        return _not_in_slice("--store-dir (the plan-artifact store)",
-                             "serving")
-    return None
+def _store_cold_warm(args, ttype, dims, triplets, device,
+                     fused: bool) -> dict:
+    """The --store-dir pair (the JAX CLI's ``_store_cold_warm``):
+    resolve this workload's plan and run its first backward through a
+    store-backed registry in this process (a true COLD start when DIR
+    begins empty — build, spill), then the WARM boot in a fresh
+    interpreter (``python -m spfft_tpu_torch.serve.store prewarm DIR
+    --compile --strict --json``: artifact load + first execution,
+    ``builds == 0``)."""
+    import os
+    import subprocess
+
+    from .serve.registry import PlanRegistry
+    from .serve.store import PlanArtifactStore
+    from .timing import wait_ready
+
+    cpu = device.type == "cpu"
+    store = PlanArtifactStore(args.store_dir, plan_kwargs={"device": "cpu"}
+                              if cpu else None)
+    reg = PlanRegistry(store=store)
+    t0 = time.perf_counter()
+    sig, plan = reg.get_or_build(ttype, *dims, triplets,
+                                 precision=args.precision, device=device,
+                                 fused=fused)
+    n = plan.index_plan.num_values
+    wait_ready(plan.backward(np.zeros((n, 2), np.float32)
+                             if plan.precision == "single"
+                             else np.zeros(n, np.complex128)))
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    store.drain()
+    out = {
+        "store_dir": args.store_dir,
+        # a pre-populated DIR makes the in-process number a warm one;
+        # disclose rather than silently mislabel
+        "store_was_cold": reg.stats()["builds"] == 1,
+        "cold_start_ms": {"value": round(cold_ms, 3), "unit": "ms",
+                          "metric": "plan resolve + first execute, "
+                                    "empty store (build + spill)"},
+    }
+    # the fresh process imports this package from the same tree
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "spfft_tpu_torch.serve.store", "prewarm",
+         args.store_dir, "--compile", "--strict", "--json"]
+        + (["--device", "cpu"] if cpu else []),
+        capture_output=True, text=True, timeout=1800, env=env)
+    if proc.returncode != 0:
+        print(f"warning: warm-boot subprocess failed:\n{proc.stderr}",
+              file=sys.stderr)
+        return out
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["warm_start_ms"] = {
+        "value": report["warm_resolve_ms"], "unit": "ms",
+        "metric": "plan resolve + first execute, fresh process over "
+                  "the populated store (artifact load, builds==0)"}
+    out["warm_builds"] = report["builds"]
+    out["warm_store"] = report["store"]
+    return out
 
 
 def _exchange_sweep(args, dims, ttype, triplets, rng, cdt, device) -> int:
@@ -244,10 +309,6 @@ def _exchange_sweep(args, dims, ttype, triplets, rng, cdt, device) -> int:
 def main(argv=None) -> int:
     args = _parse_args(argv if argv is not None else sys.argv[1:])
     from .errors import DeviceError
-    refused = _out_of_slice(args)
-    if refused is not None:
-        print(f"error: {type(refused).__name__}: {refused}", file=sys.stderr)
-        return 2
     try:
         return _run(args)
     except DeviceError as exc:
@@ -327,7 +388,30 @@ def _run(args) -> int:
 
     transforms = [Transform(plan) for _ in range(args.num_transforms)]
     m = args.num_transforms
-    if args.fused_pair:
+    serve_executor = None
+    if args.serve:
+        # the serving layer over the SAME plan: the registry is seeded
+        # with the already-built plan and each repeat submits m backward
+        # and then m forward requests — the executor's same-signature
+        # bucketing turns each phase into batched buckets
+        from .serve import PlanRegistry, PlanSignature, ServeExecutor
+        registry = PlanRegistry()
+        serve_sig = PlanSignature.of_plan(plan)
+        registry.put(serve_sig, plan)
+        serve_executor = ServeExecutor(registry)
+        # every repeat submits exactly m same-signature requests, so the
+        # adaptive observer pins the exact shape m after a few repeats —
+        # prewarm it alongside the pow2 ladder
+        serve_executor.prewarm(serve_sig, batch_sizes=(m,))
+
+        def run_pair(vals):
+            spaces = [f.result() for f in
+                      [serve_executor.submit(serve_sig, vals)
+                       for _ in range(m)]]
+            return [f.result() for f in
+                    [serve_executor.submit(serve_sig, s, "forward")
+                     for s in spaces]]
+    elif args.fused_pair:
         def run_pair(vals):
             # backward + forward as one call (the identity operator)
             return plan.apply_pointwise(vals)
@@ -408,6 +492,13 @@ def _run(args) -> int:
         "device_kind": summary["device_kind"],
         "power_limit": summary["power_limit"],
     }
+    if serve_executor is not None:
+        serve_executor.close()
+        params["serve"] = serve_executor.metrics.snapshot(
+            serve_executor.registry)
+    if args.store_dir:
+        params.update(_store_cold_warm(args, ttype, (nx, ny, nz),
+                                       triplets, device, fused))
     print(json.dumps(params, indent=2))
     result.print()
     if args.output:

@@ -35,11 +35,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 
-def synchronize(value: Any) -> None:
-    """Wait for the work producing ``value``: ``torch.cuda.synchronize``
-    once for each CUDA device holding a tensor in ``value`` (a tensor,
-    or nested lists and tuples of them). CPU tensors are ready when
-    their op returns."""
+def _cuda_devices(value: Any) -> set:
+    """The CUDA devices holding a tensor in ``value`` (a tensor, or
+    nested lists and tuples of them)."""
     devices = set()
 
     def visit(v):
@@ -51,8 +49,43 @@ def synchronize(value: Any) -> None:
                 visit(x)
 
     visit(value)
-    for d in devices:
+    return devices
+
+
+def synchronize(value: Any) -> None:
+    """Wait for the work producing ``value``: ``torch.cuda.synchronize``
+    once for each CUDA device holding a tensor in ``value`` (a tensor,
+    or nested lists and tuples of them). CPU tensors are ready when
+    their op returns."""
+    for d in _cuda_devices(value):
         torch.cuda.synchronize(d)
+
+
+def ready_events(value: Any) -> List["torch.cuda.Event"]:
+    """One CUDA event recorded now on the current stream of each CUDA
+    device holding a tensor in ``value``: the events complete when the
+    work queued so far on those streams has run (the work producing
+    ``value``), and not later work. Empty for CPU tensors."""
+    events = []
+    for d in _cuda_devices(value):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    return events
+
+
+def wait_events(events) -> None:
+    """Block the host until every event of ``events`` has completed
+    (``Event.synchronize``): a wait for one piece of work, where
+    :func:`synchronize` waits for all the device's work."""
+    for ev in events or ():
+        ev.synchronize()
+
+
+def wait_ready(value: Any) -> None:
+    """Wait for the work producing ``value`` alone: :func:`ready_events`
+    then :func:`wait_events`."""
+    wait_events(ready_events(value))
 
 
 class _Node:

@@ -11,9 +11,14 @@ virtual CPU devices of tests/conftest.py.
   exactly ``device_kind`` and ``power_limit``;
 * every ``-e`` exchange and ``--overlap-chunks K`` run, with the JAX
   CLI's keys (``-e all``: its ``exchange_sweep`` rows, key for key);
-* ``--serve`` and ``--store-dir`` exit 2 with the typed not-in-slice
-  message; without a card and without ``--cpu`` it exits 1 with the
-  port's ``DeviceError``.
+* ``--serve`` (the serving layer: ``params["serve"]``, the executor's
+  metrics snapshot) and ``--store-dir`` (``cold_start_ms`` in this
+  process, ``warm_start_ms`` from a fresh prewarm process with
+  ``warm_builds == 0``) run at ``-d 16`` with the JAX CLI's keys;
+* the serving modules and the store's CLI import with ``jax`` blocked
+  and load no module of the JAX package;
+* without a card and without ``--cpu`` it exits 1 with the port's
+  ``DeviceError``.
 """
 
 import json
@@ -134,15 +139,77 @@ def test_exchange_flags_run_with_the_jax_clis_keys(flags, tmp_path):
         assert got["parameters"][key] == want["parameters"][key], key
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--serve"], "--serve"),
-    (["--store-dir", "x"], "--store-dir"),
-])
-def test_out_of_slice_flags_exit_2(flags, what, capsys):
-    assert benchmark.main(["--cpu", "-d", "8"] + flags) == 2
-    err = capsys.readouterr().err
-    assert f"InvalidParameterError: {what}" in err
-    assert "is not in this slice of spfft_tpu_torch" in err
+@pytest.mark.parametrize("flags", [
+    ["--serve"],
+    ["--serve", "-m", "3", "-p", "host", "-t", "r2c"],
+    ["--store-dir", "STORE"],
+    ["--store-dir", "STORE", "--no-fused", "--precision", "double"],
+], ids=["serve", "serve_m3_host_r2c", "store_dir", "store_dir_two_kernel"])
+def test_serve_and_store_dir_have_the_jax_clis_keys(flags, tmp_path):
+    """``--serve`` and ``--store-dir`` at ``-d 16`` on the CPU: the JAX
+    CLI's keys at the same flags (``serve``: its metrics snapshot's keys,
+    the registry's counters among them; the store's cold / warm pair),
+    every request completed and a warm boot with no build."""
+    argv = ["-d", "16", "-r", "2"] + [
+        str(tmp_path / "jax_store") if f == "STORE" else f for f in flags]
+    jargv = [f for f in argv if f not in ("--no-fused",)]
+    jout = tmp_path / "jax.json"
+    assert jbench.main(jargv + ["-o", str(jout)]) == 0
+    want = json.loads(jout.read_text())["parameters"]
+    argv = [str(tmp_path / "port_store") if a == str(tmp_path / "jax_store")
+            else a for a in argv]
+    got = _run(argv, tmp_path)["parameters"]
+    assert set(got) == set(want) | ADDED
+    if "--serve" in flags:
+        serve, jserve = got["serve"], want["serve"]
+        assert set(serve) == set(jserve)
+        for key in ("health", "overhead_seconds", "latency_seconds",
+                    "registry"):
+            assert set(serve[key]) == set(jserve[key]), key
+        m = got["num_transforms"]
+        assert serve["completed"] == jserve["completed"] == 2 * m * 3
+        assert serve["failed"] == 0
+        assert serve["health"]["bucket_fallbacks"] == 0
+        if m > 1:
+            assert serve["fused_batches"] > 0
+    else:
+        for key in ("cold_start_ms", "warm_start_ms"):
+            assert set(got[key]) == set(want[key])
+            assert got[key]["value"] > 0
+        assert got["store_was_cold"] and got["warm_builds"] == 0
+        assert got["warm_store"]["hits"] == 1
+        assert got["warm_store"]["rejects"] == {}
+
+
+def test_serving_modules_import_without_jax():
+    """``spfft_tpu_torch.serve``, ``spfft_tpu_torch.net.blobstore`` and the
+    store's CLI, in a process where ``import jax`` fails: no module of
+    the JAX package is loaded."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import spfft_tpu_torch.serve as s\n"
+        "import spfft_tpu_torch.net.blobstore as b\n"
+        "import spfft_tpu_torch.serve.store as st\n"
+        "from spfft_tpu_torch.serve import PlanArtifactStore\n"
+        "try:\n"
+        "    st.main(['verify', sys.argv[1], '--json'])\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m == 'spfft_tpu'\n"
+        "             or m.startswith('spfft_tpu.'))\n"
+        "assert sys.modules['jax'] is None, 'jax was imported'\n"
+        "print('LOADED', bad)\n")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        res = subprocess.run([sys.executable, "-c", code, d], cwd=repo,
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=repo))
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout
 
 
 def test_buffered_exchange_and_one_chunk_run(tmp_path):
