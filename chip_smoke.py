@@ -151,8 +151,9 @@ Phases, each of which exits non-zero when it fails:
    plan (the lossless ones bit for bit BUFFERED's backward); the error
    surface on the card (exchange code 42 -> 5, an
    invalid handle -> 2, an out-of-bounds index -> 7); then
-   ``capi_drive`` in a process of its own per case (its own embedded
-   interpreter): C2C single on ``PALLAS_AUTO`` and ``PALLAS_OFF`` (the
+   ``capi_drive`` in one process for every case (its own embedded
+   interpreter; only the first case's ``plan_create`` is a cold start):
+   C2C single on ``PALLAS_AUTO`` and ``PALLAS_OFF`` (the
    latter also bit for bit the former), R2C single, C2C double and
    distributed C2C over 4 shards, each with ``multi_backward`` /
    ``multi_forward`` at B = 4 under one handle (but ``PALLAS_OFF``),
@@ -233,6 +234,22 @@ Phases, each of which exits non-zero when it fails:
    of every path, float32 and float64, each with its ``path`` and
    ``dtype``) and, last, one JSON line ``{"ok": true, "device":
    {...}}``.
+
+After the 256^3 paths come the observability, fault and plan-surface
+phases, the serving phase (``serve_phase``: a ``ServeExecutor`` over the
+256^3 sphere, ``{"serve": ...}``) and the pod phase (``pod_phase``,
+``{"pod": ...}``): (a) a loopback ``PodFrontend`` of two prewarmed lanes
+over the sphere's local plan and its 4-shard plan, 3 bursts of 32 single
+and 16 distributed backward requests from 4 threads, then their
+forward(FULL), every result bit for bit its direct plan call, each local
+bucket launching the direction's fused z kernel and ``pdft2`` once and
+each coalesced distributed round the fused z kernel once per shard and
+``pdft2_swapped`` once; (b) ``net.smoke.run_pod_smoke`` with agent
+processes on the card (the JAX smoke's trace at 256^3 bit for bit,
+agent-side coalescing, three 256^3 requests one at a time with their
+steps timed apart; then, at 32^3, a warm join with ``builds == 0``,
+``kill -9`` failover, self-heal and readmission, a drain-leave) and
+``wire_overhead_probe``.
 
 Times are medians of CUDA-event timings over ``REPS`` runs after a
 warm-up, one call between two events, so a call's host work (a wrapper's
@@ -5756,18 +5773,20 @@ def capi_case_refs(sp, plan, vals, device):
 
 
 def capi_drive_phase(sp, drive, device, n, smi):
-    """Each case of :data:`CAPI_CASES` through ``capi_drive`` (a process
-    of its own, its own embedded interpreter): every output bit for bit
-    the Python API's on the same inputs (the two-kernel case also the
-    fused case's), and each call's time beside the Python API's on host
-    arrays and on device-resident ones, with the bytes the call moves
-    over PCIe. Returns the rows ``PERF.md`` records."""
+    """Each case of :data:`CAPI_CASES` through ``capi_drive`` (one
+    process for every case, its own embedded interpreter): every output
+    bit for bit the Python API's on the same inputs (the two-kernel case
+    also the fused case's), and each call's time beside the Python API's
+    on host arrays and on device-resident ones, with the bytes the call
+    moves over PCIe. The cases' inputs are written first, the drive runs
+    them one after another, then each case's outputs are compared and
+    its directory removed. Returns the rows ``PERF.md`` records."""
     import shutil
 
     from spfft_tpu_torch import native
     root = native.BUILD_DIR / "drive"
-    rows = {}
-    fused_refs = None
+    shutil.rmtree(root, ignore_errors=True)
+    cases = []
     for name, (r2c, double, pallas, shards, batch) in CAPI_CASES.items():
         trip, vals, plan = capi_case_inputs(sp, n, r2c, double, shards,
                                             batch, device)
@@ -5775,7 +5794,6 @@ def capi_drive_phase(sp, drive, device, n, smi):
             plan = sp.TransformPlan(plan.index_plan, device=device,
                                     fused=False, precision=plan.precision)
         d = root / name
-        shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         (d / "case.txt").write_text(
             f"{int(r2c)} {n} {n} {n} {int(double)} {pallas} {shards} "
@@ -5788,12 +5806,21 @@ def capi_drive_phase(sp, drive, device, n, smi):
                 np.array([p.num_values for p in dp.shard_plans],
                          np.int64).tobytes()
                 + np.array(dp.num_planes, np.int32).tobytes())
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        out = capi_run([drive, d], f"capi_drive {name}")
-        line = [ln for ln in out.splitlines() if ln.startswith("capi_drive")]
+        cases.append((name, batch, d, vals, plan))
+        del trip
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = capi_run([drive] + [d for _, _, d, _, _ in cases], "capi_drive")
+    lines = [ln for ln in out.splitlines() if ln.startswith("capi_drive")]
+    if len(lines) != len(cases):
+        fail(f"capi_drive printed {len(lines)} case lines for "
+             f"{len(cases)} cases:\n{out[-2000:]}")
+    rows = {}
+    fused_refs = None
+    for i, ((name, batch, d, vals, plan), line) in enumerate(zip(cases,
+                                                                lines)):
         c_ms = {k: float(v) for k, v in re.findall(
-            r"(\w+)_(?:ms|s)=([0-9.]+)", line[-1])}
+            r"(\w+)_(?:ms|s)=([0-9.]+)", line)}
         refs, py_ms = capi_case_refs(sp, plan, vals, device)
         files = {"backward": refs["backward"][0], "forward":
                  refs["forward"][0], "pair": refs["pair"]}
@@ -5819,7 +5846,9 @@ def capi_drive_phase(sp, drive, device, n, smi):
                  "pair": (vbytes, vbytes),
                  "multi_backward": (vbytes, sbytes),
                  "multi_forward": (sbytes, vbytes)}
-        row = {"create_s": c_ms["create"]}
+        # one process runs every case: only the first case's plan_create
+        # is a cold start of the embedded interpreter
+        row = {"create_s": c_ms["create"], "create_cold": i == 0}
         for call in CAPI_CALLS:
             if call not in py_ms:
                 continue
@@ -5835,12 +5864,14 @@ def capi_drive_phase(sp, drive, device, n, smi):
                   f"the card + {back / 1e6:.2f} MB back = "
                   f"{(to_card + back) / c / 1e6:.2f} GB/s through C "
                   f"({smi})", flush=True)
-        print(f"capi {name}: plan_create through C {c_ms['create']:.2f} s, "
+        print(f"capi {name}: plan_create through C {c_ms['create']:.2f} s "
+              f"({'cold' if i == 0 else 'warm'} process), "
               f"every output bit for bit the Python API's"
               + (" and the fused route's" if name == "c2c_off" else "")
               + f" ({smi})", flush=True)
         rows[name] = row
-        del plan, vals, refs
+        del refs
+    del cases
     return rows
 
 
@@ -6679,6 +6710,348 @@ def serve_phase(sp, device, counters, n=N):
     SERVE_ROWS["cli"] = serve_cli_case(CARD, device, n)
 
 
+# -- the pod ---------------------------------------------------------------------
+
+POD_THREADS = 4
+POD_SINGLES = 32
+POD_DIST = 16
+POD_BURSTS = 3
+#: the coalescing window of the loopback pod's SPMD lane (seconds): long
+#: enough that the 16 distributed requests of a burst, submitted from 4
+#: threads, meet in full rounds of ``spmd_max_batch``
+POD_SPMD_WINDOW = 0.05
+#: the n of the TCP pod's join / kill / self-heal requests: the trace
+#: (the JAX smoke's 24 singles and one distributed request) and the
+#: coalesced pair are at 256^3, these steps' requests (the JAX smoke's
+#: counts) at this n, which keeps the phase near its budget
+POD_HEAL_N = 32
+#: single requests of the trace's size sent one at a time after it, each
+#: timed apart (``net.smoke._solo_requests``)
+POD_SOLO = 3
+#: the TCP pod's leases (ms): the knobs' default TTL, where the JAX
+#: smoke's 300 ms lets an agent busy with 200 MB frames miss renewals
+#: (each suspicion bumps the view epoch twice, and a frontend's fenced
+#: retry can meet a second bump)
+POD_LEASE_TTL_MS = 1500
+POD_HEARTBEAT_MS = 250
+#: the pod phase's numbers, printed as ``{"pod": ...}``
+POD_ROWS = {}
+
+
+def _pod_submit_all(pod, requests, kind, scaling, done):
+    """Submit ``requests`` ((signature, payload) pairs) to ``pod`` from
+    ``POD_THREADS`` threads (request i from thread i mod POD_THREADS);
+    ``done[i]`` gets (submit time, resolve time). Returns the futures in
+    request order."""
+    import threading
+    futs = [None] * len(requests)
+    errors = []
+
+    def worker(k):
+        for i in range(k, len(requests), POD_THREADS):
+            sig, payload = requests[i]
+            try:
+                t0 = time.perf_counter()
+                f = pod.submit(sig, payload, kind, scaling=scaling)
+                f.add_done_callback(
+                    lambda _f, i=i, t0=t0: done.__setitem__(
+                        i, (t0, time.perf_counter())))
+                futs[i] = f
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(POD_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"pod: submit raised {errors[:1]!r} or hung")
+    return futs
+
+
+def _pod_units(lanes, before):
+    """Local plan calls since ``before`` (one per batched bucket, per
+    request served serially and per pin prewarm), over every lane."""
+    def units(snap):
+        serial = sum(int(k) * v
+                     for k, v in snap["serial_batch_histogram"].items())
+        return snap["fused_batches"] + serial + snap["health"]["pin_prewarms"]
+    return sum(units(ln.executor.metrics.snapshot()) - units(b)
+               for ln, b in zip(lanes, before))
+
+
+def pod_direction(pod, requests, kind, scaling, counters, done):
+    """One direction of the pod's trace, counted: the launch counters set
+    to 0 just before the submits and read after every result. Each local
+    bucket (or serial call, or pin prewarm) launches the direction's
+    fused z kernel and ``pdft2`` once; each coalesced round of the
+    distributed plan launches the fused z kernel once per shard and
+    ``pdft2_swapped`` once, whatever its size. Returns the results, the
+    seconds, and (local calls, rounds, launches)."""
+    from spfft_tpu_torch.timing import wait_ready
+    lanes = pod._lanes
+    before = [ln.executor.metrics.snapshot() for ln in lanes]
+    rounds0 = pod._spmd.signals()["spmd_launches"]
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    futs = _pod_submit_all(pod, requests, kind, scaling, done)
+    out = [f.result(timeout=300) for f in futs]
+    wait_ready(out)
+    secs = time.perf_counter() - t0
+    for ln in lanes:
+        for th in list(ln.executor._prewarm_threads.values()):
+            th.join(timeout=300)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    local = _pod_units(lanes, before)
+    rounds = pod._spmd.signals()["spmd_launches"] - rounds0
+    z, other = (("decompress_zdft", "zdft_compress") if kind == "backward"
+                else ("zdft_compress", "decompress_zdft"))
+    want = {z: local + DIST_SHARDS * rounds, "pdft2": local,
+            "pdft2_swapped": rounds, other: 0, "gather": 0,
+            "pdft_last": 0, "prdft2": 0, "pdft2_cr": 0}
+    print(f"pod {kind}: {len(requests)} requests, {local} local plan calls "
+          f"on the lanes, {rounds} coalesced distributed rounds; launches "
+          f"{launches} ({CARD})", flush=True)
+    for name, k in want.items():
+        if launches[name] != k:
+            fail(f"pod {kind}: {name} launched {launches[name]} times, "
+                 f"expected {k} ({local} local calls, {rounds} rounds)")
+    n_dist = sum(1 for sig, _ in requests if sig.device_count > 1)
+    if n_dist and rounds >= n_dist:
+        fail(f"pod {kind}: {n_dist} distributed requests ran in {rounds} "
+             f"rounds: none coalesced")
+    return out, secs, (local, rounds, launches)
+
+
+def pod_loopback_case(sp, device, counters, n=N):
+    """(a) The loopback pod: two ``HostLane``s, each a prewarmed
+    ``ServeExecutor`` whose registry holds the n^3 C2C sphere's local plan
+    and its 4-shard one-card distributed plan (the same plan objects),
+    behind a p2c ``PodFrontend``. ``POD_BURSTS`` bursts of POD_SINGLES
+    single backward requests of host values and POD_DIST distributed
+    backward requests of stacked values on the card, from POD_THREADS
+    threads, then their forward(FULL) of the returned spaces: every result
+    bit for bit its direct plan call (a serial loop over the same
+    requests, timed), the launches of :func:`pod_direction`, the routed
+    count per host, the coalesced batch sizes, latency percentiles over
+    every request, and the federated ``/metrics`` re-parsed."""
+    from spfft_tpu_torch import obs
+    from spfft_tpu_torch.control.config import global_config
+    from spfft_tpu_torch.serve import (HostLane, PlanRegistry, PodFrontend,
+                                       ServeExecutor, load_score,
+                                       signature_for)
+    from spfft_tpu_torch.timing import wait_ready
+    trip, values = c2c_inputs(n, device)
+    base = values.cpu().numpy()
+    payloads = [base * np.float32(1 + i / 64) for i in range(POD_SINGLES)]
+    dplan, stacked = dist_plan(sp, n, trip, values, device)
+    dpay = [stacked * (1 + i / 64) for i in range(POD_DIST)]
+    del values
+    reg = PlanRegistry(store=False)
+    sig, plan = reg.get_or_build(sp.TransformType.C2C, n, n, n, trip,
+                                 device=device)
+    dsig = signature_for(sp.TransformType.C2C, n, n, n, trip,
+                         device_count=DIST_SHARDS)
+    cfg = global_config()
+    old_window = cfg.spmd_batch_window
+    cfg.set("spmd_batch_window", POD_SPMD_WINDOW, source="chip_smoke",
+            reason="the pod phase's coalescing window")
+    lanes = []
+    for host in ("h0", "h1"):
+        r = PlanRegistry(store=False)
+        r.put(sig, plan)
+        r.put(dsig, dplan)
+        ex = ServeExecutor(r)
+        ex.prewarm(sig, scaling=sp.Scaling.FULL)
+        lanes.append(HostLane(host, ex))
+    full = sp.Scaling.FULL
+    for b in (1, 2, 4, 8):  # the rounds' batch shapes, warm
+        wait_ready(dplan.coalesce_forward(
+            dplan.coalesce_backward([stacked] * b), full))
+    obs.GLOBAL_COUNTERS.reset()
+    pod = PodFrontend(lanes, policy="p2c", seed=SEED)
+    try:
+        # singles and distributed requests interleaved: every third one
+        # distributed
+        order = []
+        si, di = iter(range(POD_SINGLES)), iter(range(POD_DIST))
+        for k in range(POD_SINGLES + POD_DIST):
+            j = next(di, None) if k % 3 == 2 else None
+            if j is not None:
+                order.append((dsig, j))
+            else:
+                order.append((sig, next(si)))
+        bwd_req = [(s, dpay[j] if s is dsig else payloads[j])
+                   for s, j in order]
+        served, serial, lat = [], [], []
+        for burst in range(POD_BURSTS):
+            done_b, done_f = {}, {}
+            spaces, t_b, cb = pod_direction(pod, bwd_req, "backward",
+                                            sp.Scaling.NONE, counters,
+                                            done_b)
+            fwd_req = [(s, sp_) for (s, _), sp_ in zip(bwd_req, spaces)]
+            outs, t_f, cf = pod_direction(pod, fwd_req, "forward", full,
+                                          counters, done_f)
+            t0 = time.perf_counter()
+            want_b = [(dplan if s is dsig else plan).backward(v)
+                      for s, v in bwd_req]
+            wait_ready(want_b)
+            t_sb = time.perf_counter() - t0
+            want_f = [(dplan if s is dsig else plan).forward(w, full)
+                      for (s, _), w in zip(bwd_req, want_b)]
+            wait_ready(want_f)
+            t_serial = time.perf_counter() - t0
+            for i, (s, _) in enumerate(bwd_req):
+                what = "distributed" if s is dsig else "single"
+                if not torch.equal(spaces[i], want_b[i]):
+                    fail(f"pod: {what} backward request {i} of burst "
+                         f"{burst} differs from its direct plan call")
+                if not torch.equal(outs[i], want_f[i]):
+                    fail(f"pod: {what} forward request {i} of burst "
+                         f"{burst} differs from its direct plan call")
+            del spaces, outs, want_b, want_f, fwd_req
+            lat += [t1 - t0 for t0, t1 in list(done_b.values())
+                    + list(done_f.values())]
+            served.append({"backward_s": t_b, "forward_s": t_f,
+                           "local_calls": [cb[0], cf[0]],
+                           "rounds": [cb[1], cf[1]]})
+            serial.append({"backward_s": t_sb, "forward_s": t_serial - t_sb})
+        coalesced = obs.GLOBAL_COUNTERS.get(
+            "spfft_cluster_spmd_coalesced_total")
+        if not coalesced:
+            fail("pod: spfft_cluster_spmd_coalesced_total did not move")
+        routed = {dict(k).get("host") + "/" + dict(k).get("kind"): v
+                  for k, v in obs.GLOBAL_COUNTERS.snapshot()
+                  ["spfft_cluster_routed_total"]["samples"].items()}
+        signals = {ln.host: ln.rpc_signals() for ln in lanes}
+        scores = {h: list(load_score(s)) for h, s in signals.items()}
+        parsed = obs.parse_prometheus_text(pod.metrics_text())
+        hosts = {dict(lb).get("host") for (name, lb) in parsed
+                 if name == "spfft_serve_completed_total"}
+        if not {"h0", "h1"} <= hosts or not any(
+                name == "spfft_cluster_routed_total" for name, _ in parsed):
+            fail(f"pod: the federated /metrics lacks a host's series "
+                 f"({hosts})")
+        health = pod.health()
+        if health["state"] != "healthy":
+            fail(f"pod: health {health['state']}")
+        hist = pod._spmd.signals()["spmd_batch_hist"]
+    finally:
+        pod.close()
+        cfg.set("spmd_batch_window", old_window, source="chip_smoke",
+                reason="restore after the pod phase")
+    n_req = 2 * len(bwd_req)
+    rates = [n_req / (a["backward_s"] + a["forward_s"]) for a in served]
+    base_r = [n_req / (a["backward_s"] + a["forward_s"]) for a in serial]
+    lat.sort()
+    row = {"card": CARD, "requests": n_req, "bursts": POD_BURSTS,
+           "threads": POD_THREADS, "singles": POD_SINGLES,
+           "distributed": POD_DIST, "spmd_batch_window_s": POD_SPMD_WINDOW,
+           "served_req_per_s": float(np.median(rates)),
+           "serial_req_per_s": float(np.median(base_r)),
+           "served_req_per_s_bursts": rates,
+           "serial_req_per_s_bursts": base_r,
+           "p50_ms": lat[len(lat) // 2] * 1e3,
+           "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+           "latency_samples": len(lat), "routed": routed,
+           "spmd_batch_hist": {str(k): v for k, v in hist.items()},
+           "spmd_coalesced": coalesced, "load_scores": scores,
+           "served_s_bursts": served, "serial_s_bursts": serial,
+           "metrics_series": len(parsed)}
+
+    def spread(xs):
+        return f"{np.median(xs):.1f} ({min(xs):.1f}-{max(xs):.1f})"
+
+    print(f"pod (a) loopback, 2 lanes: {POD_BURSTS} x {n_req} requests "
+          f"({POD_SINGLES} single + {POD_DIST} distributed backward, then "
+          f"their forward(FULL)) from {POD_THREADS} threads, all bit for bit "
+          f"the direct calls; req/s, median (range) of the bursts: "
+          f"{spread(rates)} served against {spread(base_r)} in a serial "
+          f"loop; p50 {row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms "
+          f"over {len(lat)} requests; routed {routed}; coalesced rounds by "
+          f"size {row['spmd_batch_hist']}; load scores {scores}; /metrics "
+          f"{len(parsed)} series ({CARD})", flush=True)
+    for ln in lanes:
+        ln.executor.close()
+    del plan, dplan, reg, payloads, dpay, stacked, base, lanes
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def pod_tcp_case(sp, device, n=N):
+    """(b) The TCP pod: ``net.smoke.run_pod_smoke`` at the n^3 sphere,
+    float32, 4 shards, agents as subprocesses holding the n^3 and the
+    POD_HEAL_N^3 sets (``--demo-warm
+    n,sphere,4,full,single;32,sphere,4,full,single --device cuda:k``,
+    agent k on card k mod the visible count, their stderr in
+    ``build/pod/agents.log``): the JAX smoke's trace (24 singles and one
+    distributed request) at n^3 bit for bit against plans built in this
+    process, agent-side coalescing of a concurrent n^3 pair, POD_SOLO
+    n^3 requests one at a time with their steps timed apart, then at
+    POD_HEAL_N^3 with the JAX smoke's counts the warm join with ``builds
+    == 0``, ``kill -9`` failover, self-heal and readmission, the
+    drain-leave; then ``wire_overhead_probe`` on the card."""
+    import shutil
+    from pathlib import Path
+
+    from spfft_tpu_torch.net import smoke
+    from spfft_tpu_torch.net.transport import wire_overhead_probe
+    logs = Path(__file__).resolve().parent / "build" / "pod"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    agent_device = "cuda" if device.type == "cuda" else "cpu"
+    failures, row = smoke.run_pod_smoke(
+        SEED, agent_device, n=n, cutoff="sphere", shards=DIST_SHARDS,
+        precision="single", log_dir=str(logs), heal_n=POD_HEAL_N,
+        solo=POD_SOLO, lease_ttl_ms=POD_LEASE_TTL_MS,
+        heartbeat_interval_ms=POD_HEARTBEAT_MS)
+    if failures:
+        fail("pod (b) TCP pod: " + "\n".join(failures))
+    row["card"] = CARD
+    row["wire_overhead"] = wire_overhead_probe(device=device)
+    mb = 1e6
+    solo = row["solo"]
+    print(f"pod (b) TCP, agents as processes on {agent_device}: "
+          f"{row['trace_requests']} requests at {n}^3 submitted back to "
+          f"back from one thread, bit for bit, in {row['trace_s']:.2f} s "
+          f"({row['s_per_request']:.3f} s a request), wire "
+          f"{row['wire_bytes_per_request_sent'] / mb:.1f} MB sent and "
+          f"{row['wire_bytes_per_request_received'] / mb:.1f} MB received a "
+          f"request, RPC RTT EWMA after the burst (queueing inside it "
+          f"included) {row['rtt_ewma_s']}; {solo['requests']} requests one "
+          f"at a time, medians: wall {solo['wall_s']:.4f} s = submit "
+          f"(pack, connect, send) {solo['submit_s']:.4f} + reply "
+          f"{solo['reply_s']:.4f}; the steps' calls in this process: "
+          f"pack values {solo['pack_values_s']:.4f}, unpack values "
+          f"{solo['unpack_values_s']:.4f}, plan call host to host "
+          f"{solo['plan_s']:.4f}, pack space {solo['pack_space_s']:.4f}, "
+          f"unpack space {solo['unpack_space_s']:.4f}, the rest (sockets "
+          f"both ways and the ends' other work) {solo['rest_s']:.4f}; "
+          f"agents up in {row['agent_start_s']} s; join, kill and heal at "
+          f"{row['heal_n']}^3: join {row['join_s']:.2f} s "
+          f"(builds 0); kill -9 to typed failover "
+          f"{row['kill_to_failover_s']} s, to eviction "
+          f"{row.get('kill_to_eviction_s')} s; restart to readmission "
+          f"{row['restart_to_readmission_s']:.2f} s; wire overhead "
+          f"{row['wire_overhead']} ({CARD})", flush=True)
+    return row
+
+
+def pod_phase(sp, device, counters, n=N):
+    """The pod on the card: (a) the loopback pod, (b) the TCP pod."""
+    t0 = time.perf_counter()
+    POD_ROWS["loopback"] = pod_loopback_case(sp, device, counters, n)
+    POD_ROWS["loopback"]["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    POD_ROWS["tcp"] = pod_tcp_case(sp, device, n)
+    POD_ROWS["tcp"]["seconds"] = time.perf_counter() - t1
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
@@ -6749,6 +7122,12 @@ def main() -> int:
           flush=True)
     no_demotions("the serving phase")
     torch.cuda.empty_cache()
+    t_pod = time.perf_counter()
+    pod_phase(sp, device, launch_counters())
+    print(f"pod phase: {time.perf_counter() - t_pod:.1f} s ({card})",
+          flush=True)
+    no_demotions("the pod phase")
+    torch.cuda.empty_cache()
     t_ranks = time.perf_counter()
     ranks = ranks_phase(sp, device)
     print(f"ranks phase: {time.perf_counter() - t_ranks:.1f} s ({card})",
@@ -6797,6 +7176,7 @@ def main() -> int:
     print(json.dumps({"design_bound_ms": DESIGN_BOUND_MS}), flush=True)
     print(json.dumps({"obs": OBS_ROWS}), flush=True)
     print(json.dumps({"serve": SERVE_ROWS}), flush=True)
+    print(json.dumps({"pod": POD_ROWS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -187,12 +187,6 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _not_in_slice(what: str, later: str):
-    return InvalidParameterError(
-        f"{what} is not in this slice of spfft_tpu_torch; the {later} "
-        f"slice adds it")
-
-
 def _on_device(t: torch.Tensor) -> bool:
     """True for a tensor on an accelerator (not host memory)."""
     return isinstance(t, torch.Tensor) and t.device.type != "cpu"

@@ -1,5 +1,5 @@
 """spfft_tpu_torch.serve — transform-as-a-service on top of the port's
-plans (the port of ``spfft_tpu/serve``, its single-host part).
+plans (the port of ``spfft_tpu/serve``).
 
 * :mod:`~spfft_tpu_torch.serve.registry` — ``PlanRegistry``, a
   byte-aware bounded LRU of ``TransformPlan``s keyed by a canonical
@@ -22,9 +22,14 @@ plans (the port of ``spfft_tpu/serve``, its single-host part).
   classification behind the executor's bucket isolation, retries,
   quarantine and supervised dispatch.
 
-The pod (``PodFrontend``, ``HostLane``, ``LoopbackTransport``,
-``load_score``, ``simulate_routing``) is a later slice of this package:
-those names raise the typed not-in-slice error.
+* :mod:`~spfft_tpu_torch.serve.cluster` — the pod: ``PodFrontend``
+  owns one ``ServeExecutor`` lane per host (``HostLane`` over a
+  ``LoopbackTransport``, or ``net.TcpHostLane`` over framed TCP),
+  reconciles plan digests across hosts, routes single-device requests by
+  power-of-two-choices over live load signals (``load_score``;
+  ``simulate_routing`` replays the skewed-load scenario), and coalesces
+  same-signature ``DistributedTransformPlan`` requests into one batched
+  execution; ``python -m spfft_tpu_torch.serve.cluster --smoke``.
 """
 
 from ..errors import (ClusterError, ClusterReconciliationError,
@@ -39,11 +44,6 @@ from .metrics import PRIORITY_CLASSES, ServeMetrics, percentile
 from .registry import (PlanRegistry, PlanSignature, index_digest,
                        signature_for)
 
-#: the pod's names, which a later slice of this package adds
-_POD_NAMES = ("PodFrontend", "HostLane", "LoopbackTransport", "load_score",
-              "simulate_routing")
-
-
 def __getattr__(name):
     # PEP 562 lazy re-export: `python -m spfft_tpu_torch.serve.store`
     # runs store.py as __main__ AFTER this package imports — an eager
@@ -51,10 +51,12 @@ def __getattr__(name):
     if name in ("PlanArtifactStore", "PLAN_STORE_ENV"):
         from . import store
         return getattr(store, name)
-    if name in _POD_NAMES:
-        from ..plan import _not_in_slice
-        raise _not_in_slice(f"spfft_tpu_torch.serve.{name} (the pod "
-                            f"frontend)", "pod")
+    if name in ("PodFrontend", "HostLane", "LoopbackTransport",
+                "load_score", "simulate_routing"):
+        # Same rationale: `python -m spfft_tpu_torch.serve.cluster
+        # --smoke` runs cluster.py as __main__.
+        from . import cluster
+        return getattr(cluster, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -673,8 +673,8 @@ class ServeExecutor:
                 f"ServeExecutor serves local TransformPlans only; "
                 f"signature {signature} resolves to a "
                 f"{type(plan).__name__}. Submit distributed plans "
-                f"through the pod frontend (a later slice of this "
-                f"package) or run them directly (plan.backward/forward).")
+                f"through spfft_tpu_torch.serve.PodFrontend or run them "
+                f"directly (plan.backward/forward).")
         deadline = (time.monotonic() + timeout
                     if timeout is not None else None)
         key = (signature, kind, scaling)

@@ -182,9 +182,11 @@ def test_serve_and_store_dir_have_the_jax_clis_keys(flags, tmp_path):
 
 
 def test_serving_modules_import_without_jax():
-    """``spfft_tpu_torch.serve``, ``spfft_tpu_torch.net.blobstore`` and the
-    store's CLI, in a process where ``import jax`` fails: no module of
-    the JAX package is loaded."""
+    """``spfft_tpu_torch.serve``, ``spfft_tpu_torch.net.blobstore``, the
+    store's CLI, the pod (``serve.cluster``, its names through
+    ``spfft_tpu_torch.serve``) and ``spfft_tpu_torch.net.{frame,
+    membership,transport,agent,smoke}``, in a process where ``import
+    jax`` fails: no module of the JAX package is loaded."""
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -195,6 +197,14 @@ def test_serving_modules_import_without_jax():
         "import spfft_tpu_torch.net.blobstore as b\n"
         "import spfft_tpu_torch.serve.store as st\n"
         "from spfft_tpu_torch.serve import PlanArtifactStore\n"
+        "import spfft_tpu_torch.serve.cluster\n"
+        "from spfft_tpu_torch.serve import (PodFrontend, HostLane,\n"
+        "    LoopbackTransport, load_score, simulate_routing)\n"
+        "import spfft_tpu_torch.net.frame\n"
+        "import spfft_tpu_torch.net.membership\n"
+        "import spfft_tpu_torch.net.transport\n"
+        "import spfft_tpu_torch.net.agent\n"
+        "import spfft_tpu_torch.net.smoke\n"
         "try:\n"
         "    st.main(['verify', sys.argv[1], '--json'])\n"
         "except SystemExit:\n"
