@@ -228,7 +228,8 @@ Phases, each of which exits non-zero when it fails:
 17. one JSON line ``{"batched_sweep": [...]}``, one
    ``{"dist_batched_sweep": [...]}``, one ``{"exchange": [...]}``, one
    ``{"benchmark":
-   [...]}`` (phase 16's parameters), one ``{"capi": {...}}``
+   [...]}`` (phase 16's parameters), the obs, serving, pod and control
+   phases' ``{"obs"|"serve"|"pod"|"control": {...}}``, one ``{"capi": {...}}``
    (phase 13's numbers), one ``{"design_bound_ms": {...}}``, the
    script's wall time, one ``{"kernels": [...]}`` (every kernel record
    of every path, float32 and float64, each with its ``path`` and
@@ -249,7 +250,16 @@ processes on the card (the JAX smoke's trace at 256^3 bit for bit,
 agent-side coalescing, three 256^3 requests one at a time with their
 steps timed apart; then, at 32^3, a warm join with ``builds == 0``,
 ``kill -9`` failover, self-heal and readmission, a drain-leave) and
-``wire_overhead_probe``.
+``wire_overhead_probe``. Then the control phase (``control_phase``,
+``{"control": ...}``), each CLI a process of its own: (a) ``python -m
+spfft_tpu_torch.serve.bench`` at 256^3 (96 requests over three
+signatures, the controller and the SLO watchdog on), 24 requests bit
+for bit the serial calls and each plan execution one launch of
+``decompress_zdft`` and ``pdft2``; (b) ``python -m
+spfft_tpu_torch.control tune --quick`` and a ``--config`` replay (both at
+128^3); (c) ``--smoke --control``, ``--fault-smoke --devices 2``, ``--chaos
+7``; (d) ``python -m spfft_tpu_torch.obs demo``, ``validate``, ``prom``
+and ``incident --peer`` against an agent process.
 
 Times are medians of CUDA-event timings over ``REPS`` runs after a
 warm-up, one call between two events, so a call's host work (a wrapper's
@@ -7052,6 +7062,468 @@ def pod_phase(sp, device, counters, n=N):
     POD_ROWS["tcp"]["seconds"] = time.perf_counter() - t1
 
 
+# -- the control loop and the CLIs over everything ---------------------------
+
+#: the replay of ``control_phase`` (a): ``serve.bench`` at the N^3 grid,
+#: the JAX CLI's three signatures (sparsities 1, 11/12, 5/6), 96 requests
+#: from 4 threads, the controller on, seed 42 (the CLI's default)
+CONTROL_REQUESTS = 96
+CONTROL_SIGNATURES = 3
+CONTROL_THREADS = 4
+CONTROL_SLO = "p99_ms=60000,error_rate=0.5"
+#: requests of the replay held bit for bit against the serial calls of
+#: their plans (8 a signature: each signature's first in the trace)
+CONTROL_VERIFY = 24
+#: the tuner's two grid cells replay 32 requests each, not 96, at 128^3,
+#: not N^3 (the budget: at N^3 each request's values take 0.7-0.9 s of one
+#: core to draw)
+CONTROL_TUNE_REQUESTS = 32
+CONTROL_TUNE_DIM = 128
+#: the tuner's artifact boots a ``--config`` replay at this side (128^3,
+#: not N^3: the budget)
+CONTROL_CONFIG_DIM = 128
+CONTROL_ROWS = {}
+
+
+def _control_dir():
+    from pathlib import Path
+    out = Path(__file__).resolve().parent / "build" / "control"
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    return out
+
+
+def _cli(argv, log, timeout=600):
+    """``python -m argv`` from the repository root, its output kept in
+    ``log``; fails the script on a nonzero exit. Returns (stdout, s)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + list(argv), cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    with open(log, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"control: python -m {' '.join(argv)} exited "
+             f"{proc.returncode}:\n{proc.stdout[-2500:]}\n"
+             f"{proc.stderr[-2500:]}")
+    return proc.stdout, secs
+
+
+def _cli_json(text):
+    return json.loads(next(ln for ln in reversed(text.splitlines())
+                           if ln.startswith("{")))
+
+
+def _cli_start(argv, log):
+    """``python -m argv`` in the background, output into ``log``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m"] + list(argv),
+                                cwd=root, stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _stderr_seconds(log, prefix):
+    """The seconds a CLI reported on a ``prefix...in X.XXs`` line."""
+    for line in log.read_text().splitlines():
+        if line.startswith(prefix):
+            return float(line.rsplit(" ", 1)[-1].rstrip("s"))
+    return None
+
+
+def _decisions_summary(decisions, keep=6):
+    """The controller's decisions in a line: the first ``keep``, then
+    each knob's count and last value."""
+    if not decisions:
+        return "none"
+    head = "; ".join(f"step {d['step']}: {d['knob']} {d['old']:g} -> "
+                     f"{d['new']:g} ({d['reason']})"
+                     for d in decisions[:keep])
+    by = {}
+    for d in decisions:
+        by.setdefault(d["knob"], []).append(d)
+    tail = ", ".join(f"{k} {len(v)}x (last step {v[-1]['step']}: -> "
+                     f"{v[-1]['new']:g})" for k, v in by.items())
+    return f"{head}; in all {len(decisions)}: {tail}"
+
+
+def _replay_start(out, device, n=N):
+    """Start (a)'s replay process; a thread notes when its trace is
+    drawn (the ``trace:`` line on its stderr), the point after which it
+    measures."""
+    import threading
+    argv = (["spfft_tpu_torch.serve.bench", "--dim", str(n),
+             "--signatures", str(CONTROL_SIGNATURES), "--requests",
+             str(CONTROL_REQUESTS), "--threads", str(CONTROL_THREADS),
+             "--control", "--slo", CONTROL_SLO, "--trace-out",
+             str(out / "replay.trace.json"), "--prom-out",
+             str(out / "replay.prom"), "--verify-sample",
+             str(CONTROL_VERIFY), "-o", str(out / "replay.json")]
+            + _on(device))
+    log = out / "replay.log"
+    proc = _cli_start(argv, log)
+    state = {"argv": argv, "t0": time.perf_counter(), "drawn_at": None}
+
+    def watch():
+        while proc.poll() is None and state["drawn_at"] is None:
+            if "trace: " in log.read_text(errors="replace"):
+                state["drawn_at"] = time.perf_counter()
+            time.sleep(0.1)
+    state["watcher"] = threading.Thread(target=watch, daemon=True)
+    state["watcher"].start()
+    return proc, state
+
+
+def control_replay_case(out, device, n, proc, state, others_done_at):
+    """(a) The replay at N^3 with the controller and the SLO watchdog on
+    (started by :func:`_replay_start`): req/s against the serial and warm
+    loops, p50 / p99, the fused-batch histogram, the decisions and the
+    knobs after; ``--verify-sample``: 24 requests over the three
+    signatures bit for bit the serial call of their plans, and the
+    replay's launches — each batched bucket, each serial request and
+    each pin prewarm one ``decompress_zdft`` and one ``pdft2``, no other
+    kernel. The other checks of the phase ran while it built its plans
+    and drew its trace; ``others_done_at`` must precede the draw's end,
+    so that nothing else ran while it measured (else it says so)."""
+    res = out / "replay.json"
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("control (a): the replay ran past 900 s")
+    secs = time.perf_counter() - state["t0"]
+    state["watcher"].join(timeout=5)
+    if rc != 0:
+        fail(f"control (a): python -m {' '.join(state['argv'])} exited "
+             f"{rc}:\n{(out / 'replay.log').read_text()[-4000:]}")
+    drawn = state["drawn_at"]
+    overlap = None if drawn is None else max(0.0, others_done_at - drawn)
+    if overlap:
+        print(f"control (a): WARNING: the other checks ended "
+              f"{overlap:.1f} s after the replay's trace was drawn, so "
+              f"they ran beside its measurement", flush=True)
+    payload = json.loads(res.read_text())
+    v = payload["verify"]
+    if not v["ok"] or v["launch_check"] != ("checked" if device.type
+                                              == "cuda" else
+                                              "not on the card") \
+            or len(v["requests"]) < 16 or v["signatures"] != 3:
+        fail(f"control (a): the replay's verification: {v}")
+    if payload["failed_requests"] or payload["obs"]["open_spans"] \
+            or payload["obs_failures"]:
+        fail(f"control (a): failed {payload['failed_requests']}, open "
+             f"spans {payload['obs']['open_spans']}, obs "
+             f"{payload['obs_failures']}")
+    if payload["platform"]["backend"] != device.type:
+        fail(f"control (a): ran on {payload['platform']}")
+    if json.loads((out / "replay.trace.json").read_text())["otherData"][
+            "tracer"]["open"]:
+        fail("control (a): the trace holds open spans")
+    snap = payload["serve_metrics"]
+    lat = snap["latency_seconds"]
+    ctl = payload["control"]
+    row = {"card": CARD, "seconds": secs, "dim": n,
+           "requests": CONTROL_REQUESTS, "signatures": CONTROL_SIGNATURES,
+           "threads": CONTROL_THREADS,
+           "served_req_per_s": payload["throughput_rps"],
+           "serial_req_per_s": payload["serial_throughput_rps"],
+           "warm_loop_req_per_s": payload["warm_loop_throughput_rps"],
+           "p50_ms": lat["p50"] * 1e3, "p95_ms": lat["p95"] * 1e3,
+           "p99_ms": lat["p99"] * 1e3,
+           "fused_batches": snap["fused_batches"],
+           "serial_batches": snap["serial_batches"],
+           "pinned_batches": snap["pinned_batches"],
+           "padded_rows": snap["padded_rows"],
+           "batch_size_histogram": snap["batch_size_histogram"],
+           "pin_prewarms": snap["health"]["pin_prewarms"],
+           "controller_steps": ctl["steps"],
+           "decisions": ctl["decisions"], "knobs_after": ctl["knobs"],
+           "slo_violations": payload["slo"]["violations"],
+           "verified_requests": len(v["requests"]),
+           "launches": v["launches"], "executions": v["executions"],
+           "trace_events": payload["obs"]["trace_events"],
+           "prom_series": payload["obs"]["prom_series"],
+           "trace_s": _stderr_seconds(out / "replay.log", "trace: "),
+           "overlap_s": overlap}
+    moved = _decisions_summary(ctl["decisions"])
+    print(f"control (a) serve.bench replay at {n}^3, {CONTROL_REQUESTS} "
+          f"requests over {CONTROL_SIGNATURES} signatures from "
+          f"{CONTROL_THREADS} threads, the controller on: "
+          f"{row['served_req_per_s']:.1f} req/s served against "
+          f"{row['serial_req_per_s']:.1f} in the serial loop and "
+          f"{row['warm_loop_req_per_s']:.1f} warm; p50 {row['p50_ms']:.1f} "
+          f"ms, p99 {row['p99_ms']:.1f}; buckets {snap['fused_batches']} "
+          f"fused + {snap['serial_batches']} serial, histogram "
+          f"{snap['batch_size_histogram']}, pinned {snap['pinned_batches']}, "
+          f"pad rows {snap['padded_rows']}; {len(v['requests'])} requests "
+          f"bit for bit; launches {v['launches']} for {v['executions']} "
+          f"plan executions; controller {ctl['steps']} steps, decisions: "
+          f"{moved}; knobs after: batch_window {ctl['knobs']['batch_window']}"
+          f" max_batch {ctl['knobs']['max_batch']} pin_after "
+          f"{ctl['knobs']['pin_after']} pipeline_depth "
+          f"{ctl['knobs']['pipeline_depth']}; SLO violations "
+          f"{row['slo_violations'] or 'none'}; the trace drawn in "
+          f"{row['trace_s']} s; {secs:.1f} s ({CARD})", flush=True)
+    return row
+
+
+def control_tune_case(out, device, n=N):
+    """(b) ``control tune --quick`` at CONTROL_TUNE_DIM^3 (two grid cells
+    of CONTROL_TUNE_REQUESTS requests), then a ``serve.bench --config``
+    replay booted from its artifact (at CONTROL_CONFIG_DIM^3), whose
+    knobs must be the artifact's (``control check`` reads the artifact
+    in :func:`control_files_case`)."""
+    art = out / "tuned.json"
+    tdim = min(n, CONTROL_TUNE_DIM)
+    _, secs = _cli(["spfft_tpu_torch.control", "tune", "--quick",
+                       "--dim", str(tdim), "--requests",
+                       str(CONTROL_TUNE_REQUESTS), "-o", str(art)]
+                      + _on(device),
+                      out / "tune.log", timeout=900)
+    artifact = json.loads(art.read_text())
+    prov = artifact["provenance"]
+    cells = prov["grid"]
+    if len(cells) != 2 or not all(c["result"] for c in cells) \
+            or prov["platform"]["backend"] != device.type:
+        fail(f"control (b): the tuner's grid: {cells}, "
+             f"{prov.get('platform')}")
+    values = artifact["values"]
+    cdim = min(n, CONTROL_CONFIG_DIM)
+    bt, csecs = _cli(["spfft_tpu_torch.serve.bench", "--dim", str(cdim),
+                      "--signatures", str(CONTROL_SIGNATURES),
+                      "--requests", str(CONTROL_REQUESTS), "--threads",
+                      str(CONTROL_THREADS), "--config", str(art)]
+                     + _on(device),
+                     out / "config_replay.log", timeout=600)
+    want = f"window={values['batch_window'] * 1e3:.1f}ms " \
+           f"max_batch={values['max_batch']} " \
+           f"pin_after={values['pin_after']}"
+    head = next(ln for ln in bt.splitlines() if ln.startswith("signatures="))
+    if want not in head:
+        fail(f"control (b): the --config replay did not boot the "
+             f"artifact's knobs ({want!r} not in {head!r})")
+    boot = _cli_json(bt)
+    row = {"card": CARD, "tune_seconds": secs, "requests":
+           CONTROL_TUNE_REQUESTS, "dim": tdim,
+           "cells": [{"batch_window_ms": c["batch_window_ms"],
+                      "max_batch": c["max_batch"],
+                      "req_per_s": c["result"]["throughput_rps"],
+                      "speedup_vs_serial":
+                          c["result"]["speedup_vs_serial"],
+                      "p99_ms": c["result"]["serve_metrics"]
+                      ["latency_seconds"]["p99"] * 1e3} for c in cells],
+           "best": prov["best"],
+           "config_replay": {"dim": cdim, "seconds": csecs,
+                             "knobs": head,
+                             "req_per_s": boot["throughput_rps"],
+                             "serial_req_per_s":
+                                 boot["serial_throughput_rps"]}}
+    print(f"control (b) tune --quick at {tdim}^3, {CONTROL_TUNE_REQUESTS} "
+          f"requests a cell: "
+          + ", ".join(f"window {c['batch_window_ms']} ms max_batch "
+                      f"{c['max_batch']}: {c['req_per_s']:.1f} req/s "
+                      f"({c['speedup_vs_serial']:.2f}x serial), p99 "
+                      f"{c['p99_ms']:.1f} ms" for c in row["cells"])
+          + f"; best {prov['best']} in {secs:.1f} s; the "
+          f"--config replay at {cdim}^3 booted with {want} "
+          f"({boot['throughput_rps']:.1f} req/s against "
+          f"{boot['serial_throughput_rps']:.1f} serial, {csecs:.1f} s) "
+          f"({CARD})", flush=True)
+    return row
+
+
+def control_modes_case(out, device, n=N):
+    """(c) the deterministic modes on the card, at the JAX harness's sizes
+    (checks of semantics, not measurements): ``--smoke --control`` first
+    (its scripted buildup compares queue waits with execute times), then
+    ``--fault-smoke --devices 2`` (two slots of the one card) and
+    ``--chaos 7`` side by side with (d): ``obs demo --dim N`` on the
+    card, ``validate`` on its trace, and ``incident --peer`` against a
+    port ``HostAgent`` process on the card (started beside the smoke),
+    its bundle through ``incident --validate``. Each exits 0; chaos fires
+    at least 8 sites in at least 4 subsystems."""
+    from spfft_tpu_torch.net import smoke as net_smoke
+    t0 = time.perf_counter()
+    agent_log = str(out / "agent.log")
+    agent = net_smoke._start_agent(
+        "obs-peer", "", "", "", "cuda:0" if device.type == "cuda"
+        else "cpu", agent_log)
+    _cli(["spfft_tpu_torch.serve.bench", "--smoke", "--control", "-o",
+          str(out / "smoke.json")] + _on(device), out / "smoke_control.log")
+    took = {"smoke_control": time.perf_counter() - t0}
+    demo_trace = out / "demo.trace.json"
+    runs = {
+        "fault_smoke": ["spfft_tpu_torch.serve.bench", "--fault-smoke",
+                        "--devices", "2", "-o", str(out / "fault.json")]
+        + _on(device),
+        "chaos": ["spfft_tpu_torch.serve.bench", "--chaos", "7", "-o",
+                  str(out / "chaos.json")] + _on(device),
+        "demo": ["spfft_tpu_torch.obs", "demo", "--dim", str(n),
+                 "--trace-out", str(demo_trace), "--prom-out",
+                 str(out / "demo.prom")] + _on(device),
+    }
+    t1 = time.perf_counter()
+    procs = {k: _cli_start(a, out / f"{k}.log") for k, a in runs.items()}
+    try:
+        port = net_smoke._await_port(agent, "obs-peer", agent_log)
+        took["agent_up"] = time.perf_counter() - t0
+        it, took["incident"] = _cli(
+            ["spfft_tpu_torch.obs", "incident", "--dir",
+             str(out / "incidents"), "--reason", "chip_smoke", "--host",
+             "frontend", "--peer", f"obs-peer=127.0.0.1:{port}"],
+            out / "incident.log")
+        runs["incident_validate"] = [
+            "spfft_tpu_torch.obs", "incident", "--validate",
+            it.strip().splitlines()[-1].split("wrote ", 1)[1]]
+        procs["incident_validate"] = _cli_start(
+            runs["incident_validate"], out / "incident_validate.log")
+    finally:
+        agent.terminate()
+        try:
+            agent.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            agent.kill()
+            agent.wait(timeout=60)
+    left = dict(procs)
+    while left:
+        for k, p in list(left.items()):
+            if p.poll() is not None:
+                took[k] = time.perf_counter() - t1
+                del left[k]
+                if k == "demo" and p.returncode == 0:  # its validate now
+                    runs["demo_validate"] = [
+                        "spfft_tpu_torch.obs", "validate", str(demo_trace),
+                        "--require-request-stages", "--require-stage",
+                        "exchange.plan_build"]
+                    procs["demo_validate"] = left["demo_validate"] = \
+                        _cli_start(runs["demo_validate"],
+                                   out / "demo_validate.log")
+        if left:
+            if time.perf_counter() - t1 > 900:
+                for p in left.values():
+                    p.kill()
+                fail(f"control (c/d): {sorted(left)} still running after "
+                     f"900 s")
+            time.sleep(0.2)
+    for k, p in procs.items():
+        if p.returncode != 0:
+            fail(f"control (c/d): python -m {' '.join(runs[k])} exited "
+                 f"{p.returncode}:\n"
+                 f"{(out / f'{k}.log').read_text()[-3000:]}")
+    bundle_path = (out / "incident.log").read_text().split(
+        "--- stderr ---")[0].strip().splitlines()[-1].split("wrote ", 1)[1]
+    bundle = json.loads(open(bundle_path).read())
+    if bundle.get("kind") != "pod" or "error" in (
+            bundle.get("hosts", {}).get("obs-peer") or {"error": 1}):
+        fail(f"control (d): the pod bundle lacks the agent's: "
+             f"{list(bundle.get('hosts', {}))}")
+    smoke = json.loads((out / "smoke.json").read_text())
+    fault = json.loads((out / "fault.json").read_text())
+    chaos = json.loads((out / "chaos.json").read_text())
+    for name, p in (("smoke --control", smoke), ("fault-smoke", fault),
+                    ("chaos 7", chaos)):
+        if not p["ok"] or p["failures"]:
+            fail(f"control (c): {name}: {p['failures']}")
+    if any(isinstance(fault["phases"][k], str)
+           for k in ("3_quarantine", "4_readmission")):
+        fail(f"control (c): fault-smoke skipped its pool phases: "
+             f"{fault['phases']}")
+    if len(chaos["fired_sites"]) < 8 or len(chaos["subsystems"]) < 4:
+        fail(f"control (c): chaos fired {len(chaos['fired_sites'])} sites "
+             f"in {chaos['subsystems']}")
+    if not [d for d in smoke["control"]["decisions"]
+            if d["knob"] == "batch_window"] \
+            or smoke["slo"]["violations"]:
+        fail(f"control (c): smoke --control: {smoke['control']}, "
+             f"{smoke['slo']}")
+
+    def last(name):
+        return (out / f"{name}.log").read_text().strip().splitlines()[-1]
+    secs = time.perf_counter() - t0
+    row = {"card": CARD, "seconds": secs,
+           "process_seconds": {k: round(v, 1) for k, v in took.items()},
+           "smoke_control": {"decisions": smoke["control"]["decisions"],
+                             "pinned_batches": smoke["pinned_batches"]},
+           "fault_smoke": {k: (v if isinstance(v, str) else v.get("state"))
+                           for k, v in fault["phases"].items()},
+           "chaos": {"fired_sites": len(chaos["fired_sites"]),
+                     "subsystems": chaos["subsystems"],
+                     "phases": list(chaos["phases"])},
+           "demo": last("demo_validate"),
+           "incident": {"hosts": sorted(bundle["hosts"]),
+                        "validate": last("incident_validate")}}
+    print(f"control (c) on the card: smoke --control "
+          f"{len(smoke['control']['decisions'])} decisions (batch_window "
+          f"{smoke['control']['window_before']} -> "
+          f"{smoke['control']['window_after']}), fault-smoke over two slots "
+          f"{row['fault_smoke']}, chaos 7 {len(chaos['fired_sites'])} sites "
+          f"in {len(chaos['subsystems'])} subsystems, every phase ok; (d) "
+          f"obs demo at {n}^3: {row['demo']}; incident --peer: "
+          f"{row['incident']}; {secs:.1f} s (by process: "
+          f"{row['process_seconds']}) ({CARD})", flush=True)
+    return row
+
+
+def _on(device) -> list:
+    """The CLIs' device flag: none on the card (their default), ``--cpu``
+    for a rehearsal on the host."""
+    return [] if device.type == "cuda" else ["--cpu"]
+
+
+def control_phase(device, n=N):
+    """The control loop and the two CLIs on the card, each CLI in
+    a process of its own, as a user runs it: (a) the replay, (b) the
+    tuner and a ``--config`` boot, (c) the deterministic modes and (d)
+    the obs CLI (``control_*_case``). Prints ``{"control": ...}``."""
+    out = _control_dir()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # (c) and (d) run while (a) builds its plans and draws its trace (a
+    # minute of one core at N^3), then (a) measures alone, then (b)
+    proc, state = _replay_start(out, device, n)
+    try:
+        CONTROL_ROWS["modes"] = control_modes_case(out, device, n)
+        CONTROL_ROWS["replay"] = control_replay_case(
+            out, device, n, proc, state, time.perf_counter())
+    finally:
+        if proc.poll() is None:  # a check failed: stop the replay too
+            proc.kill()
+            proc.wait(timeout=60)
+    CONTROL_ROWS["tune"] = control_tune_case(out, device, n)
+    CONTROL_ROWS["files"] = control_files_case(out)
+    CONTROL_ROWS["seconds"] = time.perf_counter() - t0
+
+
+def control_files_case(out):
+    """(a)'s trace through ``obs validate --require-request-stages``, its
+    Prometheus text through ``obs prom``, (b)'s artifact through
+    ``control check``, side by side."""
+    runs = {"validate": ["spfft_tpu_torch.obs", "validate",
+                         str(out / "replay.trace.json"),
+                         "--require-request-stages"],
+            "prom": ["spfft_tpu_torch.obs", "prom",
+                     str(out / "replay.prom")],
+            "check": ["spfft_tpu_torch.control", "check",
+                      str(out / "tuned.json")]}
+    procs = {k: _cli_start(a, out / f"{k}.log") for k, a in runs.items()}
+    row = {}
+    for k, p in procs.items():
+        text = (out / f"{k}.log")
+        if p.wait(timeout=300) != 0:
+            fail(f"control: python -m {' '.join(runs[k])} exited "
+                 f"{p.returncode}:\n{text.read_text()[-2000:]}")
+        lines = text.read_text().strip().splitlines()
+        row[k] = lines[0] if k == "check" else lines[-1]
+    if not _cli_json((out / "check.log").read_text())["ok"]:
+        fail("control (b): check did not accept the tuner's artifact")
+    print(f"control files: (a) {row['validate']}; {row['prom']}; (b) "
+          f"{row['check']} ({CARD})", flush=True)
+    return row
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
@@ -7128,6 +7600,11 @@ def main() -> int:
           flush=True)
     no_demotions("the pod phase")
     torch.cuda.empty_cache()
+    t_ctl = time.perf_counter()
+    control_phase(device)
+    print(f"control phase: {time.perf_counter() - t_ctl:.1f} s ({card})",
+          flush=True)
+    no_demotions("the control phase")
     t_ranks = time.perf_counter()
     ranks = ranks_phase(sp, device)
     print(f"ranks phase: {time.perf_counter() - t_ranks:.1f} s ({card})",
@@ -7177,6 +7654,7 @@ def main() -> int:
     print(json.dumps({"obs": OBS_ROWS}), flush=True)
     print(json.dumps({"serve": SERVE_ROWS}), flush=True)
     print(json.dumps({"pod": POD_ROWS}), flush=True)
+    print(json.dumps({"control": CONTROL_ROWS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

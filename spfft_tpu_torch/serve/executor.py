@@ -854,16 +854,35 @@ class ServeExecutor:
         the host side — the dispatcher stages and launches bucket N+1
         while the card still executes bucket N. On the CPU a call
         computes before it returns, so there is nothing to overlap and
-        the window stays the pool size. ``plan`` is the bucket's plan
-        (its device type decides, once); the ``pipeline_depth`` knob
-        (nonzero) overrides the choice — read per dispatch iteration, so
-        a controller retune applies live."""
+        the window stays the pool size. The device decides, once: the
+        pool's (an explicit pool), else ``plan``'s (the bucket's), else
+        that of a plan the registry holds — so the controller, which
+        asks with no plan, sees the auto depth the dispatcher will use
+        before the first bucket. The ``pipeline_depth`` knob (nonzero)
+        overrides the choice — read per dispatch iteration, so a
+        controller retune applies live."""
         depth = self._pipeline_depth
         if depth is not None:
             return depth
-        if self._auto_extra is None and plan is not None:
-            self._auto_extra = 0 if plan.device.type == "cpu" else 1
+        if self._auto_extra is None:
+            device = self._auto_device(plan)
+            if device is not None:
+                self._auto_extra = 0 if device.type == "cpu" else 1
         return len(self._devices) + (self._auto_extra or 0)
+
+    def _auto_device(self, plan=None) -> Optional[torch.device]:
+        """The device the auto pipeline depth is decided by: the pool's
+        first, ``plan``'s, or the first registered plan's; None while
+        none of them is known."""
+        if self._devices[0] is not None:
+            return self._devices[0]
+        if plan is not None:
+            return plan.device
+        for sig in self.registry.signatures():
+            device = getattr(self.registry.peek(sig), "device", None)
+            if isinstance(device, torch.device):
+                return device
+        return None
 
     def _run_dispatcher(self) -> None:
         """Crash-proof supervisor around :meth:`_dispatch_loop`. An
@@ -1279,22 +1298,40 @@ class ServeExecutor:
         return shard.row_template
 
     @staticmethod
-    def _host_row(plan, kind: str, values, template):
+    def _host_row(plan, kind: str, values, template, swapped=None):
         """One payload as a host row of the plan's template: the numpy
-        array itself where it already is one, else the plan's coercion
-        on the host (a CPU tensor); None for a payload on a device,
-        which stays there (the list path of :meth:`_stage`). A payload
-        the plan refuses raises here, inside the bucket's protection."""
+        array itself where it already is one — or where it is one in
+        the ``swapped`` row shape (interleaved values of a pair-layout
+        plan, which :meth:`_stage` stages as they are and the card
+        transposes) — else the plan's coercion on the host (a CPU
+        tensor); None for a payload on a device, which stays there (the
+        list path of :meth:`_stage`). A payload the plan refuses raises
+        here, inside the bucket's protection."""
         if isinstance(values, torch.Tensor) and values.device.type != "cpu":
             return None
         row_shape, dtype = template
-        if isinstance(values, np.ndarray) and values.shape == row_shape \
-                and values.dtype == dtype:
+        if isinstance(values, np.ndarray) and values.dtype == dtype \
+                and values.shape in (row_shape, swapped):
             return values
         coerce = (plan._coerce_values if kind == "backward"
                   else plan._coerce_space)
         row = coerce(values, torch.device("cpu"))
         return row if tuple(row.shape) == row_shape else None
+
+    @staticmethod
+    def _swapped_row(plan, kind: str, template):
+        """The interleaved ``(num_values, 2)`` row shape of a pair-layout
+        plan on the card (template ``(2, num_values)``), whose host
+        values a bucket stages as they are and transposes on the card
+        (:meth:`_to_device`) — a copy the card makes in a fraction of a
+        millisecond where the host's strided transpose takes a few
+        hundred milliseconds a 16M-value row; None otherwise."""
+        row_shape, _ = template
+        if kind != "backward" or plan.device.type != "cuda" \
+                or len(row_shape) != 2 or row_shape[0] != 2 \
+                or row_shape[1] == 2:
+            return None
+        return row_shape[::-1]
 
     def _stage(self, shard: _Shard, live: List[_Request], shape: int):
         """Stack ``live`` payloads (plus pad rows up to ``shape``) into a
@@ -1315,10 +1352,19 @@ class ServeExecutor:
         copy may still read it."""
         template = self._row_template(shard)
         plan, kind = shard.plan, shard.key[1]
-        rows = [self._host_row(plan, kind, req.values, template)
+        swapped = self._swapped_row(plan, kind, template)
+        rows = [self._host_row(plan, kind, req.values, template, swapped)
                 for req in live]
         if all(r is not None for r in rows):
             row_shape, _ = template
+            # interleaved rows of a pair-layout plan stay interleaved in
+            # the buffer (the card transposes the bucket) when every row
+            # is; a mixed bucket coerces them on the host
+            inter = swapped is not None \
+                and all(tuple(r.shape) == swapped for r in rows)
+            if swapped is not None and not inter:
+                rows = [plan._coerce_values(r, torch.device("cpu"))
+                        if tuple(r.shape) == swapped else r for r in rows]
             with self._staging_lock:
                 free = self._staging.get(shard.key)
                 entry = free.pop() if free else None
@@ -1330,7 +1376,11 @@ class ServeExecutor:
                 whole = torch.empty((max(self._max_batch, shape),)
                                     + row_shape, dtype=plan.real_dtype,
                                     pin_memory=plan.device.type == "cuda")
-            buf = whole[:shape]  # leading rows: still contiguous
+            # leading rows: still contiguous; interleaved rows view the
+            # same bytes as (num_values, 2), the buffer itself keeps the
+            # plan's row shape for the next bucket
+            buf = (whole.view((whole.shape[0],) + swapped) if inter
+                   else whole)[:shape]
             # torch's copy runs on its intra-op threads (a numpy copy on
             # one); a read-only array, which torch would not wrap without
             # a warning, goes through numpy
@@ -1352,13 +1402,30 @@ class ServeExecutor:
         """A staged host buffer -> the bucket's device (the pool slot's,
         else the plan's) in one copy: ``non_blocking`` on the card, on
         the current stream ahead of the bucket's launches, with the
-        events recorded behind it kept in ``staged``. A list batch, or a
-        buffer for the CPU, goes as it is."""
+        events recorded behind it kept in ``staged``. Interleaved rows
+        of a pair-layout plan (a buffer of ``(B, num_values, 2)``) are
+        transposed there into the plan's ``(B, 2, num_values)`` — the
+        transpose :meth:`~spfft_tpu_torch.plan.TransformPlan.backward`
+        makes of such a row on the card, so the bits are the serial
+        call's. A list batch, or a buffer for the CPU, goes as it is."""
         target = plan.device if device is None else device
         if staged is None or target.type != "cuda":
             return batch_arg
-        batch = batch_arg.to(target, non_blocking=True)
+        batch = ServeExecutor._plan_layout(
+            plan, batch_arg.to(target, non_blocking=True))
         staged[1] = ready_events(batch)
+        return batch
+
+    @staticmethod
+    def _plan_layout(plan, batch):
+        """A staged backward batch in the plan's value layout: a batch of
+        interleaved ``(B, num_values, 2)`` rows for a pair-layout plan
+        transposed to ``(B, 2, num_values)`` (on the batch's device);
+        any other batch as it is."""
+        if batch.dim() == 3 and batch.shape[-1] == 2 \
+                and tuple(batch.shape[1:]) != tuple(
+                    plan.batch_row_template("values")[0]):
+            return batch.transpose(1, 2).contiguous()
         return batch
 
     def _release(self, shard_key, staged) -> None:

@@ -295,6 +295,13 @@ class PlanRegistry:
         self.put(sig, plan)
         return plan
 
+    def peek(self, signature: PlanSignature) -> Optional[TransformPlan]:
+        """The in-memory plan for ``signature`` or None, with no counter
+        or recency side effects (the disk tier is not consulted)."""
+        with self._lock:
+            entry = self._store.get(signature)
+        return entry[0] if entry is not None else None
+
     def signatures(self) -> List[PlanSignature]:
         """Snapshot of the in-memory tier's signatures, LRU order
         (oldest first), with no counter side effects."""

@@ -48,9 +48,8 @@ def test_knob_table_equals_jax():
         assert (spec.name, spec.default, spec.lo, spec.hi, spec.kind,
                 spec.signal, spec.doc) == (j.name, j.default, j.lo, j.hi,
                                            j.kind, j.signal, j.doc)
-    assert control.__all__ == ["ServeConfig", "KnobSpec", "KNOB_SPECS",
-                               "CONFIG_ENV", "global_config",
-                               "set_global_config"]
+    import spfft_tpu.control as jcontrol
+    assert control.__all__ == jcontrol.__all__
 
 
 WRITES = [("batch_window", 0.5, "r1", "controller"),
