@@ -5168,9 +5168,9 @@ RANK_WORLDS = (("gloo", 2, "gloo, two ranks on one card, host-staged"),
 def ranks_phase(sp, device, n=N, worlds=RANK_WORLDS, card_each=False):
     """The distributed plan over the ranks of a process group on the card
     (4 shards of the 256^3 C2C sphere and R2C half sphere, round-robin
-    sticks, 64-plane slabs): (a) two gloo ranks on the one card, two
-    shards each (gloo stages the all-to-all through the host); (b) one
-    NCCL rank owning all four. Every case of :data:`RANK_CASES` on every
+    sticks, 64-plane slabs), the worlds side by side: (a) two gloo ranks
+    on the one card, two shards each (gloo stages the all-to-all through
+    the host); (b) one NCCL rank owning all four. Every case of :data:`RANK_CASES` on every
     rank: the counted pair (z kernels once per local shard, the xy stage
     once, the exchange's gathers and int8 kernels), each shard's
     backward and forward(FULL) bit for bit the one-process 4-shard
@@ -5191,10 +5191,18 @@ def ranks_phase(sp, device, n=N, worlds=RANK_WORLDS, card_each=False):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tol = sp.predicted_rel_error("single", n)
     rows = []
-    for backend, world, label in worlds:
-        if device.type == "cpu" and backend == "nccl":
-            continue  # a rehearsal on the host: gloo only
-        res = run_world(backend, world, n, device, card_each)
+    # a rehearsal on the host: gloo only
+    worlds = [w for w in worlds if device.type == "cuda" or w[0] != "nccl"]
+    # the worlds run side by side, each its own processes and port: both
+    # are mostly host work (process starts, plan builds, gloo's host
+    # staging), which the script's time limit cannot hold one after the
+    # other on a slower host; the card is 92 % idle under gloo
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        runs = [pool.submit(run_world, backend, world, n, device, card_each)
+                for backend, world, _ in worlds]
+        results = [r.result() for r in runs]
+    for (backend, world, label), res in zip(worlds, results):
         for r in res:
             if world > 1 and r["mismatch"] != "ParameterMismatchError":
                 fail(f"{backend} rank {r['rank']}: a rank with other dims "
@@ -7334,7 +7342,7 @@ def control_tune_case(out, device, n=N):
     return row
 
 
-def control_modes_case(out, device, n=N):
+def control_modes_case(out, device, n=N, after_smoke=None):
     """(c) the deterministic modes on the card, at the JAX harness's sizes
     (checks of semantics, not measurements): ``--smoke --control`` first
     (its scripted buildup compares queue waits with execute times), then
@@ -7343,7 +7351,8 @@ def control_modes_case(out, device, n=N):
     card, ``validate`` on its trace, and ``incident --peer`` against a
     port ``HostAgent`` process on the card (started beside the smoke),
     its bundle through ``incident --validate``. Each exits 0; chaos fires
-    at least 8 sites in at least 4 subsystems."""
+    at least 8 sites in at least 4 subsystems. ``after_smoke`` is called
+    once the smoke has ended, before the others start."""
     from spfft_tpu_torch.net import smoke as net_smoke
     t0 = time.perf_counter()
     agent_log = str(out / "agent.log")
@@ -7353,6 +7362,8 @@ def control_modes_case(out, device, n=N):
     _cli(["spfft_tpu_torch.serve.bench", "--smoke", "--control", "-o",
           str(out / "smoke.json")] + _on(device), out / "smoke_control.log")
     took = {"smoke_control": time.perf_counter() - t0}
+    if after_smoke is not None:
+        after_smoke()
     demo_trace = out / "demo.trace.json"
     runs = {
         "fault_smoke": ["spfft_tpu_torch.serve.bench", "--fault-smoke",
@@ -7482,17 +7493,24 @@ def control_phase(device, n=N):
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # (c) and (d) run while (a) builds its plans and draws its trace (a
-    # minute of one core at N^3), then (a) measures alone, then (b)
+    # minute of one core at N^3), and (b) beside them once (c)'s smoke
+    # (whose decisions read its own timings) has ended; then (a)
+    # measures alone
+    from concurrent.futures import ThreadPoolExecutor
     proc, state = _replay_start(out, device, n)
     try:
-        CONTROL_ROWS["modes"] = control_modes_case(out, device, n)
+        with ThreadPoolExecutor(1) as pool:
+            tune = []
+            CONTROL_ROWS["modes"] = control_modes_case(
+                out, device, n, after_smoke=lambda: tune.append(
+                    pool.submit(control_tune_case, out, device, n)))
+            CONTROL_ROWS["tune"] = tune[0].result()
         CONTROL_ROWS["replay"] = control_replay_case(
             out, device, n, proc, state, time.perf_counter())
     finally:
         if proc.poll() is None:  # a check failed: stop the replay too
             proc.kill()
             proc.wait(timeout=60)
-    CONTROL_ROWS["tune"] = control_tune_case(out, device, n)
     CONTROL_ROWS["files"] = control_files_case(out)
     CONTROL_ROWS["seconds"] = time.perf_counter() - t0
 

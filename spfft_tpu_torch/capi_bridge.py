@@ -42,7 +42,9 @@ queued on the device before the first result is copied back.
 The handle table is module state: the C ABI's handles are process-wide.
 Calls may come from any thread and run one at a time (``_call_lock``):
 the GIL alone would not serialise them, since torch releases it inside
-its device calls and copies.
+its device calls and copies. The lock is reentrant: each access to the
+handle table takes it again where it reads or writes the table, inside
+the call that holds it.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ from .utils.dtypes import real_dtype
 #: the environment variable that picks a plan's device
 DEVICE_ENV = "SPFFT_TPU_TORCH_DEVICE"
 
-_call_lock = threading.Lock()
+_call_lock = threading.RLock()
 _plans: Dict[int, object] = {}  #: guarded by _call_lock
 _next_id = itertools.count(1)
 
@@ -158,12 +160,14 @@ def _host(plan, addr: int, shape: tuple) -> torch.Tensor:
 
 def _register(plan) -> int:
     pid = next(_next_id)
-    _plans[pid] = plan
+    with _call_lock:
+        _plans[pid] = plan
     return pid
 
 
 def _get_plan(pid: int):
-    plan = _plans.get(pid)
+    with _call_lock:
+        plan = _plans.get(pid)
     if plan is None:
         raise _InvalidHandle(f"no plan with handle {pid}")
     return plan
@@ -220,7 +224,9 @@ def plan_create_distributed(transform_type: int, dim_x: int, dim_y: int,
 
 @_guarded
 def plan_destroy(pid: int) -> None:
-    if _plans.pop(pid, None) is None:
+    with _call_lock:
+        plan = _plans.pop(pid, None)
+    if plan is None:
         raise _InvalidHandle(f"no plan with handle {pid}")
 
 

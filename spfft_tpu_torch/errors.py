@@ -62,6 +62,7 @@ class OverflowError_(GenericError):
     code = ErrorCode.OVERFLOW
 
 
+# errors: waived(API-parity class - reference SPFFT_ALLOCATION_ERROR; host and device buffers are torch allocations whose failures torch raises itself; kept for mechanical migration)
 class AllocationError(GenericError):
     """Failed buffer allocation (reference: exceptions.hpp:62-71)."""
 
@@ -89,6 +90,7 @@ class InvalidIndicesError(GenericError):
     code = ErrorCode.INVALID_INDICES
 
 
+# errors: waived(API-parity class - reference MPISupportError; the JAX package never raises it either, and a distributed plan without a process group runs its shards in one process)
 class DistributedSupportError(GenericError):
     """Distributed operation requested without a process group
     (reference: exceptions.hpp:110-121, MPISupportError)."""
@@ -237,6 +239,7 @@ class PrecisionContractError(FFTError):
     the caller demanded."""
 
 
+# errors: waived(API-parity class - reference InternalError; no internal-assert surface yet)
 class InternalError(GenericError):
     """Internal consistency failure (reference: exceptions.hpp:170-177)."""
 
@@ -263,6 +266,7 @@ class KernelBuildError(DeviceError):
     device_attributed = False
 
 
+# errors: waived(API-parity class - reference GPUSupportError; a missing CUDA device raises DeviceError, code 13, as the C ABI tests pin)
 class DeviceSupportError(DeviceError):
     """Device execution requested but no accelerator is available
     (reference: exceptions.hpp:193-204)."""
@@ -270,12 +274,14 @@ class DeviceSupportError(DeviceError):
     code = ErrorCode.DEVICE_SUPPORT
 
 
+# errors: waived(API-parity class - reference GPUAllocationError; a failed device allocation surfaces as torch.cuda.OutOfMemoryError, which faults.CUDA_TRANSIENT_MARKERS classify as transient)
 class DeviceAllocationError(DeviceError):
     """Failed allocation on device (reference: exceptions.hpp:221-230)."""
 
     code = ErrorCode.DEVICE_ALLOCATION
 
 
+# errors: waived(API-parity class - reference GPUFFTError; a refused kernel launch raises DeviceError in ops._build.launch and a kernel that does not build KernelBuildError)
 class DeviceFFTError(DeviceError):
     """Failure in the device FFT path (reference: exceptions.hpp:295-304)."""
 

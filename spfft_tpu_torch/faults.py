@@ -93,7 +93,7 @@ SITES = (
     "registry.build",
     # artifact store
     "store.load", "store.spill", "store.replace", "store.fsync",
-    "store.aot",
+    "store.aot",  # faults: waived(no AOT tier in the port - its kernels build once per source into build/torch_kernels/; declared to keep SITES equal to the JAX package's)
     # fused z kernels
     "kernel.launch",
     # distributed exchange

@@ -90,8 +90,14 @@ def build(names=SOURCES) -> dict:
     build's log (:data:`build_log`). Returns ``{name: seconds}`` for the
     sources compiled by this call. Any failure raises
     :class:`~spfft_tpu_torch.errors.KernelBuildError`."""
+    return _build_guarded(tuple(names))[0]
+
+
+def _build_guarded(names) -> tuple:
+    """:func:`_build_locked`, any failure raised as
+    :class:`~spfft_tpu_torch.errors.KernelBuildError`."""
     try:
-        return _build_locked(tuple(names))
+        return _build_locked(names)
     except KernelBuildError:
         raise
     except Exception as exc:
@@ -100,7 +106,10 @@ def build(names=SOURCES) -> dict:
             f"failed: {type(exc).__name__}: {exc}") from exc
 
 
-def _build_locked(names) -> dict:
+def _build_locked(names) -> tuple:
+    """Build and load ``names`` under :data:`_lock`: ``({name: seconds}
+    of the sources compiled, {name: library} of every named source)``,
+    both read under the lock."""
     with _lock:
         todo = [n for n in names if n not in _libs]
         out = {n: _library_path(n) for n in todo}
@@ -148,17 +157,18 @@ def _build_locked(names) -> dict:
             log = _log_path(out[n])
             if log.exists():
                 build_log[n] = log.read_text()
-        return seconds
+        return seconds, {n: _libs[n] for n in names}
 
 
 def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of ``source``'s library (built on first
     use), typed with ``argtypes`` and returning the CUDA error code;
     raises :class:`~spfft_tpu_torch.errors.KernelBuildError` when the
-    library does not build or load or lacks the entry."""
-    build((source,))
+    library does not build or load or lacks the entry. The library is
+    read under the build's one acquisition of :data:`_lock`."""
+    lib = _build_guarded((source,))[1][source]
     try:
-        fn = getattr(_libs[source], symbol)
+        fn = getattr(lib, symbol)
     except AttributeError as exc:
         raise KernelBuildError(
             f"the library of csrc/{source} has no entry {symbol}") from exc

@@ -1362,28 +1362,30 @@ class DistributedTransformPlan:
         return self.shard_space(space)
 
     # -- the exchange's fault seams ---------------------------------------------
-    def _seam_sites(self, forward: bool) -> list:
-        """The ``exchange.*`` sites one direction's traced body reaches in
-        the JAX package, in its order: the pack, the collective and (for
-        the backward) the unpack; with K > 1 chunks, each chunk's chunk
-        and pack checks, then the backward's unpack."""
+    def _seam(self, forward: bool) -> None:
+        """Consult the ``exchange.*`` sites one direction's traced body
+        reaches in the JAX package, in its order: the pack, the collective
+        and (for the backward) the unpack; with K > 1 chunks, each chunk's
+        chunk and pack checks, then the backward's unpack."""
         if self._overlap is not None:
-            sites = ["exchange.chunk", "exchange.pack"] \
-                * self._overlap.num_chunks
+            for _ in range(self._overlap.num_chunks):
+                faults.check_site("exchange.chunk")
+                faults.check_site("exchange.pack")
         else:
-            sites = ["exchange.pack", "exchange.collective"]
-        return sites if forward else sites + ["exchange.unpack"]
+            faults.check_site("exchange.pack")
+            faults.check_site("exchange.collective")
+        if not forward:
+            faults.check_site("exchange.unpack")
 
     def _seams(self, key, directions) -> None:
         """Consult the exchange's seams on the first call of the executable
         ``key`` (per compile in the JAX package, where they fire at trace
-        time): each direction's sites in order, ``key`` recorded once
-        they all passed."""
+        time): each direction's sites in order (:meth:`_seam`), ``key``
+        recorded once they all passed."""
         if key in self._seam_keys:
             return
         for forward in directions:
-            for site in self._seam_sites(forward):
-                faults.check_site(site)
+            self._seam(forward)
         self._seam_keys.add(key)
 
     # -- execution ------------------------------------------------------------

@@ -33,7 +33,6 @@ shard axis. Three mechanisms, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch

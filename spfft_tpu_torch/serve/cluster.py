@@ -378,6 +378,7 @@ class SPMDCoalescer:
             self._release_locked(key)
             self._cv.notify_all()
 
+    # lock: holds(_cv)
     def _release_locked(self, key) -> None:
         left = self._incoming.get(key, 0) - 1
         if left > 0:
