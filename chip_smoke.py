@@ -207,9 +207,13 @@ Phases, each of which exits non-zero when it fails:
    352, 462 and 343; ``pdft2`` on 112^3 in two stage launches; kernel A
    at 896 = 28 x 32 beside its factor 28 on the direct DFT path),
    ``bluestein_small_records`` (Bluestein at 13, 26, 52, 100, 257, 416,
-   509 complex, 135, 375, 510 both real modes), ``fused_prime_record``
-   (the fused z kernels' matrix form at dim_z 416 beside gather +
-   Bluestein), and ``length_phases``: the 448^3 C2C path (47,077,534
+   509 complex, 135, 375, 510 both real modes), ``fused_prime_records``
+   (the fused z kernels' Bluestein form, both directions, at dim_z 416,
+   13 and 509, each beside the matrix form on a plain pair, gather +
+   Bluestein and one ``torch.fft`` call), ``prime_path_phase`` (the 416^3
+   C2C pair, fused and two-kernel, every stage in the Bluestein form,
+   against the complex128 oracle within ``predicted_rel_error("single",
+   416)`` = 3.571e-7), and ``length_phases``: the 448^3 C2C path (47,077,534
    values) and R2C half sphere, each kernel at its shapes beside the
    matrix form, and the counted pairs against the complex128 oracle
    within ``predicted_rel_error("single", 448)`` = 3.606e-7, no launch in
@@ -387,9 +391,8 @@ def timed_ms(fn, device, reps=REPS, warmup=2) -> float:
     return float(np.median(times))
 
 
-#: calls of one CUDA graph in :func:`graph_ms`: a kernel's (10, down from
-#: 20 to hold the run's wall time as the lengths up to 512 joined it), and
-#: a whole pair's
+#: calls of one CUDA graph in :func:`graph_ms`: a kernel's (few, to hold
+#: the run's wall time), and a whole pair's
 GRAPH_CALLS = 10
 PAIR_GRAPH_CALLS = 3
 
@@ -510,6 +513,7 @@ REAL_REPLACES = "spfft_tpu/ops/dft_kernel.py:277"
 DFT2_SRC = "spfft_tpu_torch/csrc/dft2.cu"
 #: the fused z kernels by form
 Z_SRC = {"fft": "spfft_tpu_torch/csrc/fused_fft.cu",
+         "bluestein": "spfft_tpu_torch/csrc/fused_bluestein.cu",
          "matrix": "spfft_tpu_torch/csrc/fused_compress.cu"}
 DEC_REPLACES = "spfft_tpu/ops/fused_kernel.py:587"
 CMP_REPLACES = "spfft_tpu/ops/fused_kernel.py:783"
@@ -1025,10 +1029,11 @@ def z_fft_odd_shapes_phase(device, dtype=torch.float32):
     """The FFT form of both fused z kernels at shapes the paths do not
     reach, against their plain versions, each call's form checked by its
     launch counts: every radix (dim_z 1, 2, 3, 4, 5, 7, 8, 11, 12, 60, 77,
-    100, 128, 384, 448, 512) and 13 in the matrix form (the plan's z
-    matrices there, ``fused_kernel.z_mats_form``); one transform and B =
-    3 (each band bit for bit against its single launch); both value
-    layouts;
+    100, 128, 384, 448, 512), and their Bluestein form at 13, 26, 509 and
+    491 (M = 25, 54, 1024, 1024: every factor a thread's register row, in
+    float64 too; the lengths' own z tables, as a plan builds them); one
+    transform and B = 3 (each band bit for bit against its single
+    launch); both value layouts;
     input and output windows off 0 and a scale; an empty stick, duplicate
     triplets and the R2C zero stick (half of it given, a given value of
     exactly 0 whose mirror is given, absent)."""
@@ -1060,13 +1065,14 @@ def z_fft_odd_shapes_phase(device, dtype=torch.float32):
                           (128, 9, {}), (384, 9, {"rows": (200, 384)}),
                           (512, 5, {}), (13, 21, {}), (7, 23, {}),
                           (11, 19, {"rows": (4, 11)}), (77, 9, {}),
-                          (448, 5, {"cols": (400, 448)})):
-        form = "matrix" if dz == 13 else "fft"
-        zm = fk.z_mats_form(dz)
+                          (448, 5, {"cols": (400, 448)}),
+                          (26, 11, {"rows": (7, 26), "cols": (20, 26)}),
+                          (509, 5, {}), (491, 6, {"cols": (300, 491)})):
+        form = "fft" if dft.c2c_form(dz) == "fft" else "bluestein"
         zb = dft.device_c2c(dz, dft.BACKWARD, device=device, dtype=dtype,
-                            form=zm, **window)
+                            **window)
         zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
-                            dtype=dtype, form=zm, **window)
+                            dtype=dtype, **window)
         if fk.z_form(zb, dz) != form or fk.z_form(zf, dz) != form:
             fail(f"z kernels dim_z={dz}: form {fk.z_form(zb, dz)}, "
                  f"expected {form}")
@@ -1122,7 +1128,8 @@ def z_fft_odd_shapes_phase(device, dtype=torch.float32):
                             fail(f"{name}: band {b} differs from its single "
                                  f"launch")
                     cases += 2
-    print(f"odd shapes of the fused z kernels' FFT form: {cases} "
+    print(f"odd shapes of the fused z kernels' FFT and Bluestein forms: "
+          f"{cases} "
           f"kernel-vs-plain cases within {kernel_tol(dtype)[1]} ({dtype}), "
           f"each in its expected form, batched bands equal to single "
           f"launches", flush=True)
@@ -2488,10 +2495,10 @@ def dist_odd_shards_phase(sp, device, precision="single"):
     version): 5 shards with uneven sticks and slabs, one shard with no
     values, no sticks and no planes, another with sticks but no planes,
     the R2C (0,0) stick owned by the fourth shard; dim_z 13 (the fused z
-    kernels in their matrix form) and 12 (their FFT form, checked by the
-    launch counts); C2C and R2C, fused and two-kernel; the backward and
-    forward(FULL) within ``KERNEL_TOL``, and a second backward identical
-    to the first."""
+    kernels in their Bluestein form) and 12 (their FFT form), checked by
+    the launch counts; C2C and R2C, fused and two-kernel; the
+    backward and forward(FULL) within ``KERNEL_TOL``, and a second
+    backward identical to the first."""
     from spfft_tpu_torch.ops import fused_kernel as fk
     rng = np.random.default_rng(SEED + 7)
     cpu = torch.device("cpu")
@@ -2500,7 +2507,7 @@ def dist_odd_shards_phase(sp, device, precision="single"):
     for nz in (13, 12):
         nx, ny, nz = dims = (12, 10, nz)
         planes = [5, 0, nz - 7, 0, 2]
-        z_form = "matrix" if nz == 13 else "fft"
+        z_form = "bluestein" if nz == 13 else "fft"
         for kind in (sp.TransformType.C2C, sp.TransformType.R2C):
             r2c = kind is sp.TransformType.R2C
             xs = nx // 2 + 1 if r2c else nx
@@ -2560,7 +2567,7 @@ def dist_odd_shards_phase(sp, device, precision="single"):
                      else torch.float32)[1]
     print(f"dist odd shards: {cases} plans (values per shard "
           f"{[len(t) for t in parts]}, planes {planes}; the fused z kernels "
-          f"in the matrix form at dim_z 13, the FFT form at 12) on the card "
+          f"in the Bluestein form at dim_z 13, the FFT form at 12) on the card "
           f"within {tol} of the CPU's plain versions", flush=True)
 
 
@@ -2904,19 +2911,22 @@ def dist_c2c_phases(sp, n, local, trip, values, oracle, device, counters,
 def exchange_phases(sp, name, path, plan, stacked, oracle_rel, device,
                     counters, base, base_2k, tag):
     """The exchange slice on a path's plan (single: every lossless kind
-    on both routes, the wire cases, ``wire.cu``'s and the ragged
-    gathers' records, the distributed sweep; double: the lossless kinds
+    on the fused route and the one-chunk kinds (``EXCHANGE_ONE_CHUNK``) on
+    the two-kernel route, the wire cases, ``wire.cu``'s and the ragged
+    gathers' records, the distributed sweep; double: the one-chunk kinds
     on the fused route and ``wire.cu``'s records). Returns the records."""
     t0 = time.perf_counter()
     dp, mesh = plan.dist_plan, plan.mesh
     rows = exchange_kinds_phase(sp, name, dp, mesh, stacked, device,
-                                counters, base)
+                                counters, base,
+                                labels=EXCHANGE_ONE_CHUNK if tag
+                                else tuple(EXCHANGE_KINDS))
     EXCHANGE_ROWS.extend(rows)
     recs = wire_kernel_records(path, plan, stacked, device)
     if not tag:
         EXCHANGE_ROWS.extend(exchange_kinds_phase(
             sp, f"{name} two-kernel", dp, mesh, stacked, device, counters,
-            base_2k, fused=False))
+            base_2k, fused=False, labels=EXCHANGE_ONE_CHUNK))
         wire = exchange_wire_phase(sp, name, dp, mesh, stacked, oracle_rel,
                                    device, counters, base,
                                    plan.backward(stacked))
@@ -3014,6 +3024,10 @@ EXCHANGE_KINDS = {
     "compact_k2": ("COMPACT_BUFFERED", True, 2, "compactx2"),
     "compact_k4": ("COMPACT_BUFFERED", True, 4, "compactx4"),
 }
+#: the kinds of one chunk (K = 1): the two-kernel route's and the double
+#: plan's kinds (the chunked kinds run on the single fused route only, a
+#: cut of the script's depth for its time limit)
+EXCHANGE_ONE_CHUNK = ("buffered", "ring", "ragged", "compact")
 #: gather launches each kind's exchange adds to a backward + forward pair,
 #: literal for the 256^3 paths over 4 round-robin shards: ragged 3 a
 #: direction (pack, emulation, unpack), 2K + 1 with K chunks; the op
@@ -4231,11 +4245,16 @@ RADIX_LONG_N = 896
 BLUESTEIN_CC = (13, 26, 52, 100, 257, 416, 509)
 BLUESTEIN_REAL = (135, 375, 510)
 STAGE_ELEMS = 1 << 25
-#: the fused z kernels at a dim_z with a prime of 13 or more: their matrix
-#: form (csrc/fused_compress.cu) beside the two-kernel route (gather +
-#: Bluestein) on the same sticks
+#: the fused z kernels at a dim_z with a prime of 13 or more, in their
+#: Bluestein form (csrc/fused_bluestein.cu): at PRIME_Z (2^5 x 13, M = 900)
+#: over PRIME_Z_STICKS sticks half full, and at the short and long lengths
+#: PRIME_Z_MORE (13: M = 25; 509: M = 1024) over as many slots, each beside
+#: the matrix form on a plain pair (csrc/fused_compress.cu, the path such a
+#: dim_z ran before) and the two-kernel route (gather + Bluestein) on the
+#: same values
 PRIME_Z = 416
 PRIME_Z_STICKS = 65536
+PRIME_Z_MORE = (13, 509)
 
 
 def _rows_of(n):
@@ -4422,66 +4441,328 @@ def bluestein_small_records(device, dtype):
     return recs
 
 
-def fused_prime_record(device):
-    """The fused z kernels at dim_z ``PRIME_Z`` (2^5 x 13, whose FFT form
-    is Bluestein's: their matrix form, ``csrc/fused_compress.cu``, as the
-    plan hands it) over ``PRIME_Z_STICKS`` sticks half full, against its
-    plain version, beside the two-kernel route on the same values (the
-    gather, then ``pdft_last`` in the Bluestein form: ``two_kernel_ms``).
-    Returns the record."""
+def bluestein_design_flops(rows, n):
+    """Operations of the Bluestein form's design on ``rows`` rows of
+    length ``n``: two length-M FFTs and 8 M for the chirp, spectrum and
+    chirp products, a row (csrc/bluestein.cu's header)."""
+    from spfft_tpu_torch.ops import dft
+    m = dft.bluestein_length(n)
+    return rows * (2 * fft_flops(1, m) + 8.0 * m)
+
+
+def _prime_z_case(dz, device, dtype, rng):
+    """The sticks of one fused-prime record: ``PRIME_Z_STICKS * PRIME_Z //
+    dz`` sticks of ``dz`` slots, each slot given with probability 1/2,
+    the values (N, 2) in ``dtype``, and the slot_src (with its sentinel
+    stick) and CSR tables."""
     from spfft_tpu_torch.indexing import inverse_slot_map
-    from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel as fk
-    from spfft_tpu_torch.ops import gather_kernel
-    dz, s = PRIME_Z, PRIME_Z_STICKS
-    rng = np.random.default_rng(SEED + 13)
+    from spfft_tpu_torch.ops import fused_kernel as fk
+    s = PRIME_Z_STICKS * PRIME_Z // dz
     slots = np.flatnonzero(rng.random(s * dz) < 0.5)
     nv = len(slots)
     slot_src = torch.as_tensor(np.concatenate(
         [inverse_slot_map(slots, s * dz, nv), np.full(dz, nv, np.int32)]),
         device=device)
-    vals = torch.as_tensor(rng.standard_normal((nv, 2)), dtype=torch.float32,
+    csr = tuple(torch.as_tensor(t, device=device)
+                for t in fk.compress_csr(slots, s, dz))
+    vals = torch.as_tensor(rng.standard_normal((nv, 2)), dtype=dtype,
                            device=device)
-    zm = dft.device_c2c(dz, dft.BACKWARD, device=device,
-                        form=fk.z_mats_form(dz))
-    zb = dft.device_c2c(dz, dft.BACKWARD, device=device)
-    if (fk.z_form(zm, dz), dft_kernel.stage_form(zb)) != ("matrix",
-                                                          "bluestein"):
-        fail(f"dim_z {dz}: forms {fk.z_form(zm, dz)} / "
-             f"{dft_kernel.stage_form(zb)}")
-    path = f"z{dz}"
-    got, launches = _counted_call(
-        f"{path} decompress_zdft", fk.decompress_zdft, {"matrix": 1},
-        lambda: fk.decompress_zdft(vals, slot_src, zm, dz))
-    want = fk.decompress_zdft_plain(vals, slot_src, zm, dz, False)
-    err = compare(f"{path} decompress_zdft (matrix form)", got, want)
+    vi = torch.as_tensor(slots.astype(np.int32), device=device)
+    return s, nv, slot_src, csr, vals, vi
 
-    def two_kernel():
-        sr, si = gather_kernel.decompress(vals, slot_src, dz)
-        return dft_kernel.pdft_last(sr, si, zb)
 
-    compare(f"{path} gather + pdft_last (Bluestein)", two_kernel(), want)
-    del got, want
-    rows = s + 1
-    vpad = torch.cat([torch.view_as_complex(vals),
-                      torch.zeros(1, dtype=torch.complex64, device=device)])
-    slot64 = slot_src.long()
-    e = vals.element_size()
-    rec = kernel_record(
-        path, "decompress_zdft", Z_SRC["matrix"], DEC_REPLACES, err,
-        lambda: fk.decompress_zdft(vals, slot_src, zm, dz),
-        lambda: fk.decompress_zdft_plain(vals, slot_src, zm, dz, False),
-        lambda: torch.fft.ifft(vpad[slot64].view(rows, dz), norm="forward"),
-        nv * 2 * e + rows * dz * 4 + 2 * dz * e + 2 * rows * dz * e,
-        fft_flops(rows, dz), FLOP_PER_CMAC * rows * dz * dz, "matrix")
-    rec["launches"] = launches
-    rec["two_kernel_ms"] = timed_ms(two_kernel, device)
-    rec["two_kernel_device_ms"] = graph_ms(two_kernel, device)
-    print_records([rec])
-    print(f"kernel {path} decompress_zdft: the two-kernel route (gather + "
-          f"Bluestein) {rec['two_kernel_ms']:.4f} ms "
-          f"({_ms(rec['two_kernel_device_ms'])} on the device) against "
-          f"{rec['ms']:.4f} in the fused matrix form", flush=True)
-    return rec
+def fused_prime_records(device, dtype):
+    """The fused z kernels in the Bluestein form at ``PRIME_Z`` and
+    ``PRIME_Z_MORE`` in ``dtype`` (the lengths' own z tables, as a plan
+    hands them), each direction one call counted alone (one launch,
+    form ``bluestein``) against its plain version, then its record with
+    ``matrix_ms`` (the matrix form on a plain pair of the same function,
+    ``csrc/fused_compress.cu``: the old path), ``two_kernel_ms`` /
+    ``two_kernel_device_ms`` (the gather and ``pdft_last`` in the
+    Bluestein form, the two-kernel route) and ``library_ms`` (one
+    ``torch.fft`` call on the gathered sticks, or on the sticks and then
+    an index). Returns the records."""
+    from spfft_tpu_torch.ops import dft, dft_kernel, fused_kernel as fk
+    from spfft_tpu_torch.ops import gather_kernel
+    rng = np.random.default_rng(SEED + 13)
+    suffix = "_f64" if dtype == torch.float64 else ""
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    e = torch.empty((), dtype=dtype).element_size()
+    recs = []
+    for dz in (PRIME_Z,) + PRIME_Z_MORE:
+        s, nv, slot_src, csr, vals, vi = _prime_z_case(dz, device, dtype,
+                                                       rng)
+        zb = dft.device_c2c(dz, dft.BACKWARD, device=device, dtype=dtype)
+        zf = dft.device_c2c(dz, dft.FORWARD, 1.0 / dz, device=device,
+                            dtype=dtype)
+        if {fk.z_form(zb, dz), fk.z_form(zf, dz)} != {"bluestein"}:
+            fail(f"dim_z {dz}: z forms {fk.z_form(zb, dz)} / "
+                 f"{fk.z_form(zf, dz)}, expected bluestein")
+        path = f"z{dz}{suffix}"
+        rows = s + 1
+        tables = table_bytes(zb, "bluestein")
+
+        # backward: the gather, the completion-free stick, the z-DFT
+        got, launches = _counted_call(
+            f"{path} decompress_zdft", fk.decompress_zdft,
+            {"bluestein": 1},
+            lambda: fk.decompress_zdft(vals, slot_src, zb, dz))
+        want = fk.decompress_zdft_plain(vals, slot_src, zb, dz, False)
+        err = compare(f"{path} decompress_zdft (Bluestein form)", got, want)
+
+        def dec_two_kernel():
+            sr, si = gather_kernel.decompress(vals, slot_src, dz)
+            return dft_kernel.pdft_last(sr, si, zb)
+
+        compare(f"{path} gather + pdft_last (Bluestein)", dec_two_kernel(),
+                want)
+        del got, want
+        vpad = torch.cat([torch.view_as_complex(vals),
+                          torch.zeros(1, dtype=cdt, device=device)])
+        slot64 = slot_src.long()
+        mats = matrix_pair(zb)
+        rec = kernel_record(
+            path, "decompress_zdft", Z_SRC["bluestein"], DEC_REPLACES, err,
+            lambda: fk.decompress_zdft(vals, slot_src, zb, dz),
+            lambda: fk.decompress_zdft_plain(vals, slot_src, zb, dz, False),
+            lambda: torch.fft.ifft(vpad[slot64].view(rows, dz),
+                                   norm="forward"),
+            nv * 2 * e + rows * dz * 4 + tables + 2 * rows * dz * e,
+            fft_flops(rows, dz), bluestein_design_flops(rows, dz),
+            "bluestein",
+            matrix=lambda: fk.decompress_zdft(vals, slot_src, mats, dz))
+        rec["launches"] = launches
+        rec["two_kernel_ms"] = timed_ms(dec_two_kernel, device)
+        rec["two_kernel_device_ms"] = graph_ms(dec_two_kernel, device)
+        recs.append(rec)
+        del vpad, slot64
+
+        # forward: the z-DFT (the FULL scale 1 / dim_z folded in), the CSR
+        gen = torch.Generator(device=device).manual_seed(SEED + dz)
+        sr, si = (torch.randn((s, dz), generator=gen, dtype=dtype,
+                              device=device) for _ in range(2))
+        got, launches = _counted_call(
+            f"{path} zdft_compress", fk.zdft_compress, {"bluestein": 1},
+            lambda: fk.zdft_compress(sr, si, zf, csr))
+        want = fk.zdft_compress_plain(sr, si, zf, csr, False)
+        err = compare(f"{path} zdft_compress (Bluestein form)", (got,),
+                      (want,))
+
+        def cmp_two_kernel():
+            yr, yi = dft_kernel.pdft_last(sr, si, zf)
+            return gather_kernel.compress(yr, yi, vi)
+
+        compare(f"{path} pdft_last (Bluestein) + gather", (cmp_two_kernel(),),
+                (want,))
+        del got, want
+        vi64 = vi.long()
+        mats = matrix_pair(zf)
+        rec = kernel_record(
+            path, "zdft_compress", Z_SRC["bluestein"], CMP_REPLACES, err,
+            lambda: fk.zdft_compress(sr, si, zf, csr),
+            lambda: fk.zdft_compress_plain(sr, si, zf, csr, False),
+            lambda: torch.fft.fft(torch.complex(sr, si), norm="forward"
+                                  ).view(-1)[vi64],
+            2 * s * dz * e + ((s + 1) + 2 * nv) * 4 + tables + nv * 2 * e,
+            fft_flops(s, dz), bluestein_design_flops(s, dz), "bluestein",
+            matrix=lambda: fk.zdft_compress(sr, si, mats, csr))
+        rec["launches"] = launches
+        rec["two_kernel_ms"] = timed_ms(cmp_two_kernel, device)
+        rec["two_kernel_device_ms"] = graph_ms(cmp_two_kernel, device)
+        recs.append(rec)
+        del sr, si, slot_src, csr, vals, vi, vi64, mats
+    print_records(recs)
+    for r in recs:
+        print(f"kernel {r['path']} {r['name']}: the Bluestein form "
+              f"{r['ms']:.4f} ms ({_ms(r['device_ms'])} on the device) "
+              f"against the matrix form {_ms(r['matrix_ms'])}, the "
+              f"two-kernel route (gather + Bluestein) "
+              f"{r['two_kernel_ms']:.4f} ({_ms(r['two_kernel_device_ms'])}) "
+              f"and the library call {_ms(r['library_ms'])} "
+              f"({_ms(r['library_device_ms'])}), same inputs", flush=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs
+
+
+#: the full-width path at a dim_z with a prime of 13 or more: the C2C
+#: sphere at PRIME_N^3 (416 = 2^5 x 13 on every axis, so every stage takes
+#: Bluestein's form), fused (each z kernel once in the Bluestein form,
+#: pdft2 in two Bluestein stage launches a call) and two-kernel
+PRIME_N = 416
+BLUE4 = (4, 4, {"bluestein": 4})
+C2C416_LAUNCHES = {"decompress_zdft": (1, 1, {"bluestein": 1}),
+                   "zdft_compress": (1, 1, {"bluestein": 1}),
+                   "pdft2": BLUE4, "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                   "gather": (0, 0), "pdft_last": (0, 0),
+                   "pdft2_swapped": (0, 0), **NO_REAL_LAST}
+C2C416_2K_LAUNCHES = {"decompress_zdft": (0, 0), "zdft_compress": (0, 0),
+                      "pdft2": BLUE4, "prdft2": (0, 0), "pdft2_cr": (0, 0),
+                      "gather": (2, 2), "pdft_last": (2, 2, {"bluestein": 2}),
+                      "pdft2_swapped": (0, 0), **NO_REAL_LAST}
+
+
+def prime_path_phase(sp, device, counters):
+    """The C2C path at ``PRIME_N``^3 (``main_path_plan``: the sphere in
+    stick-major order, about 37.7 M values), float32: the fused plan's
+    counted pair (each z kernel once in the Bluestein form) against the
+    complex128 oracle at ``predicted_rel_error``, then the same index
+    plan with ``fused=False`` (the gather and ``pdft_last`` in the
+    Bluestein form), its counted pair against the oracle too, and the two
+    routes' backward and forward(FULL) within ``KERNEL_TOL`` of each other
+    (bit for bit where the two forms' arithmetic coincides, printed).
+    ``pair_phase`` prints each route's pair ms."""
+    n = PRIME_N
+    t0 = time.perf_counter()
+    plan, trip, values = main_path_plan(sp, n, device)
+    oracle = c2c_oracle_rel(plan, trip, values, device)
+    pair_phase(sp, f"c2c{n}", plan, values, oracle, device, counters,
+               C2C416_LAUNCHES)
+    split = sp.TransformPlan(plan.index_plan, device=device, fused=False)
+    pair_phase(sp, f"c2c{n}_2k", split, values, oracle, device, counters,
+               C2C416_2K_LAUNCHES)
+    full = sp.Scaling.FULL
+    a, b = plan.backward(values), split.backward(values)
+    compare(f"c2c{n} two-kernel vs fused backward", (b,), (a,))
+    fa, fb = plan.forward(a, full), split.forward(a, full)
+    compare(f"c2c{n} two-kernel vs fused forward", (fb,), (fa,))
+    print(f"c2c{n} two-kernel vs fused route: backward bit for bit "
+          f"{torch.equal(a, b)}, forward bit for bit {torch.equal(fa, fb)}",
+          flush=True)
+    del plan, split, trip, values, a, b, fa, fb
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"prime path {n}^3: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: small dims at dim_z 13 (the fused z kernels' Bluestein form, M = 25)
+#: whose float32 plans are held to the oracle on the card: the CPU rank
+#: tests' dims and dist_odd_shards_phase's; and their 4-shard split, stick
+#: weights and planes of 13
+PRIME_SMALL_DIMS = ((11, 12, 13), (12, 10, 13))
+PRIME_SMALL_SHARDS = ((3, 1, 2, 1), (4, 3, 4, 2))
+
+
+def _small_prime_set(rng, dims, r2c):
+    """Storage triplets and complex128 values (rounded to complex64) of a
+    small set, and the backward's complex128 oracle ``(dim_z, dim_y,
+    dim_x)``: C2C, sticks with probability 0.6 and their slots with 0.7,
+    random values; R2C, the hermitian half (x > 0, or x = 0 and y > 0, or
+    the (0,0) stick's z >= 0) of a real field's spectrum within a centred
+    ellipsoid."""
+    nx, ny, nz = dims
+    sx, sy, sz = (np.fft.fftfreq(n, 1.0 / n).round().astype(np.int64)
+                  for n in dims)
+    z, y, x = (a.reshape(-1) for a in np.meshgrid(sz, sy, sx, indexing="ij"))
+    if r2c:
+        inside = (x / nx) ** 2 + (y / ny) ** 2 + (z / nz) ** 2 <= 0.2
+        spec = np.fft.fftn(rng.standard_normal((nz, ny, nx))) * \
+            inside.reshape(nz, ny, nx)
+        spec = spec.astype(np.complex64).astype(np.complex128)
+        half = (x > 0) | ((x == 0) & ((y > 0) | ((y == 0) & (z >= 0))))
+        keep = inside & half
+        trip = np.stack([x[keep] % nx, y[keep] % ny, z[keep] % nz], 1)
+        vals = spec[trip[:, 2], trip[:, 1], trip[:, 0]]
+        return trip, vals, np.fft.ifftn(spec, norm="forward").real
+    stick = rng.random((ny, nx)) < 0.6
+    keep = stick[y % ny, x % nx] & (rng.random(len(x)) < 0.7)
+    trip = np.stack([x[keep] % nx, y[keep] % ny, z[keep] % nz], 1)
+    vals = (rng.standard_normal(len(trip)) + 1j * rng.standard_normal(
+        len(trip))).astype(np.complex64).astype(np.complex128)
+    grid = np.zeros((nz, ny, nx), np.complex128)
+    grid[trip[:, 2], trip[:, 1], trip[:, 0]] = vals
+    return trip, vals, np.fft.ifftn(grid, norm="forward")
+
+
+def prime_small_phase(sp, device):
+    """Fused float32 plans at ``PRIME_SMALL_DIMS``, C2C and R2C, local and
+    over 4 uneven shards (``PRIME_SMALL_SHARDS``): each z kernel launched
+    in the Bluestein form only (once a direction locally); the backward
+    within ``predicted_rel_error("single", 13)`` (relative l2) of the
+    complex128 oracle, and the forward(FULL) of that oracle's space,
+    rounded to float32, within it of the exact transform of what the plan
+    was given. The plain Bluestein stage on the CPU computes its FFTs in
+    complex128 (ROADMAP, differences kept on purpose): this phase reads
+    the card's float32 kernels at the dims the CPU tests cover."""
+    from spfft_tpu_torch.ops import fused_kernel as fk
+    rng = np.random.default_rng(SEED + 13)
+    on_card = device.type == "cuda"
+    wrappers = (fk.decompress_zdft, fk.zdft_compress)
+    weights, planes = PRIME_SMALL_SHARDS
+    worst = 0.0
+    for dims in PRIME_SMALL_DIMS:
+        nx, ny, nz = dims
+        for kind in (sp.TransformType.C2C, sp.TransformType.R2C):
+            r2c = kind is sp.TransformType.R2C
+            trip, vals, ref = _small_prime_set(rng, dims, r2c)
+            pred = sp.predicted_rel_error("single", max(dims), True)
+            sticks = trip[:, 1] * nx + trip[:, 0]
+            owner = rng.choice(len(weights), nx * ny,
+                               p=np.array(weights) / sum(weights))[sticks]
+            parts = [trip[owner == r] for r in range(len(weights))]
+            pvals = [vals[owner == r] for r in range(len(weights))]
+            for shards in (1, len(weights)):
+                name = (f"prime small {kind.name} {dims} "
+                        f"{'local' if shards == 1 else f'{shards} shards'}")
+                if shards == 1:
+                    plan = sp.make_local_plan(kind, *dims, trip,
+                                              device=device)
+                    given = vals.astype(np.complex64)
+                else:
+                    plan = sp.make_distributed_plan(kind, *dims, parts,
+                                                    list(planes),
+                                                    device=device)
+                    given = [v.astype(np.complex64) for v in pvals]
+                for w in wrappers:
+                    w.form_launches = dict.fromkeys(w.form_launches, 0)
+                space = plan.backward(given)
+                if shards == 1:
+                    full, inp = space, space.clone()
+                else:  # the slabs in z order, then back into the stacks
+                    full = torch.cat([space[r, :planes[r]]
+                                      for r in range(shards)])
+                    inp = torch.zeros_like(space)
+                    z0 = 0
+                    for r in range(shards):
+                        inp[r, :planes[r]] = full[z0:z0 + planes[r]]
+                        z0 += planes[r]
+                got = full.double().cpu().numpy()
+                if not r2c:
+                    got = got[..., 0] + 1j * got[..., 1]
+                rel_b = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+                out = plan.forward(inp, sp.Scaling.FULL)
+                sp32 = full.cpu().numpy().astype(np.float64)
+                if not r2c:
+                    sp32 = sp32[..., 0] + 1j * sp32[..., 1]
+                exact = np.fft.fftn(sp32) / float(nx * ny * nz)
+                if shards == 1:
+                    o = out.double().cpu().numpy()
+                    o = o[..., 0] + 1j * o[..., 1]
+                    want = exact[trip[:, 2], trip[:, 1], trip[:, 0]]
+                else:
+                    o = np.concatenate(plan.unshard_values(out))
+                    cat = np.concatenate(parts)
+                    want = exact[cat[:, 2], cat[:, 1], cat[:, 0]]
+                rel_f = float(np.linalg.norm(o - want) / np.linalg.norm(want))
+                forms = [{f: k for f, k in w.form_launches.items() if k}
+                         for w in wrappers]
+                print(f"{name}: backward vs complex128 oracle rel_l2="
+                      f"{rel_b:.3e}, forward(FULL) {rel_f:.3e} "
+                      f"(predicted_rel_error={pred:.3e}); z kernels by form "
+                      f"{forms}", flush=True)
+                if not (rel_b <= pred and rel_f <= pred):
+                    fail(f"{name}: rel_l2 {rel_b:.3e} / {rel_f:.3e} above "
+                         f"predicted_rel_error {pred:.3e}")
+                if on_card and any(
+                        set(f) != {"bluestein"}
+                        or (shards == 1 and f != {"bluestein": 1})
+                        for f in forms):
+                    fail(f"{name}: z kernels launched by form {forms}, "
+                         f"expected the Bluestein form only")
+                worst = max(worst, rel_b, rel_f)
+    print(f"prime small: 8 fused float32 plans at dim_z 13 on "
+          f"{device.type}, worst rel_l2 against the oracle {worst:.3e} "
+          f"(predicted_rel_error {pred:.3e})", flush=True)
 
 
 #: the slice's path at full width, 448^3: the C2C pair (fused route: each
@@ -4582,7 +4863,8 @@ def ptxas_spills(log: str) -> dict:
 
 #: the kernels whose float instances must not spill, by library, each a
 #: pattern of its mangled name up to the template arguments it fixes: every
-#: instance of the long-axis kernels, and the instances of the kernels over
+#: instance of the long-axis and Bluestein kernels (the fused z kernels'
+#: Bluestein form too), and the instances of the kernels over
 #: fft_tile.cuh that hold its radix-7 and 11 stages (template arguments
 #: POW2 false, ODD true: ...ILb0ELb1E...; the cluster kernel takes radices
 #: 2-5 alone)
@@ -4593,7 +4875,9 @@ NO_SPILL = {"fft_long.cu": ("fft_long_whole_kernelI", "fft_long_col_kernelI",
             "rfft.cu": ("rfft_stage_kernelILi1ELb0ELb1E",
                         "rfft_stage_kernelILi2ELb0ELb1E"),
             "fused_fft.cu": ("decompress_zdft_fft_kernelILb0ELb1E",
-                             "zdft_compress_fft_kernelILb0ELb1E")}
+                             "zdft_compress_fft_kernelILb0ELb1E"),
+            "fused_bluestein.cu": ("decompress_zdft_bluestein_kernelI",
+                                   "zdft_compress_bluestein_kernelI")}
 
 
 def spill_check(build_log: dict) -> None:
@@ -4680,7 +4964,7 @@ BENCH_RUNS = (["-d", "256", "-r", "10"],
               ["-d", "256", "-r", "10", "--shards", "4"],
               ["-d", "256", "-r", "10", "--shards", "4", "-e", "compact",
                "--overlap-chunks", "2"],
-              ["-d", "256", "-r", "5", "--shards", "4", "-e", "all"],
+              ["-d", "256", "-r", "2", "--shards", "4", "-e", "all"],
               ["-d", "768", "-s", "0.25", "-r", "5"])
 
 
@@ -5560,7 +5844,12 @@ def capi_run(args, what):
     return out.stdout
 
 
-def host_ms(fn, device, reps=REPS, warmup=2) -> float:
+#: timed calls of the C drive (``native/capi_drive.c``: TIMED) and of
+#: the Python references beside it
+CAPI_TIMED = 5
+
+
+def host_ms(fn, device, reps=CAPI_TIMED, warmup=2) -> float:
     """Median host-clock ms of ``fn`` (ended by a synchronize), the C
     drive's protocol: 2 warm-ups, ``reps`` timed."""
     for _ in range(warmup):
@@ -6745,7 +7034,7 @@ POD_SPMD_WINDOW = 0.05
 POD_HEAL_N = 32
 #: single requests of the trace's size sent one at a time after it, each
 #: timed apart (``net.smoke._solo_requests``)
-POD_SOLO = 3
+POD_SOLO = 1
 #: the TCP pod's leases (ms): the knobs' default TTL, where the JAX
 #: smoke's 300 ms lets an agent busy with 200 MB frames miss renewals
 #: (each suspicion bumps the view epoch twice, and a frontend's fenced
@@ -7073,9 +7362,10 @@ def pod_phase(sp, device, counters, n=N):
 # -- the control loop and the CLIs over everything ---------------------------
 
 #: the replay of ``control_phase`` (a): ``serve.bench`` at the N^3 grid,
-#: the JAX CLI's three signatures (sparsities 1, 11/12, 5/6), 96 requests
-#: from 4 threads, the controller on, seed 42 (the CLI's default)
-CONTROL_REQUESTS = 96
+#: the JAX CLI's three signatures (sparsities 1, 11/12, 5/6), 48 requests
+#: from 4 threads, the controller on, seed 42 (the CLI's default); the
+#: trace's draw, 0.7 s of one core a request, sets the phase's pace
+CONTROL_REQUESTS = 48
 CONTROL_SIGNATURES = 3
 CONTROL_THREADS = 4
 CONTROL_SLO = "p99_ms=60000,error_rate=0.5"
@@ -7641,7 +7931,14 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         recs += radix_records(device, dtype)
         recs += bluestein_small_records(device, dtype)
-    recs.append(fused_prime_record(device))
+    t_prime = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        recs += fused_prime_records(device, dtype)
+    prime_path_phase(sp, device, launch_counters())
+    prime_small_phase(sp, device)
+    print(f"fused z kernels at a prime dim_z (records, the {PRIME_N}^3 "
+          f"pair): {time.perf_counter() - t_prime:.1f} s ({card})",
+          flush=True)
     print(f"stage records up to 512: {time.perf_counter() - t_len:.1f} s "
           f"({card})", flush=True)
     recs += length_phases(sp, device, launch_counters())

@@ -37,7 +37,9 @@
 // = A > 0 rows (row g = p A + a at y[(p N + o) A + a]).
 //
 // One block holds R whole rows of M in shared memory (the pass-1 layout P,
-// sub-row (r, i2) of m1, and the pass-2 layout Q, sub-row (r, k1) of m2)
+// sub-row (r, i2) of m1, and the pass-2 layout Q, sub-row (r, k1) of m2;
+// bluestein.cuh holds the pieces this kernel shares with the fused z
+// kernels of fused_bluestein.cu)
 // and runs both FFTs as kernel A's four-step FFT (fft_long.cu): (S1) a
 // work item takes column (r, i2), the m1 values a[i1 m2 + i2] made on the
 // fly from the input and the chirp (loads coalesced across the warp), its
@@ -74,7 +76,7 @@
 // templates on T (real.cuh) give the float and double instances (entries
 // spfft_bluestein and spfft_bluestein_f64).
 
-#include "fft_reg.cuh"
+#include "bluestein.cuh"
 
 using namespace spfft;
 using namespace spfft::fft;
@@ -83,26 +85,10 @@ namespace {
 
 enum BlueMode { BL_CC = 0, BL_RC = 1, BL_CR = 2 };
 
-// the most threads of a block; the shared memory of one block, and of the
-// two a float SM holds
-constexpr int BL_THREADS = 256;
-constexpr size_t BL_SMEM_MAX = 232448;
-
 }  // namespace
 
-// Blocks an SM: two in float (128 registers a thread: every factor runs as
-// a thread's row of at most 32 or a lane pair's), one in double.
-template <class T>
-struct BlueOcc {
-  static constexpr int BLOCKS = sizeof(T) == 4 ? 2 : 1;
-};
-
-// a read through the read-only data cache: the chirp, the spectrum and the
-// twiddles (a few KB, shared by every block) stay in L1
-template <class T>
-__device__ __forceinline__ T ro(const T* p) {
-  return __ldg(p);
-}
+// every register length of fft_reg.cuh
+using KernelLens = BlueLens<2, 64>;
 
 // a[j] of row g: the input at position j of the window (mode cr: times the
 // hermitian weight) times w[j], or 0
@@ -126,56 +112,6 @@ __device__ __forceinline__ void bl_input(int mode, const T* __restrict__ xr,
   const T c = ro(chirp + j), s = ro(chirp + n + j);
   re = ar * c - ai * s;
   im = ar * s + ai * c;
-}
-
-// bin k's value times W_M^(e k) at o[k st] (the other layout's sub-row)
-template <class T>
-__device__ __forceinline__ void bl_tw_put(T vr, T vi, int e, int k,
-                                          const T* __restrict__ tw, int mm,
-                                          T* o_r, T* o_i, int st) {
-  const T cw = ro(tw + e * k), sw = ro(tw + mm + e * k);
-  o_r[k * st] = vr * cw - vi * sw;
-  o_i[k * st] = vr * sw + vi * cw;
-}
-
-// One register row of length L, a thread's (L <= 32) or a lane pair's:
-// load(q, re, im) gives element q, the row's FFT against the factor's table
-// (twr, twi), and put(k, re, im) takes bin k, each bin once (a pair's lanes
-// split the bins). c2: the work item (a pair's two lanes share c2 >> 1).
-template <int L, class T, class Load, class Put>
-__device__ __forceinline__ void bl_row(int b, const T* twr, const T* twi,
-                                       Load load, Put put) {
-  if constexpr (L <= 32) {
-    T vr[L], vi[L];
-#pragma unroll
-    for (int q = 0; q < L; ++q) load(q, vr[q], vi[q]);
-    reg_fft<L>(vr, vi, twr, twi, T(-1));
-    fence_loads();
-#pragma unroll
-    for (int k = 0; k < L; ++k) put(k, vr[k], vi[k]);
-  } else {
-    constexpr int H = L / 2, HA = Pair<L>::HA, HB = Pair<L>::HB;
-    T xr_[H], xi_[H], vr[2 * HA], vi[2 * HA];
-#pragma unroll
-    for (int q = 0; q < H; ++q) load(2 * q + b, xr_[q], xi_[q]);
-    pair_fft<L>(xr_, xi_, vr, vi, b, twr, twi, T(-1));
-    fence_loads();
-#pragma unroll
-    for (int i = 0; i < HA; ++i) {
-      if (b == 0 || i < HB) {
-        put(i + b * HA, vr[i], vi[i]);
-        put(i + b * HA + H, vr[HA + i], vi[HA + i]);
-      }
-    }
-  }
-}
-
-// f(Len<L>{}) for a factor with a register plan in a T kernel
-template <class T, class F>
-__device__ __forceinline__ void bl_len(int L, F&& f) {
-  with_len<2, (sizeof(T) == 4 ? 64 : 32)>(L, [&](auto len) {
-    if constexpr (has_plan<T>(decltype(len)::value)) f(len);
-  });
 }
 
 // `rows` rows a block (count rows in all); s1 / s2 the factors (m1, m2:
@@ -226,7 +162,7 @@ __global__ void __launch_bounds__(BL_THREADS, (BlueOcc<T>::BLOCKS))
   // S1: a[j] = x[j] w[j] at j = i1 m2 + i2, FFT_M's pass over i1, times
   // W_M^(i2 k1), into the pass-2 layout
   if (reg1) {
-    bl_len<T>(m1, [&](auto len) {
+    bl_len<T, KernelLens>(m1, [&](auto len) {
       constexpr int L = decltype(len)::value;
       for (int c2 = threadIdx.x; c2 < valid * m2 * p1; c2 += blockDim.x) {
         const int c = c2 / p1;  // column (r, i2)
@@ -272,7 +208,7 @@ __global__ void __launch_bounds__(BL_THREADS, (BlueOcc<T>::BLOCKS))
   // conjugated, back into the sub-row; the second FFT's pass over k2 (bins
   // j_a), times W_M^(k1 j_a), into the pass-1 layout
   if (reg2) {
-    bl_len<T>(m2, [&](auto len) {
+    bl_len<T, KernelLens>(m2, [&](auto len) {
       constexpr int L = decltype(len)::value;
       for (int c2 = threadIdx.x; c2 < valid * m1 * p2; c2 += blockDim.x) {
         const int c = c2 / p2;  // sub-row (r, k1)
@@ -341,7 +277,7 @@ __global__ void __launch_bounds__(BL_THREADS, (BlueOcc<T>::BLOCKS))
   // u in the sub-row for the loop below.
   if (reg1) {
     const bool direct = plane_rows == 0;
-    bl_len<T>(m1, [&](auto len) {
+    bl_len<T, KernelLens>(m1, [&](auto len) {
       constexpr int L = decltype(len)::value;
       for (int c2 = threadIdx.x; c2 < valid * m2 * p1; c2 += blockDim.x) {
         const int c = c2 / p1;  // sub-row (r, j_a)
@@ -419,41 +355,24 @@ __global__ void __launch_bounds__(BL_THREADS, (BlueOcc<T>::BLOCKS))
 
 namespace {
 
-// the block's shared memory: both layouts and the factors' tables
-template <class T>
-size_t bl_smem(int rows, int m1, int m2) {
-  return sizeof(T) * (2 * (size_t)rows * (m2 * row_stride(m1) +
-                                          m1 * row_stride(m2)) +
-                      2 * (size_t)(m1 + m2));
-}
-
 template <class T>
 int launch_bluestein(int mode, const T* xr, const T* xi, T* yr, T* yi,
                      const T* chirp, const T* spec, const T* tw,
                      long long count, int K, int N, int plane_rows, int n,
                      int x0, int y0, int mm, int m1, int m2, int rad1,
                      int rad2, int paths, void* stream) {
-  const bool reg1 = paths & 1, reg2 = paths & 2;
   const int L_in = mode == BL_CR ? n / 2 + 1 : n;
   const int L_out = mode == BL_RC ? n / 2 + 1 : n;
-  if (mode < BL_CC || mode > BL_CR || n < 1 || count <= 0 || K < 1 ||
-      N < 1 || K > L_in || N > L_out || x0 < 0 || x0 >= L_in || y0 < 0 ||
-      y0 >= L_out || plane_rows < 0 || m1 < 1 || m2 < m1 || m2 > 256 ||
-      m1 * m2 != mm || mm < 2 * n - 1 || paths < 0 || paths > 3 ||
+  if (mode < BL_CC || mode > BL_CR || count <= 0 || K < 1 || N < 1 ||
+      K > L_in || N > L_out || x0 < 0 || x0 >= L_in || y0 < 0 ||
+      y0 >= L_out || plane_rows < 0 ||
+      !bl_split_ok<T, KernelLens>(n, mm, m1, m2, paths) ||
       (mode == BL_RC && (K != n || x0 != 0)) ||
-      (mode == BL_CR && (N != n || y0 != 0)) ||
-      (reg1 && !has_plan<T>(m1)) || (reg2 && !has_plan<T>(m2)) ||
-      (sizeof(T) == 4 && paths != 3))
+      (mode == BL_CR && (N != n || y0 != 0)))
     return (int)cudaErrorInvalidValue;
-  // rows: about 256 work items in the busier phase (a pair's row counts
-  // twice), within the shared memory of BlueOcc<T>::BLOCKS blocks an SM
-  const int p1 = reg1 && m1 > 32 ? 2 : 1, p2 = reg2 && m2 > 32 ? 2 : 1;
-  const int items = max(m2 * p1, m1 * p2);
-  const size_t smax = BL_SMEM_MAX / BlueOcc<T>::BLOCKS;
-  int rows = max(1, BL_THREADS / items);
-  while (rows > 1 && bl_smem<T>(rows, m1, m2) > smax) --rows;
-  const size_t smem = bl_smem<T>(rows, m1, m2);
-  const int threads = min(BL_THREADS, (rows * items + 31) / 32 * 32);
+  int rows, threads;
+  size_t smem;
+  bl_shape<T>(m1, m2, paths, false, &rows, &threads, &smem);
   auto kernel = bluestein_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -504,5 +423,5 @@ extern "C" int spfft_bluestein_f64(int mode, const double* xr,
 // nonzero) or float (fft_reg.cuh: has_plan): the wrapper sets paths by it,
 // and a float M (ops/dft.py: bluestein_length) must have one for both.
 extern "C" int spfft_bluestein_reg_plan(int L, int f64) {
-  return f64 ? has_plan<double>(L) : has_plan<float>(L);
+  return f64 ? bl_reg<double, KernelLens>(L) : bl_reg<float, KernelLens>(L);
 }

@@ -17,7 +17,7 @@
  * pair.bin (spfft_tpu_execute_pair with FULL scaling); for batch > 1,
  * multi_backward.bin and multi_forward.bin (spfft_tpu_multi_backward of
  * every set with one handle, then spfft_tpu_multi_forward, FULL, of those
- * spaces). Each call runs 2 times untimed, then 10 timed; the case's line
+ * spaces). Each call runs 2 times untimed, then 5 timed; the case's line
  * gives the medians in ms (multi: per transform) and the plan creation's
  * seconds. Exits 1 on the first call that returns an error.
  *
@@ -34,7 +34,7 @@
 #include <spfft_tpu_torch.h>
 
 #define WARMUP 2
-#define TIMED 10
+#define TIMED 5
 #define CHECK(expr)                                                        \
   do {                                                                     \
     int code_ = (expr);                                                    \

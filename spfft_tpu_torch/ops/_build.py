@@ -46,8 +46,8 @@ from ..errors import DeviceError, InvalidParameterError, KernelBuildError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("bluestein.cu", "dft2.cu", "fft.cu", "fft_long.cu",
-           "fused_compress.cu", "fused_fft.cu", "gather.cu", "rfft.cu",
-           "wire.cu")
+           "fused_bluestein.cu", "fused_compress.cu", "fused_fft.cu",
+           "gather.cu", "rfft.cu", "wire.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

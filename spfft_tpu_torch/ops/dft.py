@@ -386,20 +386,31 @@ def bluestein_length(n: int) -> int:
     """The length M of the Bluestein form's circular convolution: the
     smallest 2^a 3^b 5^c >= 2 n - 1 whose :func:`bluestein_split` has
     factors that run in registers in float (each at least 2 and at most
-    :data:`REG_ROW_MAX`, or even and at most :data:`REG_PAIR_MAX`): 25 =
-    5 x 5 for 13, 200 = 10 x 20 for 100, 540 = 20 x 27 for 257, 1080 =
-    30 x 36 for 521 and 520, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for
-    1021 and 1022 (1125 = 25 x 45 and 2025 = 45 x 45 give way to 1152 and
-    2048; 1 and 5 = 1 x 5 to 4 and 6)."""
-    m = max(1, 2 * int(n) - 1)
+    :data:`REG_ROW_MAX`, or even and at most :data:`REG_PAIR_MAX`), and
+    for n up to :data:`MATMUL_DFT_MAX` (the lengths the fused z kernels
+    take too) factors of at most :data:`REG_ROW_MAX`, neither a multiple
+    of 27: 25 = 5 x 5 for 13, 200 = 10 x 20 for 100, 576 = 24 x 24 for
+    257, 900 = 30 x 30 for 416, 1024 = 32 x 32 for 491 and 509, 1080 = 30
+    x 36 for 521 and 520, 2000 = 40 x 50 for 997, 2048 = 32 x 64 for 1021
+    and 1022 (1125 = 25 x 45 and 2025 = 45 x 45 give way to 1152 and 2048;
+    1 and 5 = 1 x 5 to 4 and 6). A factor of 27 runs three radix-3 stages,
+    the least accurate factor FFT in float: with 864 = 27 x 32 at 416, a
+    416^3 C2C pair (all three axes in this form) missed its accuracy
+    contract on an H100 (``chip_smoke.py``'s prime path), which 900 keeps,
+    for 4 % more of the convolution's work; the lengths this rule moves
+    up to 512 take at most 11 % more."""
+    n = int(n)
+    m = max(1, 2 * n - 1)
     while True:
         rest = m
         for p in (2, 3, 5):
             while rest % p == 0:
                 rest //= p
+        split = bluestein_split(m)
         if rest == 1 and all(2 <= f <= REG_ROW_MAX or (
-                f <= REG_PAIR_MAX and f % 2 == 0)
-                for f in bluestein_split(m)):
+                f <= REG_PAIR_MAX and f % 2 == 0) for f in split) and (
+                n > MATMUL_DFT_MAX or all(
+                    f <= REG_ROW_MAX and f % 27 for f in split)):
             return m
         m += 1
 
@@ -557,7 +568,7 @@ def device_c2c(n: int, sign: int, scale: float = 1.0, rows=None, cols=None,
     """The length-``n`` complex DFT with ``scale`` folded in, as
     :class:`DftMats` of ``dtype`` (float32 or float64) on ``device``, in
     the form :func:`c2c_form` gives its length, or ``form="matrix"`` (the
-    fused z kernels' matrix form, ``ops.fused_kernel.z_mats_form``; n up
+    dense product against the matrix pair, which no plan builds; n up
     to :data:`MATMUL_DFT_MAX`): the FFT and matrix forms carry
     :func:`c2c_mats`, or with ``rows = (x0, w)`` the window's rows
     (:func:`sub_rows_mats` of ``(x0 + arange(w)) % n``), with ``cols =
@@ -747,8 +758,16 @@ def bluestein_plain(mode: str, ins, mats):
     2 for the others, the upper half 0), zero-padded to M; the inverse of
     FFT_M(a) times the spectrum B (1/M and the scale in it, so the
     inverse is unnormalised); times w[k]; the output window (cr: the real
-    part). Both length-M FFTs are ``torch.fft`` calls. Returns a pair of
-    planes (cc, rc) or one real tensor (cr)."""
+    part). Both length-M FFTs are ``torch.fft`` calls, computed in
+    complex128 whatever the tables' type (the tables and the result keep
+    it): this version, the CPU path of every Bluestein stage, adds one
+    rounding to the tables', where the kernels' float32 FFT pair adds
+    about twice a dense product's error at a short length (a difference
+    kept on purpose, ROADMAP: the CPU tests hold float32 plans at dim_z 13
+    to the JAX package's dense product within ``predicted_rel_error``;
+    ``chip_smoke.py``'s ``prime_small_phase`` holds the card's float32
+    kernels to the complex128 oracle there). Returns a pair of planes (cc,
+    rc) or one real tensor (cr)."""
     n, bt = mats.n, mats.bluestein
     w = torch.complex(bt.chirp[0], bt.chirp[1])
     spec = torch.complex(bt.spectrum[0], bt.spectrum[1])
@@ -768,9 +787,11 @@ def bluestein_plain(mode: str, ins, mats):
         a = torch.zeros(half.shape[:-1] + (n,), dtype=half.dtype,
                         device=half.device)
         a[..., :xf] = half * c
-    conv = torch.fft.ifft(torch.fft.fft(a * w, n=bt.m) * spec,
-                          norm="forward")[..., :n]
-    y = conv * w
+    c128 = torch.complex128
+    w = w.to(c128)
+    conv = torch.fft.ifft(torch.fft.fft(a.to(c128) * w, n=bt.m)
+                          * spec.to(c128), norm="forward")[..., :n]
+    y = (conv * w).to(a.dtype)
     if mode == "cr":
         return y.real.contiguous()
     if mode == "rc":

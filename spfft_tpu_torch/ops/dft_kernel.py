@@ -181,7 +181,8 @@ def stage_form(mats) -> str:
 
 def reg_plan(source: str, n: int, dtype) -> bool:
     """Does a factor of length ``n`` run its FFT in registers in the
-    kernels of ``source`` (``"fft_long.cu"`` or ``"bluestein.cu"``) on
+    kernels of ``source`` (``"fft_long.cu"``, ``"bluestein.cu"`` or
+    ``"fused_bluestein.cu"``) on
     ``dtype``? The library's own rule (csrc/fft_reg.cuh), read through
     its ``spfft_<name>_reg_plan``; any other factor takes the
     shared-memory path of the same kernel."""
@@ -274,34 +275,47 @@ def _long_passes(wrapper, ins, mats, outs, plane_rows: int,
                outs, plane_rows)
 
 
+def bluestein_split_args(mats, dtype, source: str = "bluestein.cu") -> tuple:
+    """``(M, m1, m2, rad1, rad2, paths)`` of a launch of the Bluestein
+    tables ``mats.bluestein`` in the kernels of ``source``: the
+    convolution's length and split, the factors' stage radices, and which
+    factor runs in registers (bit 0 / bit 1: m1 / m2, the library's own
+    rule, :func:`reg_plan`). Raises
+    :class:`~spfft_tpu_torch.errors.InvalidParameterError` where a float
+    factor, or in the fused z kernels any factor, has no register plan
+    there (those kernels hold no shared-memory FFT)."""
+    bt = mats.bluestein
+    m1, m2 = bt.split
+    paths = int(reg_plan(source, m1, dtype)) | int(
+        reg_plan(source, m2, dtype)) << 1
+    if paths != 3 and (dtype == torch.float32
+                       or source == "fused_bluestein.cu"):
+        raise InvalidParameterError(
+            f"Bluestein length {bt.m} = {m1} x {m2} (dft.bluestein_length"
+            f"({mats.n})) has a factor without a float register plan in "
+            f"csrc/{source}")
+    return (bt.m, m1, m2, dft.radix_code(dft.fft_factors(m1)),
+            dft.radix_code(dft.fft_factors(m2)), paths)
+
+
 def _bluestein(wrapper, mode: str, ins, mats, outs, plane_rows: int) -> None:
     """One launch of csrc/bluestein.cu in ``mode`` on the rows of ``ins``
     (their input window as ``mats.rows`` says) into ``outs`` (the output
     window), stored straight or transposed within planes of
     ``plane_rows`` rows, counted in ``wrapper``."""
-    bt = mats.bluestein
     k, n_out = dft.mats_shape(mats)
     xr, xi = (*ins, None)[:2]
     yr, yi = (*outs, None)[:2]
     dtype = xr.dtype
-    m1, m2 = bt.split
-    paths = int(reg_plan("bluestein.cu", m1, dtype)) | int(
-        reg_plan("bluestein.cu", m2, dtype)) << 1
-    if dtype == torch.float32 and paths != 3:
-        raise InvalidParameterError(
-            f"Bluestein length {bt.m} = {m1} x {m2} (dft.bluestein_length"
-            f"({mats.n})) has a factor without a float register plan in "
-            f"csrc/bluestein.cu")
+    split = bluestein_split_args(mats, dtype)
     fn = _build.function("bluestein.cu",
                          _build.entry("spfft_bluestein", dtype),
                          _BLUESTEIN_ARGS)
     _build.launch(fn, f"bluestein {mode}", xr.device, _MODES[mode],
                   *(None if t is None else t.data_ptr()
-                    for t in (xr, xi, yr, yi, *bt)),
+                    for t in (xr, xi, yr, yi, *mats.bluestein)),
                   xr.numel() // k, k, n_out, plane_rows, mats.n,
-                  mats.rows[0], mats.cols[0], bt.m, m1, m2,
-                  dft.radix_code(dft.fft_factors(m1)),
-                  dft.radix_code(dft.fft_factors(m2)), paths)
+                  mats.rows[0], mats.cols[0], *split)
     _build.count(wrapper, "bluestein")
 
 

@@ -17,20 +17,22 @@ of at most ``dft.MATMUL_DFT_MAX``; a longer one is declined
 ``spfft_tpu/ops/fused_kernel.py:139-149``) and the plan takes the
 two-kernel route, whose z stage runs the long forms.
 
-Forms, chosen by shape (:func:`z_form`): z matrices that carry their
-function (``dft.DftMats``) with a length dim_z of the form 2^a 3^b 5^c
-7^d 11^e run the FFT form (``csrc/fused_fft.cu``: the gather fused with
-a Stockham FFT in shared memory, ``csrc/fft_tile.cuh``; bound by bytes);
-matrices in the matrix form (a plan's at a dim_z with a prime of 13 or
-more: :func:`z_mats_form`), or a plain matrix pair, run the matrix form
+Forms, chosen by shape (:func:`z_form`): z tables that carry their
+function (``dft.DftMats``) in the length's own form run the FFT form
+where dim_z is 2^a 3^b 5^c 7^d 11^e (``csrc/fused_fft.cu``: the gather
+fused with a Stockham FFT in shared memory, ``csrc/fft_tile.cuh``) and
+the Bluestein form at any other dim_z up to 512, a prime of 13 or more
+(``csrc/fused_bluestein.cu``: the gather fused with Bluestein's chirp-z
+FFT, ``csrc/bluestein.cuh``), both bound by bytes; a plain matrix pair
+(or tables built in the matrix form) runs the matrix form
 (``csrc/fused_compress.cu``: the z-DFT as a product against the matrix
-pair, bound by operations). On a CUDA tensor each wrapper launches
-the kernel of its form; on a CPU tensor it runs the plain version beside
-it, whatever the form. Values are in the plan's public layout:
-interleaved ``(N, 2)``, or the planar pair ``(2, N)`` when ``pair`` is
-set. Values, sticks, matrices and twiddle table share one real type,
-float32 or float64 (a double-precision plan's: the entries with the
-suffix ``_f64``); a mixture is refused.
+pair, bound by operations), which no plan hands them. On a CUDA tensor
+each wrapper launches the kernel of its form; on a CPU tensor it runs
+the plain version beside it, whatever the form. Values are in the
+plan's public layout: interleaved ``(N, 2)``, or the planar pair ``(2,
+N)`` when ``pair`` is set. Values, sticks, matrices and twiddle table
+share one real type, float32 or float64 (a double-precision plan's: the
+entries with the suffix ``_f64``); a mixture is refused.
 
 Both wrappers also take a leading batch ``B`` (values ``(B, N, 2)`` or
 ``(B, 2, N)``, sticks ``(B, S, dim_z)``): B transforms over one plan's
@@ -54,6 +56,7 @@ from . import _build, dft, dft_kernel, stages
 
 _SRC = "fused_compress.cu"
 _FFT_SRC = "fused_fft.cu"
+_BL_SRC = "fused_bluestein.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -80,9 +83,22 @@ def _fft_cmp_args(real):
     return [_P] * 7 + [_LL, _I, _I, _I] + _spec_args(real)
 
 
+#: csrc/fused_bluestein.cu's transform arguments: n, the windows' first
+#: positions x0 and y0, M, m1, m2, the factors' radices, the paths (bit
+#: 0 / bit 1: m1 / m2 in registers), and the stream
+_BL_SPEC_ARGS = [_I] * 9 + [_P]
+#: spfft_decompress_zdft_bluestein: values, slot_src, the chirp, spectrum
+#: and twiddle tables, the output sticks, num_sticks, N, pair, zero_stick,
+#: batch, the transform
+_BL_DEC_ARGS = [_P] * 7 + [_LL, _I, _I, _LL, _I] + _BL_SPEC_ARGS
+#: spfft_zdft_compress_bluestein: the sticks, the tables, the CSR, the
+#: values, num_sticks, N, pair, batch, the transform
+_BL_CMP_ARGS = [_P] * 9 + [_LL, _I, _I, _I] + _BL_SPEC_ARGS
+
+
 #: largest batch of one launch (the grid's y extent)
 MAX_BATCH = 65535
-FORMS = ("matrix", "fft")
+FORMS = ("matrix", "fft", "bluestein")
 
 
 #: the longest z axis the fused kernels hold
@@ -156,36 +172,38 @@ def trace_seam(seen: SeamKeys, key) -> None:
 
 
 def z_form(mats, dim_z: int) -> str:
-    """The form of a fused z kernel against the z pair ``mats``: ``"fft"``
-    where the pair carries its function with an FFT factor list
+    """The form of a fused z kernel against the z tables ``mats``:
+    ``"fft"`` where they carry their function with an FFT factor list
     (:func:`~spfft_tpu_torch.ops.dft_kernel.stage_form`) over the whole
-    stick (length ``dim_z``), else ``"matrix"``. Raises
-    :class:`~spfft_tpu_torch.errors.InvalidParameterError` for tables
-    that hold no matrix pair (the Bluestein form: pass the matrix form,
-    :func:`z_mats_form`)."""
-    if dft_kernel.stage_form(mats) == "fft" and mats.n == dim_z:
-        return "fft"
+    stick (length ``dim_z``), ``"bluestein"`` where they carry it with
+    Bluestein tables (a dim_z with a prime of 13 or more), else
+    ``"matrix"`` (a plain pair, or tables built in the matrix form).
+    Raises :class:`~spfft_tpu_torch.errors.InvalidParameterError` for
+    tables of another form that hold no matrix pair."""
+    form = dft_kernel.stage_form(mats)
+    if form in ("fft", "bluestein") and mats.n == dim_z:
+        return form
     if len(mats) != 2:
         raise InvalidParameterError(
-            f"the fused z kernels take the FFT or the matrix form, not "
-            f"{dft_kernel.stage_form(mats)!r}: build the z matrices with "
-            f"dft.device_c2c(..., form=fused_kernel.z_mats_form({dim_z}))")
+            f"the fused z kernels take the FFT, Bluestein or matrix form "
+            f"of a length-{dim_z} DFT, not {form!r} of length "
+            f"{getattr(mats, 'n', None)}")
     return "matrix"
-
-
-def z_mats_form(dim_z: int):
-    """The ``form`` argument of ``dft.device_c2c`` for the z matrices a
-    plan hands the fused z kernels: None (the length's own form, the FFT
-    form) where dim_z is 2^a 3^b 5^c 7^d 11^e, else ``"matrix"``
-    (``csrc/fused_compress.cu``: a dim_z with a prime of 13 or more, whose
-    own form, Bluestein's FFT, has no fused kernel)."""
-    return None if dft.c2c_form(dim_z) == "fft" else "matrix"
 
 
 def _spec(mats) -> tuple:
     """The transform arguments of csrc/fused_fft.cu's entries."""
     return (mats.n, mats.sign, mats.scale, mats.rows[0], mats.cols[0],
             dft.radix_code(mats.factors))
+
+
+def _bl_spec(mats, dtype) -> tuple:
+    """The tables and transform arguments of csrc/fused_bluestein.cu's
+    entries: the chirp, spectrum and twiddle pointers, then n, x0, y0 and
+    :func:`~spfft_tpu_torch.ops.dft_kernel.bluestein_split_args`."""
+    return (tuple(t.data_ptr() for t in mats.bluestein),
+            (mats.n, mats.rows[0], mats.cols[0],
+             *dft_kernel.bluestein_split_args(mats, dtype, _BL_SRC)))
 
 
 def compress_csr(value_indices: np.ndarray, num_sticks: int, dim_z: int):
@@ -291,6 +309,15 @@ def decompress_zdft(values: torch.Tensor, slot_src: torch.Tensor, mats,
                       mats.twiddles.data_ptr(), sr.data_ptr(), si.data_ptr(),
                       num_sticks, n, int(pair), int(zero_stick), batch,
                       *_spec(mats))
+    elif form == "bluestein":
+        tables, spec = _bl_spec(mats, dtype)
+        fn = _build.function(
+            _BL_SRC, _build.entry("spfft_decompress_zdft_bluestein", dtype),
+            _BL_DEC_ARGS)
+        _build.launch(fn, "decompress_zdft bluestein kernel", dev,
+                      values.data_ptr(), slot_src.data_ptr(), *tables,
+                      sr.data_ptr(), si.data_ptr(), num_sticks, n,
+                      int(pair), int(zero_stick), batch, *spec)
     else:
         fn = _build.function(_SRC,
                              _build.entry("spfft_decompress_zdft", dtype),
@@ -381,6 +408,16 @@ def zdft_compress(sr: torch.Tensor, si: torch.Tensor, mats, csr,
                       stick_ptr.data_ptr(), val_id.data_ptr(),
                       val_z.data_ptr(), out.data_ptr(), num_sticks, n,
                       int(pair), batch, *_spec(mats))
+    elif form == "bluestein":
+        tables, spec = _bl_spec(mats, dtype)
+        fn = _build.function(
+            _BL_SRC, _build.entry("spfft_zdft_compress_bluestein", dtype),
+            _BL_CMP_ARGS)
+        _build.launch(fn, "zdft_compress bluestein kernel", dev,
+                      sr.data_ptr(), si.data_ptr(), *tables,
+                      stick_ptr.data_ptr(), val_id.data_ptr(),
+                      val_z.data_ptr(), out.data_ptr(), num_sticks, n,
+                      int(pair), batch, *spec)
     else:
         fn = _build.function(_SRC, _build.entry("spfft_zdft_compress", dtype),
                              _CMP_ARGS)

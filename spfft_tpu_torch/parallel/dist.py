@@ -781,12 +781,11 @@ class DistributedTransformPlan:
             return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
-        # the fused z kernels' form of dim_z, as the local plan's
-        zf = fused_kernel.z_mats_form(dp.dim_z) if self._fused else None
+        # the z stages in the length's own form, as the local plan's
         self._mats = {
-            "z_b": c2c(dp.dim_z, dft.BACKWARD, form=zf),
-            "z_f": c2c(dp.dim_z, dft.FORWARD, form=zf),
-            "z_fs": c2c(dp.dim_z, dft.FORWARD, scale=gs, form=zf),
+            "z_b": c2c(dp.dim_z, dft.BACKWARD),
+            "z_f": c2c(dp.dim_z, dft.FORWARD),
+            "z_fs": c2c(dp.dim_z, dft.FORWARD, scale=gs),
             "y_b": c2c(dp.dim_y, dft.BACKWARD),
             "y_f": c2c(dp.dim_y, dft.FORWARD),
         }

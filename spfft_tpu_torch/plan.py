@@ -438,13 +438,12 @@ class TransformPlan:
             return dft.device_c2c(n, sign, device=dev, dtype=rdt, **window)
 
         gs = 1.0 / float(self.global_size)
-        # the fused z kernels' form of dim_z (the matrix form where dim_z
-        # has a prime of 13 or more), else the length's own
-        zf = fused_kernel.z_mats_form(p.dim_z) if self._fused else None
+        # the z stages in the length's own form, which the fused z
+        # kernels and the two-kernel route both take
         mats = {
-            "z_b": c2c(p.dim_z, dft.BACKWARD, form=zf),
-            "z_f": c2c(p.dim_z, dft.FORWARD, form=zf),
-            "z_fs": c2c(p.dim_z, dft.FORWARD, scale=gs, form=zf),
+            "z_b": c2c(p.dim_z, dft.BACKWARD),
+            "z_f": c2c(p.dim_z, dft.FORWARD),
+            "z_fs": c2c(p.dim_z, dft.FORWARD, scale=gs),
             "y_b": c2c(p.dim_y, dft.BACKWARD),
             "y_f": c2c(p.dim_y, dft.FORWARD),
         }
@@ -459,34 +458,18 @@ class TransformPlan:
         else:
             mats["x_b"] = c2c(p.dim_x, dft.BACKWARD, rows=(x0, w))
             mats["x_f"] = c2c(p.dim_x, dft.FORWARD, cols=(x0, w))
-        if zf is not None:
-            # a demoted direction's two-kernel z stage, in the length's
-            # own form as a fused=False plan has it (made at demotion)
-            mats["unfused_z"] = None
         return mats
 
-    def _unfused_tables(self, tabs: dict, mats: dict):
-        """The two-kernel route's forward gather map and z stages for a
-        fused plan's demoted direction, made at its first demotion (the
-        tables and matrices a ``fused=False`` plan holds)."""
+    def _unfused_tables(self, tabs: dict) -> dict:
+        """``tabs`` with the two-kernel route's forward gather map, which
+        a fused plan's demoted forward needs, made at its first demotion
+        (the z stages are the fused route's own)."""
         p = self.index_plan
         if "value_indices" not in tabs:
             dev = tabs["slot_src"].device
             tabs["value_indices"] = torch.as_tensor(
                 np.asarray(p.value_indices, np.int32), device=dev)
-        if "unfused_z" not in mats:
-            return mats
-        if mats["unfused_z"] is None:
-            dev, rdt = tabs["slot_src"].device, self.real_dtype
-            gs = 1.0 / float(self.global_size)
-            mats["unfused_z"] = {
-                "z_b": dft.device_c2c(p.dim_z, dft.BACKWARD, device=dev,
-                                      dtype=rdt),
-                "z_f": dft.device_c2c(p.dim_z, dft.FORWARD, device=dev,
-                                      dtype=rdt),
-                "z_fs": dft.device_c2c(p.dim_z, dft.FORWARD, scale=gs,
-                                       device=dev, dtype=rdt)}
-        return dict(mats, **mats["unfused_z"])
+        return tabs
 
     def _tables_on(self, device):
         """``(tables, matrices)`` on ``device``: the plan's own at its
@@ -586,10 +569,7 @@ class TransformPlan:
             ts = [x for v in tabs.values()
                   for x in (v if isinstance(v, tuple) else (v,))]
             for m in mats.values():
-                if isinstance(m, dict):
-                    ts += [x for mm in m.values() for x in mm.tensors]
-                elif m is not None:
-                    ts += list(m.tensors)
+                ts += list(m.tensors)
             for x in ts:
                 if x.data_ptr() not in seen:
                     seen.add(x.data_ptr())
@@ -810,8 +790,6 @@ class TransformPlan:
                 v, tabs["slot_src"], mats["z_b"], p.dim_z, self._pair_io,
                 self._zero_stick)
         else:
-            if self._fused:
-                mats = self._unfused_tables(tabs, mats)
             sr, si = gather_kernel.decompress(v, tabs["slot_src"], p.dim_z,
                                               self._pair_io)
             zid = self._zero_stick
@@ -872,7 +850,7 @@ class TransformPlan:
                                              self._pair_io, out=out)
         else:
             if self._fused:
-                mats = self._unfused_tables(tabs, mats)
+                tabs = self._unfused_tables(tabs)
             yr, yi = dft_kernel.pdft_last(sr, si, mats[zname])
             res = gather_kernel.compress(yr, yi, tabs["value_indices"],
                                          self._pair_io, out=out)

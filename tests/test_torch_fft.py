@@ -449,10 +449,11 @@ def emulated(monkeypatch):
 
 def emulated_function(source, symbol, argtypes):
     """``_build.function`` with no library: a C entry is ``(source,
-    symbol)`` for the emulated launch; the Bluestein library's register
-    rule (``spfft_bluestein_reg_plan``) is answered by the source's rule
-    (test_torch_long_axes)."""
-    if symbol == "spfft_bluestein_reg_plan":
+    symbol)`` for the emulated launch; the Bluestein libraries' register
+    rule (``spfft_bluestein_reg_plan``, ``spfft_fused_bluestein_reg_plan``)
+    is answered by the sources' rule (test_torch_long_axes)."""
+    if symbol in ("spfft_bluestein_reg_plan",
+                  "spfft_fused_bluestein_reg_plan"):
         from test_torch_long_axes import _bl_reg
         return lambda L, f64: int(_bl_reg(L, (np.float32, np.float64)[f64]))
     return source, symbol
@@ -692,10 +693,9 @@ def _new_form_tol(precision, dims):
 
 def _new_form_launches(tt, dims, fused):
     """The forms a pair launches at these dims, by the rule: the z stage
-    (fused: FFT or matrix form; else ``pdft_last``'s own), the y and x
+    (fused or not: the length's own, FFT or Bluestein), the y and x
     stages by their lengths."""
-    return {"z": (("fft" if dft.c2c_form(dims[2]) == "fft" else "matrix")
-                  if fused else dft.c2c_form(dims[2])),
+    return {"z": dft.c2c_form(dims[2]),
             "y": dft.c2c_form(dims[1]),
             "x": dft.real_form(dims[0]) if tt == "R2C"
             else dft.c2c_form(dims[0])}
@@ -732,8 +732,8 @@ def test_local_plans_at_new_form_lengths_match_jax(plan_emulated, case,
     Bluestein's FFT below 513, through the wrappers' launch path (the C
     entries emulated in numpy), against ``spfft_tpu`` on the CPU: within
     2e-6 in single precision, ``predicted_rel_error("double", n)`` in
-    double; the launches by form follow the rule, and no stage but the
-    fused z at a prime of 13 or more takes the matrix form."""
+    double; the launches by form follow the rule, and no stage (the fused
+    z at a prime of 13 or more included) takes the matrix form."""
     tt, dims = NEW_FORM_DIMS[case]
     trip, vals, want_b, want_f = _new_form_case(case, precision)
     tp = sp.make_local_plan(sp.TransformType[tt], *dims, trip, device="cpu",
@@ -809,7 +809,7 @@ def test_forms_by_length_follow_the_rule():
     balanced split the two-pass form, any other up to 1024 Bluestein's;
     a real length up to 1024 whose half has no prime above 11 the real
     FFT form, any other up to 1024 Bluestein's; the fused z kernels the
-    FFT form where the length has it, else the matrix form; nothing
+    FFT form where the length has it, else the Bluestein form; nothing
     above 1024 but ``torch.fft`` or the two-pass form."""
     for n in range(1, 1025):
         p = set(prime_factors(n))
@@ -825,9 +825,8 @@ def test_forms_by_length_follow_the_rule():
             2, 3, 5, 7, 11}
         assert dft.real_form(n) == ("rfft" if half_small else "bluestein"), n
         if n <= 512:
-            zform = "fft" if small else "matrix"
-            mats = dft.device_c2c(n, dft.BACKWARD,
-                                  form=fused_kernel.z_mats_form(n))
+            zform = "fft" if small else "bluestein"
+            mats = dft.device_c2c(n, dft.BACKWARD)
             assert fused_kernel.z_form(mats, n) == zform, n
     for n in (1031, 2048, 4096, 1033):
         assert dft.c2c_form(n) in ("two_pass", "library")

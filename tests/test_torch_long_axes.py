@@ -534,8 +534,8 @@ def emulate_whole(args, real):
 
 
 def _bluestein_rows(m1, m2, real):
-    """The rows of a Bluestein block (csrc/bluestein.cu's
-    launch_bluestein): about BL_THREADS work items in the busier phase (a
+    """The rows of a Bluestein block (csrc/bluestein.cuh's bl_shape):
+    about BL_THREADS work items in the busier phase (a
     row above 32 is a lane pair's, two items), fewer while the block's
     shared memory (bl_smem: both layouts and the factors' tables) exceeds
     BL_SMEM_MAX over the blocks an SM holds (two in float, one in
@@ -550,9 +550,9 @@ def _bluestein_rows(m1, m2, real):
     p1 = 2 if _bl_reg(m1, real) and m1 > 32 else 1
     p2 = 2 if _bl_reg(m2, real) and m2 > 32 else 1
     items = max(m2 * p1, m1 * p2)
-    smax = _src_int("BL_SMEM_MAX", "bluestein.cu") // (
+    smax = _src_int("BL_SMEM_MAX", "bluestein.cuh") // (
         2 if real == np.float32 else 1)
-    rows = max(1, _src_int("BL_THREADS", "bluestein.cu") // items)
+    rows = max(1, _src_int("BL_THREADS", "bluestein.cuh") // items)
     while rows > 1 and smem(rows) > smax:
         rows -= 1
     return rows
@@ -1018,7 +1018,9 @@ def test_bluestein_lengths_have_register_plans():
     launch's bounds (m1 <= m2 <= 256); the split is balanced, so that a
     double M with a split into factors of at most 32 takes one (the
     double register path); and M is the first 2^a 3^b 5^c from 2 n - 1
-    with such a split."""
+    with such a split, up to n = 512 one with factors of at most 32 (a
+    thread's row; the fused z kernels' lengths), none a multiple of 27
+    (three radix-3 stages, the least accurate in float)."""
     assert (dft.REG_ROW_MAX, dft.REG_PAIR_MAX) == (BL_ROW_MAX, PAIR_MAX)
     assert PAIR_LO == BL_ROW_MAX
     for n in range(2, 1025):
@@ -1030,12 +1032,19 @@ def test_bluestein_lengths_have_register_plans():
         assert max(m1, m2) == min(max(s) for s in splits), n
         if any(max(s) <= BL_ROW_MAX for s in splits):
             assert _bl_reg(m1, np.float64) and _bl_reg(m2, np.float64), n
+        short = n <= dft.MATMUL_DFT_MAX
+        assert not short or (m1 % 27 and m2 % 27 and m2 <= BL_ROW_MAX), n
         for m in range(2 * n - 1, mm):  # no shorter M serves
+            split = dft.bluestein_split(m)
             assert not _smooth(m) or not all(
-                _bl_reg(f, np.float32) for f in dft.bluestein_split(m)), n
-    # n = 100 takes 200 = 10 x 20, not 540
+                _bl_reg(f, np.float32) for f in split) or (short and any(
+                    f % 27 == 0 or f > BL_ROW_MAX for f in split)), n
+    # n = 100 takes 200 = 10 x 20, not 540; 416 900 = 30 x 30, not 864 =
+    # 27 x 32
     assert (dft.bluestein_length(100), dft.bluestein_split(200)) == \
         (200, (10, 20))
+    assert (dft.bluestein_length(416), dft.bluestein_split(900)) == \
+        (900, (30, 30))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -20,11 +20,12 @@ import torch
 
 from spfft_tpu import faults as jfaults
 from spfft_tpu import obs as jobs
+from spfft_tpu import timing as jtiming
 from spfft_tpu.control import config as jcfg
 from spfft_tpu.serve import bench as jbench
 from spfft_tpu.serve import executor as jexecutor
 
-from spfft_tpu_torch import faults, obs
+from spfft_tpu_torch import faults, obs, timing
 from spfft_tpu_torch.control import ServeConfig
 from spfft_tpu_torch.control import config as tcfg
 from spfft_tpu_torch.obs.__main__ import (REQUEST_STAGES,
@@ -51,6 +52,24 @@ def _clean(monkeypatch):
     reset()
     yield
     reset()
+
+
+def _reset_timers():
+    for t in (timing, jtiming):
+        t.disable()
+        t.GlobalTimer.reset()
+
+
+@pytest.fixture(autouse=True)
+def _timers():
+    """Both packages' global timers disabled and empty around each test:
+    a test of another file that shares the worker may leave records in
+    the JAX timer (``tests/test_serve_executor.py``'s timing test), which
+    the JAX bench's ``serve_metrics`` then reports as a ``timings`` key
+    the port's payload lacks."""
+    _reset_timers()
+    yield
+    _reset_timers()
 
 
 def _last_json(capsys):
@@ -121,6 +140,24 @@ def test_replay_keys_trace_and_results_equal_jax(monkeypatch, capsys,
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel <= 1e-6, (i, rel)
     assert "serial loop" in text and "executor" in text
+
+
+def test_replay_keys_equal_jax_after_jax_timer_records(monkeypatch, capsys,
+                                                       tmp_path):
+    """An earlier test of the worker leaves records in the JAX package's
+    timer (and its timing on), as a timed JAX executor does; the
+    fixture's reset between two tests clears them, and the comparison
+    then holds."""
+    jtiming.enable()
+    with jtiming.GlobalTimer.scoped("left by an earlier test"):
+        pass
+    assert json.loads(jtiming.GlobalTimer.process().json()).get("timings")
+    _reset_timers()  # what the fixture does between the two tests
+    assert not jtiming.enabled()
+    assert not json.loads(jtiming.GlobalTimer.process().json()).get(
+        "timings")
+    test_replay_keys_trace_and_results_equal_jax(monkeypatch, capsys,
+                                                 tmp_path)
 
 
 def test_replay_verify_sample_and_options(tmp_path, capsys):

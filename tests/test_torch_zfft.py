@@ -131,10 +131,30 @@ def _compress(x, stick_ptr, val_id, val_z, values, num_sticks, nv, pair,
     _put_values(_values(values, batch, nv, pair, real), pair, y)
 
 
+def _bluestein_form(x, n, x0, y0, tables, split, real=np.float32):
+    """What fused_bluestein.cu computes on raw sticks ``x`` (..., n): the
+    Bluestein DFT of csrc/bluestein.cu in mode cc (slot k at position
+    (x0 + k) mod n, output j from position (y0 + j) mod n), run by
+    test_torch_long_axes' ``emulate_bluestein`` through the tables'
+    pointers the wrapper passes (``tables``: chirp, spectrum, twiddles;
+    ``split``: M, m1, m2, the radices, the paths)."""
+    from test_torch_long_axes import emulate_bluestein
+    rows = int(np.prod(x.shape[:-1]))
+    xr, xi = (np.ascontiguousarray(p.astype(real)).reshape(-1)
+              for p in (x.real, x.imag))
+    yr, yi = np.empty_like(xr), np.empty_like(xr)
+    if rows:
+        emulate_bluestein((0, xr.ctypes.data, xi.ctypes.data, yr.ctypes.data,
+                           yi.ctypes.data, *tables, rows, n, n, 0, n, x0, y0,
+                           *split), real)
+    return (yr + 1j * yi.astype(np.complex128)).reshape(x.shape)
+
+
 def _emulate(symbol, args):
-    """numpy stand-ins for the C entries of csrc/fused_fft.cu and
-    csrc/fused_compress.cu, float32 and float64 (the suffix ``_f64``);
-    any other symbol goes to test_torch_fft's."""
+    """numpy stand-ins for the C entries of csrc/fused_fft.cu,
+    csrc/fused_bluestein.cu and csrc/fused_compress.cu, float32 and
+    float64 (the suffix ``_f64``); any other symbol goes to
+    test_torch_fft's."""
     base, real = entry_real(symbol)
 
     def view(ptr, count):
@@ -145,6 +165,21 @@ def _emulate(symbol, args):
          scale, in0, out0, code) = args
         x = _gather(values, slot_src, s, n, nv, pair, zs, batch, real)
         y = _fft_form(x, n, sign, scale, in0, out0, code, tw, real)
+    elif base == "spfft_decompress_zdft_bluestein":
+        (values, slot_src, chirp, spec, tw, sr, si, s, nv, pair, zs, batch,
+         n, x0, y0, *split) = args
+        y = _bluestein_form(_gather(values, slot_src, s, n, nv, pair, zs,
+                                    batch, real), n, x0, y0,
+                            (chirp, spec, tw), split, real)
+    elif base == "spfft_zdft_compress_bluestein":
+        (sr, si, chirp, spec, tw, ptr, vid, vz, values, s, nv, pair, batch,
+         n, x0, y0, *split) = args
+        x = (view(sr, batch * s * n) + 1j * view(si, batch * s * n)) \
+            .reshape(batch, s, n)
+        _compress(_bluestein_form(x, n, x0, y0, (chirp, spec, tw), split,
+                                  real),
+                  ptr, vid, vz, values, s, nv, pair, batch, real)
+        return
     elif base == "spfft_decompress_zdft":
         (values, slot_src, cr, ci, sr, si, s, n, nv, pair, zs,
          batch) = args
@@ -294,11 +329,9 @@ DIMS = [1, 2, 3, 5, 12, 60, 256, 384, 512, 13, 7, 11, 448]
 
 
 def _z_mats(dz, sign, scale=1.0, **window):
-    """The z matrices a plan hands the fused kernels at ``dz``
-    (``fused_kernel.z_mats_form``: the matrix form at a prime of 13 or
-    more)."""
-    return dft.device_c2c(dz, sign, scale, form=fused_kernel.z_mats_form(dz),
-                          **window)
+    """The z tables a plan hands the fused kernels at ``dz``: the
+    length's own form, Bluestein's at a prime of 13 or more."""
+    return dft.device_c2c(dz, sign, scale, **window)
 
 
 @pytest.mark.parametrize("dz", DIMS)
@@ -322,7 +355,7 @@ def test_decompress_zdft_matches_jax_composition(emulated, dz):
     sticks = np.asarray(flat[:, 0] + 1j * flat[:, 1]).reshape(s + 1, dz)
     mats = _z_mats(dz, dft.BACKWARD)
     form = fused_kernel.z_form(mats, dz)
-    assert form == ("matrix" if dz == 13 else "fft")
+    assert form == ("bluestein" if dz == 13 else "fft")
     for zid in (-1, zs):
         src = sticks.copy()
         if zid >= 0:
@@ -355,7 +388,7 @@ def test_zdft_compress_matches_jax_composition(emulated, dz):
     for pair in (False, True):
         got = fused_kernel.zdft_compress(_t(sr), _t(si), mats, csr, pair)
         _close(got.t() if pair else got, want)
-    form = "matrix" if dz == 13 else "fft"
+    form = "bluestein" if dz == 13 else "fft"
     assert _launched(fused_kernel.zdft_compress, **{form: 2})
 
 
@@ -393,14 +426,16 @@ def test_z_form_by_shape():
         assert fused_kernel.z_form(c(n, dft.BACKWARD), n) == "fft", n
     for n in (7, 11, 448, 462, 343):  # radix 7 and 11
         assert fused_kernel.z_form(c(n, dft.FORWARD, 0.5), n) == "fft", n
-    # a prime of 13 or more: the plan's z matrices are the matrix form;
-    # its own form, Bluestein's, has no fused kernel
-    assert fused_kernel.z_mats_form(13) == "matrix"
-    assert fused_kernel.z_mats_form(448) is None
+    # a prime of 13 or more: the plan's z tables are the length's own,
+    # Bluestein's; tables built in the matrix form keep the matrix form
+    assert fused_kernel.z_form(c(13, dft.BACKWARD), 13) == "bluestein"
+    assert fused_kernel.z_form(c(448, dft.BACKWARD), 448) == "fft"
     assert fused_kernel.z_form(c(13, dft.BACKWARD, form="matrix"), 13) == \
         "matrix"
-    with pytest.raises(sp.InvalidParameterError, match="z_mats_form"):
-        fused_kernel.z_form(c(13, dft.BACKWARD), 13)
+    # Bluestein tables of a longer transform hold no pair for the stick
+    with pytest.raises(sp.InvalidParameterError, match="Bluestein or matrix"):
+        fused_kernel.z_form(c(26, dft.BACKWARD, rows=(0, 13),
+                              cols=(0, 13)), 13)
     plain = dft.device_mats(dft.c2c_mats(256, dft.BACKWARD), "cpu")
     assert fused_kernel.z_form(plain, 256) == "matrix"
     # a window of a longer transform is not one stick's FFT
@@ -435,7 +470,7 @@ def test_batched_launch_equals_single_launches(emulated, dz, pair):
                                                              got[1][k])
         assert torch.equal(fused_kernel.zdft_compress(sr[k], si[k], zf, csr,
                                                       pair), out[k])
-    form = "matrix" if dz == 13 else "fft"
+    form = "bluestein" if dz == 13 else "fft"
     assert _launched(fused_kernel.decompress_zdft, **{form: 1 + b})
     assert _launched(fused_kernel.zdft_compress, **{form: 1 + b})
 
