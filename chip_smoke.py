@@ -4,6 +4,7 @@ plain PyTorch version.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ptxas-of TREE   # another tree's ptxas report
+    python3 chip_smoke.py --examples        # the build, the examples phase
 
 Phases, each of which exits non-zero when it fails:
 
@@ -163,6 +164,23 @@ Phases, each of which exits non-zero when it fails:
    and the bytes over PCIe with the GB/s they imply, each line with the
    card's name and power limit; and the rate of one 134.2 MB copy each
    way from pageable and from pinned host memory;
+13b. the example programs and the ``make ci`` programs over the port
+   (``examples_phase``, after the C ABI; ``--examples`` runs it alone
+   after the build): (a) each of ``examples_torch/`` as a process on the
+   card, ``example_multihost.py`` also as two processes over a localhost
+   coordinator (one card, gloo), (b) ``scripts/torch_multihost_smoke.py``,
+   every process loading the libraries this script built (none built
+   again), each exiting 0 with its last line, its lines and seconds
+   printed; beside them in this process (c) ``example_scf.py``'s loop at
+   256^3 (the main path's sphere), each step's launches (``decompress_zdft``
+   1, ``pdft2`` 2, ``zdft_compress`` 1) and builds (none after step 0),
+   steps 0 and 1 within ``predicted_rel_error("single", 256)`` of a
+   complex128 computation of the same step on the host, and (d) the
+   precision matrix (``scripts/torch_precision_matrix.py``'s functions):
+   single at 64, 128 and 256, C2C and R2C, both indexings up to 128,
+   double at 64 and 128, and the three adversarial cases, every row at
+   most its bar (1e-6, 2e-11); a row above ``predicted_rel_error`` is
+   printed as such. Its numbers in ``{"examples": {...}}``;
 14. the long axes (``long_axes_phase``), at full width: C2C on the 768^3
    sphere (``spherical_cutoff_triplets(768)`` stick-major, 237M values in
    463k sticks, numpy seed 0, single precision), whose every axis, 768 =
@@ -233,7 +251,8 @@ Phases, each of which exits non-zero when it fails:
    ``{"dist_batched_sweep": [...]}``, one ``{"exchange": [...]}``, one
    ``{"benchmark":
    [...]}`` (phase 16's parameters), the obs, serving, pod and control
-   phases' ``{"obs"|"serve"|"pod"|"control": {...}}``, one ``{"capi": {...}}``
+   phases' ``{"obs"|"serve"|"pod"|"control"|"examples": {...}}``, one
+   ``{"capi": {...}}``
    (phase 13's numbers), one ``{"design_bound_ms": {...}}``, the
    script's wall time, one ``{"kernels": [...]}`` (every kernel record
    of every path, float32 and float64, each with its ``path`` and
@@ -6231,17 +6250,17 @@ def capi_phase(sp, device, counters, smi, n=N):
             "copy_rates": rates, "card": smi}
 
 
-def ranks_only(backend: str, world: int) -> int:
-    """``chip_smoke.py --ranks BACKEND WORLD``: the ranks phase alone
-    with one world of ``world`` ranks, each on a card of its own (a
-    machine with that many cards), after the kernels' build."""
+def _card_and_build(all_cards: bool = False):
+    """What a phase run alone needs first: the card's name and power
+    limit (``CARD``; with ``all_cards``, every card's line printed), TF32
+    off, and the kernels' build. Returns the package."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     global CARD
     CARD = smi.stdout.strip().splitlines()[0]
-    print(smi.stdout.strip(), flush=True)
+    print(smi.stdout.strip() if all_cards else CARD, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from spfft_tpu_torch.ops import _build
@@ -6249,6 +6268,14 @@ def ranks_only(backend: str, world: int) -> int:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
     import spfft_tpu_torch as sp
+    return sp
+
+
+def ranks_only(backend: str, world: int) -> int:
+    """``chip_smoke.py --ranks BACKEND WORLD``: the ranks phase alone
+    with one world of ``world`` ranks, each on a card of its own (a
+    machine with that many cards), after the kernels' build."""
+    sp = _card_and_build(all_cards=True)
     rows = ranks_phase(sp, torch.device("cuda", 0), worlds=(
         (backend, world, f"{backend}, {world} ranks, one card each"),),
         card_each=True)
@@ -7832,6 +7859,286 @@ def control_files_case(out):
     return row
 
 
+# -- the example programs and the make-ci programs over the port -------------
+
+#: (a) and (b): each program run as a process on the card, by label: its
+#: path from the repository root and its arguments (the two-process
+#: multihost run's coordinator port is filled in at the start)
+EXAMPLE_RUNS = {
+    "example": ["examples_torch/example.py"],
+    "example_scf": ["examples_torch/example_scf.py"],
+    "example_poisson": ["examples_torch/example_poisson.py"],
+    "example_distributed": ["examples_torch/example_distributed.py"],
+    "example_multihost": ["examples_torch/example_multihost.py"],
+    "example_multihost 0/2": ["examples_torch/example_multihost.py",
+                              "--num-processes", "2", "--process-id", "0"],
+    "example_multihost 1/2": ["examples_torch/example_multihost.py",
+                              "--num-processes", "2", "--process-id", "1"],
+    "torch_multihost_smoke": ["scripts/torch_multihost_smoke.py"],
+}
+#: the last line each program must print (None: example.py, whose
+#: forward values are checked instead; the distributed example's round
+#: trip is read from its last line)
+EXAMPLE_LAST = {"example": None, "example_scf": "OK",
+                "example_poisson": "OK", "example_distributed": None,
+                "example_multihost": "OK", "example_multihost 0/2": "OK",
+                "example_multihost 1/2": "OK",
+                "torch_multihost_smoke": "MULTIHOST SMOKE: OK"}
+#: the distributed example's round trip, max abs over 8 shards
+EXAMPLE_ROUNDTRIP = 1e-6
+EXAMPLE_TIMEOUT_S = 300
+#: (c): SCF steps at the main path's size, and the steps held against the
+#: complex128 oracle
+SCF_STEPS = 5
+SCF_ORACLE_STEPS = (0, 1)
+#: the launches of each step on the card: the main path's C2C pair
+SCF_LAUNCHES = {"decompress_zdft": 1, "pdft2": 2, "zdft_compress": 1}
+#: (d): the precision matrix's rows on the card
+MATRIX_DIMS = (64, 128, 256)
+MATRIX_DOUBLE_DIMS = (64, 128)
+EXAMPLE_ROWS = {}
+
+
+def _load_by_path(name: str, rel: str):
+    """The module of the repository file ``rel`` (a program of
+    ``examples_torch/`` or ``scripts/``, which are not packages)."""
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root,
+                                                                     rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_log(out, label):
+    """The log file of the program ``label`` under ``out``."""
+    return out / (label.replace("/", "-").replace(" ", "_") + ".log")
+
+
+def _start_examples(out):
+    """Start every program of :data:`EXAMPLE_RUNS` as a process on the card,
+    each with its output in :func:`_example_log`; label -> (process,
+    start, finish box), the box filled by a thread when it exits."""
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    coordinator = ["--coordinator", f"127.0.0.1:{_free_port()}"]
+    jobs = {}
+    for label, argv in EXAMPLE_RUNS.items():
+        argv = argv + (coordinator if "/2" in label else [])
+        with open(_example_log(out, label), "w") as log:
+            proc = subprocess.Popen([sys.executable, *argv], cwd=root,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        box = []
+        threading.Thread(target=lambda p=proc, b=box: (
+            p.wait(), b.append(time.perf_counter())), daemon=True).start()
+        jobs[label] = (proc, time.perf_counter(), box)
+    return jobs
+
+
+def _finish_examples(out, jobs, t0):
+    """Wait for (a) and (b) (all gone by ``EXAMPLE_TIMEOUT_S`` after
+    ``t0``), relay each program's lines and seconds, and hold each to its
+    exit code and last line; returns label -> seconds."""
+    try:
+        for proc, _, _ in jobs.values():
+            try:
+                proc.wait(timeout=max(
+                    1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = {}
+    for label, (proc, start, box) in jobs.items():
+        lines = [ln for ln in _example_log(out, label).read_text()
+                 .splitlines() if "socket.cpp" not in ln]
+        secs[label] = (box[0] if box else time.perf_counter()) - start
+        for ln in lines:
+            print(f"examples {label}: {ln}", flush=True)
+        print(f"examples {label}: exit {proc.returncode} after "
+              f"{secs[label]:.1f} s ({CARD})", flush=True)
+        if proc.returncode != 0:
+            fail(f"examples: {label} exited {proc.returncode}")
+        last = lines[-1].strip() if lines else ""
+        want = EXAMPLE_LAST[label]
+        if want is not None and last != want:
+            fail(f"examples: {label}'s last line is {last!r}, not {want!r}")
+        if label == "example":
+            fwd = [tuple(map(float, ln.split(",")))
+                   for ln in lines[-8:]]
+            err = max(abs(re - 8 * k) + abs(im + 8 * k)
+                      for k, (re, im) in enumerate(fwd))
+            print(f"examples example: unscaled forward of the backward "
+                  f"against 8 x the input: max abs error {err:.3e}",
+                  flush=True)
+            if not err <= 1e-5 * 56:
+                fail(f"examples: example.py's forward is {err:.3e} from 8 "
+                     f"x its input")
+        if label == "example_distributed":
+            err = float(last.rsplit(" ", 1)[-1])
+            if not last.startswith("round-trip max error:") \
+                    or not err <= EXAMPLE_ROUNDTRIP:
+                fail(f"examples: example_distributed's round trip "
+                     f"{last!r} above {EXAMPLE_ROUNDTRIP}")
+    return secs
+
+
+def scf_oracle_rel(trip, n, coeffs, potential, result) -> float:
+    """Relative l2 of one SCF step's ``result`` against the same step in
+    complex128 on the host: the coefficients on the sphere's
+    ``trip``, the inverse DFT, the potential, the DFT, 1/N."""
+    from scipy import fft as sfft
+
+    def host(values):
+        v = values.double().cpu()
+        v = v.t() if v.shape[-1] != 2 else v
+        return v[:, 0].numpy() + 1j * v[:, 1].numpy()
+
+    st = np.where(trip < 0, trip + n, trip)
+    cube = np.zeros((n, n, n), np.complex128)
+    cube[st[:, 2], st[:, 1], st[:, 0]] = host(coeffs)
+    space = sfft.ifftn(cube, workers=-1, overwrite_x=True)
+    space *= potential.double().cpu().numpy()
+    want = sfft.fftn(space, workers=-1,
+                     overwrite_x=True)[st[:, 2], st[:, 1], st[:, 0]]
+    got = host(result)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def scf_case(sp, device, n=N):
+    """(c): ``examples_torch/example_scf.py``'s loop at ``n``^3 in this
+    process, each step's launches printed and held to ``SCF_LAUNCHES`` on
+    the card, steps ``SCF_ORACLE_STEPS`` held against the complex128
+    oracle at ``predicted_rel_error``; the example itself fails when a
+    step after the first builds anything or launches differently."""
+    from spfft_tpu_torch.utils.workloads import spherical_cutoff_triplets
+    scf = _load_by_path("example_scf", "examples_torch/example_scf.py")
+    trip = spherical_cutoff_triplets(n)
+    pred = sp.predicted_rel_error("single", n)
+    rels = {}
+
+    def on_step(it, coeffs, potential, result):
+        if it in SCF_ORACLE_STEPS:
+            rels[it] = scf_oracle_rel(trip, n, coeffs, potential, result)
+
+    t0 = time.perf_counter()
+    records = scf.main(n=n, device=device, steps=SCF_STEPS, on_step=on_step)
+    secs = time.perf_counter() - t0
+    for it, rec in enumerate(records):
+        print(f"examples scf {n}^3 step {it}: |coeffs| = {rec['norm']:.6f}, "
+              f"launches {rec['launches']}, builds {rec['builds']}"
+              + (f", rel_l2 against the complex128 oracle {rels[it]:.3e}"
+                 if it in rels else "") + f" ({CARD})", flush=True)
+        # only a CUDA tensor launches a kernel: a rehearsal on the host
+        # counts none
+        if device.type == "cuda" and rec["launches"] != SCF_LAUNCHES:
+            fail(f"examples scf step {it}: launches {rec['launches']}, "
+                 f"expected {SCF_LAUNCHES}")
+    for it, rel in rels.items():
+        if not rel <= pred:
+            fail(f"examples scf step {it}: rel_l2 {rel:.3e} against the "
+                 f"oracle above predicted_rel_error {pred:.3e}")
+    print(f"examples scf {n}^3: {len(trip)} values, {SCF_STEPS} steps in "
+          f"{secs:.1f} s with the oracle (predicted_rel_error {pred:.3e}) "
+          f"({CARD})", flush=True)
+    return {"values": len(trip), "seconds": secs, "predicted": pred,
+            "oracle_rel": rels,
+            "steps": [{"norm": r["norm"], "builds": r["builds"],
+                       "launches": r["launches"]} for r in records]}
+
+
+def matrix_case(sp, device):
+    """(d): the precision matrix on the card (``scripts/
+    torch_precision_matrix.py``'s ``measure`` and ``measure_adversarial``
+    in this process): single at ``MATRIX_DIMS`` (both indexings up to
+    128), double at ``MATRIX_DOUBLE_DIMS``, the adversarial cases. Every
+    row at or under its bar; a row above ``predicted_rel_error`` (but
+    under the bar) is printed as such."""
+    pm = _load_by_path("torch_precision_matrix",
+                       "scripts/torch_precision_matrix.py")
+    rows = []
+
+    def row(label, precision, dim, err):
+        bar, pred = pm.BARS[precision], sp.predicted_rel_error(precision, dim)
+        rows.append({"row": label, "precision": precision, "rel_l2": err,
+                     "bar": bar, "predicted": pred})
+        note = " ABOVE predicted_rel_error" if err > pred else ""
+        print(f"examples matrix {label} {precision}: rel_l2 {err:.3e} (bar "
+              f"{bar:.0e}, predicted {pred:.3e}){note} ({CARD})", flush=True)
+        if not err <= bar:
+            fail(f"examples matrix {label} {precision}: rel_l2 {err:.3e} "
+                 f"above the bar {bar:.0e}")
+
+    for precision, dims in (("single", MATRIX_DIMS),
+                            ("double", MATRIX_DOUBLE_DIMS)):
+        for n in dims:
+            for transform in ("c2c", "r2c"):
+                for centered in ((False, True) if n <= 128 else (True,)):
+                    label = (f"{n} {transform} "
+                             f"{'centered' if centered else 'positive'}")
+                    row(label, precision, n,
+                        pm.measure(n, transform, centered, precision, device))
+    for case in pm.ADVERSARIAL_CASES:
+        label, err = pm.measure_adversarial(case, device)
+        row(label, "single", max(pm.adversarial_dims(case)), err)
+    return rows
+
+
+def examples_phase(sp, device):
+    """The example programs and the ``make ci`` programs over the port:
+    (a) each of ``examples_torch/`` as a process on the card, the
+    multihost example also as two processes over a localhost coordinator
+    (one card, gloo), and (b) ``scripts/torch_multihost_smoke.py``, all
+    started together, while this process runs (c) the SCF loop at the
+    main path's size (:func:`scf_case`) and (d) the precision matrix
+    (:func:`matrix_case`); then the processes' lines, seconds and checks.
+    The processes load the libraries this script built: none is built
+    again."""
+    from pathlib import Path
+    from spfft_tpu_torch.ops import _build
+    out = Path(__file__).resolve().parent / "build" / "examples"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    t0 = time.perf_counter()
+    jobs = _start_examples(out)
+    try:
+        try:
+            scf = scf_case(sp, device)
+        except RuntimeError as exc:  # the example's own build / launch check
+            fail(f"examples scf: {exc}")
+        t_matrix = time.perf_counter()
+        matrix = matrix_case(sp, device)
+        matrix_s = time.perf_counter() - t_matrix
+    finally:
+        secs = _finish_examples(out, jobs, t0)
+    if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != libs:
+        fail("examples: a program built a kernel library of its own")
+    worst = {p: max(r["rel_l2"] for r in matrix if r["precision"] == p)
+             for p in ("single", "double")}
+    print(f"examples matrix: {len(matrix)} rows in {matrix_s:.1f} s, worst "
+          f"single {worst['single']:.3e}, double {worst['double']:.3e} "
+          f"({CARD})", flush=True)
+    EXAMPLE_ROWS.update({"card": CARD, "seconds": secs, "scf": scf,
+                         "matrix": matrix})
+
+
+def examples_only() -> int:
+    """``chip_smoke.py --examples``: the examples phase alone, after the
+    kernels' build."""
+    sp = _card_and_build()
+    t0 = time.perf_counter()
+    examples_phase(sp, torch.device("cuda", torch.cuda.current_device()))
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s ({CARD})",
+          flush=True)
+    no_demotions("the examples phase")
+    print(json.dumps({"examples": EXAMPLE_ROWS}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ptxas-of"] and len(sys.argv) == 3:
         return ptxas_of(sys.argv[2])
@@ -7839,6 +8146,8 @@ def main() -> int:
         return rank_worker(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--ranks"] and len(sys.argv) == 4:
         return ranks_only(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:] == ["--examples"]:
+        return examples_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
@@ -7957,6 +8266,11 @@ def main() -> int:
     capi = capi_phase(sp, device, launch_counters(), card)
     print(f"C ABI: {time.perf_counter() - t_cli:.1f} s ({card})", flush=True)
     no_demotions("the C ABI")
+    t_ex = time.perf_counter()
+    examples_phase(sp, device)
+    print(f"examples phase: {time.perf_counter() - t_ex:.1f} s ({card})",
+          flush=True)
+    no_demotions("the examples phase")
     print(json.dumps({"batched_sweep": sweep}), flush=True)
     print(json.dumps({"dist_batched_sweep": DIST_SWEEP}), flush=True)
     print(json.dumps({"exchange": EXCHANGE_ROWS}), flush=True)
@@ -7970,6 +8284,7 @@ def main() -> int:
     print(json.dumps({"serve": SERVE_ROWS}), flush=True)
     print(json.dumps({"pod": POD_ROWS}), flush=True)
     print(json.dumps({"control": CONTROL_ROWS}), flush=True)
+    print(json.dumps({"examples": EXAMPLE_ROWS}), flush=True)
     print(f"chip_smoke: wall time {time.perf_counter() - T_START:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
